@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's forward render path once on one GPU.
+"""Drive the PyTorch/CUDA port's render paths once on one GPU: the
+forward render and the differentiable forward + backward.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -15,21 +16,42 @@ Phases (each prints a line; any failure raises and exits non-zero):
    shapes (360,064 lanes, width 600), exact and with Russian roulette:
    one iteration from a random lane state, then 30 from a fresh one;
 5. the main path, ``render_accumulate`` on the Cornell box at 600 x 600,
-   200 spp, depth 50 — exact estimator and Russian roulette from depth 2
-   (stationary driver, rotate_k 8: kernel A);
+   depth 50, at 64 spp (bench.py's 200 cut to keep the smoke short;
+   ``profile_render.py`` times 200) — exact estimator and Russian
+   roulette from depth 2 (stationary driver, rotate_k 8: kernel A);
 6. the main path at spp 1 (rotate_k 1: the fused branch, kernel B); then
-   the same path at 8 spp and 1 spp once more, with every kernel launch
+   the same path at 2 spp and 1 spp once more, with every kernel launch
    held against its plain version on the inputs the driver gave it;
 7. each kernel's time beside its plain version's at the main path's
-   360,064 lanes.
+   360,064 lanes;
+8. the backward kernel K5 against its plain version (torch autograd over
+   ``lane_math``) on 2^18 lanes of a real mid-render state (kernel B
+   steps the fwd+bwd configuration four times; random cotangents): the
+   Cornell box, the all-materials scene and the box/motion scene, with 0
+   and 2 redirect targets;
+9. ``render_loss_wavefront``'s value and gradient at 2^14 lanes, 8 spp,
+   40 iterations, with K5 and with the backward forced to its plain
+   version: equal losses, gradients within ``GRAD_RTOL``;
+10. the second main path: the fwd+bwd of ``bench.py`` (Cornell 600 x
+    600, depth 50, RR from depth 2, 2^18 lanes x 64 spp, 205 iterations
+    then 25 at 2^14 and 100 at 2^12 lanes) after one warm-up run: wall,
+    primary rays/s, loss, samples completed, launches of kernel B and
+    K5, peak memory;
+11. central finite differences of the loss on the card (2^14 lanes,
+    exact estimator, same seed) for the light's emission and the red
+    wall's albedo against their gradients;
+12. K5's time beside its plain version's at 2^18 lanes.
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered image goes to
 chiprun_out/.  Tolerances (``raytrace_tpu_torch/testing.py``): exact rows
-equal on every lane, floats within atol 2e-3 + rtol 1e-3.
+equal on every lane, floats within atol 2e-3 + rtol 1e-3; K5 within
+``testing.BWD_RTOL`` of each gradient's scale (the hand-derived adjoint
+sums the chain-rule terms in another order than autograd).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,6 +59,20 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
+# fwd+bwd with K5 vs with its plain backward: per gradient leaf, the
+# largest difference within GRAD_RTOL of the leaf's largest value (K5's
+# per-lane differences, summed by atomic index_add_ in a run-dependent
+# order)
+GRAD_RTOL = 1e-3
+# finite differences: relative tolerance (the loss is a polynomial in an
+# emission or an albedo under the exact estimator; f32 rounding of the
+# loss and the step's curvature are far below it)
+FD_RTOL = 0.02
+# samples per pixel of the forward main path (bench.py renders 200)
+FWD_SPP = 64
+# the card's published peaks (H100 SXM data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def _smi_line() -> str:
@@ -75,7 +111,16 @@ def _check(label: str, errs, lanes: int) -> float:
     return err
 
 
+def _bound_ms(n_bytes: float, n_ops: float):
+    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
+    and operations over the float32 rate."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = n_ops / F32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def main() -> None:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device (there is no CPU "
@@ -94,13 +139,30 @@ def main() -> None:
     from raytrace_tpu_torch.render.integrator import bounce_tables
     from raytrace_tpu_torch.render.render import render_accumulate
     from raytrace_tpu_torch.testing import (
-        ALL_MATERIAL_TARGETS, FRAC_LANES, ITER_INT_ROWS, MEAN_RTOL,
-        all_materials_scene, bounce_inputs, checked_launches, compare_bounce,
-        compare_iter, cornell_scene_and_settings, fresh_carry, max_errs,
-        next_bounce_inputs, primary_bounce_inputs, stationary_lanes,
+        ALL_MATERIAL_TARGETS, BWD_RTOL, FRAC_LANES, FWD_BWD, ITER_INT_ROWS,
+        MEAN_RTOL, all_materials_scene, bounce_inputs, box_motion_scene,
+        bwd_inputs, checked_launches, compare_bounce, compare_bwd,
+        compare_iter, cornell_scene_and_settings, fresh_carry,
+        fwd_bwd_pixels, max_errs, next_bounce_inputs, plain_backward,
+        primary_bounce_inputs, stationary_lanes,
+    )
+    from raytrace_tpu_torch.diff.gradients import (
+        finite_difference, loss_and_grads, partition, render_loss_wavefront,
+    )
+    from raytrace_tpu_torch.interop import grads_to_numpy
+    from raytrace_tpu_torch.materials.materials import MAT_LIGHT
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_plain,
     )
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        torch.cuda.synchronize()
+        print(f"[elapsed] {name}: {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     # 1. device
     smi = _smi_line()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
@@ -116,6 +178,8 @@ def main() -> None:
              if "registers" in ln or "bytes stack" in ln] \
         if log.exists() else ["(library was already built)"]
     print(f"[build] {build_s:.1f} s; ptxas: {' | '.join(ptxas)}", flush=True)
+
+    phase_done("build")
 
     # 3. kernel A vs plain
     cornell, s_c = cornell_scene_and_settings(600, 200, 50, device=dev)
@@ -141,6 +205,8 @@ def main() -> None:
         err_a = max(err_a, _check(f"kernel A vs plain: {name} random rays",
                                   errs, n))
 
+    phase_done("kernel A vs plain")
+
     # 4. kernel B vs plain at the main path's shapes
     err_b = 0.0
     for name, s, seed in (("exact", s_c, 21),
@@ -156,12 +222,14 @@ def main() -> None:
             raise AssertionError("kernel B disagrees with iter_plain over "
                                  "30 iterations")
 
+    phase_done("kernel B vs plain")
+
     # 5./6. the main path
     bounce_megakernel.launches = 0
     iter_megakernel.launches = 0
     runs = {}
-    for name, s, spp in (("exact", s_c, 200),
-                         ("rr2", s_c.replace(rr_depth=2), 200),
+    for name, s, spp in (("exact", s_c, FWD_SPP),
+                         ("rr2", s_c.replace(rr_depth=2), FWD_SPP),
                          ("spp1", s_c, 1)):
         a0, b0 = bounce_megakernel.launches, iter_megakernel.launches
         torch.cuda.synchronize()
@@ -200,9 +268,11 @@ def main() -> None:
     if main_a == 0 or main_b == 0:
         raise AssertionError("a kernel of the main path never launched")
 
+    phase_done("forward main path")
+
     # the main path again, every launch held against its plain version
     s_rr = s_c.replace(rr_depth=2)
-    for name, s, spp in (("exact", s_c, 8), ("rr2", s_rr, 8),
+    for name, s, spp in (("exact", s_c, 2), ("rr2", s_rr, 2),
                          ("exact", s_c, 1), ("rr2", s_rr, 1)):
         with checked_launches() as stats:
             acc, total = render_accumulate(cornell, s, seed=1, spp=spp)
@@ -219,6 +289,8 @@ def main() -> None:
             err_a = max(err_a, err)
         else:
             err_b = max(err_b, err)
+
+    phase_done("checked forward renders")
 
     # 7. kernel times at the main path's 360,064 lanes
     ms_a = _time_ms(lambda: bounce_megakernel(tb_c.ptbl, tb_c.mtbl,
@@ -241,19 +313,189 @@ def main() -> None:
     print(f"[time] kernel B {ms_b:.4f} ms vs iter_plain {plain_b:.3f} ms "
           f"at {lanes} lanes (regenerating every lane) [{smi}]", flush=True)
 
-    print(json.dumps({"main_path": runs, "build_seconds": build_s}),
+    # bounds: each input column read once and each output written once;
+    # operations estimated per lane from the sources (a row of the scan
+    # ~45, the shade ~300, the hash, camera and RR ~150; K5's replay and
+    # its reverse sweep ~1000), all at the float32 rate
+    bound_a = _bound_ms(4 * lanes * (11 + 8 + 15),
+                        lanes * (45 * tb_c.n_prims + 300))
+    bound_b = _bound_ms(4 * lanes * (17 + 19),
+                        lanes * (45 * tb_c.n_prims + 450))
+    print(f"[bound] kernel A {bound_a[0]:.4f} ms ({bound_a[1]}), kernel B "
+          f"{bound_b[0]:.4f} ms ({bound_b[1]}) at {lanes} lanes", flush=True)
+
+    phase_done("kernel times")
+
+    # 8. K5 vs plain on 2^18 lanes of real mid-render states
+    n_bwd = FWD_BWD["lanes"]
+    s_fb = s_c.replace(rr_depth=FWD_BWD["rr_depth"])
+    s_a6 = s_a.replace(image_width=600)
+    box, s_box = box_motion_scene(device=dev)
+    s_box = s_box.replace(image_width=600)
+    err_k5 = 0.0
+    k5_args = None
+    for name, sc, s, pixels in (
+            ("cornell fwd+bwd", cornell, s_fb,
+             fwd_bwd_pixels(n_pix, n_bwd)),
+            ("all-materials", allm, s_a6, None),
+            ("all-materials 2 targets", allm,
+             s_a6.with_redirect_targets(ALL_MATERIAL_TARGETS), None),
+            ("box/motion", box, s_box, None),
+            ("box/motion 2 targets", box,
+             s_box.with_redirect_targets(ALL_MATERIAL_TARGETS), None)):
+        args, kw = bwd_inputs(sc, s, n_bwd, 31, n_iters=4,
+                              spp=FWD_BWD["spp"], pixels=pixels)
+        (err, excess), _ = compare_bwd(args, kw)
+        torch.cuda.synchronize()
+        print(f"[K5 vs plain] {name}: {n_bwd} lanes x {kw['n_row'] + 20} "
+              f"outputs, {int((args[6] > 0.5).sum())} alive, max |err| "
+              f"{err:.3g}, worst excess {excess:.3g} (rtol {BWD_RTOL} of "
+              "|plain| + output max + lane max) at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        if not excess <= 0.0:
+            raise AssertionError(f"K5 vs plain: {name}: out of tolerance")
+        err_k5 = max(err_k5, err)
+        if k5_args is None:
+            k5_args, k5_kw = args, kw
+
+    phase_done("K5 vs plain")
+
+    # 9. fwd+bwd with K5 against the same with its plain backward
+    params, statics = partition(cornell)
+    key = rng.base_key(0, dev)
+    n9 = 1 << 14
+    pix9 = (torch.arange(n9) * (n_pix // n9)).to(dev, torch.int32)
+    tgt9 = torch.zeros((n9, 3), device=dev)
+    kw9 = dict(spp=8, n_iters=40, remat=False)
+    (l_k, f_k), g_k = loss_and_grads(params, statics, s_fb, key, pix9, tgt9,
+                                     **kw9)
+    with plain_backward():
+        (l_p, f_p), g_p = loss_and_grads(params, statics, s_fb, key, pix9,
+                                         tgt9, **kw9)
+    g_k, g_p = grads_to_numpy(g_k), grads_to_numpy(g_p)
+    worst = max(float(np.abs(g_k[k] - g_p[k]).max())
+                / max(float(np.abs(g_p[k]).max()), 1e-30) for k in g_p)
+    print(f"[fwd+bwd K5 vs plain] {n9} lanes, 8 spp, 40 iterations: loss "
+          f"{float(l_k):.6f} vs {float(l_p):.6f}, samples {float(f_k):.4f}, "
+          f"worst leaf max|diff|/max|plain| {worst:.3g} (bound {GRAD_RTOL})",
           flush=True)
+    if float(l_k) != float(l_p) or float(f_k) != float(f_p) \
+            or not worst <= GRAD_RTOL:
+        raise AssertionError("fwd+bwd: K5 and its plain version disagree")
+
+    phase_done("fwd+bwd K5 vs plain")
+
+    # 10. the fwd+bwd main path at bench size
+    pix_fb = fwd_bwd_pixels(n_pix, n_bwd).to(dev)
+    tgt_fb = torch.zeros((n_bwd, 3), device=dev)
+
+    def fwd_bwd():
+        return loss_and_grads(
+            params, statics, s_fb, key, pix_fb, tgt_fb, spp=FWD_BWD["spp"],
+            n_iters=FWD_BWD["n_iters"], remat=False,
+            schedule=FWD_BWD["schedule"])
+
+    fwd_bwd()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iter_megakernel.launches = 0
+    bounce_bwd_regen_pre_megakernel.launches = 0
+    t0 = time.perf_counter()
+    (loss, frac), grads = fwd_bwd()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fb_b = iter_megakernel.launches
+    fb_k5 = bounce_bwd_regen_pre_megakernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    gnp = grads_to_numpy(grads)
+    finite = all(bool(np.isfinite(v).all()) for v in gnp.values())
+    fb = dict(seconds=wall, rays_per_s=n_bwd * FWD_BWD["spp"] / wall,
+              loss=float(loss), samples_completed=float(frac),
+              launches_iter=fb_b, launches_bwd=fb_k5, peak_bytes=peak)
+    n_expect = FWD_BWD["n_iters"] + sum(i for i, _ in FWD_BWD["schedule"])
+    print(f"[main path fwd+bwd] cornell 600x600 depth 50 rr2, {n_bwd} lanes "
+          f"x {FWD_BWD['spp']} spp: {wall:.3f} s, "
+          f"{fb['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
+          f"{fb['loss']:.6f}, samples_completed {fb['samples_completed']:.6f},"
+          f" launches B={fb_b} K5={fb_k5}, peak memory {peak / 2**30:.3f} GiB,"
+          f" gradients finite {finite} [{smi}]", flush=True)
+    if not finite or fb["samples_completed"] < 0.9999 \
+            or fb_b != n_expect or fb_k5 != n_expect:
+        raise AssertionError("fwd+bwd main path: bad gradients, incomplete "
+                             "samples or wrong launch counts")
+    main_b += fb_b
+
+    phase_done("fwd+bwd main path")
+
+    # 11. finite differences on the card (exact estimator: the paths do
+    # not depend on an emission or an albedo)
+    s_fd = s_c.replace(rr_depth=None)
+    tgt_fd = torch.full((n9, 3), 0.1, device=dev)
+    kw_fd = dict(spp=8, n_iters=80, remat=False)
+    _, g_fd = loss_and_grads(params, statics, s_fd, key, pix9, tgt_fd,
+                             **kw_fd)
+    tex, mats = cornell.textures, cornell.materials
+    light = int(mats.tex[(mats.kind == MAT_LIGHT).nonzero()[0, 0]])
+    red = int(torch.argmax(tex.c0[:, 0] - tex.c0[:, 1]))
+    for name, ti, eps in (("light emission", light, 0.5),
+                          ("red wall albedo", red, 1e-2)):
+        def loss_at(x, ti=ti):
+            c0 = tex.c0.clone()
+            c0[ti, 0] = x[0]
+            sc = dataclasses.replace(
+                cornell, textures=dataclasses.replace(tex, c0=c0))
+            with torch.no_grad():
+                return render_loss_wavefront(*partition(sc), s_fd, key, pix9,
+                                             tgt_fd, **kw_fd)[0]
+        fd = float(finite_difference(loss_at, tex.c0[ti, 0:1].clone(),
+                                     eps)[0])
+        gv = float(g_fd.textures.c0[ti, 0])
+        print(f"[finite difference] {name} (texture {ti}, red channel): "
+              f"gradient {gv:.6g}, central difference {fd:.6g} (eps {eps}),"
+              f" rel diff {abs(gv - fd) / abs(fd):.3g} (bound {FD_RTOL})",
+              flush=True)
+        if gv == 0.0 or not abs(gv - fd) <= FD_RTOL * abs(fd):
+            raise AssertionError(f"finite difference: {name}")
+
+    phase_done("finite differences")
+
+    # 12. K5's time at 2^18 lanes (the Cornell fwd+bwd state of phase 8)
+    ms_k5 = _time_ms(lambda: bounce_bwd_regen_pre_megakernel(*k5_args,
+                                                             **k5_kw), 50)
+    plain_k5 = _time_ms(lambda: bounce_bwd_regen_pre_plain(*k5_args,
+                                                           **k5_kw), 3, 1)
+    n_cols = len(k5_args[3]) + 1 + 3 + 1 + 7 + 3 + 1 + 13
+    bound_k5 = _bound_ms(4 * n_bwd * (n_cols + k5_kw["n_row"] + 20),
+                         n_bwd * 1000)
+    print(f"[time] K5 {ms_k5:.4f} ms vs bounce_bwd_regen_pre_plain "
+          f"{plain_k5:.3f} ms at {n_bwd} lanes, bound {bound_k5[0]:.4f} ms "
+          f"({bound_k5[1]}: {n_cols} columns in, {k5_kw['n_row'] + 20} out)"
+          f" [{smi}]", flush=True)
+
+    phase_done("K5 time")
+    print(json.dumps({"main_path": runs, "fwd_bwd": fb,
+                      "build_seconds": build_s}), flush=True)
+    no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
         {"name": "bounce_megakernel", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/bounce_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/bounce_kernel.py:523",
          "launches": main_a, "max_abs_err": err_a, "ms": ms_a,
-         "plain_ms": plain_a},
+         "plain_ms": plain_a, "bound_ms": bound_a[0],
+         "bound_by": bound_a[1], "library_ms": no_lib},
         {"name": "iter_megakernel", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/iter_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/iter_kernel.py:328",
          "launches": main_b, "max_abs_err": err_b, "ms": ms_b,
-         "plain_ms": plain_b},
+         "plain_ms": plain_b, "bound_ms": bound_b[0],
+         "bound_by": bound_b[1], "library_ms": no_lib},
+        {"name": "bounce_bwd_regen_pre_megakernel", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
+         "replaces":
+             "raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:497",
+         "launches": fb_k5, "max_abs_err": err_k5, "ms": ms_k5,
+         "plain_ms": plain_k5, "bound_ms": bound_k5[0],
+         "bound_by": bound_k5[1], "library_ms": no_lib},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

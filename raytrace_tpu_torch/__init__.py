@@ -1,14 +1,18 @@
 """raytrace_tpu_torch — the path tracer of ``raytrace_tpu`` in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper.
 
-This first slice is the forward render path: the scene builder and
-compiler, the camera, the counter-hash RNG, and ``render`` /
-``render_accumulate`` over the pixel-stationary and work-queue wavefront
-drivers.  The bounce runs in kernel A (``ops/bounce_kernel.py``,
-``csrc/bounce_kernel.cu``) and the fused iteration in kernel B
-(``ops/iter_kernel.py``, ``csrc/iter_kernel.cu``); on CPU tensors each
-runs its plain PyTorch version.  The package imports torch and numpy,
-never JAX.
+The forward render path: the scene builder and compiler, the camera, the
+counter-hash RNG, and ``render`` / ``render_accumulate`` over the
+pixel-stationary and work-queue wavefront drivers.  The bounce runs in
+kernel A (``ops/bounce_kernel.py``, ``csrc/bounce_kernel.cu``) and the
+fused iteration in kernel B (``ops/iter_kernel.py``,
+``csrc/iter_kernel.cu``).  The differentiable path: ``diff.gradients``
+(``partition``, ``loss_and_grads``, ``render_loss_wavefront``) over the
+differentiable wavefront, whose backward runs kernel K5
+(``ops/bounce_bwd_gather_kernel.py``, ``csrc/bounce_bwd_kernel.cu``).
+On CPU tensors each kernel runs its plain PyTorch version; the entry
+points put scenes on the card unless given ``device="cpu"``.  The
+package imports torch and numpy, never JAX.
 """
 from .core.vecmath import degrees
 from .materials.materials import (

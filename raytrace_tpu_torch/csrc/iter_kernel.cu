@@ -20,7 +20,7 @@
 
 #include "common.cuh"
 #include "prim_loop.cuh"
-#include "rng.cuh"
+#include "regen.cuh"
 #include "shade.cuh"
 
 // Field order and types mirror ops/iter_kernel.py:_IterArgs.
@@ -45,9 +45,8 @@ struct IterArgs {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kNCam = 24;
+constexpr int kNCam = rt::kNCam;
 constexpr int kBgSky = 1, kBgGray = 2;
-constexpr int kNCols = rt::kNU + 6;  // bounce 8 + camera 5 + RR 1
 
 __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
   extern __shared__ float smem[];
@@ -65,58 +64,28 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
                       threadIdx.x;
   if (l >= a.n_lanes) return;
   const long long R = a.n_lanes;
-  const int pix = a.pix[l];
-  const int smp = a.smp[l];
-  const int dep = a.dep[l];
-  const int last_sample = a.kt[2];
 
-  // regeneration of idle lanes with samples left
-  const bool alv = a.al[l] > 0.5f;
-  const bool can = !alv && smp < last_sample;
-  const int smp2 = can ? smp + 1 : smp;
-  const int dep_pre = can ? 0 : dep;
-  const bool alive_pre = alv || can;
+  // regeneration of idle lanes with samples left: RNG and camera ray
+  rt::Regen rg;
+  rt::regen(a.kt, cam, a.width, a.pix[l], a.smp[l], a.dep[l], a.al[l] > 0.5f,
+            rg);
+  const bool can = rg.can;
+  const bool alive_pre = rg.alive_pre;
+  const int smp2 = rg.smp2;
+  const int dep_pre = rg.dep_pre;
+  const float* us = rg.us;
 
-  // RNG: ray_keys_fast + mix_depth + uniform_block (pair16)
-  uint32_t k0, k1;
-  rt::ray_keys_fast(static_cast<uint32_t>(a.kt[0]),
-                    static_cast<uint32_t>(a.kt[1]),
-                    static_cast<uint32_t>(pix), static_cast<uint32_t>(smp2),
-                    k0, k1);
-  rt::mix_depth(k0, k1, static_cast<uint32_t>(dep_pre));
-  float us[kNCols];
-  rt::uniform_cols_pair16<kNCols>(k0, k1, us);
-  const float* u5 = us + rt::kNU;
-
-  // thin-lens camera (pixel decoded with exact integer division)
   float ox = a.ox[l], oy = a.oy[l], oz = a.oz[l];
   float dx = a.dx[l], dy = a.dy[l], dz = a.dz[l];
   float tmv = a.tm[l];
   if (can) {
-    const float i_f = static_cast<float>(pix % a.width);
-    const float j_f = static_cast<float>(pix / a.width);
-    const float r_l = sqrtf(u5[0]);
-    const float th = RT_F(2.0 * rt::kPiD) * u5[1];
-    const float da = r_l * cosf(th) * cam[18];
-    const float db = r_l * sinf(th) * cam[18];
-    const float ii = i_f + u5[2];
-    const float jj = j_f + u5[3];
-    float n_o[3], n_d[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      n_o[k] = cam[k] + da * cam[12 + k] + db * cam[15 + k];
-      const float tk = cam[3 + k] + ii * cam[6 + k] + jj * cam[9 + k];
-      n_d[k] = tk - n_o[k];
-    }
-    const float inv = 1.0f / sqrtf(rt::clamp_min(
-        n_d[0] * n_d[0] + n_d[1] * n_d[1] + n_d[2] * n_d[2], RT_F(1e-24)));
-    ox = n_o[0];
-    oy = n_o[1];
-    oz = n_o[2];
-    dx = n_d[0] * inv;
-    dy = n_d[1] * inv;
-    dz = n_d[2] * inv;
-    tmv = u5[4];
+    ox = rg.ray[0];
+    oy = rg.ray[1];
+    oz = rg.ray[2];
+    dx = rg.ray[3];
+    dy = rg.ray[4];
+    dz = rg.ray[5];
+    tmv = rg.ray[6];
   }
   float rad[3] = {a.rr[l], a.rg[l], a.rb[l]};
   float thr[3] = {a.tr[l], a.tg[l], a.tb[l]};

@@ -1,19 +1,33 @@
-"""Forward half of the fused wavefront iteration
-(``raytrace_tpu/diff/fused_iter.py``: ``background_kind``,
-``fused_iter_eligible``, ``fused_iter_fwd_step``).
+"""The fused wavefront iteration (``raytrace_tpu/diff/fused_iter.py``:
+``background_kind``, ``fused_iter_eligible``, ``fused_iter_fwd_step``,
+``fused_iter_step``).
 
 One kernel B launch per iteration; the caller only adds dead lanes'
-radiance into the image.  The differentiable ``fused_iter_step`` (a
-custom gradient with its backward kernel) is ROADMAP M6.
+radiance into the image.  :func:`fused_iter_step` is the differentiable
+iteration, a ``torch.autograd.Function``: kernel B forward, and a
+backward that gathers each lane's winner, material and texture rows,
+runs kernel K5 (``ops/bounce_bwd_gather_kernel.py``) and reduces the
+per-lane row gradients onto the scene's tables with ``index_add_``.
+The regeneration stage is detached (sampling) or linear (selects), so
+the backward rebuilds it from the saved (pixel, sample, depth).  Rich
+textures (the deferred texel multiply) are ROADMAP M9.
 """
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
 
+import numpy as np
+import torch
+
+from ..ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_megakernel
 from ..ops.iter_kernel import (
     BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
 )
 from ..render.camera import ConstBackground, camera_frame, gray_fade, sky
+from .gradients import leaves, map_scene
+from .lane_replay import assemble_scene_grads
+
+N_CARRY = 16        # smp, dep, alive, comps (7), rad (3), thr (3)
 
 
 def background_kind(s):
@@ -70,5 +84,133 @@ def fused_iter_fwd_step(scene, s, base_key, spp: int, sample_offset: int):
         carry2 = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
                   + tuple(outs[7:10]) + tuple(outs[10:13]))
         return carry2, tuple(outs[7:10]), outs[16]
+
+    return step
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepStatics:
+    """What the backward of one fused iteration needs besides the saved
+    lane tensors: the kernel tables, the per-prim gather table and the
+    routing of prims to material and texture rows."""
+    tables: tuple           # (ptbl, mtbl, ttbl, cam, kt) of kernel B
+    kw: dict                # kernel B's keyword parameters
+    scene: object           # the detached scene (gradient shapes)
+    names: tuple            # names of the float leaves, in input order
+    prim_cols: torch.Tensor  # [N, n_row + 18] gathered columns per prim
+    prim_mat: torch.Tensor   # [N] i64 material row of each prim
+    prim_tex: torch.Tensor   # [N] i64 texture row of each prim
+    n_row: int
+
+
+def _prim_columns(scene, n_row: int):
+    """Per-prim table of K5's gathered columns: winner rows p0 e1 e2
+    [mv0 mv1], c0, c1, param, kind_p, kind_m, texkind, f0, f1, uvs (6);
+    with each prim's material and texture row."""
+    p, m, tx = scene.prims, scene.materials, scene.textures
+    mat = p.mat.long()
+    tex = m.tex[mat].long()
+    parts = [p.p0, p.e1, p.e2] + ([p.mv0, p.mv1] if n_row == 15 else [])
+    f = lambda x: x.to(torch.float32)[:, None]
+    cols = torch.cat(parts + [tx.c0[tex], tx.c1[tex], f(m.param[mat]),
+                              f(p.kind), f(m.kind[mat]), f(tx.kind[tex]),
+                              f(tx.f0[tex]), f(tx.f1[tex]),
+                              p.uvs.reshape(-1, 6)], dim=1)
+    return cols.contiguous(), mat, tex
+
+
+class _FusedIter(torch.autograd.Function):
+    """One differentiable fused iteration; inputs ``(st, pix, carry (16),
+    *float leaves of the scene)``, outputs ``carry2 (16) + (died_f,)``."""
+
+    @staticmethod
+    def forward(ctx, st, pix, *args):
+        carry = args[:N_CARRY]
+        outs = iter_megakernel(*st.tables, (pix,) + tuple(carry), **st.kw)
+        carry2 = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
+                  + tuple(outs[7:10]) + tuple(outs[10:13]) + (outs[16],))
+        # residuals: the inputs without rad (a linear passthrough), the
+        # winner index and the RR scale
+        ctx.save_for_backward(pix, *carry[0:10], *carry[13:16], outs[17],
+                              outs[18])
+        ctx.st = st
+        ctx.mark_non_differentiable(carry2[0], carry2[1], carry2[2],
+                                    carry2[16])
+        return carry2
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        st = ctx.st
+        (pix, smp, dep, al, *rest) = ctx.saved_tensors
+        comps_in, thr_in, idx, scale = rest[0:7], rest[7:10], rest[10], \
+            rest[11]
+        cts = tuple(torch.zeros_like(al) if g is None else g.contiguous()
+                    for g in gouts[3:16])
+        n_row = st.n_row
+        pi = torch.clamp(idx, min=0.0).long()
+        gath = st.prim_cols[pi].T.contiguous().unbind(0)
+        ptbl, mtbl, ttbl, cam, kt = st.tables
+        g = bounce_bwd_regen_pre_megakernel(
+            ttbl, kt, cam, gath, idx, (pix, smp, dep), al, comps_in, thr_in,
+            scale, cts, n_targets=st.kw["n_targets"],
+            has_motion=st.kw["has_motion"], has_box=st.scene.prims.has_box,
+            t_min=st.kw["t_min"], n_row=n_row, n_u=st.kw["n_u"],
+            width=st.kw["width"], bg_kind=st.kw["bg_kind"])
+        # per-lane row gradients onto the tables (atomic on the card)
+        p, m, tx = st.scene.prims, st.scene.materials, st.scene.textures
+        rows = torch.stack(g[:n_row + 7], dim=1)          # [R, n_row + 7]
+        g_ptab = torch.zeros((p.kind.shape[0], n_row), device=al.device)
+        g_ptab.index_add_(0, pi, rows[:, :n_row])
+        g_mparam = torch.zeros_like(m.param).index_add_(
+            0, st.prim_mat[pi], rows[:, n_row + 6])
+        tex_l = st.prim_tex[pi]
+        g_tc0 = torch.zeros_like(tx.c0).index_add_(0, tex_l,
+                                                   rows[:, n_row:n_row + 3])
+        g_tc1 = torch.zeros_like(tx.c1).index_add_(
+            0, tex_l, rows[:, n_row + 3:n_row + 6])
+        motion = n_row == 15
+        g_scene = assemble_scene_grads(
+            st.scene, g_ptab[:, 0:3], g_ptab[:, 3:6], g_ptab[:, 6:9],
+            g_ptab[:, 9:12] if motion else None,
+            g_ptab[:, 12:15] if motion else None, g_mparam, g_tc0, g_tc1)
+        gl = leaves(g_scene)
+        return ((None, None, None, None, None) + tuple(g[n_row + 7:])
+                + tuple(gl[k] for k in st.names))
+
+
+def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
+    """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
+    differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
+    alive f32, comps (7), rad (3), thr (3)), differentiable with respect
+    to every float leaf of ``scene`` (those with ``requires_grad``, as
+    :func:`gradients.partition` makes them).  The pixel assignment is an
+    argument, so compacted completion phases can rebind it."""
+    from ..render.integrator import _ineligible_reason
+    from .lane_replay import replay_pre_eligible
+    reason = _ineligible_reason(scene, s, 128)
+    if reason is None and not replay_pre_eligible(scene):
+        reason = "the scene's tables exceed the replay backward's caps"
+    if reason is None and background_kind(s) is None:
+        reason = ("a background other than const/sky/gray_fade needs the "
+                  "unfused diff path (ROADMAP M11)")
+    if reason is None and scene.prims.sphere_rots:
+        reason = "rotated uv-textured spheres (ROADMAP M11)"
+    if reason is not None:
+        raise NotImplementedError(f"fused_iter_step: {reason}")
+    named = {k: v for k, v in leaves(scene).items() if v.requires_grad}
+    with torch.no_grad():
+        det = map_scene(lambda x: x.detach(), scene)
+        tables, kw = iter_kernel_args(det, s, base_key,
+                                      sample_offset + spp - 1)
+        n_row = 15 if det.prims.has_motion else 9
+        cols, mat, tex = _prim_columns(det, n_row)
+    st = _StepStatics(tables=tables, kw=kw, scene=det,
+                      names=tuple(named), prim_cols=cols, prim_mat=mat,
+                      prim_tex=tex, n_row=n_row)
+    params = tuple(named.values())
+
+    def step(pix, carry):
+        out = _FusedIter.apply(st, pix, *carry, *params)
+        return out[:N_CARRY], out[N_CARRY]
 
     return step

@@ -4,6 +4,8 @@
 numpy arrays and static Python values — what one extracts field by field
 from another implementation's compiled scene and camera — and return the
 port's objects, so two implementations can be fed the same scene.
+:func:`grads_to_numpy` flattens a Scene-shaped gradient of either
+implementation, so two can be compared leaf by leaf.
 """
 from __future__ import annotations
 
@@ -37,6 +39,25 @@ def scene_to_numpy(scene) -> dict:
     return d
 
 
+def grads_to_numpy(grad_tree) -> dict:
+    """``{"prims.p0": array, "materials.param": ..., "textures.c0": ...}``:
+    the floating leaves of a Scene-shaped gradient tree whose ``prims``,
+    ``materials`` and ``textures`` are dataclasses (None and integer
+    fields skipped), keyed by the field paths of :func:`scene_to_numpy`."""
+    out = {}
+    for name in ("prims", "materials", "textures"):
+        tab = getattr(grad_tree, name)
+        for f in dataclasses.fields(tab):
+            v = getattr(tab, f.name)
+            if not hasattr(v, "shape"):
+                continue
+            a = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v))
+            if np.issubdtype(a.dtype, np.floating):
+                out[f"{name}.{f.name}"] = a
+    return out
+
+
 def _build(cls, d: dict, device):
     kw = {}
     for f in dataclasses.fields(cls):
@@ -49,11 +70,12 @@ def _build(cls, d: dict, device):
     return cls(**kw)
 
 
-def scene_from_numpy(d: dict, device=None) -> Scene:
+def scene_from_numpy(d: dict, device="cuda") -> Scene:
     """``d`` = {"prims": {...}, "materials": {...}, "textures": {...}},
     each keyed by the field names of :class:`Primitives`,
     :class:`MaterialTable` and :class:`TextureTable` (arrays as numpy,
-    static fields as Python values)."""
+    static fields as Python values).  The scene lands on the card unless
+    ``device`` says otherwise."""
     for extra in ("bvh", "volumes", "ellipsoids"):
         if d.get(extra) is not None:
             raise NotImplementedError(

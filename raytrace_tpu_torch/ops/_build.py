@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``raytrace_tpu_torch/csrc``.
 
 At first use, ``nvcc`` compiles the ``.cu`` launchers (plain ``extern "C"``
-interface, no PyTorch headers) into one shared library under
+interface, no PyTorch headers), one process per source, all started
+together, and links the objects into one shared library under
 ``raytrace_tpu_torch/_build/``, named by a hash of the sources and flags:
 a library is rebuilt only when that hash changes, and a file lock keeps
 concurrent processes from building it twice.  The library is loaded with
@@ -22,14 +23,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("bounce_kernel.cu", "iter_kernel.cu")
+SOURCES = ("bounce_kernel.cu", "iter_kernel.cu", "bounce_bwd_kernel.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round like
 # their plain PyTorch versions (ops/*.py); IEEE sqrt and division are
 # nvcc's defaults, and --use_fast_math is deliberately absent.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
-ENTRY_POINTS = ("rt_bounce", "rt_iter")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
+ENTRY_POINTS = ("rt_bounce", "rt_iter", "rt_bounce_bwd")
 
 
 def _nvcc() -> str:
@@ -65,17 +65,29 @@ def build() -> Path:
         if lib.exists():
             return lib
         tmp = lib.with_name(lib.name + ".tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [BUILD_DIR / f"{Path(src).stem}_{lib.stem[-16:]}.o"
+                for src in SOURCES]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+        proc = None if failed else subprocess.run(
+            link, capture_output=True, text=True)
         dt = time.perf_counter() - t0
-        (BUILD_DIR / "build.log").write_text(
-            f"$ {' '.join(cmd)}\n# {dt:.1f} s, exit {proc.returncode}\n"
-            f"{proc.stdout}{proc.stderr}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        log = "".join(f"$ {' '.join(c)}\n# exit {p.returncode}\n{out}"
+                      for c, p, out in zip(cmds, procs, outs))
+        if proc is not None:
+            log += (f"$ {' '.join(link)}\n# exit {proc.returncode}\n"
+                    f"{proc.stdout}{proc.stderr}")
+        (BUILD_DIR / "build.log").write_text(f"# {dt:.1f} s\n{log}")
+        if failed or proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{log[-6000:]}")
         os.replace(tmp, lib)
     return lib
 

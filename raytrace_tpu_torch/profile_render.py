@@ -1,17 +1,19 @@
-"""Time and profile the forward main path on one CUDA card.
+"""Time and profile the main paths on one CUDA card.
 
 Run from the repository root:
 
     python3 -m raytrace_tpu_torch.profile_render
 
-For the Cornell box at 600 x 600, depth 50, seed 1, and each of three
-estimators (200 spp exact, 200 spp with Russian roulette from depth 2,
-1 spp through the fused branch) it
+For the Cornell box at 600 x 600, depth 50, and each of four runs (the
+forward ``render_accumulate`` with seed 1 at 200 spp exact, at 200 spp
+with Russian roulette from depth 2 and at 1 spp through the fused branch;
+the fwd+bwd ``loss_and_grads`` of ``testing.FWD_BWD``, bench.py's
+configuration) it
 
-1. runs ``render_accumulate`` ``REPS`` times in one process and prints
-   every wall time (``torch.cuda.synchronize()`` on both ends; the first
-   run of the first estimator also warms the process up) with the kernel
-   launch counts, which are the iteration counts;
+1. runs it ``REPS`` times in one process and prints every wall time
+   (``torch.cuda.synchronize()`` on both ends; the first run of the first
+   estimator also warms the process up) with the forward kernels' launch
+   counts, which are the iteration counts;
 2. runs it once more under ``torch.profiler`` and prints the number of
    device operations per iteration, their summed device time, the
    device's busy share of the best unprofiled wall, the host's kernel
@@ -53,11 +55,13 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("profile_render: needs a CUDA device")
+    from .core import rng
+    from .diff.gradients import loss_and_grads, partition
     from .ops._build import load_library
     from .ops.bounce_kernel import bounce_megakernel
     from .ops.iter_kernel import iter_megakernel
     from .render.render import render_accumulate
-    from .testing import cornell_scene_and_settings
+    from .testing import FWD_BWD, cornell_scene_and_settings, fwd_bwd_pixels
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -71,33 +75,48 @@ def main() -> None:
     n_pix = s.image_width * s.image_height
     OUT_DIR.mkdir(exist_ok=True)
 
-    def run(settings, spp):
+    params, statics = partition(scene)
+    fb_pix = fwd_bwd_pixels(n_pix, FWD_BWD["lanes"]).to(dev)
+    fb_target = torch.zeros((FWD_BWD["lanes"], 3), device=dev)
+
+    def fwd_bwd():
+        loss_and_grads(params, statics, s.replace(rr_depth=2),
+                       rng.base_key(0, dev), fb_pix, fb_target,
+                       spp=FWD_BWD["spp"], n_iters=FWD_BWD["n_iters"],
+                       remat=False, schedule=FWD_BWD["schedule"])
+
+    def run(fn):
         a0, b0 = bounce_megakernel.launches, iter_megakernel.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        render_accumulate(scene, settings, seed=1, spp=spp)
+        fn()
         torch.cuda.synchronize()
         iters = (bounce_megakernel.launches - a0
                  + iter_megakernel.launches - b0)
         return time.perf_counter() - t0, iters
 
+    def fwd(settings, spp):
+        return lambda: render_accumulate(scene, settings, seed=1, spp=spp)
+
     report = {"device": smi, "estimators": {}}
-    for name, settings, spp in (("exact", s, 200),
-                                ("rr2", s.replace(rr_depth=2), 200),
-                                ("spp1", s, 1)):
+    for name, fn, rays in (
+            ("exact", fwd(s, 200), n_pix * 200),
+            ("rr2", fwd(s.replace(rr_depth=2), 200), n_pix * 200),
+            ("spp1", fwd(s, 1), n_pix),
+            ("fwd_bwd", fwd_bwd, FWD_BWD["lanes"] * FWD_BWD["spp"])):
         walls = []
         for _ in range(REPS):
-            wall, iters = run(settings, spp)
+            wall, iters = run(fn)
             walls.append(wall)
         print(f"[walls] {name}: {', '.join(f'{w:.3f}' for w in walls)} s "
               f"(in run order), {iters} iterations, "
-              f"{n_pix * spp / min(walls) / 1e6:.3f} M primary rays/s at the "
+              f"{rays / min(walls) / 1e6:.3f} M primary rays/s at the "
               f"best [{smi}]", flush=True)
 
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            prof_wall, _ = run(settings, spp)
+            prof_wall, _ = run(fn)
         ops, host_launches = _device_ops(prof)
         n_ops = sum(c for c, _ in ops.values())
         dev_s = sum(us for _, us in ops.values()) / 1e6

@@ -20,9 +20,15 @@ condition is read on the host once per iteration.
 
 Lane state is stacked: comps [7, R] (origin, direction, time), rad and
 thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
+
+* :func:`trace_wavefront_diff` — the differentiable pixel-stationary
+  wavefront: a fixed number of iterations of the fused differentiable
+  step (kernel B forward, kernel K5 backward), then optional compacted
+  completion phases.  It keeps the carries as tuples of [R] tensors, as
+  the JAX package does.
+
 The generic bounce (for scenes neither kernel takes), the bounded-depth
-``trace``, the sorted driver and the differentiable drivers are ROADMAP
-M4, M6 and M8.
+``trace`` and the sorted driver are ROADMAP M4, M6b and M8.
 """
 from __future__ import annotations
 
@@ -385,3 +391,102 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                     m = (rot_c == cc).to(DTYPE)
                     acc3 += torch.roll(contrib * m, cc * stride, dims=1)
     return acc + acc3[:, :n_pix].T
+
+
+def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
+                                pixel_ids, spp: int, n_iters: int,
+                                sample_offset: int, schedule):
+    """The fused differentiable driver: ``n_iters`` iterations of the
+    differentiable step on every lane, then the completion schedule.
+    There is no host sync inside the loops."""
+    from ..diff.fused_iter import fused_iter_step
+    dev = scene.device
+    lanes = pixel_ids.shape[0]
+    last_sample = sample_offset + spp - 1
+    step = fused_iter_step(scene, s, base_key.to(dev), spp, sample_offset)
+
+    def init_carry(w):
+        z = torch.zeros((w,), dtype=DTYPE, device=dev)
+        o = torch.ones((w,), dtype=DTYPE, device=dev)
+        zi = torch.zeros((w,), dtype=torch.int32, device=dev)
+        return ((torch.full((w,), sample_offset - 1, dtype=torch.int32,
+                            device=dev), zi, z)
+                + (z, z, z, z, z, o, z) + (z, z, z) + (o, o, o))
+
+    def run(pix, state, n):
+        acc, done, carry = state
+        for _ in range(n):
+            carry, died_f = step(pix, carry)
+            acc = tuple(a + r * died_f for a, r in zip(acc, carry[10:13]))
+            done = done + died_f.to(torch.int32)
+        return acc, done, carry
+
+    def zeros_state(w, carry):
+        z = torch.zeros((w,), dtype=DTYPE, device=dev)
+        return (z, z, z), torch.zeros((w,), dtype=torch.int32,
+                                      device=dev), carry
+
+    pix = pixel_ids.to(device=dev, dtype=torch.int32)
+    acc, done, carry = run(pix, zeros_state(lanes, init_carry(lanes)),
+                           n_iters)
+    if schedule:
+        # compact the unfinished lanes (stable: JAX's argsort is) and run
+        # each phase there; its sums land back in the lanes' slots
+        slot = torch.arange(lanes, device=dev)
+        for it_b, w_b in schedule:
+            smp_c, _, al_c = carry[0:3]
+            unfinished = (al_c > 0.5) | (smp_c < last_sample)
+            sel = torch.argsort((~unfinished).to(torch.int32),
+                                stable=True)[:w_b]
+            slot = slot[sel]
+            pix = pix[sel]
+            acc_b, done_b, carry = run(
+                pix, zeros_state(w_b, tuple(c[sel] for c in carry)), it_b)
+            acc = tuple(a.index_add(0, slot, ab)
+                        for a, ab in zip(acc, acc_b))
+            done = done.index_add(0, slot, done_b)
+    mean = torch.stack(acc, dim=-1) / torch.clamp(done, min=1)[:, None]
+    return mean, done
+
+
+def trace_wavefront_diff(scene: Scene, s: CameraSettings, base_key,
+                         pixel_ids, spp: int, n_iters: int | None = None,
+                         sample_offset: int = 0, remat: bool = True,
+                         use_mega: bool | None = None, rotate_k: int = 1,
+                         skip_done: bool = False, pixel_cost=None,
+                         schedule: tuple | None = None):
+    """Differentiable pixel-stationary wavefront over the lanes
+    ``pixel_ids[P]`` (a multiple of 128): each lane traces ``spp``
+    samples of its pixel in turn for a fixed ``n_iters`` iterations
+    (default ``6 * spp + max_depth``).  Returns ``(mean_radiance[P, 3],
+    samples_done[P])``: lanes that run out of iterations drop their
+    remaining samples, so monitor ``samples_done == spp``.
+
+    ``schedule``: ``((extra_iters, width), ...)`` completion phases: after
+    the full-width iterations the unfinished lanes are compacted into
+    ``width`` lanes and run ``extra_iters`` more; the compacted lanes
+    keep their absolute (pixel, sample) coordinates, so the estimator is
+    the single-phase one.
+
+    The port has the fused driver only: ``remat``, ``skip_done``,
+    ``rotate_k > 1``, ``pixel_cost`` and the unfused path (``use_mega``
+    False) raise ``NotImplementedError``."""
+    if remat:
+        raise NotImplementedError(
+            "trace_wavefront_diff: remat=True (recompute the forward in the "
+            "backward) is not ported yet (ROADMAP M6c); pass remat=False")
+    if skip_done or rotate_k != 1 or pixel_cost is not None:
+        raise NotImplementedError(
+            "trace_wavefront_diff: skip_done, rotate_k > 1 and pixel_cost "
+            "are not ported yet (ROADMAP M6c)")
+    if use_mega is False:
+        raise NotImplementedError(
+            "trace_wavefront_diff: the unfused differentiable path "
+            "(diff/mega_bounce.py) is not ported yet (ROADMAP M11)")
+    if n_iters is None:
+        n_iters = 6 * spp + s.max_depth
+    if pixel_ids.shape[0] % LANE_ALIGN:
+        raise ValueError(f"trace_wavefront_diff: {pixel_ids.shape[0]} lanes "
+                         f"is not a multiple of {LANE_ALIGN}")
+    return _trace_wavefront_diff_fused(scene, s, base_key, pixel_ids, spp,
+                                       n_iters, sample_offset, schedule)

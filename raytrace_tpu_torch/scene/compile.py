@@ -236,10 +236,11 @@ def _rows_to_primitives(rows: _Rows, perm, pad_to: int,
 
 def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
                   dense_threshold: int = MAX_DENSE_PRIMS, pad_to: int = 8,
-                  device=None) -> Scene:
+                  device="cuda") -> Scene:
     """Compile a scene graph into a dense :class:`Scene` on ``device``
-    (the CPU by default).  ``accel`` is "auto" or "dense"; the BVH mode
-    ("bvh", or "auto" above ``dense_threshold`` rows) raises."""
+    (the card by default; pass ``device="cpu"`` for the CPU).  ``accel``
+    is "auto" or "dense"; the BVH mode ("bvh", or "auto" above
+    ``dense_threshold`` rows) raises."""
     if accel not in ("auto", "dense", "bvh"):
         raise ValueError(f"compile_scene: unknown accel {accel!r}")
     interner = _Interner()
@@ -268,4 +269,4 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
     materials = compile_materials(list(interner.materials),
                                   interner.textures)
     scene = Scene(prims=prims, materials=materials, textures=textures)
-    return scene if device is None else scene.to(device)
+    return scene.to(device)

@@ -4,17 +4,31 @@
 * :func:`cornell_scene_and_settings` and :func:`all_materials_scene` build,
   with the port's own builder, the Cornell box of
   ``__graft_entry__._cornell_scene_and_settings`` and the scene of
-  ``tests/test_bounce_kernel.py``.
+  ``tests/test_bounce_kernel.py``; :func:`box_motion_scene` adds
+  axis-aligned boxes (``PRIM_BOX`` rows), motion and the isotropic and
+  anisotropic materials.
+* :data:`FWD_BWD` is the fwd+bwd configuration of ``bench.py`` and
+  :func:`fwd_bwd_pixels` its lanes.
 * :func:`bounce_inputs`, :func:`primary_bounce_inputs`,
   :func:`next_bounce_inputs`, :func:`iter_state` and :func:`fresh_carry`
   make lane inputs for the kernels: random ones from a numpy seed, or the
   ones the stationary driver gives them.
-* :func:`compare_bounce`, :func:`compare_iter` and :func:`checked_launches`
-  hold each kernel against its plain version on the same inputs.
+* :func:`compare_bounce`, :func:`compare_iter`, :func:`compare_bwd` and
+  :func:`checked_launches` hold each kernel against its plain version on
+  the same inputs; :func:`bwd_inputs` makes K5's arguments from a real
+  mid-render state and :func:`plain_backward` forces the fused
+  iteration's backward onto K5's plain version.
 
 Tolerances: alive/miss/winner index (and sample/depth/died for kernel B)
 equal on every lane; floats within ``ATOL + RTOL * |plain|``
-(``tests/test_bounce_kernel.py``).
+(``tests/test_bounce_kernel.py``).  K5 against its plain version: every
+gradient within ``BWD_RTOL * (|plain| + max|plain| over its output +
+max|plain| over its lane)``.  The forward replay rounds alike
+(``--fmad=false``, same association), but the hand-derived adjoint sums
+the chain-rule terms in another order than torch autograd, so a gradient
+that is a sum of terms of both signs keeps an error of a few ulps of its
+largest term, not of its value; the largest gradients of the output and
+of the lane bound those terms.
 """
 from __future__ import annotations
 
@@ -32,11 +46,20 @@ FRAC_LANES, MEAN_RTOL = 0.02, 2e-3
 BOUNCE_INT_ROWS = (12, 13, 14)
 ITER_INT_ROWS = (13, 14, 15, 16, 17)
 
+# K5 vs its plain version (see above)
+BWD_RTOL = 1e-4
+
 ALL_MATERIAL_TARGETS = [(0.25, [-1, 9, -1], [2, 0, 0], [0, 0, 2]),
                         (0.15, [5, 9, 5], [1, 0, 0], [0, 0, 1])]
 
+# bench.py's fwd+bwd on the Cornell box at 600 x 600, depth 50: RR from
+# depth 2, 2^18 lanes x 64 spp, 205 iterations then 25 at 2^14 and 100 at
+# 2^12 lanes
+FWD_BWD = dict(rr_depth=2, lanes=1 << 18, spp=64, n_iters=205,
+               schedule=((25, 1 << 14), (100, 1 << 12)))
 
-def cornell_scene_and_settings(width=16, spp=4, depth=6, device=None):
+
+def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
     """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``,
     built with the port: 6 walls + 2 rotated boxes (18 parallelograms),
     one MIS redirect target on the light, black background."""
@@ -80,7 +103,7 @@ def cornell_scene_and_settings(width=16, spp=4, depth=6, device=None):
     return scene, settings
 
 
-def all_materials_scene(device=None):
+def all_materials_scene(device="cuda"):
     """The scene of tests/test_bounce_kernel.py: eight materials on
     spheres and parallelograms, plus a triangle."""
     import raytrace_tpu_torch as rt
@@ -106,6 +129,50 @@ def all_materials_scene(device=None):
     geoms.append(rt.with_material(mats[0], rt.triangle(
         [-8, -2, -3], [-5, -2, -3], [-6.5, 1, -3])))
     return rt.compile_scene(rt.group(geoms), accel="dense", device=device)
+
+
+def box_motion_scene(device="cuda"):
+    """``(scene, settings)``: axis-aligned boxes (one row each), moving
+    boxes and spheres, with the isotropic and anisotropic materials and a
+    checker box (the ``PRIM_BOX`` and motion branches of the bounce),
+    under the sky, seen by a 64-pixel camera."""
+    import raytrace_tpu_torch as rt
+    checker = rt.checker_texture(3, 2, [0.8, 0.2, 0.1], [0.1, 0.3, 0.8])
+    mats = [rt.lambertian(checker),
+            rt.isotropic(rt.constant_texture([0.5, 0.6, 0.7])),
+            rt.anisotropic(0.4, rt.constant_texture([0.6, 0.4, 0.5])),
+            rt.metal(0.2, rt.constant_texture([0.9, 0.8, 0.6])),
+            rt.dielectric(1.4),
+            rt.lommel_seeliger(rt.constant_texture([0.4, 0.6, 0.2])),
+            rt.light_source(rt.constant_texture([4.0, 3.0, 2.0]))]
+    rg = np.random.default_rng(3)
+    geoms = []
+    for i, m in enumerate(mats):
+        c = rg.uniform(-5, 5, 3)
+        box = rt.cuboid(c, c + rg.uniform(0.8, 2.0, 3))
+        if i % 2:
+            box = rt.moving([0, 0, 0], rg.uniform(-0.5, 0.5, 3), box)
+        geoms.append(rt.with_material(m, box))
+        sph = rt.sphere(rg.uniform(-5, 5, 3), 0.9)
+        if i % 3 == 0:
+            sph = rt.moving(rg.uniform(-0.3, 0.3, 3),
+                            rg.uniform(-0.3, 0.3, 3), sph)
+        geoms.append(rt.with_material(mats[(i + 2) % len(mats)], sph))
+    geoms.append(rt.with_material(mats[0], rt.parallelogram(
+        [-8, -6, -8], [16, 0, 0], [0, 0, 16])))
+    geoms.append(rt.with_material(mats[5], rt.triangle(
+        [-8, -2, -3], [-5, -2, -3], [-6.5, 1, -3])))
+    s = rt.CameraSettings(center=[0.0, 3.0, 16.0], look_at=[0.0, 0.0, 0.0],
+                          vfov=0.9, image_width=64, max_depth=10,
+                          background=rt.sky)
+    return rt.compile_scene(rt.group(geoms), accel="dense",
+                            device=device), s
+
+
+def fwd_bwd_pixels(n_pix: int, lanes: int):
+    """bench.py's lanes (its first call): pixels ``0 .. lanes`` modulo the
+    image."""
+    return (torch.arange(lanes) % n_pix).to(torch.int32)
 
 
 def _tensor(x, device):
@@ -317,3 +384,81 @@ def checked_launches():
     finally:
         for module, name, kernel in originals:
             setattr(module, name, kernel)
+
+
+def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
+               spp: int = 8, pixels=None):
+    """K5's arguments for a real mid-render state: kernel B (its plain
+    version on the CPU) takes ``n_iters`` steps from a fresh carry on
+    ``lanes`` lanes of the image of ``s`` (pixels ``pixels``, by default
+    spread evenly over the image); the inputs, winner index and RR scale
+    of one more step are K5's inputs, with random normal cotangents drawn
+    from a ``torch.Generator`` seeded with ``seed``.  Returns ``(args,
+    kw)`` for :func:`bounce_bwd_regen_pre_megakernel`."""
+    from .core import rng
+    from .diff.fused_iter import _prim_columns, iter_kernel_args
+    from .ops.iter_kernel import iter_megakernel
+    dev = scene.device
+    tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev),
+                                  spp - 1)
+    n_pix = s.image_width * s.image_height
+    pix = (torch.arange(lanes) * n_pix // lanes if pixels is None
+           else pixels).to(dev, torch.int32)
+    carry = fresh_carry(lanes, dev)
+    for _ in range(n_iters + 1):
+        lane_in = (pix,) + tuple(carry)
+        outs = iter_megakernel(*tables, lane_in, **kw)
+        carry = (outs[14], outs[15], outs[13]) + tuple(outs[0:13])
+    n_row = 15 if scene.prims.has_motion else 9
+    cols, _, _ = _prim_columns(scene, n_row)
+    idx = outs[17]
+    gath = cols[torch.clamp(idx, min=0.0).long()].T.contiguous().unbind(0)
+    gen = torch.Generator().manual_seed(seed)
+    cts = torch.randn((13, lanes), generator=gen).to(dev).unbind(0)
+    _, _, ttbl, cam, kt = tables
+    args = (ttbl, kt, cam, gath, idx, lane_in[0:3], lane_in[3],
+            lane_in[4:11], lane_in[14:17], outs[18], cts)
+    kw5 = dict(n_targets=kw["n_targets"], has_motion=kw["has_motion"],
+               has_box=scene.prims.has_box, t_min=kw["t_min"], n_row=n_row,
+               n_u=kw["n_u"], width=kw["width"], bg_kind=kw["bg_kind"])
+    return args, kw5
+
+
+def bwd_errs(ref, out):
+    """``(max abs error, worst excess over the K5 tolerance)`` between
+    K5's plain and kernel outputs (see the module docstring); NaN in one
+    of them is an infinite error."""
+    a = torch.stack(ref).to(torch.float64)
+    b = torch.stack(out).to(torch.float64)
+    diff = (a - b).abs()
+    diff = torch.where(a.isnan() & b.isnan(), 0.0,
+                       torch.nan_to_num(diff, nan=float("inf")))
+    mag = torch.nan_to_num(a.abs(), nan=0.0)
+    bound = BWD_RTOL * (mag + mag.amax(1, keepdim=True)
+                        + mag.amax(0, keepdim=True))
+    return float(diff.max()), float((diff - bound).max())
+
+
+def compare_bwd(args, kw):
+    """K5 and ``bounce_bwd_regen_pre_plain`` on the same arguments:
+    ``(bwd_errs(...), kernel outputs)``."""
+    from .ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_plain,
+    )
+    ref = bounce_bwd_regen_pre_plain(*args, **kw)
+    out = bounce_bwd_regen_pre_megakernel(*args, **kw)
+    return bwd_errs(ref, out), out
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """Inside the block the fused iteration's backward runs K5's plain
+    version (torch autograd over ``lane_math``) on any device."""
+    from .diff import fused_iter
+    from .ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_plain
+    kernel = fused_iter.bounce_bwd_regen_pre_megakernel
+    fused_iter.bounce_bwd_regen_pre_megakernel = bounce_bwd_regen_pre_plain
+    try:
+        yield
+    finally:
+        fused_iter.bounce_bwd_regen_pre_megakernel = kernel

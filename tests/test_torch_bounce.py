@@ -70,7 +70,7 @@ def _settings_np(s, bg):
 def test_bounce_plain_matches_jax_kernel(case):
     build, js_set, bg, box, seed = _cases()[case]
     js = build()
-    ts = scene_from_numpy(scene_to_numpy(js))
+    ts = scene_from_numpy(scene_to_numpy(js), device="cpu")
     ts_set = _settings_np(js_set, bg)
     n = 512
     rg = np.random.default_rng(seed)

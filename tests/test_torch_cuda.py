@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and nvcc; elsewhere they skip.  On the
 machine with the card run them with
@@ -6,19 +6,28 @@ machine with the card run them with
 (``--noconftest``: this file needs neither JAX nor the JAX package).
 Tolerances: alive/miss/winner index equal on every lane (the kernels are
 built without multiply-add contraction and round like the plain version),
-floats within atol 2e-3 + rtol 1e-3 (tests/test_bounce_kernel.py).
+floats within atol 2e-3 + rtol 1e-3 (tests/test_bounce_kernel.py); the
+backward kernel K5 within ``testing.BWD_RTOL`` of the scale of each
+gradient (``testing.bwd_errs``), and the fwd+bwd with K5 against the same
+with its plain version within ``GRAD_RTOL`` per gradient leaf (the
+per-lane differences of K5, summed by atomic ``index_add_`` in an order
+that changes from run to run).
 """
+import numpy as np
 import pytest
 import torch
 
 from raytrace_tpu_torch.render.integrator import bounce_tables
 from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, FRAC_LANES, MEAN_RTOL, all_materials_scene,
-    bounce_inputs, checked_launches, compare_bounce, compare_iter,
-    cornell_scene_and_settings,
+    bounce_inputs, box_motion_scene, bwd_inputs, checked_launches,
+    compare_bounce, compare_bwd, compare_iter, cornell_scene_and_settings,
+    plain_backward,
 )
 
 pytestmark = pytest.mark.cuda
+
+GRAD_RTOL = 1e-3
 
 
 @pytest.fixture
@@ -90,3 +99,60 @@ def test_render_launches_match_plain(device, spp):
     assert st["n_int"] == 0
     assert st["excess"] <= 0.0
     assert bool(torch.isfinite(acc).all())
+
+
+def test_compile_scene_defaults_to_the_card(device):
+    import raytrace_tpu_torch as rt
+    scene = rt.compile_scene(rt.with_material(
+        rt.lambertian(rt.constant_texture(0.5)), rt.sphere([0, 0, 0], 1)))
+    assert scene.device.type == "cuda"
+
+
+@pytest.mark.parametrize("case", ["cornell", "all_materials_targets",
+                                  "box_motion"])
+def test_backward_kernel_matches_plain(device, case):
+    import raytrace_tpu_torch as rt
+    if case == "cornell":
+        scene, s = cornell_scene_and_settings(64, 8, 10, device=device)
+        s = s.replace(rr_depth=2)
+    elif case == "box_motion":
+        scene, s = box_motion_scene(device=device)
+    else:
+        scene = all_materials_scene(device=device)
+        s = rt.CameraSettings(background=rt.sky, image_width=64,
+                              max_depth=10).with_redirect_targets(
+                                  ALL_MATERIAL_TARGETS)
+    args, kw = bwd_inputs(scene, s, 1 << 14, 5, n_iters=4)
+    (err, excess), _ = compare_bwd(args, kw)
+    assert excess <= 0.0
+
+
+def test_fwd_bwd_kernel_matches_plain_backward(device):
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import loss_and_grads, partition
+    from raytrace_tpu_torch.interop import grads_to_numpy
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel,
+    )
+    scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
+    params, statics = partition(scene)
+    pix = torch.arange(1 << 14, dtype=torch.int32, device=device)
+    target = torch.zeros((1 << 14, 3), device=device)
+
+    def run():
+        return loss_and_grads(params, statics, s.replace(rr_depth=2),
+                              rng.base_key(0, device), pix, target, spp=8,
+                              n_iters=40, remat=False)
+
+    k0 = bounce_bwd_regen_pre_megakernel.launches
+    (loss_k, frac_k), g_k = run()
+    assert bounce_bwd_regen_pre_megakernel.launches == k0 + 40
+    with plain_backward():
+        (loss_p, frac_p), g_p = run()
+    assert bounce_bwd_regen_pre_megakernel.launches == k0 + 40
+    assert float(loss_k) == float(loss_p) and float(frac_k) == float(frac_p)
+    gk, gp = grads_to_numpy(g_k), grads_to_numpy(g_p)
+    for k in gp:
+        assert np.isfinite(gk[k]).all(), k
+        scale = np.abs(gp[k]).max()
+        assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k

@@ -43,7 +43,7 @@ MEAN_RTOL = 2e-3
 def _steps(seed):
     js, jset = _cornell_scene_and_settings(64, 8, 10)
     jset = jset.replace(rr_depth=2)
-    ts = scene_from_numpy(scene_to_numpy(js))
+    ts = scene_from_numpy(scene_to_numpy(js), device="cpu")
     d = fields_to_numpy(jset)
     d["background"] = ("const", (0.0, 0.0, 0.0))
     tset = settings_from_numpy(d)

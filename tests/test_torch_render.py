@@ -44,7 +44,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (128, 8, 0.05), (128, 1, 0.02), (130, 8, 0.05), (32, 8, 0.05)])
 def test_render_matches_jax(width, spp, frac_bound):
     js, jset = _cornell_scene_and_settings(width, spp, 10)
-    ts = scene_from_numpy(scene_to_numpy(js))
+    ts = scene_from_numpy(scene_to_numpy(js), device="cpu")
     d = fields_to_numpy(jset)
     d["background"] = ("const", (0.0, 0.0, 0.0))
     tset = settings_from_numpy(d)
@@ -71,7 +71,7 @@ def test_dispatch_mirrors_jax_driver(monkeypatch):
     assert rotate_k_for(200) == 8 and rotate_k_for(8) == 8
     assert rotate_k_for(1) == 1 and rotate_k_for(11) == 1
     js, jset = _cornell_scene_and_settings(16, 2, 3)
-    ts = scene_from_numpy(scene_to_numpy(js))
+    ts = scene_from_numpy(scene_to_numpy(js), device="cpu")
     d = fields_to_numpy(jset)
     d["background"] = ("const", (0.0, 0.0, 0.0))
     tset = settings_from_numpy(d)

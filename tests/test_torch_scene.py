@@ -42,6 +42,14 @@ def _close(t, j):
         np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-6 * scale)
 
 
+def _compile(rt, world, **kw):
+    """The port's scenes are compiled for the CPU, the JAX package's as
+    they are."""
+    if rt is trt:
+        kw["device"] = "cpu"
+    return rt.compile_scene(world, **kw)
+
+
 def _readme(rt):
     """scenes/readme_example.py's world."""
     world = rt.group([
@@ -57,7 +65,7 @@ def _readme(rt):
                           look_at=np.asarray([0.0, 0.0, -1.0]),
                           aspect_ratio=16 / 9, image_width=64,
                           samples_per_pixel=4, max_depth=10)
-    return rt.compile_scene(world), s
+    return _compile(rt, world), s
 
 
 def _moving(rt):
@@ -72,7 +80,7 @@ def _moving(rt):
                          [0.9, 0.8, 0.7])), rt.cuboid([0, 0, 0], [1, 1, 1]))),
     ])
     s = rt.CameraSettings(background=rt.sky, image_width=32)
-    return rt.compile_scene(world, accel="dense"), s
+    return _compile(rt, world, accel="dense"), s
 
 
 def _big(rt):
@@ -89,21 +97,21 @@ def _big(rt):
     geoms += [rt.with_material(mats[i % 3], rt.cuboid(c, c + 1.0))
               for i, c in enumerate(rg.uniform(-9, 9, (6, 3)))]
     s = rt.CameraSettings(background=rt.gray_fade, image_width=32)
-    return rt.compile_scene(rt.group(geoms), accel="dense"), s
+    return _compile(rt, rt.group(geoms), accel="dense"), s
 
 
 def _all_materials(rt):
     s = rt.CameraSettings(background=rt.const_background(0.2))
     s = s.with_redirect_targets(ALL_MATERIAL_TARGETS)
     if rt is trt:
-        return all_materials_scene(), s
+        return all_materials_scene(device="cpu"), s
     from test_bounce_kernel import _scene_all_materials
     return _scene_all_materials(), s
 
 
 def _cornell(rt):
     if rt is trt:
-        return cornell_scene_and_settings(64, 8, 10)
+        return cornell_scene_and_settings(64, 8, 10, device="cpu")
     return _cornell_scene_and_settings(64, 8, 10)
 
 
@@ -192,11 +200,11 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="M8"):
         trt.compile_scene(trt.with_material(
             trt.lambertian(trt.constant_texture(0.5)),
-            trt.sphere([0, 0, 0], 1)), accel="bvh")
+            trt.sphere([0, 0, 0], 1)), accel="bvh", device="cpu")
     world = trt.with_material(
         trt.lambertian(trt.marble_texture([0, 0, 1], 2.0)),
         trt.sphere([0, 0, -2], 1))
-    scene = trt.compile_scene(world)
+    scene = trt.compile_scene(world, device="cpu")
     with pytest.raises(NotImplementedError, match="M9"):
         trt.render(scene, trt.CameraSettings(image_width=8,
                                              samples_per_pixel=1))
@@ -208,8 +216,26 @@ def test_interop_round_trip():
     from raytrace_tpu_torch.interop import scene_from_numpy, scene_to_numpy
     from raytrace_tpu_torch.render.integrator import bounce_tables
     js, _ = _cornell_scene_and_settings(64, 8, 10)
-    ts, tset = cornell_scene_and_settings(64, 8, 10)
-    ps = scene_from_numpy(scene_to_numpy(js))
+    ts, tset = cornell_scene_and_settings(64, 8, 10, device="cpu")
+    ps = scene_from_numpy(scene_to_numpy(js), device="cpu")
     a, b = bounce_tables(ps, tset), bounce_tables(ts, tset)
     assert torch.equal(a.ptbl, b.ptbl) and torch.equal(a.mtbl, b.mtbl)
     assert (a.n_prims, a.n_mats) == (b.n_prims, b.n_mats) == (18, 2)
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device="cpu"`` a scene goes to the card: where there is
+    none, the call raises instead of landing on the CPU (on a machine
+    with a card ``tests/test_torch_cuda.py`` checks the scene's device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from raytrace_tpu_torch.interop import scene_from_numpy, scene_to_numpy
+    world = trt.with_material(trt.lambertian(trt.constant_texture(0.5)),
+                              trt.sphere([0, 0, 0], 1))
+    js, _ = _cornell_scene_and_settings(16, 1, 2)
+    for call in (lambda: trt.compile_scene(world),
+                 lambda: scene_from_numpy(scene_to_numpy(js)),
+                 lambda: cornell_scene_and_settings(16, 1, 2),
+                 lambda: all_materials_scene()):
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
