@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's render paths once on one GPU: the
-forward render and the differentiable forward + backward.
+forward render and the differentiable forward + backward, on the Cornell
+box and on a mesh of the Stanford bunny's size.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -42,12 +43,41 @@ Phases (each prints a line; any failure raises and exits non-zero):
     wall's albedo against their gradients;
 12. K5's time beside its plain version's at 2^18 lanes.
 
+The mesh scale (``testing.bunny_standin_scene``: 4,968 triangles in 4,992
+rows, the bunny scene's material, camera, gray fade and depth 10):
+
+13. the nearest-hit kernel (BVH walk) against its plain all-pairs version
+    on every lane: 2^17 camera rays of the stand-in at 600 x 600 and their
+    second bounce, the same on the mixed-kind mesh scene (still and with
+    its extras moving), and 2^14 rays on a 50,000-triangle sphere; the
+    BVH build times;
+14. the shade kernel against its plain version on those hit records, with
+    and without a synthetic medium;
+15. kernel B's mesh variant against its plain version on 2^17 lanes of
+    the stand-in, exact and with Russian roulette, one iteration from a
+    random state and 10 from a fresh one;
+16. route 1, the split forward: ``render_accumulate`` of the stand-in at
+    600 x 600, depth 10, 16 spp, exact and with RR from depth 2 (the
+    nearest and shade kernels once per iteration, kernel A never); then
+    the same at 1 spp with every launch held against its plain version;
+17. route 2, the mesh fwd+bwd of ``tools/prof_bunny_grad.py``
+    (``testing.MESH_FWD_BWD``: 2^17 lanes x 16 spp, 30 iterations then
+    12 at 2^15 and 30 at 2^13 lanes; 72 launches each of the mesh variant
+    and K5) after one warm-up; at 2^14 lanes the fwd+bwd with every
+    kernel against the one with every plain version; a finite difference
+    of the mesh's albedo;
+18. the three mesh kernels' times at the slice's shapes beside their
+    plain versions' and their bounds (the BVH's operation count from the
+    nodes and rows each ray visited, counted by the kernel).
+
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
-``{"ok": true, "device": {...}}``.  The rendered image goes to
+``{"ok": true, "device": {...}}``.  The rendered images go to
 chiprun_out/.  Tolerances (``raytrace_tpu_torch/testing.py``): exact rows
-equal on every lane, floats within atol 2e-3 + rtol 1e-3; K5 within
-``testing.BWD_RTOL`` of each gradient's scale (the hand-derived adjoint
-sums the chain-rule terms in another order than autograd).
+equal on every lane, floats within atol 2e-3 + rtol 1e-3 (the mesh
+kernels, built like the plain versions' arithmetic, are held to
+equality: a max |err| of 0); K5 within ``testing.BWD_RTOL`` of each
+gradient's scale (the hand-derived adjoint sums the chain-rule terms in
+another order than autograd).
 """
 from __future__ import annotations
 
@@ -73,6 +103,13 @@ FWD_SPP = 64
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# samples per pixel of the mesh forward main path (scenes/bunny_test.py
+# renders 100; profile_render.py times 100)
+MESH_SPP = 16
+# float operations of the BVH walk (csrc/bvh_nearest.cuh): a node's slab
+# test and a triangle row's test, counted from the sources
+NODE_OPS = 30
+ROW_OPS = 45
 
 
 def _smi_line() -> str:
@@ -473,8 +510,11 @@ def main() -> None:
           f" [{smi}]", flush=True)
 
     phase_done("K5 time")
+
+    mesh = _mesh_phases(smi, phase_done)
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
-                      "build_seconds": build_s}), flush=True)
+                      "mesh": mesh["summary"], "build_seconds": build_s}),
+          flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
         {"name": "bounce_megakernel", "route": "cuda",
@@ -493,14 +533,345 @@ def main() -> None:
          "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
          "replaces":
              "raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:497",
-         "launches": fb_k5, "max_abs_err": err_k5, "ms": ms_k5,
-         "plain_ms": plain_k5, "bound_ms": bound_k5[0],
+         "launches": fb_k5 + mesh["k5_launches"], "max_abs_err": err_k5,
+         "ms": ms_k5, "plain_ms": plain_k5, "bound_ms": bound_k5[0],
          "bound_by": bound_k5[1], "library_ms": no_lib},
-    ]}), flush=True)
+    ] + mesh["kernels"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _mesh_phases(smi, phase_done) -> dict:
+    """Phases 13-18 (the mesh scale).  Returns the summary for the JSON
+    line, the K5 launches of route 2 and the ``kernels`` entries of the
+    three mesh kernels."""
+    import numpy as np
+    import torch
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.fused_iter import iter_kernel_args
+    from raytrace_tpu_torch.diff.gradients import (
+        finite_difference, loss_and_grads, partition, render_loss_wavefront,
+    )
+    from raytrace_tpu_torch.interop import grads_to_numpy
+    from raytrace_tpu_torch.ops.allpairs_kernel import (
+        allpairs_nearest_plain, allpairs_nearest_record,
+    )
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel,
+    )
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel, shade_plain,
+    )
+    from raytrace_tpu_torch.ops.iter_kernel import (
+        iter_mega_ap, iter_megakernel, iter_plain,
+    )
+    from raytrace_tpu_torch.render.image import write_image
+    from raytrace_tpu_torch.render.integrator import split_tables
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import (
+        FRAC_LANES, MEAN_RTOL, MESH_FWD_BWD, bunny_standin_scene,
+        camera_rays, checked_launches, compare_iter, compare_nearest,
+        compare_shade, fresh_carry, mesh_all_kinds_scene, next_split_rays,
+        plain_kernels, synthetic_medium, uv_sphere,
+    )
+    dev = torch.device("cuda", 0)
+    standin, s_m = bunny_standin_scene(600, MESH_SPP, 10, device=dev)
+    n_pix = s_m.image_width * s_m.image_height
+    lanes = -(-n_pix // 128) * 128
+    t0 = time.perf_counter()
+    tb_m = split_tables(standin, s_m)
+    print(f"[mesh] bunny stand-in: {standin.prims.n} triangles in "
+          f"{standin.prims.kind.shape[0]} rows, kind segments "
+          f"{standin.prims.kind_segments}; split tables + BVH "
+          f"{time.perf_counter() - t0:.3f} s (BVH build "
+          f"{tb_m.bvh.build_s:.3f} s, {tb_m.bvh.n_nodes} nodes)", flush=True)
+
+    # 13./14. nearest and shade kernels vs plain
+    err_n = err_s = 0.0
+    n_k = 1 << 17
+    v, f = uv_sphere(126, 200)
+    big = rt.compile_scene(rt.with_material(
+        rt.lambertian(rt.constant_texture([0.6, 0.6, 0.6])),
+        rt.triangle_mesh(rt.Mesh(1.5 * v, np.zeros((0, 2)), f,
+                                 np.full_like(f, -1)))), device=dev)
+    s_big = rt.CameraSettings(center=[0.0, 1.0, 4.0], look_at=[0.0, 0.0, 0.0],
+                              image_width=128, background=rt.gray_fade)
+    cases = [("stand-in", standin, s_m, n_k)]
+    for moving in (False, True):
+        sc, s_k = mesh_all_kinds_scene(18, moving, 600, device=dev)
+        cases.append((f"mesh all kinds{' moving' if moving else ''}", sc, s_k,
+                      n_k))
+    cases.append((f"{f.shape[0]}-triangle sphere", big, s_big, 1 << 14))
+    for name, sc, s_k, n in cases:
+        tb = tb_m if sc is standin else split_tables(sc, s_k)
+        comps, uni = camera_rays(sc, s_k, n, 41)
+        thr = torch.ones((3, n), device=dev)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        for depth in (0, 1):
+            errs, _ = compare_nearest(tb, comps)
+            err_n = max(err_n, _check(
+                f"nearest vs plain: {name} ({sc.prims.kind.shape[0]} rows, "
+                f"BVH build {tb.bvh.build_s:.3f} s), bounce {depth + 1}",
+                errs, n))
+            errs, out, hit = compare_shade(tb, comps, uni, thr, alive)
+            err_s = max(err_s, _check(f"shade vs plain: {name}, bounce "
+                                      f"{depth + 1}", errs, n))
+            med = synthetic_medium(hit[0], tb.n_mats, 43 + depth)
+            errs, _, _ = compare_shade(tb, comps, uni, thr, alive,
+                                       medium=med, hit=hit)
+            err_s = max(err_s, _check(f"shade vs plain: {name}, bounce "
+                                      f"{depth + 1}, synthetic medium",
+                                      errs, n))
+            if err_n or err_s:
+                raise AssertionError("a mesh kernel is not exact")
+            comps, uni, thr, alive = next_split_rays(comps, out, 41,
+                                                     depth + 1)
+    phase_done("nearest and shade kernels vs plain")
+
+    # 15. kernel B's mesh variant vs plain
+    err_m = 0.0
+    for name, s_k, seed in (("exact", s_m, 51),
+                            ("rr2", s_m.replace(rr_depth=2), 52)):
+        one, frac, mean_rel = compare_iter(standin, s_k, n_k, seed,
+                                           n_iters=10, box=(-1.0, 1.0))
+        err_m = max(err_m, _check(f"mesh iteration vs plain: stand-in "
+                                  f"{name}, one iteration", one, n_k))
+        print(f"[mesh iteration vs plain] stand-in {name}, 10 iterations: "
+              f"{frac:.5f} of lanes differ by > 1e-5 (bound {FRAC_LANES}), "
+              f"mean rel diff {mean_rel:.2e} (bound {MEAN_RTOL})",
+              flush=True)
+        if frac >= FRAC_LANES or mean_rel > MEAN_RTOL:
+            raise AssertionError("the mesh iteration kernel disagrees with "
+                                 "iter_plain over 10 iterations")
+    phase_done("mesh iteration kernel vs plain")
+
+    # 16. route 1: the split forward at full size
+    counters = (bounce_megakernel, iter_megakernel, allpairs_nearest_record,
+                shade_megakernel)
+    for c in counters:
+        c.launches = 0
+    runs = {}
+    for name, s_k in (("exact", s_m), ("rr2", s_m.replace(rr_depth=2))):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, total = render_accumulate(standin, s_k, seed=1, spp=MESH_SPP)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        la, lb, ln, ls = (c.launches - b for c, b in zip(counters, before))
+        img = acc / total
+        finite = bool(torch.isfinite(img).all())
+        mean = float(img.mean())
+        runs[name] = dict(seconds=dt, rays_per_s=n_pix * MESH_SPP / dt,
+                          iterations=ln, nearest=ln, shade=ls, mean=mean)
+        print(f"[route 1] stand-in 600x600 {MESH_SPP} spp depth 10 {name}: "
+              f"{dt:.3f} s, {n_pix * MESH_SPP / dt / 1e6:.3f} M primary "
+              f"rays/s, {ln} iterations ({1e3 * dt / max(ln, 1):.3f} "
+              f"ms/iter), launches nearest={ln} shade={ls} A={la} B={lb}, "
+              f"mean {mean:.6f}, finite {finite} [{smi}]", flush=True)
+        if not finite or img.shape != (n_pix, 3) or ln == 0 or ls != ln \
+                or la or lb:
+            raise AssertionError(f"route 1 {name}: bad image or launches")
+        if name == "exact":
+            write_image(os.path.join(OUT_DIR, "mesh600.png"),
+                        img.reshape(600, 600, 3))
+    r1_nearest = allpairs_nearest_record.launches
+    r1_shade = shade_megakernel.launches
+    rel = abs(runs["rr2"]["mean"] / runs["exact"]["mean"] - 1.0)
+    print(f"[route 1] mean exact vs rr2: rel diff {rel:.4f} (bound 0.03)",
+          flush=True)
+    if rel > 0.03:
+        raise AssertionError("Russian roulette changed the mesh image mean")
+    phase_done("route 1")
+    for name, s_k in (("exact", s_m), ("rr2", s_m.replace(rr_depth=2))):
+        with checked_launches() as stats:
+            acc, _ = render_accumulate(standin, s_k, seed=1, spp=1)
+        for kname in ("allpairs_nearest_record", "shade_megakernel"):
+            st = stats[kname]
+            if st["launches"] == 0 or not bool(torch.isfinite(acc).all()):
+                raise AssertionError(f"checked route 1 {name}: {kname}")
+            err = _check(f"route 1 checked: stand-in 600x600 1 spp {name}, "
+                         f"{st['launches']} launches of {kname}",
+                         (st["n_int"], st["err"], st["excess"]), lanes)
+            if kname == "shade_megakernel":
+                err_s = max(err_s, err)
+            else:
+                err_n = max(err_n, err)
+    phase_done("checked route 1")
+
+    # 17. route 2: the mesh fwd+bwd
+    cfg = MESH_FWD_BWD
+    params, statics = partition(standin)
+    s_fb = s_m.replace(rr_depth=cfg["rr_depth"])
+    key = rng.base_key(0, dev)
+    pix_fb = (torch.arange(cfg["lanes"]) % n_pix).to(dev, torch.int32)
+    tgt_fb = torch.zeros((cfg["lanes"], 3), device=dev)
+
+    def fwd_bwd():
+        return loss_and_grads(params, statics, s_fb, key, pix_fb, tgt_fb,
+                              spp=cfg["spp"], n_iters=cfg["n_iters"],
+                              remat=False, schedule=cfg["schedule"])
+
+    fwd_bwd()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iter_mega_ap.launches = 0
+    bounce_bwd_regen_pre_megakernel.launches = 0
+    t0 = time.perf_counter()
+    (loss, frac), grads = fwd_bwd()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r2_iter = iter_mega_ap.launches
+    r2_k5 = bounce_bwd_regen_pre_megakernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    gnp = grads_to_numpy(grads)
+    finite = all(bool(np.isfinite(x).all()) for x in gnp.values())
+    n_expect = cfg["n_iters"] + sum(i for i, _ in cfg["schedule"])
+    fb = dict(seconds=wall, rays_per_s=cfg["lanes"] * cfg["spp"] / wall,
+              loss=float(loss), samples_completed=float(frac),
+              launches_iter=r2_iter, launches_bwd=r2_k5, peak_bytes=peak)
+    print(f"[route 2] stand-in fwd+bwd, {cfg['lanes']} lanes x {cfg['spp']} "
+          f"spp, rr2, {cfg['n_iters']} iterations + {cfg['schedule']}: "
+          f"{wall:.3f} s, {fb['rays_per_s'] / 1e6:.3f} M primary rays/s, "
+          f"loss {fb['loss']:.6f}, samples_completed "
+          f"{fb['samples_completed']:.6f}, launches mesh iteration={r2_iter} "
+          f"K5={r2_k5}, peak memory {peak / 2**30:.3f} GiB, gradients finite "
+          f"{finite} [{smi}]", flush=True)
+    if not finite or r2_iter != n_expect or r2_k5 != n_expect:
+        raise AssertionError("route 2: bad gradients or launch counts")
+    phase_done("route 2")
+
+    n9 = 1 << 14
+    pix9 = (torch.arange(n9) * (n_pix // n9)).to(dev, torch.int32)
+    tgt9 = torch.zeros((n9, 3), device=dev)
+    kw9 = dict(spp=4, n_iters=24, remat=False)
+    (l_k, f_k), g_k = loss_and_grads(params, statics, s_fb, key, pix9, tgt9,
+                                     **kw9)
+    with plain_kernels():
+        (l_p, f_p), g_p = loss_and_grads(params, statics, s_fb, key, pix9,
+                                         tgt9, **kw9)
+    g_k, g_p = grads_to_numpy(g_k), grads_to_numpy(g_p)
+    worst = max(float(np.abs(g_k[k] - g_p[k]).max())
+                / max(float(np.abs(g_p[k]).max()), 1e-30) for k in g_p)
+    print(f"[route 2 kernels vs plain] {n9} lanes, 4 spp, 24 iterations: "
+          f"loss {float(l_k):.6f} vs {float(l_p):.6f}, samples "
+          f"{float(f_k):.4f} vs {float(f_p):.4f}, worst leaf "
+          f"max|diff|/max|plain| {worst:.3g} (bound {GRAD_RTOL})",
+          flush=True)
+    if float(l_k) != float(l_p) or float(f_k) != float(f_p) \
+            or not worst <= GRAD_RTOL:
+        raise AssertionError("route 2: the kernels and their plain versions "
+                             "disagree")
+
+    s_fd = s_m.replace(rr_depth=None)
+    tgt_fd = torch.full((n9, 3), 0.1, device=dev)
+    kw_fd = dict(spp=4, n_iters=50, remat=False)
+    _, g_fd = loss_and_grads(params, statics, s_fd, key, pix9, tgt_fd,
+                             **kw_fd)
+    tex = standin.textures
+
+    def loss_at(x):
+        c0 = tex.c0.clone()
+        c0[0, 2] = x[0]
+        sc = dataclasses.replace(standin,
+                                 textures=dataclasses.replace(tex, c0=c0))
+        with torch.no_grad():
+            return render_loss_wavefront(*partition(sc), s_fd, key, pix9,
+                                         tgt_fd, **kw_fd)[0]
+    fd = float(finite_difference(loss_at, tex.c0[0, 2:3].clone(), 1e-2)[0])
+    gv = float(g_fd.textures.c0[0, 2])
+    print(f"[finite difference] mesh albedo (blue channel): gradient "
+          f"{gv:.6g}, central difference {fd:.6g} (eps 0.01), rel diff "
+          f"{abs(gv - fd) / abs(fd):.3g} (bound {FD_RTOL})", flush=True)
+    if gv == 0.0 or not abs(gv - fd) <= FD_RTOL * abs(fd):
+        raise AssertionError("finite difference: mesh albedo")
+    phase_done("route 2 checks")
+
+    # 18. kernel times at the slice's shapes
+    comps, uni = camera_rays(standin, s_m, lanes, 61)
+    rays = tuple(comps.unbind(0))
+    kw_n = dict(n_prims=tb_m.n_prims, t_min=tb_m.t_min,
+                has_motion=tb_m.has_motion)
+    hit_out, visits = allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *rays,
+                                              count_visits=True, **kw_n)
+    ms_n = _time_ms(lambda: allpairs_nearest_record(tb_m.ptbl, tb_m.bvh,
+                                                    *rays, **kw_n), 20)
+    plain_n = _time_ms(lambda: allpairs_nearest_plain(tb_m.ptbl, *rays,
+                                                      **kw_n), 2, 1)
+    nodes_v = float(visits[0].double().mean())
+    rows_v = float(visits[1].double().mean())
+    tbl_bytes = 4 * (tb_m.ptbl.numel() + tb_m.bvh.nodes.numel()
+                     + tb_m.bvh.leaf_rows.numel())
+    bound_n = _bound_ms(4 * lanes * (7 + 9) + tbl_bytes,
+                        lanes * (NODE_OPS * nodes_v + ROW_OPS * rows_v))
+    print(f"[time] nearest kernel {ms_n:.4f} ms vs allpairs_nearest_plain "
+          f"{plain_n:.3f} ms at {lanes} camera rays of the stand-in; a ray "
+          f"visits {nodes_v:.2f} nodes and {rows_v:.2f} rows on average; "
+          f"bound {bound_n[0]:.4f} ms ({bound_n[1]}) [{smi}]", flush=True)
+
+    alive = torch.ones(lanes, dtype=torch.bool, device=dev)
+    thr = torch.ones((3, lanes), device=dev)
+    from raytrace_tpu_torch.render.integrator import surface_hit
+    hit = surface_hit(tb_m, comps[0:3], comps[3:6], comps[6])
+    sh_lanes = (*rays[0:6], *thr, alive.float())
+    kw_s = dict(n_mats=tb_m.n_mats, n_targets=tb_m.n_targets,
+                has_medium=False)
+    ms_s = _time_ms(lambda: shade_megakernel(tb_m.mtbl, tb_m.ttbl, hit, None,
+                                             sh_lanes, uni, **kw_s), 50)
+    plain_s = _time_ms(lambda: shade_plain(tb_m.mtbl, tb_m.ttbl, hit, None,
+                                           sh_lanes, uni, **kw_s), 5, 1)
+    bound_s = _bound_ms(4 * lanes * (10 + 10 + 8 + 15), lanes * 300)
+    print(f"[time] shade kernel {ms_s:.4f} ms vs shade_plain {plain_s:.3f} ms"
+          f" at {lanes} lanes; bound {bound_s[0]:.4f} ms ({bound_s[1]}) "
+          f"[{smi}]", flush=True)
+
+    # the mesh variant with every lane regenerating: its rays are the
+    # camera rays of sample 0 of its pixels
+    n_i = cfg["lanes"]
+    tables, kw_i = iter_kernel_args(standin, s_fb, rng.base_key(1, dev), 15)
+    lane_in = (pix_fb,) + fresh_carry(n_i, dev)
+    c_i, _ = camera_rays(standin, s_m, n_i, 1, pixels=pix_fb)
+    _, vis_i = allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *c_i.unbind(0),
+                                       count_visits=True, **kw_n)
+    ms_i = _time_ms(lambda: iter_megakernel(*tables, lane_in, **kw_i), 20)
+    plain_i = _time_ms(lambda: iter_plain(*tables, lane_in, **kw_i), 2, 1)
+    nodes_i = float(vis_i[0].double().mean())
+    rows_i = float(vis_i[1].double().mean())
+    bound_i = _bound_ms(4 * n_i * (17 + 19) + tbl_bytes,
+                        n_i * (450 + NODE_OPS * nodes_i + ROW_OPS * rows_i))
+    print(f"[time] mesh iteration kernel {ms_i:.4f} ms vs iter_plain "
+          f"{plain_i:.3f} ms at {n_i} lanes (every lane regenerating; a ray "
+          f"visits {nodes_i:.2f} nodes and {rows_i:.2f} rows); bound "
+          f"{bound_i[0]:.4f} ms ({bound_i[1]}) [{smi}]", flush=True)
+    phase_done("mesh kernel times")
+
+    no_lib = None   # no single PyTorch call computes a nearest hit or shade
+    kernels = [
+        {"name": "allpairs_nearest_record", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/nearest_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/allpairs_kernel.py:920",
+         "launches": r1_nearest, "max_abs_err": err_n, "ms": ms_n,
+         "plain_ms": plain_n, "bound_ms": bound_n[0],
+         "bound_by": bound_n[1], "library_ms": no_lib},
+        {"name": "shade_megakernel", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/shade_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/bounce_kernel.py:616",
+         "launches": r1_shade, "max_abs_err": err_s, "ms": ms_s,
+         "plain_ms": plain_s, "bound_ms": bound_s[0],
+         "bound_by": bound_s[1], "library_ms": no_lib},
+        {"name": "iter_mega_ap", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/iter_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/iter_kernel.py:445",
+         "launches": r2_iter, "max_abs_err": err_m, "ms": ms_i,
+         "plain_ms": plain_i, "bound_ms": bound_i[0],
+         "bound_by": bound_i[1], "library_ms": no_lib},
+    ]
+    summary = dict(route1=runs, route2=fb, bvh_build_s=tb_m.bvh.build_s,
+                   visits=dict(nodes=nodes_v, rows=rows_v))
+    return dict(summary=summary, k5_launches=r2_k5, kernels=kernels)
 
 
 if __name__ == "__main__":

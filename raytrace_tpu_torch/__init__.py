@@ -1,14 +1,19 @@
 """raytrace_tpu_torch — the path tracer of ``raytrace_tpu`` in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper.
 
-The forward render path: the scene builder and compiler, the camera, the
-counter-hash RNG, and ``render`` / ``render_accumulate`` over the
-pixel-stationary and work-queue wavefront drivers.  The bounce runs in
-kernel A (``ops/bounce_kernel.py``, ``csrc/bounce_kernel.cu``) and the
-fused iteration in kernel B (``ops/iter_kernel.py``,
-``csrc/iter_kernel.cu``).  The differentiable path: ``diff.gradients``
+The forward render path: the scene builder and compiler (triangle meshes
+and the .obj parser included), the camera, the counter-hash RNG, and
+``render`` / ``render_accumulate`` over the pixel-stationary and
+work-queue wavefront drivers.  The bounce runs in kernel A
+(``ops/bounce_kernel.py``, ``csrc/bounce_kernel.cu``) for tables of at
+most 512 rows, and the fused iteration in kernel B (``ops/iter_kernel.py``,
+``csrc/iter_kernel.cu``); mesh-scale tables (up to 65,536 rows) take the
+split path: the nearest hit over a BVH (``ops/allpairs_kernel.py``,
+``csrc/nearest_kernel.cu``) and the shade kernel
+(``csrc/shade_kernel.cu``).  The differentiable path: ``diff.gradients``
 (``partition``, ``loss_and_grads``, ``render_loss_wavefront``) over the
-differentiable wavefront, whose backward runs kernel K5
+differentiable wavefront, whose forward is kernel B (its BVH variant
+above 512 rows, up to 8192) and whose backward runs kernel K5
 (``ops/bounce_bwd_gather_kernel.py``, ``csrc/bounce_bwd_kernel.cu``).
 On CPU tensors each kernel runs its plain PyTorch version; the entry
 points put scenes on the card unless given ``device="cpu"``.  The
@@ -23,9 +28,9 @@ from .render.camera import CameraSettings, const_background, gray_fade, sky
 from .render.image import read_image, write_image, write_image_sqrt
 from .render.render import render, render_accumulate
 from .scene.builder import (
-    compose, cuboid, cuboids, group, moving, parallelogram, rotate_x,
+    Mesh, compose, cuboid, cuboids, group, moving, parallelogram, rotate_x,
     rotate_y, rotate_z, scale, sphere, spheres, transform, translate,
-    triangle, with_material,
+    triangle, triangle_mesh, with_material,
 )
 from .scene.compile import compile_scene
 from .textures.textures import (

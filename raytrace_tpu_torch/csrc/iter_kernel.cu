@@ -14,10 +14,21 @@
 // launches per iteration, and their device-memory round trips, that the
 // unfused body pays around kernel A (PERF.md).  Same simple design: one
 // thread per lane, tables and camera in shared memory, no block consensus.
+//
+// The mesh variant (rt_iter_bvh) replaces iter_kernel.py:_iter_mega_ap,
+// the same iteration with the TPU's all-pairs intersect stage, taken for
+// kind-segmented tables of 512 < rows <= 65,536
+// (ops/iter_kernel.py:resolve_use_ap).  Its intersect stage is the BVH walk
+// of bvh_nearest.cuh over the table in global memory (a mesh-scale table
+// does not fit shared memory); regeneration, RNG, camera, shade,
+// background and Russian roulette are the same code.  It is bound, like
+// the standalone nearest kernel (nearest_kernel.cu), by the latency and
+// divergence of the walk.  Plain version: iter_plain(use_ap=True).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bvh_nearest.cuh"
 #include "common.cuh"
 #include "prim_loop.cuh"
 #include "regen.cuh"
@@ -36,9 +47,11 @@ struct IterArgs {
   float* outf;  // [17 (+2 uv), R]: comps 7, rad 3, thr 3, alive, died,
                 //                   idx, rr scale (, u, v)
   int* outi;    // [2, R]: smp', dep'
+  const float* nodes;    // mesh variant: [n_nodes, 8] BVH nodes
+  const int* leaf_rows;  // mesh variant: leaf entries -> table rows
   long long n_lanes;
   int n_prims, n_mats, n_targets, has_motion, use_prim_albedo, n_u,
-      rr_depth, max_depth, width, bg_kind, with_uv;
+      rr_depth, max_depth, width, bg_kind, with_uv, n_nodes;
   float t_min;
 };
 
@@ -48,14 +61,18 @@ constexpr int kThreads = 128;
 constexpr int kNCam = rt::kNCam;
 constexpr int kBgSky = 1, kBgGray = 2;
 
+// kBvh: the mesh variant (the table stays in global memory and the
+// intersect stage walks the BVH); otherwise the flat scan of the table
+// staged in shared memory.
+template <bool kBvh>
 __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
   extern __shared__ float smem[];
   float* cam = smem;
   float* sp = cam + kNCam;
-  float* sm = sp + a.n_prims * rt::kCols;
+  float* sm = kBvh ? sp : sp + a.n_prims * rt::kCols;
   float* st = sm + a.n_mats * rt::kMCols;
   rt::stage(cam, a.cam, kNCam);
-  rt::stage(sp, a.ptbl, a.n_prims * rt::kCols);
+  if (!kBvh) rt::stage(sp, a.ptbl, a.n_prims * rt::kCols);
   rt::stage(sm, a.mtbl, a.n_mats * rt::kMCols);
   rt::stage(st, a.ttbl, a.n_targets * rt::kTCols);
   __syncthreads();
@@ -102,9 +119,15 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
   const float boy = alive_pre ? oy : far;
   const float boz = alive_pre ? oz : far;
 
-  const rt::HitRec hr =
-      rt::prim_loop(sp, a.n_prims, box, boy, boz, dx, dy, dz, tmv, a.t_min,
-                    a.has_motion != 0, a.use_prim_albedo != 0);
+  rt::HitRec hr;
+  if constexpr (kBvh)
+    hr = rt::bvh_nearest<false>(a.nodes, a.n_nodes, a.leaf_rows, a.ptbl,
+                                box, boy, boz, dx, dy, dz, tmv, a.t_min,
+                                a.has_motion != 0, a.use_prim_albedo != 0,
+                                nullptr);
+  else
+    hr = rt::prim_loop(sp, a.n_prims, box, boy, boz, dx, dy, dz, tmv,
+                       a.t_min, a.has_motion != 0, a.use_prim_albedo != 0);
   const rt::ShadeOut s =
       rt::shade(hr, sm, a.n_mats, st, a.n_targets, a.use_prim_albedo != 0,
                 box, boy, boz, dx, dy, dz, thr[0], thr[1], thr[2],
@@ -177,20 +200,29 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
 
 }  // namespace
 
-extern "C" int rt_iter(const IterArgs* a, void* stream) {
+template <bool kBvh>
+static int launch_iter(const IterArgs* a, void* stream) {
   if (a->n_lanes <= 0) return 0;
   if (a->n_u != rt::kNU) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (kNCam + a->n_prims * rt::kCols +
-                                       a->n_mats * rt::kMCols +
-                                       a->n_targets * rt::kTCols);
+  const size_t smem =
+      sizeof(float) * (kNCam + (kBvh ? 0 : a->n_prims * rt::kCols) +
+                       a->n_mats * rt::kMCols + a->n_targets * rt::kTCols);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        iter_kernel<kBvh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long blocks = (a->n_lanes + kThreads - 1) / kThreads;
-  iter_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(*a);
+  iter_kernel<kBvh><<<static_cast<unsigned>(blocks), kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_iter(const IterArgs* a, void* stream) {
+  return launch_iter<false>(a, stream);
+}
+
+extern "C" int rt_iter_bvh(const IterArgs* a, void* stream) {
+  return launch_iter<true>(a, stream);
 }

@@ -4,10 +4,12 @@
 
 One kernel B launch per iteration; the caller only adds dead lanes'
 radiance into the image.  :func:`fused_iter_step` is the differentiable
-iteration, a ``torch.autograd.Function``: kernel B forward, and a
-backward that gathers each lane's winner, material and texture rows,
-runs kernel K5 (``ops/bounce_bwd_gather_kernel.py``) and reduces the
-per-lane row gradients onto the scene's tables with ``index_add_``.
+iteration, a ``torch.autograd.Function``: kernel B forward (its mesh
+variant, over the table's BVH, for kind-segmented tables of 512 < rows
+<= 8192), and a backward that gathers each lane's winner, material and
+texture rows, runs kernel K5 (``ops/bounce_bwd_gather_kernel.py``) and
+reduces the per-lane row gradients onto the scene's tables with
+``index_add_``.
 The regeneration stage is detached (sampling) or linear (selects), so
 the backward rebuilds it from the saved (pixel, sample, depth).  Rich
 textures (the deferred texel multiply) are ROADMAP M9.
@@ -19,9 +21,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.allpairs_kernel import pack_bvh
 from ..ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_megakernel
 from ..ops.iter_kernel import (
     BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
+    resolve_use_ap,
 )
 from ..render.camera import ConstBackground, camera_frame, gray_fade, sky
 from .gradients import leaves, map_scene
@@ -57,17 +61,21 @@ def fused_iter_eligible(scene, s, lanes: int) -> bool:
 def iter_kernel_args(scene, s, base_key, last_sample: int):
     """``(tables, kw)``: the positional tables ``(ptbl, mtbl, ttbl, cam,
     kt)`` and the keyword parameters of kernel B (and of ``iter_plain``)
-    for this scene and camera, on the scene's device."""
+    for this scene and camera, on the scene's device.  A mesh-scale table
+    (:func:`resolve_use_ap`) gets ``use_ap=True`` and its BVH, built
+    here."""
     from ..render.integrator import bounce_tables, n_bounce_uniforms
     dev = scene.device
     tb = bounce_tables(scene, s)
     bg_kind, bg_color = background_kind(s)
     cam = pack_cam(s, camera_frame(s), bg_color).to(dev)
     kt = pack_kt(base_key, last_sample).to(dev)
+    use_ap = resolve_use_ap(tb.n_prims, scene.prims.kind_segments)
     kw = dict(tb.kw, n_u=n_bounce_uniforms(scene),
               rr_depth=None if s.rr_depth is None else int(s.rr_depth),
               max_depth=int(s.max_depth), width=int(s.image_width),
-              bg_kind=bg_kind)
+              bg_kind=bg_kind, use_ap=use_ap,
+              bvh=pack_bvh(scene.prims, tb.n_prims) if use_ap else None)
     return (tb.ptbl, tb.mtbl, tb.ttbl, cam, kt), kw
 
 
@@ -185,9 +193,15 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
     to every float leaf of ``scene`` (those with ``requires_grad``, as
     :func:`gradients.partition` makes them).  The pixel assignment is an
     argument, so compacted completion phases can rebind it."""
-    from ..render.integrator import _ineligible_reason
+    from ..ops.intersect_kernel import MAX_SMEM_PRIMS
+    from ..render.integrator import MEGA_MAX_PRIMS, _kernel_reason
     from .lane_replay import replay_pre_eligible
-    reason = _ineligible_reason(scene, s, 128)
+    reason = _kernel_reason(scene, s, 128, MEGA_MAX_PRIMS)
+    p = scene.prims
+    if (reason is None and p.kind.shape[0] > MAX_SMEM_PRIMS
+            and p.kind_segments is None):
+        reason = ("an unsegmented table of more than 512 rows (ROADMAP "
+                  "K8)")
     if reason is None and not replay_pre_eligible(scene):
         reason = "the scene's tables exceed the replay backward's caps"
     if reason is None and background_kind(s) is None:

@@ -57,9 +57,11 @@ _F = np.float32
 def replay_eligible(scene) -> bool:
     """Can the replay backward serve this scene?  The port has no
     deferred rich-texture multiply yet (ROADMAP M9), so it takes constant
-    and checker textures only; the row cap is the forward kernels'."""
-    from ..ops.intersect_kernel import MAX_SMEM_PRIMS
-    return (scene.prims.kind.shape[0] <= MAX_SMEM_PRIMS
+    and checker textures only; the row cap is the fused diff driver's
+    (``MEGA_MAX_PRIMS``): the backward sees per-lane gathered rows, so
+    it does not depend on the table's size."""
+    from ..render.integrator import MEGA_MAX_PRIMS
+    return (scene.prims.kind.shape[0] <= MEGA_MAX_PRIMS
             and scene.materials.kind.shape[0] <= MAX_REPLAY_MATS
             and scene.textures.kind.shape[0] <= MAX_REPLAY_TEX
             and set(scene.textures.kinds_present)

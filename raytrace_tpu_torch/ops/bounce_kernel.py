@@ -12,6 +12,11 @@ The RNG, regeneration and background-on-miss stay with the caller
 tensors and runs :func:`bounce_plain`, the same function in plain
 PyTorch, for CPU tensors.  Sphere uv uses the TPU kernel's polynomial
 arctangent (|err| ~1e-5 rad) in both, so kernel and plain version agree.
+
+:func:`shade_megakernel` (``bounce_kernel.py:shade_megakernel``) is the
+shade stage alone, fed a precomputed hit record and optional medium
+events: it launches ``csrc/shade_kernel.cu`` for CUDA tensors and runs
+:func:`shade_plain` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from .intersect_kernel import MAX_SMEM_PRIMS, N_COLS, prim_loop_plain
 N_MCOLS = 12
 N_TCOLS = 16
 MAX_MAT_ROWS = 16
+MAX_SHADE_MATS = 24      # material rows of the shade kernel (split path)
 MAX_TARGETS = 8
 
 # uniform columns of one bounce
@@ -147,14 +153,28 @@ def _target_consts(trow):
 
 def shade_values(hit_res, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr, tg, tb,
                  alive, u_all, *, n_mats: int, n_targets: int,
-                 use_prim_albedo: bool = False, with_uv: bool = False):
+                 use_prim_albedo: bool = False, with_uv: bool = False,
+                 tmed=None, vmat=None):
     """Material, texture, emission, scatter and MIS stage after the
     nearest hit (``hit_res`` from :func:`prim_loop_plain`).  ``alive`` is
     a bool lane tensor, ``u_all`` the 8 bounce uniform columns.  Returns
     the 15 outputs: o' (3), d' (3), throughput' (3), emitted radiance
     (3), alive' (0/1), miss (0/1), winner index (-1 on a miss); with
-    ``with_uv`` also the winner's (u, v)."""
+    ``with_uv`` also the winner's (u, v).  ``tmed``/``vmat``: each lane's
+    nearest medium event and its material; one nearer than the surface
+    replaces the record (normal against the ray, front, uv 0)."""
     t, bi, nx, ny, nz, fr_f, uu, vv, mat_f, sph_f = hit_res[:10]
+    if tmed is not None:
+        in_med = tmed < t
+        t = torch.where(in_med, tmed, t)
+        mat_f = torch.where(in_med, vmat, mat_f)
+        nx = torch.where(in_med, -dx, nx)
+        ny = torch.where(in_med, -dy, ny)
+        nz = torch.where(in_med, -dz, nz)
+        fr_f = torch.where(in_med, 1.0, fr_f)
+        uu = torch.where(in_med, 0.0, uu)
+        vv = torch.where(in_med, 0.0, vv)
+        sph_f = torch.where(in_med, 0.0, sph_f)
     mrows = mtbl[:n_mats].tolist()
     trows = ttbl[:n_targets].tolist()
 
@@ -386,25 +406,116 @@ class _BounceArgs(ctypes.Structure):
         + [("t_min", ctypes.c_float)])
 
 
-def check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, device):
-    """Raise unless the tables are contiguous f32 on ``device`` and the
-    row counts fit what a kernel block stages in shared memory."""
-    for name, x, cols in (("ptbl", ptbl, N_COLS), ("mtbl", mtbl, N_MCOLS),
-                          ("ttbl", ttbl, N_TCOLS)):
-        if (x.device != device or x.dtype != torch.float32
-                or x.dim() != 2 or x.shape[1] != cols
-                or not x.is_contiguous()):
-            raise ValueError(f"{name}: need a contiguous f32 [*, {cols}] "
-                             f"tensor on {device}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    if not (0 <= n_prims <= min(ptbl.shape[0], MAX_SMEM_PRIMS)):
-        raise ValueError(f"n_prims={n_prims}: the kernels take at most "
-                         f"{MAX_SMEM_PRIMS} rows (more rows: ROADMAP K9)")
-    if not (0 < n_mats <= min(mtbl.shape[0], MAX_MAT_ROWS)):
-        raise ValueError(f"n_mats={n_mats} outside 1..{MAX_MAT_ROWS}")
+def shade_plain(mtbl, ttbl, hit, medium, lanes, uniforms, *, n_mats: int,
+                n_targets: int, has_medium: bool):
+    """:func:`shade_megakernel` in plain PyTorch, on any device."""
+    ox, oy, oz, dx, dy, dz, tr, tg, tb, al = lanes
+    tmed, vmat = medium if has_medium else (None, None)
+    return shade_values(tuple(hit), mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr,
+                        tg, tb, al > 0.5, uniforms, n_mats=n_mats,
+                        n_targets=n_targets, tmed=tmed, vmat=vmat)
+
+
+class _ShadeArgs(ctypes.Structure):
+    """Mirror of ``ShadeArgs`` in csrc/shade_kernel.cu."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "mtbl", "ttbl", "t", "bi", "nx", "ny", "nz", "fr", "uu", "vv", "mat",
+        "sph", "tmed", "vmat", "ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg",
+        "tb", "al", "uni", "out")]
+        + [("n_lanes", ctypes.c_int64)]
+        + [(f, ctypes.c_int) for f in ("n_mats", "n_targets",
+                                        "has_medium")])
+
+
+_HIT_NAMES = ("t", "bi", "nx", "ny", "nz", "fr", "uu", "vv", "mat", "sph")
+_SHADE_LANE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg", "tb",
+                     "al")
+
+
+def shade_megakernel(mtbl, ttbl, hit, medium, lanes, uniforms, *,
+                     n_mats: int, n_targets: int, has_medium: bool):
+    """The shade stage of one bounce from a precomputed hit record.
+
+    ``hit``: 10 [R] f32 tensors (t, winner index, nx, ny, nz with the
+    normal facing the ray, front 0/1, u, v, material id, sphere 0/1; pass
+    sphere 0 to keep the given uv); ``medium``: (t_med, medium material
+    id) or None; ``lanes``: (ox, oy, oz, dx, dy, dz, tr, tg, tb, alive
+    0/1); ``uniforms``: [N_U, R].  ``mtbl`` holds material rows (not
+    behaviours), at most :data:`MAX_SHADE_MATS`.  Returns the 15 bounce
+    outputs of :func:`shade_values`.
+
+    CPU tensors run :func:`shade_plain`; CUDA tensors launch
+    ``csrc/shade_kernel.cu`` (``shade_megakernel.launches`` counts the
+    launches)."""
+    dev = hit[0].device
+    kw = dict(n_mats=n_mats, n_targets=n_targets, has_medium=has_medium)
+    if dev.type == "cpu":
+        return shade_plain(mtbl, ttbl, hit, medium, lanes, uniforms, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_megakernel: unsupported device {dev}")
+    r = hit[0].shape[0]
+    if len(hit) != 10 or len(lanes) != 10 \
+            or (has_medium and (medium is None or len(medium) != 2)):
+        raise ValueError("shade_megakernel: need 10 hit tensors, 10 lane "
+                         "tensors and, with has_medium, 2 medium tensors")
+    check_table("mtbl", mtbl, N_MCOLS, dev)
+    check_table("ttbl", ttbl, N_TCOLS, dev)
+    check_targets(ttbl, n_targets)
+    if not 0 < n_mats <= min(mtbl.shape[0], MAX_SHADE_MATS):
+        raise ValueError(f"n_mats={n_mats} outside 1..{MAX_SHADE_MATS}")
+    check_lanes(zip(_HIT_NAMES, hit), r, dev)
+    check_lanes(zip(_SHADE_LANE_NAMES, lanes), r, dev)
+    med = tuple(medium) if has_medium else (None, None)
+    if has_medium:
+        check_lanes(zip(("tmed", "vmat"), med), r, dev)
+    if (uniforms.device != dev or uniforms.dtype != torch.float32
+            or uniforms.dim() != 2 or uniforms.shape[0] < N_U
+            or uniforms.shape[1] != r or not uniforms.is_contiguous()):
+        raise ValueError(f"uniforms: need a contiguous f32 [>={N_U}, {r}] "
+                         f"tensor on {dev}")
+    from ._build import launch
+    out = torch.empty((N_OUT, r), dtype=torch.float32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    args = _ShadeArgs(
+        *(ptr(x) for x in (mtbl, ttbl) + tuple(hit) + med + tuple(lanes)
+          + (uniforms, out)),
+        r, n_mats, n_targets, int(has_medium))
+    launch("rt_shade", args, dev)
+    shade_megakernel.launches += 1
+    return tuple(out.unbind(0))
+
+
+shade_megakernel.launches = 0
+
+
+def check_table(name, x, cols, device):
+    if (x.device != device or x.dtype != torch.float32 or x.dim() != 2
+            or x.shape[1] != cols or not x.is_contiguous()):
+        raise ValueError(f"{name}: need a contiguous f32 [*, {cols}] "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def check_targets(ttbl, n_targets):
     if not (0 <= n_targets <= MAX_TARGETS
             and (n_targets == 0 or n_targets <= ttbl.shape[0])):
         raise ValueError(f"n_targets={n_targets} outside 0..{MAX_TARGETS}")
+
+
+def check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, device,
+                 max_prims: int = MAX_SMEM_PRIMS):
+    """Raise unless the tables are contiguous f32 on ``device`` and the
+    row counts fit the kernels: at most ``max_prims`` rows (what a kernel
+    block stages in shared memory, unless the caller walks a BVH)."""
+    for name, x, cols in (("ptbl", ptbl, N_COLS), ("mtbl", mtbl, N_MCOLS),
+                          ("ttbl", ttbl, N_TCOLS)):
+        check_table(name, x, cols, device)
+    if not (0 <= n_prims <= min(ptbl.shape[0], max_prims)):
+        raise ValueError(f"n_prims={n_prims}: the kernel takes at most "
+                         f"{max_prims} rows here")
+    if not (0 < n_mats <= min(mtbl.shape[0], MAX_MAT_ROWS)):
+        raise ValueError(f"n_mats={n_mats} outside 1..{MAX_MAT_ROWS}")
+    check_targets(ttbl, n_targets)
 
 
 def check_lanes(named, n, device, dtype=torch.float32):

@@ -6,7 +6,8 @@ The scan here is the plain PyTorch version; its device counterpart is
 ``csrc/prim_loop.cuh``, which both render kernels include.  The TPU
 kernel's clustered, segmented and two-level loops (block-consensus AABB
 skipping) have no counterpart: a thread walks every row of the table and
-a pad row is skipped by its kind.
+a pad row is skipped by its kind.  Mesh-scale tables take a BVH walk
+instead (``ops/allpairs_kernel.py``), over the same per-row test.
 
 Table columns ([C, 36] f32):
 

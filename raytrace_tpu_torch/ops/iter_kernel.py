@@ -12,6 +12,13 @@ tensors and runs :func:`iter_plain`, the same function in plain PyTorch,
 for CPU tensors.  The pixel (i, j) is decoded with integer ``%`` and
 ``//``, exact for every pixel index (the TPU kernel's f32 decode is exact
 below 2^24, so the two agree).
+
+Tables of 512 < rows <= 65,536 that are kind-segmented take the mesh
+variant (``iter_kernel.py:_iter_mega_ap``, :func:`resolve_use_ap`): the
+same iteration, whose intersect stage walks the table's BVH
+(:func:`iter_mega_ap`, ``rt_iter_bvh``); its plain version is
+:func:`iter_plain` with ``use_ap=True``, whose intersect stage is the
+all-pairs sweep of ``ops/allpairs_kernel.py``.
 """
 from __future__ import annotations
 
@@ -22,10 +29,11 @@ import torch
 
 from ..core import rng
 from ..render.camera import camera_table, rays_from_table
+from .allpairs_kernel import check_bvh, nearest_hit_plain
 from .bounce_kernel import (
     N_U, check_lanes, check_tables, shade_values,
 )
-from .intersect_kernel import prim_loop_plain
+from .intersect_kernel import MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, prim_loop_plain
 
 # backgrounds the kernel evaluates in-kernel (render/camera.py)
 BG_CONST = 0
@@ -36,6 +44,13 @@ N_CAM = 24          # cam table columns (f32)
 N_KT = 4            # kt table columns (i32)
 N_LANE_IN = 17      # pix smp dep al + comps(7) + rad(3) + thr(3)
 _N_OUT_F = 17       # f32 outputs (+2 with uv); smp/dep go to an i32 buffer
+
+
+def resolve_use_ap(n_prims: int, segments) -> bool:
+    """Does the iteration take the mesh variant?  Kind-segmented tables of
+    512 < rows <= 65,536, as the JAX package decides."""
+    return segments is not None and MAX_SMEM_PRIMS < n_prims \
+        <= MAX_DENSE_PRIMS
 
 
 def pack_cam(s, frame, bg_color) -> torch.Tensor:
@@ -58,9 +73,11 @@ def pack_kt(base_key: torch.Tensor, last_sample: int) -> torch.Tensor:
 def iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
                n_mats: int, n_targets: int, t_min: float, has_motion: bool,
                use_prim_albedo: bool, n_u: int, rr_depth, max_depth: int,
-               width: int, bg_kind: int, with_uv: bool = False):
+               width: int, bg_kind: int, with_uv: bool = False,
+               use_ap: bool = False, bvh=None):
     """Kernel B in plain PyTorch: the same inputs and outputs as
-    :func:`iter_megakernel`, on any device."""
+    :func:`iter_megakernel`, on any device.  ``use_ap`` takes the
+    all-pairs intersect stage of the mesh variant (``bvh`` is unused)."""
     (pix, smp, dep, al, ox, oy, oz, dx, dy, dz, tm,
      rr, rg, rb, tr, tg, tb) = lane_in
     c = cam.tolist()
@@ -92,9 +109,10 @@ def iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
     boy = torch.where(alive_pre, oyv, far)
     boz = torch.where(alive_pre, ozv, far)
 
-    hit = prim_loop_plain(ptbl, box, boy, boz, dxv, dyv, dzv, tmv,
-                          n_prims=n_prims, t_min=t_min,
-                          has_motion=has_motion, with_albedo=use_prim_albedo)
+    nearest = nearest_hit_plain if use_ap else prim_loop_plain
+    hit = nearest(ptbl, box, boy, boz, dxv, dyv, dzv, tmv, n_prims=n_prims,
+                  t_min=t_min, has_motion=has_motion,
+                  with_albedo=use_prim_albedo)
     sh = shade_values(hit, mtbl, ttbl, box, boy, boz, dxv, dyv, dzv, *thr,
                       alive_pre, us[:N_U], n_mats=n_mats,
                       n_targets=n_targets, use_prim_albedo=use_prim_albedo,
@@ -145,12 +163,12 @@ class _IterArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "ptbl", "mtbl", "ttbl", "cam", "kt", "pix", "smp", "dep", "al",
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "rr", "rg", "rb", "tr",
-        "tg", "tb", "outf", "outi")]
+        "tg", "tb", "outf", "outi", "nodes", "leaf_rows")]
         + [("n_lanes", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "n_prims", "n_mats", "n_targets", "has_motion",
             "use_prim_albedo", "n_u", "rr_depth", "max_depth", "width",
-            "bg_kind", "with_uv")]
+            "bg_kind", "with_uv", "n_nodes")]
         + [("t_min", ctypes.c_float)])
 
 
@@ -158,29 +176,13 @@ _LANE_NAMES = ("pix", "smp", "dep", "al", "ox", "oy", "oz", "dx", "dy", "dz",
                "tm", "rr", "rg", "rb", "tr", "tg", "tb")
 
 
-def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
-                    n_mats: int, n_targets: int, t_min: float,
-                    has_motion: bool, use_prim_albedo: bool, n_u: int,
-                    rr_depth, max_depth: int, width: int, bg_kind: int,
-                    with_uv: bool = False):
-    """One wavefront iteration of every lane.  ``lane_in`` is 17 [R]
-    tensors: pix, smp, dep (i32), al (0/1 f32), comps (7), rad (3),
-    thr (3).  ``cam`` is the [24] f32 table of :func:`pack_cam`, ``kt``
-    the [4] i32 table of :func:`pack_kt`.  Returns the 19 [R] outputs
-    comps' (7), rad' (3), thr' (3), alive' (0/1), smp' (i32), dep' (i32),
-    died (0/1), winner index (-1 on a miss), RR scale — with ``with_uv``
-    also the winner's (u, v).
-
-    CPU tensors run :func:`iter_plain`; CUDA tensors launch the kernel
-    (``iter_megakernel.launches`` counts the launches)."""
-    kw = dict(n_prims=n_prims, n_mats=n_mats, n_targets=n_targets,
-              t_min=t_min, has_motion=has_motion,
-              use_prim_albedo=use_prim_albedo, n_u=n_u, rr_depth=rr_depth,
-              max_depth=max_depth, width=width, bg_kind=bg_kind,
-              with_uv=with_uv)
+def _launch_iter(entry, ptbl, mtbl, ttbl, cam, kt, lane_in, bvh, *,
+                 n_prims, n_mats, n_targets, t_min, has_motion,
+                 use_prim_albedo, n_u, rr_depth, max_depth, width, bg_kind,
+                 with_uv):
+    """Check the arguments of kernel B (``entry`` rt_iter) or of its mesh
+    variant (rt_iter_bvh, with ``bvh``) and launch it."""
     dev = lane_in[0].device
-    if dev.type == "cpu":
-        return iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, **kw)
     if dev.type != "cuda":
         raise ValueError(f"iter_megakernel: unsupported device {dev}")
     if len(lane_in) != N_LANE_IN:
@@ -189,7 +191,10 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
         raise ValueError(f"n_u={n_u}: the kernel draws {N_U} bounce "
                          "uniforms (volume columns: ROADMAP M10)")
     r = lane_in[0].shape[0]
-    check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, dev)
+    check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, dev,
+                 max_prims=MAX_SMEM_PRIMS if bvh is None else MAX_DENSE_PRIMS)
+    if bvh is not None:
+        check_bvh(bvh, n_prims, dev)
     check_lanes(zip(_LANE_NAMES[:3], lane_in[:3]), r, dev, torch.int32)
     check_lanes(zip(_LANE_NAMES[3:], lane_in[3:]), r, dev)
     check_lanes([("cam", cam)], N_CAM, dev)
@@ -201,14 +206,70 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
     args = _IterArgs(
         *(x.data_ptr() for x in (ptbl, mtbl, ttbl, cam, kt) + tuple(lane_in)
           + (outf, outi)),
+        *((None, None) if bvh is None
+          else (bvh.nodes.data_ptr(), bvh.leaf_rows.data_ptr())),
         r, n_prims, n_mats, n_targets, int(has_motion),
         int(use_prim_albedo), n_u, -1 if rr_depth is None else int(rr_depth),
-        max_depth, width, bg_kind, int(with_uv), float(t_min))
-    launch("rt_iter", args, dev)
-    iter_megakernel.launches += 1
+        max_depth, width, bg_kind, int(with_uv),
+        0 if bvh is None else bvh.n_nodes, float(t_min))
+    launch(entry, args, dev)
     f = outf.unbind(0)
     out = f[:14] + (outi[0], outi[1]) + f[14:17]
     return out + f[17:19] if with_uv else out
 
 
+def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
+                    n_mats: int, n_targets: int, t_min: float,
+                    has_motion: bool, use_prim_albedo: bool, n_u: int,
+                    rr_depth, max_depth: int, width: int, bg_kind: int,
+                    with_uv: bool = False, use_ap: bool = False, bvh=None):
+    """One wavefront iteration of every lane.  ``lane_in`` is 17 [R]
+    tensors: pix, smp, dep (i32), al (0/1 f32), comps (7), rad (3),
+    thr (3).  ``cam`` is the [24] f32 table of :func:`pack_cam`, ``kt``
+    the [4] i32 table of :func:`pack_kt`.  Returns the 19 [R] outputs
+    comps' (7), rad' (3), thr' (3), alive' (0/1), smp' (i32), dep' (i32),
+    died (0/1), winner index (-1 on a miss), RR scale — with ``with_uv``
+    also the winner's (u, v).  ``use_ap`` (:func:`resolve_use_ap`) takes
+    the mesh variant, :func:`iter_mega_ap`, over the table's ``bvh``.
+
+    CPU tensors run :func:`iter_plain`; CUDA tensors launch the kernel
+    (``iter_megakernel.launches`` counts the launches of the flat-scan
+    kernel)."""
+    kw = dict(n_prims=n_prims, n_mats=n_mats, n_targets=n_targets,
+              t_min=t_min, has_motion=has_motion,
+              use_prim_albedo=use_prim_albedo, n_u=n_u, rr_depth=rr_depth,
+              max_depth=max_depth, width=width, bg_kind=bg_kind,
+              with_uv=with_uv)
+    if lane_in[0].device.type == "cpu":
+        return iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, use_ap=use_ap,
+                          **kw)
+    if use_ap:
+        return iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, bvh=bvh,
+                            **kw)
+    out = _launch_iter("rt_iter", ptbl, mtbl, ttbl, cam, kt, lane_in, None,
+                       **kw)
+    iter_megakernel.launches += 1
+    return out
+
+
 iter_megakernel.launches = 0
+
+
+def iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, *, bvh, **kw):
+    """The mesh variant of :func:`iter_megakernel` on CUDA tensors
+    (``iter_kernel.py:_iter_mega_ap``): the intersect stage walks ``bvh``
+    over the table in global memory (``rt_iter_bvh``;
+    ``iter_mega_ap.launches`` counts the launches).  CPU tensors run
+    :func:`iter_plain` with ``use_ap=True``."""
+    if lane_in[0].device.type == "cpu":
+        return iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, use_ap=True,
+                          **kw)
+    if bvh is None:
+        raise ValueError("iter_mega_ap: needs the table's BVH (pack_bvh)")
+    out = _launch_iter("rt_iter_bvh", ptbl, mtbl, ttbl, cam, kt, lane_in,
+                       bvh, **kw)
+    iter_mega_ap.launches += 1
+    return out
+
+
+iter_mega_ap.launches = 0

@@ -8,7 +8,11 @@ For the Cornell box at 600 x 600, depth 50, and each of four runs (the
 forward ``render_accumulate`` with seed 1 at 200 spp exact, at 200 spp
 with Russian roulette from depth 2 and at 1 spp through the fused branch;
 the fwd+bwd ``loss_and_grads`` of ``testing.FWD_BWD``, bench.py's
-configuration) it
+configuration), and for the bunny stand-in (``testing.bunny_standin_scene``,
+4,992 rows, 600 x 600, depth 10) the split forward at 100 spp exact
+(``scenes/bunny_test.py``'s sample count) and the mesh fwd+bwd of
+``testing.MESH_FWD_BWD`` (``tools/prof_bunny_grad.py``'s configuration),
+it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -18,6 +22,9 @@ configuration) it
    device operations per iteration, their summed device time, the
    device's busy share of the best unprofiled wall, the host's kernel
    launch calls, and the device operations that take the most time.
+
+The iteration count is the number of forward kernel launches (kernel A
+or B, or the nearest-hit kernel and the mesh iteration kernel).
 
 The profiler's table of device operations goes to
 ``chiprun_out/profile_<estimator>.txt`` in the checkout; the last line is
@@ -58,10 +65,14 @@ def main() -> None:
     from .core import rng
     from .diff.gradients import loss_and_grads, partition
     from .ops._build import load_library
+    from .ops.allpairs_kernel import allpairs_nearest_record
     from .ops.bounce_kernel import bounce_megakernel
-    from .ops.iter_kernel import iter_megakernel
+    from .ops.iter_kernel import iter_mega_ap, iter_megakernel
     from .render.render import render_accumulate
-    from .testing import FWD_BWD, cornell_scene_and_settings, fwd_bwd_pixels
+    from .testing import (
+        FWD_BWD, MESH_FWD_BWD, bunny_standin_scene,
+        cornell_scene_and_settings, fwd_bwd_pixels,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -75,35 +86,41 @@ def main() -> None:
     n_pix = s.image_width * s.image_height
     OUT_DIR.mkdir(exist_ok=True)
 
-    params, statics = partition(scene)
-    fb_pix = fwd_bwd_pixels(n_pix, FWD_BWD["lanes"]).to(dev)
-    fb_target = torch.zeros((FWD_BWD["lanes"], 3), device=dev)
+    mesh, s_m = bunny_standin_scene(600, 100, 10, device=dev)
+    forward_kernels = (bounce_megakernel, iter_megakernel,
+                       allpairs_nearest_record, iter_mega_ap)
 
-    def fwd_bwd():
-        loss_and_grads(params, statics, s.replace(rr_depth=2),
-                       rng.base_key(0, dev), fb_pix, fb_target,
-                       spp=FWD_BWD["spp"], n_iters=FWD_BWD["n_iters"],
-                       remat=False, schedule=FWD_BWD["schedule"])
+    def fwd_bwd(sc, settings, cfg):
+        params, statics = partition(sc)
+        pix = fwd_bwd_pixels(n_pix, cfg["lanes"]).to(dev)
+        target = torch.zeros((cfg["lanes"], 3), device=dev)
+        return lambda: loss_and_grads(
+            params, statics, settings.replace(rr_depth=cfg["rr_depth"]),
+            rng.base_key(0, dev), pix, target, spp=cfg["spp"],
+            n_iters=cfg["n_iters"], remat=False, schedule=cfg["schedule"])
 
     def run(fn):
-        a0, b0 = bounce_megakernel.launches, iter_megakernel.launches
+        before = [k.launches for k in forward_kernels]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        iters = (bounce_megakernel.launches - a0
-                 + iter_megakernel.launches - b0)
+        iters = sum(k.launches - b for k, b in zip(forward_kernels, before))
         return time.perf_counter() - t0, iters
 
-    def fwd(settings, spp):
-        return lambda: render_accumulate(scene, settings, seed=1, spp=spp)
+    def fwd(sc, settings, spp):
+        return lambda: render_accumulate(sc, settings, seed=1, spp=spp)
 
     report = {"device": smi, "estimators": {}}
     for name, fn, rays in (
-            ("exact", fwd(s, 200), n_pix * 200),
-            ("rr2", fwd(s.replace(rr_depth=2), 200), n_pix * 200),
-            ("spp1", fwd(s, 1), n_pix),
-            ("fwd_bwd", fwd_bwd, FWD_BWD["lanes"] * FWD_BWD["spp"])):
+            ("exact", fwd(scene, s, 200), n_pix * 200),
+            ("rr2", fwd(scene, s.replace(rr_depth=2), 200), n_pix * 200),
+            ("spp1", fwd(scene, s, 1), n_pix),
+            ("fwd_bwd", fwd_bwd(scene, s, FWD_BWD),
+             FWD_BWD["lanes"] * FWD_BWD["spp"]),
+            ("mesh_fwd", fwd(mesh, s_m, 100), n_pix * 100),
+            ("mesh_fwd_bwd", fwd_bwd(mesh, s_m, MESH_FWD_BWD),
+             MESH_FWD_BWD["lanes"] * MESH_FWD_BWD["spp"])):
         walls = []
         for _ in range(REPS):
             wall, iters = run(fn)

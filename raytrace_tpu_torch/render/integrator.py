@@ -10,9 +10,15 @@ finished path adds its radiance into the image.
   the launch and traces its samples one after another.  With ``rotate_k >
   1`` a lane rotates through ``k`` pixels spread over the image; the body
   is then torch glue (RNG, camera, regeneration, Russian roulette, flush)
-  around kernel A.  With ``rotate_k == 1`` the whole body is kernel B.
+  around the bounce.  With ``rotate_k == 1`` the whole body is kernel B.
 * :func:`trace_wavefront` — a work queue refills dead lanes with the next
-  (pixel, sample); kernel A does the bounce.
+  (pixel, sample) around the bounce.
+
+The bounce is kernel A for tables of at most 512 rows
+(:func:`bounce_mega_soa`).  Mesh-scale tables (kind-segmented, up to
+65,536 rows) take the split path (:func:`bounce_split_soa`): the nearest
+hit record over the table's BVH (``ops/allpairs_kernel.py``), the exact
+sphere uv in torch, then the shade kernel (``shade_megakernel``).
 
 Every random draw is a pure function of (pixel, sample, depth, column), so
 every driver and every ``rotate_k`` traces the same samples.  The loop
@@ -27,12 +33,15 @@ thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
   completion phases.  It keeps the carries as tuples of [R] tensors, as
   the JAX package does.
 
-The generic bounce (for scenes neither kernel takes), the bounded-depth
-``trace`` and the sorted driver are ROADMAP M4, M6b and M8.
+The generic bounce (for scenes neither path takes), the bounded-depth
+``trace``, the sorted driver (tables of 8192 rows and more), the BVH
+accelerator mode beyond 65,536 rows and media are ROADMAP M4, M6b, M8
+and M10.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -41,17 +50,23 @@ from ..core import rng
 from ..core.vecmath import DTYPE
 from ..diff.fused_iter import fused_iter_eligible, fused_iter_fwd_step
 from ..materials.materials import MaterialTable
-from ..ops.bounce_kernel import (
-    MAX_MAT_ROWS, MAX_TARGETS, N_U, bounce_megakernel, pack_behaviors,
-    pack_materials, pack_targets,
+from ..ops.allpairs_kernel import (
+    DeviceBVH, allpairs_nearest_record, pack_bvh,
 )
-from ..ops.intersect_kernel import MAX_SMEM_PRIMS, pack_prims
+from ..ops.bounce_kernel import (
+    MAX_MAT_ROWS, MAX_SHADE_MATS, MAX_TARGETS, N_U, bounce_megakernel,
+    pack_behaviors, pack_materials, pack_targets, shade_megakernel,
+)
+from ..ops.intersect_kernel import MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims
 from ..scene.types import Scene
 from ..textures.textures import TEX_CHECKER, TEX_CONSTANT
 from .camera import CameraSettings, camera_frame, camera_table, rays_from_table
 
 _N_BASE_U = 8       # bounce uniform columns (+ one per volume in JAX)
 LANE_ALIGN = 128    # lane-pool alignment; keeps lane->pixel maps as JAX's
+# row cap of the fused differentiable driver (kernel B and its mesh
+# variant forward, K5 backward)
+MEGA_MAX_PRIMS = 8192
 
 
 def n_bounce_uniforms(scene: Scene) -> int:
@@ -81,13 +96,14 @@ def _russian_roulette(s: CameraSettings, u_rr, depth, thr, alive, died):
     return thr * scale, alive & ~kill, died | (alive & kill)
 
 
-def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
-    """Why kernel A cannot take this scene (with the ROADMAP item that
-    will cover it), or None."""
+def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
+                   max_rows: int):
+    """Why kernels A and B (at most ``max_rows`` rows) cannot take this
+    scene (with the ROADMAP item that will cover it), or None."""
     rows = scene.prims.kind.shape[0]
-    if rows > MAX_SMEM_PRIMS:
-        return (f"{rows} primitive rows: the render kernels take at most "
-                f"{MAX_SMEM_PRIMS} (mesh-scale intersect: ROADMAP K9/M8)")
+    if rows > max_rows:
+        return (f"{rows} primitive rows: the kernels take at most "
+                f"{max_rows} here (mesh scale: ROADMAP M8)")
     m = scene.materials
     n_rows = m.n_behaviors if m.n_behaviors > 0 else m.kind.shape[0]
     if not set(scene.textures.kinds_present) <= {TEX_CONSTANT, TEX_CHECKER}:
@@ -108,6 +124,45 @@ def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     return None
 
 
+def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
+    """Why kernel A (at most 512 rows) cannot take this scene, or None."""
+    return _kernel_reason(scene, s, n_rays, MAX_SMEM_PRIMS)
+
+
+def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
+    """Why the split path (nearest kernel + shade kernel) cannot take this
+    scene (with its ROADMAP item), or None: it takes kind-segmented tables
+    of up to 65,536 rows, up to 24 materials and 8 redirect targets,
+    constant and checker textures.  The shade kernel's part is the JAX
+    package's ``fused_shade_eligible``."""
+    p, m = scene.prims, scene.materials
+    rows = p.kind.shape[0]
+    if p.kind_segments is None:
+        return (f"an unsegmented table of {rows} rows: the nearest kernel "
+                "of small tables is not ported yet (ROADMAP K8)")
+    if rows > MAX_DENSE_PRIMS:
+        return (f"{rows} primitive rows: past {MAX_DENSE_PRIMS} the BVH "
+                "accelerator mode is not ported yet (ROADMAP M8)")
+    if m.kind.shape[0] > MAX_SHADE_MATS:
+        return (f"{m.kind.shape[0]} materials: the shade kernel takes at "
+                f"most {MAX_SHADE_MATS} (generic bounce: ROADMAP M4)")
+    if s.n_redirect > MAX_TARGETS:
+        return (f"{s.n_redirect} redirect targets: the shade kernel takes "
+                f"at most {MAX_TARGETS} (generic bounce: ROADMAP M4)")
+    if not set(m.light_tex_kinds) <= {TEX_CONSTANT, TEX_CHECKER}:
+        return ("lights with image, noise, marble or custom textures are "
+                "not ported yet (ROADMAP M9)")
+    if not set(scene.textures.kinds_present) <= {TEX_CONSTANT, TEX_CHECKER}:
+        return ("the split path's rich-texture albedo multiply is not "
+                "ported yet (ROADMAP M9)")
+    if p.sphere_rots:
+        return ("rotated uv-textured spheres need object-space uv "
+                "(ROADMAP M11)")
+    if n_rays % LANE_ALIGN:
+        return f"{n_rays} lanes: not a multiple of {LANE_ALIGN}"
+    return None
+
+
 def bounce_kernel_eligible(scene: Scene, s: CameraSettings,
                            n_rays: int) -> bool:
     """Static check for kernel A (the forward cap of the JAX package's
@@ -115,12 +170,6 @@ def bounce_kernel_eligible(scene: Scene, s: CameraSettings,
     redirect targets and 16 material behaviours, lanes a multiple of
     128."""
     return _ineligible_reason(scene, s, n_rays) is None
-
-
-def _require_kernel(scene: Scene, s: CameraSettings, n_rays: int):
-    reason = _ineligible_reason(scene, s, n_rays)
-    if reason is not None:
-        raise NotImplementedError(f"render: {reason}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +250,103 @@ def bounce_mega_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     return res + (outs[14].to(torch.int32),) if with_idx else res
 
 
+@dataclasses.dataclass(frozen=True)
+class SplitTables:
+    """Packed tables and static parameters of the split path for one scene
+    and camera: the prim table with per-material ids, its BVH, the
+    material rows (not behaviours) and the targets."""
+    ptbl: torch.Tensor
+    mtbl: torch.Tensor
+    ttbl: torch.Tensor
+    bvh: DeviceBVH
+    n_prims: int
+    n_mats: int
+    n_targets: int
+    has_motion: bool
+    t_min: float
+
+
+def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
+    """Pack the split path's tables and build the table's BVH (once per
+    driver call)."""
+    dev = scene.device
+    p = scene.prims
+    n_prims = _n_scan_prims(p)
+    return SplitTables(
+        ptbl=pack_prims(p).contiguous(),
+        mtbl=pack_materials(scene.materials, scene.textures).to(dev)
+        .contiguous(),
+        ttbl=pack_targets(s.redirect_prob, s.redirect_q, s.redirect_u,
+                          s.redirect_v).to(dev).contiguous(),
+        bvh=pack_bvh(p, n_prims), n_prims=n_prims,
+        n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
+        has_motion=p.has_motion, t_min=float(np.float32(s.t_min)))
+
+
+def surface_hit(tb: SplitTables, o, d, time):
+    """The nearest hit record of every lane (``o``, ``d`` [3, R], ``time``
+    [R]) through the nearest-hit kernel, with the exact sphere uv from
+    the outward normal computed here in torch, as the JAX package's
+    ``_surface_hit`` does after its all-pairs kernel.  Returns the 10
+    [R] f32 hit columns of ``shade_megakernel`` (sphere flag 0: the uv is
+    final)."""
+    t, idx, nx, ny, nz, flags, uu, vv, mat = allpairs_nearest_record(
+        tb.ptbl, tb.bvh, o[0], o[1], o[2], d[0], d[1], d[2], time,
+        n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    front = (flags & 1) > 0
+    is_sphere = (flags & 2) > 0
+    flip = torch.where(front, 1.0, -1.0)
+    owx, owy, owz = nx * flip, ny * flip, nz * flip
+    xz_ok = owx ** 2 + owz ** 2 > 1e-12
+    sx = torch.where(xz_ok, owx, 0.0)
+    sz = torch.where(xz_ok, owz, 1.0)
+    su = torch.atan2(sx, sz) / (2.0 * math.pi) + 0.5
+    sv = torch.arccos(torch.clamp(-owy, -1.0 + 1e-6, 1.0 - 1e-6)) / math.pi
+    return (t, idx.to(DTYPE), nx, ny, nz, front.to(DTYPE),
+            torch.where(is_sphere, su, uu), torch.where(is_sphere, sv, vv),
+            mat.to(DTYPE), torch.zeros_like(t))
+
+
+def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
+                     thr, alive, tables: SplitTables):
+    """One bounce of every lane through the split path (the JAX package's
+    ``bounce`` with its all-pairs intersect and ``_fused_shade_bounce``):
+    the nearest-hit kernel, the sphere uv, then the shade kernel.  The
+    arguments and results are those of :func:`bounce_mega_soa`."""
+    tb = tables
+    # dead lanes carry stale rays: park them far outside the scene
+    o = torch.where(alive, comps[0:3], 3e18)
+    d = comps[3:6]
+    hit = surface_hit(tb, o, d, comps[6])
+    lanes = (o[0], o[1], o[2], d[0], d[1], d[2], thr[0], thr[1], thr[2],
+             alive.to(DTYPE))
+    outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, None, lanes,
+                            uniforms[:N_U], n_mats=tb.n_mats,
+                            n_targets=tb.n_targets, has_medium=False)
+    new_comps = torch.stack(outs[0:6] + (comps[6],))
+    thr_new = torch.stack(outs[6:9])
+    alive_new = outs[12] > 0.5
+    miss = outs[13] > 0.5
+    bg = s.background(o.T, d.T).to(DTYPE).T
+    rad_new = rad + torch.where(miss, thr * bg, 0.0) + torch.stack(outs[9:12])
+    return new_comps, rad_new, thr_new, alive_new, alive & ~alive_new
+
+
+def _bounce_step(scene: Scene, s: CameraSettings, n_rays: int):
+    """``(bounce, tables)`` of the forward drivers for this scene: kernel
+    A's :func:`bounce_mega_soa`, or for tables over 512 rows the split
+    path's :func:`bounce_split_soa`, with their tables packed once; raise,
+    naming the ROADMAP item, if neither takes the scene."""
+    reason = _ineligible_reason(scene, s, n_rays)
+    if reason is None:
+        return bounce_mega_soa, bounce_tables(scene, s)
+    if scene.prims.kind.shape[0] > MAX_SMEM_PRIMS:
+        reason = _split_ineligible_reason(scene, s, n_rays)
+        if reason is None:
+            return bounce_split_soa, split_tables(scene, s)
+    raise NotImplementedError(f"render: {reason}")
+
+
 def _init_comps(lanes: int, device):
     comps = torch.zeros((7, lanes), dtype=DTYPE, device=device)
     comps[5] = 1.0      # dummy unit direction (0, 0, 1)
@@ -220,8 +366,7 @@ def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
     if acc is None:
         acc = torch.zeros((n_pix, 3), dtype=DTYPE, device=dev)
     lanes = min(n_lanes, -(-total_work // LANE_ALIGN) * LANE_ALIGN)
-    _require_kernel(scene, s, lanes)
-    tables = bounce_tables(scene, s)
+    bounce_fn, tables = _bounce_step(scene, s, lanes)
     base_key = base_key.to(dev)
 
     acc3 = torch.zeros((3, n_pix), dtype=DTYPE, device=dev)
@@ -259,7 +404,7 @@ def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
         new_comps = rays_from_table(cam, s.image_width, pixel,
                                     uniforms[n_u:n_u + 5])
         comps = torch.where(can, new_comps, comps)
-        comps, rad, thr, alive, died = bounce_mega_soa(
+        comps, rad, thr, alive, died = bounce_fn(
             scene, s, comps, uniforms, rad, thr, alive, tables=tables)
         depth = depth + 1
         capped = alive & (depth >= s.max_depth)
@@ -294,7 +439,6 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     cam = camera_table(s, camera_frame(s))
     if acc is None:
         acc = torch.zeros((n_pix, 3), dtype=DTYPE, device=dev)
-    _require_kernel(scene, s, lanes)
     base_key = base_key.to(dev)
     last_sample = sample_offset + spp - 1
 
@@ -308,6 +452,9 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     lane_ids = torch.arange(lanes, dtype=torch.int32, device=dev)
     base_pixel = pixel_offset + torch.clamp(lane_ids, max=n_pix - 1)
 
+    # the forward's fused branch takes kernel A's tables (at most 512
+    # rows, the JAX package's forward cap); larger tables take the split
+    # bounce below
     if k_rot == 1 and fused_iter_eligible(scene, s, lanes):
         # the whole body is kernel B + the accumulation add
         step = fused_iter_fwd_step(scene, s, base_key, spp, sample_offset)
@@ -336,7 +483,7 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
             maps = [pixel_offset + torch.clamp(
                         (lane_ids + cc * stride) % lanes, max=n_pix - 1)
                     for cc in range(k_rot)]
-        tables = bounce_tables(scene, s)
+        bounce_fn, tables = _bounce_step(scene, s, lanes)
         comps = _init_comps(lanes, dev)
         rad = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
         thr = torch.ones((3, lanes), dtype=DTYPE, device=dev)
@@ -371,7 +518,7 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
             new_comps = rays_from_table(cam, s.image_width, lane_pixel,
                                         uniforms[n_u:n_u + 5])
             comps = torch.where(can, new_comps, comps)
-            comps, rad, thr, alive, died = bounce_mega_soa(
+            comps, rad, thr, alive, died = bounce_fn(
                 scene, s, comps, uniforms, rad, thr, alive, tables=tables)
             depth = depth + 1
             capped = alive & (depth >= s.max_depth)

@@ -4,7 +4,10 @@
 samples into chunks, and hands each to a wavefront driver: the
 pixel-stationary one for bands of 16384 pixels and more, the work queue
 otherwise.  Samples keep their absolute (pixel, sample) coordinates, so
-the image does not depend on how the work is cut.
+the image does not depend on how the work is cut (nor on the lane ->
+pixel map, so the JAX package's tile-ordered maps are not needed).
+Stationary renders of tables of ``SORT_MIN_PRIMS`` rows and more belong
+to the sorted driver, which is not ported yet (ROADMAP M8).
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ from .integrator import trace_wavefront, trace_wavefront_stationary
 
 # below this many pixels the stationary scheduler cannot fill its lanes
 _STATIONARY_MIN_PIXELS = 16384
+# from this many rows the JAX package renders with the sorted driver
+SORT_MIN_PRIMS = 8192
 
 
 def rotate_k_for(n_s: int) -> int:
@@ -27,6 +32,22 @@ def rotate_k_for(n_s: int) -> int:
         if n_s % k == 0:
             return k
     return 1
+
+
+def _stationary_fn(scene: Scene, settings: CameraSettings, key, n_pix: int,
+                   spp: int, sample_offset: int, rotate_k: int,
+                   pixel_offset: int):
+    """One band and sample chunk of a stationary render: the
+    pixel-stationary driver, or the sorted driver for tables of
+    ``SORT_MIN_PRIMS`` rows and more."""
+    rows = scene.prims.kind.shape[0]
+    if rows >= SORT_MIN_PRIMS:
+        raise NotImplementedError(
+            f"render: {rows} primitive rows take the sorted wavefront "
+            "driver, which is not ported yet (ROADMAP M8)")
+    return trace_wavefront_stationary(
+        scene, settings, key, n_pix, spp, sample_offset=sample_offset,
+        rotate_k=rotate_k, pixel_offset=pixel_offset)
 
 
 def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
@@ -78,9 +99,8 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
         if stationary:
             rot = rotate_k_for(n_s)
             for off, bp in bands:
-                acc[off:off + bp] += trace_wavefront_stationary(
-                    scene, settings, key, bp, n_s, sample_offset=s0,
-                    rotate_k=rot, pixel_offset=off)
+                acc[off:off + bp] += _stationary_fn(
+                    scene, settings, key, bp, n_s, s0, rot, off)
         else:
             acc = trace_wavefront(scene, settings, key, n_pix, n_s,
                                   min(n_lanes, n_pix * n_s), acc,

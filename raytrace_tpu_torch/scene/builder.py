@@ -2,8 +2,10 @@
 
 A lightweight Python node tree that :func:`..scene.compile.compile_scene`
 flattens into tensors.  Materials attach with ``with_material(mat, geom)``;
-the outermost attachment wins for every leaf below it.  Meshes, media and
-the BVH accelerator are not in the port yet and raise (ROADMAP M8, M10).
+the outermost attachment wins for every leaf below it.  Triangle meshes
+(:class:`Mesh`, :func:`triangle_mesh`) compile to triangle rows of the
+dense table; media and the BVH accelerator mode are not in the port yet
+and raise (ROADMAP M10, M8).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from ..materials.materials import Material
 from .types import PRIM_BOX, PRIM_PARALLELOGRAM, PRIM_SPHERE, PRIM_TRIANGLE
 
 __all__ = [
-    "Geom", "sphere", "spheres", "parallelogram", "triangle", "cuboid",
+    "Geom", "Mesh", "sphere", "spheres", "parallelogram", "triangle", "cuboid",
     "cuboids", "group", "transform", "moving", "constant_medium",
     "with_material", "triangle_mesh", "bvh_tree", "translate", "rotate_x",
     "rotate_y", "rotate_z", "scale", "compose",
@@ -171,9 +173,43 @@ def with_material(material: Material, geom: Geom) -> Geom:
     return WithMaterial(material, geom)
 
 
-def triangle_mesh(mesh) -> Geom:
-    raise NotImplementedError(
-        "triangle_mesh: meshes are not ported yet (ROADMAP M8)")
+@dataclasses.dataclass
+class Mesh:
+    """Indexed triangle mesh: vertex positions [V, 3], texture coordinates
+    [T, 2], faces [F, 3] of vertex indices, and ``uv_faces`` [F, 3] of
+    indices into ``uv`` (-1 for the default corner uvs)."""
+    vertices: np.ndarray
+    uv: np.ndarray
+    faces: np.ndarray
+    uv_faces: np.ndarray
+
+    def transform_vertices(self, matrix) -> "Mesh":
+        """Apply a 4x4 affine to every vertex."""
+        m = np.asarray(matrix, np.float64).reshape(4, 4)
+        v = self.vertices @ m[:3, :3].T + m[:3, 3]
+        return dataclasses.replace(self, vertices=v)
+
+    def bounding_box(self):
+        return self.vertices.min(0), self.vertices.max(0)
+
+
+def triangle_mesh(mesh: Mesh) -> Geom:
+    """A mesh as a batch of triangle primitives.  Missing uv indices
+    default to (0, 0) / (1, 0) / (0, 1)."""
+    verts = np.asarray(mesh.vertices, np.float64)
+    faces = np.asarray(mesh.faces, np.int64)
+    p = verts[faces]                      # [F, 3, 3]
+    default_uvs = np.asarray([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
+    uvf = np.asarray(mesh.uv_faces, np.int64)
+    if mesh.uv.size:
+        uvs = np.where((uvf >= 0)[..., None],
+                       np.asarray(mesh.uv, np.float64)[np.clip(uvf, 0, None)],
+                       default_uvs[None])
+    else:
+        uvs = np.broadcast_to(default_uvs[None],
+                              (faces.shape[0], 3, 2)).copy()
+    return PrimBlock(PRIM_TRIANGLE, p[:, 0], p[:, 1] - p[:, 0],
+                     p[:, 2] - p[:, 0], uvs)
 
 
 def translate(v) -> np.ndarray:

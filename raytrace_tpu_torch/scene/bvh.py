@@ -1,8 +1,9 @@
 """Host-side median-split BVH (``raytrace_tpu/scene/bvh.py``), numpy only.
 
 Dense scenes use its primitive permutation to order their rows spatially,
-so the packed tables match the JAX package's row for row; the flat
-threaded node list is what a later BVH traversal kernel reads.
+so the packed tables match the JAX package's row for row; its flat
+threaded node list, built over the packed rows, is what the nearest-hit
+kernel walks (``ops/allpairs_kernel.py:pack_bvh``).
 """
 from __future__ import annotations
 

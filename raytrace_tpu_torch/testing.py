@@ -7,20 +7,32 @@
   ``tests/test_bounce_kernel.py``; :func:`box_motion_scene` adds
   axis-aligned boxes (``PRIM_BOX`` rows), motion and the isotropic and
   anisotropic materials.
+* Meshes: :func:`bunny_standin_scene`, a procedural stand-in of the
+  Stanford bunny's size (4,968 triangles, 4,992 rows) with the bunny
+  scene's material and camera; :func:`mesh_all_kinds_scene`, a height
+  field of triangles with sphere, box and parallelogram rows of several
+  materials (the scene of ``tests/test_lane_replay.py:_scene_mesh`` plus
+  a box), optionally with the extras moving; :func:`uv_sphere`.  The
+  ``*_world`` builders take the builder module as an argument, so the
+  tests build the same scene with the JAX package.
 * :data:`FWD_BWD` is the fwd+bwd configuration of ``bench.py`` and
-  :func:`fwd_bwd_pixels` its lanes.
+  :func:`fwd_bwd_pixels` its lanes; :data:`MESH_FWD_BWD` the mesh
+  configuration of ``tools/prof_bunny_grad.py``.
 * :func:`bounce_inputs`, :func:`primary_bounce_inputs`,
   :func:`next_bounce_inputs`, :func:`iter_state` and :func:`fresh_carry`
   make lane inputs for the kernels: random ones from a numpy seed, or the
   ones the stationary driver gives them.
-* :func:`compare_bounce`, :func:`compare_iter`, :func:`compare_bwd` and
+* :func:`compare_bounce`, :func:`compare_iter`, :func:`compare_bwd`,
+  :func:`compare_nearest`, :func:`compare_shade` and
   :func:`checked_launches` hold each kernel against its plain version on
   the same inputs; :func:`bwd_inputs` makes K5's arguments from a real
-  mid-render state and :func:`plain_backward` forces the fused
-  iteration's backward onto K5's plain version.
+  mid-render state, :func:`plain_backward` forces the fused iteration's
+  backward onto K5's plain version and :func:`plain_kernels` forward and
+  backward onto the plain versions.
 
-Tolerances: alive/miss/winner index (and sample/depth/died for kernel B)
-equal on every lane; floats within ``ATOL + RTOL * |plain|``
+Tolerances: alive/miss/winner index (and sample/depth/died for kernel B,
+winner index, flags and material for the nearest kernel) equal on every
+lane; floats within ``ATOL + RTOL * |plain|``
 (``tests/test_bounce_kernel.py``).  K5 against its plain version: every
 gradient within ``BWD_RTOL * (|plain| + max|plain| over its output +
 max|plain| over its lane)``.  The forward replay rounds alike
@@ -45,6 +57,8 @@ FRAC_LANES, MEAN_RTOL = 0.02, 2e-3
 # B's alive, sample, depth, died, winner index
 BOUNCE_INT_ROWS = (12, 13, 14)
 ITER_INT_ROWS = (13, 14, 15, 16, 17)
+# the nearest kernel's winner index, front | sphere << 1 and material
+NEAREST_INT_ROWS = (1, 5, 8)
 
 # K5 vs its plain version (see above)
 BWD_RTOL = 1e-4
@@ -169,6 +183,127 @@ def box_motion_scene(device="cuda"):
                             device=device), s
 
 
+# tools/prof_bunny_grad.py's fwd+bwd on the bunny (here its stand-in) at
+# 600 x 600, depth 10: RR from depth 2, 2^17 lanes (pixels 0 .. 2^17
+# modulo the image) x 16 spp, 30 iterations then 12 at 2^15 and 30 at
+# 2^13 lanes
+MESH_FWD_BWD = dict(rr_depth=2, lanes=1 << 17, spp=16, n_iters=30,
+                    schedule=((12, 1 << 15), (30, 1 << 13)))
+
+
+def uv_sphere(n_lat: int, n_lon: int):
+    """Lat-lon unit sphere: vertices [V, 3] and 2 * n_lon * (n_lat - 1)
+    triangles [F, 3] (the pole quads collapse into single triangles), as
+    ``tools/bench_bigmesh.py:uv_sphere``."""
+    th = np.linspace(0, np.pi, n_lat + 1)
+    ph = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")        # [n_lat+1, n_lon]
+    v = np.stack([np.sin(tt) * np.cos(pp), np.cos(tt),
+                  np.sin(tt) * np.sin(pp)], -1).reshape(-1, 3)
+    vid = np.arange((n_lat + 1) * n_lon).reshape(n_lat + 1, n_lon)
+    f = []
+    for i in range(n_lat):
+        a = vid[i]
+        b = vid[i + 1]
+        an = np.roll(a, -1)
+        bn = np.roll(b, -1)
+        if i > 0:
+            f.append(np.stack([a, b, an], -1))
+        if i < n_lat - 1:
+            f.append(np.stack([an, b, bn], -1))
+    return v, np.concatenate(f).astype(np.int64)
+
+
+def bunny_standin_world(rt):
+    """The bunny scene's world with a procedural mesh of the bunny's size:
+    ``uv_sphere(47, 54)`` (4,968 triangles) with each vertex moved to
+    radius 0.9 * (1 + 0.15 sin(5 theta) cos(4 phi)), a non-convex lobed
+    surface that shades itself; no uv; the bunny's blue lambertian.
+    ``rt`` is the builder module (this package or the JAX one)."""
+    v, f = uv_sphere(47, 54)
+    th = np.linspace(0, np.pi, 48)
+    ph = np.linspace(0, 2 * np.pi, 54, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    r = (0.9 * (1.0 + 0.15 * np.sin(5.0 * tt) * np.cos(4.0 * pp))).ravel()
+    mesh = rt.Mesh(vertices=v * r[:, None], uv=np.zeros((0, 2)), faces=f,
+                   uv_faces=np.full_like(f, -1))
+    return rt.with_material(
+        rt.lambertian(rt.constant_texture([0.3, 0.3, 1.0])),
+        rt.triangle_mesh(mesh))
+
+
+def bunny_standin_scene(width: int = 600, spp: int = 16, depth: int = 10,
+                        device="cuda"):
+    """``(scene, settings)``: the stand-in mesh (4,992 rows) under the
+    camera of ``scenes/bunny_test.py`` (center (0, 0.5, 2), looking at the
+    origin, gray fade, depth 10)."""
+    import raytrace_tpu_torch as rt
+    scene = rt.compile_scene(bunny_standin_world(rt), device=device)
+    settings = rt.CameraSettings(
+        center=[0.0, 0.5, 2.0], look_at=[0.0, 0.0, 0.0], image_width=width,
+        samples_per_pixel=spp, max_depth=depth, background=rt.gray_fade)
+    return scene, settings
+
+
+def mesh_all_kinds_world(rt, n_grid: int = 18, moving: bool = False):
+    """A height field of ``2 n_grid^2`` triangles plus a metal sphere, a
+    checker parallelogram, a light, a dielectric sphere and a box (the
+    scene of ``tests/test_lane_replay.py:_scene_mesh`` plus the box); with
+    ``moving`` the extras sit in a ``moving`` block.  ``rt`` is the
+    builder module (this package or the JAX one)."""
+    xs = np.linspace(-3, 3, n_grid + 1)
+    zs = np.linspace(-3, 3, n_grid + 1)
+    xx, zz = np.meshgrid(xs, zs, indexing="ij")
+    yy = 0.4 * np.sin(xx * 1.3) * np.cos(zz * 1.1)
+    v = np.stack([xx, yy, zz], -1).reshape(-1, 3)
+    vid = np.arange((n_grid + 1) ** 2).reshape(n_grid + 1, n_grid + 1)
+    f = []
+    for i in range(n_grid):
+        for j in range(n_grid):
+            a, b = vid[i, j], vid[i + 1, j]
+            c, d = vid[i, j + 1], vid[i + 1, j + 1]
+            f += [[a, b, c], [b, d, c]]
+    mesh = rt.Mesh(vertices=v, uv=np.zeros((0, 2)),
+                   faces=np.asarray(f, np.int64),
+                   uv_faces=np.full((len(f), 3), -1, np.int64))
+    tex_checker = rt.checker_texture(3.0, 4.0, [0.8, 0.2, 0.1],
+                                     [0.1, 0.2, 0.8])
+    extras = [
+        rt.with_material(rt.metal(0.2, rt.constant_texture([0.8, 0.6, 0.4])),
+                         rt.sphere([0.0, 1.5, 0.0], 0.7)),
+        rt.with_material(rt.lambertian(tex_checker),
+                         rt.parallelogram([-4, -2, -4], [8, 0, 0],
+                                          [0, 0, 8])),
+        rt.with_material(rt.light_source(rt.constant_texture([4.0, 3.0, 2.0])),
+                         rt.parallelogram([-1, 4, -1], [2, 0, 0],
+                                          [0, 0, 2])),
+        rt.with_material(rt.dielectric(1.5),
+                         rt.sphere([1.5, 0.8, 1.0], 0.5)),
+        rt.with_material(rt.lambertian(rt.constant_texture([0.3, 0.7, 0.4])),
+                         rt.cuboid([-2.2, -0.3, 1.2], [-1.2, 0.9, 2.2])),
+    ]
+    extras = rt.group(extras)
+    if moving:
+        extras = rt.moving([0.0, 0.0, 0.0], [0.3, 0.2, -0.25], extras)
+    return rt.group([
+        rt.with_material(rt.lambertian(rt.constant_texture([0.7, 0.5, 0.3])),
+                         rt.triangle_mesh(mesh)), extras])
+
+
+def mesh_all_kinds_scene(n_grid: int = 18, moving: bool = False,
+                         width: int = 32, device="cuda"):
+    """``(scene, settings)``: :func:`mesh_all_kinds_world` (n_grid 18:
+    648 triangles, over 512 rows) seen from (0, 2, 8) under the sky,
+    depth 6."""
+    import raytrace_tpu_torch as rt
+    scene = rt.compile_scene(mesh_all_kinds_world(rt, n_grid, moving),
+                             device=device)
+    settings = rt.CameraSettings(
+        center=[0.0, 2.0, 8.0], look_at=[0.0, 0.0, 0.0], image_width=width,
+        max_depth=6, background=rt.sky)
+    return scene, settings
+
+
 def fwd_bwd_pixels(n_pix: int, lanes: int):
     """bench.py's lanes (its first call): pixels ``0 .. lanes`` modulo the
     image."""
@@ -262,8 +397,9 @@ def max_errs(ref, out, int_rows):
         a = ref[k].to(torch.float64)
         b = out[k].to(torch.float64)
         diff = (a - b).abs()
-        # NaN in both is agreement; NaN in one is an infinite error
-        diff = torch.where(a.isnan() & b.isnan(), 0.0,
+        # equal values (infinities too) and NaN in both are agreement;
+        # NaN in one is an infinite error
+        diff = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0,
                            torch.nan_to_num(diff, nan=float("inf")))
         err = max(err, float(diff.max()))
         excess = max(excess, float((diff - (ATOL + RTOL * a.abs())).max()))
@@ -280,16 +416,16 @@ def compare_bounce(tables, lanes):
     return max_errs(ref, out, BOUNCE_INT_ROWS), out
 
 
-def iter_state(n: int, n_pix: int, seed: int, device):
+def iter_state(n: int, n_pix: int, seed: int, device, box=(0.0, 555.0)):
     """A random mid-render lane state for kernel B: lane ``l`` serves pixel
     ``min(l, n_pix - 1)`` as in the stationary driver, plus a random
-    carry."""
+    carry with origins uniform in ``box`` (lo, hi)."""
     rg = np.random.default_rng(seed)
     pix = np.minimum(np.arange(n), n_pix - 1).astype(np.int32)
     smp = rg.integers(-1, 7, n).astype(np.int32)
     dep = rg.integers(0, 9, n).astype(np.int32)
     al = (rg.uniform(size=n) < 0.5).astype(np.float32)
-    o = rg.uniform(0, 555, (3, n)).astype(np.float32)
+    o = rg.uniform(box[0], box[1], (3, n)).astype(np.float32)
     d = rg.normal(size=(3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0)
     tm = np.zeros(n, np.float32)
@@ -310,9 +446,11 @@ def fresh_carry(n: int, device):
     return (zi - 1, zi.clone(), z, z, z, z, z, z, o, z, z, z, z, o, o, o)
 
 
-def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30):
-    """Kernel B against ``iter_plain`` on ``n`` lanes of the image of
-    ``s``: one iteration from a random state, with the winner's uv
+def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30,
+                 box=(0.0, 555.0)):
+    """Kernel B (or, for a mesh-scale table, its mesh variant) against
+    ``iter_plain`` on ``n`` lanes of the image of ``s``: one iteration
+    from a random state (origins in ``box``), with the winner's uv
     (``max_errs``), then ``n_iters`` from a fresh state (fraction of lanes
     whose summed radiance differs by more than 1e-5, relative mean
     difference)."""
@@ -322,7 +460,7 @@ def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30):
     dev = scene.device
     tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev), 7)
     n_pix = s.image_width * s.image_height
-    pix, carry = iter_state(n, n_pix, seed, dev)
+    pix, carry = iter_state(n, n_pix, seed, dev, box)
     lane_in = (pix,) + carry
     ref = iter_plain(*tables, lane_in, with_uv=True, **kw)
     out = iter_megakernel(*tables, lane_in, with_uv=True, **kw)
@@ -342,19 +480,114 @@ def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30):
     return one, frac, mean_rel
 
 
+def camera_rays(scene, s, n: int, seed: int, pixels=None):
+    """``(comps [7, n], uniforms [8, n])``: camera rays of sample 0 of
+    ``n`` pixels (``pixels``, by default spread evenly over the image of
+    ``s``) and their bounce uniforms at depth 0, as the drivers draw
+    them."""
+    from .core import rng
+    from .render.camera import camera_frame, generate_ray_components
+    dev = scene.device
+    n_pix = s.image_width * s.image_height
+    pix = (torch.arange(n, dtype=torch.int64) * n_pix // n
+           if pixels is None else pixels).to(dev, torch.int32)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    keys = rng.mix_depth(rng.ray_keys_fast(rng.base_key(seed, dev), pix,
+                                           zeros), zeros)
+    uni = rng.uniform_cols(keys, 14)
+    comps = generate_ray_components(s, camera_frame(s), pix, uni[8:13])
+    return comps.contiguous(), uni[:8].contiguous()
+
+
+def compare_nearest(tb, comps):
+    """The nearest kernel and ``allpairs_nearest_plain`` on the rays
+    ``comps`` [7, R] over the split tables ``tb``: ``(max_errs(...),
+    kernel outputs)``."""
+    from .ops.allpairs_kernel import (
+        allpairs_nearest_plain, allpairs_nearest_record,
+    )
+    kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    rays = tuple(comps.unbind(0))
+    ref = allpairs_nearest_plain(tb.ptbl, *rays, **kw)
+    out = allpairs_nearest_record(tb.ptbl, tb.bvh, *rays, **kw)
+    return max_errs(ref, out, NEAREST_INT_ROWS), out
+
+
+def synthetic_medium(t, n_mats: int, seed: int):
+    """``(t_med, vmat)``: a medium event nearer than the surface on about
+    a third of the lanes (at 20-100% of the surface distance, or at
+    distance 0.5-3 where the ray misses), none elsewhere; material ids
+    drawn from ``n_mats``."""
+    rg = np.random.default_rng(seed)
+    n = t.shape[0]
+    dev = t.device
+    u = _tensor(rg.uniform(size=n).astype(np.float32), dev)
+    frac = _tensor(rg.uniform(0.2, 1.0, n).astype(np.float32), dev)
+    far = _tensor(rg.uniform(0.5, 3.0, n).astype(np.float32), dev)
+    t_med = torch.where(u < 0.35, torch.where(torch.isfinite(t), t * frac,
+                                              far), float("inf"))
+    vmat = _tensor(rg.integers(0, n_mats, n).astype(np.float32), dev)
+    return t_med, vmat
+
+
+def compare_shade(tb, comps, uniforms, thr, alive, medium=None,
+                  hit=None):
+    """The shade kernel and ``shade_plain`` on the hit record of the rays
+    ``comps`` over the split tables ``tb`` (the nearest kernel's, with
+    the exact sphere uv, unless ``hit`` is given), throughput ``thr``
+    [3, R] and ``alive`` (bool [R]), with the medium events ``medium``
+    or none: ``(max_errs(...), kernel outputs, hit)``.  Dead lanes are
+    parked far away, as the drivers park them."""
+    from .ops.bounce_kernel import shade_megakernel, shade_plain
+    from .render.integrator import surface_hit
+    o = torch.where(alive, comps[0:3], 3e18)
+    if hit is None:
+        hit = surface_hit(tb, o, comps[3:6], comps[6])
+    lanes = (o[0], o[1], o[2], comps[3], comps[4], comps[5], thr[0], thr[1],
+             thr[2], alive.to(torch.float32))
+    kw = dict(n_mats=tb.n_mats, n_targets=tb.n_targets,
+              has_medium=medium is not None)
+    ref = shade_plain(tb.mtbl, tb.ttbl, hit, medium, lanes, uniforms, **kw)
+    out = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes, uniforms,
+                           **kw)
+    return max_errs(ref, out, BOUNCE_INT_ROWS), out, hit
+
+
+def next_split_rays(comps, out, seed: int, depth: int):
+    """The rays, throughput, alive flags and fresh uniforms (depth
+    ``depth``) of the next bounce after the shade outputs ``out`` of the
+    rays ``comps``."""
+    from .core import rng
+    dev = comps.device
+    n = comps.shape[1]
+    alive = out[12] > 0.5
+    nxt = torch.stack(tuple(out[0:6]) + (comps[6],)).contiguous()
+    keys = rng.mix_depth(
+        rng.ray_keys_fast(rng.base_key(seed, dev),
+                          torch.arange(n, dtype=torch.int32, device=dev),
+                          torch.zeros(n, dtype=torch.int32, device=dev)),
+        torch.full((n,), depth, dtype=torch.int32, device=dev))
+    uni = rng.uniform_cols(keys, 8).contiguous()
+    return nxt, uni, torch.stack(out[6:9]), alive
+
+
 @contextlib.contextmanager
 def checked_launches():
-    """Inside the block, every kernel A launch of the render drivers and
-    every kernel B launch of the fused step is followed by its plain
-    version on the same inputs.  Yields ``{kernel name: stats}`` with
-    ``launches`` (checked), ``n_int`` (differing exact-row lanes, summed),
-    ``err`` (max abs float error) and ``excess`` (worst tolerance
-    excess)."""
+    """Inside the block, every kernel A launch of the render drivers,
+    every nearest and shade kernel launch of the split path and every
+    kernel B launch of the fused step is followed by its plain version on
+    the same inputs.  Yields ``{kernel name: stats}`` with ``launches``
+    (checked), ``n_int`` (differing exact-row lanes, summed), ``err``
+    (max abs float error) and ``excess`` (worst tolerance excess)."""
     from .diff import fused_iter
-    from .ops.bounce_kernel import bounce_plain
+    from .ops.allpairs_kernel import allpairs_nearest_plain
+    from .ops.bounce_kernel import bounce_plain, shade_plain
     from .ops.iter_kernel import iter_plain
     from .render import integrator
     stats = {}
+
+    def nearest_plain(tbl, bvh, *rays, **kw):
+        return allpairs_nearest_plain(tbl, *rays, **kw)
 
     def spy(module, name, plain, int_rows):
         kernel = getattr(module, name)
@@ -373,6 +606,9 @@ def checked_launches():
 
     patched = [(integrator, "bounce_megakernel", bounce_plain,
                 BOUNCE_INT_ROWS),
+               (integrator, "allpairs_nearest_record", nearest_plain,
+                NEAREST_INT_ROWS),
+               (integrator, "shade_megakernel", shade_plain, BOUNCE_INT_ROWS),
                (fused_iter, "iter_megakernel", iter_plain, ITER_INT_ROWS)]
     originals = []
     for module, name, plain, rows in patched:
@@ -448,6 +684,22 @@ def compare_bwd(args, kw):
     ref = bounce_bwd_regen_pre_plain(*args, **kw)
     out = bounce_bwd_regen_pre_megakernel(*args, **kw)
     return bwd_errs(ref, out), out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the fused iteration runs the plain versions of
+    kernel B (and its mesh variant) forward and of K5 backward, on any
+    device."""
+    from .diff import fused_iter
+    from .ops.iter_kernel import iter_plain
+    kernel = fused_iter.iter_megakernel
+    fused_iter.iter_megakernel = iter_plain
+    try:
+        with plain_backward():
+            yield
+    finally:
+        fused_iter.iter_megakernel = kernel
 
 
 @contextlib.contextmanager

@@ -11,7 +11,9 @@ backward kernel K5 within ``testing.BWD_RTOL`` of the scale of each
 gradient (``testing.bwd_errs``), and the fwd+bwd with K5 against the same
 with its plain version within ``GRAD_RTOL`` per gradient leaf (the
 per-lane differences of K5, summed by atomic ``index_add_`` in an order
-that changes from run to run).
+that changes from run to run).  The mesh kernels (nearest hit over the
+BVH, shade, kernel B's mesh variant) equal their plain versions exactly
+on every lane.
 """
 import numpy as np
 import pytest
@@ -20,9 +22,10 @@ import torch
 from raytrace_tpu_torch.render.integrator import bounce_tables
 from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, FRAC_LANES, MEAN_RTOL, all_materials_scene,
-    bounce_inputs, box_motion_scene, bwd_inputs, checked_launches,
-    compare_bounce, compare_bwd, compare_iter, cornell_scene_and_settings,
-    plain_backward,
+    bounce_inputs, box_motion_scene, bunny_standin_scene, bwd_inputs,
+    camera_rays, checked_launches, compare_bounce, compare_bwd, compare_iter,
+    compare_nearest, compare_shade, cornell_scene_and_settings,
+    mesh_all_kinds_scene, next_split_rays, plain_backward, synthetic_medium,
 )
 
 pytestmark = pytest.mark.cuda
@@ -156,3 +159,72 @@ def test_fwd_bwd_kernel_matches_plain_backward(device):
         assert np.isfinite(gk[k]).all(), k
         scale = np.abs(gp[k]).max()
         assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
+
+
+def _mesh_case(case, device):
+    if case == "standin":
+        return bunny_standin_scene(128, 4, 10, device=device)
+    return mesh_all_kinds_scene(18, case == "all_kinds_moving", 64,
+                                device=device)
+
+
+@pytest.mark.parametrize("case", ["standin", "all_kinds",
+                                  "all_kinds_moving"])
+def test_mesh_kernels_match_plain(device, case):
+    """The nearest kernel on camera rays and their second bounce, and the
+    shade kernel on the hit records with and without a medium: every
+    output equal to the plain version's on every lane."""
+    from raytrace_tpu_torch.render.integrator import split_tables
+    scene, s = _mesh_case(case, device)
+    tb = split_tables(scene, s)
+    comps, uni = camera_rays(scene, s, 1 << 14, 3)
+    thr = torch.ones((3, comps.shape[1]), device=device)
+    alive = torch.ones(comps.shape[1], dtype=torch.bool, device=device)
+    for depth in (0, 1):
+        (n_int, err, _), _ = compare_nearest(tb, comps)
+        assert n_int == 0 and err == 0.0
+        (n_int, err, _), out, hit = compare_shade(tb, comps, uni, thr, alive)
+        assert n_int == 0 and err == 0.0
+        med = synthetic_medium(hit[0], tb.n_mats, 5)
+        (n_int, err, _), _, _ = compare_shade(tb, comps, uni, thr, alive,
+                                              medium=med, hit=hit)
+        assert n_int == 0 and err == 0.0
+        comps, uni, thr, alive = next_split_rays(comps, out, 3, depth + 1)
+
+
+def test_mesh_iteration_kernel_matches_plain(device):
+    from raytrace_tpu_torch.ops.iter_kernel import iter_mega_ap
+    scene, s = bunny_standin_scene(128, 4, 10, device=device)
+    m0 = iter_mega_ap.launches
+    (n_int, err, excess), frac, mean_rel = compare_iter(
+        scene, s.replace(rr_depth=2), 1 << 14, 3, n_iters=10,
+        box=(-1.0, 1.0))
+    assert iter_mega_ap.launches == m0 + 11
+    assert n_int == 0 and err == 0.0
+    assert frac < FRAC_LANES and mean_rel <= MEAN_RTOL
+
+
+def test_mesh_render_launches_split_kernels(device):
+    """A stationary render of the stand-in runs the nearest and shade
+    kernels once per iteration and never kernel A; at 1 spp every launch
+    equals its plain version."""
+    from raytrace_tpu_torch.ops.allpairs_kernel import (
+        allpairs_nearest_record,
+    )
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.render.render import render_accumulate
+    scene, s = bunny_standin_scene(128, 4, 10, device=device)
+    a0 = bounce_megakernel.launches
+    n0, s0 = allpairs_nearest_record.launches, shade_megakernel.launches
+    acc, _ = render_accumulate(scene, s, 1, spp=4)
+    n_it = allpairs_nearest_record.launches - n0
+    assert n_it > 0 and shade_megakernel.launches - s0 == n_it
+    assert bounce_megakernel.launches == a0
+    assert bool(torch.isfinite(acc).all())
+    with checked_launches() as stats:
+        render_accumulate(scene, s.replace(rr_depth=2), 1, spp=1)
+    for name in ("allpairs_nearest_record", "shade_megakernel"):
+        st = stats[name]
+        assert st["launches"] > 0 and st["n_int"] == 0 and st["err"] == 0.0

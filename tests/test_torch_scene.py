@@ -191,10 +191,22 @@ def test_scan_bound_and_eligibility(pair):
 
 
 def test_unported_features_raise():
-    """Meshes, media, the BVH accelerator and rich textures wait for their
-    ROADMAP items."""
+    """The native .obj parser, stationary renders of 8192 rows and more
+    (the sorted driver), media, the BVH accelerator and rich textures wait
+    for their ROADMAP items."""
+    from raytrace_tpu_torch.scene.obj import parse_obj
+    from raytrace_tpu_torch.testing import uv_sphere
     with pytest.raises(NotImplementedError, match="M8"):
-        trt.scene.builder.triangle_mesh(None)
+        parse_obj("v 0 0 0\n", native=True)
+    v, f = uv_sphere(47, 90)
+    big = trt.compile_scene(trt.with_material(
+        trt.lambertian(trt.constant_texture(0.5)),
+        trt.triangle_mesh(trt.Mesh(v, np.zeros((0, 2)), f,
+                                   np.full_like(f, -1)))), device="cpu")
+    assert big.prims.kind.shape[0] >= 8192
+    with pytest.raises(NotImplementedError, match="M8"):
+        trt.render(big, trt.CameraSettings(image_width=128,
+                                           samples_per_pixel=1))
     with pytest.raises(NotImplementedError, match="M10"):
         trt.scene.builder.constant_medium(0.1, trt.sphere([0, 0, 0], 1))
     with pytest.raises(NotImplementedError, match="M8"):
