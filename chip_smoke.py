@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's render paths once on one GPU: the
 forward render and the differentiable forward + backward, on the Cornell
-box and on a mesh of the Stanford bunny's size.
+box, on a mesh of the Stanford bunny's size and on rich-textured scenes.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -70,14 +70,42 @@ rows, the bunny scene's material, camera, gray fade and depth 10):
     plain versions' and their bounds (the BVH's operation count from the
     nodes and rows each ray visited, counted by the kernel).
 
+Rich textures (image, noise, marble):
+
+19. the flat-scan nearest kernel K8 and the marble kernel K12 against
+    their plain versions on every lane of ``scenes/noise_test.py``'s
+    90,112 camera lanes at 400 x 225 and their second bounce (the ball's
+    hit points with their texture ids), both held to equality;
+20. route 3, the rich forward: ``render_accumulate`` of noise_test at
+    400 x 225, 100 spp, depth 50, seed 0 (the stationary driver, rotate_k
+    5: K8, the shade kernel and K12 every iteration, kernels A and B
+    never), written to chiprun_out/noise_test.png; then a 1 spp render
+    with every launch held against its plain version;
+21. route 4, ``tools/prof_texture_grad.py``'s image-textured fwd+bwd
+    (2^17 lanes x 16 spp, 80 iterations, RR from depth 2; the atlas
+    gradient K13 once per iteration but the last, whose multiply feeds no
+    later radiance) after one warm-up; the same again with every K13
+    launch held against its plain version; at 2^14 lanes the fwd+bwd with
+    every kernel against the one with every plain version; a finite
+    difference of an atlas texel;
+22. the textured bunny stand-in's fwd+bwd (``tools/prof_bunny_tex.py``'s
+    image on the stand-in, ``testing.MESH_FWD_BWD``);
+23. K8's, K12's and K13's times at those shapes (device time per launch
+    from torch.profiler: each is shorter than its wrapper's host cost,
+    which back-to-back CUDA events would time; those are printed too)
+    beside their plain versions', their bounds and, for K13,
+    ``index_put_``'s.
+
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
 chiprun_out/.  Tolerances (``raytrace_tpu_torch/testing.py``): exact rows
 equal on every lane, floats within atol 2e-3 + rtol 1e-3 (the mesh
-kernels, built like the plain versions' arithmetic, are held to
-equality: a max |err| of 0); K5 within ``testing.BWD_RTOL`` of each
+kernels, K8 and K12, built like the plain versions' arithmetic, are held
+to equality: a max |err| of 0); K5 within ``testing.BWD_RTOL`` of each
 gradient's scale (the hand-derived adjoint sums the chain-rule terms in
-another order than autograd).
+another order than autograd); K13 within ``testing.image_grad_errs`` of
+its plain version and of a float64 sum (float atomics add in a varying
+order).
 """
 from __future__ import annotations
 
@@ -110,6 +138,10 @@ MESH_SPP = 16
 # test and a triangle row's test, counted from the sources
 NODE_OPS = 30
 ROW_OPS = 45
+# float operations of one marble lane (csrc/noise.cuh): 7 octaves of 8
+# corners, each a hash, a sine and a cosine (some 20 operations each), a
+# dot and a weight, counted from the source
+MARBLE_OPS = 4600
 
 
 def _smi_line() -> str:
@@ -132,6 +164,30 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time in ms of the launches of ``kernel`` (a substring
+    of its name) over ``reps`` calls of ``fn``, read from torch.profiler:
+    a kernel shorter than its wrapper's host cost leaves the card idle
+    between back-to-back launches, so CUDA events around them would time
+    the host instead."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if len(us) != reps:
+        raise AssertionError(f"{kernel}: {len(us)} profiled launches of "
+                             f"{reps}")
+    return sum(us) / reps / 1e3
 
 
 def _check(label: str, errs, lanes: int) -> float:
@@ -512,9 +568,13 @@ def main() -> None:
     phase_done("K5 time")
 
     mesh = _mesh_phases(smi, phase_done)
+    rich = _rich_phases(smi, phase_done, dev)
+    main_b += rich["iter_launches"]
+    mesh["kernels"][1]["launches"] += rich["shade_launches"]
+    mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
-                      "mesh": mesh["summary"], "build_seconds": build_s}),
-          flush=True)
+                      "mesh": mesh["summary"], "rich": rich["summary"],
+                      "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
         {"name": "bounce_megakernel", "route": "cuda",
@@ -533,10 +593,11 @@ def main() -> None:
          "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
          "replaces":
              "raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:497",
-         "launches": fb_k5 + mesh["k5_launches"], "max_abs_err": err_k5,
+         "launches": fb_k5 + mesh["k5_launches"] + rich["k5_launches"],
+         "max_abs_err": err_k5,
          "ms": ms_k5, "plain_ms": plain_k5, "bound_ms": bound_k5[0],
          "bound_by": bound_k5[1], "library_ms": no_lib},
-    ] + mesh["kernels"]}), flush=True)
+    ] + mesh["kernels"] + rich["kernels"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -872,6 +933,389 @@ def _mesh_phases(smi, phase_done) -> dict:
     summary = dict(route1=runs, route2=fb, bvh_build_s=tb_m.bvh.build_s,
                    visits=dict(nodes=nodes_v, rows=rows_v))
     return dict(summary=summary, k5_launches=r2_k5, kernels=kernels)
+
+
+def _rich_phases(smi, phase_done, dev) -> dict:
+    """Phases 19-23 (rich textures) on ``dev``.  Returns the summary for
+    the JSON line, the launches of the shade kernel, kernel B, its mesh
+    variant and K5 on routes 3 and 4 and the textured mesh, and the
+    ``kernels`` entries of K8, K12 and K13."""
+    import numpy as np
+    import torch
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        finite_difference, loss_and_grads, partition, render_loss_wavefront,
+    )
+    from raytrace_tpu_torch.interop import grads_to_numpy
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel,
+    )
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.ops.image_grad_kernel import (
+        image_grad_pallas, image_grad_plain,
+    )
+    from raytrace_tpu_torch.ops.intersect_kernel import (
+        pallas_nearest_plain, pallas_nearest_record,
+    )
+    from raytrace_tpu_torch.ops.iter_kernel import iter_mega_ap, iter_megakernel
+    from raytrace_tpu_torch.ops.texture_kernel import (
+        marble_stripe_pallas, marble_stripe_plain, marble_table,
+    )
+    from raytrace_tpu_torch.render.image import write_image
+    from raytrace_tpu_torch.render.integrator import split_tables
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import (
+        IMAGE_GRAD_FWD_BWD, MESH_FWD_BWD, bunny_tex_scene, camera_rays,
+        checked_launches, compare_marble, compare_nearest_flat,
+        compare_shade, image_grad_errs, image_grad_scene, next_split_rays,
+        noise_test_scene, plain_kernels, stationary_lanes, surface_points,
+    )
+    from raytrace_tpu_torch.textures import textures as tex_mod
+    counters = (bounce_megakernel, iter_megakernel, iter_mega_ap,
+                allpairs_nearest_record, pallas_nearest_record,
+                shade_megakernel, marble_stripe_pallas,
+                bounce_bwd_regen_pre_megakernel, image_grad_pallas)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        return {c.__name__: c.launches for c in counters}
+
+    # 19. K8 and K12 vs plain on noise_test's camera lanes, two bounces
+    noise, s_n = noise_test_scene(400, 100, 50, device=dev)
+    n_pix, lanes, lane_pix = stationary_lanes(s_n)
+    tb_n = split_tables(noise, s_n)
+    comps, uni = camera_rays(noise, s_n, lanes, 71,
+                             pixels=torch.from_numpy(lane_pix))
+    thr = torch.ones((3, lanes), device=dev)
+    alive = torch.ones(lanes, dtype=torch.bool, device=dev)
+    marble_row = noise.textures.marble_rows[0]
+    err8 = err12 = 0.0
+    k8_rays = k12_in = None
+    for depth in (0, 1):
+        errs, _ = compare_nearest_flat(tb_n, comps)
+        err8 = max(err8, _check(f"K8 vs plain: noise_test 400x225 "
+                                f"({tb_n.n_prims} rows), bounce {depth + 1}",
+                                errs, lanes))
+        pts, hit = surface_points(tb_n, comps)
+        tid = torch.where(alive, noise.materials.tex[hit[8].long()], -1)
+        n_marble = int((tid == marble_row).sum())
+        errs, _ = compare_marble(noise.textures, tid, pts)
+        err12 = max(err12, _check(f"K12 vs plain: noise_test 400x225 bounce "
+                                  f"{depth + 1}, {n_marble} marble lanes",
+                                  errs, lanes))
+        errs, out, _ = compare_shade(tb_n, comps, uni, thr, alive)
+        _check(f"shade vs plain: noise_test 400x225 bounce {depth + 1}",
+               errs, lanes)
+        if err8 or err12 or n_marble == 0:
+            raise AssertionError("K8 or K12 is not exact, or no lane hit "
+                                 "the marble")
+        if depth == 0:
+            k8_rays, k12_in = tuple(comps.unbind(0)), (tid, pts, n_marble)
+        comps, uni, thr, alive = next_split_rays(comps, out, 71, depth + 1)
+    phase_done("K8 and K12 vs plain")
+
+    # 20. route 3: the rich forward at full size
+    spp = s_n.samples_per_pixel
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, total = render_accumulate(noise, s_n, seed=0, spp=spp)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r3 = read()
+    l8, l10, l12 = (r3["pallas_nearest_record"], r3["shade_megakernel"],
+                    r3["marble_stripe_pallas"])
+    la, lb = r3["bounce_megakernel"], r3["iter_megakernel"]
+    img = acc / total
+    finite = bool(torch.isfinite(img).all())
+    route3 = dict(seconds=dt, rays_per_s=n_pix * spp / dt, iterations=l8,
+                  k8=l8, k10=l10, k12=l12, mean=float(img.mean()))
+    print(f"[route 3] noise_test 400x225 {spp} spp depth 50 seed 0: "
+          f"{dt:.3f} s, {n_pix * spp / dt / 1e6:.3f} M primary rays/s, {l8} "
+          f"iterations ({1e3 * dt / max(l8, 1):.3f} ms/iter), launches "
+          f"K8={l8} K10={l10} K12={l12} A={la} B={lb} K9="
+          f"{r3['allpairs_nearest_record']}, mean {route3['mean']:.6f}, "
+          f"finite {finite} [{smi}]", flush=True)
+    if not finite or img.shape != (n_pix, 3) or l8 == 0 or l10 != l8 \
+            or l12 == 0 or la or lb or r3["allpairs_nearest_record"]:
+        raise AssertionError("route 3: bad image or launches")
+    write_image(os.path.join(OUT_DIR, "noise_test.png"),
+                img.reshape(s_n.image_height, s_n.image_width, 3))
+    phase_done("route 3")
+    with checked_launches() as stats:
+        acc1, _ = render_accumulate(noise, s_n, seed=0, spp=1)
+    for kname in ("pallas_nearest_record", "shade_megakernel",
+                  "marble_stripe_pallas"):
+        st = stats[kname]
+        if st["launches"] == 0 or not bool(torch.isfinite(acc1).all()):
+            raise AssertionError(f"checked route 3: {kname}")
+        err = _check(f"route 3 checked: noise_test 400x225 1 spp, "
+                     f"{st['launches']} launches of {kname}",
+                     (st["n_int"], st["err"], st["excess"]), lanes)
+        if err:
+            raise AssertionError(f"checked route 3: {kname} is not exact")
+    phase_done("checked route 3")
+
+    # 21. route 4: the image-textured fwd+bwd
+    cfg = IMAGE_GRAD_FWD_BWD
+    img_scene, s_i = image_grad_scene(512, device=dev)
+    n_pix_i = s_i.image_width * s_i.image_height
+    params, statics = partition(img_scene)
+    key = rng.base_key(0, dev)
+    pix_i = (torch.arange(cfg["lanes"]) % n_pix_i).to(dev, torch.int32)
+    tgt_i = torch.zeros((cfg["lanes"], 3), device=dev)
+
+    def fwd_bwd():
+        return loss_and_grads(params, statics, s_i, key, pix_i, tgt_i,
+                              spp=cfg["spp"], n_iters=cfg["n_iters"],
+                              remat=False)
+
+    fwd_bwd()                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    (loss, frac), grads = fwd_bwd()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r4 = read()
+    peak = torch.cuda.max_memory_allocated()
+    gnp = grads_to_numpy(grads)
+    finite = all(bool(np.isfinite(x).all()) for x in gnp.values())
+    atlas_l1 = float(np.abs(gnp["textures.images"]).sum())
+    l13 = r4["image_grad_pallas"]
+    route4 = dict(seconds=wall, rays_per_s=cfg["lanes"] * cfg["spp"] / wall,
+                  loss=float(loss), samples_completed=float(frac),
+                  launches_iter=r4["iter_megakernel"],
+                  launches_bwd=r4["bounce_bwd_regen_pre_megakernel"],
+                  launches_k13=l13, atlas_grad_l1=atlas_l1, peak_bytes=peak)
+    print(f"[route 4] image fwd+bwd 512x512, {cfg['lanes']} lanes x "
+          f"{cfg['spp']} spp, rr2, {cfg['n_iters']} iterations: {wall:.3f} s, "
+          f"{route4['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
+          f"{route4['loss']:.6f}, samples_completed {float(frac):.6f}, "
+          f"launches B={r4['iter_megakernel']} "
+          f"K5={r4['bounce_bwd_regen_pre_megakernel']} K13={l13}, atlas "
+          f"gradient L1 {atlas_l1:.6g}, peak memory {peak / 2**30:.3f} GiB, "
+          f"gradients finite {finite} [{smi}]", flush=True)
+    n_it = cfg["n_iters"]
+    if not finite or float(frac) < 0.9999 or atlas_l1 <= 0.0 \
+            or l13 != n_it - 1 or r4["iter_megakernel"] != n_it \
+            or r4["bounce_bwd_regen_pre_megakernel"] != n_it:
+        raise AssertionError("route 4: bad gradients, incomplete samples or "
+                             "wrong launch counts")
+    phase_done("route 4")
+
+    # every K13 launch of route 4 against its plain version and a float64
+    # sum; the launch with the most contributing lanes is kept for timing
+    k13_in = None
+    err13 = 0.0
+    with checked_launches() as stats:
+        inner = tex_mod.image_grad_pallas
+
+        def keep(*a, **kw):
+            nonlocal k13_in
+            nz = int((a[3] != 0).any(1).sum())
+            if k13_in is None or nz > k13_in[2]:
+                k13_in = (a, kw, nz)
+            return inner(*a, **kw)
+        tex_mod.image_grad_pallas = keep
+        try:
+            fwd_bwd()
+        finally:
+            tex_mod.image_grad_pallas = inner
+    st = stats["image_grad_pallas"]
+    err13 = _check(f"K13 vs plain: route 4, {st['launches']} launches at "
+                   f"{cfg['lanes']} lanes (tolerance: testing.image_grad_errs)",
+                   (st["n_int"], st["err"], st["excess"]), cfg["lanes"])
+    a13, kw13, nz13 = k13_in
+    exact = image_grad_plain(*a13[:3], a13[3].to(torch.float64), **kw13)
+    _, e64, x64 = image_grad_errs(*a13[:4], exact, image_grad_pallas(*a13,
+                                                                      **kw13))
+    print(f"[K13 vs float64] the launch with the most contributing lanes "
+          f"({nz13} of {cfg['lanes']}): max |err| {e64:.3g}, worst excess "
+          f"{x64:.3g}", flush=True)
+    if st["launches"] != n_it - 1 or x64 > 0.0:
+        raise AssertionError("K13 disagrees with a float64 sum")
+
+    n9 = 1 << 14
+    pix9 = (torch.arange(n9) * (n_pix_i // n9)).to(dev, torch.int32)
+    tgt9 = torch.zeros((n9, 3), device=dev)
+    kw9 = dict(spp=4, n_iters=24, remat=False)
+    (l_k, f_k), g_k = loss_and_grads(params, statics, s_i, key, pix9, tgt9,
+                                     **kw9)
+    with plain_kernels():
+        (l_p, f_p), g_p = loss_and_grads(params, statics, s_i, key, pix9,
+                                         tgt9, **kw9)
+    g_k, g_p = grads_to_numpy(g_k), grads_to_numpy(g_p)
+    worst = max((float(np.abs(g_k[k] - g_p[k]).max())
+                 / max(float(np.abs(g_p[k]).max()), 1e-30), k) for k in g_p)
+    print(f"[route 4 kernels vs plain] {n9} lanes, 4 spp, 24 iterations: "
+          f"loss {float(l_k):.6f} vs {float(l_p):.6f}, samples "
+          f"{float(f_k):.4f} vs {float(f_p):.4f}, worst leaf "
+          f"max|diff|/max|plain| {worst[0]:.3g} ({worst[1]}; atlas "
+          f"{float(np.abs(g_k['textures.images'] - g_p['textures.images']).max()) / max(float(np.abs(g_p['textures.images']).max()), 1e-30):.3g})"
+          f" (bound {GRAD_RTOL})", flush=True)
+    if float(l_k) != float(l_p) or float(f_k) != float(f_p) \
+            or not worst[0] <= GRAD_RTOL:
+        raise AssertionError("route 4: the kernels and their plain versions "
+                             "disagree")
+
+    s_fd = s_i.replace(rr_depth=None)
+    tgt_fd = torch.full((n9, 3), 0.1, device=dev)
+    kw_fd = dict(spp=4, n_iters=40, remat=False)
+    _, g_fd = loss_and_grads(params, statics, s_fd, key, pix9, tgt_fd,
+                             **kw_fd)
+    tex = img_scene.textures
+    ga = g_fd.textures.images[0, :, :, 1].abs()
+    texel = tuple(int(x) for x in np.unravel_index(int(torch.argmax(ga)),
+                                                   tuple(ga.shape)))
+    idx = (0, *texel, 1)
+
+    def loss_at(x):
+        im = tex.images.clone()
+        im[idx] = x[0]
+        sc = dataclasses.replace(img_scene,
+                                 textures=dataclasses.replace(tex, images=im))
+        with torch.no_grad():
+            return render_loss_wavefront(*partition(sc), s_fd, key, pix9,
+                                         tgt_fd, **kw_fd)[0]
+    # the loss is quadratic in one texel under the exact estimator, so a
+    # wide step costs no accuracy and lifts the change above the f32
+    # rounding of the loss
+    fd = float(finite_difference(loss_at, tex.images[idx].reshape(1).clone(),
+                                 0.25)[0])
+    gv = float(g_fd.textures.images[idx])
+    print(f"[finite difference] atlas texel {idx} (green): gradient "
+          f"{gv:.6g}, central difference {fd:.6g} (eps 0.25), rel diff "
+          f"{abs(gv - fd) / abs(fd):.3g} (bound {FD_RTOL})", flush=True)
+    if gv == 0.0 or not abs(gv - fd) <= FD_RTOL * abs(fd):
+        raise AssertionError("finite difference: atlas texel")
+    phase_done("route 4 checks")
+
+    # 22. the textured bunny stand-in's fwd+bwd
+    cfg_b = MESH_FWD_BWD
+    bunny, s_b = bunny_tex_scene(600, device=dev)
+    n_pix_b = s_b.image_width * s_b.image_height
+    params_b, statics_b = partition(bunny)
+    pix_b = (torch.arange(cfg_b["lanes"]) % n_pix_b).to(dev, torch.int32)
+    tgt_b = torch.zeros((cfg_b["lanes"], 3), device=dev)
+
+    def fwd_bwd_b():
+        return loss_and_grads(params_b, statics_b, s_b, key, pix_b, tgt_b,
+                              spp=cfg_b["spp"], n_iters=cfg_b["n_iters"],
+                              remat=False, schedule=cfg_b["schedule"])
+
+    fwd_bwd_b()                                 # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    (loss_b, frac_b), grads_b = fwd_bwd_b()
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    rb = read()
+    gnp_b = grads_to_numpy(grads_b)
+    finite_b = all(bool(np.isfinite(x).all()) for x in gnp_b.values())
+    n_exp = cfg_b["n_iters"] + sum(i for i, _ in cfg_b["schedule"])
+    bunny_fb = dict(seconds=wall_b,
+                    rays_per_s=cfg_b["lanes"] * cfg_b["spp"] / wall_b,
+                    samples_completed=float(frac_b),
+                    launches_iter=rb["iter_mega_ap"],
+                    launches_bwd=rb["bounce_bwd_regen_pre_megakernel"],
+                    launches_k13=rb["image_grad_pallas"])
+    print(f"[textured mesh fwd+bwd] stand-in with a 128x256 image, "
+          f"{cfg_b['lanes']} lanes x {cfg_b['spp']} spp: {wall_b:.3f} s, "
+          f"{bunny_fb['rays_per_s'] / 1e6:.3f} M primary rays/s, "
+          f"samples_completed {float(frac_b):.6f}, launches mesh iteration="
+          f"{rb['iter_mega_ap']} K5={rb['bounce_bwd_regen_pre_megakernel']} "
+          f"K13={rb['image_grad_pallas']}, atlas gradient L1 "
+          f"{float(np.abs(gnp_b['textures.images']).sum()):.6g}, gradients "
+          f"finite {finite_b} [{smi}]", flush=True)
+    if not finite_b or rb["iter_mega_ap"] != n_exp \
+            or rb["bounce_bwd_regen_pre_megakernel"] != n_exp \
+            or rb["image_grad_pallas"] == 0:
+        raise AssertionError("textured mesh fwd+bwd: bad gradients or "
+                             "launch counts")
+    phase_done("textured mesh fwd+bwd")
+
+    # 23. kernel times at the slice's shapes
+    kw_n = dict(n_prims=tb_n.n_prims, t_min=tb_n.t_min,
+                has_motion=tb_n.has_motion)
+    k8_call = lambda: pallas_nearest_record(tb_n.ptbl, *k8_rays, **kw_n)
+    ms8 = _device_ms(k8_call, "nearest_flat_kernel", 50)
+    call8 = _time_ms(k8_call, 50)
+    plain8 = _time_ms(lambda: pallas_nearest_plain(tb_n.ptbl, *k8_rays,
+                                                   **kw_n), 5, 1)
+    bound8 = _bound_ms(4 * lanes * (7 + 9) + 4 * 36 * tb_n.n_prims,
+                       lanes * ROW_OPS * tb_n.n_prims)
+    print(f"[time] K8 {ms8:.4f} ms on the device ({call8:.4f} ms a call "
+          f"back to back) vs pallas_nearest_plain {plain8:.3f} ms at "
+          f"{lanes} camera rays of noise_test ({tb_n.n_prims} rows); bound "
+          f"{bound8[0]:.4f} ms ({bound8[1]}) [{smi}]", flush=True)
+    tid0, pts0, nm0 = k12_in
+    mtbl = marble_table(noise.textures)
+    k12_call = lambda: marble_stripe_pallas(noise.textures, tid0, pts0, mtbl)
+    ms12 = _device_ms(k12_call, "marble_kernel", 50)
+    call12 = _time_ms(k12_call, 50)
+    plain12 = _time_ms(lambda: marble_stripe_plain(noise.textures, tid0,
+                                                   pts0, mtbl), 5, 1)
+    bound12 = _bound_ms(4 * lanes * (1 + 3 + 1) + 4 * mtbl.numel(),
+                        nm0 * MARBLE_OPS)
+    print(f"[time] K12 {ms12:.4f} ms on the device ({call12:.4f} ms a call "
+          f"back to back) vs marble_stripe_plain {plain12:.3f} ms at {lanes} "
+          f"lanes ({nm0} marble); bound {bound12[0]:.4f} ms "
+          f"({bound12[1]}) [{smi}]", flush=True)
+    a13i = tuple(x.to(torch.int32) for x in a13[:3]) + (a13[3],)
+    k13_call = lambda: image_grad_pallas(*a13i, **kw13)
+    ms13 = _device_ms(k13_call, "image_grad_kernel", 50)
+    call13 = _time_ms(k13_call, 50)
+    plain13 = _time_ms(lambda: image_grad_plain(*a13, **kw13), 20)
+    idx13 = tuple(x.long() for x in a13[:3])
+    shape13 = (kw13["n_img"], kw13["h"], kw13["w"], 3)
+    lib13 = _time_ms(lambda: torch.zeros(shape13, device=dev).index_put_(
+        idx13, a13[3], accumulate=True), 20)
+    n13 = a13[3].shape[0]
+    bound13 = _bound_ms(n13 * (3 * 4 + 3 * 4) + 4 * int(np.prod(shape13)),
+                        3 * nz13)
+    print(f"[time] K13 {ms13:.4f} ms on the device ({call13:.4f} ms a call "
+          f"back to back) vs image_grad_plain {plain13:.4f} ms vs "
+          f"index_put_(accumulate=True) {lib13:.4f} ms at {n13} lanes "
+          f"({nz13} contributing) into a {shape13} atlas; bound "
+          f"{bound13[0]:.5f} ms ({bound13[1]}) [{smi}]", flush=True)
+    phase_done("rich kernel times")
+
+    kernels = [
+        {"name": "pallas_nearest_record", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/nearest_flat_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/intersect_kernel.py:1026",
+         "launches": l8, "max_abs_err": err8, "ms": ms8,
+         "plain_ms": plain8, "bound_ms": bound8[0], "bound_by": bound8[1],
+         "library_ms": None},
+        {"name": "marble_stripe_pallas", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/texture_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/texture_kernel.py:89",
+         "launches": l12, "max_abs_err": err12, "ms": ms12,
+         "plain_ms": plain12, "bound_ms": bound12[0],
+         "bound_by": bound12[1], "library_ms": None},
+        {"name": "image_grad_pallas", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/image_grad_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/image_grad_kernel.py:110",
+         "launches": l13 + rb["image_grad_pallas"],
+         "max_abs_err": max(err13, e64), "ms": ms13, "plain_ms": plain13,
+         "bound_ms": bound13[0], "bound_by": bound13[1],
+         "library_ms": lib13},
+    ]
+    summary = dict(route3=route3, route4=route4, textured_mesh=bunny_fb)
+    return dict(summary=summary, kernels=kernels, shade_launches=l10,
+                iter_launches=r4["iter_megakernel"],
+                mesh_iter_launches=rb["iter_mega_ap"],
+                k5_launches=r4["bounce_bwd_regen_pre_megakernel"]
+                + rb["bounce_bwd_regen_pre_megakernel"])
 
 
 if __name__ == "__main__":

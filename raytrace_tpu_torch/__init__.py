@@ -7,14 +7,20 @@ and the .obj parser included), the camera, the counter-hash RNG, and
 work-queue wavefront drivers.  The bounce runs in kernel A
 (``ops/bounce_kernel.py``, ``csrc/bounce_kernel.cu``) for tables of at
 most 512 rows, and the fused iteration in kernel B (``ops/iter_kernel.py``,
-``csrc/iter_kernel.cu``); mesh-scale tables (up to 65,536 rows) take the
-split path: the nearest hit over a BVH (``ops/allpairs_kernel.py``,
-``csrc/nearest_kernel.cu``) and the shade kernel
-(``csrc/shade_kernel.cu``).  The differentiable path: ``diff.gradients``
+``csrc/iter_kernel.cu``); every other scene (mesh-scale tables up to
+65,536 rows, image, noise, marble and custom textures) takes the split
+path: the nearest hit over a BVH (``ops/allpairs_kernel.py``,
+``csrc/nearest_kernel.cu``) or by a flat scan of a small table
+(``ops/intersect_kernel.py``, ``csrc/nearest_flat_kernel.cu``), the shade
+kernel (``csrc/shade_kernel.cu``) and the rich-texture albedo
+(``textures/``; marble stripes in ``csrc/texture_kernel.cu``).  The
+differentiable path: ``diff.gradients``
 (``partition``, ``loss_and_grads``, ``render_loss_wavefront``) over the
 differentiable wavefront, whose forward is kernel B (its BVH variant
 above 512 rows, up to 8192) and whose backward runs kernel K5
-(``ops/bounce_bwd_gather_kernel.py``, ``csrc/bounce_bwd_kernel.cu``).
+(``ops/bounce_bwd_gather_kernel.py``, ``csrc/bounce_bwd_kernel.cu``);
+rich textures are multiplied in after each step in differentiable torch,
+the image atlas's gradient through ``csrc/image_grad_kernel.cu``.
 On CPU tensors each kernel runs its plain PyTorch version; the entry
 points put scenes on the card unless given ``device="cpu"``.  The
 package imports torch and numpy, never JAX.

@@ -11,8 +11,15 @@ texture rows, runs kernel K5 (``ops/bounce_bwd_gather_kernel.py``) and
 reduces the per-lane row gradients onto the scene's tables with
 ``index_add_``.
 The regeneration stage is detached (sampling) or linear (selects), so
-the backward rebuilds it from the saved (pixel, sample, depth).  Rich
-textures (the deferred texel multiply) are ROADMAP M9.
+the backward rebuilds it from the saved (pixel, sample, depth).
+
+Image, noise, marble and custom textures are shaded at albedo 1.0 by the
+kernels; :func:`apply_rich` multiplies the real albedo into the
+throughput after each step, outside the ``autograd.Function``, in plain
+differentiable torch: the texture parameters (the atlas through the
+atlas-gradient kernel, the noise and marble parameters, the colours) and
+the hit points (``carry2[3:6]``) get their gradients from ordinary
+autograd.  The uv only feeds ``floor`` lookups, so it stays detached.
 """
 from __future__ import annotations
 
@@ -27,7 +34,11 @@ from ..ops.iter_kernel import (
     BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
     resolve_use_ap,
 )
+from ..core.vecmath import DTYPE
 from ..render.camera import ConstBackground, camera_frame, gray_fade, sky
+from ..textures.textures import (
+    BASE_KINDS, TEX_CHECKER, TEX_IMAGE, _image_gather, eval_texture, is_rich,
+)
 from .gradients import leaves, map_scene
 from .lane_replay import assemble_scene_grads
 
@@ -63,7 +74,8 @@ def iter_kernel_args(scene, s, base_key, last_sample: int):
     kt)`` and the keyword parameters of kernel B (and of ``iter_plain``)
     for this scene and camera, on the scene's device.  A mesh-scale table
     (:func:`resolve_use_ap`) gets ``use_ap=True`` and its BVH, built
-    here."""
+    here; a scene with rich textures gets ``with_uv=True`` (the winner's
+    uv, for :func:`apply_rich`)."""
     from ..render.integrator import bounce_tables, n_bounce_uniforms
     dev = scene.device
     tb = bounce_tables(scene, s)
@@ -75,7 +87,8 @@ def iter_kernel_args(scene, s, base_key, last_sample: int):
               rr_depth=None if s.rr_depth is None else int(s.rr_depth),
               max_depth=int(s.max_depth), width=int(s.image_width),
               bg_kind=bg_kind, use_ap=use_ap,
-              bvh=pack_bvh(scene.prims, tb.n_prims) if use_ap else None)
+              bvh=pack_bvh(scene.prims, tb.n_prims) if use_ap else None,
+              with_uv=is_rich(scene.textures.kinds_present))
     return (tb.ptbl, tb.mtbl, tb.ttbl, cam, kt), kw
 
 
@@ -129,7 +142,9 @@ def _prim_columns(scene, n_row: int):
 
 class _FusedIter(torch.autograd.Function):
     """One differentiable fused iteration; inputs ``(st, pix, carry (16),
-    *float leaves of the scene)``, outputs ``carry2 (16) + (died_f,)``."""
+    *float leaves of the scene)``, outputs ``carry2 (16) + (died_f,)``,
+    with ``with_uv`` also the winner's (u, v) and index, for
+    :func:`apply_rich` (not differentiable)."""
 
     @staticmethod
     def forward(ctx, st, pix, *args):
@@ -137,13 +152,15 @@ class _FusedIter(torch.autograd.Function):
         outs = iter_megakernel(*st.tables, (pix,) + tuple(carry), **st.kw)
         carry2 = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
                   + tuple(outs[7:10]) + tuple(outs[10:13]) + (outs[16],))
+        if st.kw["with_uv"]:
+            carry2 = carry2 + (outs[19], outs[20], outs[17].clone())
         # residuals: the inputs without rad (a linear passthrough), the
         # winner index and the RR scale
         ctx.save_for_backward(pix, *carry[0:10], *carry[13:16], outs[17],
                               outs[18])
         ctx.st = st
         ctx.mark_non_differentiable(carry2[0], carry2[1], carry2[2],
-                                    carry2[16])
+                                    *carry2[16:])
         return carry2
 
     @staticmethod
@@ -186,22 +203,80 @@ class _FusedIter(torch.autograd.Function):
                 + tuple(gl[k] for k in st.names))
 
 
+@dataclasses.dataclass(frozen=True)
+class _RichStatics:
+    """The routing of :func:`apply_rich`, per prim row (detached): the
+    texture row and kind; for a scene whose only rich kind is the image,
+    the image id and its true height and width (f32)."""
+    tex: torch.Tensor
+    kind: torch.Tensor
+    image_only: bool
+    img: torch.Tensor | None = None
+    h: torch.Tensor | None = None
+    w: torch.Tensor | None = None
+
+
+def rich_statics(scene) -> _RichStatics:
+    """:class:`_RichStatics` of a (detached) scene."""
+    tx = scene.textures
+    tex = scene.materials.tex[scene.prims.mat.long()].long()
+    image_only = set(tx.kinds_present) <= BASE_KINDS | {TEX_IMAGE}
+    if not image_only:
+        return _RichStatics(tex=tex, kind=tx.kind[tex], image_only=False)
+    img = tx.i0[tex].long()
+    hw = tx.image_hw[img].to(DTYPE)
+    return _RichStatics(tex=tex, kind=tx.kind[tex], image_only=True,
+                        img=img.to(DTYPE), h=hw[:, 0], w=hw[:, 1])
+
+
+def apply_rich(textures, rs: _RichStatics, carry2, uu, vv, idx):
+    """The deferred albedo multiply of one step (the JAX package's
+    ``apply_rich``): every lane still alive whose winner row has an
+    image, noise, marble or custom texture gets ``thr *= albedo`` at its
+    hit point ``carry2[3:6]`` and uv ``(uu, vv)``.  Differentiable in
+    ``textures`` (the scene's, with its ``requires_grad`` leaves) and in
+    the carries.  The image-only branch computes the atlas indices per
+    lane and sends every other lane to texel (0, 0) with a zero
+    cotangent; the general branch is :func:`eval_texture`."""
+    thr = carry2[13:16]
+    pi = torch.clamp(idx, min=0.0).long()
+    live = (carry2[2] > 0.5) & (idx >= 0.0) & (rs.kind[pi] > TEX_CHECKER)
+    if rs.image_only:
+        live_f = live.to(DTYPE)
+        h = torch.clamp(rs.h[pi], min=1.0)
+        w = torch.clamp(rs.w[pi], min=1.0)
+        i = live_f * torch.remainder(torch.floor(uu * w), w)
+        j = live_f * torch.remainder(torch.floor((1.0 - vv) * h), h)
+        alb = _image_gather(textures.images, (live_f * rs.img[pi]).long(),
+                            j.long(), i.long())
+        thr2 = tuple(t * (1.0 + live_f * (alb[:, k] - 1.0))
+                     for k, t in enumerate(thr))
+    else:
+        point = torch.stack(carry2[3:6], dim=-1)
+        uv = torch.stack([uu, vv], dim=-1)
+        alb = eval_texture(textures, rs.tex[pi], point, uv)
+        mult = torch.where(live[:, None], alb, 1.0)
+        thr2 = tuple(t * mult[:, k] for k, t in enumerate(thr))
+    return carry2[:13] + thr2 + carry2[16:]
+
+
 def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
     """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
     differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
     alive f32, comps (7), rad (3), thr (3)), differentiable with respect
     to every float leaf of ``scene`` (those with ``requires_grad``, as
     :func:`gradients.partition` makes them).  The pixel assignment is an
-    argument, so compacted completion phases can rebind it."""
+    argument, so compacted completion phases can rebind it.  A scene with
+    rich textures gets :func:`apply_rich` after every step."""
     from ..ops.intersect_kernel import MAX_SMEM_PRIMS
     from ..render.integrator import MEGA_MAX_PRIMS, _kernel_reason
     from .lane_replay import replay_pre_eligible
-    reason = _kernel_reason(scene, s, 128, MEGA_MAX_PRIMS)
+    reason = _kernel_reason(scene, s, 128, MEGA_MAX_PRIMS, defer_rich=True)
     p = scene.prims
     if (reason is None and p.kind.shape[0] > MAX_SMEM_PRIMS
             and p.kind_segments is None):
         reason = ("an unsegmented table of more than 512 rows (ROADMAP "
-                  "K8)")
+                  "M8)")
     if reason is None and not replay_pre_eligible(scene):
         reason = "the scene's tables exceed the replay backward's caps"
     if reason is None and background_kind(s) is None:
@@ -218,6 +293,7 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
                                       sample_offset + spp - 1)
         n_row = 15 if det.prims.has_motion else 9
         cols, mat, tex = _prim_columns(det, n_row)
+        rs = rich_statics(det) if kw["with_uv"] else None
     st = _StepStatics(tables=tables, kw=kw, scene=det,
                       names=tuple(named), prim_cols=cols, prim_mat=mat,
                       prim_tex=tex, n_row=n_row)
@@ -225,6 +301,10 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
 
     def step(pix, carry):
         out = _FusedIter.apply(st, pix, *carry, *params)
-        return out[:N_CARRY], out[N_CARRY]
+        carry2 = out[:N_CARRY]
+        if rs is not None:
+            carry2 = apply_rich(scene.textures, rs, carry2,
+                                *out[N_CARRY + 1:])
+        return carry2, out[N_CARRY]
 
     return step

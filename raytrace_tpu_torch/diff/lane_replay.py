@@ -36,7 +36,7 @@ from ..materials.materials import (
 )
 from ..scene.types import PRIM_BOX, PRIM_PARALLELOGRAM, PRIM_SPHERE, \
     PRIM_TRIANGLE
-from ..textures.textures import TEX_CHECKER, TEX_CONSTANT
+from ..textures.textures import TEX_CHECKER, is_rich
 from .gradients import map_scene
 
 INF = float("inf")
@@ -55,17 +55,19 @@ _F = np.float32
 
 
 def replay_eligible(scene) -> bool:
-    """Can the replay backward serve this scene?  The port has no
-    deferred rich-texture multiply yet (ROADMAP M9), so it takes constant
-    and checker textures only; the row cap is the fused diff driver's
-    (``MEGA_MAX_PRIMS``): the backward sees per-lane gathered rows, so
-    it does not depend on the table's size."""
+    """Can the replay backward serve this scene (the JAX package's
+    ``replay_pre_eligible`` with ``defer_rich=True``)?  Image, noise,
+    marble and custom textures are shaded at albedo 1.0 here and
+    multiplied in after the step (``fused_iter.apply_rich``), but light
+    emission is in-kernel, so lights keep constant and checker textures.
+    The row cap is the fused diff driver's (``MEGA_MAX_PRIMS``): the
+    backward sees per-lane gathered rows, so it does not depend on the
+    table's size."""
     from ..render.integrator import MEGA_MAX_PRIMS
     return (scene.prims.kind.shape[0] <= MEGA_MAX_PRIMS
             and scene.materials.kind.shape[0] <= MAX_REPLAY_MATS
             and scene.textures.kind.shape[0] <= MAX_REPLAY_TEX
-            and set(scene.textures.kinds_present)
-            <= {TEX_CONSTANT, TEX_CHECKER})
+            and not is_rich(scene.materials.light_tex_kinds))
 
 
 # the pre-gathered backward of the fused iteration takes the same scenes

@@ -6,6 +6,11 @@ from another implementation's compiled scene and camera — and return the
 port's objects, so two implementations can be fed the same scene.
 :func:`grads_to_numpy` flattens a Scene-shaped gradient of either
 implementation, so two can be compared leaf by leaf.
+
+Image textures cross with the scene: the texture table's ``images`` atlas
+and ``image_hw`` are arrays like the rest.  Custom textures do not: they
+are closures of the other implementation (jnp functions), so a scene
+with any raises; build it with the port's ``custom_texture`` instead.
 """
 from __future__ import annotations
 
@@ -75,7 +80,13 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
     each keyed by the field names of :class:`Primitives`,
     :class:`MaterialTable` and :class:`TextureTable` (arrays as numpy,
     static fields as Python values).  The scene lands on the card unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise.  Custom textures cannot cross (see the
+    module docstring)."""
+    if d["textures"].get("custom_fns"):
+        raise ValueError(
+            "scene_from_numpy: custom textures are closures of the other "
+            "implementation and cannot cross; build the scene with "
+            "raytrace_tpu_torch.custom_texture")
     for extra in ("bvh", "volumes", "ellipsoids"):
         if d.get(extra) is not None:
             raise NotImplementedError(

@@ -25,10 +25,16 @@ import torch
 
 from ..scene.bvh import build_bvh, prim_aabbs
 from ..scene.types import PRIM_PAD
-from .intersect_kernel import MAX_DENSE_PRIMS, N_COLS, _box_attrs, _safe
+from .intersect_kernel import (
+    MAX_DENSE_PRIMS, N_COLS, _box_attrs, _record_contract, _safe,
+)
 
 N_NODE_COLS = 8
 LEAF_SIZE = 4
+# the split path's nearest hit of a kind-segmented table of at least this
+# many scanned rows walks its BVH; smaller or unsegmented tables take the
+# flat scan (the JAX package's MIN_PRIMS)
+MIN_PRIMS = 192
 # outward padding of every BVH box: the per-row tests accept hits a
 # rounding error outside a primitive's exact bounds (planar rows carry
 # bvh.PLANE_PAD already; spheres and boxes none), so the walk pads every
@@ -298,16 +304,6 @@ def nearest_hit_plain(tbl, ox, oy, oz, dx, dy, dz, tm, *, n_prims: int,
         out = out + tuple(torch.where(hit, w[:, 31 + k], 0.0)
                           for k in range(4))
     return out
-
-
-def _record_contract(hit):
-    """The 9 outputs of the TPU kernel from a ``prim_loop_plain``-format
-    record: t, idx (i32, -1 on a miss), nx, ny, nz (hit side), front |
-    sphere << 1 (i32), u, v, mat (i32)."""
-    t, bi, nx, ny, nz, fr, uu, vv, mat, sph = hit[:10]
-    flags = (fr > 0.5).to(torch.int32) + 2 * (sph > 0.5).to(torch.int32)
-    return (t, bi.to(torch.int32), nx, ny, nz, flags, uu, vv,
-            mat.to(torch.int32))
 
 
 def allpairs_nearest_plain(tbl, ox, oy, oz, dx, dy, dz, tm, *, n_prims: int,

@@ -1,13 +1,16 @@
 """Packed primitive table and the flat nearest-hit scan
 (``raytrace_tpu/ops/pallas/intersect_kernel.py``: ``pack_prims``,
-``_prim_loop_flat``).
+``_prim_loop_flat``, ``pallas_nearest_record``).
 
-The scan here is the plain PyTorch version; its device counterpart is
-``csrc/prim_loop.cuh``, which both render kernels include.  The TPU
-kernel's clustered, segmented and two-level loops (block-consensus AABB
-skipping) have no counterpart: a thread walks every row of the table and
-a pad row is skipped by its kind.  Mesh-scale tables take a BVH walk
-instead (``ops/allpairs_kernel.py``), over the same per-row test.
+:func:`prim_loop_plain` is the plain PyTorch version of the scan; its
+device counterpart is ``csrc/prim_loop.cuh``, which the render kernels
+include.  The TPU kernel's clustered, segmented and two-level loops
+(block-consensus AABB skipping) have no counterpart: a thread walks every
+row of the table and a pad row is skipped by its kind.  Mesh-scale tables
+take a BVH walk instead (``ops/allpairs_kernel.py``), over the same
+per-row test.  :func:`pallas_nearest_record` (kernel K8,
+``csrc/nearest_flat_kernel.cu``) is the scan on its own: the nearest hit
+record of the split path for small and unsegmented tables.
 
 Table columns ([C, 36] f32):
 
@@ -26,6 +29,8 @@ Table columns ([C, 36] f32):
   31-33 per-prim albedo, 34 per-prim param (behaviour-collapsed packing)
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -273,3 +278,72 @@ def prim_loop_plain(tbl: torch.Tensor, ox, oy, oz, dx, dy, dz, tm, *,
     flip = torch.where(cfr > 0.5, 1.0, -1.0)
     out = (bt, bi, cnx * flip, cny * flip, cnz * flip, cfr, cu, cv, cm, csp)
     return out + tuple(alb) if with_albedo else out
+
+
+def _record_contract(hit):
+    """The 9 outputs of the TPU nearest-hit kernels from a
+    ``prim_loop_plain``-format record: t, idx (i32, -1 on a miss), nx, ny,
+    nz (hit side), front | sphere << 1 (i32), u, v, mat (i32)."""
+    t, bi, nx, ny, nz, fr, uu, vv, mat, sph = hit[:10]
+    flags = (fr > 0.5).to(torch.int32) + 2 * (sph > 0.5).to(torch.int32)
+    return (t, bi.to(torch.int32), nx, ny, nz, flags, uu, vv,
+            mat.to(torch.int32))
+
+
+def pallas_nearest_plain(tbl, ox, oy, oz, dx, dy, dz, tm, *, n_prims: int,
+                         t_min: float, has_motion: bool):
+    """:func:`pallas_nearest_record` in plain PyTorch, on any device."""
+    return _record_contract(prim_loop_plain(
+        tbl, ox, oy, oz, dx, dy, dz, tm, n_prims=n_prims, t_min=t_min,
+        has_motion=has_motion))
+
+
+class _FlatArgs(ctypes.Structure):
+    """Mirror of ``FlatArgs`` in csrc/nearest_flat_kernel.cu."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "tbl", "ox", "oy", "oz", "dx", "dy", "dz", "tm", "outf", "outi")]
+        + [("n_lanes", ctypes.c_int64)]
+        + [(f, ctypes.c_int) for f in ("n_prims", "has_motion")]
+        + [("t_min", ctypes.c_float)])
+
+
+def pallas_nearest_record(tbl, ox, oy, oz, dx, dy, dz, tm, *, n_prims: int,
+                          t_min: float, has_motion: bool):
+    """Nearest hit of every ray over rows ``[0, n_prims)`` of the packed
+    table by a flat scan (kernel K8; the JAX package's name).  Rays are
+    1-D [R] f32 tensors.  Returns the 9 [R] outputs of
+    :func:`_record_contract`, as ``allpairs_nearest_record`` does.
+
+    CPU tensors run :func:`pallas_nearest_plain`; CUDA tensors launch
+    ``csrc/nearest_flat_kernel.cu`` (``pallas_nearest_record.launches``
+    counts the launches)."""
+    from .bounce_kernel import check_lanes
+    rays = (ox, oy, oz, dx, dy, dz, tm)
+    dev = ox.device
+    if dev.type == "cpu":
+        return pallas_nearest_plain(tbl, *rays, n_prims=n_prims,
+                                    t_min=t_min, has_motion=has_motion)
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_nearest_record: unsupported device {dev}")
+    r = ox.shape[0]
+    if (tbl.device != dev or tbl.dtype != torch.float32 or tbl.dim() != 2
+            or tbl.shape[1] != N_COLS or tbl.shape[0] < n_prims
+            or not tbl.is_contiguous()):
+        raise ValueError(f"tbl: need a contiguous f32 [>={n_prims}, "
+                         f"{N_COLS}] tensor on {dev}")
+    if not 0 < n_prims <= MAX_DENSE_PRIMS:
+        raise ValueError(f"n_prims={n_prims} outside 1..{MAX_DENSE_PRIMS}")
+    check_lanes(zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), rays), r,
+                dev)
+    from ._build import launch
+    outf = torch.empty((6, r), dtype=torch.float32, device=dev)
+    outi = torch.empty((3, r), dtype=torch.int32, device=dev)
+    args = _FlatArgs(*(x.data_ptr() for x in (tbl,) + rays + (outf, outi)),
+                     r, n_prims, int(has_motion), float(t_min))
+    launch("rt_nearest_flat", args, dev)
+    pallas_nearest_record.launches += 1
+    return (outf[0], outi[0], outf[1], outf[2], outf[3], outi[1], outf[4],
+            outf[5], outi[2])
+
+
+pallas_nearest_record.launches = 0

@@ -12,7 +12,10 @@ configuration), and for the bunny stand-in (``testing.bunny_standin_scene``,
 4,992 rows, 600 x 600, depth 10) the split forward at 100 spp exact
 (``scenes/bunny_test.py``'s sample count) and the mesh fwd+bwd of
 ``testing.MESH_FWD_BWD`` (``tools/prof_bunny_grad.py``'s configuration),
-it
+and for the rich textures ``scenes/noise_test.py``'s forward (400 x 225,
+100 spp, depth 50, seed 0: the flat scan, the shade kernel and the
+marble kernel) and ``tools/prof_texture_grad.py``'s image-textured
+fwd+bwd (``testing.IMAGE_GRAD_FWD_BWD``), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -24,7 +27,7 @@ it
    launch calls, and the device operations that take the most time.
 
 The iteration count is the number of forward kernel launches (kernel A
-or B, or the nearest-hit kernel and the mesh iteration kernel).
+or B, or a nearest-hit kernel and the mesh iteration kernel).
 
 The profiler's table of device operations goes to
 ``chiprun_out/profile_<estimator>.txt`` in the checkout; the last line is
@@ -67,11 +70,13 @@ def main() -> None:
     from .ops._build import load_library
     from .ops.allpairs_kernel import allpairs_nearest_record
     from .ops.bounce_kernel import bounce_megakernel
+    from .ops.intersect_kernel import pallas_nearest_record
     from .ops.iter_kernel import iter_mega_ap, iter_megakernel
     from .render.render import render_accumulate
     from .testing import (
-        FWD_BWD, MESH_FWD_BWD, bunny_standin_scene,
-        cornell_scene_and_settings, fwd_bwd_pixels,
+        FWD_BWD, IMAGE_GRAD_FWD_BWD, MESH_FWD_BWD, bunny_standin_scene,
+        cornell_scene_and_settings, fwd_bwd_pixels, image_grad_scene,
+        noise_test_scene,
     )
 
     smi = subprocess.run(
@@ -87,17 +92,23 @@ def main() -> None:
     OUT_DIR.mkdir(exist_ok=True)
 
     mesh, s_m = bunny_standin_scene(600, 100, 10, device=dev)
+    noise, s_n = noise_test_scene(400, 100, 50, device=dev)
+    image, s_i = image_grad_scene(512, device=dev)
     forward_kernels = (bounce_megakernel, iter_megakernel,
-                       allpairs_nearest_record, iter_mega_ap)
+                       allpairs_nearest_record, pallas_nearest_record,
+                       iter_mega_ap)
 
     def fwd_bwd(sc, settings, cfg):
         params, statics = partition(sc)
-        pix = fwd_bwd_pixels(n_pix, cfg["lanes"]).to(dev)
+        pix = fwd_bwd_pixels(settings.image_width * settings.image_height,
+                             cfg["lanes"]).to(dev)
         target = torch.zeros((cfg["lanes"], 3), device=dev)
         return lambda: loss_and_grads(
-            params, statics, settings.replace(rr_depth=cfg["rr_depth"]),
+            params, statics,
+            settings.replace(rr_depth=cfg.get("rr_depth", settings.rr_depth)),
             rng.base_key(0, dev), pix, target, spp=cfg["spp"],
-            n_iters=cfg["n_iters"], remat=False, schedule=cfg["schedule"])
+            n_iters=cfg["n_iters"], remat=False,
+            schedule=cfg.get("schedule"))
 
     def run(fn):
         before = [k.launches for k in forward_kernels]
@@ -108,8 +119,8 @@ def main() -> None:
         iters = sum(k.launches - b for k, b in zip(forward_kernels, before))
         return time.perf_counter() - t0, iters
 
-    def fwd(sc, settings, spp):
-        return lambda: render_accumulate(sc, settings, seed=1, spp=spp)
+    def fwd(sc, settings, spp, seed=1):
+        return lambda: render_accumulate(sc, settings, seed=seed, spp=spp)
 
     report = {"device": smi, "estimators": {}}
     for name, fn, rays in (
@@ -120,7 +131,11 @@ def main() -> None:
              FWD_BWD["lanes"] * FWD_BWD["spp"]),
             ("mesh_fwd", fwd(mesh, s_m, 100), n_pix * 100),
             ("mesh_fwd_bwd", fwd_bwd(mesh, s_m, MESH_FWD_BWD),
-             MESH_FWD_BWD["lanes"] * MESH_FWD_BWD["spp"])):
+             MESH_FWD_BWD["lanes"] * MESH_FWD_BWD["spp"]),
+            ("noise_fwd", fwd(noise, s_n, 100, seed=0),
+             s_n.image_width * s_n.image_height * 100),
+            ("image_fwd_bwd", fwd_bwd(image, s_i, IMAGE_GRAD_FWD_BWD),
+             IMAGE_GRAD_FWD_BWD["lanes"] * IMAGE_GRAD_FWD_BWD["spp"])):
         walls = []
         for _ in range(REPS):
             wall, iters = run(fn)

@@ -14,11 +14,15 @@ finished path adds its radiance into the image.
 * :func:`trace_wavefront` — a work queue refills dead lanes with the next
   (pixel, sample) around the bounce.
 
-The bounce is kernel A for tables of at most 512 rows
-(:func:`bounce_mega_soa`).  Mesh-scale tables (kind-segmented, up to
-65,536 rows) take the split path (:func:`bounce_split_soa`): the nearest
-hit record over the table's BVH (``ops/allpairs_kernel.py``), the exact
-sphere uv in torch, then the shade kernel (``shade_megakernel``).
+The bounce is kernel A for tables of at most 512 rows with constant and
+checker textures (:func:`bounce_mega_soa`).  Every other scene takes the
+split path (:func:`bounce_split_soa`), as the JAX package's ``bounce``
+does: the nearest hit record (kernel K8's flat scan for small and
+unsegmented tables, the walk of the table's BVH for kind-segmented
+tables of 192 rows and more), the exact sphere uv in torch, the shade
+kernel (``shade_megakernel``), then the image, noise, marble and custom
+texture albedo multiplied into the surviving lanes' throughput in torch
+(marble stripes through kernel K12).
 
 Every random draw is a pure function of (pixel, sample, depth, column), so
 every driver and every ``rotate_k`` traces the same samples.  The loop
@@ -33,10 +37,10 @@ thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
   completion phases.  It keeps the carries as tuples of [R] tensors, as
   the JAX package does.
 
-The generic bounce (for scenes neither path takes), the bounded-depth
-``trace``, the sorted driver (tables of 8192 rows and more), the BVH
-accelerator mode beyond 65,536 rows and media are ROADMAP M4, M6b, M8
-and M10.
+The generic bounce (for scenes neither path takes, such as lights with
+rich textures), the bounded-depth ``trace``, the sorted driver (tables
+of 8192 rows and more), the BVH accelerator mode beyond 65,536 rows and
+media are ROADMAP M4, M6b, M8 and M10.
 """
 from __future__ import annotations
 
@@ -51,15 +55,19 @@ from ..core.vecmath import DTYPE
 from ..diff.fused_iter import fused_iter_eligible, fused_iter_fwd_step
 from ..materials.materials import MaterialTable
 from ..ops.allpairs_kernel import (
-    DeviceBVH, allpairs_nearest_record, pack_bvh,
+    MIN_PRIMS, DeviceBVH, allpairs_nearest_record, pack_bvh,
 )
 from ..ops.bounce_kernel import (
     MAX_MAT_ROWS, MAX_SHADE_MATS, MAX_TARGETS, N_U, bounce_megakernel,
     pack_behaviors, pack_materials, pack_targets, shade_megakernel,
 )
-from ..ops.intersect_kernel import MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims
+from ..ops.intersect_kernel import (
+    MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
+)
 from ..scene.types import Scene
-from ..textures.textures import TEX_CHECKER, TEX_CONSTANT
+from ..textures.textures import (
+    TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
+)
 from .camera import CameraSettings, camera_frame, camera_table, rays_from_table
 
 _N_BASE_U = 8       # bounce uniform columns (+ one per volume in JAX)
@@ -96,19 +104,29 @@ def _russian_roulette(s: CameraSettings, u_rr, depth, thr, alive, died):
     return thr * scale, alive & ~kill, died | (alive & kill)
 
 
+_RICH_LIGHT = ("lights with image, noise, marble or custom textures need "
+               "the generic bounce (ROADMAP M4)")
+
+
 def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
-                   max_rows: int):
+                   max_rows: int, defer_rich: bool = False):
     """Why kernels A and B (at most ``max_rows`` rows) cannot take this
-    scene (with the ROADMAP item that will cover it), or None."""
+    scene (with the ROADMAP item that will cover it), or None.  The
+    kernels shade constant and checker textures; ``defer_rich`` (the
+    differentiable driver, which multiplies the other kinds in after each
+    iteration) lets them shade the rest at albedo 1.0, except on lights,
+    whose emission is in-kernel."""
     rows = scene.prims.kind.shape[0]
     if rows > max_rows:
         return (f"{rows} primitive rows: the kernels take at most "
                 f"{max_rows} here (mesh scale: ROADMAP M8)")
     m = scene.materials
     n_rows = m.n_behaviors if m.n_behaviors > 0 else m.kind.shape[0]
-    if not set(scene.textures.kinds_present) <= {TEX_CONSTANT, TEX_CHECKER}:
-        return ("image, noise, marble and custom textures are not ported "
-                "yet (ROADMAP M9)")
+    if defer_rich and is_rich(m.light_tex_kinds):
+        return _RICH_LIGHT
+    if not defer_rich and is_rich(scene.textures.kinds_present):
+        return ("kernel A shades constant and checker textures only (the "
+                "split path multiplies the other kinds in)")
     if s.n_redirect > MAX_TARGETS:
         return (f"{s.n_redirect} redirect targets: the kernels take at most "
                 f"{MAX_TARGETS} (generic bounce: ROADMAP M4)")
@@ -130,16 +148,13 @@ def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
 
 
 def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
-    """Why the split path (nearest kernel + shade kernel) cannot take this
-    scene (with its ROADMAP item), or None: it takes kind-segmented tables
-    of up to 65,536 rows, up to 24 materials and 8 redirect targets,
-    constant and checker textures.  The shade kernel's part is the JAX
-    package's ``fused_shade_eligible``."""
+    """Why the split path (nearest kernel + shade kernel + the rich-texture
+    multiply) cannot take this scene (with its ROADMAP item), or None: it
+    takes tables of up to 65,536 rows, up to 24 materials and 8 redirect
+    targets, and every texture kind except on lights.  The shade kernel's
+    part is the JAX package's ``fused_shade_eligible``."""
     p, m = scene.prims, scene.materials
     rows = p.kind.shape[0]
-    if p.kind_segments is None:
-        return (f"an unsegmented table of {rows} rows: the nearest kernel "
-                "of small tables is not ported yet (ROADMAP K8)")
     if rows > MAX_DENSE_PRIMS:
         return (f"{rows} primitive rows: past {MAX_DENSE_PRIMS} the BVH "
                 "accelerator mode is not ported yet (ROADMAP M8)")
@@ -149,12 +164,8 @@ def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     if s.n_redirect > MAX_TARGETS:
         return (f"{s.n_redirect} redirect targets: the shade kernel takes "
                 f"at most {MAX_TARGETS} (generic bounce: ROADMAP M4)")
-    if not set(m.light_tex_kinds) <= {TEX_CONSTANT, TEX_CHECKER}:
-        return ("lights with image, noise, marble or custom textures are "
-                "not ported yet (ROADMAP M9)")
-    if not set(scene.textures.kinds_present) <= {TEX_CONSTANT, TEX_CHECKER}:
-        return ("the split path's rich-texture albedo multiply is not "
-                "ported yet (ROADMAP M9)")
+    if is_rich(m.light_tex_kinds):
+        return _RICH_LIGHT
     if p.sphere_rots:
         return ("rotated uv-textured spheres need object-space uv "
                 "(ROADMAP M11)")
@@ -253,22 +264,34 @@ def bounce_mega_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
 @dataclasses.dataclass(frozen=True)
 class SplitTables:
     """Packed tables and static parameters of the split path for one scene
-    and camera: the prim table with per-material ids, its BVH, the
-    material rows (not behaviours) and the targets."""
+    and camera: the prim table with per-material ids, its BVH (None where
+    the flat scan serves the table), the material rows (not behaviours)
+    and the targets; ``rich`` says whether the scene has textures the
+    shade kernel defers (image, noise, marble, custom)."""
     ptbl: torch.Tensor
     mtbl: torch.Tensor
     ttbl: torch.Tensor
-    bvh: DeviceBVH
+    bvh: DeviceBVH | None
     n_prims: int
     n_mats: int
     n_targets: int
     has_motion: bool
     t_min: float
+    rich: bool = False
+
+
+def uses_bvh(prims) -> bool:
+    """Does the split path walk a BVH (kernel K9) for this table, or scan
+    it flat (kernel K8)?  The JAX package's rule (``_surface_hit``): the
+    all-pairs kernel for kind-segmented tables of ``MIN_PRIMS`` (192) rows
+    and more, the flat scan otherwise."""
+    return prims.kind_segments is not None and \
+        _n_scan_prims(prims) >= MIN_PRIMS
 
 
 def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
-    """Pack the split path's tables and build the table's BVH (once per
-    driver call)."""
+    """Pack the split path's tables and, for a table the BVH walk serves,
+    build its BVH (once per driver call)."""
     dev = scene.device
     p = scene.prims
     n_prims = _n_scan_prims(p)
@@ -278,21 +301,26 @@ def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
         .contiguous(),
         ttbl=pack_targets(s.redirect_prob, s.redirect_q, s.redirect_u,
                           s.redirect_v).to(dev).contiguous(),
-        bvh=pack_bvh(p, n_prims), n_prims=n_prims,
+        bvh=pack_bvh(p, n_prims) if uses_bvh(p) else None, n_prims=n_prims,
         n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
-        has_motion=p.has_motion, t_min=float(np.float32(s.t_min)))
+        has_motion=p.has_motion, t_min=float(np.float32(s.t_min)),
+        rich=is_rich(scene.textures.kinds_present))
 
 
 def surface_hit(tb: SplitTables, o, d, time):
     """The nearest hit record of every lane (``o``, ``d`` [3, R], ``time``
-    [R]) through the nearest-hit kernel, with the exact sphere uv from
-    the outward normal computed here in torch, as the JAX package's
-    ``_surface_hit`` does after its all-pairs kernel.  Returns the 10
-    [R] f32 hit columns of ``shade_megakernel`` (sphere flag 0: the uv is
-    final)."""
-    t, idx, nx, ny, nz, flags, uu, vv, mat = allpairs_nearest_record(
-        tb.ptbl, tb.bvh, o[0], o[1], o[2], d[0], d[1], d[2], time,
-        n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    [R]) through a nearest-hit kernel (the BVH walk where ``tb`` has a
+    BVH, else the flat scan), with the exact sphere uv from the outward
+    normal computed here in torch, as the JAX package's ``_surface_hit``
+    does after its kernel.  Returns the 10 [R] f32 hit columns of
+    ``shade_megakernel`` (sphere flag 0: the uv is final)."""
+    rays = (o[0], o[1], o[2], d[0], d[1], d[2], time)
+    kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    if tb.bvh is None:
+        rec = pallas_nearest_record(tb.ptbl, *rays, **kw)
+    else:
+        rec = allpairs_nearest_record(tb.ptbl, tb.bvh, *rays, **kw)
+    t, idx, nx, ny, nz, flags, uu, vv, mat = rec
     front = (flags & 1) > 0
     is_sphere = (flags & 2) > 0
     flip = torch.where(front, 1.0, -1.0)
@@ -307,12 +335,36 @@ def surface_hit(tb: SplitTables, o, d, time):
             mat.to(DTYPE), torch.zeros_like(t))
 
 
+def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive):
+    """The rich-texture post-multiply of the JAX package's
+    ``_fused_shade_bounce``: the shade kernel shaded image, noise, marble
+    and custom textures at albedo 1.0, so each lane that stays ``alive``
+    on such a texture gets ``thr *= albedo``, evaluated at the point
+    ``o + t_safe * d`` and the hit's uv (marble stripes through kernel
+    K12).  ``o``, ``d``, ``thr`` are [3, R], ``hit`` the 10 hit columns
+    of :func:`surface_hit`.  Only those lanes are evaluated."""
+    tx = scene.textures
+    tex_id = scene.materials.tex[hit[8].long()].long()
+    tkind = tx.kind[tex_id]
+    live = alive & (tkind > TEX_CHECKER)
+    sel = torch.nonzero(live)[:, 0]
+    t = hit[0][sel]
+    t_safe = torch.where(torch.isfinite(t), t, 1.0)
+    point = (o[:, sel] + t_safe * d[:, sel]).T.contiguous()
+    uv = torch.stack([hit[6][sel], hit[7][sel]], dim=1)
+    alb = eval_texture(tx, tex_id[sel], point, uv, marble_kernel=True)
+    thr = thr.clone()
+    thr[:, sel] = thr[:, sel] * alb.T
+    return thr
+
+
 def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
                      thr, alive, tables: SplitTables):
     """One bounce of every lane through the split path (the JAX package's
-    ``bounce`` with its all-pairs intersect and ``_fused_shade_bounce``):
-    the nearest-hit kernel, the sphere uv, then the shade kernel.  The
-    arguments and results are those of :func:`bounce_mega_soa`."""
+    ``bounce`` with its kernel intersect and ``_fused_shade_bounce``): the
+    nearest-hit kernel, the sphere uv, the shade kernel, then the
+    rich-texture multiply (:func:`rich_albedo_multiply`).  The arguments
+    and results are those of :func:`bounce_mega_soa`."""
     tb = tables
     # dead lanes carry stale rays: park them far outside the scene
     o = torch.where(alive, comps[0:3], 3e18)
@@ -329,21 +381,23 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     miss = outs[13] > 0.5
     bg = s.background(o.T, d.T).to(DTYPE).T
     rad_new = rad + torch.where(miss, thr * bg, 0.0) + torch.stack(outs[9:12])
+    if tb.rich:
+        thr_new = rich_albedo_multiply(scene, o, d, hit, thr_new, alive_new)
     return new_comps, rad_new, thr_new, alive_new, alive & ~alive_new
 
 
 def _bounce_step(scene: Scene, s: CameraSettings, n_rays: int):
     """``(bounce, tables)`` of the forward drivers for this scene: kernel
-    A's :func:`bounce_mega_soa`, or for tables over 512 rows the split
-    path's :func:`bounce_split_soa`, with their tables packed once; raise,
-    naming the ROADMAP item, if neither takes the scene."""
-    reason = _ineligible_reason(scene, s, n_rays)
-    if reason is None:
+    A's :func:`bounce_mega_soa`, or for every scene kernel A refuses
+    (tables over 512 rows, rich textures, more behaviours than it stages)
+    the split path's :func:`bounce_split_soa`, as the JAX package's
+    drivers fall back to ``bounce``; with their tables packed once.
+    Raise, naming the ROADMAP item, if neither takes the scene."""
+    if _ineligible_reason(scene, s, n_rays) is None:
         return bounce_mega_soa, bounce_tables(scene, s)
-    if scene.prims.kind.shape[0] > MAX_SMEM_PRIMS:
-        reason = _split_ineligible_reason(scene, s, n_rays)
-        if reason is None:
-            return bounce_split_soa, split_tables(scene, s)
+    reason = _split_ineligible_reason(scene, s, n_rays)
+    if reason is None:
+        return bounce_split_soa, split_tables(scene, s)
     raise NotImplementedError(f"render: {reason}")
 
 

@@ -15,20 +15,30 @@
   a box), optionally with the extras moving; :func:`uv_sphere`.  The
   ``*_world`` builders take the builder module as an argument, so the
   tests build the same scene with the JAX package.
+* Rich textures: :func:`noise_test_scene` (``scenes/noise_test.py``: a
+  noise-textured ground and a marble ball under the sky),
+  :func:`image_grad_scene` (``tools/prof_texture_grad.py``'s
+  image-textured scene), :func:`bunny_tex_scene` (``tools/prof_bunny_tex.py``
+  with the stand-in mesh) and :func:`cuboid_test_world`
+  (``scenes/cuboid_test.py``'s earth-textured cuboid, with
+  :func:`earthmap`, the procedural earth of ``scenes/_assets.py``).
 * :data:`FWD_BWD` is the fwd+bwd configuration of ``bench.py`` and
   :func:`fwd_bwd_pixels` its lanes; :data:`MESH_FWD_BWD` the mesh
-  configuration of ``tools/prof_bunny_grad.py``.
+  configuration of ``tools/prof_bunny_grad.py``;
+  :data:`IMAGE_GRAD_FWD_BWD` that of ``tools/prof_texture_grad.py``.
 * :func:`bounce_inputs`, :func:`primary_bounce_inputs`,
   :func:`next_bounce_inputs`, :func:`iter_state` and :func:`fresh_carry`
   make lane inputs for the kernels: random ones from a numpy seed, or the
   ones the stationary driver gives them.
 * :func:`compare_bounce`, :func:`compare_iter`, :func:`compare_bwd`,
-  :func:`compare_nearest`, :func:`compare_shade` and
-  :func:`checked_launches` hold each kernel against its plain version on
-  the same inputs; :func:`bwd_inputs` makes K5's arguments from a real
-  mid-render state, :func:`plain_backward` forces the fused iteration's
-  backward onto K5's plain version and :func:`plain_kernels` forward and
-  backward onto the plain versions.
+  :func:`compare_nearest`, :func:`compare_nearest_flat`,
+  :func:`compare_shade`, :func:`compare_marble`,
+  :func:`compare_image_grad` and :func:`checked_launches` hold each
+  kernel against its plain version on the same inputs; :func:`bwd_inputs`
+  makes K5's arguments from a real mid-render state,
+  :func:`plain_backward` forces the fused iteration's backward onto the
+  plain versions of K5 and of the atlas gradient, and
+  :func:`plain_kernels` forward and backward onto the plain versions.
 
 Tolerances: alive/miss/winner index (and sample/depth/died for kernel B,
 winner index, flags and material for the nearest kernel) equal on every
@@ -40,7 +50,11 @@ max|plain| over its lane)``.  The forward replay rounds alike
 the chain-rule terms in another order than torch autograd, so a gradient
 that is a sum of terms of both signs keeps an error of a few ulps of its
 largest term, not of its value; the largest gradients of the output and
-of the lane bound those terms.
+of the lane bound those terms.  The atlas gradient against its plain
+version: each texel within ``n * 2^-23 * sum |g|`` over its ``n``
+contributions ``g`` (:func:`image_grad_errs`), the largest difference
+two summation orders of the same terms can have; float atomics add in
+an order that changes from run to run.
 """
 from __future__ import annotations
 
@@ -62,6 +76,9 @@ NEAREST_INT_ROWS = (1, 5, 8)
 
 # K5 vs its plain version (see above)
 BWD_RTOL = 1e-4
+# the atlas gradient vs a sum of the same terms in another order: per
+# contribution to a texel, this share of the texel's sum of |terms|
+SCATTER_RTOL = 2.0 ** -23
 
 ALL_MATERIAL_TARGETS = [(0.25, [-1, 9, -1], [2, 0, 0], [0, 0, 2]),
                         (0.15, [5, 9, 5], [1, 0, 0], [0, 0, 1])]
@@ -183,6 +200,86 @@ def box_motion_scene(device="cuda"):
                             device=device), s
 
 
+# tools/prof_texture_grad.py's textured fwd+bwd: 2^17 lanes (pixels
+# 0 .. 2^17 modulo the 512 x 512 image) x 16 spp, 80 iterations, no remat
+IMAGE_GRAD_FWD_BWD = dict(lanes=1 << 17, spp=16, n_iters=80)
+
+
+def noise_test_world(rt):
+    """``scenes/noise_test.py``'s world: a fractal-noise ground sphere
+    (2 octaves) and a marble ball.  ``rt`` is the builder module (this
+    package or the JAX one)."""
+    ground = rt.lambertian(rt.noise_texture(2, 2.0, [10, 0, 0], 0.0, 1.0))
+    ball = rt.lambertian(rt.marble_texture([0, 0, 1], 4.0))
+    return rt.group([rt.with_material(ground, rt.sphere([0, -1000, 0], 1000)),
+                     rt.with_material(ball, rt.sphere([0, 2, 0], 2))])
+
+
+def noise_test_settings(rt, width: int = 400, spp: int = 100,
+                        depth: int = 50):
+    """``scenes/noise_test.py``'s camera: 16:9, vfov 20 degrees from
+    (13, 2, 3) to the origin, under the sky."""
+    return rt.CameraSettings(
+        aspect_ratio=16 / 9, image_width=width, samples_per_pixel=spp,
+        max_depth=depth, background=rt.sky, vfov=rt.degrees(20),
+        center=[13.0, 2.0, 3.0], look_at=[0.0, 0.0, 0.0])
+
+
+def noise_test_scene(width: int = 400, spp: int = 100, depth: int = 50,
+                     device="cuda"):
+    """``(scene, settings)`` of ``scenes/noise_test.py`` (rendered there at
+    400 px wide, 100 spp, depth 50, seed 0): 2 rows, a flat scan."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(noise_test_world(rt), device=device),
+            noise_test_settings(rt, width, spp, depth))
+
+
+def image_grad_world(rt):
+    """``tools/prof_texture_grad.py``'s textured world: a sphere with a
+    128 x 256 linspace image, a gray ground sphere and a light."""
+    img = np.linspace(0, 1, 256 * 128 * 3).reshape(128, 256, 3)
+    return rt.group([
+        rt.with_material(rt.lambertian(rt.image_texture(img)),
+                         rt.sphere([0, 0, -3], 1.0)),
+        rt.with_material(rt.lambertian(rt.constant_texture(0.6)),
+                         rt.sphere([0, -101, -3], 100.0)),
+        rt.with_material(rt.light_source(rt.constant_texture(4.0)),
+                         rt.parallelogram([-2, 4, -5], [4, 0, 0], [0, 0, 4])),
+    ])
+
+
+def image_grad_scene(width: int = 512, device="cuda"):
+    """``(scene, settings)`` of ``tools/prof_texture_grad.py``: 512 x 512,
+    16 spp, depth 8, RR from depth 2, constant background 0.1."""
+    import raytrace_tpu_torch as rt
+    scene = rt.compile_scene(image_grad_world(rt), device=device)
+    settings = rt.CameraSettings(
+        image_width=width, aspect_ratio=1.0, samples_per_pixel=16,
+        max_depth=8, rr_depth=2, background=rt.const_background(0.1))
+    return scene, settings
+
+
+def earthmap():
+    """The procedural earth of ``scenes/_assets.py:earthmap`` (its
+    fallback when the reference image is absent): [256, 512, 3], blue with
+    lighter land blobs."""
+    h, w = 256, 512
+    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                       indexing="ij")
+    land = (np.sin(u * 14) * np.cos(v * 9) > 0.3).astype(float)
+    return np.stack([0.1 + 0.4 * land, 0.2 + 0.5 * land, 0.6 - 0.4 * land],
+                    axis=-1)
+
+
+def cuboid_test_world(rt):
+    """``scenes/cuboid_test.py``'s world: an earth-textured cuboid, rotated
+    60 degrees about x and moved to z = -3."""
+    globe = rt.lambertian(rt.image_texture(earthmap()))
+    return rt.transform(
+        rt.compose(rt.translate([0, 0, -3]), rt.rotate_x(np.pi / 3)),
+        rt.with_material(globe, rt.cuboid([-1, -2, -0.5], [1, 2, 0.5])))
+
+
 # tools/prof_bunny_grad.py's fwd+bwd on the bunny (here its stand-in) at
 # 600 x 600, depth 10: RR from depth 2, 2^17 lanes (pixels 0 .. 2^17
 # modulo the image) x 16 spp, 30 iterations then 12 at 2^15 and 30 at
@@ -214,12 +311,13 @@ def uv_sphere(n_lat: int, n_lon: int):
     return v, np.concatenate(f).astype(np.int64)
 
 
-def bunny_standin_world(rt):
+def bunny_standin_world(rt, texture=None):
     """The bunny scene's world with a procedural mesh of the bunny's size:
     ``uv_sphere(47, 54)`` (4,968 triangles) with each vertex moved to
     radius 0.9 * (1 + 0.15 sin(5 theta) cos(4 phi)), a non-convex lobed
-    surface that shades itself; no uv; the bunny's blue lambertian.
-    ``rt`` is the builder module (this package or the JAX one)."""
+    surface that shades itself; no uv; a lambertian of ``texture`` (the
+    bunny's blue by default).  ``rt`` is the builder module (this package
+    or the JAX one)."""
     v, f = uv_sphere(47, 54)
     th = np.linspace(0, np.pi, 48)
     ph = np.linspace(0, 2 * np.pi, 54, endpoint=False)
@@ -227,9 +325,9 @@ def bunny_standin_world(rt):
     r = (0.9 * (1.0 + 0.15 * np.sin(5.0 * tt) * np.cos(4.0 * pp))).ravel()
     mesh = rt.Mesh(vertices=v * r[:, None], uv=np.zeros((0, 2)), faces=f,
                    uv_faces=np.full_like(f, -1))
-    return rt.with_material(
-        rt.lambertian(rt.constant_texture([0.3, 0.3, 1.0])),
-        rt.triangle_mesh(mesh))
+    if texture is None:
+        texture = rt.constant_texture([0.3, 0.3, 1.0])
+    return rt.with_material(rt.lambertian(texture), rt.triangle_mesh(mesh))
 
 
 def bunny_standin_scene(width: int = 600, spp: int = 16, depth: int = 10,
@@ -242,6 +340,22 @@ def bunny_standin_scene(width: int = 600, spp: int = 16, depth: int = 10,
     settings = rt.CameraSettings(
         center=[0.0, 0.5, 2.0], look_at=[0.0, 0.0, 0.0], image_width=width,
         samples_per_pixel=spp, max_depth=depth, background=rt.gray_fade)
+    return scene, settings
+
+
+def bunny_tex_scene(width: int = 600, device="cuda"):
+    """``(scene, settings)`` of ``tools/prof_bunny_tex.py`` with the
+    stand-in mesh: its ``uniform(0.1, 0.9, (128, 256, 3))`` image (numpy
+    seed 0) on the mesh, the bunny's camera, gray fade, 16 spp, depth 10,
+    RR from depth 2."""
+    import raytrace_tpu_torch as rt
+    img = np.random.RandomState(0).uniform(0.1, 0.9, (128, 256, 3))
+    scene = rt.compile_scene(bunny_standin_world(
+        rt, rt.image_texture(img.astype(np.float32))), device=device)
+    settings = rt.CameraSettings(
+        center=[0.0, 0.5, 2.0], look_at=[0.0, 0.0, 0.0], image_width=width,
+        samples_per_pixel=16, max_depth=10, rr_depth=2,
+        background=rt.gray_fade)
     return scene, settings
 
 
@@ -462,8 +576,9 @@ def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30,
     n_pix = s.image_width * s.image_height
     pix, carry = iter_state(n, n_pix, seed, dev, box)
     lane_in = (pix,) + carry
-    ref = iter_plain(*tables, lane_in, with_uv=True, **kw)
-    out = iter_megakernel(*tables, lane_in, with_uv=True, **kw)
+    kw_uv = dict(kw, with_uv=True)
+    ref = iter_plain(*tables, lane_in, **kw_uv)
+    out = iter_megakernel(*tables, lane_in, **kw_uv)
     one = max_errs(ref, out, ITER_INT_ROWS)
 
     acc = []
@@ -511,6 +626,69 @@ def compare_nearest(tb, comps):
     ref = allpairs_nearest_plain(tb.ptbl, *rays, **kw)
     out = allpairs_nearest_record(tb.ptbl, tb.bvh, *rays, **kw)
     return max_errs(ref, out, NEAREST_INT_ROWS), out
+
+
+def compare_nearest_flat(tb, comps):
+    """Kernel K8 (the flat scan) and ``pallas_nearest_plain`` on the rays
+    ``comps`` [7, R] over the split tables ``tb``: ``(max_errs(...),
+    kernel outputs)``."""
+    from .ops.intersect_kernel import (
+        pallas_nearest_plain, pallas_nearest_record,
+    )
+    kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    rays = tuple(comps.unbind(0))
+    ref = pallas_nearest_plain(tb.ptbl, *rays, **kw)
+    out = pallas_nearest_record(tb.ptbl, *rays, **kw)
+    return max_errs(ref, out, NEAREST_INT_ROWS), out
+
+
+def surface_points(tb, comps):
+    """``(points [R, 3], hit)``: the hit points ``o + t_safe * d`` of the
+    rays ``comps`` [7, R] over the split tables ``tb`` and their hit
+    record (:func:`render.integrator.surface_hit`)."""
+    from .render.integrator import surface_hit
+    hit = surface_hit(tb, comps[0:3], comps[3:6], comps[6])
+    t_safe = torch.where(torch.isfinite(hit[0]), hit[0], 1.0)
+    return (comps[0:3] + t_safe * comps[3:6]).T.contiguous(), hit
+
+
+def compare_marble(table, tex_ids, points):
+    """Kernel K12 and ``marble_stripe_plain`` on the same lanes:
+    ``(max_errs(...), kernel output)``; the caller holds the error to
+    0."""
+    from .ops.texture_kernel import marble_stripe_pallas, marble_stripe_plain
+    ref = marble_stripe_plain(table, tex_ids, points)
+    out = marble_stripe_pallas(table, tex_ids, points)
+    return max_errs((ref,), (out,), ()), out
+
+
+def image_grad_errs(img_id, j, i, g, ref, out):
+    """``(0, max abs error, worst excess)`` of an atlas gradient ``out``
+    against ``ref`` (either the plain version or an exact sum), for the
+    contributions ``g`` [R, 3] at ``(img_id, j, i)``: each texel within
+    ``SCATTER_RTOL * n * sum |g|`` over its ``n`` contributions."""
+    from .ops.image_grad_kernel import image_grad_plain
+    shape = dict(n_img=ref.shape[0], h=ref.shape[1], w=ref.shape[2])
+    ones = torch.ones_like(g)
+    count = image_grad_plain(img_id, j, i, ones, **shape)
+    mag = image_grad_plain(img_id, j, i, g.abs(), **shape)
+    diff = (ref.to(torch.float64) - out.to(torch.float64)).abs()
+    diff = torch.nan_to_num(diff, nan=float("inf"))
+    bound = SCATTER_RTOL * count.to(torch.float64) * mag.to(torch.float64)
+    return 0, float(diff.max()), float((diff - bound).max())
+
+
+def compare_image_grad(img_id, j, i, g, n_img: int, h: int, w: int):
+    """Kernel K13 against ``image_grad_plain`` and against a float64
+    reduction of the same terms: ``(errs vs plain, errs vs float64,
+    kernel output)``, each as :func:`image_grad_errs`."""
+    from .ops.image_grad_kernel import image_grad_pallas, image_grad_plain
+    kw = dict(n_img=n_img, h=h, w=w)
+    ref = image_grad_plain(img_id, j, i, g, **kw)
+    out = image_grad_pallas(img_id, j, i, g, **kw)
+    exact = image_grad_plain(img_id, j, i, g.to(torch.float64), **kw)
+    return (image_grad_errs(img_id, j, i, g, ref, out),
+            image_grad_errs(img_id, j, i, g, exact, out), out)
 
 
 def synthetic_medium(t, n_mats: int, seed: int):
@@ -574,29 +752,41 @@ def next_split_rays(comps, out, seed: int, depth: int):
 @contextlib.contextmanager
 def checked_launches():
     """Inside the block, every kernel A launch of the render drivers,
-    every nearest and shade kernel launch of the split path and every
-    kernel B launch of the fused step is followed by its plain version on
-    the same inputs.  Yields ``{kernel name: stats}`` with ``launches``
-    (checked), ``n_int`` (differing exact-row lanes, summed), ``err``
-    (max abs float error) and ``excess`` (worst tolerance excess)."""
+    every nearest-hit (BVH walk and flat scan), shade and marble kernel
+    launch of the split path, every kernel B launch of the fused step and
+    every atlas-gradient launch of its backward is followed by its plain
+    version on the same inputs.  Yields ``{kernel name: stats}`` with
+    ``launches`` (checked), ``n_int`` (differing exact-row lanes, summed),
+    ``err`` (max abs float error) and ``excess`` (worst tolerance
+    excess; the atlas gradient's is :func:`image_grad_errs`')."""
     from .diff import fused_iter
     from .ops.allpairs_kernel import allpairs_nearest_plain
     from .ops.bounce_kernel import bounce_plain, shade_plain
+    from .ops.image_grad_kernel import image_grad_plain
+    from .ops.intersect_kernel import pallas_nearest_plain
     from .ops.iter_kernel import iter_plain
+    from .ops.texture_kernel import marble_stripe_plain
     from .render import integrator
+    from .textures import textures
     stats = {}
 
     def nearest_plain(tbl, bvh, *rays, **kw):
         return allpairs_nearest_plain(tbl, *rays, **kw)
 
-    def spy(module, name, plain, int_rows):
+    def rows(int_rows):
+        return lambda args, ref, out: max_errs(ref, out, int_rows)
+
+    def image_grad_check(args, ref, out):
+        return image_grad_errs(*args[:4], ref, out)
+
+    def spy(module, name, plain, compare):
         kernel = getattr(module, name)
         st = stats[name] = dict(launches=0, n_int=0, err=0.0,
                                 excess=-float("inf"))
 
         def checked(*args, **kw):
             out = kernel(*args, **kw)
-            n_int, err, excess = max_errs(plain(*args, **kw), out, int_rows)
+            n_int, err, excess = compare(args, plain(*args, **kw), out)
             st["launches"] += 1
             st["n_int"] += n_int
             st["err"] = max(st["err"], err)
@@ -605,11 +795,20 @@ def checked_launches():
         return kernel, checked
 
     patched = [(integrator, "bounce_megakernel", bounce_plain,
-                BOUNCE_INT_ROWS),
+                rows(BOUNCE_INT_ROWS)),
                (integrator, "allpairs_nearest_record", nearest_plain,
-                NEAREST_INT_ROWS),
-               (integrator, "shade_megakernel", shade_plain, BOUNCE_INT_ROWS),
-               (fused_iter, "iter_megakernel", iter_plain, ITER_INT_ROWS)]
+                rows(NEAREST_INT_ROWS)),
+               (integrator, "pallas_nearest_record", pallas_nearest_plain,
+                rows(NEAREST_INT_ROWS)),
+               (integrator, "shade_megakernel", shade_plain,
+                rows(BOUNCE_INT_ROWS)),
+               (textures, "marble_stripe_pallas",
+                lambda *a, **k: (marble_stripe_plain(*a, **k),),
+                lambda args, ref, out: max_errs(ref, (out,), ())),
+               (fused_iter, "iter_megakernel", iter_plain,
+                rows(ITER_INT_ROWS)),
+               (textures, "image_grad_pallas", image_grad_plain,
+                image_grad_check)]
     originals = []
     for module, name, plain, rows in patched:
         kernel, checked = spy(module, name, plain, rows)
@@ -704,13 +903,83 @@ def plain_kernels():
 
 @contextlib.contextmanager
 def plain_backward():
-    """Inside the block the fused iteration's backward runs K5's plain
-    version (torch autograd over ``lane_math``) on any device."""
+    """Inside the block the fused iteration's backward runs the plain
+    versions of K5 (torch autograd over ``lane_math``) and of the atlas
+    gradient on any device."""
     from .diff import fused_iter
     from .ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_plain
+    from .ops.image_grad_kernel import image_grad_plain
+    from .textures import textures
     kernel = fused_iter.bounce_bwd_regen_pre_megakernel
+    k13 = textures.image_grad_pallas
     fused_iter.bounce_bwd_regen_pre_megakernel = bounce_bwd_regen_pre_plain
+    textures.image_grad_pallas = image_grad_plain
     try:
         yield
     finally:
         fused_iter.bounce_bwd_regen_pre_megakernel = kernel
+        textures.image_grad_pallas = k13
+
+
+# Definitions that let the host C++ compiler build a kernel's body: the
+# CUDA qualifiers, the launch indices (one block of one thread per lane),
+# the bit casts, the read-only load and a single-threaded atomicAdd.
+HOST_SHIM = r"""
+#include <math.h>
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#define __device__
+#define __forceinline__ inline
+#define __global__
+#define __launch_bounds__(x)
+#define __shared__ static
+using std::min;
+struct Dim3 { unsigned x = 0; };
+static Dim3 threadIdx, blockIdx, blockDim;
+static inline void __syncthreads() {}
+static inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, 4);
+  return f;
+}
+static inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, 4);
+  return i;
+}
+template <class T> static inline T __ldg(const T* p) { return *p; }
+static inline float atomicAdd(float* p, float v) {
+  const float old = *p;
+  *p = old + v;
+  return old;
+}
+"""
+
+
+def host_library(cu_name: str, runner: str, out_dir):
+    """Build the body of ``csrc/<cu_name>`` (everything before its first
+    ``extern "C"`` launcher) with the host C++ compiler, behind
+    :data:`HOST_SHIM` and followed by ``runner`` (C++ that calls the
+    kernel once per lane), into a shared library in ``out_dir``; return
+    it loaded with ctypes, or None without a host compiler.  The build
+    uses ``-ffp-contract=off``, as the card's uses ``--fmad=false``."""
+    import ctypes
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from .ops._build import CSRC
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        return None
+    src = (CSRC / cu_name).read_text()
+    src = src[:src.index('extern "C"')].replace("#include <cuda_runtime.h>",
+                                                "")
+    out = Path(out_dir)
+    stem = Path(cu_name).stem
+    (out / f"{stem}.cpp").write_text(HOST_SHIM + src + runner)
+    subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-I", str(CSRC), "-o", str(out / f"{stem}.so"),
+                    str(out / f"{stem}.cpp")], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(out / f"{stem}.so"))

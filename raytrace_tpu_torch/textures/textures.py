@@ -1,11 +1,15 @@
-"""Texture descriptors and their compiled table
+"""Texture descriptors, their compiled table and their batched evaluation
 (``raytrace_tpu/textures/textures.py``).
 
 Every texture of a scene is interned into a struct-of-arrays table, one
-row per texture.  All seven constructors are here as data; the render
-path evaluates constant and checker textures in its kernels.  Image,
-noise, marble and custom textures compile to the table but a render of
-them raises (ROADMAP M9).
+row per texture.  :func:`eval_texture` evaluates the six kinds for a
+batch of lanes (only the kinds present in the scene, combined with
+``where``); custom textures are torch callables ``fn(points [R, 3],
+uvs [R, 2]) -> colors``.  Parameters are gathered by direct indexing
+(the JAX package's ``onehot=`` one-hot matmuls are a TPU workaround and
+are not ported).  Image texels go through :func:`_image_gather`, whose
+backward is the atlas-gradient kernel (``ops/image_grad_kernel.py``);
+marble stripes can go to the marble kernel (``ops/texture_kernel.py``).
 """
 from __future__ import annotations
 
@@ -15,12 +19,25 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..core.vecmath import DTYPE
+from ..ops.image_grad_kernel import image_grad_pallas
+from ..ops.texture_kernel import marble_stripe_pallas, marble_stripe_values
+from .noise import fractal_noise
+
 TEX_CONSTANT = 0
 TEX_CHECKER = 1
 TEX_IMAGE = 2
 TEX_NOISE = 3
 TEX_MARBLE = 4
 TEX_CUSTOM = 5
+# the kinds the render kernels shade themselves; the others are rich
+BASE_KINDS = frozenset({TEX_CONSTANT, TEX_CHECKER})
+
+
+def is_rich(kinds) -> bool:
+    """Do texture ``kinds`` include one the kernels shade at albedo 1.0
+    and leave to the caller (image, noise, marble, custom)?"""
+    return not set(kinds) <= BASE_KINDS
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -178,3 +195,100 @@ def compile_textures(textures: Sequence[Texture]) -> TextureTable:
         marble_rows=tuple(i for i, tx in enumerate(textures)
                           if tx.kind == TEX_MARBLE),
     )
+
+
+class _ImageGather(torch.autograd.Function):
+    """``images[img_id, j, i]`` over flat lanes; the backward scatters the
+    texel cotangents into the atlas with :func:`image_grad_pallas` (the
+    atlas-gradient kernel on the card, its plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, images, img_id, j, i):
+        ctx.save_for_backward(img_id, j, i)
+        ctx.atlas = tuple(images.shape[:3])
+        return images[img_id, j, i]
+
+    @staticmethod
+    def backward(ctx, g):
+        img_id, j, i = ctx.saved_tensors
+        n_img, h, w = ctx.atlas
+        g_img = image_grad_pallas(img_id, j, i, g.contiguous(), n_img=n_img,
+                                  h=h, w=w)
+        return g_img, None, None, None
+
+
+def _image_gather(images, img_id, j, i):
+    """Atlas texels ``images[img_id, j, i]`` ([..., 3]) for integer index
+    tensors of any (common) shape; differentiable in ``images``."""
+    shape = img_id.shape
+    flat = lambda x: x.reshape(-1).long()
+    out = _ImageGather.apply(images, flat(img_id), flat(j), flat(i))
+    return out.reshape(shape + (3,))
+
+
+def eval_texture(table: TextureTable, tex_ids, points, uvs,
+                 marble_kernel: bool = False):
+    """Evaluate texture ``tex_ids[...]`` at ``points[..., 3]`` and
+    ``uvs[..., 2]``: colors [..., 3].  Branchless over the lanes; only
+    the kinds present in the scene are computed.  ``uvs`` only feeds
+    ``floor`` lookups, so it receives no gradient.
+
+    ``marble_kernel=True`` (the forward render) sends marble stripes to
+    :func:`marble_stripe_pallas` (flat [R, 3] points; the kernel on the
+    card, not differentiable); otherwise they are plain torch, as the
+    differentiable path needs.  It is the JAX package's
+    ``marble_pallas=``."""
+    tex_ids = tex_ids.long()
+    kind = table.kind[tex_ids]
+    c0 = table.c0[tex_ids]
+    out = c0
+    present = table.kinds_present
+    if TEX_CHECKER in present:
+        # floor(u * n_u) + floor(v * n_v) parity
+        i = torch.floor(uvs[..., 0] * table.f0[tex_ids]).to(torch.int32)
+        j = torch.floor(uvs[..., 1] * table.f1[tex_ids]).to(torch.int32)
+        even = ((i + j) & 1) == 0
+        checker = torch.where(even[..., None], c0, table.c1[tex_ids])
+        out = torch.where((kind == TEX_CHECKER)[..., None], checker, out)
+    if TEX_IMAGE in present:
+        # i = floor(u w) mod w, j = floor((1 - v) h) mod h: (u, v) = (0, 0)
+        # is the bottom-left corner, nearest texel, wrap-around
+        # other kinds' i0 is no image id: they look up image 0
+        img_id = torch.where(kind == TEX_IMAGE, table.i0[tex_ids], 0)
+        hw = table.image_hw[img_id.long()]
+        h, w = hw[..., 0], hw[..., 1]
+        i = torch.remainder(torch.floor(uvs[..., 0] * w).to(torch.int32),
+                            torch.clamp(w, min=1))
+        j = torch.remainder(
+            torch.floor((1.0 - uvs[..., 1]) * h).to(torch.int32),
+            torch.clamp(h, min=1))
+        texel = _image_gather(table.images, img_id, j, i)
+        out = torch.where((kind == TEX_IMAGE)[..., None], texel, out)
+    if TEX_NOISE in present:
+        q = points * table.f0[tex_ids][..., None] + table.v0[tex_ids]
+        n = torch.zeros(points.shape[:-1], dtype=DTYPE, device=points.device)
+        octaves = table.i0[tex_ids]
+        for k in table.noise_octaves:
+            n = torch.where(octaves == k, fractal_noise(k, q), n)
+        val = (n * (0.5 / 0.8) + 0.5)[..., None]
+        noise_col = c0 + (table.c1[tex_ids] - c0) * val
+        out = torch.where((kind == TEX_NOISE)[..., None], noise_col, out)
+    if TEX_MARBLE in present:
+        if marble_kernel:
+            stripe = marble_stripe_pallas(table, tex_ids, points)
+        else:
+            d, sh = table.v0[tex_ids], table.v1[tex_ids]
+            stripe = marble_stripe_values(
+                table.f0[tex_ids], d[..., 0], d[..., 1], d[..., 2],
+                sh[..., 0], sh[..., 1], sh[..., 2], points[..., 0],
+                points[..., 1], points[..., 2])
+        out = torch.where((kind == TEX_MARBLE)[..., None], stripe[..., None],
+                          out)
+    if TEX_CUSTOM in present:
+        for fn_idx, fn in enumerate(table.custom_fns):
+            val = torch.broadcast_to(
+                torch.as_tensor(fn(points, uvs), dtype=DTYPE,
+                                device=points.device), points.shape)
+            sel = (kind == TEX_CUSTOM) & (table.i0[tex_ids] == fn_idx)
+            out = torch.where(sel[..., None], val, out)
+    return out

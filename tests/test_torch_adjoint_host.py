@@ -18,37 +18,16 @@ lane: the build uses ``-ffp-contract=off``, as the card's uses
 the last bit, which moves no branch on these states.
 """
 import ctypes
-import shutil
-import subprocess
 
 import pytest
 import torch
 
 import raytrace_tpu_torch as rt
 from raytrace_tpu_torch.ops import bounce_bwd_gather_kernel as k5
-from raytrace_tpu_torch.ops._build import CSRC
 from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, all_materials_scene, box_motion_scene, bwd_errs,
-    bwd_inputs, cornell_scene_and_settings,
+    bwd_inputs, cornell_scene_and_settings, host_library,
 )
-
-_SHIM = r"""
-#include <math.h>
-#include <cstring>
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(x)
-#define __shared__ static
-struct Dim3 { unsigned x = 0; };
-static Dim3 threadIdx, blockIdx, blockDim;
-static inline void __syncthreads() {}
-static inline float __int_as_float(int i) {
-  float f;
-  std::memcpy(&f, &i, 4);
-  return f;
-}
-"""
 
 _RUN = r"""
 extern "C" int run_bwd(const BwdArgs* a) {
@@ -65,18 +44,10 @@ extern "C" int run_bwd(const BwdArgs* a) {
 
 @pytest.fixture(scope="module")
 def host_k5(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    lib = host_library("bounce_bwd_kernel.cu", _RUN,
+                       tmp_path_factory.mktemp("k5host"))
+    if lib is None:
         pytest.skip("needs a host C++ compiler")
-    src = (CSRC / "bounce_bwd_kernel.cu").read_text()
-    src = src[:src.index('extern "C"')].replace("#include <cuda_runtime.h>",
-                                                "")
-    d = tmp_path_factory.mktemp("k5host")
-    (d / "k5.cpp").write_text(_SHIM + src + _RUN)
-    subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", str(CSRC), "-o", str(d / "k5.so"),
-                    str(d / "k5.cpp")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / "k5.so"))
     lib.run_bwd.argtypes = [ctypes.c_void_p]
 
     def run(args, kw):

@@ -21,8 +21,6 @@ lower row must win.  Tolerance: none, every output equal on every ray
 ``--fmad=false``, and the per-row arithmetic is the plain version's).
 """
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -30,36 +28,12 @@ import torch
 
 import raytrace_tpu_torch as rt
 from raytrace_tpu_torch.ops import allpairs_kernel as ak
-from raytrace_tpu_torch.ops._build import CSRC
 from raytrace_tpu_torch.ops.bounce_kernel import shade_plain
 from raytrace_tpu_torch.render.integrator import split_tables, surface_hit
 from raytrace_tpu_torch.testing import (
-    bunny_standin_scene, camera_rays, mesh_all_kinds_scene, uv_sphere,
+    bunny_standin_scene, camera_rays, host_library, mesh_all_kinds_scene,
+    uv_sphere,
 )
-
-_SHIM = r"""
-#include <math.h>
-#include <cstring>
-#define __device__
-#define __forceinline__ inline
-#define __global__
-#define __launch_bounds__(x)
-#define __shared__ static
-struct Dim3 { unsigned x = 0; };
-static Dim3 threadIdx, blockIdx, blockDim;
-static inline void __syncthreads() {}
-static inline float __int_as_float(int i) {
-  float f;
-  std::memcpy(&f, &i, 4);
-  return f;
-}
-static inline int __float_as_int(float f) {
-  int i;
-  std::memcpy(&i, &f, 4);
-  return i;
-}
-template <class T> static inline T __ldg(const T* p) { return *p; }
-"""
 
 _RUN = r"""
 extern "C" int run_nearest(const NearestArgs* a) {
@@ -79,18 +53,10 @@ extern "C" int run_nearest(const NearestArgs* a) {
 
 @pytest.fixture(scope="module")
 def host_nearest(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    lib = host_library("nearest_kernel.cu", _RUN,
+                       tmp_path_factory.mktemp("nearest_host"))
+    if lib is None:
         pytest.skip("needs a host C++ compiler")
-    src = (CSRC / "nearest_kernel.cu").read_text()
-    src = src[:src.index('extern "C"')].replace("#include <cuda_runtime.h>",
-                                                "")
-    d = tmp_path_factory.mktemp("nearest_host")
-    (d / "nearest.cpp").write_text(_SHIM + src + _RUN)
-    subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", str(CSRC), "-o", str(d / "nearest.so"),
-                    str(d / "nearest.cpp")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / "nearest.so"))
     lib.run_nearest.argtypes = [ctypes.c_void_p]
 
     def run(tb, rays):

@@ -223,8 +223,8 @@ def test_box_motion_gradients_match_jax():
 
 def test_unported_diff_branches_raise(cornell):
     """The fused driver is the port's only differentiable path: the other
-    branches, rich textures and other devices raise, naming their
-    ROADMAP item."""
+    branches, lights with rich textures (emission is in-kernel) and other
+    devices raise, naming their ROADMAP item."""
     import raytrace_tpu_torch as trt
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
         bounce_bwd_regen_pre_megakernel,
@@ -245,9 +245,9 @@ def test_unported_diff_branches_raise(cornell):
         trace_wavefront_diff(ts, tset, rng.base_key(0), pix, 2, remat=False,
                              use_mega=False)
     marble = trt.compile_scene(trt.with_material(
-        trt.lambertian(trt.marble_texture([0, 0, 1], 2.0)),
+        trt.light_source(trt.marble_texture([0, 0, 1], 2.0)),
         trt.sphere([0, 0, -2], 1)), device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(NotImplementedError, match="M4"):
         render_loss_wavefront(*partition(marble), tset, rng.base_key(0),
                               pix, target, 2, remat=False)
     m = torch.empty(128, device="meta")

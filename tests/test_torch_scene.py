@@ -192,8 +192,8 @@ def test_scan_bound_and_eligibility(pair):
 
 def test_unported_features_raise():
     """The native .obj parser, stationary renders of 8192 rows and more
-    (the sorted driver), media, the BVH accelerator and rich textures wait
-    for their ROADMAP items."""
+    (the sorted driver), media, the BVH accelerator and lights with rich
+    textures (the generic bounce) wait for their ROADMAP items."""
     from raytrace_tpu_torch.scene.obj import parse_obj
     from raytrace_tpu_torch.testing import uv_sphere
     with pytest.raises(NotImplementedError, match="M8"):
@@ -214,10 +214,10 @@ def test_unported_features_raise():
             trt.lambertian(trt.constant_texture(0.5)),
             trt.sphere([0, 0, 0], 1)), accel="bvh", device="cpu")
     world = trt.with_material(
-        trt.lambertian(trt.marble_texture([0, 0, 1], 2.0)),
+        trt.light_source(trt.marble_texture([0, 0, 1], 2.0)),
         trt.sphere([0, 0, -2], 1))
     scene = trt.compile_scene(world, device="cpu")
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(NotImplementedError, match="M4"):
         trt.render(scene, trt.CameraSettings(image_width=8,
                                              samples_per_pixel=1))
 
