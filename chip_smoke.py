@@ -96,12 +96,43 @@ Rich textures (image, noise, marble):
     beside their plain versions', their bounds and, for K13,
     ``index_put_``'s.
 
+Constant-density media (``testing.cornell_smoke_scene``: the Cornell box
+with two smoke blocks of 6 boundary rows each; ``testing.pawn_standin_scene``:
+a 1,200-triangle procedural pawn used as a glass shell and as the boundary
+of a red medium):
+
+24. the crossing kernels against their plain version on every lane: K11
+    on cornell_smoke's 360,064 camera rays at 600 x 600 and their second
+    bounce (which starts inside both smoke blocks), K11b on 2^17 camera
+    rays of the pawn stand-in, their second bounce and 2^17 rays from
+    inside its medium, and K11 on 2^16 random rays of
+    ``tests/test_volume_kernel.py``'s fog ball and smoke box (a box row),
+    still and moving; every line must say 0 differing lanes and max |err|
+    0;
+25. route 5, the media forward: ``render_accumulate`` of cornell_smoke at
+    600 x 600, depth 50, seed 0, at ``FWD_SPP`` (the scene's 200 cut;
+    ``profile_render.py`` times 200): the stationary driver at rotate_k 8,
+    K8, K11 and the shade kernel every iteration, kernels A and B never;
+    written to chiprun_out/cornell_smoke.png; then a 1 spp render with
+    every launch held against its plain version;
+26. route 6, the mesh-boundary medium: the pawn stand-in at 500 x 500,
+    depth 20, ``PAWN_SPP`` (the scene's 400 cut) through the sorted
+    driver (K9, K11b and the shade kernel every iteration), written to
+    chiprun_out/pawn_standin.png; then a checked 128 x 128 render at 1
+    spp;
+27. phase 13's 50,000-triangle sphere through the sorted driver at 256 x
+    256, 4 spp, depth 10 (a stationary render of 8,192 rows and more,
+    which raised before the sorted driver);
+28. K11's and K11b's times at those shapes beside their plain versions',
+    their bounds (the rows and chunk boxes each ray of K11b tested,
+    counted by the kernel) and their launches.
+
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
 chiprun_out/.  Tolerances (``raytrace_tpu_torch/testing.py``): exact rows
 equal on every lane, floats within atol 2e-3 + rtol 1e-3 (the mesh
-kernels, K8 and K12, built like the plain versions' arithmetic, are held
-to equality: a max |err| of 0); K5 within ``testing.BWD_RTOL`` of each
+kernels, K8, K12, K11 and K11b, built like the plain versions'
+arithmetic, are held to equality: a max |err| of 0); K5 within ``testing.BWD_RTOL`` of each
 gradient's scale (the hand-derived adjoint sums the chain-rule terms in
 another order than autograd); K13 within ``testing.image_grad_errs`` of
 its plain version and of a float64 sum (float atomics add in a varying
@@ -142,6 +173,14 @@ ROW_OPS = 45
 # corners, each a hash, a sine and a cosine (some 20 operations each), a
 # dot and a weight, counted from the source
 MARBLE_OPS = 4600
+# samples per pixel of the mesh-boundary medium's forward
+# (scenes/pawn_test.py renders 400; profile_render.py times more)
+PAWN_SPP = 16
+# float operations of the crossing kernels (csrc/volume.cuh): a boundary
+# row's roots (sphere, plane or box, ~40) and its two folds (~10 each),
+# and one chunk-box test of K11b (~20), counted from the source
+VOL_ROW_OPS = 60
+VOL_BOX_OPS = 20
 
 
 def _smi_line() -> str:
@@ -171,7 +210,9 @@ def _device_ms(fn, kernel: str, reps: int) -> float:
     of its name) over ``reps`` calls of ``fn``, read from torch.profiler:
     a kernel shorter than its wrapper's host cost leaves the card idle
     between back-to-back launches, so CUDA events around them would time
-    the host instead."""
+    the host instead.  The profiler's device trace can drop some events
+    of a burst of microsecond launches (31 of 50 seen on an H100), so the
+    mean is over the launches it recorded, at least one."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -184,10 +225,10 @@ def _device_ms(fn, kernel: str, reps: int) -> float:
         torch.cuda.synchronize()
     us = [e.time_range.end - e.time_range.start for e in prof.events()
           if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if len(us) != reps:
+    if not 0 < len(us) <= reps:
         raise AssertionError(f"{kernel}: {len(us)} profiled launches of "
                              f"{reps}")
-    return sum(us) / reps / 1e3
+    return sum(us) / len(us) / 1e3
 
 
 def _check(label: str, errs, lanes: int) -> float:
@@ -569,11 +610,16 @@ def main() -> None:
 
     mesh = _mesh_phases(smi, phase_done)
     rich = _rich_phases(smi, phase_done, dev)
+    media = _media_phases(smi, phase_done, dev)
     main_b += rich["iter_launches"]
-    mesh["kernels"][1]["launches"] += rich["shade_launches"]
+    mesh["kernels"][0]["launches"] += media["k9_launches"]
+    mesh["kernels"][1]["launches"] += (rich["shade_launches"]
+                                       + media["shade_launches"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
+    rich["kernels"][0]["launches"] += media["k8_launches"]
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
                       "mesh": mesh["summary"], "rich": rich["summary"],
+                      "media": media["summary"],
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
@@ -597,7 +643,8 @@ def main() -> None:
          "max_abs_err": err_k5,
          "ms": ms_k5, "plain_ms": plain_k5, "bound_ms": bound_k5[0],
          "bound_by": bound_k5[1], "library_ms": no_lib},
-    ] + mesh["kernels"] + rich["kernels"]}), flush=True)
+    ] + mesh["kernels"] + rich["kernels"] + media["kernels"]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1317,6 +1364,273 @@ def _rich_phases(smi, phase_done, dev) -> dict:
                 k5_launches=r4["bounce_bwd_regen_pre_megakernel"]
                 + rb["bounce_bwd_regen_pre_megakernel"])
 
+
+def _media_phases(smi, phase_done, dev) -> dict:
+    """Phases 24-28 (constant-density media) on ``dev``.  Returns the
+    summary for the JSON line, the launches of K8, K9 and the shade kernel
+    on routes 5-7, and the ``kernels`` entries of K11 and K11b."""
+    import numpy as np
+    import torch
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        _chunk_plans, pallas_volume_crossings, pallas_volume_crossings_bcast,
+        volume_crossings_plain,
+    )
+    from raytrace_tpu_torch.render.image import write_image
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.render.volumes import crossing_kw, volume_tables
+    from raytrace_tpu_torch.testing import (
+        checked_launches, compare_crossings, cornell_smoke_scene,
+        media_bounce_rays, pawn_inside_rays, pawn_standin_scene,
+        stationary_lanes, uv_sphere, volume_rays, volume_test_world,
+    )
+    counters = (bounce_megakernel, iter_megakernel, pallas_nearest_record,
+                allpairs_nearest_record, shade_megakernel,
+                pallas_volume_crossings, pallas_volume_crossings_bcast)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def read():
+        return {c.__name__: c.launches for c in counters}
+
+    def check_crossings(label, volumes, comps):
+        errs, out = compare_crossings(volumes, comps)
+        inside = [int(((out[3 * v + 1] == 0.0) & torch.isfinite(out[3 * v]))
+                      .sum()) for v in range(volumes.n_volumes)]
+        err = _check(f"{label}; lanes whose first crossing exits, per "
+                     f"medium: {inside}", errs, comps.shape[1])
+        if err:
+            raise AssertionError(f"{label}: not exact")
+        return err
+
+    smoke, s_s = cornell_smoke_scene(600, FWD_SPP, 50, device=dev)
+    pawn, s_p = pawn_standin_scene(500, PAWN_SPP, 20, device=dev)
+    n_pix_s, lanes_s, _ = stationary_lanes(s_s)
+    n_pix_p = s_p.image_width * s_p.image_height
+    print(f"[media] cornell_smoke: {smoke.prims.n} surface rows, media of "
+          f"{smoke.volumes.counts} boundary rows; pawn stand-in: "
+          f"{pawn.prims.n} triangles in {pawn.prims.kind.shape[0]} rows "
+          f"(segments {pawn.prims.kind_segments}), a medium of "
+          f"{pawn.volumes.counts} boundary rows", flush=True)
+
+    # 24. the crossing kernels vs plain
+    err11 = err11b = 0.0
+    smoke_rays = media_bounce_rays(smoke, s_s, 81)
+    for k, (comps, alive) in enumerate(smoke_rays):
+        err11 += check_crossings(f"K11 vs plain: cornell_smoke 600x600 bounce "
+                        f"{k + 1} ({int(alive.sum())} live)", smoke.volumes,
+                        comps)
+    n_k = 1 << 17
+    pix_p = (torch.arange(n_k) * n_pix_p // n_k).to(dev, torch.int32)
+    pawn_rays = media_bounce_rays(pawn, s_p, 82, pixels=pix_p)
+    for k, (comps, alive) in enumerate(pawn_rays):
+        err11b += check_crossings(f"K11b vs plain: pawn stand-in 500x500 bounce "
+                        f"{k + 1} ({int(alive.sum())} live)", pawn.volumes,
+                        comps)
+    err11b += check_crossings(
+        "K11b vs plain: pawn stand-in, rays from inside the medium",
+        pawn.volumes, pawn_inside_rays(n_k, 83, device=dev))
+    for moving in (False, True):
+        world = rt.compile_scene(volume_test_world(rt, moving), device=dev)
+        comps = volume_rays(1 << 16, 84 + moving, (-6.0, 6.0),
+                            ([0.0, 0.0, -3.0], [3.2, 0.0, -3.5]), device=dev)
+        err11 += check_crossings(f"K11 vs plain: fog ball and smoke box"
+                        f"{' moving' if moving else ''} (a box row), random "
+                        f"rays", world.volumes, comps)
+    phase_done("crossing kernels vs plain")
+
+    # 25. route 5: the media forward at full size
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, total = render_accumulate(smoke, s_s, seed=0, spp=FWD_SPP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r5 = read()
+    l8, l10, l11 = (r5["pallas_nearest_record"], r5["shade_megakernel"],
+                    r5["pallas_volume_crossings"])
+    others = (r5["bounce_megakernel"], r5["iter_megakernel"],
+              r5["allpairs_nearest_record"],
+              r5["pallas_volume_crossings_bcast"])
+    img = acc / total
+    finite = bool(torch.isfinite(img).all())
+    route5 = dict(seconds=dt, rays_per_s=n_pix_s * FWD_SPP / dt,
+                  iterations=l8, k8=l8, k10=l10, k11=l11,
+                  mean=float(img.mean()))
+    print(f"[route 5] cornell_smoke 600x600 {FWD_SPP} spp (the scene renders "
+          f"200) depth 50 seed 0: {dt:.3f} s, "
+          f"{route5['rays_per_s'] / 1e6:.3f} M primary rays/s, {l8} "
+          f"iterations ({1e3 * dt / max(l8, 1):.3f} ms/iter), launches "
+          f"K8={l8} K10={l10} K11={l11} A={others[0]} B={others[1]} "
+          f"K9={others[2]} K11b={others[3]}, mean {route5['mean']:.6f}, "
+          f"finite {finite} [{smi}]", flush=True)
+    if not finite or img.shape != (n_pix_s, 3) or l8 == 0 or l10 != l8 \
+            or l11 != l8 or any(others):
+        raise AssertionError("route 5: bad image or launches")
+    write_image(os.path.join(OUT_DIR, "cornell_smoke.png"),
+                img.reshape(s_s.image_height, s_s.image_width, 3))
+    phase_done("route 5")
+    with checked_launches() as stats:
+        acc1, _ = render_accumulate(smoke, s_s, seed=0, spp=1)
+    for kname in ("pallas_nearest_record", "pallas_volume_crossings",
+                  "shade_megakernel"):
+        st = stats[kname]
+        if st["launches"] == 0 or not bool(torch.isfinite(acc1).all()):
+            raise AssertionError(f"checked route 5: {kname}")
+        err = _check(f"route 5 checked: cornell_smoke 600x600 1 spp, "
+                     f"{st['launches']} launches of {kname}",
+                     (st["n_int"], st["err"], st["excess"]), lanes_s)
+        if err:
+            raise AssertionError(f"checked route 5: {kname} is not exact")
+        if kname == "pallas_volume_crossings":
+            err11 += err
+    phase_done("checked route 5")
+
+    # 26. route 6: the mesh-boundary medium through the sorted driver
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, total = render_accumulate(pawn, s_p, seed=0, spp=PAWN_SPP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r6 = read()
+    l9, l10p, l11b = (r6["allpairs_nearest_record"], r6["shade_megakernel"],
+                      r6["pallas_volume_crossings_bcast"])
+    others = (r6["bounce_megakernel"], r6["iter_megakernel"],
+              r6["pallas_nearest_record"], r6["pallas_volume_crossings"])
+    img = acc / total
+    finite = bool(torch.isfinite(img).all())
+    route6 = dict(seconds=dt, rays_per_s=n_pix_p * PAWN_SPP / dt,
+                  iterations=l9, k9=l9, k10=l10p, k11b=l11b,
+                  mean=float(img.mean()))
+    print(f"[route 6] pawn stand-in 500x500 {PAWN_SPP} spp (the scene "
+          f"renders 400) depth 20 seed 0, sorted driver: {dt:.3f} s, "
+          f"{route6['rays_per_s'] / 1e6:.3f} M primary rays/s, {l9} "
+          f"iterations ({1e3 * dt / max(l9, 1):.3f} ms/iter), launches "
+          f"K9={l9} K11b={l11b} K10={l10p} A={others[0]} B={others[1]} "
+          f"K8={others[2]} K11={others[3]}, mean {route6['mean']:.6f}, "
+          f"finite {finite} [{smi}]", flush=True)
+    if not finite or img.shape != (n_pix_p, 3) or l9 == 0 or l10p != l9 \
+            or l11b != l9 or any(others):
+        raise AssertionError("route 6: bad image or launches")
+    write_image(os.path.join(OUT_DIR, "pawn_standin.png"),
+                img.reshape(s_p.image_height, s_p.image_width, 3))
+    phase_done("route 6")
+    small, s_small = pawn_standin_scene(128, 1, 20, device=dev)
+    with checked_launches() as stats:
+        acc1, _ = render_accumulate(small, s_small, seed=0, spp=1)
+    for kname in ("allpairs_nearest_record", "pallas_volume_crossings_bcast",
+                  "shade_megakernel"):
+        st = stats[kname]
+        if st["launches"] == 0 or not bool(torch.isfinite(acc1).all()):
+            raise AssertionError(f"checked route 6: {kname}")
+        err = _check(f"route 6 checked: pawn stand-in 128x128 1 spp, "
+                     f"{st['launches']} launches of {kname}",
+                     (st["n_int"], st["err"], st["excess"]), 128 * 128)
+        if err:
+            raise AssertionError(f"checked route 6: {kname} is not exact")
+        if kname == "pallas_volume_crossings_bcast":
+            err11b += err
+    phase_done("checked route 6")
+
+    # 27. the 50,000-triangle sphere through the sorted driver
+    v, f = uv_sphere(126, 200)
+    big = rt.compile_scene(rt.with_material(
+        rt.lambertian(rt.constant_texture([0.6, 0.6, 0.6])),
+        rt.triangle_mesh(rt.Mesh(1.5 * v, np.zeros((0, 2)), f,
+                                 np.full_like(f, -1)))), device=dev)
+    s_big = rt.CameraSettings(center=[0.0, 1.0, 4.0], look_at=[0.0, 0.0, 0.0],
+                              image_width=256, max_depth=10,
+                              background=rt.gray_fade)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, total = render_accumulate(big, s_big, seed=0, spp=4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r7 = read()
+    l9b, l10b = r7["allpairs_nearest_record"], r7["shade_megakernel"]
+    finite = bool(torch.isfinite(acc).all())
+    route7 = dict(seconds=dt, rays_per_s=256 * 256 * 4 / dt, iterations=l9b,
+                  mean=float((acc / total).mean()))
+    print(f"[route 7] {f.shape[0]}-triangle sphere ({big.prims.kind.shape[0]}"
+          f" rows) 256x256 4 spp depth 10, sorted driver: {dt:.3f} s, "
+          f"{route7['rays_per_s'] / 1e6:.3f} M primary rays/s, launches "
+          f"K9={l9b} K10={l10b} A={r7['bounce_megakernel']} "
+          f"B={r7['iter_megakernel']}, mean {route7['mean']:.6f}, finite "
+          f"{finite} [{smi}]", flush=True)
+    if not finite or l9b == 0 or l10b != l9b:
+        raise AssertionError("route 7: bad image or launches")
+    phase_done("50k-triangle sphere, sorted")
+
+    # 28. kernel times at the slice's shapes
+    vtbl_s, _ = volume_tables(smoke.volumes)
+    kw_s = crossing_kw(smoke.volumes, s_s.t_min)
+    rays_s = tuple(smoke_rays[0][0].unbind(0))
+    call11 = lambda: pallas_volume_crossings(vtbl_s, *rays_s, **kw_s)
+    ms11 = _device_ms(call11, "volume_crossings_kernel", 50)
+    back11 = _time_ms(call11, 50)
+    plain11 = _time_ms(lambda: volume_crossings_plain(vtbl_s, *rays_s,
+                                                      **kw_s), 5, 1)
+    nv_s = smoke.volumes.n_volumes
+    rows_s = vtbl_s.shape[0]
+    bound11 = _bound_ms(4 * lanes_s * (7 + 3 * nv_s) + 4 * vtbl_s.numel(),
+                        lanes_s * rows_s * VOL_ROW_OPS)
+    print(f"[time] K11 {ms11:.4f} ms on the device ({back11:.4f} ms a call "
+          f"back to back) vs volume_crossings_plain {plain11:.3f} ms at "
+          f"{lanes_s} camera rays of cornell_smoke ({rows_s} boundary rows, "
+          f"all tested); bound {bound11[0]:.4f} ms ({bound11[1]}) [{smi}]",
+          flush=True)
+    vtbl_p, cbox_p = volume_tables(pawn.volumes)
+    kw_p = crossing_kw(pawn.volumes, s_p.t_min)
+    rays_p = tuple(pawn_rays[0][0].unbind(0))
+    _, tested = pallas_volume_crossings_bcast(vtbl_p, cbox_p, *rays_p,
+                                              count_rows=True, **kw_p)
+    call11b = lambda: pallas_volume_crossings_bcast(vtbl_p, cbox_p, *rays_p,
+                                                    **kw_p)
+    ms11b = _device_ms(call11b, "volume_chunked_kernel", 50)
+    back11b = _time_ms(call11b, 50)
+    plain11b = _time_ms(lambda: volume_crossings_plain(vtbl_p, *rays_p,
+                                                       **kw_p), 2, 1)
+    rows_t = float(tested.double().mean())
+    n_chunks = sum(len(p) for p in _chunk_plans(kw_p["slices"]))
+    bound11b = _bound_ms(4 * n_k * (7 + 3) + 4 * (vtbl_p.numel()
+                                                  + cbox_p.numel()),
+                         n_k * (VOL_ROW_OPS * rows_t + VOL_BOX_OPS * n_chunks))
+    print(f"[time] K11b {ms11b:.4f} ms on the device ({back11b:.4f} ms a call "
+          f"back to back) vs volume_crossings_plain {plain11b:.3f} ms at "
+          f"{n_k} camera rays of the pawn stand-in; a ray tests "
+          f"{rows_t:.2f} of {vtbl_p.shape[0]} rows and {n_chunks} chunk "
+          f"boxes; bound {bound11b[0]:.5f} ms ({bound11b[1]}) [{smi}]",
+          flush=True)
+    phase_done("crossing kernel times")
+
+    kernels = [
+        {"name": "pallas_volume_crossings", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/volume_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:594",
+         "launches": l11, "max_abs_err": err11, "ms": ms11,
+         "plain_ms": plain11, "bound_ms": bound11[0],
+         "bound_by": bound11[1], "library_ms": None},
+        {"name": "pallas_volume_crossings_bcast", "route": "cuda",
+         "source": "raytrace_tpu_torch/csrc/volume_kernel.cu",
+         "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:514",
+         "launches": l11b, "max_abs_err": err11b, "ms": ms11b,
+         "plain_ms": plain11b, "bound_ms": bound11b[0],
+         "bound_by": bound11b[1], "library_ms": None},
+    ]
+    summary = dict(route5=route5, route6=route6, route7=route7,
+                   k11b_rows_tested=rows_t)
+    return dict(summary=summary, kernels=kernels, k8_launches=l8,
+                k9_launches=l9 + l9b, shade_launches=l10 + l10p + l10b)
 
 if __name__ == "__main__":
     main()

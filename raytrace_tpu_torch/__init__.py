@@ -13,7 +13,11 @@ path: the nearest hit over a BVH (``ops/allpairs_kernel.py``,
 ``csrc/nearest_kernel.cu``) or by a flat scan of a small table
 (``ops/intersect_kernel.py``, ``csrc/nearest_flat_kernel.cu``), the shade
 kernel (``csrc/shade_kernel.cu``) and the rich-texture albedo
-(``textures/``; marble stripes in ``csrc/texture_kernel.cu``).  The
+(``textures/``; marble stripes in ``csrc/texture_kernel.cu``), with the
+boundary crossings of constant-density media
+(``ops/volume_kernel.py``, ``csrc/volume_kernel.cu``) before the shade;
+scenes with mesh-boundary media or tables of 8,192 rows and more render
+through the ray-sorted work-queue driver.  The
 differentiable path: ``diff.gradients``
 (``partition``, ``loss_and_grads``, ``render_loss_wavefront``) over the
 differentiable wavefront, whose forward is kernel B (its BVH variant
@@ -34,9 +38,9 @@ from .render.camera import CameraSettings, const_background, gray_fade, sky
 from .render.image import read_image, write_image, write_image_sqrt
 from .render.render import render, render_accumulate
 from .scene.builder import (
-    Mesh, compose, cuboid, cuboids, group, moving, parallelogram, rotate_x,
-    rotate_y, rotate_z, scale, sphere, spheres, transform, translate,
-    triangle, triangle_mesh, with_material,
+    Mesh, compose, constant_medium, cuboid, cuboids, group, moving,
+    parallelogram, rotate_x, rotate_y, rotate_z, scale, sphere, spheres,
+    transform, translate, triangle, triangle_mesh, with_material,
 )
 from .scene.compile import compile_scene
 from .textures.textures import (

@@ -2,10 +2,10 @@
 // of raytrace_tpu_torch/diff/lane_replay.py:lane_math (the JAX package's
 // diff/lane_replay.py:lane_math), for one lane.
 //
-// The TPU kernels get this adjoint from jax.vjp; CUDA has no autodiff, so
-// the function below recomputes lane_math's forward in registers and runs
-// its reverse sweep by hand.  It follows JAX's (and torch's) rules, not
-// textbook calculus:
+// The TPU kernels get this adjoint through jax.vjp; CUDA has no
+// autodiff, so the function below recomputes lane_math's forward in
+// registers and runs its reverse sweep by hand.  It follows JAX's (and
+// torch's) rules, not textbook calculus:
 //   * where(c, a, b) sends the cotangent only to the taken branch: the code
 //     branches on c and never multiplies a mask into a gradient that may be
 //     infinite;

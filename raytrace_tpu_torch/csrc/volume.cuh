@@ -1,0 +1,135 @@
+// Boundary crossings of a constant-density medium: the per-row candidates
+// and the fold of raytrace_tpu/ops/pallas/volume_kernel.py (_volume_loop,
+// _crossing_cand, _merge).  Plain version:
+// ops/volume_kernel.py:volume_crossings_plain.
+//
+// A row gives up to two candidates: a sphere's or box's near root (it
+// enters: front 1) and far root (it exits), or a parallelogram's or
+// triangle's one root (front iff the ray meets it from the normal side).
+// Candidates are strictly beyond t_min; the others are +inf.  The nearest
+// hit of prim_loop.cuh keeps one root of a row; here both count, so the
+// crossing scan has its own candidate function over the same row layout
+// (ops/intersect_kernel.py:pack_prims) and the same association.
+#pragma once
+
+#include "common.cuh"
+
+namespace rt {
+
+// The carried (first crossing, its front flag, strictly second crossing).
+struct Crossings {
+  float b1, f1, b2;
+};
+
+__device__ __forceinline__ Crossings no_crossings() {
+  return Crossings{inf(), 0.0f, inf()};
+}
+
+// Fold candidate (c, cf) into the triple (_merge): the strict < keeps an
+// earlier candidate's flag on a tie; the second crossing is the smallest
+// value strictly beyond the new first.
+__device__ __forceinline__ void merge(Crossings& s, float c, float cf) {
+  const float nb1 = tmin(s.b1, c);
+  if (c < s.b1) s.f1 = cf;
+  const float g1 = s.b1 > nb1 ? s.b1 : inf();
+  const float g2 = s.b2 > nb1 ? s.b2 : inf();
+  const float g3 = c > nb1 ? c : inf();
+  s.b2 = tmin(tmin(g1, g2), g3);
+  s.b1 = nb1;
+}
+
+// Candidates of row ``row`` for ray (o, d) at time tm; inv_d* = 1 /
+// safe_dir(d*) (prim_loop.cuh).  Rows of kind -1 (pad, degenerate) give
+// none.  Box rows are read only when the table has any (has_box).
+template <class Row>
+__device__ __forceinline__ void crossing_cand(
+    const Row& row, float ox, float oy, float oz, float dx, float dy,
+    float dz, float inv_dx, float inv_dy, float inv_dz, float tm,
+    float t_min, bool has_motion, bool has_box, float& c1, float& cf1,
+    float& c2) {
+  c1 = inf();
+  cf1 = 0.0f;
+  c2 = inf();
+  const float kind = row[16];
+  float px = row[0], py = row[1], pz = row[2];
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  if (has_motion) {
+    sx = row[24] + tm * row[27];
+    sy = row[25] + tm * row[28];
+    sz = row[26] + tm * row[29];
+    px = px + sx;
+    py = py + sy;
+    pz = pz + sz;
+  }
+  if (kind == 0.0f) {
+    // sphere: both roots
+    const float ocx = px - ox, ocy = py - oy, ocz = pz - oz;
+    const float h = ocx * dx + ocy * dy + ocz * dz;
+    const float disc = h * h - (ocx * ocx + ocy * ocy + ocz * ocz - row[3]);
+    const float sq = sqrtf(clamp_min(disc, 0.0f));
+    const bool ok = disc >= 0.0f;
+    const float s1 = h - sq;
+    const float s2 = h + sq;
+    c1 = ok && s1 > t_min ? s1 : inf();
+    cf1 = 1.0f;
+    c2 = ok && s2 > t_min ? s2 : inf();
+  } else if (kind == 1.0f || kind == 2.0f) {
+    // parallelogram / triangle: one root inside the edges
+    const float nx = row[4], ny = row[5], nz = row[6];
+    const float wax = row[7], way = row[8], waz = row[9];
+    const float wbx = row[10], wby = row[11], wbz = row[12];
+    float qn = row[13], qwa = row[14], qwb = row[15];
+    if (has_motion) {
+      qn = qn + sx * nx + sy * ny + sz * nz;
+      qwa = qwa + sx * wax + sy * way + sz * waz;
+      qwb = qwb + sx * wbx + sy * wby + sz * wbz;
+    }
+    const float den = nx * dx + ny * dy + nz * dz;
+    const bool den_ok = fabsf(den) > RT_F(1e-8);
+    const float t_p = (qn - (nx * ox + ny * oy + nz * oz)) /
+                      (den_ok ? den : 1.0f);
+    const float a = (wax * ox + way * oy + waz * oz) - qwa +
+                    t_p * (wax * dx + way * dy + waz * dz);
+    const float b = (wbx * ox + wby * oy + wbz * oz) - qwb +
+                    t_p * (wbx * dx + wby * dy + wbz * dz);
+    const float bound = kind == 2.0f ? a + b : tmax(a, b);
+    const bool ok = den_ok && a >= 0.0f && b >= 0.0f && bound <= 1.0f;
+    c1 = ok && t_p > t_min ? t_p : inf();
+    cf1 = den < 0.0f ? 1.0f : 0.0f;
+  } else if (has_box && kind == 3.0f) {
+    // axis-aligned box: slab roots, the entry enters and the exit exits
+    float hix = row[7], hiy = row[8], hiz = row[9];
+    if (has_motion) {
+      hix = hix + sx;
+      hiy = hiy + sy;
+      hiz = hiz + sz;
+    }
+    const float t0x = (px - ox) * inv_dx, t1x = (hix - ox) * inv_dx;
+    const float t0y = (py - oy) * inv_dy, t1y = (hiy - oy) * inv_dy;
+    const float t0z = (pz - oz) * inv_dz, t1z = (hiz - oz) * inv_dz;
+    const float tn = tmax(tmax(tmin(t0x, t1x), tmin(t0y, t1y)),
+                          tmin(t0z, t1z));
+    const float tf = tmin(tmin(tmax(t0x, t1x), tmax(t0y, t1y)),
+                          tmax(t0z, t1z));
+    const bool ok = tn <= tf;
+    c1 = ok && tn > t_min ? tn : inf();
+    cf1 = 1.0f;
+    c2 = ok && tf > t_min ? tf : inf();
+  }
+}
+
+// Fold row ``row`` into the triple: its entering (or planar) root first,
+// then its exit root.
+template <class Row>
+__device__ __forceinline__ void cross_row(
+    const Row& row, float ox, float oy, float oz, float dx, float dy,
+    float dz, float inv_dx, float inv_dy, float inv_dz, float tm,
+    float t_min, bool has_motion, bool has_box, Crossings& s) {
+  float c1, cf1, c2;
+  crossing_cand(row, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, tm,
+                t_min, has_motion, has_box, c1, cf1, c2);
+  merge(s, c1, cf1);
+  merge(s, c2, 0.0f);
+}
+
+}  // namespace rt

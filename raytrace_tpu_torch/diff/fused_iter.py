@@ -43,6 +43,11 @@ from .gradients import leaves, map_scene
 from .lane_replay import assemble_scene_grads
 
 N_CARRY = 16        # smp, dep, alive, comps (7), rad (3), thr (3)
+MEDIA_GRADIENTS = (
+    "gradients of scenes with constant-density media are not ported yet: "
+    "the JAX package differentiates them with its generic bounce and a "
+    "score-function density weight (ROADMAP M10, with the generic bounce "
+    "M4 and M11's diff_intersect)")
 
 
 def background_kind(s):
@@ -271,6 +276,8 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
     from ..ops.intersect_kernel import MAX_SMEM_PRIMS
     from ..render.integrator import MEGA_MAX_PRIMS, _kernel_reason
     from .lane_replay import replay_pre_eligible
+    if scene.volumes is not None:
+        raise NotImplementedError(f"fused_iter_step: {MEDIA_GRADIENTS}")
     reason = _kernel_reason(scene, s, 128, MEGA_MAX_PRIMS, defer_rich=True)
     p = scene.prims
     if (reason is None and p.kind.shape[0] > MAX_SMEM_PRIMS

@@ -77,8 +77,11 @@ def render_loss_wavefront(scene_params, scene_statics, settings, key,
     ``target[P, 3]``.  Returns ``(loss, frac_done)``: the fraction of the
     requested samples completed within the iteration budget."""
     from ..render.integrator import trace_wavefront_diff
+    from .fused_iter import MEDIA_GRADIENTS
 
     scene = combine(scene_params, scene_statics)
+    if scene.volumes is not None:
+        raise NotImplementedError(f"render_loss_wavefront: {MEDIA_GRADIENTS}")
     img, done = trace_wavefront_diff(scene, settings, key, pixel_ids, spp,
                                      n_iters=n_iters, remat=remat,
                                      rotate_k=rotate_k, skip_done=skip_done,

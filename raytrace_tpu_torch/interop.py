@@ -21,7 +21,7 @@ import torch
 
 from .materials.materials import MaterialTable
 from .render.camera import CameraSettings, const_background, gray_fade, sky
-from .scene.types import Primitives, Scene
+from .scene.types import Primitives, Scene, Volumes
 from .textures.textures import TextureTable
 
 
@@ -36,10 +36,15 @@ def fields_to_numpy(obj) -> dict:
 
 def scene_to_numpy(scene) -> dict:
     """The input of :func:`scene_from_numpy` from a compiled scene whose
-    ``prims``, ``materials`` and ``textures`` are dataclasses of arrays."""
+    ``prims``, ``materials`` and ``textures`` (and ``volumes``, if any)
+    are dataclasses of arrays."""
     d = {k: fields_to_numpy(getattr(scene, k))
          for k in ("prims", "materials", "textures")}
-    for extra in ("bvh", "volumes", "ellipsoids"):
+    vol = getattr(scene, "volumes", None)
+    if vol is not None:
+        vol = dict(fields_to_numpy(vol), prims=fields_to_numpy(vol.prims))
+    d["volumes"] = vol
+    for extra in ("bvh", "ellipsoids"):
         d[extra] = getattr(scene, extra, None)
     return d
 
@@ -79,22 +84,31 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
     """``d`` = {"prims": {...}, "materials": {...}, "textures": {...}},
     each keyed by the field names of :class:`Primitives`,
     :class:`MaterialTable` and :class:`TextureTable` (arrays as numpy,
-    static fields as Python values).  The scene lands on the card unless
-    ``device`` says otherwise.  Custom textures cannot cross (see the
-    module docstring)."""
+    static fields as Python values), and optionally "volumes": {"prims":
+    {...}, "density", "mat", "starts", "counts"}.  The scene lands on the
+    card unless ``device`` says otherwise.  Custom textures cannot cross
+    (see the module docstring); the BVH accelerator mode and ellipsoids
+    are not ported (ROADMAP M8, M11)."""
     if d["textures"].get("custom_fns"):
         raise ValueError(
             "scene_from_numpy: custom textures are closures of the other "
             "implementation and cannot cross; build the scene with "
             "raytrace_tpu_torch.custom_texture")
-    for extra in ("bvh", "volumes", "ellipsoids"):
+    for extra, item in (("bvh", "M8"), ("ellipsoids", "M11")):
         if d.get(extra) is not None:
             raise NotImplementedError(
-                f"scene_from_numpy: {extra} are not ported yet "
-                "(ROADMAP M8, M10, M11)")
+                f"scene_from_numpy: {extra} are not ported yet (ROADMAP "
+                f"{item})")
+    vol = d.get("volumes")
+    if vol is not None:
+        vol = _build(Volumes, dict(
+            vol, prims=_build(Primitives, vol["prims"], device),
+            starts=tuple(int(x) for x in vol["starts"]),
+            counts=tuple(int(x) for x in vol["counts"])), device)
     return Scene(prims=_build(Primitives, d["prims"], device),
                  materials=_build(MaterialTable, d["materials"], device),
-                 textures=_build(TextureTable, d["textures"], device))
+                 textures=_build(TextureTable, d["textures"], device),
+                 volumes=vol)
 
 
 def _background(bg):

@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bounce_kernel.cu", "iter_kernel.cu", "bounce_bwd_kernel.cu",
            "nearest_kernel.cu", "shade_kernel.cu", "nearest_flat_kernel.cu",
-           "texture_kernel.cu", "image_grad_kernel.cu")
+           "texture_kernel.cu", "image_grad_kernel.cu", "volume_kernel.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round like
 # their plain PyTorch versions (ops/*.py); IEEE sqrt and division are
 # nvcc's defaults, and --use_fast_math is deliberately absent.
@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 ENTRY_POINTS = ("rt_bounce", "rt_iter", "rt_iter_bvh", "rt_bounce_bwd",
                 "rt_nearest", "rt_shade", "rt_nearest_flat", "rt_marble",
-                "rt_image_grad")
+                "rt_image_grad", "rt_volume_crossings",
+                "rt_volume_crossings_chunked")
 
 
 def _nvcc() -> str:

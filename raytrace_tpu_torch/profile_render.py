@@ -15,7 +15,13 @@ configuration), and for the bunny stand-in (``testing.bunny_standin_scene``,
 and for the rich textures ``scenes/noise_test.py``'s forward (400 x 225,
 100 spp, depth 50, seed 0: the flat scan, the shade kernel and the
 marble kernel) and ``tools/prof_texture_grad.py``'s image-textured
-fwd+bwd (``testing.IMAGE_GRAD_FWD_BWD``), it
+fwd+bwd (``testing.IMAGE_GRAD_FWD_BWD``), and for the constant-density
+media ``scenes/cornell_smoke.py``'s forward (``smoke_fwd``: 600 x 600,
+200 spp, depth 50, seed 0: the flat scan, the crossing kernel K11 and
+the shade kernel) and the pawn stand-in's (``pawn_fwd``:
+``testing.pawn_standin_scene`` at 500 x 500, depth 20, ``PAWN_SPP`` spp,
+seed 0, through the sorted driver: the BVH walk, K11b and the shade
+kernel), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -29,6 +35,8 @@ fwd+bwd (``testing.IMAGE_GRAD_FWD_BWD``), it
 The iteration count is the number of forward kernel launches (kernel A
 or B, or a nearest-hit kernel and the mesh iteration kernel).
 
+Names of estimators as arguments run only those, e.g.
+``python3 -m raytrace_tpu_torch.profile_render smoke_fwd pawn_fwd``.
 The profiler's table of device operations goes to
 ``chiprun_out/profile_<estimator>.txt`` in the checkout; the last line is
 a JSON object of all of the above.
@@ -38,11 +46,14 @@ from __future__ import annotations
 import collections
 import json
 import subprocess
+import sys
 import time
 from pathlib import Path
 
 OUT_DIR = Path(__file__).resolve().parent.parent / "chiprun_out"
 REPS = 4            # unprofiled runs per estimator
+# samples per pixel of pawn_fwd (scenes/pawn_test.py renders 400)
+PAWN_SPP = 400
 
 
 def _device_ops(prof):
@@ -75,9 +86,10 @@ def main() -> None:
     from .render.render import render_accumulate
     from .testing import (
         FWD_BWD, IMAGE_GRAD_FWD_BWD, MESH_FWD_BWD, bunny_standin_scene,
-        cornell_scene_and_settings, fwd_bwd_pixels, image_grad_scene,
-        noise_test_scene,
+        cornell_scene_and_settings, cornell_smoke_scene, fwd_bwd_pixels,
+        image_grad_scene, noise_test_scene, pawn_standin_scene,
     )
+    only = set(sys.argv[1:])
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -94,6 +106,8 @@ def main() -> None:
     mesh, s_m = bunny_standin_scene(600, 100, 10, device=dev)
     noise, s_n = noise_test_scene(400, 100, 50, device=dev)
     image, s_i = image_grad_scene(512, device=dev)
+    smoke, s_s = cornell_smoke_scene(600, 200, 50, device=dev)
+    pawn, s_p = pawn_standin_scene(500, PAWN_SPP, 20, device=dev)
     forward_kernels = (bounce_megakernel, iter_megakernel,
                        allpairs_nearest_record, pallas_nearest_record,
                        iter_mega_ap)
@@ -135,7 +149,12 @@ def main() -> None:
             ("noise_fwd", fwd(noise, s_n, 100, seed=0),
              s_n.image_width * s_n.image_height * 100),
             ("image_fwd_bwd", fwd_bwd(image, s_i, IMAGE_GRAD_FWD_BWD),
-             IMAGE_GRAD_FWD_BWD["lanes"] * IMAGE_GRAD_FWD_BWD["spp"])):
+             IMAGE_GRAD_FWD_BWD["lanes"] * IMAGE_GRAD_FWD_BWD["spp"]),
+            ("smoke_fwd", fwd(smoke, s_s, 200, seed=0), n_pix * 200),
+            ("pawn_fwd", fwd(pawn, s_p, PAWN_SPP, seed=0),
+             s_p.image_width * s_p.image_height * PAWN_SPP)):
+        if only and name not in only:
+            continue
         walls = []
         for _ in range(REPS):
             wall, iters = run(fn)

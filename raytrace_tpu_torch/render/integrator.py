@@ -13,16 +13,23 @@ finished path adds its radiance into the image.
   around the bounce.  With ``rotate_k == 1`` the whole body is kernel B.
 * :func:`trace_wavefront` — a work queue refills dead lanes with the next
   (pixel, sample) around the bounce.
+* :func:`trace_wavefront_sorted` — the work queue over a pool of one lane
+  per pixel, with the lanes re-sorted every iteration by direction octant
+  and the Morton cell of the origin, so that the rays of a block of
+  threads travel together; stationary renders of mesh-boundary media and
+  of tables of 8,192 rows and more take it.
 
 The bounce is kernel A for tables of at most 512 rows with constant and
 checker textures (:func:`bounce_mega_soa`).  Every other scene takes the
 split path (:func:`bounce_split_soa`), as the JAX package's ``bounce``
 does: the nearest hit record (kernel K8's flat scan for small and
 unsegmented tables, the walk of the table's BVH for kind-segmented
-tables of 192 rows and more), the exact sphere uv in torch, the shade
-kernel (``shade_megakernel``), then the image, noise, marble and custom
-texture albedo multiplied into the surviving lanes' throughput in torch
-(marble stripes through kernel K12).
+tables of 192 rows and more), the exact sphere uv in torch, for scenes
+with constant-density media each medium's scatter candidate
+(``render/volumes.py``: kernel K11, or K11b for mesh boundaries) with the
+nearest one passed to the shade kernel (``shade_megakernel``), then the
+image, noise, marble and custom texture albedo multiplied into the
+surviving lanes' throughput in torch (marble stripes through kernel K12).
 
 Every random draw is a pure function of (pixel, sample, depth, column), so
 every driver and every ``rotate_k`` traces the same samples.  The loop
@@ -38,9 +45,9 @@ thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
   the JAX package does.
 
 The generic bounce (for scenes neither path takes, such as lights with
-rich textures), the bounded-depth ``trace``, the sorted driver (tables
-of 8192 rows and more), the BVH accelerator mode beyond 65,536 rows and
-media are ROADMAP M4, M6b, M8 and M10.
+rich textures), the bounded-depth ``trace``, the BVH accelerator mode
+beyond 65,536 rows and the gradients of media are ROADMAP M4, M6b, M8
+and M10.
 """
 from __future__ import annotations
 
@@ -64,13 +71,15 @@ from ..ops.bounce_kernel import (
 from ..ops.intersect_kernel import (
     MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
 )
-from ..scene.types import Scene
+from ..ops.volume_kernel import MAX_VOLUMES
+from ..scene.types import Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
 )
 from .camera import CameraSettings, camera_frame, camera_table, rays_from_table
+from .volumes import volume_candidates_kernel, volume_tables
 
-_N_BASE_U = 8       # bounce uniform columns (+ one per volume in JAX)
+_N_BASE_U = 8       # bounce uniform columns, + one per medium
 LANE_ALIGN = 128    # lane-pool alignment; keeps lane->pixel maps as JAX's
 # row cap of the fused differentiable driver (kernel B and its mesh
 # variant forward, K5 backward)
@@ -78,7 +87,11 @@ MEGA_MAX_PRIMS = 8192
 
 
 def n_bounce_uniforms(scene: Scene) -> int:
-    return _N_BASE_U
+    """Uniform columns of one bounce: 8, then one free-flight draw per
+    medium.  The camera and Russian-roulette draws follow them, so media
+    move those columns (and, through the pair16 layout, every draw)."""
+    nv = scene.volumes.n_volumes if scene.volumes is not None else 0
+    return _N_BASE_U + nv
 
 
 def _n_scan_prims(prims) -> int:
@@ -116,6 +129,11 @@ def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
     differentiable driver, which multiplies the other kinds in after each
     iteration) lets them shade the rest at albedo 1.0, except on lights,
     whose emission is in-kernel."""
+    if scene.volumes is not None:
+        return ("constant-density media: kernels A and B do not take them "
+                "(the forward takes the split path; their fwd+bwd is "
+                "ROADMAP M10, with the generic bounce M4 and M11's "
+                "diff_intersect)")
     rows = scene.prims.kind.shape[0]
     if rows > max_rows:
         return (f"{rows} primitive rows: the kernels take at most "
@@ -148,11 +166,12 @@ def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
 
 
 def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
-    """Why the split path (nearest kernel + shade kernel + the rich-texture
-    multiply) cannot take this scene (with its ROADMAP item), or None: it
-    takes tables of up to 65,536 rows, up to 24 materials and 8 redirect
-    targets, and every texture kind except on lights.  The shade kernel's
-    part is the JAX package's ``fused_shade_eligible``."""
+    """Why the split path (nearest kernel, media crossings, shade kernel,
+    the rich-texture multiply) cannot take this scene (with its ROADMAP
+    item), or None: it takes tables of up to 65,536 rows, up to 24
+    materials and 8 redirect targets, up to 16 media, and every texture
+    kind except on lights.  The shade kernel's part is the JAX package's
+    ``fused_shade_eligible``."""
     p, m = scene.prims, scene.materials
     rows = p.kind.shape[0]
     if rows > MAX_DENSE_PRIMS:
@@ -169,6 +188,9 @@ def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     if p.sphere_rots:
         return ("rotated uv-textured spheres need object-space uv "
                 "(ROADMAP M11)")
+    if scene.volumes is not None and scene.volumes.n_volumes > MAX_VOLUMES:
+        return (f"{scene.volumes.n_volumes} media: the crossing kernels "
+                f"take at most {MAX_VOLUMES} (generic bounce: ROADMAP M4)")
     if n_rays % LANE_ALIGN:
         return f"{n_rays} lanes: not a multiple of {LANE_ALIGN}"
     return None
@@ -177,9 +199,9 @@ def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
 def bounce_kernel_eligible(scene: Scene, s: CameraSettings,
                            n_rays: int) -> bool:
     """Static check for kernel A (the forward cap of the JAX package's
-    check): at most 512 rows, constant or checker textures, at most 8
-    redirect targets and 16 material behaviours, lanes a multiple of
-    128."""
+    check): no media, at most 512 rows, constant or checker textures, at
+    most 8 redirect targets and 16 material behaviours, lanes a multiple
+    of 128."""
     return _ineligible_reason(scene, s, n_rays) is None
 
 
@@ -267,7 +289,9 @@ class SplitTables:
     and camera: the prim table with per-material ids, its BVH (None where
     the flat scan serves the table), the material rows (not behaviours)
     and the targets; ``rich`` says whether the scene has textures the
-    shade kernel defers (image, noise, marble, custom)."""
+    shade kernel defers (image, noise, marble, custom).  For a scene with
+    media: ``volumes``, their packed boundary table and chunk boxes
+    (``render/volumes.py:volume_tables``) and each medium's material id."""
     ptbl: torch.Tensor
     mtbl: torch.Tensor
     ttbl: torch.Tensor
@@ -278,6 +302,9 @@ class SplitTables:
     has_motion: bool
     t_min: float
     rich: bool = False
+    volumes: Volumes | None = None
+    vol_tables: tuple | None = None
+    vol_mats: tuple = ()
 
 
 def uses_bvh(prims) -> bool:
@@ -295,6 +322,7 @@ def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
     dev = scene.device
     p = scene.prims
     n_prims = _n_scan_prims(p)
+    vol = scene.volumes
     return SplitTables(
         ptbl=pack_prims(p).contiguous(),
         mtbl=pack_materials(scene.materials, scene.textures).to(dev)
@@ -304,7 +332,10 @@ def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
         bvh=pack_bvh(p, n_prims) if uses_bvh(p) else None, n_prims=n_prims,
         n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
         has_motion=p.has_motion, t_min=float(np.float32(s.t_min)),
-        rich=is_rich(scene.textures.kinds_present))
+        rich=is_rich(scene.textures.kinds_present), volumes=vol,
+        vol_tables=None if vol is None else volume_tables(vol),
+        vol_mats=() if vol is None else tuple(
+            float(m) for m in vol.mat.tolist()))
 
 
 def surface_hit(tb: SplitTables, o, d, time):
@@ -335,23 +366,34 @@ def surface_hit(tb: SplitTables, o, d, time):
             mat.to(DTYPE), torch.zeros_like(t))
 
 
-def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive):
+def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive, medium=None):
     """The rich-texture post-multiply of the JAX package's
     ``_fused_shade_bounce``: the shade kernel shaded image, noise, marble
     and custom textures at albedo 1.0, so each lane that stays ``alive``
     on such a texture gets ``thr *= albedo``, evaluated at the point
     ``o + t_safe * d`` and the hit's uv (marble stripes through kernel
     K12).  ``o``, ``d``, ``thr`` are [3, R], ``hit`` the 10 hit columns
-    of :func:`surface_hit`.  Only those lanes are evaluated."""
+    of :func:`surface_hit`.  A medium event ``medium`` = (t_med, material
+    id) nearer than the surface takes the medium's material, its point
+    and uv 0, as the shade kernel does.  Only those lanes are
+    evaluated."""
     tx = scene.textures
-    tex_id = scene.materials.tex[hit[8].long()].long()
+    t, mat, uu, vv = hit[0], hit[8], hit[6], hit[7]
+    if medium is not None:
+        t_med, vmat = medium
+        in_med = t_med < t
+        mat = torch.where(in_med, vmat, mat)
+        t = torch.minimum(t_med, t)
+        uu = torch.where(in_med, 0.0, uu)
+        vv = torch.where(in_med, 0.0, vv)
+    tex_id = scene.materials.tex[mat.long()].long()
     tkind = tx.kind[tex_id]
     live = alive & (tkind > TEX_CHECKER)
     sel = torch.nonzero(live)[:, 0]
-    t = hit[0][sel]
+    t = t[sel]
     t_safe = torch.where(torch.isfinite(t), t, 1.0)
     point = (o[:, sel] + t_safe * d[:, sel]).T.contiguous()
-    uv = torch.stack([hit[6][sel], hit[7][sel]], dim=1)
+    uv = torch.stack([uu[sel], vv[sel]], dim=1)
     alb = eval_texture(tx, tex_id[sel], point, uv, marble_kernel=True)
     thr = thr.clone()
     thr[:, sel] = thr[:, sel] * alb.T
@@ -362,19 +404,35 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
                      thr, alive, tables: SplitTables):
     """One bounce of every lane through the split path (the JAX package's
     ``bounce`` with its kernel intersect and ``_fused_shade_bounce``): the
-    nearest-hit kernel, the sphere uv, the shade kernel, then the
-    rich-texture multiply (:func:`rich_albedo_multiply`).  The arguments
-    and results are those of :func:`bounce_mega_soa`."""
+    nearest-hit kernel, the sphere uv, with media each medium's scatter
+    candidate from the uniform columns ``8 .. 8 + V`` and the nearest
+    (the first medium on a tie), the shade kernel, then the rich-texture
+    multiply (:func:`rich_albedo_multiply`).  The arguments and results
+    are those of :func:`bounce_mega_soa`."""
     tb = tables
     # dead lanes carry stale rays: park them far outside the scene
     o = torch.where(alive, comps[0:3], 3e18)
     d = comps[3:6]
     hit = surface_hit(tb, o, d, comps[6])
+    medium = None
+    if tb.volumes is not None:
+        nv = tb.volumes.n_volumes
+        t_vol = volume_candidates_kernel(
+            tb.volumes, o, d, comps[6], tb.t_min,
+            uniforms[_N_BASE_U:_N_BASE_U + nv], tables=tb.vol_tables)
+        t_med = torch.full_like(hit[0], math.inf)
+        vmat = torch.zeros_like(hit[0])
+        for tv, mat in zip(t_vol, tb.vol_mats):
+            better = tv < t_med
+            t_med = torch.where(better, tv, t_med)
+            vmat = torch.where(better, mat, vmat)
+        medium = (t_med, vmat)
     lanes = (o[0], o[1], o[2], d[0], d[1], d[2], thr[0], thr[1], thr[2],
              alive.to(DTYPE))
-    outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, None, lanes,
+    outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes,
                             uniforms[:N_U], n_mats=tb.n_mats,
-                            n_targets=tb.n_targets, has_medium=False)
+                            n_targets=tb.n_targets,
+                            has_medium=medium is not None)
     new_comps = torch.stack(outs[0:6] + (comps[6],))
     thr_new = torch.stack(outs[6:9])
     alive_new = outs[12] > 0.5
@@ -382,7 +440,8 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     bg = s.background(o.T, d.T).to(DTYPE).T
     rad_new = rad + torch.where(miss, thr * bg, 0.0) + torch.stack(outs[9:12])
     if tb.rich:
-        thr_new = rich_albedo_multiply(scene, o, d, hit, thr_new, alive_new)
+        thr_new = rich_albedo_multiply(scene, o, d, hit, thr_new, alive_new,
+                                       medium)
     return new_comps, rad_new, thr_new, alive_new, alive & ~alive_new
 
 
@@ -592,6 +651,123 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                     m = (rot_c == cc).to(DTYPE)
                     acc3 += torch.roll(contrib * m, cc * stride, dims=1)
     return acc + acc3[:, :n_pix].T
+
+
+# origin cells per axis of the sorted driver's ray binning
+SORT_CELLS = 256
+
+
+def _spread3(x):
+    """Spread the low 10 bits of int32 ``x`` to every third bit (the 3-D
+    Morton interleave)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _sort_key(comps, alive, blo, binv):
+    """Binning key of every lane: direction octant, then the Morton code
+    of the origin's cell (``SORT_CELLS`` per axis over the scene box);
+    dead lanes after every live one."""
+    octant = ((comps[3] < 0).to(torch.int32) * 4
+              + (comps[4] < 0).to(torch.int32) * 2
+              + (comps[5] < 0).to(torch.int32))
+    q = [torch.clamp((comps[k] - blo[k]) * binv[k] * SORT_CELLS, 0.0,
+                     SORT_CELLS - 1).to(torch.int32) for k in range(3)]
+    cell = _spread3(q[0]) | (_spread3(q[1]) << 1) | (_spread3(q[2]) << 2)
+    return torch.where(alive, octant * SORT_CELLS ** 3 + cell,
+                       8 * SORT_CELLS ** 3)
+
+
+def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
+                           n_pix: int, spp: int, acc=None,
+                           sample_offset: int = 0, pixel_offset: int = 0):
+    """Ray-binned work-queue wavefront over one lane per pixel (rounded
+    up to 128): dead lanes pull the next work items from a global counter
+    (item ``w`` is pixel ``pixel_offset + w % n_pix``, sample
+    ``sample_offset + w // n_pix``), and every iteration the lanes are
+    re-sorted by :func:`_sort_key` with one stable argsort, their state
+    permuted by one gather per dtype, so that the threads of a block
+    trace rays that travel together (the BVH walk and the chunked medium
+    crossings then visit the same nodes and chunks).  Finished paths are
+    added into their pixels by ``index_add_``.  Returns the [n_pix, 3]
+    radiance sum (plus ``acc``): the same (pixel, sample) paths as the
+    other drivers, so the same image up to the order of float adds.
+
+    The JAX package's driver also enumerates work items in 8 x 128 pixel
+    tiles, for its TPU kernels' block consensus; the port does not."""
+    dev = scene.device
+    lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
+    n_u = n_bounce_uniforms(scene)
+    cam = camera_table(s, camera_frame(s))
+    if acc is None:
+        acc = torch.zeros((n_pix, 3), dtype=DTYPE, device=dev)
+    total_work = n_pix * spp
+    bounce_fn, tables = _bounce_step(scene, s, lanes)
+    base_key = base_key.to(dev)
+
+    # the scene box of the surface rows, for the origin cells
+    p = scene.prims
+    nn = _n_scan_prims(p)
+    ext = torch.abs(p.e1[:nn]) + torch.abs(p.e2[:nn])
+    blo = (p.p0[:nn] - ext).amin(0)
+    bhi = (p.p0[:nn] + ext).amax(0)
+    binv = 1.0 / torch.clamp(bhi - blo, min=1e-6)
+
+    acc3 = torch.zeros((3, n_pix), dtype=DTYPE, device=dev)
+    next_w = torch.zeros((), dtype=torch.int64, device=dev)
+    fstate = torch.zeros((13, lanes), dtype=DTYPE, device=dev)
+    fstate[5] = 1.0                 # dummy unit direction (0, 0, 1)
+    istate = torch.zeros((4, lanes), dtype=torch.int32, device=dev)
+
+    while bool((next_w < total_work) | (istate[3] > 0).any()):
+        # re-bin: the permutation travels with all lane state
+        perm = torch.argsort(_sort_key(fstate, istate[3] > 0, blo, binv),
+                             stable=True)
+        fstate = fstate[:, perm]
+        istate = istate[:, perm]
+        comps, rad, thr = fstate[0:7], fstate[7:10], fstate[10:13]
+        pixel, sample, depth = istate[0], istate[1], istate[2]
+        alive = istate[3] > 0
+
+        # queue regeneration: dead lanes pull fresh work items
+        dead = ~alive
+        dead_i = dead.to(torch.int64)
+        wi = next_w + torch.cumsum(dead_i, 0) - dead_i
+        can = dead & (wi < total_work)
+        w_safe = torch.clamp(wi, max=total_work - 1)
+        pixel = torch.where(can, (w_safe % n_pix).to(torch.int32), pixel)
+        sample = torch.where(
+            can, (torch.div(w_safe, n_pix, rounding_mode="floor")
+                  + sample_offset).to(torch.int32), sample)
+        depth = torch.where(can, 0, depth)
+        alive = alive | can
+        next_w = next_w + can.sum()
+
+        keys = rng.ray_keys_fast(base_key, pixel_offset + pixel, sample)
+        uniforms = rng.uniform_cols(rng.mix_depth(keys, depth), n_u + 6)
+        new_comps = rays_from_table(cam, s.image_width, pixel_offset + pixel,
+                                    uniforms[n_u:n_u + 5])
+        comps = torch.where(can, new_comps, comps)
+        rad = rad * (1.0 - can.to(DTYPE))
+        thr = torch.where(can, 1.0, thr)
+        comps, rad, thr, alive, died = bounce_fn(
+            scene, s, comps, uniforms, rad, thr, alive, tables=tables)
+        depth = depth + 1
+        capped = alive & (depth >= s.max_depth)
+        died = died | capped
+        alive = alive & ~capped
+        if s.rr_depth is not None:
+            thr, alive, died = _russian_roulette(
+                s, uniforms[n_u + 5], depth, thr, alive, died)
+
+        # flush: finished paths into their pixels
+        acc3.index_add_(1, pixel.long(), rad * died.to(DTYPE))
+        fstate = torch.cat([comps, rad, thr])
+        istate = torch.stack([pixel, sample, depth, alive.to(torch.int32)])
+    return acc + acc3.T
 
 
 def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,

@@ -6,8 +6,9 @@ pixel-stationary one for bands of 16384 pixels and more, the work queue
 otherwise.  Samples keep their absolute (pixel, sample) coordinates, so
 the image does not depend on how the work is cut (nor on the lane ->
 pixel map, so the JAX package's tile-ordered maps are not needed).
-Stationary renders of tables of ``SORT_MIN_PRIMS`` rows and more belong
-to the sorted driver, which is not ported yet (ROADMAP M8).
+Stationary renders of tables of ``SORT_MIN_PRIMS`` rows and more, and of
+scenes whose media have ``BCAST_MIN_ROWS`` boundary rows and more, take
+the ray-sorted work-queue driver instead, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,7 +18,10 @@ from ..core import rng
 from ..core.vecmath import DTYPE
 from ..scene.types import Scene
 from .camera import CameraSettings
-from .integrator import trace_wavefront, trace_wavefront_stationary
+from .integrator import (
+    trace_wavefront, trace_wavefront_sorted, trace_wavefront_stationary,
+)
+from .volumes import uses_bcast
 
 # below this many pixels the stationary scheduler cannot fill its lanes
 _STATIONARY_MIN_PIXELS = 16384
@@ -34,17 +38,25 @@ def rotate_k_for(n_s: int) -> int:
     return 1
 
 
+def uses_sorted(scene: Scene) -> bool:
+    """Does a stationary render of this scene take the sorted driver?
+    The JAX package's rule: a surface table of ``SORT_MIN_PRIMS`` rows
+    and more, or media whose boundary takes kernel K11b (``BCAST_MIN_ROWS``
+    rows and more)."""
+    return (scene.prims.kind.shape[0] >= SORT_MIN_PRIMS
+            or (scene.volumes is not None and uses_bcast(scene.volumes)))
+
+
 def _stationary_fn(scene: Scene, settings: CameraSettings, key, n_pix: int,
                    spp: int, sample_offset: int, rotate_k: int,
                    pixel_offset: int):
     """One band and sample chunk of a stationary render: the
-    pixel-stationary driver, or the sorted driver for tables of
-    ``SORT_MIN_PRIMS`` rows and more."""
-    rows = scene.prims.kind.shape[0]
-    if rows >= SORT_MIN_PRIMS:
-        raise NotImplementedError(
-            f"render: {rows} primitive rows take the sorted wavefront "
-            "driver, which is not ported yet (ROADMAP M8)")
+    pixel-stationary driver, or the sorted driver where
+    :func:`uses_sorted` (``rotate_k`` does not apply there)."""
+    if uses_sorted(scene):
+        return trace_wavefront_sorted(
+            scene, settings, key, n_pix, spp, sample_offset=sample_offset,
+            pixel_offset=pixel_offset)
     return trace_wavefront_stationary(
         scene, settings, key, n_pix, spp, sample_offset=sample_offset,
         rotate_k=rotate_k, pixel_offset=pixel_offset)

@@ -4,8 +4,9 @@ A lightweight Python node tree that :func:`..scene.compile.compile_scene`
 flattens into tensors.  Materials attach with ``with_material(mat, geom)``;
 the outermost attachment wins for every leaf below it.  Triangle meshes
 (:class:`Mesh`, :func:`triangle_mesh`) compile to triangle rows of the
-dense table; media and the BVH accelerator mode are not in the port yet
-and raise (ROADMAP M10, M8).
+dense table, and :func:`constant_medium` bounds a participating medium by
+a closed surface; the BVH accelerator mode is not in the port yet and
+raises (ROADMAP M8).
 """
 from __future__ import annotations
 
@@ -55,6 +56,12 @@ class Transform(Geom):
 class Moving(Geom):
     v0: np.ndarray
     v1: np.ndarray
+    child: Geom
+
+
+@dataclasses.dataclass
+class Medium(Geom):
+    density: float
     child: Geom
 
 
@@ -163,8 +170,10 @@ def moving(v0, v1, geom: Geom) -> Geom:
 
 
 def constant_medium(density: float, geom: Geom) -> Geom:
-    raise NotImplementedError(
-        "constant_medium: volumes are not ported yet (ROADMAP M10)")
+    """Constant-density participating medium bounded by the closed surface
+    ``geom``; attach an ``isotropic``, ``anisotropic`` or ``pitch_black``
+    material with :func:`with_material`."""
+    return Medium(float(density), geom)
 
 
 def with_material(material: Material, geom: Geom) -> Geom:

@@ -5,8 +5,11 @@ Transforms are baked into primitive parameters, motion becomes two
 per-row displacement vectors, materials and textures are interned, and
 rows are ordered by the median-split BVH permutation (tables of 65 rows
 and more are then regrouped kind-major into 64-row-padded segments), so
-the packed tables equal the JAX package's.  ``accel="bvh"``, media and
-ellipsoids (non-uniformly scaled spheres) raise.
+the packed tables equal the JAX package's.  Constant-density media get
+their own table of boundary rows, every volume's rows merged in walk
+order (neither permuted, segmented nor padded) with static per-volume
+slices.  ``accel="bvh"`` and ellipsoids (non-uniformly scaled spheres)
+raise.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from . import builder as B
 from .bvh import build_bvh, prim_aabbs
 from .types import (
     PRIM_BOX, PRIM_PAD, PRIM_PARALLELOGRAM, PRIM_SPHERE, PRIM_TRIANGLE,
-    Primitives, Scene,
+    Primitives, Scene, Volumes,
 )
 
 _DEFAULT_TRI_UVS = np.asarray([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
@@ -124,28 +127,46 @@ def _bake_block(block: B.PrimBlock, matrix: np.ndarray, mv0, mv1,
     rows.rot.append(np.broadcast_to(rot, (n, 9)).copy())
 
 
-def _walk(node: B.Geom, matrix, mv0, mv1, material, interner, rows: _Rows):
+def _walk(node: B.Geom, matrix, mv0, mv1, material, interner, rows: _Rows,
+          volumes: list | None):
+    """Bake the rows below ``node`` into ``rows``.  ``volumes`` collects
+    ``(density, material id, boundary rows)`` of each medium; it is None
+    inside a medium's boundary, where media may not nest and rows take
+    material id 0."""
     if isinstance(node, B.WithMaterial):
         eff = material if material is not None else node.material
-        _walk(node.child, matrix, mv0, mv1, eff, interner, rows)
+        _walk(node.child, matrix, mv0, mv1, eff, interner, rows, volumes)
     elif isinstance(node, B.Transform):
         _walk(node.child, matrix @ node.matrix, mv0, mv1, material,
-              interner, rows)
+              interner, rows, volumes)
     elif isinstance(node, B.Moving):
         lin = matrix[:3, :3]
         _walk(node.child, matrix, mv0 + lin @ node.v0, mv1 + lin @ node.v1,
-              material, interner, rows)
+              material, interner, rows, volumes)
     elif isinstance(node, B.Group):
         for c in node.children:
-            _walk(c, matrix, mv0, mv1, material, interner, rows)
+            _walk(c, matrix, mv0, mv1, material, interner, rows, volumes)
+    elif isinstance(node, B.Medium):
+        if volumes is None:
+            raise ValueError("constant_medium cannot be nested inside another")
+        if material is None:
+            raise ValueError("constant_medium needs a material attached with "
+                             "with_material")
+        vol_rows = _Rows.empty()
+        _walk(node.child, matrix, mv0, mv1, None, interner, vol_rows, None)
+        if vol_rows.n() == 0:
+            raise ValueError("constant_medium: empty boundary geometry")
+        volumes.append((node.density, interner.material_id(material),
+                        vol_rows))
     elif isinstance(node, B.PrimBlock):
         if node.p0.shape[0] == 0:
             return
-        if material is None:
+        if material is None and volumes is not None:
             raise ValueError("primitive reached compile without a material; "
                              "wrap it in with_material(...)")
-        _bake_block(node, matrix, mv0, mv1, interner.material_id(material),
-                    rows)
+        mat_id = interner.material_id(material) if material is not None \
+            else 0
+        _bake_block(node, matrix, mv0, mv1, mat_id, rows)
     else:
         raise TypeError(f"unknown scene node {type(node)!r}")
 
@@ -173,15 +194,20 @@ def _pad(arrs, n_pad):
 
 
 def _rows_to_primitives(rows: _Rows, perm, pad_to: int,
-                        uv_mats: frozenset) -> Primitives:
+                        uv_mats: frozenset, segment: bool = True
+                        ) -> Primitives:
+    """The rows as a :class:`Primitives` table: reordered by ``perm``
+    (None keeps the walk order), kind-segmented from 65 rows with
+    ``segment``, else padded to a multiple of ``pad_to``."""
     arrs = tuple(np.concatenate(getattr(rows, f)) for f in
                  ("kind", "p0", "e1", "e2", "uvs", "mat", "mv0", "mv1",
                   "rot"))
-    arrs = tuple(x[perm] for x in arrs)
+    if perm is not None:
+        arrs = tuple(x[perm] for x in arrs)
     kind = arrs[0]
     n = kind.shape[0]
     kind_segments = None
-    if n >= _SEGMENT_MIN_PRIMS:
+    if segment and n >= _SEGMENT_MIN_PRIMS:
         # kind-major order, spatial order kept within each kind, each
         # segment padded to the 64-row cluster width
         groups = (
@@ -245,28 +271,58 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
         raise ValueError(f"compile_scene: unknown accel {accel!r}")
     interner = _Interner()
     rows = _Rows.empty()
-    _walk(root, np.eye(4), np.zeros(3), np.zeros(3), None, interner, rows)
+    volumes: list = []
+    _walk(root, np.eye(4), np.zeros(3), np.zeros(3), None, interner, rows,
+          volumes)
     n_surface = rows.n()
-    if n_surface == 0:
+    if n_surface == 0 and not volumes:
         raise ValueError("compile_scene: empty scene")
     if accel == "bvh" or (accel == "auto" and n_surface > dense_threshold):
         raise NotImplementedError(
             f"compile_scene: {n_surface} rows need the BVH accelerator, "
             "which is not ported yet (ROADMAP M8)")
 
-    lo, hi = prim_aabbs(np.concatenate(rows.kind), np.concatenate(rows.p0),
-                        np.concatenate(rows.e1), np.concatenate(rows.e2),
-                        np.concatenate(rows.mv0), np.concatenate(rows.mv1))
-    perm, _ = build_bvh(lo, hi, leaf_size=leaf_size)
+    if n_surface == 0:
+        # a scene of media only: one pad row, never hit
+        z3 = torch.zeros((1, 3))
+        prims = Primitives(
+            kind=torch.full((1,), PRIM_PAD, dtype=torch.int32), p0=z3,
+            e1=z3, e2=z3, uvs=torch.zeros((1, 3, 2)),
+            mat=torch.zeros((1,), dtype=torch.int32), mv0=z3, mv1=z3, n=0)
+    else:
+        lo, hi = prim_aabbs(
+            np.concatenate(rows.kind), np.concatenate(rows.p0),
+            np.concatenate(rows.e1), np.concatenate(rows.e2),
+            np.concatenate(rows.mv0), np.concatenate(rows.mv1))
+        perm, _ = build_bvh(lo, hi, leaf_size=leaf_size)
+        # material ids whose texture consumes uv: only their rotated
+        # spheres need the object-space uv correction
+        uv_mats = frozenset(
+            mid for m, mid in interner.materials.items()
+            if m.texture.kind in (TEX_CHECKER, TEX_IMAGE, TEX_CUSTOM))
+        prims = _rows_to_primitives(rows, perm, pad_to, uv_mats)
 
-    # material ids whose texture consumes uv: only their rotated spheres
-    # need the object-space uv correction
-    uv_mats = frozenset(
-        mid for m, mid in interner.materials.items()
-        if m.texture.kind in (TEX_CHECKER, TEX_IMAGE, TEX_CUSTOM))
-    prims = _rows_to_primitives(rows, perm, pad_to, uv_mats)
+    vol = None
+    if volumes:
+        merged = _Rows.empty()
+        starts, counts = [], []
+        for _, _, vrows in volumes:
+            starts.append(merged.n())
+            counts.append(vrows.n())
+            for f in dataclasses.fields(_Rows):
+                getattr(merged, f.name).extend(getattr(vrows, f.name))
+        # boundaries never evaluate uv (the medium overrides it)
+        vol = Volumes(
+            prims=_rows_to_primitives(merged, None, 1, frozenset(),
+                                      segment=False),
+            density=torch.tensor([v[0] for v in volumes],
+                                 dtype=torch.float32),
+            mat=torch.tensor([v[1] for v in volumes], dtype=torch.int32),
+            starts=tuple(starts), counts=tuple(counts))
+
     textures = compile_textures(list(interner.textures))
     materials = compile_materials(list(interner.materials),
                                   interner.textures)
-    scene = Scene(prims=prims, materials=materials, textures=textures)
+    scene = Scene(prims=prims, materials=materials, textures=textures,
+                  volumes=vol)
     return scene.to(device)

@@ -1,10 +1,11 @@
 """Compiled scene: flat struct-of-arrays tensors
 (``raytrace_tpu/scene/types.py``).
 
-One tagged row per primitive, an interned material table and an interned
-texture table.  The port compiles dense scenes only: the BVH mode, volume
-media and ellipsoids of the JAX package raise at compile time
-(ROADMAP M8, M10, M11).
+One tagged row per primitive, an interned material table, an interned
+texture table and, for scenes with constant-density media, a separate
+table of the media's boundary rows (:class:`Volumes`).  The port compiles
+dense scenes only: the BVH mode and the ellipsoids of the JAX package
+raise at compile time (ROADMAP M8, M11).
 """
 from __future__ import annotations
 
@@ -53,10 +54,33 @@ class Primitives:
 
 
 @dataclasses.dataclass(frozen=True)
+class Volumes:
+    """Constant-density media: each volume owns the contiguous slice
+    ``[starts[v], starts[v] + counts[v])`` of ``prims`` (its closed
+    boundary surface, rows in compile order, neither permuted nor
+    padded)."""
+    prims: Primitives
+    density: torch.Tensor   # f32[V]
+    mat: torch.Tensor       # i32[V]
+    starts: tuple = ()
+    counts: tuple = ()
+
+    @property
+    def n_volumes(self) -> int:
+        return len(self.starts)
+
+    def to(self, device) -> "Volumes":
+        return dataclasses.replace(self, prims=self.prims.to(device),
+                                   density=self.density.to(device),
+                                   mat=self.mat.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     prims: Primitives
     materials: MaterialTable
     textures: TextureTable
+    volumes: Volumes | None = None
 
     @property
     def device(self) -> torch.device:
@@ -64,4 +88,6 @@ class Scene:
 
     def to(self, device) -> "Scene":
         return Scene(self.prims.to(device), self.materials.to(device),
-                     self.textures.to(device))
+                     self.textures.to(device),
+                     None if self.volumes is None
+                     else self.volumes.to(device))

@@ -22,6 +22,15 @@
   with the stand-in mesh) and :func:`cuboid_test_world`
   (``scenes/cuboid_test.py``'s earth-textured cuboid, with
   :func:`earthmap`, the procedural earth of ``scenes/_assets.py``).
+* Media: :func:`cornell_smoke_scene` (``scenes/cornell_smoke.py``: two
+  smoke boxes in the Cornell box), :func:`pawn_standin_scene`
+  (``scenes/pawn_test.py`` with a procedural pawn of about its size, one
+  1,200-triangle mesh used as a glass shell and as the boundary of a red
+  medium) and :func:`volume_test_world` (``tests/test_volume_kernel.py``'s
+  sphere and box media); :func:`volume_rays` and
+  :func:`pawn_inside_rays` make rays for the crossing kernels, and
+  :func:`media_bounce_rays` the camera rays of a media scene with their
+  second bounce.
 * :data:`FWD_BWD` is the fwd+bwd configuration of ``bench.py`` and
   :func:`fwd_bwd_pixels` its lanes; :data:`MESH_FWD_BWD` the mesh
   configuration of ``tools/prof_bunny_grad.py``;
@@ -33,16 +42,18 @@
 * :func:`compare_bounce`, :func:`compare_iter`, :func:`compare_bwd`,
   :func:`compare_nearest`, :func:`compare_nearest_flat`,
   :func:`compare_shade`, :func:`compare_marble`,
-  :func:`compare_image_grad` and :func:`checked_launches` hold each
-  kernel against its plain version on the same inputs; :func:`bwd_inputs`
+  :func:`compare_image_grad`, :func:`compare_crossings` and
+  :func:`checked_launches` hold each kernel against its plain version on
+  the same inputs; :func:`bwd_inputs`
   makes K5's arguments from a real mid-render state,
   :func:`plain_backward` forces the fused iteration's backward onto the
   plain versions of K5 and of the atlas gradient, and
   :func:`plain_kernels` forward and backward onto the plain versions.
 
 Tolerances: alive/miss/winner index (and sample/depth/died for kernel B,
-winner index, flags and material for the nearest kernel) equal on every
-lane; floats within ``ATOL + RTOL * |plain|``
+winner index, flags and material for the nearest kernel, the front flags
+of the crossing kernels) equal on every lane; floats within ``ATOL +
+RTOL * |plain|``
 (``tests/test_bounce_kernel.py``).  K5 against its plain version: every
 gradient within ``BWD_RTOL * (|plain| + max|plain| over its output +
 max|plain| over its lane)``.  The forward replay rounds alike
@@ -418,6 +429,223 @@ def mesh_all_kinds_scene(n_grid: int = 18, moving: bool = False,
     return scene, settings
 
 
+def cornell_smoke_world(rt):
+    """``scenes/cornell_smoke.py``'s world: the Cornell box's six walls
+    (a larger, dimmer light) and, in place of its two boxes, a black
+    smoke block and a white fog block of density 0.01 (each rotated box
+    lowers to six parallelograms).  ``rt`` is the builder module (this
+    package or the JAX one)."""
+    red = rt.lambertian(rt.constant_texture([0.65, 0.05, 0.05]))
+    white = rt.lambertian(rt.constant_texture([0.73, 0.73, 0.73]))
+    green = rt.lambertian(rt.constant_texture([0.12, 0.45, 0.15]))
+    light = rt.light_source(rt.constant_texture([7.0, 7.0, 7.0]))
+    surfaces = [
+        rt.with_material(green, rt.parallelogram([555, 0, 0], [0, 555, 0],
+                                                 [0, 0, 555])),
+        rt.with_material(red, rt.parallelogram([0, 0, 0], [0, 555, 0],
+                                               [0, 0, 555])),
+        rt.with_material(light, rt.parallelogram([113, 554, 127],
+                                                 [330, 0, 0], [0, 0, 305])),
+        rt.with_material(white, rt.parallelogram([0, 0, 0], [555, 0, 0],
+                                                 [0, 0, 555])),
+        rt.with_material(white, rt.parallelogram([555, 555, 555],
+                                                 [-555, 0, 0], [0, 0, -555])),
+        rt.with_material(white, rt.parallelogram([0, 0, 555], [555, 0, 0],
+                                                 [0, 555, 0])),
+    ]
+    cube1 = rt.transform(
+        rt.compose(rt.translate([265, 0, 295]), rt.rotate_y(rt.degrees(15))),
+        rt.cuboid([0, 0, 0], [165, 330, 165]))
+    cube2 = rt.transform(
+        rt.compose(rt.translate([130, 0, 65]), rt.rotate_y(rt.degrees(-18))),
+        rt.cuboid([0, 0, 0], [165, 165, 165]))
+    return rt.group(surfaces + [
+        rt.with_material(rt.pitch_black(), rt.constant_medium(0.01, cube1)),
+        rt.with_material(rt.isotropic(rt.constant_texture(1.0)),
+                         rt.constant_medium(0.01, cube2)),
+    ])
+
+
+def cornell_smoke_settings(rt, width: int = 600, spp: int = 200,
+                           depth: int = 50):
+    """``scenes/cornell_smoke.py``'s camera: the Cornell view, black
+    background, one redirect target on the light."""
+    return rt.CameraSettings(
+        aspect_ratio=1.0, image_width=width, samples_per_pixel=spp,
+        max_depth=depth, background=rt.const_background(0.0),
+        vfov=rt.degrees(40), center=np.asarray([278.0, 278.0, -800.0]),
+        look_at=np.asarray([278.0, 278.0, 0.0]),
+    ).with_redirect_targets([(0.25, [113, 554, 127], [330, 0, 0],
+                              [0, 0, 305])])
+
+
+def cornell_smoke_scene(width: int = 600, spp: int = 200, depth: int = 50,
+                        device="cuda"):
+    """``(scene, settings)`` of ``scenes/cornell_smoke.py`` (rendered there
+    at 600 x 600, 200 spp, depth 50, seed 0): 6 surface rows (a flat
+    scan) and two media of 6 boundary rows each (kernel K11)."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(cornell_smoke_world(rt), device=device),
+            cornell_smoke_settings(rt, width, spp, depth))
+
+
+# the stand-in pawn's profile: (radius, height) from the bottom pole to
+# the top one -- base, waist, collar, head
+PAWN_PROFILE = ((0.0, 0.0), (1.55, 0.0), (1.55, 0.3), (1.3, 0.45),
+                (1.15, 0.7), (0.85, 1.0), (0.62, 1.5), (0.52, 2.2),
+                (0.5, 2.8), (0.9, 3.05), (0.9, 3.25), (0.5, 3.4),
+                (0.62, 3.75), (0.88, 4.2), (0.92, 4.65), (0.7, 5.15),
+                (0.0, 5.5))
+PAWN_AROUND = 40
+
+
+def pawn_standin_mesh():
+    """``(vertices [V, 3], faces [F, 3])``: :data:`PAWN_PROFILE` revolved
+    about the y axis in :data:`PAWN_AROUND` steps, a closed, non-convex
+    surface 5.5 units tall standing on y = 0, of 1,200 triangles wound
+    outward (fans at the poles, two triangles per quad between rings)."""
+    ang = np.linspace(0.0, 2.0 * np.pi, PAWN_AROUND, endpoint=False)
+    rings = PAWN_PROFILE[1:-1]
+    verts = [[0.0, PAWN_PROFILE[0][1], 0.0]]
+    for r, y in rings:
+        verts += [[r * np.cos(a), y, r * np.sin(a)] for a in ang]
+    verts.append([0.0, PAWN_PROFILE[-1][1], 0.0])
+    top = len(verts) - 1
+    ring = lambda k, j: 1 + k * PAWN_AROUND + j % PAWN_AROUND
+    faces = [[0, ring(0, j), ring(0, j + 1)] for j in range(PAWN_AROUND)]
+    for k in range(len(rings) - 1):
+        for j in range(PAWN_AROUND):
+            a0, a1 = ring(k, j), ring(k, j + 1)
+            b0, b1 = ring(k + 1, j), ring(k + 1, j + 1)
+            faces += [[a0, b0, a1], [a1, b0, b1]]
+    k = len(rings) - 1
+    faces += [[top, ring(k, j + 1), ring(k, j)] for j in range(PAWN_AROUND)]
+    v = np.asarray(verts, np.float64)
+    f = np.asarray(faces, np.int64)
+    p = v[f]
+    vol = np.einsum("ij,ij->i", p[:, 0], np.cross(p[:, 1], p[:, 2])).sum()
+    if vol < 0.0:                       # wind the normals outward
+        f = f[:, ::-1].copy()
+    return v, f
+
+
+def pawn_standin_world(rt):
+    """``scenes/pawn_test.py``'s world with ``pawn.obj`` replaced by
+    :func:`pawn_standin_mesh`: the mesh as a glass shell (dielectric 1.5)
+    and as the boundary of a red isotropic medium of density 5.  ``rt``
+    is the builder module (this package or the JAX one)."""
+    v, f = pawn_standin_mesh()
+    mesh = rt.Mesh(vertices=v, uv=np.zeros((0, 2)), faces=f,
+                   uv_faces=np.full_like(f, -1))
+    return rt.group([
+        rt.with_material(rt.dielectric(1.5), rt.triangle_mesh(mesh)),
+        rt.with_material(rt.isotropic(rt.constant_texture([1.0, 0.0, 0.0])),
+                         rt.constant_medium(5.0, rt.triangle_mesh(mesh))),
+    ])
+
+
+def pawn_standin_settings(rt, width: int = 500, spp: int = 400,
+                          depth: int = 20):
+    """``scenes/pawn_test.py``'s camera: from (0, 3.75, 5) to (0, 2.75,
+    0), vfov 80 degrees, gray fade."""
+    return rt.CameraSettings(
+        center=np.asarray([0.0, 3.75, 5.0]),
+        look_at=np.asarray([0.0, 2.75, 0.0]), image_width=width,
+        vfov=rt.degrees(80), samples_per_pixel=spp, max_depth=depth,
+        background=rt.gray_fade)
+
+
+def pawn_standin_scene(width: int = 500, spp: int = 400, depth: int = 20,
+                       device="cuda"):
+    """``(scene, settings)`` of ``scenes/pawn_test.py`` (500 x 500, 400
+    spp, depth 20 there) with the stand-in pawn: a 1,216-row
+    kind-segmented shell (the BVH walk, K9) and a 1,200-row medium
+    boundary (kernel K11b), rendered by the sorted driver."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(pawn_standin_world(rt), device=device),
+            pawn_standin_settings(rt, width, spp, depth))
+
+
+def volume_test_world(rt, moving: bool = False):
+    """``tests/test_volume_kernel.py``'s media: a fog ball (sphere row)
+    and a smoke box (one ``PRIM_BOX`` row) over a ground parallelogram;
+    with ``moving`` both media move."""
+    ball = rt.with_material(rt.isotropic(rt.constant_texture(0.8)),
+                            rt.constant_medium(0.7, rt.sphere([0, 0, -3],
+                                                              1.5)))
+    box = rt.with_material(rt.anisotropic(0.4, rt.constant_texture(0.9)),
+                           rt.constant_medium(1.2, rt.cuboid(
+                               [2, -1, -5], [4.5, 1.5, -2])))
+    media = rt.group([ball, box])
+    if moving:
+        media = rt.moving([0, 0, 0], [0.6, 0.3, -0.4], media)
+    return rt.group([media, rt.with_material(
+        rt.lambertian(rt.constant_texture(0.5)),
+        rt.parallelogram([-20, -2, -20], [40, 0, 0], [0, 0, 40]))])
+
+
+def volume_rays(n: int, seed: int, box=(-6.0, 6.0), inside=(), device="cpu"):
+    """``[7, n]`` random rays from a numpy seed: origins uniform in
+    ``box``, unit directions, times in [0, 1); successive groups of 32
+    lanes start at the points ``inside``, and the last lane is parked at
+    3e18 as the drivers park dead lanes."""
+    rg = np.random.default_rng(seed)
+    o = rg.uniform(box[0], box[1], (n, 3))
+    for k, pt in enumerate(inside):
+        o[32 * k:32 * (k + 1)] = pt
+    o[-1] = 3e18
+    d = rg.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = rg.uniform(0, 1, (n, 1))
+    return _tensor(np.concatenate([o, d, tm], 1).T.astype(np.float32),
+                   device)
+
+
+def pawn_inside_rays(n: int, seed: int, device="cpu"):
+    """``[7, n]`` rays from random points inside the stand-in pawn (within
+    0.3 of its axis, at heights 0.5-5.0, where its radius is at least
+    0.5) in random directions, at time 0."""
+    rg = np.random.default_rng(seed)
+    r = 0.3 * np.sqrt(rg.uniform(size=n))
+    a = rg.uniform(0, 2 * np.pi, n)
+    o = np.stack([r * np.cos(a), rg.uniform(0.5, 5.0, n), r * np.sin(a)], 1)
+    d = rg.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return _tensor(np.concatenate([o, d, np.zeros((n, 1))], 1).T
+                   .astype(np.float32), device)
+
+
+def media_bounce_rays(scene, s, seed: int, pixels=None):
+    """``[(comps [7, R], alive [R]), ...]`` for the crossing kernels: the
+    camera rays of sample 0 of the lanes of the stationary driver (or of
+    ``pixels``) and, after one bounce of the split path with its media,
+    the scattered rays of the surviving lanes (dead ones parked at
+    3e18)."""
+    from .core import rng
+    from .render.camera import camera_frame, generate_ray_components
+    from .render.integrator import (
+        bounce_split_soa, n_bounce_uniforms, split_tables,
+    )
+    dev = scene.device
+    if pixels is None:
+        pixels = torch.from_numpy(stationary_lanes(s)[2])
+    pix = pixels.to(dev, torch.int32)
+    n = pix.shape[0]
+    n_u = n_bounce_uniforms(scene)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    keys = rng.ray_keys_fast(rng.base_key(seed, dev), pix, zeros)
+    uni = rng.uniform_cols(rng.mix_depth(keys, zeros), n_u + 6)
+    comps = generate_ray_components(s, camera_frame(s), pix,
+                                    uni[n_u:n_u + 5]).contiguous()
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    ones = torch.ones((3, n), device=dev)
+    nxt, _, _, alive2, _ = bounce_split_soa(
+        scene, s, comps, uni, torch.zeros((3, n), device=dev), ones, alive,
+        tables=split_tables(scene, s))
+    nxt = torch.cat([torch.where(alive2, nxt[0:3], 3e18), nxt[3:7]])
+    return [(comps, alive), (nxt.contiguous(), alive2)]
+
+
 def fwd_bwd_pixels(n_pix: int, lanes: int):
     """bench.py's lanes (its first call): pixels ``0 .. lanes`` modulo the
     image."""
@@ -662,6 +890,27 @@ def compare_marble(table, tex_ids, points):
     return max_errs((ref,), (out,), ()), out
 
 
+def compare_crossings(volumes, comps, t_min: float = 1e-3, tables=None):
+    """The crossing kernel of ``volumes`` (K11b for a mesh-scale boundary,
+    else K11) and ``volume_crossings_plain`` on the rays ``comps`` [7, R]:
+    ``(max_errs(...) with the front flags as exact rows, kernel
+    outputs)``."""
+    from .ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+        volume_crossings_plain,
+    )
+    from .render.volumes import crossing_kw, volume_tables
+    vtbl, cbox = volume_tables(volumes) if tables is None else tables
+    kw = crossing_kw(volumes, t_min)
+    rays = tuple(comps.unbind(0))
+    ref = volume_crossings_plain(vtbl, *rays, **kw)
+    if cbox is None:
+        out = pallas_volume_crossings(vtbl, *rays, **kw)
+    else:
+        out = pallas_volume_crossings_bcast(vtbl, cbox, *rays, **kw)
+    return max_errs(ref, out, tuple(range(1, len(ref), 3))), out
+
+
 def image_grad_errs(img_id, j, i, g, ref, out):
     """``(0, max abs error, worst excess)`` of an atlas gradient ``out``
     against ``ref`` (either the plain version or an exact sum), for the
@@ -752,10 +1001,10 @@ def next_split_rays(comps, out, seed: int, depth: int):
 @contextlib.contextmanager
 def checked_launches():
     """Inside the block, every kernel A launch of the render drivers,
-    every nearest-hit (BVH walk and flat scan), shade and marble kernel
-    launch of the split path, every kernel B launch of the fused step and
-    every atlas-gradient launch of its backward is followed by its plain
-    version on the same inputs.  Yields ``{kernel name: stats}`` with
+    every nearest-hit (BVH walk and flat scan), medium crossing (K11,
+    K11b), shade and marble kernel launch of the split path, every kernel
+    B launch of the fused step and every atlas-gradient launch of its
+    backward is followed by its plain version on the same inputs.  Yields ``{kernel name: stats}`` with
     ``launches`` (checked), ``n_int`` (differing exact-row lanes, summed),
     ``err`` (max abs float error) and ``excess`` (worst tolerance
     excess; the atlas gradient's is :func:`image_grad_errs`')."""
@@ -766,12 +1015,19 @@ def checked_launches():
     from .ops.intersect_kernel import pallas_nearest_plain
     from .ops.iter_kernel import iter_plain
     from .ops.texture_kernel import marble_stripe_plain
-    from .render import integrator
+    from .ops.volume_kernel import volume_crossings_plain
+    from .render import integrator, volumes
     from .textures import textures
     stats = {}
 
     def nearest_plain(tbl, bvh, *rays, **kw):
         return allpairs_nearest_plain(tbl, *rays, **kw)
+
+    def crossings_bcast_plain(vtbl, cbox, *rays, **kw):
+        return volume_crossings_plain(vtbl, *rays, **kw)
+
+    def crossing_check(args, ref, out):
+        return max_errs(ref, out, tuple(range(1, len(ref), 3)))
 
     def rows(int_rows):
         return lambda args, ref, out: max_errs(ref, out, int_rows)
@@ -808,7 +1064,11 @@ def checked_launches():
                (fused_iter, "iter_megakernel", iter_plain,
                 rows(ITER_INT_ROWS)),
                (textures, "image_grad_pallas", image_grad_plain,
-                image_grad_check)]
+                image_grad_check),
+               (volumes, "pallas_volume_crossings", volume_crossings_plain,
+                crossing_check),
+               (volumes, "pallas_volume_crossings_bcast",
+                crossings_bcast_plain, crossing_check)]
     originals = []
     for module, name, plain, rows in patched:
         kernel, checked = spy(module, name, plain, rows)
@@ -888,17 +1148,40 @@ def compare_bwd(args, kw):
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the block the fused iteration runs the plain versions of
-    kernel B (and its mesh variant) forward and of K5 backward, on any
+    kernel B (and its mesh variant) forward and of K5 backward, and the
+    split path those of the crossing kernels K11 and K11b, on any
     device."""
     from .diff import fused_iter
     from .ops.iter_kernel import iter_plain
-    kernel = fused_iter.iter_megakernel
+    from .ops.volume_kernel import volume_crossings_plain
+    from .render import volumes
+    saved = (fused_iter.iter_megakernel, volumes.pallas_volume_crossings,
+             volumes.pallas_volume_crossings_bcast)
     fused_iter.iter_megakernel = iter_plain
+    volumes.pallas_volume_crossings = volume_crossings_plain
+    volumes.pallas_volume_crossings_bcast = \
+        lambda vtbl, cbox, *rays, **kw: volume_crossings_plain(vtbl, *rays,
+                                                               **kw)
     try:
         with plain_backward():
             yield
     finally:
-        fused_iter.iter_megakernel = kernel
+        (fused_iter.iter_megakernel, volumes.pallas_volume_crossings,
+         volumes.pallas_volume_crossings_bcast) = saved
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Inside the block torch's CPU operators use ``n`` threads.  The CPU
+    tests run in several worker processes at once, whose thread pools
+    otherwise contend for the same cores (a render test then runs over
+    ten times slower than alone)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 @contextlib.contextmanager
@@ -934,6 +1217,7 @@ HOST_SHIM = r"""
 #define __global__
 #define __launch_bounds__(x)
 #define __shared__ static
+using std::max;
 using std::min;
 struct Dim3 { unsigned x = 0; };
 static Dim3 threadIdx, blockIdx, blockDim;

@@ -13,9 +13,10 @@ with its plain version within ``GRAD_RTOL`` per gradient leaf (the
 per-lane differences of K5, summed by atomic ``index_add_`` in an order
 that changes from run to run).  The mesh kernels (nearest hit over the
 BVH, shade, kernel B's mesh variant) equal their plain versions exactly
-on every lane, as do the flat-scan nearest kernel K8 and the marble
-kernel K12; the atlas gradient K13 within ``testing.image_grad_errs``
-(float atomics add in a varying order).
+on every lane, as do the flat-scan nearest kernel K8, the marble
+kernel K12 and the medium crossing kernels K11 and K11b; the atlas
+gradient K13 within ``testing.image_grad_errs`` (float atomics add in a
+varying order).
 """
 import numpy as np
 import pytest
@@ -27,9 +28,12 @@ from raytrace_tpu_torch.testing import (
     bounce_inputs, box_motion_scene, bunny_standin_scene, bwd_inputs,
     camera_rays, checked_launches, compare_bounce, compare_bwd, compare_iter,
     compare_image_grad, compare_marble, compare_nearest,
-    compare_nearest_flat, compare_shade, cornell_scene_and_settings,
-    image_grad_scene, mesh_all_kinds_scene, next_split_rays, noise_test_scene,
-    plain_backward, plain_kernels, surface_points, synthetic_medium,
+    compare_crossings, compare_nearest_flat, compare_shade,
+    cornell_scene_and_settings, cornell_smoke_scene, image_grad_scene,
+    media_bounce_rays, mesh_all_kinds_scene, next_split_rays,
+    noise_test_scene, pawn_inside_rays, pawn_standin_scene, plain_backward,
+    plain_kernels, surface_points, synthetic_medium, volume_rays,
+    volume_test_world,
 )
 
 pytestmark = pytest.mark.cuda
@@ -349,3 +353,108 @@ def test_image_fwd_bwd_kernels_match_plain(device):
         assert np.isfinite(gk[k]).all(), k
         scale = np.abs(gp[k]).max()
         assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
+
+
+@pytest.mark.parametrize("case", ["cornell_smoke", "ball_box",
+                                  "ball_box_moving", "pawn"])
+def test_crossing_kernels_match_plain(device, case):
+    """K11 (cornell_smoke's 12 boundary rows, the ball and box media, still
+    and moving) and K11b (the stand-in pawn's 1,200 rows) on camera rays,
+    their second bounce, random rays and rays from inside the media: the
+    front flags and crossings equal to the plain version's on every
+    lane."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+    )
+    if case == "cornell_smoke":
+        scene, s = cornell_smoke_scene(128, 1, 10, device=device)
+        rays = [c for c, _ in media_bounce_rays(scene, s, 3)]
+    elif case == "pawn":
+        scene, s = pawn_standin_scene(128, 1, 20, device=device)
+        rays = [c for c, _ in media_bounce_rays(scene, s, 3)]
+        rays.append(pawn_inside_rays(1 << 14, 4, device=device))
+    else:
+        scene = rt.compile_scene(volume_test_world(rt, case.endswith(
+            "moving")), device=device)
+        rays = [volume_rays(1 << 14, 5, (-6.0, 6.0), ([0.0, 0.0, -3.0],
+                                                      [3.2, 0.0, -3.5]),
+                            device=device)]
+    k0 = (pallas_volume_crossings.launches,
+          pallas_volume_crossings_bcast.launches)
+    for comps in rays:
+        (n_int, err, _), _ = compare_crossings(scene.volumes, comps)
+        assert n_int == 0 and err == 0.0
+    k1 = (pallas_volume_crossings.launches,
+          pallas_volume_crossings_bcast.launches)
+    bcast = case == "pawn"
+    assert k1[1] - k0[1] == (len(rays) if bcast else 0)
+    assert k1[0] - k0[0] == (0 if bcast else len(rays))
+
+
+def test_media_render_launches_kernels(device):
+    """cornell_smoke renders through K8, K11 and the shade kernel, never
+    kernels A or B (at 1 spp neither: the fused branch refuses media); the
+    pawn stand-in through the sorted driver with K9, K11b and the shade
+    kernel; at 1 spp every launch equals its plain version, and
+    cornell_smoke's image under ``plain_kernels`` equals the kernels'."""
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+    )
+    from raytrace_tpu_torch.render.render import render_accumulate
+    c = (bounce_megakernel, iter_megakernel, pallas_nearest_record,
+         allpairs_nearest_record, shade_megakernel, pallas_volume_crossings,
+         pallas_volume_crossings_bcast)
+    smoke, s = cornell_smoke_scene(128, 4, 10, device=device)
+    pawn, s_p = pawn_standin_scene(128, 2, 8, device=device)
+    for scene, settings, spp, near, cross in (
+            (smoke, s, 4, 2, 5), (smoke, s, 1, 2, 5),
+            (pawn, s_p, 2, 3, 6)):
+        before = [k.launches for k in c]
+        acc, _ = render_accumulate(scene, settings, 0, spp=spp)
+        n = [k.launches - b for k, b in zip(c, before)]
+        assert n[0] == n[1] == 0 and n[near] > 0
+        assert n[4] == n[near] == n[cross], n
+        assert bool(torch.isfinite(acc).all())
+    for scene, settings, names in (
+            (smoke, s, ("pallas_nearest_record", "pallas_volume_crossings")),
+            (pawn, s_p, ("allpairs_nearest_record",
+                         "pallas_volume_crossings_bcast"))):
+        with checked_launches() as stats:
+            render_accumulate(scene, settings, 0, spp=1)
+        for name in names + ("shade_megakernel",):
+            st = stats[name]
+            assert st["launches"] > 0 and st["n_int"] == 0 \
+                and st["err"] == 0.0, (name, st)
+    # with K11's plain version the stationary driver's image is the same
+    acc, _ = render_accumulate(smoke, s, 0, spp=1)
+    before = pallas_volume_crossings.launches
+    with plain_kernels():
+        acc_p, _ = render_accumulate(smoke, s, 0, spp=1)
+    assert pallas_volume_crossings.launches == before
+    assert torch.equal(acc, acc_p)
+
+
+def test_media_scene_lands_on_the_card_and_stays_off_kernel_b(device):
+    """A media scene compiled with the defaults lives on the card; kernel
+    B, which draws 8 bounce columns, refuses its 8 + V."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.fused_iter import iter_kernel_args
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.testing import cornell_smoke_world, fresh_carry
+    scene = rt.compile_scene(cornell_smoke_world(rt))
+    assert scene.device.type == "cuda"
+    assert scene.volumes.density.device.type == "cuda"
+    _, s = cornell_smoke_scene(64, 1, 10, device=device)
+    tables, kw = iter_kernel_args(scene, s, rng.base_key(0, device), 0)
+    assert kw["n_u"] == 10
+    pix = torch.arange(128, dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="n_u=10"):
+        iter_megakernel(*tables, (pix,) + fresh_carry(128, device), **kw)

@@ -52,11 +52,18 @@ from raytrace_tpu_torch.interop import (
 from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
     bounce_bwd_regen_pre_megakernel,
 )
+from raytrace_tpu_torch.testing import torch_threads
 
 R = 4096
 SPP = 4
 N_ITERS = 16
 LOSS_RTOL = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +112,53 @@ def test_loss_and_gradients_match_jax(cornell, schedule, rtol):
             assert np.linalg.norm(tn[k] - jn[k]) <= rtol * scale, k
     assert np.linalg.norm(jn["textures.c0"]) > 0.1
     assert np.linalg.norm(jn["prims.e2"]) > 0.0
+
+
+def test_k5_covers_the_opt_in_regen_kernel_k6(cornell, monkeypatch):
+    """K6 (``bounce_bwd_regen_megakernel``, the JAX package's opt-in
+    ``RT_FUSED_BWD_KERNEL=1`` backward that gathers its own rows) computes
+    the gradient K5 computes: the port's fwd+bwd (K5's path, its plain
+    version on the CPU) against JAX's ``value_and_grad`` of the loss of
+    ``render_loss_wavefront`` over its fused driver (kernels in interpret
+    mode) with K6 switched on, on the Cornell of
+    ``tests/test_fused_iter.py`` (64 px, 4096 lanes, 4 spp, 16
+    iterations, no remat), to this file's tolerances."""
+    from raytrace_tpu.ops.pallas import bounce_bwd_gather_kernel as jbwd
+    js, jset, ts, tset = cornell
+    pix = np.arange(R, dtype=np.int32) % (64 * 64)
+    monkeypatch.setenv("RT_FUSED_BWD_KERNEL", "1")
+    k6_calls = []
+    k6 = jbwd.bounce_bwd_regen_megakernel
+
+    def spy(*a, **kw):
+        k6_calls.append(1)
+        return k6(*a, **kw)
+    monkeypatch.setattr(jbwd, "bounce_bwd_regen_megakernel", spy)
+
+    def jloss(params, statics):
+        img, done = jtrace(jcombine(params, statics), jset, jrng.base_key(0),
+                           jnp.asarray(pix), SPP, n_iters=N_ITERS,
+                           remat=False, use_mega=True, mega_interpret=True)
+        return jnp.mean(img ** 2), jnp.mean(done / SPP)
+
+    (jl, jfrac), jg = jax.value_and_grad(jloss, has_aux=True)(
+        *jpartition(js))
+    assert k6_calls, "the JAX backward did not run K6"
+    params, statics = partition(ts)
+    (tl, tfrac), tg = loss_and_grads(
+        params, statics, tset, rng.base_key(0), torch.from_numpy(pix),
+        torch.zeros((R, 3)), spp=SPP, n_iters=N_ITERS, remat=False)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    assert float(tfrac) == float(jfrac)
+    jn, tn = grads_to_numpy(jg), grads_to_numpy(tg)
+    assert sorted(jn) == sorted(tn)
+    for k in jn:
+        scale = np.linalg.norm(jn[k])
+        if scale == 0.0:
+            assert not np.any(tn[k]), k
+        else:
+            assert np.linalg.norm(tn[k] - jn[k]) <= 0.02 * scale, k
+    assert np.linalg.norm(jn["textures.c0"]) > 0.1
 
 
 def test_partition_combine_round_trip(cornell):

@@ -191,9 +191,14 @@ def test_scan_bound_and_eligibility(pair):
 
 
 def test_unported_features_raise():
-    """The native .obj parser, stationary renders of 8192 rows and more
-    (the sorted driver), media, the BVH accelerator and lights with rich
-    textures (the generic bounce) wait for their ROADMAP items."""
+    """The native .obj parser, the gradients of media scenes, the BVH
+    accelerator and lights with rich textures (the generic bounce) wait
+    for their ROADMAP items; stationary renders of 8192 rows and more take
+    the sorted driver (``tests/test_torch_sorted.py``) instead of
+    raising."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.fused_iter import fused_iter_step
+    from raytrace_tpu_torch.render.render import uses_sorted
     from raytrace_tpu_torch.scene.obj import parse_obj
     from raytrace_tpu_torch.testing import uv_sphere
     with pytest.raises(NotImplementedError, match="M8"):
@@ -203,12 +208,14 @@ def test_unported_features_raise():
         trt.lambertian(trt.constant_texture(0.5)),
         trt.triangle_mesh(trt.Mesh(v, np.zeros((0, 2)), f,
                                    np.full_like(f, -1)))), device="cpu")
-    assert big.prims.kind.shape[0] >= 8192
-    with pytest.raises(NotImplementedError, match="M8"):
-        trt.render(big, trt.CameraSettings(image_width=128,
-                                           samples_per_pixel=1))
+    assert big.prims.kind.shape[0] >= 8192 and uses_sorted(big)
+    fog = trt.compile_scene(trt.with_material(
+        trt.isotropic(trt.constant_texture(0.5)),
+        trt.constant_medium(0.1, trt.sphere([0, 0, 0], 1))), device="cpu")
     with pytest.raises(NotImplementedError, match="M10"):
-        trt.scene.builder.constant_medium(0.1, trt.sphere([0, 0, 0], 1))
+        fused_iter_step(fog, trt.CameraSettings(image_width=8,
+                                                samples_per_pixel=1),
+                        rng.base_key(0), 1, 0)
     with pytest.raises(NotImplementedError, match="M8"):
         trt.compile_scene(trt.with_material(
             trt.lambertian(trt.constant_texture(0.5)),
