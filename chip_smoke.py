@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's render paths once on one GPU: the
-forward render and the differentiable forward + backward, on the Cornell
-box, on a mesh of the Stanford bunny's size and on rich-textured scenes.
+forward render and the differentiable forward + backward (fused and
+unfused), on the Cornell box, on a mesh of the Stanford bunny's size, on
+rich-textured scenes and on scenes with constant-density media.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -126,6 +127,36 @@ of a red medium):
 28. K11's and K11b's times at those shapes beside their plain versions',
     their bounds (the rows and chunk boxes each ray of K11b tested,
     counted by the kernel) and their launches.
+
+The unfused differentiable wavefront (``trace_wavefront_diff`` with
+``rotate_k > 1`` or ``pixel_cost``: torch glue around kernel A forward and
+the replay backward K7 in every iteration) and F8's media groups:
+
+29. K7 against its plain version on 2^18 lanes of the unfused driver's
+    mid-render states (``testing.k7_inputs``: kernel A steps the lanes
+    four times), on phase 8's scenes and targets, within
+    ``testing.BWD_RTOL``;
+30. route 8, ``tools/prof_diff_rot.py``'s configuration
+    (``testing.FWD_BWD_ROT8``: bench.py's Cornell fwd+bwd at 2^18 lanes x
+    64 spp with rotate_k 8, 195 iterations, no remat) after one warm-up:
+    wall, primary rays/s, loss, samples completed, launches of kernel A
+    and K7 (each once per iteration), peak memory;
+31. route 9, ``tools/prof_completion.py``'s (``testing.FWD_BWD_BAL4``:
+    rotate_k 4 balanced by ``lane_cost_estimate(spp_est=4)``, which runs
+    inside the timed region, 184 iterations), printing the same; then
+    route 8 with ``remat=True`` (each iteration checkpointed), its peak
+    memory beside route 8's;
+32. at 2^14 lanes: the unfused fwd+bwd with K7 against the same with
+    K7's plain version (equal losses, gradients within ``GRAD_RTOL``);
+    rotate_k 2 against the fused rotate_k 1 where every sample completes
+    (the loss within 1e-4, the gradients within ``GRAD_RTOL``, the lanes
+    the two resolve differently counted); a central finite difference of
+    the red wall's albedo through the unfused route;
+33. scenes of 17 media (``testing.many_media_world``, 400 x 400, 4 spp:
+    fog balls and boxes through K11, and rotated boxes, a 102-row
+    boundary, through K11b) rendered with every crossing launch (two a
+    bounce: 16 media, then 1) held against its plain version;
+34. K7's time at 2^18 lanes beside its plain version's and its bound.
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
@@ -611,15 +642,22 @@ def main() -> None:
     mesh = _mesh_phases(smi, phase_done)
     rich = _rich_phases(smi, phase_done, dev)
     media = _media_phases(smi, phase_done, dev)
+    unfused = _unfused_phases(smi, phase_done, dev)
+    main_a += unfused["a_launches"]
     main_b += rich["iter_launches"]
     mesh["kernels"][0]["launches"] += media["k9_launches"]
     mesh["kernels"][1]["launches"] += (rich["shade_launches"]
-                                       + media["shade_launches"])
+                                       + media["shade_launches"]
+                                       + unfused["shade_launches"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
-    rich["kernels"][0]["launches"] += media["k8_launches"]
+    rich["kernels"][0]["launches"] += (media["k8_launches"]
+                                       + unfused["k8_launches"])
+    media["kernels"][0]["launches"] += unfused["k11_launches"]
+    media["kernels"][1]["launches"] += unfused["k11b_launches"]
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
                       "mesh": mesh["summary"], "rich": rich["summary"],
                       "media": media["summary"],
+                      "unfused": unfused["summary"],
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
@@ -643,8 +681,8 @@ def main() -> None:
          "max_abs_err": err_k5,
          "ms": ms_k5, "plain_ms": plain_k5, "bound_ms": bound_k5[0],
          "bound_by": bound_k5[1], "library_ms": no_lib},
-    ] + mesh["kernels"] + rich["kernels"] + media["kernels"]}),
-        flush=True)
+    ] + mesh["kernels"] + rich["kernels"] + media["kernels"]
+        + [unfused["kernel"]]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1631,6 +1669,290 @@ def _media_phases(smi, phase_done, dev) -> dict:
                    k11b_rows_tested=rows_t)
     return dict(summary=summary, kernels=kernels, k8_launches=l8,
                 k9_launches=l9 + l9b, shade_launches=l10 + l10p + l10b)
+
+
+def _unfused_phases(smi, phase_done, dev) -> dict:
+    """Phases 29-34 (the unfused differentiable wavefront and F8's
+    17-medium forward) on ``dev``.  Returns the summary for the JSON line,
+    the launches of kernel A, K8, K11, K11b and the shade kernel on routes
+    8, 9 and the 17-medium renders, and the ``kernels`` entry of K7."""
+    import numpy as np
+    import torch
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        finite_difference, loss_and_grads, partition, render_loss_wavefront,
+    )
+    from raytrace_tpu_torch.interop import grads_to_numpy
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel,
+    )
+    from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
+        bounce_bwd_megakernel, bounce_bwd_megakernel_plain,
+    )
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.ops.volume_kernel import pallas_volume_crossings
+    from raytrace_tpu_torch.render.integrator import (
+        lane_cost_estimate, trace_wavefront_diff,
+    )
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import (
+        ALL_MATERIAL_TARGETS, BWD_RTOL, FWD_BWD_BAL4, FWD_BWD_ROT8,
+        all_materials_scene, box_motion_scene, checked_launches, compare_k7,
+        cornell_scene_and_settings, fwd_bwd_pixels, k7_inputs,
+        many_media_settings, many_media_world, plain_backward,
+    )
+    counters = (bounce_megakernel, bounce_bwd_megakernel, iter_megakernel,
+                bounce_bwd_regen_pre_megakernel)
+
+    cornell, s_c = cornell_scene_and_settings(600, 200, 50, device=dev)
+    n_pix = s_c.image_width * s_c.image_height
+    s_fb = s_c.replace(rr_depth=FWD_BWD_ROT8["rr_depth"])
+    key = rng.base_key(0, dev)
+    params, statics = partition(cornell)
+
+    # 29. K7 vs plain on 2^18 lanes of real mid-render states
+    n_bwd = FWD_BWD_ROT8["lanes"]
+    allm = all_materials_scene(device=dev)
+    s_a6 = rt.CameraSettings(background=rt.const_background([0.5, 0.6, 0.7]),
+                             image_width=600)
+    box, s_box = box_motion_scene(device=dev)
+    s_box = s_box.replace(image_width=600)
+    err_k7 = 0.0
+    k7_args = None
+    for name, sc, s, pixels in (
+            ("cornell fwd+bwd", cornell, s_fb, fwd_bwd_pixels(n_pix, n_bwd)),
+            ("all-materials", allm, s_a6, None),
+            ("all-materials 2 targets", allm,
+             s_a6.with_redirect_targets(ALL_MATERIAL_TARGETS), None),
+            ("box/motion", box, s_box, None),
+            ("box/motion 2 targets", box,
+             s_box.with_redirect_targets(ALL_MATERIAL_TARGETS), None)):
+        args, kw = k7_inputs(sc, s, n_bwd, 4, seed=31,
+                             spp=FWD_BWD_ROT8["spp"], pixels=pixels)
+        (err, excess), _ = compare_k7(args, kw)
+        torch.cuda.synchronize()
+        print(f"[K7 vs plain] {name}: {n_bwd} lanes x {kw['n_row'] + 18} "
+              f"outputs, {int((args[5] > 0.5).sum())} alive, max |err| "
+              f"{err:.3g}, worst excess {excess:.3g} (rtol {BWD_RTOL} of "
+              "|plain| + output max + lane max)", flush=True)
+        if not excess <= 0.0:
+            raise AssertionError(f"K7 vs plain: {name}: out of tolerance")
+        err_k7 = max(err_k7, err)
+        if k7_args is None:
+            k7_args, k7_kw = args, kw
+    phase_done("K7 vs plain")
+
+    # 30./31. routes 8 and 9 at full width, after one warm-up each
+    pix = fwd_bwd_pixels(n_pix, n_bwd).to(dev)
+    target = torch.zeros((n_bwd, 3), device=dev)
+
+    def route(cfg, remat=False):
+        def run():
+            cost = (lane_cost_estimate(cornell, s_fb, key, pix,
+                                       spp_est=cfg["spp_est"])
+                    if "spp_est" in cfg else None)
+            return loss_and_grads(
+                params, statics, s_fb, key, pix, target, spp=cfg["spp"],
+                n_iters=cfg["n_iters"], remat=remat,
+                rotate_k=cfg["rotate_k"], pixel_cost=cost)
+        run()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        (loss, frac), grads = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        la, l7, lb, l5 = (c.launches for c in counters)
+        gnp = grads_to_numpy(grads)
+        res = dict(seconds=wall, rays_per_s=n_bwd * cfg["spp"] / wall,
+                   loss=float(loss), samples_completed=float(frac),
+                   launches_a=la, launches_k7=l7,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   finite=all(bool(np.isfinite(v).all())
+                              for v in gnp.values()))
+        if not res["finite"] or l7 == 0 or la == 0 or lb or l5:
+            raise AssertionError(f"unfused fwd+bwd {cfg}: bad gradients or "
+                                 f"launches A={la} K7={l7} B={lb} K5={l5}")
+        return res
+
+    def say(label, cfg, r, cost_iters=0):
+        n_it = cfg["n_iters"]
+        note = ("kernel A and K7 each equal the iteration count"
+                if r["launches_a"] - cost_iters == r["launches_k7"] == n_it
+                else f"NOT both equal to the {n_it} iterations")
+        print(f"[{label}] cornell 600x600 depth 50 rr2, {n_bwd} lanes x "
+              f"{cfg['spp']} spp, rotate_k {cfg['rotate_k']}, {n_it} "
+              f"iterations: {r['seconds']:.3f} s, "
+              f"{r['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
+              f"{r['loss']:.6f}, samples_completed "
+              f"{r['samples_completed']:.6f}, launches A={r['launches_a']} "
+              f"K7={r['launches_k7']} ({note}), peak memory "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB [{smi}]", flush=True)
+
+    r8 = route(FWD_BWD_ROT8)
+    say("route 8", FWD_BWD_ROT8, r8)
+    phase_done("route 8")
+    # route 9 runs lane_cost_estimate (kernel A, forward only) inside the
+    # timed region: its launches are counted apart
+    bounce_megakernel.launches = 0
+    with torch.no_grad():
+        lane_cost_estimate(cornell, s_fb, key, pix,
+                           spp_est=FWD_BWD_BAL4["spp_est"])
+    cost_iters = bounce_megakernel.launches
+    r9 = route(FWD_BWD_BAL4)
+    r9["cost_iterations"] = cost_iters
+    say(f"route 9 ({cost_iters} of the kernel A launches are the cost "
+        "estimate's)", FWD_BWD_BAL4, r9, cost_iters)
+    r8m = route(FWD_BWD_ROT8, remat=True)
+    print(f"[route 8 remat] peak memory {r8m['peak_bytes'] / 2**30:.3f} GiB "
+          f"with remat=True against {r8['peak_bytes'] / 2**30:.3f} GiB "
+          f"without; {r8m['seconds']:.3f} s, loss {r8m['loss']:.6f} (without"
+          f" {r8['loss']:.6f}), launches A={r8m['launches_a']} (each "
+          f"iteration's forward runs again in the backward) "
+          f"K7={r8m['launches_k7']} [{smi}]", flush=True)
+    if r8m["loss"] != r8["loss"]:
+        raise AssertionError("route 8: remat changed the loss")
+    phase_done("routes 9 and 8 remat")
+
+    # 32. at 2^14 lanes: K7 against its plain version, the unfused route
+    # against the fused one, a finite difference
+    n9 = 1 << 14
+    pix9 = (torch.arange(n9) * (n_pix // n9)).to(dev, torch.int32)
+    tgt9 = torch.zeros((n9, 3), device=dev)
+    kw9 = dict(spp=8, n_iters=40, remat=False, rotate_k=2)
+    k0 = bounce_bwd_megakernel.launches
+    (l_k, f_k), g_k = loss_and_grads(params, statics, s_fb, key, pix9, tgt9,
+                                     **kw9)
+    with plain_backward():
+        (l_p, f_p), g_p = loss_and_grads(params, statics, s_fb, key, pix9,
+                                         tgt9, **kw9)
+    g_k, g_p = grads_to_numpy(g_k), grads_to_numpy(g_p)
+    worst = max(float(np.abs(g_k[k] - g_p[k]).max())
+                / max(float(np.abs(g_p[k]).max()), 1e-30) for k in g_p)
+    print(f"[unfused fwd+bwd K7 vs plain] {n9} lanes, 8 spp, 40 iterations, "
+          f"rotate_k 2: loss {float(l_k):.6f} vs {float(l_p):.6f}, samples "
+          f"{float(f_k):.4f}, {bounce_bwd_megakernel.launches - k0} K7 "
+          f"launches, worst leaf max|diff|/max|plain| {worst:.3g} (bound "
+          f"{GRAD_RTOL})", flush=True)
+    if float(l_k) != float(l_p) or float(f_k) != float(f_p) \
+            or not worst <= GRAD_RTOL or bounce_bwd_megakernel.launches == k0:
+        raise AssertionError("unfused fwd+bwd: K7 and its plain version "
+                             "disagree")
+    # rotate_k 2 against the fused rotate_k 1 where every sample completes
+    kw_c = dict(spp=8, n_iters=200, remat=False)
+    runs = {}
+    for rk in (1, 2):
+        (loss, frac), g = loss_and_grads(params, statics, s_fb, key, pix9,
+                                         tgt9, rotate_k=rk, **kw_c)
+        with torch.no_grad():
+            img, _ = trace_wavefront_diff(cornell, s_fb, key, pix9,
+                                          rotate_k=rk, **kw_c)
+        runs[rk] = (float(loss), float(frac), grads_to_numpy(g), img)
+    (l1, f1, g1, img1), (l2, f2, g2, img2) = runs[1], runs[2]
+    worst = max(float(np.abs(g2[k] - g1[k]).max())
+                / max(float(np.abs(g1[k]).max()), 1e-30) for k in g1)
+    n_diff = int(((img1 - img2).abs().amax(1) > 1e-5).sum())
+    rel = abs(l2 / l1 - 1.0)
+    print(f"[unfused vs fused] {n9} lanes, 8 spp, 200 iterations: "
+          f"samples {f1:.6f} (fused) {f2:.6f} (rotate_k 2), loss rel diff "
+          f"{rel:.3g} (bound 1e-4), worst leaf max|diff|/max|fused| "
+          f"{worst:.3g} (bound {GRAD_RTOL}); {n_diff} of {n9} lanes resolve "
+          "differently (kernels A and B may round the camera differently)",
+          flush=True)
+    if f1 != 1.0 or f2 != 1.0 or not rel <= 1e-4 or not worst <= GRAD_RTOL:
+        raise AssertionError("the unfused and the fused routes disagree")
+    # a central finite difference of the red wall's albedo, unfused
+    s_fd = s_c.replace(rr_depth=None)
+    tgt_fd = torch.full((n9, 3), 0.1, device=dev)
+    kw_fd = dict(spp=8, n_iters=80, remat=False, rotate_k=2)
+    _, g_fd = loss_and_grads(params, statics, s_fd, key, pix9, tgt_fd,
+                             **kw_fd)
+    tex = cornell.textures
+    red = int(torch.argmax(tex.c0[:, 0] - tex.c0[:, 1]))
+
+    def loss_at(x):
+        c0 = tex.c0.clone()
+        c0[red, 0] = x[0]
+        sc = dataclasses.replace(cornell,
+                                 textures=dataclasses.replace(tex, c0=c0))
+        with torch.no_grad():
+            return render_loss_wavefront(*partition(sc), s_fd, key, pix9,
+                                         tgt_fd, **kw_fd)[0]
+    fd = float(finite_difference(loss_at, tex.c0[red, 0:1].clone(), 1e-2)[0])
+    gv = float(g_fd.textures.c0[red, 0])
+    print(f"[finite difference, unfused] red wall albedo (texture {red}, red "
+          f"channel), rotate_k 2: gradient {gv:.6g}, central difference "
+          f"{fd:.6g} (eps 0.01), rel diff {abs(gv - fd) / abs(fd):.3g} "
+          f"(bound {FD_RTOL})", flush=True)
+    if gv == 0.0 or not abs(gv - fd) <= FD_RTOL * abs(fd):
+        raise AssertionError("finite difference through the unfused route")
+    phase_done("unfused checks at 2^14 lanes")
+
+    # 33. 17 media (F8): renders with every crossing launch checked, of
+    # fog balls and boxes (K11) and of rotated boxes (102 rows: K11b)
+    k8_l = k11_l = k11b_l = shade_l = 0
+    for rotated in (False, True):
+        many = rt.compile_scene(many_media_world(rt, 17, rotated), device=dev)
+        kname = ("pallas_volume_crossings_bcast" if rotated
+                 else "pallas_volume_crossings")
+        with checked_launches() as stats:
+            acc, total = render_accumulate(many, many_media_settings(
+                rt, 400, 4, 10), seed=0, spp=4)
+        st_v, st8 = stats[kname], stats["pallas_nearest_record"]
+        finite = bool(torch.isfinite(acc).all())
+        print(f"[17 media] {many.volumes.n_volumes} media "
+              f"({many.volumes.prims.kind.shape[0]} boundary rows) 400x400 "
+              f"4 spp depth 10: {st_v['launches']} launches of {kname} (two "
+              f"a bounce: 16 + 1 media) over {st8['launches']} iterations, "
+              f"every one against its plain version: {st_v['n_int']} "
+              f"differing front flags, max |err| {st_v['err']:.3g}; mean "
+              f"{float((acc / total).mean()):.6f}, finite {finite}",
+              flush=True)
+        if (not finite or st_v["launches"] != 2 * st8["launches"]
+                or st_v["n_int"] or st_v["err"] or st8["launches"] == 0):
+            raise AssertionError("17 media: crossing launches disagree")
+        k8_l += st8["launches"]
+        shade_l += stats["shade_megakernel"]["launches"]
+        if rotated:
+            k11b_l += st_v["launches"]
+        else:
+            k11_l += st_v["launches"]
+    phase_done("17 media")
+
+    # 34. K7's time at 2^18 lanes (the Cornell state of phase 29)
+    ms_k7 = _time_ms(lambda: bounce_bwd_megakernel(*k7_args, **k7_kw), 50)
+    plain_k7 = _time_ms(lambda: bounce_bwd_megakernel_plain(*k7_args,
+                                                            **k7_kw), 3, 1)
+    n_in = len(k7_args[1]) + 1 + 10 + 8 + 1 + 12
+    n_out = k7_kw["n_row"] + 18
+    bound_k7 = _bound_ms(4 * n_bwd * (n_in + n_out), n_bwd * 1000)
+    print(f"[time] K7 {ms_k7:.4f} ms vs bounce_bwd_megakernel_plain "
+          f"{plain_k7:.3f} ms at {n_bwd} lanes, bound {bound_k7[0]:.4f} ms "
+          f"({bound_k7[1]}: {n_in} columns in, {n_out} out) [{smi}]",
+          flush=True)
+    phase_done("K7 time")
+
+    summary = dict(route8=r8, route9=r9, route8_remat=r8m,
+                   unfused_vs_fused_lanes_differing=n_diff)
+    kernel = {"name": "bounce_bwd_megakernel", "route": "cuda",
+              "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
+              "replaces": "raytrace_tpu/ops/pallas/bounce_bwd_kernel.py:79",
+              "launches": r8["launches_k7"] + r9["launches_k7"],
+              "max_abs_err": err_k7, "ms": ms_k7, "plain_ms": plain_k7,
+              "bound_ms": bound_k7[0], "bound_by": bound_k7[1],
+              "library_ms": None}
+    return dict(summary=summary, kernel=kernel,
+                a_launches=r8["launches_a"] + r9["launches_a"],
+                k8_launches=k8_l, k11_launches=k11_l, k11b_launches=k11b_l,
+                shade_launches=shade_l)
+
 
 if __name__ == "__main__":
     main()

@@ -1,10 +1,12 @@
-// Kernel K5: the backward of one fused wavefront iteration.
+// The two backward kernels of the differentiable wavefront, K5 (the fused
+// iteration, entry rt_bounce_bwd) and K7 (one unfused bounce, entry
+// rt_bounce_bwd_replay), both over lane_adjoint.cuh:lane_math_adjoint.
 //
-// Replaces raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:
+// K5 replaces raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:
 // bounce_bwd_regen_pre_megakernel (body _kernel_regen_pre).  Plain PyTorch
 // version: ops/bounce_bwd_gather_kernel.py:bounce_bwd_regen_pre_plain.
 //
-// Per lane: rebuild the detached regeneration stage of kernel B from the
+// K5, per lane: rebuild the detached regeneration stage of kernel B from the
 // saved (pixel, sample, depth) (regen.cuh, bit-identical counter hash and
 // camera), form the replayed bounce's inputs (the regeneration selects, the
 // far parking of dead lanes), and run lane_math's hand-derived adjoint
@@ -20,6 +22,19 @@
 // below the card's float32 rate.  The design is the simple one: one thread
 // per lane over 1-D SoA columns (coalesced), the camera and target rows in
 // shared memory, the whole forward and reverse sweep in registers.
+//
+// K7 replaces raytrace_tpu/ops/pallas/bounce_bwd_kernel.py:
+// bounce_bwd_megakernel (body _kernel).  Plain PyTorch version:
+// ops/bounce_bwd_kernel.py:bounce_bwd_megakernel_plain.  It is K5 without
+// the regeneration stage, the far parking of dead lanes and the background
+// term: the backward of the unfused step (diff/mega_bounce.py) saves the
+// bounce's own inputs, so each lane reads its ray, throughput, the 8
+// uniform columns and the gathered rows, runs lane_math_adjoint and writes
+// the gradients and the miss flag (the caller adds the background term's
+// VJP, so any background works).  Bound: device memory, as K5; a lane reads
+// 59 columns (27 gathered, the winner index, 10 lane, 8 uniforms, alive,
+// 12 cotangents) and writes 27 (26 gradients, miss): 344 B a lane.  One
+// thread per lane over 1-D SoA columns, the target rows in shared memory.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -56,6 +71,25 @@ struct BwdArgs {
   float* out;                  // [n_row + 20, R]
   long long n_lanes;
   int n_targets, has_motion, has_box, n_row, width, bg_kind;
+  float t_min;
+};
+
+constexpr int kNLane = 10;        // o (3), d (3), time, thr (3)
+constexpr int kNReplayCts = 12;   // o2 (3), d2 (3), rad (3), thr2 (3)
+
+// K7's arguments.  Field order and types mirror
+// ops/bounce_bwd_kernel.py:_ReplayArgs.
+struct ReplayArgs {
+  const float* ttbl;  // [>=max(n_targets, 1), 16]
+  const float* gath[kMaxRow + kGathExtra];  // n_row + 18 used, [R] each
+  const float* bi;                          // [R] winner index (-1 on a miss)
+  const float* lane[kNLane];                // [R] each: the bounce's input
+  const float* u[rt::kNU];                  // [R] each: its uniforms
+  const float* al;                          // [R] 0/1
+  const float* cts[kNReplayCts];            // [R] each
+  float* out;                               // [n_row + 18, R]
+  long long n_lanes;
+  int n_targets, has_motion, has_box, n_row;
   float t_min;
 };
 
@@ -201,6 +235,85 @@ __global__ void __launch_bounds__(kThreads) bounce_bwd_kernel(
     o[(row++) * R + l] = (g.thr[k] + g_thr_bg[k]) * keep;
 }
 
+// K7: lane_math's adjoint over the saved inputs of one bounce.
+__global__ void __launch_bounds__(kThreads) bounce_bwd_replay_kernel(
+    const ReplayArgs a) {
+  __shared__ rt::LaneTarget tg[kMaxTargets];
+  if (threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int t = 0; t < a.n_targets; ++t)
+      rt::target_consts(a.ttbl + t * rt::kTCols, acc, tg[t]);
+  }
+  __syncthreads();
+
+  const long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (l >= a.n_lanes) return;
+  const long long R = a.n_lanes;
+  const int nr = a.n_row;
+  const bool has_motion = a.has_motion != 0;
+
+  rt::LaneIn x;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    x.p0[k] = a.gath[k][l];
+    x.e1[k] = a.gath[3 + k][l];
+    x.e2[k] = a.gath[6 + k][l];
+    x.mv0[k] = has_motion ? a.gath[9 + k][l] : 0.0f;
+    x.mv1[k] = has_motion ? a.gath[12 + k][l] : 0.0f;
+    x.c0[k] = a.gath[nr + k][l];
+    x.c1[k] = a.gath[nr + 3 + k][l];
+    x.o[k] = a.lane[k][l];
+    x.d[k] = a.lane[3 + k][l];
+    x.thr[k] = a.lane[7 + k][l];
+  }
+  x.param = a.gath[nr + 6][l];
+  x.time = a.lane[6][l];
+  rt::LaneDet det;
+  det.kind_p = a.gath[nr + 7][l];
+  det.kind_m = a.gath[nr + 8][l];
+  det.texkind = a.gath[nr + 9][l];
+  det.f0 = a.gath[nr + 10][l];
+  det.f1 = a.gath[nr + 11][l];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) det.uv[k] = a.gath[nr + 12 + k][l];
+#pragma unroll
+  for (int k = 0; k < rt::kNU; ++k) det.u[k] = a.u[k][l];
+  det.alive = a.al[l] > 0.5f;
+  det.idxv = a.bi[l] >= 0.0f;
+  rt::LaneCt ct;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ct.o2[k] = a.cts[k][l];
+    ct.d2[k] = a.cts[3 + k][l];
+    ct.rad[k] = a.cts[6 + k][l];
+    ct.thr2[k] = a.cts[9 + k][l];
+  }
+
+  rt::LaneIn g;
+  const float miss = rt::lane_math_adjoint(
+      x, det, tg, a.n_targets, has_motion, a.has_box != 0, a.t_min, ct, g);
+
+  float* o = a.out;
+  int row = 0;
+  const float* rows[5] = {g.p0, g.e1, g.e2, g.mv0, g.mv1};
+  for (int j = 0; j < nr / 3; ++j)
+    for (int k = 0; k < 3; ++k) o[(row++) * R + l] = rows[j][k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[(row++) * R + l] = g.c0[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[(row++) * R + l] = g.c1[k];
+  o[(row++) * R + l] = g.param;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[(row++) * R + l] = g.o[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[(row++) * R + l] = g.d[k];
+  o[(row++) * R + l] = g.time;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o[(row++) * R + l] = g.thr[k];
+  o[row * R + l] = miss;
+}
+
 }  // namespace
 
 extern "C" int rt_bounce_bwd(const BwdArgs* a, void* stream) {
@@ -211,5 +324,16 @@ extern "C" int rt_bounce_bwd(const BwdArgs* a, void* stream) {
   const long long blocks = (a->n_lanes + kThreads - 1) / kThreads;
   bounce_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_bounce_bwd_replay(const ReplayArgs* a, void* stream) {
+  if (a->n_lanes <= 0) return 0;
+  if (a->n_targets < 0 || a->n_targets > kMaxTargets ||
+      (a->n_row != 9 && a->n_row != 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (a->n_lanes + kThreads - 1) / kThreads;
+  bounce_bwd_replay_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }

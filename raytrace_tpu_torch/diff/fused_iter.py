@@ -1,6 +1,6 @@
 """The fused wavefront iteration (``raytrace_tpu/diff/fused_iter.py``:
-``background_kind``, ``fused_iter_eligible``, ``fused_iter_fwd_step``,
-``fused_iter_step``).
+``background_kind``, ``fused_iter_eligible`` (with ``need_replay=True``:
+:func:`fused_diff_reason`), ``fused_iter_fwd_step``, ``fused_iter_step``).
 
 One kernel B launch per iteration; the caller only adds dead lanes'
 radiance into the image.  :func:`fused_iter_step` is the differentiable
@@ -40,7 +40,7 @@ from ..textures.textures import (
     BASE_KINDS, TEX_CHECKER, TEX_IMAGE, _image_gather, eval_texture, is_rich,
 )
 from .gradients import leaves, map_scene
-from .lane_replay import assemble_scene_grads
+from .lane_replay import prim_columns, reduce_row_grads
 
 N_CARRY = 16        # smp, dep, alive, comps (7), rad (3), thr (3)
 MEDIA_GRADIENTS = (
@@ -129,22 +129,6 @@ class _StepStatics:
     n_row: int
 
 
-def _prim_columns(scene, n_row: int):
-    """Per-prim table of K5's gathered columns: winner rows p0 e1 e2
-    [mv0 mv1], c0, c1, param, kind_p, kind_m, texkind, f0, f1, uvs (6);
-    with each prim's material and texture row."""
-    p, m, tx = scene.prims, scene.materials, scene.textures
-    mat = p.mat.long()
-    tex = m.tex[mat].long()
-    parts = [p.p0, p.e1, p.e2] + ([p.mv0, p.mv1] if n_row == 15 else [])
-    f = lambda x: x.to(torch.float32)[:, None]
-    cols = torch.cat(parts + [tx.c0[tex], tx.c1[tex], f(m.param[mat]),
-                              f(p.kind), f(m.kind[mat]), f(tx.kind[tex]),
-                              f(tx.f0[tex]), f(tx.f1[tex]),
-                              p.uvs.reshape(-1, 6)], dim=1)
-    return cols.contiguous(), mat, tex
-
-
 class _FusedIter(torch.autograd.Function):
     """One differentiable fused iteration; inputs ``(st, pix, carry (16),
     *float leaves of the scene)``, outputs ``carry2 (16) + (died_f,)``,
@@ -187,23 +171,8 @@ class _FusedIter(torch.autograd.Function):
             t_min=st.kw["t_min"], n_row=n_row, n_u=st.kw["n_u"],
             width=st.kw["width"], bg_kind=st.kw["bg_kind"])
         # per-lane row gradients onto the tables (atomic on the card)
-        p, m, tx = st.scene.prims, st.scene.materials, st.scene.textures
-        rows = torch.stack(g[:n_row + 7], dim=1)          # [R, n_row + 7]
-        g_ptab = torch.zeros((p.kind.shape[0], n_row), device=al.device)
-        g_ptab.index_add_(0, pi, rows[:, :n_row])
-        g_mparam = torch.zeros_like(m.param).index_add_(
-            0, st.prim_mat[pi], rows[:, n_row + 6])
-        tex_l = st.prim_tex[pi]
-        g_tc0 = torch.zeros_like(tx.c0).index_add_(0, tex_l,
-                                                   rows[:, n_row:n_row + 3])
-        g_tc1 = torch.zeros_like(tx.c1).index_add_(
-            0, tex_l, rows[:, n_row + 3:n_row + 6])
-        motion = n_row == 15
-        g_scene = assemble_scene_grads(
-            st.scene, g_ptab[:, 0:3], g_ptab[:, 3:6], g_ptab[:, 6:9],
-            g_ptab[:, 9:12] if motion else None,
-            g_ptab[:, 12:15] if motion else None, g_mparam, g_tc0, g_tc1)
-        gl = leaves(g_scene)
+        gl = leaves(reduce_row_grads(st.scene, g, pi, st.prim_mat,
+                                     st.prim_tex, n_row))
         return ((None, None, None, None, None) + tuple(g[n_row + 7:])
                 + tuple(gl[k] for k in st.names))
 
@@ -265,19 +234,18 @@ def apply_rich(textures, rs: _RichStatics, carry2, uu, vv, idx):
     return carry2[:13] + thr2 + carry2[16:]
 
 
-def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
-    """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
-    differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
-    alive f32, comps (7), rad (3), thr (3)), differentiable with respect
-    to every float leaf of ``scene`` (those with ``requires_grad``, as
-    :func:`gradients.partition` makes them).  The pixel assignment is an
-    argument, so compacted completion phases can rebind it.  A scene with
-    rich textures gets :func:`apply_rich` after every step."""
+def fused_diff_reason(scene, s):
+    """Why the fused differentiable step cannot take this scene and
+    camera, or None (the JAX package's ``fused_iter_eligible`` with
+    ``need_replay=True``): kernel B (or its mesh variant) with deferred
+    rich textures, the replay backward's caps, an in-kernel background,
+    no rotated spheres.  The differentiable driver sends a scene refused
+    for its background or its rotated spheres to the unfused route."""
     from ..ops.intersect_kernel import MAX_SMEM_PRIMS
     from ..render.integrator import MEGA_MAX_PRIMS, _kernel_reason
     from .lane_replay import replay_pre_eligible
     if scene.volumes is not None:
-        raise NotImplementedError(f"fused_iter_step: {MEDIA_GRADIENTS}")
+        return MEDIA_GRADIENTS
     reason = _kernel_reason(scene, s, 128, MEGA_MAX_PRIMS, defer_rich=True)
     p = scene.prims
     if (reason is None and p.kind.shape[0] > MAX_SMEM_PRIMS
@@ -287,10 +255,23 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
     if reason is None and not replay_pre_eligible(scene):
         reason = "the scene's tables exceed the replay backward's caps"
     if reason is None and background_kind(s) is None:
-        reason = ("a background other than const/sky/gray_fade needs the "
-                  "unfused diff path (ROADMAP M11)")
+        reason = ("kernel B evaluates only the const, sky and gray_fade "
+                  "backgrounds")
     if reason is None and scene.prims.sphere_rots:
-        reason = "rotated uv-textured spheres (ROADMAP M11)"
+        reason = "kernel B does not rotate sphere uvs"
+    return reason
+
+
+def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
+    """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
+    differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
+    alive f32, comps (7), rad (3), thr (3)), differentiable with respect
+    to every float leaf of ``scene`` (those with ``requires_grad``, as
+    :func:`gradients.partition` makes them).  The pixel assignment is an
+    argument, so compacted completion phases can rebind it.  A scene with
+    rich textures gets :func:`apply_rich` after every step.  Raises for
+    the scenes :func:`fused_diff_reason` refuses."""
+    reason = fused_diff_reason(scene, s)
     if reason is not None:
         raise NotImplementedError(f"fused_iter_step: {reason}")
     named = {k: v for k, v in leaves(scene).items() if v.requires_grad}
@@ -299,7 +280,7 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
         tables, kw = iter_kernel_args(det, s, base_key,
                                       sample_offset + spp - 1)
         n_row = 15 if det.prims.has_motion else 9
-        cols, mat, tex = _prim_columns(det, n_row)
+        cols, mat, tex = prim_columns(det, n_row)
         rs = rich_statics(det) if kw["with_uv"] else None
     st = _StepStatics(tables=tables, kw=kw, scene=det,
                       names=tuple(named), prim_cols=cols, prim_mat=mat,

@@ -71,11 +71,13 @@ def render_loss_wavefront(scene_params, scene_statics, settings, key,
                           pixel_ids, target, spp: int,
                           n_iters: int | None = None, remat: bool = True,
                           rotate_k: int = 1, skip_done: bool = False,
-                          pixel_cost=None, schedule: tuple | None = None):
+                          skip_chunk: int = 16, pixel_cost=None,
+                          schedule: tuple | None = None):
     """MSE loss of the differentiable regenerative wavefront
-    (``render/integrator.py:trace_wavefront_diff``) against
-    ``target[P, 3]``.  Returns ``(loss, frac_done)``: the fraction of the
-    requested samples completed within the iteration budget."""
+    (``render/integrator.py:trace_wavefront_diff``, which routes each case
+    to the fused or the unfused driver) against ``target[P, 3]``.
+    Returns ``(loss, frac_done)``: the fraction of the requested samples
+    completed within the iteration budget."""
     from ..render.integrator import trace_wavefront_diff
     from .fused_iter import MEDIA_GRADIENTS
 
@@ -85,6 +87,7 @@ def render_loss_wavefront(scene_params, scene_statics, settings, key,
     img, done = trace_wavefront_diff(scene, settings, key, pixel_ids, spp,
                                      n_iters=n_iters, remat=remat,
                                      rotate_k=rotate_k, skip_done=skip_done,
+                                     skip_chunk=skip_chunk,
                                      pixel_cost=pixel_cost,
                                      schedule=schedule)
     loss = torch.mean((img - target) ** 2)

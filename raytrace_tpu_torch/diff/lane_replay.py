@@ -524,6 +524,102 @@ def lane_math(diff, det, tgt, *, has_motion: bool, has_box: bool,
             thr2r, thr2g, thr2b, miss_f)
 
 
+def prim_columns(scene, n_row: int):
+    """``(cols, mat, tex)``: per prim the gathered columns of the backward
+    kernels K5 and K7 (winner rows p0 e1 e2 [mv0 mv1], c0, c1, param,
+    kind_p, kind_m, texkind, f0, f1, uvs (6)) as an [N, n_row + 18] f32
+    table, with each prim's material and texture row (i64)."""
+    p, m, tx = scene.prims, scene.materials, scene.textures
+    mat = p.mat.long()
+    tex = m.tex[mat].long()
+    parts = [p.p0, p.e1, p.e2] + ([p.mv0, p.mv1] if n_row == 15 else [])
+    f = lambda x: x.to(torch.float32)[:, None]
+    cols = torch.cat(parts + [tx.c0[tex], tx.c1[tex], f(m.param[mat]),
+                              f(p.kind), f(m.kind[mat]), f(tx.kind[tex]),
+                              f(tx.f0[tex]), f(tx.f1[tex]),
+                              p.uvs.reshape(-1, 6)], dim=1)
+    return cols.contiguous(), mat, tex
+
+
+def reduce_row_grads(scene, g, pi, mat, tex, n_row: int):
+    """The scene-shaped gradient (:func:`assemble_scene_grads`) of the
+    per-lane row gradients ``g`` (the backward kernels' first ``n_row +
+    7`` outputs: winner rows, c0, c1, param) of the lanes whose winner is
+    prim ``pi`` (i64 [R]), reduced onto the tables with ``index_add_``
+    (atomic on the card); ``mat``, ``tex`` as :func:`prim_columns`'."""
+    p, m, tx = scene.prims, scene.materials, scene.textures
+    rows = torch.stack(g[:n_row + 7], dim=1)          # [R, n_row + 7]
+    g_ptab = torch.zeros((p.kind.shape[0], n_row), device=rows.device)
+    g_ptab.index_add_(0, pi, rows[:, :n_row])
+    g_mparam = torch.zeros_like(m.param).index_add_(0, mat[pi],
+                                                    rows[:, n_row + 6])
+    tex_l = tex[pi]
+    g_tc0 = torch.zeros_like(tx.c0).index_add_(0, tex_l,
+                                               rows[:, n_row:n_row + 3])
+    g_tc1 = torch.zeros_like(tx.c1).index_add_(0, tex_l,
+                                               rows[:, n_row + 3:n_row + 6])
+    motion = n_row == 15
+    return assemble_scene_grads(
+        scene, g_ptab[:, 0:3], g_ptab[:, 3:6], g_ptab[:, 6:9],
+        g_ptab[:, 9:12] if motion else None,
+        g_ptab[:, 12:15] if motion else None, g_mparam, g_tc0, g_tc1)
+
+
+def replay_bwd_soa(scene, s, comps, u_cols, thr, alive, idx, ct12, *,
+                   has_motion: bool, t_min: float, cols=None, ttbl=None):
+    """VJP of one kernel-A bounce through kernel K7
+    (``ops/bounce_bwd_kernel.py``), the JAX package's ``replay_bwd_soa``.
+
+    ``comps`` [7, R] and ``thr`` [3, R] are the bounce's inputs (dead
+    lanes not parked), ``u_cols`` its 8 uniform columns ([8, R]),
+    ``alive`` bool [R], ``idx`` the winner row (i32, -1 on a miss),
+    ``ct12`` the cotangents of (o2 (3), d2 (3), radiance contribution
+    (3), thr2 (3)) as [12, R].  ``cols`` is :func:`prim_columns`' result
+    and ``ttbl`` the packed target table, both made here if not given.
+
+    The winner, material and texture columns are gathered by index, the
+    row gradients reduced by :func:`reduce_row_grads`, and the background
+    term ``thr * background(o, d) * miss`` differentiated outside the
+    kernel by torch autograd over ``s.background``, so any background
+    callable works.  Returns ``(g_scene, g_comps [7, R], g_thr [3, R])``
+    with ``g_scene`` scene-shaped (:func:`assemble_scene_grads`)."""
+    from ..ops.bounce_bwd_kernel import bounce_bwd_megakernel
+    from ..ops.bounce_kernel import pack_targets
+    dev = comps.device
+    n_row = 15 if has_motion else 9
+    pcols, mat, tex = prim_columns(scene, n_row) if cols is None else cols
+    if ttbl is None:
+        ttbl = pack_targets(s.redirect_prob, s.redirect_q, s.redirect_u,
+                            s.redirect_v).to(dev).contiguous()
+    pi = torch.clamp(idx, min=0).long()
+    gath = pcols[pi].T.contiguous().unbind(0)
+    g = bounce_bwd_megakernel(
+        ttbl, gath, idx.to(torch.float32),
+        tuple(comps.unbind(0)) + tuple(thr.unbind(0)), u_cols,
+        torch.where(alive, 1.0, 0.0), tuple(ct12.unbind(0)),
+        n_targets=s.n_redirect, has_motion=has_motion,
+        has_box=scene.prims.has_box, t_min=t_min, n_row=n_row)
+    g_scene = reduce_row_grads(scene, g, pi, mat, tex, n_row)
+    g_comps = torch.stack(g[n_row + 7:n_row + 14])
+    g_thr = torch.stack(g[n_row + 14:n_row + 17])
+    miss_f = g[n_row + 17]
+
+    # the background term on a miss, outside the kernel
+    with torch.enable_grad():
+        o3 = comps[0:3].T.detach().requires_grad_(True)
+        d3 = comps[3:6].T.detach().requires_grad_(True)
+        t3 = thr.T.detach().requires_grad_(True)
+        term = t3 * s.background(o3, d3).to(torch.float32) * miss_f[:, None]
+        go, gd, gt = torch.autograd.grad(term, (o3, d3, t3),
+                                         grad_outputs=ct12[6:9].T,
+                                         allow_unused=True)
+    for rows, gb in ((slice(0, 3), go), (slice(3, 6), gd)):
+        if gb is not None:
+            g_comps[rows] += gb.T
+    g_thr += gt.T
+    return g_scene, g_comps, g_thr
+
+
 def assemble_scene_grads(scene, g_p0, g_e1, g_e2, g_mv0, g_mv1, g_mparam,
                          g_tc0, g_tc1):
     """Scene-shaped gradient (the ``partition`` params structure): the

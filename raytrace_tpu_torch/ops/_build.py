@@ -32,9 +32,9 @@ SOURCES = ("bounce_kernel.cu", "iter_kernel.cu", "bounce_bwd_kernel.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 ENTRY_POINTS = ("rt_bounce", "rt_iter", "rt_iter_bvh", "rt_bounce_bwd",
-                "rt_nearest", "rt_shade", "rt_nearest_flat", "rt_marble",
-                "rt_image_grad", "rt_volume_crossings",
-                "rt_volume_crossings_chunked")
+                "rt_bounce_bwd_replay", "rt_nearest", "rt_shade",
+                "rt_nearest_flat", "rt_marble", "rt_image_grad",
+                "rt_volume_crossings", "rt_volume_crossings_chunked")
 
 
 def _nvcc() -> str:

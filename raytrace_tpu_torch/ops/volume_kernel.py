@@ -36,7 +36,9 @@ from .intersect_kernel import N_COLS, _safe
 
 BCAST_CHUNK = 256      # rows per chunk of the plan and of a chunk box
 BCAST_MIN_ROWS = 64    # boundary tables from this many rows take K11b
-MAX_VOLUMES = 16       # media one launch takes (csrc/volume_kernel.cu)
+# media one launch takes (csrc/volume_kernel.cu); render/volumes.py
+# launches once per group of at most this many
+MAX_VOLUMES = 16
 N_BOX_COLS = 8         # chunk box: lo (3), hi (3), 2 unused
 # (row, lane) pairs per block of the plain version: its ~30 live [rows,
 # lanes] f32 tensors stay near 256 MiB

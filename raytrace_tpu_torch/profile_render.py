@@ -21,7 +21,12 @@ media ``scenes/cornell_smoke.py``'s forward (``smoke_fwd``: 600 x 600,
 the shade kernel) and the pawn stand-in's (``pawn_fwd``:
 ``testing.pawn_standin_scene`` at 500 x 500, depth 20, ``PAWN_SPP`` spp,
 seed 0, through the sorted driver: the BVH walk, K11b and the shade
-kernel), it
+kernel), and for the unfused differentiable wavefront the Cornell fwd+bwd
+at rotate_k 8 (``fwdbwd_rot8``: ``testing.FWD_BWD_ROT8``,
+``tools/prof_diff_rot.py``'s configuration) and at rotate_k 4 balanced by
+``lane_cost_estimate``, which each run includes (``fwdbwd_bal4``:
+``testing.FWD_BWD_BAL4``, ``tools/prof_completion.py``'s), both through
+kernel A forward and K7 backward, it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -33,10 +38,11 @@ kernel), it
    launch calls, and the device operations that take the most time.
 
 The iteration count is the number of forward kernel launches (kernel A
-or B, or a nearest-hit kernel and the mesh iteration kernel).
+or B, or a nearest-hit kernel and the mesh iteration kernel; for
+``fwdbwd_bal4`` it includes the cost estimate's kernel A launches).
 
 Names of estimators as arguments run only those, e.g.
-``python3 -m raytrace_tpu_torch.profile_render smoke_fwd pawn_fwd``.
+``python3 -m raytrace_tpu_torch.profile_render fwdbwd_rot8 fwdbwd_bal4``.
 The profiler's table of device operations goes to
 ``chiprun_out/profile_<estimator>.txt`` in the checkout; the last line is
 a JSON object of all of the above.
@@ -84,8 +90,10 @@ def main() -> None:
     from .ops.intersect_kernel import pallas_nearest_record
     from .ops.iter_kernel import iter_mega_ap, iter_megakernel
     from .render.render import render_accumulate
+    from .render.integrator import lane_cost_estimate
     from .testing import (
-        FWD_BWD, IMAGE_GRAD_FWD_BWD, MESH_FWD_BWD, bunny_standin_scene,
+        FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8, IMAGE_GRAD_FWD_BWD,
+        MESH_FWD_BWD, bunny_standin_scene,
         cornell_scene_and_settings, cornell_smoke_scene, fwd_bwd_pixels,
         image_grad_scene, noise_test_scene, pawn_standin_scene,
     )
@@ -117,12 +125,20 @@ def main() -> None:
         pix = fwd_bwd_pixels(settings.image_width * settings.image_height,
                              cfg["lanes"]).to(dev)
         target = torch.zeros((cfg["lanes"], 3), device=dev)
-        return lambda: loss_and_grads(
-            params, statics,
-            settings.replace(rr_depth=cfg.get("rr_depth", settings.rr_depth)),
-            rng.base_key(0, dev), pix, target, spp=cfg["spp"],
-            n_iters=cfg["n_iters"], remat=False,
-            schedule=cfg.get("schedule"))
+        s_cfg = settings.replace(rr_depth=cfg.get("rr_depth",
+                                                  settings.rr_depth))
+        key = rng.base_key(0, dev)
+
+        def run():
+            cost = (lane_cost_estimate(sc, s_cfg, key, pix,
+                                       spp_est=cfg["spp_est"])
+                    if "spp_est" in cfg else None)
+            return loss_and_grads(
+                params, statics, s_cfg, key, pix, target, spp=cfg["spp"],
+                n_iters=cfg["n_iters"], remat=False,
+                schedule=cfg.get("schedule"),
+                rotate_k=cfg.get("rotate_k", 1), pixel_cost=cost)
+        return run
 
     def run(fn):
         before = [k.launches for k in forward_kernels]
@@ -152,7 +168,11 @@ def main() -> None:
              IMAGE_GRAD_FWD_BWD["lanes"] * IMAGE_GRAD_FWD_BWD["spp"]),
             ("smoke_fwd", fwd(smoke, s_s, 200, seed=0), n_pix * 200),
             ("pawn_fwd", fwd(pawn, s_p, PAWN_SPP, seed=0),
-             s_p.image_width * s_p.image_height * PAWN_SPP)):
+             s_p.image_width * s_p.image_height * PAWN_SPP),
+            ("fwdbwd_rot8", fwd_bwd(scene, s, FWD_BWD_ROT8),
+             FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
+            ("fwdbwd_bal4", fwd_bwd(scene, s, FWD_BWD_BAL4),
+             FWD_BWD_BAL4["lanes"] * FWD_BWD_BAL4["spp"])):
         if only and name not in only:
             continue
         walls = []

@@ -39,15 +39,19 @@ Lane state is stacked: comps [7, R] (origin, direction, time), rad and
 thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
 
 * :func:`trace_wavefront_diff` — the differentiable pixel-stationary
-  wavefront: a fixed number of iterations of the fused differentiable
-  step (kernel B forward, kernel K5 backward), then optional compacted
-  completion phases.  It keeps the carries as tuples of [R] tensors, as
-  the JAX package does.
+  wavefront: a fixed number of iterations, then optional compacted
+  completion phases, through one of two routes: the fused differentiable
+  step (kernel B forward, kernel K5 backward; carries as tuples of [R]
+  tensors, as the JAX package keeps them), or the unfused driver for
+  ``rotate_k > 1``, ``pixel_cost`` (:func:`lane_cost_estimate`,
+  :func:`_antithetic_maps`), ``skip_done`` and the scenes the fused step
+  refuses: torch glue around ``diff/mega_bounce.py:mega_bounce_diff_soa``
+  (kernel A forward, kernel K7 backward).
 
 The generic bounce (for scenes neither path takes, such as lights with
-rich textures), the bounded-depth ``trace``, the BVH accelerator mode
-beyond 65,536 rows and the gradients of media are ROADMAP M4, M6b, M8
-and M10.
+rich textures, and its differentiable form), the bounded-depth ``trace``,
+the BVH accelerator mode beyond 65,536 rows and the gradients of media
+are ROADMAP M4, M6b, M8 and M10.
 """
 from __future__ import annotations
 
@@ -71,7 +75,6 @@ from ..ops.bounce_kernel import (
 from ..ops.intersect_kernel import (
     MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
 )
-from ..ops.volume_kernel import MAX_VOLUMES
 from ..scene.types import Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
@@ -108,9 +111,12 @@ def _russian_roulette(s: CameraSettings, u_rr, depth, thr, alive, died):
     """Opt-in Russian roulette: from ``depth >= s.rr_depth`` a path
     survives with probability ``clamp(max(throughput), rr_min, 1)`` and
     survivors' throughput is divided by it.  ``thr`` is [3, R].  Returns
-    (thr', alive', died')."""
+    (thr', alive', died').  The survival probability is a sampling
+    decision, like the MIS pdf, so no gradient flows through it (the JAX
+    package's ``detach=True``; the port's forward drivers carry no
+    gradient, so every caller detaches)."""
     thr_max = torch.maximum(thr[0], torch.maximum(thr[1], thr[2]))
-    p = torch.clamp(thr_max, min=s.rr_min, max=1.0)
+    p = torch.clamp(thr_max, min=s.rr_min, max=1.0).detach()
     do = depth >= s.rr_depth
     kill = do & (u_rr >= p)
     scale = torch.where(do & ~kill, 1.0 / p, 1.0)
@@ -169,9 +175,9 @@ def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     """Why the split path (nearest kernel, media crossings, shade kernel,
     the rich-texture multiply) cannot take this scene (with its ROADMAP
     item), or None: it takes tables of up to 65,536 rows, up to 24
-    materials and 8 redirect targets, up to 16 media, and every texture
-    kind except on lights.  The shade kernel's part is the JAX package's
-    ``fused_shade_eligible``."""
+    materials and 8 redirect targets, any number of media, and every
+    texture kind except on lights.  The shade kernel's part is the JAX
+    package's ``fused_shade_eligible``."""
     p, m = scene.prims, scene.materials
     rows = p.kind.shape[0]
     if rows > MAX_DENSE_PRIMS:
@@ -188,9 +194,6 @@ def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     if p.sphere_rots:
         return ("rotated uv-textured spheres need object-space uv "
                 "(ROADMAP M11)")
-    if scene.volumes is not None and scene.volumes.n_volumes > MAX_VOLUMES:
-        return (f"{scene.volumes.n_volumes} media: the crossing kernels "
-                f"take at most {MAX_VOLUMES} (generic bounce: ROADMAP M4)")
     if n_rays % LANE_ALIGN:
         return f"{n_rays} lanes: not a multiple of {LANE_ALIGN}"
     return None
@@ -826,12 +829,241 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
     return mean, done
 
 
+def _antithetic_maps(cost, k: int):
+    """``k`` lane -> slot permutations with about equal per-lane total
+    cost (the JAX package's ``_antithetic_maps``): the slots ranked by
+    ``cost`` ascending (a stable sort, as JAX's, so equal costs keep their
+    order), lane ``l`` serves ranks ``l, N-1-l, l+S, N-1-l-S, ...`` in the
+    ``k`` chunks (``S = N // k``).  Each map is a permutation of the
+    slots, so the estimator is the unbalanced one re-ordered.  Requires
+    an even ``k``."""
+    lanes = cost.shape[0]
+    srt = torch.argsort(cost, stable=True)
+    l = torch.arange(lanes, device=cost.device)
+    maps = []
+    for cc in range(k):
+        shift = (cc // 2) * (lanes // k)
+        if cc % 2 == 0:
+            r = (l + shift) % lanes
+        else:
+            r = (lanes - 1 - l - shift) % lanes
+        maps.append(srt[r])
+    return maps
+
+
+@torch.no_grad()
+def lane_cost_estimate(scene: Scene, s: CameraSettings, base_key, pixel_ids,
+                       spp_est: int = 4, sample_offset: int = 1 << 20):
+    """Forward per-lane cost signal for the cost-balanced assignment (the
+    JAX package's ``lane_cost_estimate``): the bounce iterations that
+    ``spp_est`` samples of each lane's pixel take, from the regenerating
+    stationary loop on a sample range disjoint from any render (kernel A
+    where it takes the scene, the split bounce elsewhere).  The loop
+    condition is read on the host once per iteration.  Returns [P] f32."""
+    dev = scene.device
+    pix = pixel_ids.to(device=dev, dtype=torch.int32)
+    lanes = pix.shape[0]
+    n_u = n_bounce_uniforms(scene)
+    cam = camera_table(s, camera_frame(s))
+    base_key = base_key.to(dev)
+    last = sample_offset + spp_est - 1
+    bounce_fn, tables = _bounce_step(scene, s, lanes)
+    cnt = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    comps = _init_comps(lanes, dev)
+    rad = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
+    thr = torch.ones((3, lanes), dtype=DTYPE, device=dev)
+    alive = torch.zeros((lanes,), dtype=torch.bool, device=dev)
+    sample = torch.full((lanes,), sample_offset - 1, dtype=torch.int32,
+                        device=dev)
+    depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    while bool((alive | (sample < last)).any()):
+        can = ~alive & (sample < last)
+        sample = torch.where(can, sample + 1, sample)
+        depth = torch.where(can, 0, depth)
+        alive = alive | can
+        keys = rng.ray_keys_fast(base_key, pix, sample)
+        uniforms = rng.uniform_cols(rng.mix_depth(keys, depth), n_u + 6)
+        new_comps = rays_from_table(cam, s.image_width, pix,
+                                    uniforms[n_u:n_u + 5])
+        comps = torch.where(can, new_comps, comps)
+        rad = torch.where(can, 0.0, rad)
+        thr = torch.where(can, 1.0, thr)
+        comps, rad, thr, alive, died = bounce_fn(
+            scene, s, comps, uniforms, rad, thr, alive, tables=tables)
+        depth = depth + 1
+        capped = alive & (depth >= s.max_depth)
+        died = died | capped
+        alive = alive & ~capped
+        if s.rr_depth is not None:
+            thr, alive, died = _russian_roulette(
+                s, uniforms[n_u + 5], depth, thr, alive, died)
+        cnt = cnt + (alive | died).to(torch.int32)
+    return cnt.to(DTYPE)
+
+
+def _trace_wavefront_diff_unfused(scene: Scene, s: CameraSettings, base_key,
+                                  pixel_ids, spp: int, n_iters: int,
+                                  sample_offset: int, remat: bool,
+                                  rotate_k: int, pixel_cost, schedule):
+    """The unfused differentiable driver (the JAX package's scan body of
+    ``trace_wavefront_diff``): ``n_iters`` iterations of torch glue
+    (regeneration, counter hash, camera, Russian roulette with a detached
+    survival probability, the flush) around the differentiable bounce
+    ``diff/mega_bounce.py:mega_bounce_diff_soa`` (kernel A forward, K7
+    backward), then the completion schedule.
+
+    ``rotate_k > 1`` (a divisor of ``spp``) rotates each lane through
+    ``k`` pixels: by rolled pixel maps at JAX's stride, or with
+    ``pixel_cost`` (and an even ``k``) by the cost-balanced antithetic
+    maps.  Each chunk's contributions go to an accumulator of its own (a
+    tuple, not an in-place [k, R] buffer), moved back to the lanes' slots
+    once after the loop.  ``remat`` checkpoints each iteration (its
+    forward runs again in the backward, kernel A included)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ..diff.mega_bounce import mega_bounce_diff_soa, mega_statics
+    dev = scene.device
+    pix = pixel_ids.to(device=dev, dtype=torch.int32)
+    lanes = pix.shape[0]
+    base_key = base_key.to(dev)
+    k_rot = rotate_k if (rotate_k > 1 and spp % rotate_k == 0) else 1
+    spp_k = spp // k_rot
+    blk = 32 * LANE_ALIGN
+    stride = max((lanes // k_rot) // blk * blk, blk)
+    if k_rot > 1 and stride % lanes == 0:
+        stride = max(lanes // k_rot, 1)
+    balanced = pixel_cost is not None and k_rot > 1 and k_rot % 2 == 0
+    if balanced:
+        lane_maps = _antithetic_maps(pixel_cost.detach().to(dev), k_rot)
+        pixel_maps = [pix[m] for m in lane_maps]
+        inv_maps = [torch.argsort(m) for m in lane_maps]
+    else:
+        pixel_maps = [torch.roll(pix, -cc * stride) for cc in range(k_rot)]
+    n_u = n_bounce_uniforms(scene)
+    cam = camera_table(s, camera_frame(s))
+    last_sample = sample_offset + spp - 1
+    st = mega_statics(scene, s)
+
+    def make_step(pix_arr):
+        def step(comps, rad, thr, alive, sample, depth, keys):
+            can = ~alive & (sample < last_sample)
+            can_f = torch.where(can, 1.0, 0.0)
+            sample = torch.where(can, sample + 1, sample)
+            lane_pixel = pix_arr if k_rot == 1 else rotated_pixel(sample)
+            nk = rng.ray_keys_fast(base_key, lane_pixel, sample)
+            keys = torch.where(can[:, None], nk, keys)
+            rad = rad * (1.0 - can_f)
+            thr = torch.where(can, 1.0, thr)
+            depth = torch.where(can, 0, depth)
+            alive = alive | can
+
+            uniforms = rng.uniform_cols(rng.mix_depth(keys, depth), n_u + 6)
+            new_comps = rays_from_table(cam, s.image_width, lane_pixel,
+                                        uniforms[n_u:n_u + 5])
+            comps = torch.where(can, new_comps, comps)
+            comps, contrib, thr, alive, died = mega_bounce_diff_soa(
+                scene, s, comps, uniforms, thr, alive, statics=st)
+            rad = rad + contrib
+            depth = depth + 1
+            capped = alive & (depth >= s.max_depth)
+            died = died | capped
+            alive = alive & ~capped
+            if s.rr_depth is not None:
+                thr, alive, died = _russian_roulette(
+                    s, uniforms[n_u + 5], depth, thr, alive, died)
+            return comps, rad, thr, alive, sample, depth, keys, died
+
+        if not remat:
+            return step
+        # the flush stays outside the checkpoint, so the accumulators are
+        # not among the tensors each iteration keeps for its replay
+        return lambda *lane: checkpoint(step, *lane, use_reentrant=False,
+                                        preserve_rng_state=False)
+
+    def rot_chunk(sample):
+        return torch.clamp(torch.div(sample - sample_offset, spp_k,
+                                     rounding_mode="floor"), 0, k_rot - 1)
+
+    def rotated_pixel(sample):
+        rot_c = rot_chunk(sample)
+        lane_pixel = pixel_maps[0]
+        for cc in range(1, k_rot):
+            lane_pixel = torch.where(rot_c == cc, pixel_maps[cc], lane_pixel)
+        return lane_pixel
+
+    def flush(acc, done, rad, sample, died):
+        died_f = torch.where(died, 1.0, 0.0)
+        if k_rot == 1:
+            return (acc[0] + rad * died_f,), (done[0] + died.to(torch.int32),)
+        # lane l's chunk-c contribution belongs to slot (l + c * stride) %
+        # lanes (or to the chunk map's slot)
+        rot_c = rot_chunk(sample)
+        acc, done = list(acc), list(done)
+        for cc in range(k_rot):
+            m = died_f * torch.where(rot_c == cc, 1.0, 0.0)
+            acc[cc] = acc[cc] + rad * m
+            done[cc] = done[cc] + m.to(torch.int32)
+        return tuple(acc), tuple(done)
+
+    def zeros_acc(w):
+        return (tuple(torch.zeros((3, w), dtype=DTYPE, device=dev)
+                      for _ in range(k_rot)),
+                tuple(torch.zeros((w,), dtype=torch.int32, device=dev)
+                      for _ in range(k_rot)))
+
+    def run(pix_arr, acc, done, lane, n):
+        step = make_step(pix_arr)
+        for _ in range(n):
+            *lane, died = step(*lane)
+            acc, done = flush(acc, done, lane[1], lane[4], died)
+        return acc, done, tuple(lane)
+
+    zi = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    lane = (_init_comps(lanes, dev),
+            torch.zeros((3, lanes), dtype=DTYPE, device=dev),
+            torch.ones((3, lanes), dtype=DTYPE, device=dev),
+            torch.zeros((lanes,), dtype=torch.bool, device=dev),
+            torch.full((lanes,), sample_offset - 1, dtype=torch.int32,
+                       device=dev),
+            zi, rng.ray_keys_fast(base_key, zi, zi))
+    acc, done, lane = run(pix, *zeros_acc(lanes), lane, n_iters)
+
+    if schedule:
+        # k_rot == 1: compact the unfinished lanes (stable) and run each
+        # phase there; its sums land back in the lanes' slots
+        slot = torch.arange(lanes, device=dev)
+        for it_b, w_b in schedule:
+            comps, rad, thr, alive, sample, depth, keys = lane
+            unfinished = alive | (sample < last_sample)
+            sel = torch.argsort((~unfinished).to(torch.int32),
+                                stable=True)[:w_b]
+            slot = slot[sel]
+            lane = (comps[:, sel], rad[:, sel], thr[:, sel], alive[sel],
+                    sample[sel], depth[sel], keys[sel])
+            acc_b, done_b, lane = run(pix[slot], *zeros_acc(w_b), lane, it_b)
+            acc = (acc[0].index_add(1, slot, acc_b[0]),)
+            done = (done[0].index_add(0, slot, done_b[0]),)
+
+    if balanced:
+        # chunk cc's contribution to slot p came from lane inv_maps[cc][p]
+        acc = sum(a[:, inv] for a, inv in zip(acc, inv_maps))
+        done = sum(d[inv] for d, inv in zip(done, inv_maps))
+    elif k_rot > 1:
+        acc = sum(torch.roll(a, cc * stride, dims=1)
+                  for cc, a in enumerate(acc))
+        done = sum(torch.roll(d, cc * stride) for cc, d in enumerate(done))
+    else:
+        acc, done = acc[0], done[0]
+    mean = acc.T / torch.clamp(done, min=1)[:, None]
+    return mean, done
+
+
 def trace_wavefront_diff(scene: Scene, s: CameraSettings, base_key,
                          pixel_ids, spp: int, n_iters: int | None = None,
                          sample_offset: int = 0, remat: bool = True,
                          use_mega: bool | None = None, rotate_k: int = 1,
-                         skip_done: bool = False, pixel_cost=None,
-                         schedule: tuple | None = None):
+                         skip_done: bool = False, skip_chunk: int = 16,
+                         pixel_cost=None, schedule: tuple | None = None):
     """Differentiable pixel-stationary wavefront over the lanes
     ``pixel_ids[P]`` (a multiple of 128): each lane traces ``spp``
     samples of its pixel in turn for a fixed ``n_iters`` iterations
@@ -843,27 +1075,46 @@ def trace_wavefront_diff(scene: Scene, s: CameraSettings, base_key,
     the full-width iterations the unfinished lanes are compacted into
     ``width`` lanes and run ``extra_iters`` more; the compacted lanes
     keep their absolute (pixel, sample) coordinates, so the estimator is
-    the single-phase one.
+    the single-phase one.  It requires ``rotate_k == 1`` and no
+    ``skip_done``.
 
-    The port has the fused driver only: ``remat``, ``skip_done``,
-    ``rotate_k > 1``, ``pixel_cost`` and the unfused path (``use_mega``
-    False) raise ``NotImplementedError``."""
-    if remat:
-        raise NotImplementedError(
-            "trace_wavefront_diff: remat=True (recompute the forward in the "
-            "backward) is not ported yet (ROADMAP M6c); pass remat=False")
-    if skip_done or rotate_k != 1 or pixel_cost is not None:
-        raise NotImplementedError(
-            "trace_wavefront_diff: skip_done, rotate_k > 1 and pixel_cost "
-            "are not ported yet (ROADMAP M6c)")
-    if use_mega is False:
-        raise NotImplementedError(
-            "trace_wavefront_diff: the unfused differentiable path "
-            "(diff/mega_bounce.py) is not ported yet (ROADMAP M11)")
+    Routing, in the JAX package's order: the fused step
+    (``diff/fused_iter.py``: kernel B forward, K5 backward) when
+    ``rotate_k == 1``, no ``skip_done``, no ``pixel_cost``, ``use_mega``
+    not False and :func:`fused_diff_reason` takes the scene; otherwise the
+    unfused driver over ``mega_bounce_diff_soa`` (kernel A forward, K7
+    backward) when kernel A takes the scene.  Every other case (``use_mega
+    = False``, rich textures, media, tables of more than 512 rows off the
+    fused step) needs the generic differentiable bounce and raises
+    ``NotImplementedError`` (ROADMAP M4).
+
+    ``remat``: the fused step saves only its carries, the winner index
+    and the RR scale, and K5 replays the lane, so it changes nothing
+    there; the unfused driver checkpoints each iteration.
+    ``skip_done`` is accepted and runs exactly ``n_iters`` iterations, so
+    it changes nothing (the JAX package's flag skips chunks of
+    ``skip_chunk`` iterations once every lane is done, a no-op on the
+    estimator)."""
+    from ..diff.fused_iter import fused_diff_reason
     if n_iters is None:
         n_iters = 6 * spp + s.max_depth
-    if pixel_ids.shape[0] % LANE_ALIGN:
-        raise ValueError(f"trace_wavefront_diff: {pixel_ids.shape[0]} lanes "
-                         f"is not a multiple of {LANE_ALIGN}")
-    return _trace_wavefront_diff_fused(scene, s, base_key, pixel_ids, spp,
-                                       n_iters, sample_offset, schedule)
+    lanes = pixel_ids.shape[0]
+    if lanes % LANE_ALIGN:
+        raise ValueError(f"trace_wavefront_diff: {lanes} lanes is not a "
+                         f"multiple of {LANE_ALIGN}")
+    if (rotate_k == 1 and not skip_done and pixel_cost is None
+            and use_mega is not False and fused_diff_reason(scene, s) is None):
+        return _trace_wavefront_diff_fused(scene, s, base_key, pixel_ids, spp,
+                                           n_iters, sample_offset, schedule)
+    reason = ("use_mega=False asks for it" if use_mega is False
+              else _ineligible_reason(scene, s, lanes))
+    if reason is not None:
+        raise NotImplementedError(
+            "trace_wavefront_diff: this case needs the generic "
+            "differentiable bounce (the JAX package's bounce(diff=True), "
+            f"ROADMAP M4): {reason}")
+    if schedule and (rotate_k > 1 and spp % rotate_k == 0 or skip_done):
+        raise ValueError("schedule requires rotate_k=1, skip_done=False")
+    return _trace_wavefront_diff_unfused(
+        scene, s, base_key, pixel_ids, spp, n_iters, sample_offset, remat,
+        rotate_k, pixel_cost, schedule)

@@ -20,8 +20,8 @@ import torch
 
 from ..ops.intersect_kernel import pack_prims
 from ..ops.volume_kernel import (
-    BCAST_MIN_ROWS, pack_chunk_boxes, pallas_volume_crossings,
-    pallas_volume_crossings_bcast,
+    BCAST_MIN_ROWS, MAX_VOLUMES, _chunk_plans, pack_chunk_boxes,
+    pallas_volume_crossings, pallas_volume_crossings_bcast,
 )
 from ..scene.types import Volumes
 
@@ -71,22 +71,43 @@ def volume_tables(volumes: Volumes):
     return vtbl, cbox
 
 
+def volume_crossings(volumes: Volumes, rays, t_min: float, tables=None):
+    """The 3V crossing rows ``[t1, front1, t2]`` of every medium for the
+    rays ``rays`` (7 [R] tensors): one launch of kernel K11b (a boundary
+    table of ``BCAST_MIN_ROWS`` rows and more) or K11 per group of at most
+    ``MAX_VOLUMES`` media, the groups' rows concatenated in medium order
+    (each medium's crossings depend on its own rows only).  ``tables`` is
+    :func:`volume_tables`' result, packed here if not given."""
+    vtbl, cbox = volume_tables(volumes) if tables is None else tables
+    kw = crossing_kw(volumes, t_min)
+    slices = kw["slices"]
+    outs = []
+    box0 = 0
+    for g0 in range(0, len(slices), MAX_VOLUMES):
+        group = slices[g0:g0 + MAX_VOLUMES]
+        gkw = dict(kw, slices=group)
+        if cbox is None:
+            outs += pallas_volume_crossings(vtbl, *rays, **gkw)
+            continue
+        # the group's chunk boxes: its media's chunks, in medium order
+        n_boxes = sum(len(p) for p in _chunk_plans(group))
+        outs += pallas_volume_crossings_bcast(
+            vtbl, cbox[box0:box0 + n_boxes], *rays, **gkw)
+        box0 += n_boxes
+    return outs
+
+
 def volume_candidates_kernel(volumes: Volumes, o, d, time, t_min: float,
                              u_scatter, tables=None):
     """Scatter candidate of every medium for the rays ``o``, ``d`` [3, R]
     at ``time`` [R], with the draws ``u_scatter`` [V, R]: a list of V [R]
     tensors, +inf where the ray does not scatter.  The crossings come from
-    kernel K11b for a boundary table of ``BCAST_MIN_ROWS`` rows and more,
-    else from K11 (the JAX package's ``volume_candidates_pallas``, without
-    its opt-in second culling level); ``tables`` is
-    :func:`volume_tables`' result, packed here if not given."""
-    vtbl, cbox = volume_tables(volumes) if tables is None else tables
-    rays = (o[0], o[1], o[2], d[0], d[1], d[2], time)
-    kw = crossing_kw(volumes, t_min)
-    if cbox is not None:
-        outs = pallas_volume_crossings_bcast(vtbl, cbox, *rays, **kw)
-    else:
-        outs = pallas_volume_crossings(vtbl, *rays, **kw)
+    :func:`volume_crossings` (the JAX package's
+    ``volume_candidates_pallas``, without its opt-in second culling
+    level); ``tables`` is :func:`volume_tables`' result, packed here if not
+    given."""
+    outs = volume_crossings(volumes, (o[0], o[1], o[2], d[0], d[1], d[2],
+                                      time), t_min, tables)
     cands = []
     for v in range(volumes.n_volumes):
         t, _ = candidate_from_crossings(

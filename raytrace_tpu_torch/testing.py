@@ -99,6 +99,14 @@ ALL_MATERIAL_TARGETS = [(0.25, [-1, 9, -1], [2, 0, 0], [0, 0, 2]),
 # 2^12 lanes
 FWD_BWD = dict(rr_depth=2, lanes=1 << 18, spp=64, n_iters=205,
                schedule=((25, 1 << 14), (100, 1 << 12)))
+# the unfused fwd+bwd on the same Cornell box, lanes and target, as the
+# JAX package's tools run it: route 8, tools/prof_diff_rot.py, rotate_k 8
+# for 195 iterations without remat; route 9, tools/prof_completion.py,
+# rotate_k 4 balanced by lane_cost_estimate(spp_est=4) for 184 iterations
+FWD_BWD_ROT8 = dict(rr_depth=2, lanes=1 << 18, spp=64, n_iters=195,
+                    rotate_k=8)
+FWD_BWD_BAL4 = dict(rr_depth=2, lanes=1 << 18, spp=64, n_iters=184,
+                    rotate_k=4, spp_est=4)
 
 
 def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
@@ -582,6 +590,50 @@ def volume_test_world(rt, moving: bool = False):
     return rt.group([media, rt.with_material(
         rt.lambertian(rt.constant_texture(0.5)),
         rt.parallelogram([-20, -2, -20], [40, 0, 0], [0, 0, 40]))])
+
+
+def many_media_world(rt, n: int = 17, rotated: bool = False):
+    """``n`` media in a grid of six columns over a lambertian ground under
+    a light: fog balls and (every fourth) axis-aligned fog boxes of
+    densities 0.3 up by 0.1, isotropic, anisotropic or pitch black in
+    turn; with ``rotated`` every medium a box turned about y, six
+    parallelogram rows each (so 17 of them make a boundary table of 102
+    rows, which takes kernel K11b).  With 17, more media than one launch
+    of the crossing kernels takes (16).  ``rt`` is the builder module
+    (this package or the JAX one)."""
+    media = []
+    for i in range(n):
+        c = np.asarray([-5.0 + 2.0 * (i % 6), 0.0, -2.0 - 2.0 * (i // 6)])
+        mat = (rt.isotropic(rt.constant_texture([0.8, 0.6, 0.4])),
+               rt.anisotropic(0.3, rt.constant_texture(0.7)),
+               rt.pitch_black())[i % 3]
+        if rotated:
+            shape = rt.transform(rt.compose(rt.translate(c),
+                                            rt.rotate_y(0.2 + 0.1 * i)),
+                                 rt.cuboid([-0.6, -0.6, -0.6],
+                                           [0.6, 0.6, 0.6]))
+        elif i % 4 == 3:
+            shape = rt.cuboid(c - 0.6, c + 0.6)
+        else:
+            shape = rt.sphere(c, 0.8)
+        media.append(rt.with_material(mat, rt.constant_medium(0.3 + 0.1 * i,
+                                                              shape)))
+    return rt.group(media + [
+        rt.with_material(rt.lambertian(rt.constant_texture(0.5)),
+                         rt.parallelogram([-20, -1, -20], [40, 0, 0],
+                                          [0, 0, 40])),
+        rt.with_material(rt.light_source(rt.constant_texture(4.0)),
+                         rt.parallelogram([-3, 5, -6], [6, 0, 0],
+                                          [0, 0, 4]))])
+
+
+def many_media_settings(rt, width: int = 32, spp: int = 8, depth: int = 10):
+    """The camera of :func:`many_media_world`: from (0, 3, 8) towards (0,
+    0, -3), under the sky."""
+    return rt.CameraSettings(
+        center=np.asarray([0.0, 3.0, 8.0]),
+        look_at=np.asarray([0.0, 0.0, -3.0]), image_width=width,
+        samples_per_pixel=spp, max_depth=depth, background=rt.sky)
 
 
 def volume_rays(n: int, seed: int, box=(-6.0, 6.0), inside=(), device="cpu"):
@@ -1091,7 +1143,8 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
     from a ``torch.Generator`` seeded with ``seed``.  Returns ``(args,
     kw)`` for :func:`bounce_bwd_regen_pre_megakernel`."""
     from .core import rng
-    from .diff.fused_iter import _prim_columns, iter_kernel_args
+    from .diff.fused_iter import iter_kernel_args
+    from .diff.lane_replay import prim_columns
     from .ops.iter_kernel import iter_megakernel
     dev = scene.device
     tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev),
@@ -1105,7 +1158,7 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
         outs = iter_megakernel(*tables, lane_in, **kw)
         carry = (outs[14], outs[15], outs[13]) + tuple(outs[0:13])
     n_row = 15 if scene.prims.has_motion else 9
-    cols, _, _ = _prim_columns(scene, n_row)
+    cols, _, _ = prim_columns(scene, n_row)
     idx = outs[17]
     gath = cols[torch.clamp(idx, min=0.0).long()].T.contiguous().unbind(0)
     gen = torch.Generator().manual_seed(seed)
@@ -1117,6 +1170,82 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
                has_box=scene.prims.has_box, t_min=kw["t_min"], n_row=n_row,
                n_u=kw["n_u"], width=kw["width"], bg_kind=kw["bg_kind"])
     return args, kw5
+
+
+def k7_inputs(scene, s, lanes: int, steps: int, seed: int = 0, spp: int = 8,
+              pixels=None):
+    """K7's arguments for a real mid-render state of the unfused driver:
+    kernel A (its plain version on the CPU) steps ``lanes`` lanes of the
+    image of ``s`` (pixels ``pixels``, by default spread evenly over the
+    image) ``steps`` times from idle lanes, regenerating, capping and
+    playing Russian roulette as ``trace_wavefront_diff`` does at
+    ``rotate_k == 1``; the next bounce's inputs (dead lanes not parked),
+    its uniforms and winner index are K7's, with random normal cotangents
+    drawn from a ``torch.Generator`` seeded with ``seed``.  Returns
+    ``(args, kw)`` for :func:`bounce_bwd_megakernel`."""
+    from .core import rng
+    from .diff.lane_replay import prim_columns
+    from .render.camera import camera_frame, camera_table, rays_from_table
+    from .render.integrator import (
+        _init_comps, _russian_roulette, bounce_mega_soa, bounce_tables,
+    )
+    dev = scene.device
+    tb = bounce_tables(scene, s)
+    cam = camera_table(s, camera_frame(s))
+    key = rng.base_key(seed, dev)
+    n_pix = s.image_width * s.image_height
+    pix = (torch.arange(lanes) * n_pix // lanes if pixels is None
+           else pixels).to(dev, torch.int32)
+    comps = _init_comps(lanes, dev)
+    zero3 = torch.zeros((3, lanes), device=dev)
+    thr = torch.ones((3, lanes), device=dev)
+    alive = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    sample = torch.full((lanes,), -1, dtype=torch.int32, device=dev)
+    depth = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    for step in range(steps + 1):
+        can = ~alive & (sample < spp - 1)
+        sample = torch.where(can, sample + 1, sample)
+        depth = torch.where(can, 0, depth)
+        alive = alive | can
+        uni = rng.uniform_cols(rng.mix_depth(rng.ray_keys_fast(key, pix,
+                                                               sample),
+                                             depth), 14)
+        comps = torch.where(can, rays_from_table(cam, s.image_width, pix,
+                                                 uni[8:13]), comps)
+        thr = torch.where(can, 1.0, thr)
+        if step == steps:
+            break
+        comps, _, thr, alive, died = bounce_mega_soa(
+            scene, s, comps, uni, zero3, thr, alive, tables=tb)
+        depth = depth + 1
+        alive = alive & (depth < s.max_depth)
+        if s.rr_depth is not None:
+            thr, alive, _ = _russian_roulette(s, uni[13], depth, thr, alive,
+                                              died)
+    idx = bounce_mega_soa(scene, s, comps, uni, zero3, thr, alive,
+                          with_idx=True, tables=tb)[5]
+    n_row = 15 if scene.prims.has_motion else 9
+    cols, _, _ = prim_columns(scene, n_row)
+    gath = cols[torch.clamp(idx, min=0).long()].T.contiguous().unbind(0)
+    gen = torch.Generator().manual_seed(seed)
+    cts = torch.randn((12, lanes), generator=gen).to(dev).unbind(0)
+    args = (tb.ttbl, gath, idx.to(torch.float32),
+            tuple(comps.unbind(0)) + tuple(thr.unbind(0)), uni[:8],
+            torch.where(alive, 1.0, 0.0), cts)
+    kw = dict(n_targets=tb.n_targets, has_motion=tb.has_motion,
+              has_box=scene.prims.has_box, t_min=tb.t_min, n_row=n_row)
+    return args, kw
+
+
+def compare_k7(args, kw):
+    """K7 and ``bounce_bwd_megakernel_plain`` on the same arguments:
+    ``(bwd_errs(...), kernel outputs)``."""
+    from .ops.bounce_bwd_kernel import (
+        bounce_bwd_megakernel, bounce_bwd_megakernel_plain,
+    )
+    ref = bounce_bwd_megakernel_plain(*args, **kw)
+    out = bounce_bwd_megakernel(*args, **kw)
+    return bwd_errs(ref, out), out
 
 
 def bwd_errs(ref, out):
@@ -1148,16 +1277,19 @@ def compare_bwd(args, kw):
 @contextlib.contextmanager
 def plain_kernels():
     """Inside the block the fused iteration runs the plain versions of
-    kernel B (and its mesh variant) forward and of K5 backward, and the
-    split path those of the crossing kernels K11 and K11b, on any
-    device."""
+    kernel B (and its mesh variant) forward and of K5 backward, the
+    unfused bounce those of kernel A and K7, and the split path those of
+    the crossing kernels K11 and K11b, on any device."""
     from .diff import fused_iter
+    from .ops.bounce_kernel import bounce_plain
     from .ops.iter_kernel import iter_plain
     from .ops.volume_kernel import volume_crossings_plain
-    from .render import volumes
+    from .render import integrator, volumes
     saved = (fused_iter.iter_megakernel, volumes.pallas_volume_crossings,
-             volumes.pallas_volume_crossings_bcast)
+             volumes.pallas_volume_crossings_bcast,
+             integrator.bounce_megakernel)
     fused_iter.iter_megakernel = iter_plain
+    integrator.bounce_megakernel = bounce_plain
     volumes.pallas_volume_crossings = volume_crossings_plain
     volumes.pallas_volume_crossings_bcast = \
         lambda vtbl, cbox, *rays, **kw: volume_crossings_plain(vtbl, *rays,
@@ -1167,7 +1299,8 @@ def plain_kernels():
             yield
     finally:
         (fused_iter.iter_megakernel, volumes.pallas_volume_crossings,
-         volumes.pallas_volume_crossings_bcast) = saved
+         volumes.pallas_volume_crossings_bcast,
+         integrator.bounce_megakernel) = saved
 
 
 @contextlib.contextmanager
@@ -1188,20 +1321,26 @@ def torch_threads(n: int):
 def plain_backward():
     """Inside the block the fused iteration's backward runs the plain
     versions of K5 (torch autograd over ``lane_math``) and of the atlas
-    gradient on any device."""
+    gradient, and the unfused bounce's backward that of K7, on any
+    device."""
     from .diff import fused_iter
+    from .ops import bounce_bwd_kernel
     from .ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_plain
     from .ops.image_grad_kernel import image_grad_plain
     from .textures import textures
     kernel = fused_iter.bounce_bwd_regen_pre_megakernel
     k13 = textures.image_grad_pallas
+    k7 = bounce_bwd_kernel.bounce_bwd_megakernel
     fused_iter.bounce_bwd_regen_pre_megakernel = bounce_bwd_regen_pre_plain
     textures.image_grad_pallas = image_grad_plain
+    bounce_bwd_kernel.bounce_bwd_megakernel = \
+        bounce_bwd_kernel.bounce_bwd_megakernel_plain
     try:
         yield
     finally:
         fused_iter.bounce_bwd_regen_pre_megakernel = kernel
         textures.image_grad_pallas = k13
+        bounce_bwd_kernel.bounce_bwd_megakernel = k7
 
 
 # Definitions that let the host C++ compiler build a kernel's body: the

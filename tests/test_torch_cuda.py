@@ -7,13 +7,13 @@ machine with the card run them with
 Tolerances: alive/miss/winner index equal on every lane (the kernels are
 built without multiply-add contraction and round like the plain version),
 floats within atol 2e-3 + rtol 1e-3 (tests/test_bounce_kernel.py); the
-backward kernel K5 within ``testing.BWD_RTOL`` of the scale of each
-gradient (``testing.bwd_errs``), and the fwd+bwd with K5 against the same
-with its plain version within ``GRAD_RTOL`` per gradient leaf (the
-per-lane differences of K5, summed by atomic ``index_add_`` in an order
-that changes from run to run).  The mesh kernels (nearest hit over the
-BVH, shade, kernel B's mesh variant) equal their plain versions exactly
-on every lane, as do the flat-scan nearest kernel K8, the marble
+backward kernels K5 and K7 within ``testing.BWD_RTOL`` of the scale of
+each gradient (``testing.bwd_errs``), and the fwd+bwd with K5 (or K7)
+against the same with its plain version within ``GRAD_RTOL`` per
+gradient leaf (the per-lane differences of the kernel, summed by atomic
+``index_add_`` in an order that changes from run to run).  The mesh
+kernels (nearest hit over the BVH, shade, kernel B's mesh variant) equal
+their plain versions exactly on every lane, as do the flat-scan nearest kernel K8, the marble
 kernel K12 and the medium crossing kernels K11 and K11b; the atlas
 gradient K13 within ``testing.image_grad_errs`` (float atomics add in a
 varying order).
@@ -27,9 +27,10 @@ from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, FRAC_LANES, MEAN_RTOL, all_materials_scene,
     bounce_inputs, box_motion_scene, bunny_standin_scene, bwd_inputs,
     camera_rays, checked_launches, compare_bounce, compare_bwd, compare_iter,
-    compare_image_grad, compare_marble, compare_nearest,
+    compare_image_grad, compare_k7, compare_marble, compare_nearest,
     compare_crossings, compare_nearest_flat, compare_shade,
     cornell_scene_and_settings, cornell_smoke_scene, image_grad_scene,
+    k7_inputs, many_media_settings, many_media_world,
     media_bounce_rays, mesh_all_kinds_scene, next_split_rays,
     noise_test_scene, pawn_inside_rays, pawn_standin_scene, plain_backward,
     plain_kernels, surface_points, synthetic_medium, volume_rays,
@@ -167,6 +168,89 @@ def test_fwd_bwd_kernel_matches_plain_backward(device):
         assert np.isfinite(gk[k]).all(), k
         scale = np.abs(gp[k]).max()
         assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
+
+
+@pytest.mark.parametrize("case", ["cornell", "all_materials_targets",
+                                  "box_motion"])
+def test_replay_backward_kernel_matches_plain(device, case):
+    """K7 against its plain version on 2^14 lanes of the unfused driver's
+    mid-render state (``testing.k7_inputs``), within ``BWD_RTOL``."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
+        bounce_bwd_megakernel,
+    )
+    if case == "cornell":
+        scene, s = cornell_scene_and_settings(64, 8, 10, device=device)
+        s = s.replace(rr_depth=2)
+    elif case == "box_motion":
+        scene, s = box_motion_scene(device=device)
+    else:
+        scene = all_materials_scene(device=device)
+        s = rt.CameraSettings(background=rt.sky, image_width=64,
+                              max_depth=10).with_redirect_targets(
+                                  ALL_MATERIAL_TARGETS)
+    args, kw = k7_inputs(scene, s, 1 << 14, 4, seed=5)
+    k0 = bounce_bwd_megakernel.launches
+    (err, excess), out = compare_k7(args, kw)
+    torch.cuda.synchronize()
+    assert bounce_bwd_megakernel.launches == k0 + 1
+    assert excess <= 0.0
+
+
+def test_unfused_fwd_bwd_kernels_match_plain(device):
+    """The unfused fwd+bwd (``rotate_k=2``: kernel A forward, K7 backward,
+    once per iteration each) against the same with K7's plain version:
+    equal losses, gradients within ``GRAD_RTOL`` per leaf."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import loss_and_grads, partition
+    from raytrace_tpu_torch.interop import grads_to_numpy
+    from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
+        bounce_bwd_megakernel,
+    )
+    from raytrace_tpu_torch.ops.bounce_kernel import bounce_megakernel
+    scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
+    params, statics = partition(scene)
+    pix = torch.arange(1 << 14, dtype=torch.int32, device=device)
+    target = torch.zeros((1 << 14, 3), device=device)
+
+    def run():
+        return loss_and_grads(params, statics, s.replace(rr_depth=2),
+                              rng.base_key(0, device), pix, target, spp=8,
+                              n_iters=40, remat=False, rotate_k=2)
+
+    a0, k0 = bounce_megakernel.launches, bounce_bwd_megakernel.launches
+    (loss_k, frac_k), g_k = run()
+    assert bounce_megakernel.launches == a0 + 40
+    assert bounce_bwd_megakernel.launches == k0 + 40
+    with plain_backward():
+        (loss_p, frac_p), g_p = run()
+    assert bounce_bwd_megakernel.launches == k0 + 40
+    assert float(loss_k) == float(loss_p) and float(frac_k) == float(frac_p)
+    gk, gp = grads_to_numpy(g_k), grads_to_numpy(g_p)
+    for k in gp:
+        assert np.isfinite(gk[k]).all(), k
+        scale = np.abs(gp[k]).max()
+        assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_many_media_render_launches_match_plain(device, rotated):
+    """17 media: the crossing kernel (K11, or K11b for the 102-row
+    boundary of rotated boxes) launches once per group of at most 16
+    media (two a bounce), each launch equal to its plain version."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.render.render import render_accumulate
+    scene = rt.compile_scene(many_media_world(rt, 17, rotated),
+                             device=device)
+    s = many_media_settings(rt, 64, 2, 8)
+    assert scene.volumes.n_volumes == 17
+    with checked_launches() as stats:
+        acc, _ = render_accumulate(scene, s, 0, spp=2)
+    st = stats["pallas_volume_crossings_bcast" if rotated
+               else "pallas_volume_crossings"]
+    assert st["launches"] == 2 * stats["pallas_nearest_record"]["launches"]
+    assert st["n_int"] == 0 and st["err"] == 0.0
+    assert bool(torch.isfinite(acc).all())
 
 
 def _mesh_case(case, device):

@@ -276,40 +276,55 @@ def test_box_motion_gradients_match_jax():
 
 
 def test_unported_diff_branches_raise(cornell):
-    """The fused driver is the port's only differentiable path: the other
-    branches, lights with rich textures (emission is in-kernel) and other
-    devices raise, naming their ROADMAP item."""
+    """What the port's two differentiable routes (the fused step and the
+    unfused kernel-A bounce) do not take raises, naming its ROADMAP item:
+    ``use_mega=False``, a light with a rich texture (emission is
+    in-kernel) and a table of more than 512 rows off the fused step need
+    the generic differentiable bounce (M4), media their gradients (M10);
+    the backward kernels refuse other devices."""
     import raytrace_tpu_torch as trt
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
         bounce_bwd_regen_pre_megakernel,
     )
+    from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
+        bounce_bwd_megakernel,
+    )
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
+    from raytrace_tpu_torch.testing import (
+        cornell_smoke_scene, mesh_all_kinds_scene,
+    )
     _, _, ts, tset = cornell
-    params, statics = partition(ts)
     pix = torch.arange(128, dtype=torch.int32)
     target = torch.zeros((128, 3))
-    args = (params, statics, tset, rng.base_key(0), pix, target, 2)
-    for kw, item in ((dict(remat=True), "M6c"),
-                     (dict(remat=False, rotate_k=2), "M6c"),
-                     (dict(remat=False, skip_done=True), "M6c"),
-                     (dict(remat=False, pixel_cost=pix), "M6c")):
-        with pytest.raises(NotImplementedError, match=item):
-            render_loss_wavefront(*args, **kw)
-    from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
-    with pytest.raises(NotImplementedError, match="M11"):
-        trace_wavefront_diff(ts, tset, rng.base_key(0), pix, 2, remat=False,
+    with pytest.raises(NotImplementedError, match="M4"):
+        trace_wavefront_diff(ts, tset, rng.base_key(0), pix, 2,
                              use_mega=False)
+    smoke, s_smoke = cornell_smoke_scene(16, 2, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="M10"):
+        render_loss_wavefront(*partition(smoke), s_smoke, rng.base_key(0),
+                              pix, target, 2)
     marble = trt.compile_scene(trt.with_material(
         trt.light_source(trt.marble_texture([0, 0, 1], 2.0)),
         trt.sphere([0, 0, -2], 1)), device="cpu")
-    with pytest.raises(NotImplementedError, match="M4"):
-        render_loss_wavefront(*partition(marble), tset, rng.base_key(0),
-                              pix, target, 2, remat=False)
+    for rotate_k in (1, 2):
+        with pytest.raises(NotImplementedError, match="M4"):
+            render_loss_wavefront(*partition(marble), tset, rng.base_key(0),
+                                  pix, target, 2, rotate_k=rotate_k)
+    mesh, s_mesh = mesh_all_kinds_scene(18, False, 32, device="cpu")
+    assert mesh.prims.kind.shape[0] > 512
+    with pytest.raises(NotImplementedError, match="M4.*512"):
+        render_loss_wavefront(*partition(mesh), s_mesh, rng.base_key(0),
+                              pix, target, 2, rotate_k=2)
     m = torch.empty(128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         bounce_bwd_regen_pre_megakernel(
             m, m, m, [m] * 27, m, (m, m, m), m, [m] * 7, [m] * 3, m,
             [m] * 13, n_targets=0, has_motion=False, has_box=False,
             t_min=1e-3, n_row=9, n_u=8, width=64, bg_kind=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bounce_bwd_megakernel(
+            m, [m] * 27, m, [m] * 10, [m] * 8, m, [m] * 12, n_targets=0,
+            has_motion=False, has_box=False, t_min=1e-3, n_row=9)
 
 
 def test_mesh_gradients_match_jax():

@@ -47,8 +47,8 @@ from raytrace_tpu_torch.render.integrator import n_bounce_uniforms
 from raytrace_tpu_torch.render.render import render_accumulate as trender
 from raytrace_tpu_torch.render.volumes import volume_candidates_kernel
 from raytrace_tpu_torch.testing import (
-    cornell_smoke_settings, cornell_smoke_world, torch_threads, volume_rays,
-    volume_test_world,
+    cornell_smoke_settings, cornell_smoke_world, many_media_settings,
+    many_media_world, torch_threads, volume_rays, volume_test_world,
 )
 from test_torch_volume_kernel import octahedron_world
 
@@ -70,6 +70,8 @@ WORLDS = {
     "ball_box_moving": lambda rt: volume_test_world(rt, True),
     "octahedron": octahedron_world,
     "media_only": media_only_world,
+    "many_media": many_media_world,
+    "many_media_rotated": lambda rt: many_media_world(rt, 17, True),
 }
 
 PRIM_FIELDS = ("kind", "p0", "e1", "e2", "uvs", "mat", "mv0", "mv1")
@@ -132,14 +134,21 @@ def test_compile_rules():
             media_only_world(jrt))), bvh=object()), device="cpu")
 
 
-@pytest.mark.parametrize("name", ["ball_box", "octahedron"])
+INSIDE = {"ball_box": ([0.0, 0.0, -3.0], [0.0, 0.0, 0.0]),
+          "octahedron": ([0.0, 0.0, -3.0], [0.0, 0.0, 0.0]),
+          "many_media_rotated": ([-5.0, 0.0, -2.0], [1.0, 0.0, -4.0])}
+
+
+@pytest.mark.parametrize("name", sorted(INSIDE))
 def test_candidates_match_jax(name):
+    """``many_media_rotated``: 17 media on a 102-row boundary, so the
+    port's crossings come from two launches (16 media, then 1)."""
     n = 512
     ts = trt.compile_scene(WORLDS[name](trt), device="cpu")
     js = jrt.compile_scene(WORLDS[name](jrt))
     nv = ts.volumes.n_volumes
-    rays = volume_rays(n, 21, (-6.0, 6.0) if name == "ball_box"
-                       else (-3.0, 3.0), ([0.0, 0.0, -3.0], [0.0, 0.0, 0.0]))
+    rays = volume_rays(n, 21, (-3.0, 3.0) if name == "octahedron"
+                       else (-6.0, 6.0), INSIDE[name])
     rg = np.random.default_rng(22)
     u = (rg.integers(0, 1 << 16, (n, nv)) / 65536.0).astype(np.float32)
     u[::7] = 0.0                        # pair16 draws can be exactly 0
@@ -179,6 +188,17 @@ def test_uniform_columns_with_media(nv):
     np.testing.assert_array_equal(tu, ju)
 
 
+def _assert_renders_match(a, b, n_pix):
+    """The render agreement of this file (see the module docstring)."""
+    assert b.shape == a.shape == (n_pix, 3)
+    assert np.isfinite(b).all()
+    diff = np.abs(a - b).max(axis=1)
+    assert (diff > 1e-5).mean() < 0.05, (diff > 1e-5).mean()
+    assert np.median(diff) <= 1e-6
+    assert np.abs(a - b).mean() < 0.0151 / 20
+    np.testing.assert_allclose(b.mean(), a.mean(), rtol=2e-3)
+
+
 @pytest.mark.parametrize("width", [32, 128])
 def test_cornell_smoke_render_matches_jax(width):
     js = jrt.compile_scene(cornell_smoke_world(jrt))
@@ -190,15 +210,35 @@ def test_cornell_smoke_render_matches_jax(width):
     jacc, jn = jrender(js, jset, 0, spp=8)
     tacc, tn = trender(ts, tset, 0, spp=8)
     assert tn == jn == 8
-    a = np.asarray(jacc) / 8
-    b = tacc.numpy() / 8
-    assert b.shape == a.shape == (width * width, 3)
-    assert np.isfinite(b).all()
-    diff = np.abs(a - b).max(axis=1)
-    assert (diff > 1e-5).mean() < 0.05, (diff > 1e-5).mean()
-    assert np.median(diff) <= 1e-6
-    assert np.abs(a - b).mean() < 0.0151 / 20
-    np.testing.assert_allclose(b.mean(), a.mean(), rtol=2e-3)
+    _assert_renders_match(np.asarray(jacc) / 8, tacc.numpy() / 8,
+                          width * width)
+
+
+def test_many_media_render_matches_jax(monkeypatch):
+    """17 media (more than one launch of the crossing kernels takes):
+    the port launches K11 once per group of at most 16 media, two a
+    bounce, and the render (32 x 32, 8 spp, depth 10, the work queue)
+    agrees with the JAX package's, whose forward takes any count."""
+    from raytrace_tpu_torch.render import volumes
+    js = jrt.compile_scene(many_media_world(jrt))
+    assert js.volumes.n_volumes == 17
+    jset = many_media_settings(jrt, 32, 8, 10)
+    ts = scene_from_numpy(scene_to_numpy(js), device="cpu")
+    d = fields_to_numpy(jset)
+    d["background"] = "sky"
+    tset = settings_from_numpy(d)
+    groups = []
+    k11 = volumes.pallas_volume_crossings
+
+    def spy(*a, **kw):
+        groups.append(len(kw["slices"]))
+        return k11(*a, **kw)
+    monkeypatch.setattr(volumes, "pallas_volume_crossings", spy)
+    jacc, jn = jrender(js, jset, 0, spp=8)
+    tacc, tn = trender(ts, tset, 0, spp=8)
+    assert tn == jn == 8
+    assert groups[:2] == [16, 1] and len(groups) % 2 == 0
+    _assert_renders_match(np.asarray(jacc) / 8, tacc.numpy() / 8, 32 * 32)
 
 
 def _fog_render(world, center, fog_s, max_depth, spp):
