@@ -24,25 +24,37 @@ Phases (each prints a line; any failure raises and exits non-zero):
 6. the main path at spp 1 (rotate_k 1: the fused branch, kernel B); then
    the same path at 2 spp and 1 spp once more, with every kernel launch
    held against its plain version on the inputs the driver gave it;
-7. each kernel's time beside its plain version's at the main path's
-   360,064 lanes;
+7. each kernel's device time per launch (torch.profiler) and its
+   wrapper's call back to back (CUDA events: the host's cost) beside its
+   plain version's at the main path's 360,064 lanes;
 8. the backward kernel K5 against its plain version (torch autograd over
    ``lane_math``) on 2^18 lanes of a real mid-render state (kernel B
    steps the fwd+bwd configuration four times; random cotangents): the
    Cornell box, the all-materials scene and the box/motion scene, with 0
-   and 2 redirect targets;
+   and 2 redirect targets, and 2^17 lanes of the bunny stand-in's fused
+   mesh state; per state the per-lane mode lane by lane, then the
+   reduced mode (rows read by index, row gradients summed in the launch:
+   the mode every fwd+bwd runs, staged or global as its table's size
+   picks) against its plain version and its per-lane mode;
 9. ``render_loss_wavefront``'s value and gradient at 2^14 lanes, 8 spp,
    40 iterations, with K5 and with the backward forced to its plain
    version: equal losses, gradients within ``GRAD_RTOL``;
 10. the second main path: the fwd+bwd of ``bench.py`` (Cornell 600 x
     600, depth 50, RR from depth 2, 2^18 lanes x 64 spp, 205 iterations
     then 25 at 2^14 and 100 at 2^12 lanes) after one warm-up run: wall,
-    primary rays/s, loss, samples completed, launches of kernel B and
-    K5, peak memory;
+    primary rays/s, loss, samples completed, launches of kernel B and of
+    K5's reduced and per-lane modes (the per-lane one never), peak memory;
 11. central finite differences of the loss on the card (2^14 lanes,
     exact estimator, same seed) for the light's emission and the red
     wall's albedo against their gradients;
-12. K5's time beside its plain version's at 2^18 lanes.
+12. K5's time at 2^18 lanes: the reduced mode's device time (its kernel
+    and the two finishing launches) and host time, its plain version's,
+    its bound, and the per-lane mode's device time alone and with the
+    torch gather and ``index_add_`` it replaced; then phase 10's fwd+bwd
+    with the per-lane backward and with the reduced one in turns (per
+    lane, reduced, reduced, per lane): walls, peaks, device time per
+    iteration, and the index ops inside the backward steps (none in the
+    reduced runs).
 
 The mesh scale (``testing.bunny_standin_scene``: 4,968 triangles in 4,992
 rows, the bunny scene's material, camera, gray fade and depth 10):
@@ -64,11 +76,11 @@ rows, the bunny scene's material, camera, gray fade and depth 10):
 17. route 2, the mesh fwd+bwd of ``tools/prof_bunny_grad.py``
     (``testing.MESH_FWD_BWD``: 2^17 lanes x 16 spp, 30 iterations then
     12 at 2^15 and 30 at 2^13 lanes; 72 launches each of the mesh variant
-    and K5) after one warm-up; at 2^14 lanes the fwd+bwd with every
+    and the reduced K5, none of the per-lane one) after one warm-up; at 2^14 lanes the fwd+bwd with every
     kernel against the one with every plain version; a finite difference
     of the mesh's albedo;
-18. the three mesh kernels' times at the slice's shapes beside their
-    plain versions' and their bounds (the BVH's operation count from the
+18. the three mesh kernels' device and host times at the slice's shapes
+    beside their plain versions' and their bounds (the BVH's operation count from the
     nodes and rows each ray visited, counted by the kernel).
 
 Rich textures (image, noise, marble):
@@ -134,18 +146,21 @@ the replay backward K7 in every iteration) and F8's media groups:
 
 29. K7 against its plain version on 2^18 lanes of the unfused driver's
     mid-render states (``testing.k7_inputs``: kernel A steps the lanes
-    four times), on phase 8's scenes and targets, within
-    ``testing.BWD_RTOL``;
+    four times), on phase 8's scenes and targets and a 384-row mixed-kind
+    mesh (the global mode), within ``testing.BWD_RTOL``, then its reduced
+    mode as K5's in phase 8;
 30. route 8, ``tools/prof_diff_rot.py``'s configuration
     (``testing.FWD_BWD_ROT8``: bench.py's Cornell fwd+bwd at 2^18 lanes x
     64 spp with rotate_k 8, 195 iterations, no remat) after one warm-up:
     wall, primary rays/s, loss, samples completed, launches of kernel A
-    and K7 (each once per iteration), peak memory;
+    and the reduced K7 (each once per iteration; the per-lane K7 never),
+    peak memory;
 31. route 9, ``tools/prof_completion.py``'s (``testing.FWD_BWD_BAL4``:
     rotate_k 4 balanced by ``lane_cost_estimate(spp_est=4)``, which runs
     inside the timed region, 184 iterations), printing the same; then
     route 8 with ``remat=True`` (each iteration checkpointed), its peak
-    memory beside route 8's;
+    memory beside route 8's; then route 8 with the per-lane backward and
+    the reduced one in turns, as phase 12 does phase 10;
 32. at 2^14 lanes: the unfused fwd+bwd with K7 against the same with
     K7's plain version (equal losses, gradients within ``GRAD_RTOL``);
     rotate_k 2 against the fused rotate_k 1 where every sample completes
@@ -156,7 +171,7 @@ the replay backward K7 in every iteration) and F8's media groups:
     fog balls and boxes through K11, and rotated boxes, a 102-row
     boundary, through K11b) rendered with every crossing launch (two a
     bounce: 16 media, then 1) held against its plain version;
-34. K7's time at 2^18 lanes beside its plain version's and its bound.
+34. K7's times at 2^18 lanes, as K5's in phase 12.
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
@@ -167,10 +182,14 @@ arithmetic, are held to equality: a max |err| of 0); K5 within ``testing.BWD_RTO
 gradient's scale (the hand-derived adjoint sums the chain-rule terms in
 another order than autograd); K13 within ``testing.image_grad_errs`` of
 its plain version and of a float64 sum (float atomics add in a varying
-order).
+order); the reduced K5 and K7: lane outputs equal to the per-lane mode's,
+each table entry within ``n * 2^-23 * sum |g|`` of the float64 sum of
+the per-lane mode's row gradients, and within that plus the per-lane
+tolerances of the plain version's (``testing.compare_reduced``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -236,14 +255,40 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time in ms of the launches of ``kernel`` (a substring
-    of its name) over ``reps`` calls of ``fn``, read from torch.profiler:
+def _device_ms(fn, kernel, reps: int) -> float:
+    """Mean device time in ms of one call of ``fn``'s launches of
+    ``kernel`` (a substring of a kernel's name, or a tuple of them: the
+    means of each summed) over ``reps`` calls, read from torch.profiler:
     a kernel shorter than its wrapper's host cost leaves the card idle
     between back-to-back launches, so CUDA events around them would time
     the host instead.  The profiler's device trace can drop some events
-    of a burst of microsecond launches (31 of 50 seen on an H100), so the
-    mean is over the launches it recorded, at least one."""
+    of a burst of microsecond launches (31 of 50 seen on an H100), so each
+    mean is over the launches it recorded, at least one a name."""
+    import torch
+    from torch.autograd import DeviceType
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for name in names:
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if not 0 < len(us) <= reps:
+            raise AssertionError(f"{name}: {len(us)} profiled launches of "
+                                 f"{reps}")
+        total += sum(us) / len(us) / 1e3
+    return total
+
+
+def _device_total_ms(fn, reps: int) -> float:
+    """Device time in ms of all of one call's launches (``fn`` run
+    ``reps`` times under torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     fn()
@@ -254,12 +299,43 @@ def _device_ms(fn, kernel: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not 0 < len(us) <= reps:
-        raise AssertionError(f"{kernel}: {len(us)} profiled launches of "
-                             f"{reps}")
-    return sum(us) / len(us) / 1e3
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+# the CPU ops that gather or scatter by an index, and the autograd nodes of
+# the two backward kernels' steps
+INDEX_OPS = ("aten::index_add_", "aten::index_add", "aten::index",
+             "aten::index_select", "aten::gather", "aten::take",
+             "aten::index_put_", "aten::scatter_add_")
+BWD_NODES = ("_FusedIterBackward", "_MegaBounceBackward")
+
+
+def _profile_fwd_bwd(fn, iters: int) -> dict:
+    """One call of ``fn`` (a fwd+bwd of ``iters`` iterations) under
+    torch.profiler: its device time per iteration in ms and the index ops
+    run inside the backward steps of K5 and K7 (``{op name: count}``)."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = 0.0
+    index_ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev_us += e.time_range.end - e.time_range.start
+        elif e.name in INDEX_OPS:
+            p = e.cpu_parent
+            while p is not None and not any(n in p.name for n in BWD_NODES):
+                p = p.cpu_parent
+            if p is not None:
+                index_ops[e.name] = index_ops.get(e.name, 0) + 1
+    return dict(device_ms_per_iter=dev_us / 1e3 / iters,
+                backward_index_ops=index_ops)
 
 
 def _check(label: str, errs, lanes: int) -> float:
@@ -274,6 +350,87 @@ def _check(label: str, errs, lanes: int) -> float:
         raise AssertionError(f"{label}: kernel disagrees with its plain "
                              "version")
     return err
+
+
+def _check_reduced(label: str, args, kw, tables) -> float:
+    """Print one reduced K5 or K7 against its plain version and its
+    per-lane mode (``testing.compare_reduced``), raise if out of
+    tolerance, return its max abs error."""
+    import torch
+    from raytrace_tpu_torch.ops.row_reduce import STAGED, row_mode
+    from raytrace_tpu_torch.testing import compare_reduced
+    r = compare_reduced(args, kw, tables)
+    torch.cuda.synchronize()
+    mode = ("staged" if row_mode(tables.n_prims, kw["n_row"]) == STAGED
+            else "global")
+    print(f"[{label}] {tables.n_prims} rows, {mode} mode: lane outputs max "
+          f"|err| {r['lane_err']:.3g}, worst excess {r['lane_excess']:.3g} "
+          f"(BWD_RTOL), {r['lane_differ']} differ from the per-lane mode's; "
+          f"tables max |err| {r['rows_err']:.3g} against the float64 sum of "
+          f"the per-lane mode's rows (worst excess {r['rows_excess']:.3g} "
+          f"over n*2^-23*sum|g|), {r['plain_err']:.3g} against the plain "
+          f"version's (worst excess {r['plain_excess']:.3g} over that plus "
+          "the lanes' tolerances)", flush=True)
+    if (not r["lane_excess"] <= 0.0 or r["lane_differ"]
+            or not r["rows_excess"] <= 0.0 or not r["plain_excess"] <= 0.0):
+        raise AssertionError(f"{label}: out of tolerance")
+    return max(r["lane_err"], r["plain_err"])
+
+
+def _row_mode_name(scene) -> str:
+    """The row mode the reduced K5 and K7 take for ``scene``'s table."""
+    from raytrace_tpu_torch.ops.row_reduce import STAGED, row_mode
+    n_prims = scene.prims.kind.shape[0]
+    mode = row_mode(n_prims, 15 if scene.prims.has_motion else 9)
+    return f"{'staged' if mode == STAGED else 'global'} mode, {n_prims} rows"
+
+
+def _bwd_bound(n_lanes: int, n_in: int, n_out: int, tables, n_row: int):
+    """``_bound_ms`` of a reduced backward kernel: ``n_in`` lane columns
+    read and ``n_out`` written, the table, the prims' material and texture
+    rows read and the reduced tables written once; ~1000 float operations
+    a lane (lane_math's replay and its reverse sweep)."""
+    t = tables
+    n_bytes = 4 * (n_lanes * (n_in + n_out) + t.cols.numel() + 2 * t.n_prims
+                   + t.n_prims * n_row + t.n_mats + 6 * t.n_tex)
+    return _bound_ms(n_bytes, n_lanes * 1000)
+
+
+def _in_turns(label: str, run, iters: int, smi: str) -> dict:
+    """The fwd+bwd ``run`` (``iters`` iterations) with the backward before
+    the reduction moved into K5 and K7 (``testing.per_lane_backward``:
+    their per-lane modes with torch's gather and ``index_add_`` around
+    them) and with the reduced kernels, in turns: per lane, reduced,
+    reduced, per lane.  Each turn prints the wall and peak memory of an
+    unprofiled run, and the device time per iteration and the index ops
+    run inside the backward steps from a profiled one.  Raises if the
+    reduced backward runs an index op, or the per-lane one none."""
+    import torch
+    from raytrace_tpu_torch.testing import per_lane_backward
+    out = {"per_lane": [], "reduced": []}
+    for mode in ("per_lane", "reduced", "reduced", "per_lane"):
+        with (per_lane_backward() if mode == "per_lane"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            prof = _profile_fwd_bwd(run, iters)
+        out[mode].append(dict(wall_s=wall, peak_bytes=peak, **prof))
+        print(f"[in turns] {label}, {'per-lane K5/K7 + torch gather and '
+              'index_add_' if mode == 'per_lane' else 'reduced K5/K7'}: "
+              f"wall {wall:.3f} s, peak {peak / 2**30:.3f} GiB, device "
+              f"{prof['device_ms_per_iter']:.4f} ms an iteration, index ops "
+              f"in the backward steps {prof['backward_index_ops']} [{smi}]",
+              flush=True)
+    if any(t["backward_index_ops"] for t in out["reduced"]) \
+            or not all(t["backward_index_ops"] for t in out["per_lane"]):
+        raise AssertionError(f"{label}: index ops in the reduced backward, "
+                             "or none found in the per-lane one")
+    return out
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -305,11 +462,12 @@ def main() -> None:
     from raytrace_tpu_torch.render.render import render_accumulate
     from raytrace_tpu_torch.testing import (
         ALL_MATERIAL_TARGETS, BWD_RTOL, FRAC_LANES, FWD_BWD, ITER_INT_ROWS,
-        MEAN_RTOL, all_materials_scene, bounce_inputs, box_motion_scene,
-        bwd_inputs, checked_launches, compare_bounce, compare_bwd,
-        compare_iter, cornell_scene_and_settings, fresh_carry,
-        fwd_bwd_pixels, max_errs, next_bounce_inputs, plain_backward,
-        primary_bounce_inputs, stationary_lanes,
+        MEAN_RTOL, MESH_FWD_BWD, all_materials_scene, bounce_inputs,
+        box_motion_scene, bunny_standin_scene, bwd_inputs, checked_launches,
+        compare_bounce, compare_bwd, compare_iter, cornell_scene_and_settings,
+        fresh_carry, fwd_bwd_pixels, max_errs, next_bounce_inputs,
+        per_lane_backward, plain_backward, primary_bounce_inputs,
+        reduced_args, stationary_lanes,
     )
     from raytrace_tpu_torch.diff.gradients import (
         finite_difference, loss_and_grads, partition, render_loss_wavefront,
@@ -317,8 +475,10 @@ def main() -> None:
     from raytrace_tpu_torch.interop import grads_to_numpy
     from raytrace_tpu_torch.materials.materials import MAT_LIGHT
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
-        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_plain,
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
+        bounce_bwd_regen_pre_reduced_plain,
     )
+    from raytrace_tpu_torch.ops.row_reduce import row_tables
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -457,14 +617,17 @@ def main() -> None:
 
     phase_done("checked forward renders")
 
-    # 7. kernel times at the main path's 360,064 lanes
-    ms_a = _time_ms(lambda: bounce_megakernel(tb_c.ptbl, tb_c.mtbl,
-                                              tb_c.ttbl, *a_args,
-                                              **tb_c.kw), 50)
+    # 7. kernel times at the main path's 360,064 lanes: device time per
+    # launch, and the wrapper's call back to back (its host cost)
+    a_call = lambda: bounce_megakernel(tb_c.ptbl, tb_c.mtbl, tb_c.ttbl,
+                                       *a_args, **tb_c.kw)
+    ms_a = _device_ms(a_call, "bounce_kernel", 50)
+    host_a = _time_ms(a_call, 50)
     plain_a = _time_ms(lambda: bounce_plain(tb_c.ptbl, tb_c.mtbl, tb_c.ttbl,
                                             *a_args, **tb_c.kw), 5, 1)
-    print(f"[time] kernel A {ms_a:.4f} ms vs bounce_plain {plain_a:.3f} ms "
-          f"at {lanes} lanes (primary rays) [{smi}]", flush=True)
+    print(f"[time] kernel A {ms_a:.4f} ms on the device ({host_a:.4f} ms a "
+          f"call back to back) vs bounce_plain {plain_a:.3f} ms at {lanes} "
+          f"lanes (primary rays) [{smi}]", flush=True)
     b_tables, b_kw = iter_kernel_args(cornell, s_c, rng.base_key(1, dev), 199)
     b_lane = ((torch.from_numpy(lane_pix).to(dev, torch.int32),)
               + fresh_carry(lanes, dev))
@@ -473,10 +636,13 @@ def main() -> None:
         max_errs(iter_plain(*b_tables, b_lane, **b_kw),
                  iter_megakernel(*b_tables, b_lane, **b_kw), ITER_INT_ROWS),
         lanes))
-    ms_b = _time_ms(lambda: iter_megakernel(*b_tables, b_lane, **b_kw), 50)
+    b_call = lambda: iter_megakernel(*b_tables, b_lane, **b_kw)
+    ms_b = _device_ms(b_call, "iter_kernel", 50)
+    host_b = _time_ms(b_call, 50)
     plain_b = _time_ms(lambda: iter_plain(*b_tables, b_lane, **b_kw), 5, 1)
-    print(f"[time] kernel B {ms_b:.4f} ms vs iter_plain {plain_b:.3f} ms "
-          f"at {lanes} lanes (regenerating every lane) [{smi}]", flush=True)
+    print(f"[time] kernel B {ms_b:.4f} ms on the device ({host_b:.4f} ms a "
+          f"call back to back) vs iter_plain {plain_b:.3f} ms at {lanes} "
+          f"lanes (regenerating every lane) [{smi}]", flush=True)
 
     # bounds: each input column read once and each output written once;
     # operations estimated per lane from the sources (a row of the scan
@@ -499,29 +665,36 @@ def main() -> None:
     s_box = s_box.replace(image_width=600)
     err_k5 = 0.0
     k5_args = None
-    for name, sc, s, pixels in (
+    standin, s_st = bunny_standin_scene(600, MESH_FWD_BWD["spp"], 10,
+                                        device=dev)
+    for name, sc, s, pixels, n in (
             ("cornell fwd+bwd", cornell, s_fb,
-             fwd_bwd_pixels(n_pix, n_bwd)),
-            ("all-materials", allm, s_a6, None),
+             fwd_bwd_pixels(n_pix, n_bwd), n_bwd),
+            ("all-materials", allm, s_a6, None, n_bwd),
             ("all-materials 2 targets", allm,
-             s_a6.with_redirect_targets(ALL_MATERIAL_TARGETS), None),
-            ("box/motion", box, s_box, None),
+             s_a6.with_redirect_targets(ALL_MATERIAL_TARGETS), None, n_bwd),
+            ("box/motion", box, s_box, None, n_bwd),
             ("box/motion 2 targets", box,
-             s_box.with_redirect_targets(ALL_MATERIAL_TARGETS), None)):
-        args, kw = bwd_inputs(sc, s, n_bwd, 31, n_iters=4,
+             s_box.with_redirect_targets(ALL_MATERIAL_TARGETS), None, n_bwd),
+            ("bunny stand-in mesh fwd+bwd", standin,
+             s_st.replace(rr_depth=MESH_FWD_BWD["rr_depth"]), None,
+             MESH_FWD_BWD["lanes"])):
+        args, kw = bwd_inputs(sc, s, n, 31, n_iters=4,
                               spp=FWD_BWD["spp"], pixels=pixels)
         (err, excess), _ = compare_bwd(args, kw)
         torch.cuda.synchronize()
-        print(f"[K5 vs plain] {name}: {n_bwd} lanes x {kw['n_row'] + 20} "
+        print(f"[K5 vs plain] {name}: {n} lanes x {kw['n_row'] + 20} "
               f"outputs, {int((args[6] > 0.5).sum())} alive, max |err| "
               f"{err:.3g}, worst excess {excess:.3g} (rtol {BWD_RTOL} of "
               "|plain| + output max + lane max) at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         if not excess <= 0.0:
             raise AssertionError(f"K5 vs plain: {name}: out of tolerance")
-        err_k5 = max(err_k5, err)
+        tables = row_tables(sc, kw["n_row"])
+        err_k5 = max(err_k5, err, _check_reduced(
+            f"K5 reduced vs plain: {name}", args, kw, tables))
         if k5_args is None:
-            k5_args, k5_kw = args, kw
+            k5_args, k5_kw, k5_tables = args, kw, tables
 
     phase_done("K5 vs plain")
 
@@ -532,8 +705,12 @@ def main() -> None:
     pix9 = (torch.arange(n9) * (n_pix // n9)).to(dev, torch.int32)
     tgt9 = torch.zeros((n9, 3), device=dev)
     kw9 = dict(spp=8, n_iters=40, remat=False)
+    k0 = bounce_bwd_regen_pre_reduced.launches
     (l_k, f_k), g_k = loss_and_grads(params, statics, s_fb, key, pix9, tgt9,
                                      **kw9)
+    if bounce_bwd_regen_pre_reduced.launches - k0 != kw9["n_iters"]:
+        raise AssertionError("fwd+bwd at 2^14 lanes: the reduced K5 did not "
+                             "launch once per iteration")
     with plain_backward():
         (l_p, f_p), g_p = loss_and_grads(params, statics, s_fb, key, pix9,
                                          tgt9, **kw9)
@@ -564,13 +741,15 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iter_megakernel.launches = 0
+    bounce_bwd_regen_pre_reduced.launches = 0
     bounce_bwd_regen_pre_megakernel.launches = 0
     t0 = time.perf_counter()
     (loss, frac), grads = fwd_bwd()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fb_b = iter_megakernel.launches
-    fb_k5 = bounce_bwd_regen_pre_megakernel.launches
+    fb_k5 = bounce_bwd_regen_pre_reduced.launches
+    fb_k5_lane = bounce_bwd_regen_pre_megakernel.launches
     peak = torch.cuda.max_memory_allocated()
     gnp = grads_to_numpy(grads)
     finite = all(bool(np.isfinite(v).all()) for v in gnp.values())
@@ -582,10 +761,12 @@ def main() -> None:
           f"x {FWD_BWD['spp']} spp: {wall:.3f} s, "
           f"{fb['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
           f"{fb['loss']:.6f}, samples_completed {fb['samples_completed']:.6f},"
-          f" launches B={fb_b} K5={fb_k5}, peak memory {peak / 2**30:.3f} GiB,"
-          f" gradients finite {finite} [{smi}]", flush=True)
+          f" launches B={fb_b} K5 reduced={fb_k5} ({_row_mode_name(cornell)}) "
+          f"K5 per lane={fb_k5_lane}, "
+          f"peak memory {peak / 2**30:.3f} GiB, gradients finite {finite} "
+          f"[{smi}]", flush=True)
     if not finite or fb["samples_completed"] < 0.9999 \
-            or fb_b != n_expect or fb_k5 != n_expect:
+            or fb_b != n_expect or fb_k5 != n_expect or fb_k5_lane:
         raise AssertionError("fwd+bwd main path: bad gradients, incomplete "
                              "samples or wrong launch counts")
     main_b += fb_b
@@ -624,25 +805,54 @@ def main() -> None:
 
     phase_done("finite differences")
 
-    # 12. K5's time at 2^18 lanes (the Cornell fwd+bwd state of phase 8)
-    ms_k5 = _time_ms(lambda: bounce_bwd_regen_pre_megakernel(*k5_args,
-                                                             **k5_kw), 50)
-    plain_k5 = _time_ms(lambda: bounce_bwd_regen_pre_plain(*k5_args,
-                                                           **k5_kw), 3, 1)
-    n_cols = len(k5_args[3]) + 1 + 3 + 1 + 7 + 3 + 1 + 13
-    bound_k5 = _bound_ms(4 * n_bwd * (n_cols + k5_kw["n_row"] + 20),
-                         n_bwd * 1000)
-    print(f"[time] K5 {ms_k5:.4f} ms vs bounce_bwd_regen_pre_plain "
-          f"{plain_k5:.3f} ms at {n_bwd} lanes, bound {bound_k5[0]:.4f} ms "
-          f"({bound_k5[1]}: {n_cols} columns in, {k5_kw['n_row'] + 20} out)"
-          f" [{smi}]", flush=True)
+    # 12. K5's time at 2^18 lanes (the Cornell fwd+bwd state of phase 8):
+    # the reduced mode's device time (its kernel and the two finishing
+    # launches) and its wrapper's call back to back; the per-lane mode's
+    # device time, and that of the torch gather and index_add_ around it
+    # that the reduced mode took in
+    k5_red = lambda: bounce_bwd_regen_pre_reduced(
+        *reduced_args(k5_args, k5_tables), **k5_kw)
+    ms_k5 = _device_ms(k5_red, ("bounce_bwd_kernel", "row_sum_kernel",
+                                "row_map_kernel"), 50)
+    ms_k5_main = _device_ms(k5_red, "bounce_bwd_kernel", 50)
+    host_k5 = _time_ms(k5_red, 50)
+    k5_lane = lambda: bounce_bwd_regen_pre_megakernel(*k5_args, **k5_kw)
+    ms_k5_lane = _device_ms(k5_lane, "bounce_bwd_kernel", 50)
+    host_k5_lane = _time_ms(k5_lane, 50)
+    with per_lane_backward():
+        from raytrace_tpu_torch.diff import fused_iter
+        old_k5 = fused_iter.bounce_bwd_regen_pre_reduced
+        old_call = lambda: old_k5(*reduced_args(k5_args, k5_tables),
+                                  **k5_kw)
+        total_old = _device_total_ms(old_call, 10)
+        host_old = _time_ms(old_call, 10)
+    plain_k5 = _time_ms(lambda: bounce_bwd_regen_pre_reduced_plain(
+        *reduced_args(k5_args, k5_tables), **k5_kw), 3, 1)
+    bound_k5 = _bwd_bound(n_bwd, 29, 13, k5_tables, k5_kw["n_row"])
+    print(f"[time] K5 reduced {ms_k5:.4f} ms on the device ({ms_k5_main:.4f}"
+          f" ms the kernel, the rest the finishing launches; {host_k5:.4f} ms"
+          f" a call back to back) vs "
+          f"its plain version {plain_k5:.3f} ms at {n_bwd} lanes, "
+          f"bound {bound_k5[0]:.4f} ms ({bound_k5[1]}: 29 columns in, 13 "
+          f"out, the table and the reduced tables); before: the per-lane "
+          f"mode {ms_k5_lane:.4f} ms on the device ({host_k5_lane:.4f} ms a "
+          f"call), with the torch gather and index_add_ around it "
+          f"{total_old:.4f} ms of device time a call ({host_old:.4f} ms a "
+          f"call back to back) [{smi}]", flush=True)
 
     phase_done("K5 time")
+
+    # the fwd+bwd main path with the backward before the reduction moved
+    # into K5 and with the reduced K5, in turns
+    turns = {"fwd_bwd": _in_turns("cornell fwd+bwd", fwd_bwd, n_expect, smi)}
+
+    phase_done("fwd+bwd in turns")
 
     mesh = _mesh_phases(smi, phase_done)
     rich = _rich_phases(smi, phase_done, dev)
     media = _media_phases(smi, phase_done, dev)
     unfused = _unfused_phases(smi, phase_done, dev)
+    turns["route8"] = unfused.pop("turns")
     main_a += unfused["a_launches"]
     main_b += rich["iter_launches"]
     mesh["kernels"][0]["launches"] += media["k9_launches"]
@@ -657,7 +867,7 @@ def main() -> None:
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
                       "mesh": mesh["summary"], "rich": rich["summary"],
                       "media": media["summary"],
-                      "unfused": unfused["summary"],
+                      "unfused": unfused["summary"], "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
@@ -665,22 +875,26 @@ def main() -> None:
          "source": "raytrace_tpu_torch/csrc/bounce_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/bounce_kernel.py:523",
          "launches": main_a, "max_abs_err": err_a, "ms": ms_a,
-         "plain_ms": plain_a, "bound_ms": bound_a[0],
+         "host_ms": host_a, "plain_ms": plain_a, "bound_ms": bound_a[0],
          "bound_by": bound_a[1], "library_ms": no_lib},
         {"name": "iter_megakernel", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/iter_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/iter_kernel.py:328",
          "launches": main_b, "max_abs_err": err_b, "ms": ms_b,
-         "plain_ms": plain_b, "bound_ms": bound_b[0],
+         "host_ms": host_b, "plain_ms": plain_b, "bound_ms": bound_b[0],
          "bound_by": bound_b[1], "library_ms": no_lib},
-        {"name": "bounce_bwd_regen_pre_megakernel", "route": "cuda",
+        {"name": "bounce_bwd_regen_pre_reduced", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
          "replaces":
              "raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:497",
          "launches": fb_k5 + mesh["k5_launches"] + rich["k5_launches"],
-         "max_abs_err": err_k5,
-         "ms": ms_k5, "plain_ms": plain_k5, "bound_ms": bound_k5[0],
-         "bound_by": bound_k5[1], "library_ms": no_lib},
+         "max_abs_err": err_k5, "ms": ms_k5, "host_ms": host_k5,
+         "plain_ms": plain_k5, "bound_ms": bound_k5[0],
+         "bound_by": bound_k5[1], "library_ms": no_lib,
+         "kernel_ms": ms_k5_main, "per_lane_ms": ms_k5_lane,
+         "per_lane_host_ms": host_k5_lane,
+         "per_lane_with_torch_reduction_ms": total_old,
+         "per_lane_with_torch_reduction_host_ms": host_old},
     ] + mesh["kernels"] + rich["kernels"] + media["kernels"]
         + [unfused["kernel"]]}), flush=True)
     print(smi, flush=True)
@@ -706,7 +920,7 @@ def _mesh_phases(smi, phase_done) -> dict:
         allpairs_nearest_plain, allpairs_nearest_record,
     )
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
-        bounce_bwd_regen_pre_megakernel,
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
     )
     from raytrace_tpu_torch.ops.bounce_kernel import (
         bounce_megakernel, shade_megakernel, shade_plain,
@@ -865,13 +1079,15 @@ def _mesh_phases(smi, phase_done) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iter_mega_ap.launches = 0
+    bounce_bwd_regen_pre_reduced.launches = 0
     bounce_bwd_regen_pre_megakernel.launches = 0
     t0 = time.perf_counter()
     (loss, frac), grads = fwd_bwd()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     r2_iter = iter_mega_ap.launches
-    r2_k5 = bounce_bwd_regen_pre_megakernel.launches
+    r2_k5 = bounce_bwd_regen_pre_reduced.launches
+    r2_k5_lane = bounce_bwd_regen_pre_megakernel.launches
     peak = torch.cuda.max_memory_allocated()
     gnp = grads_to_numpy(grads)
     finite = all(bool(np.isfinite(x).all()) for x in gnp.values())
@@ -884,9 +1100,11 @@ def _mesh_phases(smi, phase_done) -> dict:
           f"{wall:.3f} s, {fb['rays_per_s'] / 1e6:.3f} M primary rays/s, "
           f"loss {fb['loss']:.6f}, samples_completed "
           f"{fb['samples_completed']:.6f}, launches mesh iteration={r2_iter} "
-          f"K5={r2_k5}, peak memory {peak / 2**30:.3f} GiB, gradients finite "
-          f"{finite} [{smi}]", flush=True)
-    if not finite or r2_iter != n_expect or r2_k5 != n_expect:
+          f"K5 reduced={r2_k5} ({_row_mode_name(standin)}) K5 per lane="
+          f"{r2_k5_lane}, peak memory "
+          f"{peak / 2**30:.3f} GiB, gradients finite {finite} [{smi}]",
+          flush=True)
+    if not finite or r2_iter != n_expect or r2_k5 != n_expect or r2_k5_lane:
         raise AssertionError("route 2: bad gradients or launch counts")
     phase_done("route 2")
 
@@ -943,8 +1161,10 @@ def _mesh_phases(smi, phase_done) -> dict:
                 has_motion=tb_m.has_motion)
     hit_out, visits = allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *rays,
                                               count_visits=True, **kw_n)
-    ms_n = _time_ms(lambda: allpairs_nearest_record(tb_m.ptbl, tb_m.bvh,
-                                                    *rays, **kw_n), 20)
+    n_call = lambda: allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *rays,
+                                             **kw_n)
+    ms_n = _device_ms(n_call, "nearest_kernel", 20)
+    host_n = _time_ms(n_call, 20)
     plain_n = _time_ms(lambda: allpairs_nearest_plain(tb_m.ptbl, *rays,
                                                       **kw_n), 2, 1)
     nodes_v = float(visits[0].double().mean())
@@ -953,7 +1173,8 @@ def _mesh_phases(smi, phase_done) -> dict:
                      + tb_m.bvh.leaf_rows.numel())
     bound_n = _bound_ms(4 * lanes * (7 + 9) + tbl_bytes,
                         lanes * (NODE_OPS * nodes_v + ROW_OPS * rows_v))
-    print(f"[time] nearest kernel {ms_n:.4f} ms vs allpairs_nearest_plain "
+    print(f"[time] nearest kernel {ms_n:.4f} ms on the device ({host_n:.4f} "
+          f"ms a call back to back) vs allpairs_nearest_plain "
           f"{plain_n:.3f} ms at {lanes} camera rays of the stand-in; a ray "
           f"visits {nodes_v:.2f} nodes and {rows_v:.2f} rows on average; "
           f"bound {bound_n[0]:.4f} ms ({bound_n[1]}) [{smi}]", flush=True)
@@ -965,13 +1186,16 @@ def _mesh_phases(smi, phase_done) -> dict:
     sh_lanes = (*rays[0:6], *thr, alive.float())
     kw_s = dict(n_mats=tb_m.n_mats, n_targets=tb_m.n_targets,
                 has_medium=False)
-    ms_s = _time_ms(lambda: shade_megakernel(tb_m.mtbl, tb_m.ttbl, hit, None,
-                                             sh_lanes, uni, **kw_s), 50)
+    s_call = lambda: shade_megakernel(tb_m.mtbl, tb_m.ttbl, hit, None,
+                                      sh_lanes, uni, **kw_s)
+    ms_s = _device_ms(s_call, "shade_kernel", 50)
+    host_s = _time_ms(s_call, 50)
     plain_s = _time_ms(lambda: shade_plain(tb_m.mtbl, tb_m.ttbl, hit, None,
                                            sh_lanes, uni, **kw_s), 5, 1)
     bound_s = _bound_ms(4 * lanes * (10 + 10 + 8 + 15), lanes * 300)
-    print(f"[time] shade kernel {ms_s:.4f} ms vs shade_plain {plain_s:.3f} ms"
-          f" at {lanes} lanes; bound {bound_s[0]:.4f} ms ({bound_s[1]}) "
+    print(f"[time] shade kernel {ms_s:.4f} ms on the device ({host_s:.4f} ms "
+          f"a call back to back) vs shade_plain {plain_s:.3f} ms at {lanes} "
+          f"lanes; bound {bound_s[0]:.4f} ms ({bound_s[1]}) "
           f"[{smi}]", flush=True)
 
     # the mesh variant with every lane regenerating: its rays are the
@@ -982,13 +1206,16 @@ def _mesh_phases(smi, phase_done) -> dict:
     c_i, _ = camera_rays(standin, s_m, n_i, 1, pixels=pix_fb)
     _, vis_i = allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *c_i.unbind(0),
                                        count_visits=True, **kw_n)
-    ms_i = _time_ms(lambda: iter_megakernel(*tables, lane_in, **kw_i), 20)
+    i_call = lambda: iter_megakernel(*tables, lane_in, **kw_i)
+    ms_i = _device_ms(i_call, "iter_kernel", 20)
+    host_i = _time_ms(i_call, 20)
     plain_i = _time_ms(lambda: iter_plain(*tables, lane_in, **kw_i), 2, 1)
     nodes_i = float(vis_i[0].double().mean())
     rows_i = float(vis_i[1].double().mean())
     bound_i = _bound_ms(4 * n_i * (17 + 19) + tbl_bytes,
                         n_i * (450 + NODE_OPS * nodes_i + ROW_OPS * rows_i))
-    print(f"[time] mesh iteration kernel {ms_i:.4f} ms vs iter_plain "
+    print(f"[time] mesh iteration kernel {ms_i:.4f} ms on the device "
+          f"({host_i:.4f} ms a call back to back) vs iter_plain "
           f"{plain_i:.3f} ms at {n_i} lanes (every lane regenerating; a ray "
           f"visits {nodes_i:.2f} nodes and {rows_i:.2f} rows); bound "
           f"{bound_i[0]:.4f} ms ({bound_i[1]}) [{smi}]", flush=True)
@@ -1000,19 +1227,19 @@ def _mesh_phases(smi, phase_done) -> dict:
          "source": "raytrace_tpu_torch/csrc/nearest_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/allpairs_kernel.py:920",
          "launches": r1_nearest, "max_abs_err": err_n, "ms": ms_n,
-         "plain_ms": plain_n, "bound_ms": bound_n[0],
+         "host_ms": host_n, "plain_ms": plain_n, "bound_ms": bound_n[0],
          "bound_by": bound_n[1], "library_ms": no_lib},
         {"name": "shade_megakernel", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/shade_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/bounce_kernel.py:616",
          "launches": r1_shade, "max_abs_err": err_s, "ms": ms_s,
-         "plain_ms": plain_s, "bound_ms": bound_s[0],
+         "host_ms": host_s, "plain_ms": plain_s, "bound_ms": bound_s[0],
          "bound_by": bound_s[1], "library_ms": no_lib},
         {"name": "iter_mega_ap", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/iter_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/iter_kernel.py:445",
          "launches": r2_iter, "max_abs_err": err_m, "ms": ms_i,
-         "plain_ms": plain_i, "bound_ms": bound_i[0],
+         "host_ms": host_i, "plain_ms": plain_i, "bound_ms": bound_i[0],
          "bound_by": bound_i[1], "library_ms": no_lib},
     ]
     summary = dict(route1=runs, route2=fb, bvh_build_s=tb_m.bvh.build_s,
@@ -1034,7 +1261,7 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.interop import grads_to_numpy
     from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
-        bounce_bwd_regen_pre_megakernel,
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
     )
     from raytrace_tpu_torch.ops.bounce_kernel import (
         bounce_megakernel, shade_megakernel,
@@ -1062,7 +1289,8 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     counters = (bounce_megakernel, iter_megakernel, iter_mega_ap,
                 allpairs_nearest_record, pallas_nearest_record,
                 shade_megakernel, marble_stripe_pallas,
-                bounce_bwd_regen_pre_megakernel, image_grad_pallas)
+                bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
+                image_grad_pallas)
 
     def reset():
         for c in counters:
@@ -1178,20 +1406,23 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     route4 = dict(seconds=wall, rays_per_s=cfg["lanes"] * cfg["spp"] / wall,
                   loss=float(loss), samples_completed=float(frac),
                   launches_iter=r4["iter_megakernel"],
-                  launches_bwd=r4["bounce_bwd_regen_pre_megakernel"],
+                  launches_bwd=r4["bounce_bwd_regen_pre_reduced"],
                   launches_k13=l13, atlas_grad_l1=atlas_l1, peak_bytes=peak)
     print(f"[route 4] image fwd+bwd 512x512, {cfg['lanes']} lanes x "
           f"{cfg['spp']} spp, rr2, {cfg['n_iters']} iterations: {wall:.3f} s, "
           f"{route4['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
           f"{route4['loss']:.6f}, samples_completed {float(frac):.6f}, "
           f"launches B={r4['iter_megakernel']} "
-          f"K5={r4['bounce_bwd_regen_pre_megakernel']} K13={l13}, atlas "
+          f"K5 reduced={r4['bounce_bwd_regen_pre_reduced']} "
+          f"({_row_mode_name(img_scene)}) K5 per lane="
+          f"{r4['bounce_bwd_regen_pre_megakernel']} K13={l13}, atlas "
           f"gradient L1 {atlas_l1:.6g}, peak memory {peak / 2**30:.3f} GiB, "
           f"gradients finite {finite} [{smi}]", flush=True)
     n_it = cfg["n_iters"]
     if not finite or float(frac) < 0.9999 or atlas_l1 <= 0.0 \
             or l13 != n_it - 1 or r4["iter_megakernel"] != n_it \
-            or r4["bounce_bwd_regen_pre_megakernel"] != n_it:
+            or r4["bounce_bwd_regen_pre_reduced"] != n_it \
+            or r4["bounce_bwd_regen_pre_megakernel"]:
         raise AssertionError("route 4: bad gradients, incomplete samples or "
                              "wrong launch counts")
     phase_done("route 4")
@@ -1311,18 +1542,22 @@ def _rich_phases(smi, phase_done, dev) -> dict:
                     rays_per_s=cfg_b["lanes"] * cfg_b["spp"] / wall_b,
                     samples_completed=float(frac_b),
                     launches_iter=rb["iter_mega_ap"],
-                    launches_bwd=rb["bounce_bwd_regen_pre_megakernel"],
+                    launches_bwd=rb["bounce_bwd_regen_pre_reduced"],
                     launches_k13=rb["image_grad_pallas"])
     print(f"[textured mesh fwd+bwd] stand-in with a 128x256 image, "
           f"{cfg_b['lanes']} lanes x {cfg_b['spp']} spp: {wall_b:.3f} s, "
           f"{bunny_fb['rays_per_s'] / 1e6:.3f} M primary rays/s, "
           f"samples_completed {float(frac_b):.6f}, launches mesh iteration="
-          f"{rb['iter_mega_ap']} K5={rb['bounce_bwd_regen_pre_megakernel']} "
+          f"{rb['iter_mega_ap']} K5 reduced="
+          f"{rb['bounce_bwd_regen_pre_reduced']} ({_row_mode_name(bunny)}) "
+          f"K5 per lane="
+          f"{rb['bounce_bwd_regen_pre_megakernel']} "
           f"K13={rb['image_grad_pallas']}, atlas gradient L1 "
           f"{float(np.abs(gnp_b['textures.images']).sum()):.6g}, gradients "
           f"finite {finite_b} [{smi}]", flush=True)
     if not finite_b or rb["iter_mega_ap"] != n_exp \
-            or rb["bounce_bwd_regen_pre_megakernel"] != n_exp \
+            or rb["bounce_bwd_regen_pre_reduced"] != n_exp \
+            or rb["bounce_bwd_regen_pre_megakernel"] \
             or rb["image_grad_pallas"] == 0:
         raise AssertionError("textured mesh fwd+bwd: bad gradients or "
                              "launch counts")
@@ -1378,20 +1613,21 @@ def _rich_phases(smi, phase_done, dev) -> dict:
         {"name": "pallas_nearest_record", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/nearest_flat_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/intersect_kernel.py:1026",
-         "launches": l8, "max_abs_err": err8, "ms": ms8,
+         "launches": l8, "max_abs_err": err8, "ms": ms8, "host_ms": call8,
          "plain_ms": plain8, "bound_ms": bound8[0], "bound_by": bound8[1],
          "library_ms": None},
         {"name": "marble_stripe_pallas", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/texture_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/texture_kernel.py:89",
          "launches": l12, "max_abs_err": err12, "ms": ms12,
-         "plain_ms": plain12, "bound_ms": bound12[0],
+         "host_ms": call12, "plain_ms": plain12, "bound_ms": bound12[0],
          "bound_by": bound12[1], "library_ms": None},
         {"name": "image_grad_pallas", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/image_grad_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/image_grad_kernel.py:110",
          "launches": l13 + rb["image_grad_pallas"],
-         "max_abs_err": max(err13, e64), "ms": ms13, "plain_ms": plain13,
+         "max_abs_err": max(err13, e64), "ms": ms13, "host_ms": call13,
+         "plain_ms": plain13,
          "bound_ms": bound13[0], "bound_by": bound13[1],
          "library_ms": lib13},
     ]
@@ -1399,8 +1635,8 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     return dict(summary=summary, kernels=kernels, shade_launches=l10,
                 iter_launches=r4["iter_megakernel"],
                 mesh_iter_launches=rb["iter_mega_ap"],
-                k5_launches=r4["bounce_bwd_regen_pre_megakernel"]
-                + rb["bounce_bwd_regen_pre_megakernel"])
+                k5_launches=r4["bounce_bwd_regen_pre_reduced"]
+                + rb["bounce_bwd_regen_pre_reduced"])
 
 
 def _media_phases(smi, phase_done, dev) -> dict:
@@ -1656,13 +1892,13 @@ def _media_phases(smi, phase_done, dev) -> dict:
          "source": "raytrace_tpu_torch/csrc/volume_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:594",
          "launches": l11, "max_abs_err": err11, "ms": ms11,
-         "plain_ms": plain11, "bound_ms": bound11[0],
+         "host_ms": back11, "plain_ms": plain11, "bound_ms": bound11[0],
          "bound_by": bound11[1], "library_ms": None},
         {"name": "pallas_volume_crossings_bcast", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/volume_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:514",
          "launches": l11b, "max_abs_err": err11b, "ms": ms11b,
-         "plain_ms": plain11b, "bound_ms": bound11b[0],
+         "host_ms": back11b, "plain_ms": plain11b, "bound_ms": bound11b[0],
          "bound_by": bound11b[1], "library_ms": None},
     ]
     summary = dict(route5=route5, route6=route6, route7=route7,
@@ -1685,11 +1921,13 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
     )
     from raytrace_tpu_torch.interop import grads_to_numpy
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
-        bounce_bwd_regen_pre_megakernel,
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
     )
     from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
-        bounce_bwd_megakernel, bounce_bwd_megakernel_plain,
+        bounce_bwd_megakernel, bounce_bwd_megakernel_reduced,
+        bounce_bwd_megakernel_reduced_plain,
     )
+    from raytrace_tpu_torch.ops.row_reduce import row_tables
     from raytrace_tpu_torch.ops.bounce_kernel import (
         bounce_megakernel, shade_megakernel,
     )
@@ -1704,10 +1942,12 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
         ALL_MATERIAL_TARGETS, BWD_RTOL, FWD_BWD_BAL4, FWD_BWD_ROT8,
         all_materials_scene, box_motion_scene, checked_launches, compare_k7,
         cornell_scene_and_settings, fwd_bwd_pixels, k7_inputs,
-        many_media_settings, many_media_world, plain_backward,
+        many_media_settings, many_media_world, mesh_all_kinds_scene,
+        per_lane_backward, plain_backward, reduced_args,
     )
-    counters = (bounce_megakernel, bounce_bwd_megakernel, iter_megakernel,
-                bounce_bwd_regen_pre_megakernel)
+    counters = (bounce_megakernel, bounce_bwd_megakernel_reduced,
+                iter_megakernel, bounce_bwd_regen_pre_reduced,
+                bounce_bwd_megakernel, bounce_bwd_regen_pre_megakernel)
 
     cornell, s_c = cornell_scene_and_settings(600, 200, 50, device=dev)
     n_pix = s_c.image_width * s_c.image_height
@@ -1722,6 +1962,7 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
                              image_width=600)
     box, s_box = box_motion_scene(device=dev)
     s_box = s_box.replace(image_width=600)
+    mesh, s_mesh = mesh_all_kinds_scene(10, False, 600, device=dev)
     err_k7 = 0.0
     k7_args = None
     for name, sc, s, pixels in (
@@ -1731,7 +1972,8 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
              s_a6.with_redirect_targets(ALL_MATERIAL_TARGETS), None),
             ("box/motion", box, s_box, None),
             ("box/motion 2 targets", box,
-             s_box.with_redirect_targets(ALL_MATERIAL_TARGETS), None)):
+             s_box.with_redirect_targets(ALL_MATERIAL_TARGETS), None),
+            ("mixed-kind mesh", mesh, s_mesh, None)):
         args, kw = k7_inputs(sc, s, n_bwd, 4, seed=31,
                              spp=FWD_BWD_ROT8["spp"], pixels=pixels)
         (err, excess), _ = compare_k7(args, kw)
@@ -1742,16 +1984,18 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
               "|plain| + output max + lane max)", flush=True)
         if not excess <= 0.0:
             raise AssertionError(f"K7 vs plain: {name}: out of tolerance")
-        err_k7 = max(err_k7, err)
+        tables = row_tables(sc, kw["n_row"])
+        err_k7 = max(err_k7, err, _check_reduced(
+            f"K7 reduced vs plain: {name}", args, kw, tables))
         if k7_args is None:
-            k7_args, k7_kw = args, kw
+            k7_args, k7_kw, k7_tables = args, kw, tables
     phase_done("K7 vs plain")
 
     # 30./31. routes 8 and 9 at full width, after one warm-up each
     pix = fwd_bwd_pixels(n_pix, n_bwd).to(dev)
     target = torch.zeros((n_bwd, 3), device=dev)
 
-    def route(cfg, remat=False):
+    def runner(cfg, remat=False):
         def run():
             cost = (lane_cost_estimate(cornell, s_fb, key, pix,
                                        spp_est=cfg["spp_est"])
@@ -1760,6 +2004,10 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
                 params, statics, s_fb, key, pix, target, spp=cfg["spp"],
                 n_iters=cfg["n_iters"], remat=remat,
                 rotate_k=cfg["rotate_k"], pixel_cost=cost)
+        return run
+
+    def route(cfg, remat=False):
+        run = runner(cfg, remat)
         run()                                   # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1769,7 +2017,7 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
         (loss, frac), grads = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        la, l7, lb, l5 = (c.launches for c in counters)
+        la, l7, lb, l5, l7_lane, l5_lane = (c.launches for c in counters)
         gnp = grads_to_numpy(grads)
         res = dict(seconds=wall, rays_per_s=n_bwd * cfg["spp"] / wall,
                    loss=float(loss), samples_completed=float(frac),
@@ -1777,9 +2025,12 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
                    peak_bytes=torch.cuda.max_memory_allocated(),
                    finite=all(bool(np.isfinite(v).all())
                               for v in gnp.values()))
-        if not res["finite"] or l7 == 0 or la == 0 or lb or l5:
+        if (not res["finite"] or l7 == 0 or la == 0 or lb or l5 or l7_lane
+                or l5_lane):
             raise AssertionError(f"unfused fwd+bwd {cfg}: bad gradients or "
-                                 f"launches A={la} K7={l7} B={lb} K5={l5}")
+                                 f"launches A={la} K7 reduced={l7} B={lb} "
+                                 f"K5={l5} per lane K7={l7_lane} "
+                                 f"K5={l5_lane}")
         return res
 
     def say(label, cfg, r, cost_iters=0):
@@ -1793,7 +2044,8 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
               f"{r['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
               f"{r['loss']:.6f}, samples_completed "
               f"{r['samples_completed']:.6f}, launches A={r['launches_a']} "
-              f"K7={r['launches_k7']} ({note}), peak memory "
+              f"K7 reduced={r['launches_k7']} ({note}; "
+              f"{_row_mode_name(cornell)}; K7 per lane 0), peak memory "
               f"{r['peak_bytes'] / 2**30:.3f} GiB [{smi}]", flush=True)
 
     r8 = route(FWD_BWD_ROT8)
@@ -1821,13 +2073,19 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
         raise AssertionError("route 8: remat changed the loss")
     phase_done("routes 9 and 8 remat")
 
+    # route 8 with the backward before the reduction moved into K7 and with
+    # the reduced K7, in turns
+    turns = _in_turns("route 8", runner(FWD_BWD_ROT8),
+                      FWD_BWD_ROT8["n_iters"], smi)
+    phase_done("route 8 in turns")
+
     # 32. at 2^14 lanes: K7 against its plain version, the unfused route
     # against the fused one, a finite difference
     n9 = 1 << 14
     pix9 = (torch.arange(n9) * (n_pix // n9)).to(dev, torch.int32)
     tgt9 = torch.zeros((n9, 3), device=dev)
     kw9 = dict(spp=8, n_iters=40, remat=False, rotate_k=2)
-    k0 = bounce_bwd_megakernel.launches
+    k0 = bounce_bwd_megakernel_reduced.launches
     (l_k, f_k), g_k = loss_and_grads(params, statics, s_fb, key, pix9, tgt9,
                                      **kw9)
     with plain_backward():
@@ -1838,11 +2096,13 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
                 / max(float(np.abs(g_p[k]).max()), 1e-30) for k in g_p)
     print(f"[unfused fwd+bwd K7 vs plain] {n9} lanes, 8 spp, 40 iterations, "
           f"rotate_k 2: loss {float(l_k):.6f} vs {float(l_p):.6f}, samples "
-          f"{float(f_k):.4f}, {bounce_bwd_megakernel.launches - k0} K7 "
-          f"launches, worst leaf max|diff|/max|plain| {worst:.3g} (bound "
-          f"{GRAD_RTOL})", flush=True)
+          f"{float(f_k):.4f}, "
+          f"{bounce_bwd_megakernel_reduced.launches - k0} K7 launches, worst "
+          f"leaf max|diff|/max|plain| {worst:.3g} (bound {GRAD_RTOL})",
+          flush=True)
     if float(l_k) != float(l_p) or float(f_k) != float(f_p) \
-            or not worst <= GRAD_RTOL or bounce_bwd_megakernel.launches == k0:
+            or not worst <= GRAD_RTOL \
+            or bounce_bwd_megakernel_reduced.launches - k0 != kw9["n_iters"]:
         raise AssertionError("unfused fwd+bwd: K7 and its plain version "
                              "disagree")
     # rotate_k 2 against the fused rotate_k 1 where every sample completes
@@ -1926,29 +2186,53 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
             k11_l += st_v["launches"]
     phase_done("17 media")
 
-    # 34. K7's time at 2^18 lanes (the Cornell state of phase 29)
-    ms_k7 = _time_ms(lambda: bounce_bwd_megakernel(*k7_args, **k7_kw), 50)
-    plain_k7 = _time_ms(lambda: bounce_bwd_megakernel_plain(*k7_args,
-                                                            **k7_kw), 3, 1)
-    n_in = len(k7_args[1]) + 1 + 10 + 8 + 1 + 12
-    n_out = k7_kw["n_row"] + 18
-    bound_k7 = _bound_ms(4 * n_bwd * (n_in + n_out), n_bwd * 1000)
-    print(f"[time] K7 {ms_k7:.4f} ms vs bounce_bwd_megakernel_plain "
-          f"{plain_k7:.3f} ms at {n_bwd} lanes, bound {bound_k7[0]:.4f} ms "
-          f"({bound_k7[1]}: {n_in} columns in, {n_out} out) [{smi}]",
-          flush=True)
+    # 34. K7's time at 2^18 lanes (the Cornell state of phase 29), as
+    # K5's in phase 12
+    k7_red = lambda: bounce_bwd_megakernel_reduced(
+        *reduced_args(k7_args, k7_tables), **k7_kw)
+    ms_k7 = _device_ms(k7_red, ("bounce_bwd_replay_kernel", "row_sum_kernel",
+                                "row_map_kernel"), 50)
+    ms_k7_main = _device_ms(k7_red, "bounce_bwd_replay_kernel", 50)
+    host_k7 = _time_ms(k7_red, 50)
+    k7_lane = lambda: bounce_bwd_megakernel(*k7_args, **k7_kw)
+    ms_k7_lane = _device_ms(k7_lane, "bounce_bwd_replay_kernel", 50)
+    host_k7_lane = _time_ms(k7_lane, 50)
+    with per_lane_backward():
+        from raytrace_tpu_torch.ops import bounce_bwd_kernel as k7_mod
+        old_k7 = k7_mod.bounce_bwd_megakernel_reduced
+        old_call = lambda: old_k7(*reduced_args(k7_args, k7_tables),
+                                  **k7_kw)
+        total_old = _device_total_ms(old_call, 10)
+        host_old = _time_ms(old_call, 10)
+    plain_k7 = _time_ms(lambda: bounce_bwd_megakernel_reduced_plain(
+        *reduced_args(k7_args, k7_tables), **k7_kw), 3, 1)
+    bound_k7 = _bwd_bound(n_bwd, 32, 11, k7_tables, k7_kw["n_row"])
+    print(f"[time] K7 reduced {ms_k7:.4f} ms on the device ({ms_k7_main:.4f}"
+          f" ms the kernel, the rest the finishing launches; {host_k7:.4f} ms"
+          f" a call back to back) vs its "
+          f"plain version {plain_k7:.3f} ms at {n_bwd} lanes, bound "
+          f"{bound_k7[0]:.4f} ms ({bound_k7[1]}: 32 columns in, 11 out, the "
+          f"table and the reduced tables); before: the per-lane mode "
+          f"{ms_k7_lane:.4f} ms on the device ({host_k7_lane:.4f} ms a call), "
+          f"with the torch gather and index_add_ around it {total_old:.4f} ms "
+          f"of device time a call ({host_old:.4f} ms a call back to back) "
+          f"[{smi}]", flush=True)
     phase_done("K7 time")
 
     summary = dict(route8=r8, route9=r9, route8_remat=r8m,
                    unfused_vs_fused_lanes_differing=n_diff)
-    kernel = {"name": "bounce_bwd_megakernel", "route": "cuda",
+    kernel = {"name": "bounce_bwd_megakernel_reduced", "route": "cuda",
               "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
               "replaces": "raytrace_tpu/ops/pallas/bounce_bwd_kernel.py:79",
               "launches": r8["launches_k7"] + r9["launches_k7"],
-              "max_abs_err": err_k7, "ms": ms_k7, "plain_ms": plain_k7,
-              "bound_ms": bound_k7[0], "bound_by": bound_k7[1],
-              "library_ms": None}
-    return dict(summary=summary, kernel=kernel,
+              "max_abs_err": err_k7, "ms": ms_k7, "host_ms": host_k7,
+              "plain_ms": plain_k7, "bound_ms": bound_k7[0],
+              "bound_by": bound_k7[1], "library_ms": None,
+              "kernel_ms": ms_k7_main, "per_lane_ms": ms_k7_lane,
+              "per_lane_host_ms": host_k7_lane,
+              "per_lane_with_torch_reduction_ms": total_old,
+              "per_lane_with_torch_reduction_host_ms": host_old}
+    return dict(summary=summary, kernel=kernel, turns=turns,
                 a_launches=r8["launches_a"] + r9["launches_a"],
                 k8_launches=k8_l, k11_launches=k11_l, k11b_launches=k11b_l,
                 shade_launches=shade_l)

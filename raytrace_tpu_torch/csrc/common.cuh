@@ -44,6 +44,14 @@ __device__ __forceinline__ float sgn(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
 
+#ifdef __CUDACC__
+// The block's dynamic shared memory (the host build's shim has its own).
+__device__ __forceinline__ float* dyn_smem() {
+  extern __shared__ float rt_dyn_smem[];
+  return rt_dyn_smem;
+}
+#endif
+
 // Copy n floats from global to shared memory with the whole block.
 __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];

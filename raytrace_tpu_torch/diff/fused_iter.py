@@ -6,10 +6,10 @@ One kernel B launch per iteration; the caller only adds dead lanes'
 radiance into the image.  :func:`fused_iter_step` is the differentiable
 iteration, a ``torch.autograd.Function``: kernel B forward (its mesh
 variant, over the table's BVH, for kind-segmented tables of 512 < rows
-<= 8192), and a backward that gathers each lane's winner, material and
-texture rows, runs kernel K5 (``ops/bounce_bwd_gather_kernel.py``) and
-reduces the per-lane row gradients onto the scene's tables with
-``index_add_``.
+<= 8192), and a backward through kernel K5
+(``ops/bounce_bwd_gather_kernel.py:bounce_bwd_regen_pre_reduced``), which
+reads each lane's winner, material and texture columns by index and
+reduces the row gradients onto the scene's tables itself.
 The regeneration stage is detached (sampling) or linear (selects), so
 the backward rebuilds it from the saved (pixel, sample, depth).
 
@@ -29,18 +29,19 @@ import numpy as np
 import torch
 
 from ..ops.allpairs_kernel import pack_bvh
-from ..ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_megakernel
+from ..ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_reduced
 from ..ops.iter_kernel import (
     BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
     resolve_use_ap,
 )
+from ..ops.row_reduce import RowTables, row_tables
 from ..core.vecmath import DTYPE
 from ..render.camera import ConstBackground, camera_frame, gray_fade, sky
 from ..textures.textures import (
     BASE_KINDS, TEX_CHECKER, TEX_IMAGE, _image_gather, eval_texture, is_rich,
 )
 from .gradients import leaves, map_scene
-from .lane_replay import prim_columns, reduce_row_grads
+from .lane_replay import scene_row_grads
 
 N_CARRY = 16        # smp, dep, alive, comps (7), rad (3), thr (3)
 MEDIA_GRADIENTS = (
@@ -117,15 +118,13 @@ def fused_iter_fwd_step(scene, s, base_key, spp: int, sample_offset: int):
 @dataclasses.dataclass(frozen=True)
 class _StepStatics:
     """What the backward of one fused iteration needs besides the saved
-    lane tensors: the kernel tables, the per-prim gather table and the
-    routing of prims to material and texture rows."""
+    lane tensors: the kernel tables, the per-prim column table K5 reads
+    and the routing of prims to material and texture rows."""
     tables: tuple           # (ptbl, mtbl, ttbl, cam, kt) of kernel B
     kw: dict                # kernel B's keyword parameters
     scene: object           # the detached scene (gradient shapes)
     names: tuple            # names of the float leaves, in input order
-    prim_cols: torch.Tensor  # [N, n_row + 18] gathered columns per prim
-    prim_mat: torch.Tensor   # [N] i64 material row of each prim
-    prim_tex: torch.Tensor   # [N] i64 texture row of each prim
+    rows: RowTables         # K5's per-prim columns, material, texture
     n_row: int
 
 
@@ -160,20 +159,15 @@ class _FusedIter(torch.autograd.Function):
             rest[11]
         cts = tuple(torch.zeros_like(al) if g is None else g.contiguous()
                     for g in gouts[3:16])
-        n_row = st.n_row
-        pi = torch.clamp(idx, min=0.0).long()
-        gath = st.prim_cols[pi].T.contiguous().unbind(0)
-        ptbl, mtbl, ttbl, cam, kt = st.tables
-        g = bounce_bwd_regen_pre_megakernel(
-            ttbl, kt, cam, gath, idx, (pix, smp, dep), al, comps_in, thr_in,
-            scale, cts, n_targets=st.kw["n_targets"],
+        _, _, ttbl, cam, kt = st.tables
+        g, rg = bounce_bwd_regen_pre_reduced(
+            ttbl, kt, cam, st.rows, idx, (pix, smp, dep), al, comps_in,
+            thr_in, scale, cts, n_targets=st.kw["n_targets"],
             has_motion=st.kw["has_motion"], has_box=st.scene.prims.has_box,
-            t_min=st.kw["t_min"], n_row=n_row, n_u=st.kw["n_u"],
+            t_min=st.kw["t_min"], n_row=st.n_row, n_u=st.kw["n_u"],
             width=st.kw["width"], bg_kind=st.kw["bg_kind"])
-        # per-lane row gradients onto the tables (atomic on the card)
-        gl = leaves(reduce_row_grads(st.scene, g, pi, st.prim_mat,
-                                     st.prim_tex, n_row))
-        return ((None, None, None, None, None) + tuple(g[n_row + 7:])
+        gl = leaves(scene_row_grads(st.scene, rg, st.n_row))
+        return ((None, None, None, None, None) + tuple(g)
                 + tuple(gl[k] for k in st.names))
 
 
@@ -280,11 +274,10 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
         tables, kw = iter_kernel_args(det, s, base_key,
                                       sample_offset + spp - 1)
         n_row = 15 if det.prims.has_motion else 9
-        cols, mat, tex = prim_columns(det, n_row)
+        rows = row_tables(det, n_row)
         rs = rich_statics(det) if kw["with_uv"] else None
-    st = _StepStatics(tables=tables, kw=kw, scene=det,
-                      names=tuple(named), prim_cols=cols, prim_mat=mat,
-                      prim_tex=tex, n_row=n_row)
+    st = _StepStatics(tables=tables, kw=kw, scene=det, names=tuple(named),
+                      rows=rows, n_row=n_row)
     params = tuple(named.values())
 
     def step(pix, carry):

@@ -4,7 +4,8 @@
 :func:`mega_bounce_diff_soa` is a ``torch.autograd.Function`` over one
 bounce of every lane: kernel A forward (``render/integrator.py:
 bounce_mega_soa`` with the winner index), and a backward that replays the
-bounce from its saved inputs and the winner index through kernel K7
+bounce from its saved inputs and the winner index through kernel K7, which
+reduces the row gradients onto the scene's tables itself
 (``diff/lane_replay.py:replay_bwd_soa``), differentiable with respect to
 every float leaf of the scene.  Sampled directions and the MIS mixture pdf
 stay detached, as in the forward kernels' plain versions.  It returns the
@@ -18,21 +19,22 @@ import dataclasses
 import torch
 
 from ..ops.bounce_kernel import N_U
+from ..ops.row_reduce import RowTables, row_tables
 from ..render.integrator import BounceTables, bounce_mega_soa, bounce_tables
 from .gradients import leaves, map_scene
-from .lane_replay import prim_columns, replay_bwd_soa
+from .lane_replay import replay_bwd_soa
 
 
 @dataclasses.dataclass(frozen=True)
 class MegaStatics:
     """What one unfused bounce needs besides its lane tensors: kernel A's
     tables, the detached scene, the names of the float leaves that take
-    gradients (in input order) and the per-prim gathered columns of K7
-    (:func:`lane_replay.prim_columns`)."""
+    gradients (in input order) and the per-prim columns K7 reads
+    (``ops/row_reduce.row_tables``)."""
     tables: BounceTables
     scene: object
     names: tuple
-    cols: tuple
+    rows: RowTables
     n_row: int
 
 
@@ -45,7 +47,7 @@ def mega_statics(scene, s) -> MegaStatics:
         det = map_scene(lambda x: x.detach(), scene)
         n_row = 15 if det.prims.has_motion else 9
         return MegaStatics(tables=bounce_tables(det, s), scene=det,
-                           names=names, cols=prim_columns(det, n_row),
+                           names=names, rows=row_tables(det, n_row),
                            n_row=n_row)
 
 
@@ -60,8 +62,9 @@ class _MegaBounce(torch.autograd.Function):
             st.scene, s, comps, uniforms, torch.zeros_like(thr), thr, alive,
             with_idx=True, tables=st.tables)
         # residuals: the bounce's inputs (not parked), its 8 uniform
-        # columns, alive and the winner index
-        ctx.save_for_backward(comps, uniforms[:N_U], thr, alive, idx)
+        # columns (a copy: a view would keep all of them alive), alive and
+        # the winner index
+        ctx.save_for_backward(comps, uniforms[:N_U].clone(), thr, alive, idx)
         ctx.st = st
         ctx.s = s
         ctx.mark_non_differentiable(alive2, died)
@@ -79,7 +82,7 @@ class _MegaBounce(torch.autograd.Function):
             z3 if g_thr2 is None else g_thr2]).contiguous()
         g_scene, g_comps, g_thr = replay_bwd_soa(
             st.scene, ctx.s, comps, u_cols, thr, alive, idx, ct12,
-            has_motion=st.n_row == 15, t_min=st.tables.t_min, cols=st.cols,
+            has_motion=st.n_row == 15, t_min=st.tables.t_min, rows=st.rows,
             ttbl=st.tables.ttbl)
         if g_comps2 is not None:
             g_comps[6] += g_comps2[6]       # the time passes through

@@ -2,16 +2,26 @@
 (``raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py``:
 ``bounce_bwd_regen_pre_megakernel``).
 
-The winner, material and texture rows arrive gathered per lane; the
-detached regeneration stage (counter hash, thin-lens camera) is rebuilt
-from the saved (pixel, sample, depth), and the bounce is replayed and
-transposed: :func:`lane_replay.lane_math` with the regeneration selects,
-the far parking of dead lanes and the background term around it.
+The detached regeneration stage (counter hash, thin-lens camera) is
+rebuilt from the saved (pixel, sample, depth), and the bounce is replayed
+and transposed: :func:`lane_replay.lane_math` with the regeneration
+selects, the far parking of dead lanes and the background term around it.
 
-:func:`bounce_bwd_regen_pre_megakernel` launches
-``csrc/bounce_bwd_kernel.cu`` for CUDA tensors (a hand-derived adjoint,
-``csrc/lane_adjoint.cuh``) and runs :func:`bounce_bwd_regen_pre_plain`,
-the same function under torch autograd, for CPU tensors.
+Two modes over one CUDA kernel (``rt_bounce_bwd`` of
+``csrc/bounce_bwd_kernel.cu``, a hand-derived adjoint,
+``csrc/lane_adjoint.cuh``):
+
+* :func:`bounce_bwd_regen_pre_reduced`, the fwd+bwd's: each lane reads
+  its winner's row of the per-prim table by index and the row gradients
+  are summed onto the scene's tables inside the launch
+  (``csrc/row_reduce.cuh``); per lane only the 13 gradients autograd
+  needs come back.  Plain version :func:`bounce_bwd_regen_pre_reduced_plain`.
+* :func:`bounce_bwd_regen_pre_megakernel`, the per-lane mode that checks
+  the adjoint lane by lane: the rows arrive gathered per lane and every
+  lane's row gradients come back.  Plain version
+  :func:`bounce_bwd_regen_pre_plain`, under torch autograd.
+
+CUDA tensors launch the kernel, CPU tensors run the plain version.
 """
 from __future__ import annotations
 
@@ -24,12 +34,14 @@ from ..diff.lane_replay import lane_math, tgt_from_table
 from ..render.camera import rays_from_table
 from .bounce_kernel import N_U, N_TCOLS, check_lanes
 from .iter_kernel import BG_GRAY, BG_SKY, N_CAM, N_KT
+from .row_reduce import (
+    GATH_EXTRA as N_GATH_EXTRA, RowTables, _RowArgs,
+    per_lane_args, reduce_rows_plain, row_buffers, winner_rows,
+)
 
-N_GATH_EXTRA = 18   # c0 (3), c1 (3), param, kind_p, kind_m, texkind, f0, f1,
-                    # uvs (6) after the n_row winner-row columns
 N_CTS = 13          # o2 (3), d2 (3), time, rad2 (3), thr2 (3)
+N_LANE_OUT = 13     # comps (7), rad (3), thr (3)
 N_OUT_EXTRA = 20    # c0 (3), c1 (3), param, comps (7), rad (3), thr (3)
-MAX_ROW = 15        # p0 e1 e2 mv0 mv1
 # dead lanes' origin in the replay: far outside the scene, but small
 # enough that the record math stays finite (the forward parks at 3e18)
 FAR = 3e9
@@ -106,18 +118,60 @@ def bounce_bwd_regen_pre_plain(ttbl, kt, cam, gath, bi, ints, al, comps_in,
 class _BwdArgs(ctypes.Structure):
     """Mirror of ``BwdArgs`` in csrc/bounce_bwd_kernel.cu."""
     _fields_ = ([("ttbl", ctypes.c_void_p), ("cam", ctypes.c_void_p),
-                 ("kt", ctypes.c_void_p),
-                 ("gath", ctypes.c_void_p * (MAX_ROW + N_GATH_EXTRA)),
-                 ("bi", ctypes.c_void_p), ("pix", ctypes.c_void_p),
-                 ("smp", ctypes.c_void_p), ("dep", ctypes.c_void_p),
-                 ("al", ctypes.c_void_p), ("comps", ctypes.c_void_p * 7),
-                 ("thr", ctypes.c_void_p * 3), ("scale", ctypes.c_void_p),
+                 ("kt", ctypes.c_void_p), ("bi", ctypes.c_void_p),
+                 ("pix", ctypes.c_void_p), ("smp", ctypes.c_void_p),
+                 ("dep", ctypes.c_void_p), ("al", ctypes.c_void_p),
+                 ("comps", ctypes.c_void_p * 7), ("thr", ctypes.c_void_p * 3),
+                 ("scale", ctypes.c_void_p),
                  ("cts", ctypes.c_void_p * N_CTS), ("out", ctypes.c_void_p),
-                 ("n_lanes", ctypes.c_int64)]
+                 ("rows", _RowArgs), ("n_lanes", ctypes.c_int64)]
                 + [(f, ctypes.c_int) for f in (
                     "n_targets", "has_motion", "has_box", "n_row", "width",
                     "bg_kind")]
                 + [("t_min", ctypes.c_float)])
+
+
+def bwd_args(ttbl, kt, cam, rows: _RowArgs, bi, ints, al, comps_in, thr_in,
+             scale, cts, out, *, n_targets: int, has_motion: bool,
+             has_box: bool, t_min: float, n_row: int, n_u: int, width: int,
+             bg_kind: int) -> _BwdArgs:
+    """The kernel's argument struct for tensors that outlive it."""
+    ptrs = lambda xs, n: (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs))
+    return _BwdArgs(
+        ttbl.data_ptr(), cam.data_ptr(), kt.data_ptr(), bi.data_ptr(),
+        *(x.data_ptr() for x in ints), al.data_ptr(), ptrs(comps_in, 7),
+        ptrs(thr_in, 3), scale.data_ptr(), ptrs(cts, N_CTS), out.data_ptr(),
+        rows, al.shape[0], n_targets, int(has_motion), int(has_box), n_row,
+        width, bg_kind, float(t_min))
+
+
+def _check(name, kt, cam, ttbl, bi, ints, al, comps_in, thr_in, scale, cts,
+           *, n_targets: int, has_motion: bool, n_row: int, n_u: int, **_):
+    """The checks of a CUDA launch of either mode."""
+    dev = al.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if n_u != N_U:
+        raise ValueError(f"n_u={n_u}: the kernel draws {N_U} bounce "
+                         "uniforms (volume columns: ROADMAP M10)")
+    if n_row != (15 if has_motion else 9):
+        raise ValueError(f"n_row={n_row} with has_motion={has_motion}")
+    if (len(ints) != 3 or len(comps_in) != 7 or len(thr_in) != 3
+            or len(cts) != N_CTS):
+        raise ValueError(f"{name}: wrong column counts")
+    r = al.shape[0]
+    check_lanes(zip(("pix", "smp", "dep"), ints), r, dev, torch.int32)
+    check_lanes([("bi", bi), ("al", al), ("scale", scale)]
+                + [(f"comps_in[{k}]", x) for k, x in enumerate(comps_in)]
+                + [(f"thr_in[{k}]", x) for k, x in enumerate(thr_in)]
+                + [(f"cts[{k}]", x) for k, x in enumerate(cts)], r, dev)
+    check_lanes([("cam", cam)], N_CAM, dev)
+    check_lanes([("kt", kt)], N_KT, dev, torch.int32)
+    if (ttbl.device != dev or ttbl.dtype != torch.float32 or ttbl.dim() != 2
+            or ttbl.shape[1] != N_TCOLS or not ttbl.is_contiguous()
+            or not 0 <= n_targets <= ttbl.shape[0]):
+        raise ValueError("ttbl: need a contiguous f32 [>=n_targets, 16] "
+                         f"tensor on {dev}")
 
 
 def bounce_bwd_regen_pre_megakernel(ttbl, kt, cam, gath, bi, ints, al,
@@ -125,7 +179,7 @@ def bounce_bwd_regen_pre_megakernel(ttbl, kt, cam, gath, bi, ints, al,
                                     n_targets: int, has_motion: bool,
                                     has_box: bool, t_min: float, n_row: int,
                                     n_u: int, width: int, bg_kind: int):
-    """Backward of one fused iteration for every lane.
+    """Backward of one fused iteration for every lane, per lane.
 
     ``gath``: the ``n_row + 18`` gathered columns (winner rows p0 e1 e2
     [mv0 mv1], c0, c1, param, kind_p, kind_m, texkind, f0, f1, uvs (6));
@@ -140,8 +194,8 @@ def bounce_bwd_regen_pre_megakernel(ttbl, kt, cam, gath, bi, ints, al,
     (3), c1 (3), param, comps_in (7), rad_in (3), thr_in (3).
 
     CPU tensors run :func:`bounce_bwd_regen_pre_plain`; CUDA tensors
-    launch the kernel (``bounce_bwd_regen_pre_megakernel.launches``
-    counts the launches)."""
+    launch the kernel's per-lane mode
+    (``bounce_bwd_regen_pre_megakernel.launches`` counts the launches)."""
     kw = dict(n_targets=n_targets, has_motion=has_motion, has_box=has_box,
               t_min=t_min, n_row=n_row, n_u=n_u, width=width,
               bg_kind=bg_kind)
@@ -149,49 +203,77 @@ def bounce_bwd_regen_pre_megakernel(ttbl, kt, cam, gath, bi, ints, al,
     if dev.type == "cpu":
         return bounce_bwd_regen_pre_plain(ttbl, kt, cam, gath, bi, ints, al,
                                           comps_in, thr_in, scale, cts, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"bounce_bwd_regen_pre_megakernel: unsupported "
-                         f"device {dev}")
-    if n_u != N_U:
-        raise ValueError(f"n_u={n_u}: the kernel draws {N_U} bounce "
-                         "uniforms (volume columns: ROADMAP M10)")
-    if n_row != (15 if has_motion else 9):
-        raise ValueError(f"n_row={n_row} with has_motion={has_motion}")
-    if (len(gath) != n_row + N_GATH_EXTRA or len(ints) != 3
-            or len(comps_in) != 7 or len(thr_in) != 3 or len(cts) != N_CTS):
+    _check("bounce_bwd_regen_pre_megakernel", kt, cam, ttbl, bi, ints, al,
+           comps_in, thr_in, scale, cts, **kw)
+    if len(gath) != n_row + N_GATH_EXTRA:
         raise ValueError("bounce_bwd_regen_pre_megakernel: wrong column "
                          "counts")
-    r = al.shape[0]
-    check_lanes(zip(("pix", "smp", "dep"), ints), r, dev, torch.int32)
-    check_lanes([(f"gath[{k}]", x) for k, x in enumerate(gath)]
-                + [("bi", bi), ("al", al), ("scale", scale)]
-                + [(f"comps_in[{k}]", x) for k, x in enumerate(comps_in)]
-                + [(f"thr_in[{k}]", x) for k, x in enumerate(thr_in)]
-                + [(f"cts[{k}]", x) for k, x in enumerate(cts)], r, dev)
-    check_lanes([("cam", cam)], N_CAM, dev)
-    check_lanes([("kt", kt)], N_KT, dev, torch.int32)
-    if (ttbl.device != dev or ttbl.dtype != torch.float32 or ttbl.dim() != 2
-            or ttbl.shape[1] != N_TCOLS or not ttbl.is_contiguous()
-            or not 0 <= n_targets <= ttbl.shape[0]):
-        raise ValueError("ttbl: need a contiguous f32 [>=n_targets, 16] "
-                         f"tensor on {dev}")
     from ._build import launch
+    r = al.shape[0]
+    rows, cols = per_lane_args(gath, r, dev)
     out = torch.empty((n_row + N_OUT_EXTRA, r), dtype=torch.float32,
                       device=dev)
-    g = [x.data_ptr() for x in gath] + [0] * (MAX_ROW - n_row)
-    args = _BwdArgs(
-        ttbl.data_ptr(), cam.data_ptr(), kt.data_ptr(),
-        (ctypes.c_void_p * (MAX_ROW + N_GATH_EXTRA))(*g), bi.data_ptr(),
-        *(x.data_ptr() for x in ints), al.data_ptr(),
-        (ctypes.c_void_p * 7)(*(x.data_ptr() for x in comps_in)),
-        (ctypes.c_void_p * 3)(*(x.data_ptr() for x in thr_in)),
-        scale.data_ptr(),
-        (ctypes.c_void_p * N_CTS)(*(x.data_ptr() for x in cts)),
-        out.data_ptr(), r, n_targets, int(has_motion), int(has_box), n_row,
-        width, bg_kind, float(t_min))
-    launch("rt_bounce_bwd", args, dev)
+    launch("rt_bounce_bwd", bwd_args(ttbl, kt, cam, rows, bi, ints, al,
+                                     comps_in, thr_in, scale, cts, out,
+                                     **kw), dev)
     bounce_bwd_regen_pre_megakernel.launches += 1
     return tuple(out.unbind(0))
 
 
 bounce_bwd_regen_pre_megakernel.launches = 0
+
+
+def bounce_bwd_regen_pre_reduced_plain(ttbl, kt, cam, tables: RowTables, bi,
+                                       ints, al, comps_in, thr_in, scale,
+                                       cts, **kw):
+    """The reduced K5's plain version: the winner rows gathered per lane,
+    :func:`bounce_bwd_regen_pre_plain`, then the plain reduction
+    (``row_reduce.reduce_rows_plain``)."""
+    g = bounce_bwd_regen_pre_plain(ttbl, kt, cam, winner_rows(tables, bi),
+                                   bi, ints, al, comps_in, thr_in, scale,
+                                   cts, **kw)
+    n = kw["n_row"] + 7
+    return g[n:], reduce_rows_plain(tables, g[:n], bi, kw["n_row"])
+
+
+def bounce_bwd_regen_pre_reduced(ttbl, kt, cam, tables: RowTables, bi, ints,
+                                 al, comps_in, thr_in, scale, cts, *,
+                                 n_targets: int, has_motion: bool,
+                                 has_box: bool, t_min: float, n_row: int,
+                                 n_u: int, width: int, bg_kind: int):
+    """Backward of one fused iteration, its row gradients reduced onto
+    the scene's tables.
+
+    The arguments are :func:`bounce_bwd_regen_pre_megakernel`'s, with
+    ``tables`` (``row_reduce.RowTables``: the per-prim column table and
+    each prim's material and texture row) in place of the gathered
+    columns.  Returns ``(lane, rows)``: the 13 [R] lane gradients
+    comps_in (7), rad_in (3), thr_in (3), and the ``row_reduce.RowGrads``
+    of the winner rows, the material params and the texture colours.
+
+    CPU tensors run :func:`bounce_bwd_regen_pre_reduced_plain`; CUDA
+    tensors launch the kernel, which reads the rows by index and sums
+    their gradients in the launch
+    (``bounce_bwd_regen_pre_reduced.launches`` counts the launches)."""
+    kw = dict(n_targets=n_targets, has_motion=has_motion, has_box=has_box,
+              t_min=t_min, n_row=n_row, n_u=n_u, width=width,
+              bg_kind=bg_kind)
+    dev = al.device
+    if dev.type == "cpu":
+        return bounce_bwd_regen_pre_reduced_plain(
+            ttbl, kt, cam, tables, bi, ints, al, comps_in, thr_in, scale, cts,
+            **kw)
+    _check("bounce_bwd_regen_pre_reduced", kt, cam, ttbl, bi, ints, al,
+           comps_in, thr_in, scale, cts, **kw)
+    from ._build import launch
+    rows, grads = row_buffers(tables, n_row, dev)
+    out = torch.empty((N_LANE_OUT, al.shape[0]), dtype=torch.float32,
+                      device=dev)
+    launch("rt_bounce_bwd", bwd_args(ttbl, kt, cam, rows, bi, ints, al,
+                                     comps_in, thr_in, scale, cts, out,
+                                     **kw), dev)
+    bounce_bwd_regen_pre_reduced.launches += 1
+    return tuple(out.unbind(0)), grads
+
+
+bounce_bwd_regen_pre_reduced.launches = 0

@@ -26,12 +26,13 @@ at rotate_k 8 (``fwdbwd_rot8``: ``testing.FWD_BWD_ROT8``,
 ``tools/prof_diff_rot.py``'s configuration) and at rotate_k 4 balanced by
 ``lane_cost_estimate``, which each run includes (``fwdbwd_bal4``:
 ``testing.FWD_BWD_BAL4``, ``tools/prof_completion.py``'s), both through
-kernel A forward and K7 backward, it
+kernel A forward and K7 backward, and at rotate_k 8 with each iteration
+checkpointed (``fwdbwd_rot8_remat``), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
    estimator also warms the process up) with the forward kernels' launch
-   counts, which are the iteration counts;
+   counts, which are the iteration counts, and the peak device memory;
 2. runs it once more under ``torch.profiler`` and prints the number of
    device operations per iteration, their summed device time, the
    device's busy share of the best unprofiled wall, the host's kernel
@@ -120,7 +121,7 @@ def main() -> None:
                        allpairs_nearest_record, pallas_nearest_record,
                        iter_mega_ap)
 
-    def fwd_bwd(sc, settings, cfg):
+    def fwd_bwd(sc, settings, cfg, remat=False):
         params, statics = partition(sc)
         pix = fwd_bwd_pixels(settings.image_width * settings.image_height,
                              cfg["lanes"]).to(dev)
@@ -135,7 +136,7 @@ def main() -> None:
                     if "spp_est" in cfg else None)
             return loss_and_grads(
                 params, statics, s_cfg, key, pix, target, spp=cfg["spp"],
-                n_iters=cfg["n_iters"], remat=False,
+                n_iters=cfg["n_iters"], remat=remat,
                 schedule=cfg.get("schedule"),
                 rotate_k=cfg.get("rotate_k", 1), pixel_cost=cost)
         return run
@@ -143,6 +144,7 @@ def main() -> None:
     def run(fn):
         before = [k.launches for k in forward_kernels]
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -172,17 +174,20 @@ def main() -> None:
             ("fwdbwd_rot8", fwd_bwd(scene, s, FWD_BWD_ROT8),
              FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
             ("fwdbwd_bal4", fwd_bwd(scene, s, FWD_BWD_BAL4),
-             FWD_BWD_BAL4["lanes"] * FWD_BWD_BAL4["spp"])):
+             FWD_BWD_BAL4["lanes"] * FWD_BWD_BAL4["spp"]),
+            ("fwdbwd_rot8_remat", fwd_bwd(scene, s, FWD_BWD_ROT8, remat=True),
+             FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"])):
         if only and name not in only:
             continue
         walls = []
         for _ in range(REPS):
             wall, iters = run(fn)
             walls.append(wall)
+        peak = torch.cuda.max_memory_allocated()
         print(f"[walls] {name}: {', '.join(f'{w:.3f}' for w in walls)} s "
               f"(in run order), {iters} iterations, "
               f"{rays / min(walls) / 1e6:.3f} M primary rays/s at the "
-              f"best [{smi}]", flush=True)
+              f"best, peak memory {peak / 2**30:.3f} GiB [{smi}]", flush=True)
 
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -198,7 +203,8 @@ def main() -> None:
             for op, (c, us) in top:
                 f.write(f"{c:8d} {us / 1e3:10.3f} {us / 1e6 / dev_s:6.3f}  "
                         f"{op}\n")
-        est = dict(walls_s=walls, iterations=iters, profiled_wall_s=prof_wall,
+        est = dict(walls_s=walls, iterations=iters, peak_bytes=peak,
+                   profiled_wall_s=prof_wall,
                    device_ops=n_ops, device_ops_per_iter=n_ops / iters,
                    device_s=dev_s, busy_of_best_wall=dev_s / min(walls),
                    host_kernel_launches=host_launches,

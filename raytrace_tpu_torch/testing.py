@@ -44,19 +44,24 @@
   :func:`compare_shade`, :func:`compare_marble`,
   :func:`compare_image_grad`, :func:`compare_crossings` and
   :func:`checked_launches` hold each kernel against its plain version on
-  the same inputs; :func:`bwd_inputs`
-  makes K5's arguments from a real mid-render state,
-  :func:`plain_backward` forces the fused iteration's backward onto the
-  plain versions of K5 and of the atlas gradient, and
-  :func:`plain_kernels` forward and backward onto the plain versions.
+  the same inputs; :func:`bwd_inputs` and :func:`k7_inputs` make K5's
+  and K7's per-lane arguments from a real mid-render state,
+  :func:`reduced_args` the reduced modes' from them,
+  :func:`compare_reduced` holds a reduced mode against its plain version
+  and against the kernel's per-lane mode, :func:`plain_backward` forces
+  the fused iteration's backward onto the plain versions of K5 and of the
+  atlas gradient, :func:`plain_kernels` forward and backward onto the
+  plain versions, and :func:`per_lane_backward` the backward onto the
+  per-lane modes of K5 and K7 with torch's gather and ``index_add_``
+  around them (the backward before the reduction moved into the kernels).
 
 Tolerances: alive/miss/winner index (and sample/depth/died for kernel B,
 winner index, flags and material for the nearest kernel, the front flags
 of the crossing kernels) equal on every lane; floats within ``ATOL +
 RTOL * |plain|``
-(``tests/test_bounce_kernel.py``).  K5 against its plain version: every
-gradient within ``BWD_RTOL * (|plain| + max|plain| over its output +
-max|plain| over its lane)``.  The forward replay rounds alike
+(``tests/test_bounce_kernel.py``).  K5 and K7 against their plain
+versions: every per-lane gradient within ``BWD_RTOL * (|plain| +
+max|plain| over its output + max|plain| over its lane)``.  The forward replay rounds alike
 (``--fmad=false``, same association), but the hand-derived adjoint sums
 the chain-rule terms in another order than torch autograd, so a gradient
 that is a sum of terms of both signs keeps an error of a few ulps of its
@@ -65,7 +70,13 @@ of the lane bound those terms.  The atlas gradient against its plain
 version: each texel within ``n * 2^-23 * sum |g|`` over its ``n``
 contributions ``g`` (:func:`image_grad_errs`), the largest difference
 two summation orders of the same terms can have; float atomics add in
-an order that changes from run to run.
+an order that changes from run to run.  The reduced row gradients of K5
+and K7 (each entry a sum over the ``n`` lanes whose winner, material or
+texture it is) within the same ``n * 2^-23 * sum |g|`` of a float64 sum
+of the per-lane row gradients that went into them
+(:func:`row_grads_errs`); against the plain version, whose per-lane
+gradients differ by the tolerance above, within that plus the sum of the
+per-lane tolerances.
 """
 from __future__ import annotations
 
@@ -1144,8 +1155,8 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
     kw)`` for :func:`bounce_bwd_regen_pre_megakernel`."""
     from .core import rng
     from .diff.fused_iter import iter_kernel_args
-    from .diff.lane_replay import prim_columns
     from .ops.iter_kernel import iter_megakernel
+    from .ops.row_reduce import row_tables, winner_rows
     dev = scene.device
     tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev),
                                   spp - 1)
@@ -1158,9 +1169,8 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
         outs = iter_megakernel(*tables, lane_in, **kw)
         carry = (outs[14], outs[15], outs[13]) + tuple(outs[0:13])
     n_row = 15 if scene.prims.has_motion else 9
-    cols, _, _ = prim_columns(scene, n_row)
     idx = outs[17]
-    gath = cols[torch.clamp(idx, min=0.0).long()].T.contiguous().unbind(0)
+    gath = winner_rows(row_tables(scene, n_row), idx)
     gen = torch.Generator().manual_seed(seed)
     cts = torch.randn((13, lanes), generator=gen).to(dev).unbind(0)
     _, _, ttbl, cam, kt = tables
@@ -1184,7 +1194,7 @@ def k7_inputs(scene, s, lanes: int, steps: int, seed: int = 0, spp: int = 8,
     drawn from a ``torch.Generator`` seeded with ``seed``.  Returns
     ``(args, kw)`` for :func:`bounce_bwd_megakernel`."""
     from .core import rng
-    from .diff.lane_replay import prim_columns
+    from .ops.row_reduce import row_tables, winner_rows
     from .render.camera import camera_frame, camera_table, rays_from_table
     from .render.integrator import (
         _init_comps, _russian_roulette, bounce_mega_soa, bounce_tables,
@@ -1225,8 +1235,7 @@ def k7_inputs(scene, s, lanes: int, steps: int, seed: int = 0, spp: int = 8,
     idx = bounce_mega_soa(scene, s, comps, uni, zero3, thr, alive,
                           with_idx=True, tables=tb)[5]
     n_row = 15 if scene.prims.has_motion else 9
-    cols, _, _ = prim_columns(scene, n_row)
-    gath = cols[torch.clamp(idx, min=0).long()].T.contiguous().unbind(0)
+    gath = winner_rows(row_tables(scene, n_row), idx)
     gen = torch.Generator().manual_seed(seed)
     cts = torch.randn((12, lanes), generator=gen).to(dev).unbind(0)
     args = (tb.ttbl, gath, idx.to(torch.float32),
@@ -1248,19 +1257,126 @@ def compare_k7(args, kw):
     return bwd_errs(ref, out), out
 
 
+def bwd_bound(ref):
+    """The per-lane tolerance of K5's and K7's outputs against their
+    plain outputs ``ref`` (see the module docstring), float64."""
+    mag = torch.nan_to_num(torch.stack(ref).to(torch.float64).abs(),
+                           nan=0.0)
+    return BWD_RTOL * (mag + mag.amax(1, keepdim=True)
+                       + mag.amax(0, keepdim=True))
+
+
+def _abs_diff(a, b):
+    """|a - b| in float64, 0 where both are NaN, infinite where one is."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    diff = (a - b).abs()
+    return torch.where(a.isnan() & b.isnan(), 0.0,
+                       torch.nan_to_num(diff, nan=float("inf")))
+
+
 def bwd_errs(ref, out):
     """``(max abs error, worst excess over the K5 tolerance)`` between
     K5's plain and kernel outputs (see the module docstring); NaN in one
     of them is an infinite error."""
-    a = torch.stack(ref).to(torch.float64)
-    b = torch.stack(out).to(torch.float64)
-    diff = (a - b).abs()
-    diff = torch.where(a.isnan() & b.isnan(), 0.0,
-                       torch.nan_to_num(diff, nan=float("inf")))
-    mag = torch.nan_to_num(a.abs(), nan=0.0)
-    bound = BWD_RTOL * (mag + mag.amax(1, keepdim=True)
-                        + mag.amax(0, keepdim=True))
-    return float(diff.max()), float((diff - bound).max())
+    diff = _abs_diff(torch.stack(ref), torch.stack(out))
+    return float(diff.max()), float((diff - bwd_bound(ref)).max())
+
+
+def reduce_row_grads(tables, rows_g, bi, n_row: int):
+    """The per-lane row gradients ``rows_g`` (``n_row + 7`` [R] columns:
+    winner rows, c0, c1, param) of the lanes whose winner index is ``bi``
+    (f32, -1 on a miss: row 0), summed by ``index_add_`` over the lanes
+    straight onto the prim, material and texture tables, in their dtype:
+    the fwd+bwd's reduction before it moved into the backward kernels, and
+    the reference of theirs (``ops/row_reduce.RowGrads``)."""
+    from .ops.row_reduce import RowGrads
+    pi = torch.clamp(bi, min=0).long()
+    rows = torch.stack(tuple(rows_g), dim=1)
+    z = lambda *shape: torch.zeros(shape, dtype=rows.dtype,
+                                   device=rows.device)
+    mat, tex = tables.mat.long()[pi], tables.tex.long()[pi]
+    return RowGrads(
+        z(tables.n_prims, n_row).index_add_(0, pi, rows[:, :n_row]),
+        z(tables.n_mats).index_add_(0, mat, rows[:, n_row + 6]),
+        z(tables.n_tex, 3).index_add_(0, tex, rows[:, n_row:n_row + 3]),
+        z(tables.n_tex, 3).index_add_(0, tex, rows[:, n_row + 3:n_row + 6]))
+
+
+def row_grads_errs(tables, rows_g, bi, n_row: int, out, lane_bound=None):
+    """``(max abs error, worst excess)`` of reduced row gradients ``out``
+    (``RowGrads``) against the float64 sum of the per-lane row gradients
+    ``rows_g`` they were reduced from: each entry, a sum over ``n``
+    lanes, within ``n * 2^-23 * sum |g|`` of them (two summation orders
+    of the same terms), plus, with ``lane_bound`` (the ``n_row + 7`` rows
+    of :func:`bwd_bound` when ``rows_g`` are the plain version's and
+    ``out`` summed the kernel's), the sum of the lanes' tolerances."""
+    g = [x.to(torch.float64) for x in rows_g]
+    ref = reduce_row_grads(tables, g, bi, n_row)
+    mag = reduce_row_grads(tables, [torch.nan_to_num(x.abs(), nan=0.0)
+                                    for x in g], bi, n_row)
+    cnt = reduce_row_grads(tables, [torch.ones_like(g[0])] * len(g), bi,
+                           n_row)
+    extra = (reduce_row_grads(tables, tuple(lane_bound), bi, n_row)
+             if lane_bound is not None else [0.0] * 4)
+    err = excess = -float("inf")
+    inf = float("inf")
+    for o, r, m, c, e in zip(out, ref, mag, cnt, extra):
+        diff = _abs_diff(r, o)
+        bound = c * 2.0 ** -23 * m + e
+        # an entry with a zero bound (no lane, or only zero terms) must be
+        # exact; it sets no margin
+        x = torch.where(bound > 0, diff - bound,
+                        torch.where(diff > 0, inf, -inf))
+        if diff.numel():
+            err = max(err, float(diff.max()))
+            excess = max(excess, float(x.max()))
+    return err, excess
+
+
+def reduced_args(args, tables):
+    """A reduced mode's arguments from the per-lane mode's (K5's
+    :func:`bwd_inputs` or K7's :func:`k7_inputs`): ``tables`` (its
+    ``row_reduce.RowTables``) in place of the gathered columns."""
+    k = 3 if len(args) == 11 else 1
+    return args[:k] + (tables,) + args[k + 1:]
+
+
+def compare_reduced(args, kw, tables):
+    """A reduced mode (K5 for :func:`bwd_inputs`' ``args``, K7 for
+    :func:`k7_inputs`') on the card against its plain version and its
+    per-lane mode on the same arguments.  Returns a dict: ``lane_err``,
+    ``lane_excess`` (the lane outputs against the plain version's,
+    :func:`bwd_errs`), ``lane_differ`` (lane outputs that differ from the
+    per-lane mode's, which runs the same device code), ``rows_err``,
+    ``rows_excess`` (the reduced tables against the float64 sum of the
+    per-lane mode's row gradients: float association alone),
+    ``plain_err``, ``plain_excess`` (against the plain version's: plus
+    the per-lane tolerances), and ``out``, the kernel's outputs."""
+    from .ops import bounce_bwd_gather_kernel as k5
+    from .ops import bounce_bwd_kernel as k7
+    is_k5 = len(args) == 11
+    per_lane = (k5.bounce_bwd_regen_pre_megakernel if is_k5
+                else k7.bounce_bwd_megakernel)
+    per_lane_plain = (k5.bounce_bwd_regen_pre_plain if is_k5
+                      else k7.bounce_bwd_megakernel_plain)
+    reduced = (k5.bounce_bwd_regen_pre_reduced if is_k5
+               else k7.bounce_bwd_megakernel_reduced)
+    bi = args[4] if is_k5 else args[2]
+    n = kw["n_row"] + 7
+    ref = per_lane_plain(*args, **kw)
+    per = per_lane(*args, **kw)
+    lane, rows = reduced(*reduced_args(args, tables), **kw)
+    lane_err, lane_excess = bwd_errs(ref[n:], lane)
+    differ = sum(int((_abs_diff(a, b) > 0).sum())
+                 for a, b in zip(per[n:], lane))
+    rows_err, rows_excess = row_grads_errs(tables, per[:n], bi, kw["n_row"],
+                                           rows)
+    plain_err, plain_excess = row_grads_errs(
+        tables, ref[:n], bi, kw["n_row"], rows, bwd_bound(ref)[:n])
+    return dict(lane_err=lane_err, lane_excess=lane_excess,
+                lane_differ=differ, rows_err=rows_err,
+                rows_excess=rows_excess, plain_err=plain_err,
+                plain_excess=plain_excess, out=(lane, rows))
 
 
 def compare_bwd(args, kw):
@@ -1320,37 +1436,88 @@ def torch_threads(n: int):
 @contextlib.contextmanager
 def plain_backward():
     """Inside the block the fused iteration's backward runs the plain
-    versions of K5 (torch autograd over ``lane_math``) and of the atlas
-    gradient, and the unfused bounce's backward that of K7, on any
-    device."""
-    from .diff import fused_iter
+    versions of K5 (torch autograd over ``lane_math`` and the torch
+    reduction) and of the atlas gradient, and the unfused bounce's
+    backward that of K7, on any device."""
     from .ops import bounce_bwd_kernel
-    from .ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_plain
+    from .ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_reduced_plain,
+    )
     from .ops.image_grad_kernel import image_grad_plain
     from .textures import textures
-    kernel = fused_iter.bounce_bwd_regen_pre_megakernel
-    k13 = textures.image_grad_pallas
-    k7 = bounce_bwd_kernel.bounce_bwd_megakernel
-    fused_iter.bounce_bwd_regen_pre_megakernel = bounce_bwd_regen_pre_plain
-    textures.image_grad_pallas = image_grad_plain
-    bounce_bwd_kernel.bounce_bwd_megakernel = \
-        bounce_bwd_kernel.bounce_bwd_megakernel_plain
+    with _backward_as(bounce_bwd_regen_pre_reduced_plain,
+                      bounce_bwd_kernel.bounce_bwd_megakernel_reduced_plain):
+        k13 = textures.image_grad_pallas
+        textures.image_grad_pallas = image_grad_plain
+        try:
+            yield
+        finally:
+            textures.image_grad_pallas = k13
+
+
+@contextlib.contextmanager
+def _backward_as(k5, k7):
+    """Inside the block the fused iteration's backward calls ``k5`` in
+    place of the reduced K5 and the unfused bounce's ``k7`` in place of
+    the reduced K7."""
+    from .diff import fused_iter
+    from .ops import bounce_bwd_kernel
+    saved = (fused_iter.bounce_bwd_regen_pre_reduced,
+             bounce_bwd_kernel.bounce_bwd_megakernel_reduced)
+    fused_iter.bounce_bwd_regen_pre_reduced = k5
+    bounce_bwd_kernel.bounce_bwd_megakernel_reduced = k7
     try:
         yield
     finally:
-        fused_iter.bounce_bwd_regen_pre_megakernel = kernel
-        textures.image_grad_pallas = k13
-        bounce_bwd_kernel.bounce_bwd_megakernel = k7
+        (fused_iter.bounce_bwd_regen_pre_reduced,
+         bounce_bwd_kernel.bounce_bwd_megakernel_reduced) = saved
+
+
+@contextlib.contextmanager
+def per_lane_backward():
+    """Inside the block the fused iteration's and the unfused bounce's
+    backward launch K5's and K7's per-lane modes, with the winner rows
+    gathered per lane and the row gradients summed by
+    :func:`reduce_row_grads` (``index_add_`` over the lanes) in torch:
+    the backward as it was before the gather and the reduction moved into
+    the kernels, to time against theirs."""
+    from .ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_megakernel
+    from .ops.bounce_bwd_kernel import bounce_bwd_megakernel
+    from .ops.row_reduce import winner_rows
+
+    def k5(ttbl, kt, cam, tables, bi, *rest, **kw):
+        g = bounce_bwd_regen_pre_megakernel(
+            ttbl, kt, cam, winner_rows(tables, bi), bi, *rest, **kw)
+        n = kw["n_row"] + 7
+        return g[n:], reduce_row_grads(tables, g[:n], bi, kw["n_row"])
+
+    def k7(ttbl, tables, bi, *rest, **kw):
+        g = bounce_bwd_megakernel(ttbl, winner_rows(tables, bi), bi, *rest,
+                                  **kw)
+        n = kw["n_row"] + 7
+        return g[n:], reduce_row_grads(tables, g[:n], bi, kw["n_row"])
+
+    with _backward_as(k5, k7):
+        yield
 
 
 # Definitions that let the host C++ compiler build a kernel's body: the
-# CUDA qualifiers, the launch indices (one block of one thread per lane),
-# the bit casts, the read-only load and a single-threaded atomicAdd.
+# CUDA qualifiers, the launch indices, the bit casts, the read-only load,
+# dynamic shared memory, atomics and the warp primitives.  A runner may
+# call a kernel from one thread per lane (one block of one thread per
+# lane, blockDim and gridDim 1), or run a block's threads as host threads
+# with rt_host_launch, which gives __syncthreads and the warp primitives
+# their meaning: each waits for the block's or the warp's threads.
 HOST_SHIM = r"""
 #include <math.h>
 #include <algorithm>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __device__
 #define __forceinline__ inline
 #define __global__
@@ -1359,8 +1526,71 @@ HOST_SHIM = r"""
 using std::max;
 using std::min;
 struct Dim3 { unsigned x = 0; };
-static Dim3 threadIdx, blockIdx, blockDim;
-static inline void __syncthreads() {}
+static thread_local Dim3 threadIdx, blockIdx;
+static Dim3 blockDim, gridDim;
+// n threads meet: the last to arrive releases the others (n < 2: no-op)
+struct HostBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, waiting = 0;
+  long gen = 0;
+  void wait() {
+    if (n < 2) return;
+    std::unique_lock<std::mutex> lk(m);
+    const long g = gen;
+    if (++waiting == n) {
+      waiting = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return gen != g; });
+    }
+  }
+};
+struct HostWarp {
+  HostBarrier bar;
+  unsigned u[32];
+  float f[32];
+};
+static HostBarrier rt_host_block;
+static HostWarp rt_host_warps[32];
+static std::mutex rt_host_atomic;
+static inline void __syncthreads() { rt_host_block.wait(); }
+static inline HostWarp& rt_host_warp() {
+  return rt_host_warps[threadIdx.x >> 5];
+}
+static inline void __syncwarp(unsigned = 0xffffffffu) {
+  rt_host_warp().bar.wait();
+}
+static inline unsigned __match_any_sync(unsigned, int key) {
+  HostWarp& w = rt_host_warp();
+  w.u[threadIdx.x & 31] = static_cast<unsigned>(key);
+  w.bar.wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i)
+    if (w.u[i] == static_cast<unsigned>(key)) m |= 1u << i;
+  w.bar.wait();
+  return m;
+}
+static inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  HostWarp& w = rt_host_warp();
+  w.u[threadIdx.x & 31] = v;
+  w.bar.wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i) m = std::max(m, w.u[i]);
+  w.bar.wait();
+  return m;
+}
+static inline float __shfl_sync(unsigned, float v, int src) {
+  HostWarp& w = rt_host_warp();
+  w.f[threadIdx.x & 31] = v;
+  w.bar.wait();
+  const float r = w.f[src];
+  w.bar.wait();
+  return r;
+}
+static inline int __popc(unsigned x) { return __builtin_popcount(x); }
+static inline int __ffs(int x) { return __builtin_ffs(x); }
 static inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, 4);
@@ -1373,9 +1603,36 @@ static inline int __float_as_int(float f) {
 }
 template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline float atomicAdd(float* p, float v) {
+  std::lock_guard<std::mutex> lk(rt_host_atomic);
   const float old = *p;
   *p = old + v;
   return old;
+}
+namespace rt {
+static float* dyn_smem() {
+  static float buf[1 << 16];
+  return buf;
+}
+}  // namespace rt
+// blocks 0..n_blocks-1 in order, each as n_threads host threads (whole
+// warps) running fn
+static void rt_host_launch(int n_blocks, int n_threads,
+                           const std::function<void()>& fn) {
+  gridDim.x = n_blocks;
+  blockDim.x = n_threads;
+  rt_host_block.n = n_threads;
+  for (auto& w : rt_host_warps) w.bar.n = 32;
+  for (int b = 0; b < n_blocks; ++b) {
+    std::vector<std::thread> ts;
+    for (int t = 0; t < n_threads; ++t)
+      ts.emplace_back([=, &fn] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        fn();
+      });
+    for (auto& t : ts) t.join();
+  }
+  rt_host_block.n = 0;
 }
 """
 
@@ -1384,9 +1641,10 @@ def host_library(cu_name: str, runner: str, out_dir):
     """Build the body of ``csrc/<cu_name>`` (everything before its first
     ``extern "C"`` launcher) with the host C++ compiler, behind
     :data:`HOST_SHIM` and followed by ``runner`` (C++ that calls the
-    kernel once per lane), into a shared library in ``out_dir``; return
-    it loaded with ctypes, or None without a host compiler.  The build
-    uses ``-ffp-contract=off``, as the card's uses ``--fmad=false``."""
+    kernel once per lane, or runs its blocks with ``rt_host_launch``),
+    into a shared library in ``out_dir``; return it loaded with ctypes,
+    or None without a host compiler.  The build uses
+    ``-ffp-contract=off``, as the card's uses ``--fmad=false``."""
     import ctypes
     import shutil
     import subprocess
@@ -1402,7 +1660,8 @@ def host_library(cu_name: str, runner: str, out_dir):
     stem = Path(cu_name).stem
     (out / f"{stem}.cpp").write_text(HOST_SHIM + src + runner)
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-I", str(CSRC), "-o", str(out / f"{stem}.so"),
+                    "-pthread", "-shared", "-I", str(CSRC), "-o",
+                    str(out / f"{stem}.so"),
                     str(out / f"{stem}.cpp")], check=True,
                    capture_output=True)
     return ctypes.CDLL(str(out / f"{stem}.so"))

@@ -4,8 +4,8 @@ The kernel body of ``csrc/bounce_bwd_kernel.cu`` (the regeneration of
 ``regen.cuh`` and the hand-derived adjoint of ``lane_adjoint.cuh``) is
 plain C++ once ``__device__`` and the launch indices are defined for the
 host, so the host C++ compiler can build it (the launcher after
-``extern "C"`` is left out) and run it lane by lane, one block of one
-thread per lane.  On the CPU that checks the adjoint's arithmetic against
+``extern "C"`` is left out) and run its per-lane mode lane by lane, one
+block of one thread looping over the lanes.  On the CPU that checks the adjoint's arithmetic against
 torch autograd over ``lane_math`` (``bounce_bwd_regen_pre_plain``) before
 any card sees it; ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold
 the kernel itself against the same plain version on the card.
@@ -24,6 +24,7 @@ import torch
 
 import raytrace_tpu_torch as rt
 from raytrace_tpu_torch.ops import bounce_bwd_gather_kernel as k5
+from raytrace_tpu_torch.ops.row_reduce import per_lane_args
 from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, all_materials_scene, box_motion_scene, bwd_errs,
     bwd_inputs, cornell_scene_and_settings, host_library,
@@ -31,12 +32,9 @@ from raytrace_tpu_torch.testing import (
 
 _RUN = r"""
 extern "C" int run_bwd(const BwdArgs* a) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (long long l = 0; l < a->n_lanes; ++l) {
-    blockIdx.x = static_cast<unsigned>(l);
-    bounce_bwd_kernel(*a);
-  }
+  blockDim.x = gridDim.x = 1;
+  threadIdx.x = blockIdx.x = 0;
+  bounce_bwd_kernel(*a);
   return 0;
 }
 """
@@ -51,20 +49,10 @@ def host_k5(tmp_path_factory):
     lib.run_bwd.argtypes = [ctypes.c_void_p]
 
     def run(args, kw):
-        (ttbl, kt, cam, gath, bi, ints, al, comps_in, thr_in, scale,
-         cts) = args
-        n_row, r = kw["n_row"], al.shape[0]
-        out = torch.empty((n_row + k5.N_OUT_EXTRA, r))
-        ptrs = lambda xs, n: (ctypes.c_void_p * n)(
-            *([x.data_ptr() for x in xs] + [0] * (n - len(xs))))
-        a = k5._BwdArgs(
-            ttbl.data_ptr(), cam.data_ptr(), kt.data_ptr(),
-            ptrs(gath, k5.MAX_ROW + k5.N_GATH_EXTRA), bi.data_ptr(),
-            *(x.data_ptr() for x in ints), al.data_ptr(), ptrs(comps_in, 7),
-            ptrs(thr_in, 3), scale.data_ptr(), ptrs(cts, k5.N_CTS),
-            out.data_ptr(), r, kw["n_targets"], int(kw["has_motion"]),
-            int(kw["has_box"]), n_row, kw["width"], kw["bg_kind"],
-            float(kw["t_min"]))
+        gath, r = args[3], args[6].shape[0]
+        rows, cols = per_lane_args(gath, r, torch.device("cpu"))
+        out = torch.empty((kw["n_row"] + k5.N_OUT_EXTRA, r))
+        a = k5.bwd_args(*args[:3], rows, *args[4:], out, **kw)
         lib.run_bwd(ctypes.byref(a))
         return tuple(out.unbind(0))
     return run

@@ -4,8 +4,8 @@ The body of ``rt_bounce_bwd_replay`` in ``csrc/bounce_bwd_kernel.cu``
 (``lane_adjoint.cuh``'s hand-derived adjoint over the saved inputs of one
 unfused bounce) is plain C++ once ``__device__`` and the launch indices
 are defined for the host (``testing.host_library``), so the host C++
-compiler builds it and runs it lane by lane, one block of one thread per
-lane.  On the CPU that holds the kernel's arithmetic against torch
+compiler builds it and runs its per-lane mode lane by lane, one block of
+one thread looping over the lanes.  On the CPU that holds the kernel's arithmetic against torch
 autograd over ``lane_math`` (``bounce_bwd_megakernel_plain``) before any
 card sees it; ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the
 kernel itself against the same plain version on the card.
@@ -26,6 +26,7 @@ import torch
 
 import raytrace_tpu_torch as rt
 from raytrace_tpu_torch.ops import bounce_bwd_kernel as k7
+from raytrace_tpu_torch.ops.row_reduce import per_lane_args
 from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, all_materials_scene, box_motion_scene, bwd_errs,
     cornell_scene_and_settings, host_library, k7_inputs, torch_threads,
@@ -33,12 +34,9 @@ from raytrace_tpu_torch.testing import (
 
 _RUN = r"""
 extern "C" int run_replay(const ReplayArgs* a) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (long long l = 0; l < a->n_lanes; ++l) {
-    blockIdx.x = static_cast<unsigned>(l);
-    bounce_bwd_replay_kernel(*a);
-  }
+  blockDim.x = gridDim.x = 1;
+  threadIdx.x = blockIdx.x = 0;
+  bounce_bwd_replay_kernel(*a);
   return 0;
 }
 """
@@ -60,8 +58,10 @@ def host_k7(tmp_path_factory):
 
     def run(args, kw):
         r = args[5].shape[0]
+        rows, cols = per_lane_args(args[1], r, torch.device("cpu"))
         out = torch.empty((kw["n_row"] + k7.N_OUT_EXTRA, r))
-        lib.run_replay(ctypes.byref(k7.replay_args(*args, out, **kw)))
+        lib.run_replay(ctypes.byref(k7.replay_args(args[0], rows, *args[2:],
+                                                   out, **kw)))
         return tuple(out.unbind(0))
     return run
 

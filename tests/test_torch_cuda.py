@@ -8,10 +8,13 @@ Tolerances: alive/miss/winner index equal on every lane (the kernels are
 built without multiply-add contraction and round like the plain version),
 floats within atol 2e-3 + rtol 1e-3 (tests/test_bounce_kernel.py); the
 backward kernels K5 and K7 within ``testing.BWD_RTOL`` of the scale of
-each gradient (``testing.bwd_errs``), and the fwd+bwd with K5 (or K7)
+each gradient (``testing.bwd_errs``), their reduced tables within
+``n * 2^-23 * sum |g|`` of a float64 sum of the per-lane mode's row
+gradients and within that plus the per-lane tolerances of the plain
+version's (``testing.compare_reduced``), and the fwd+bwd with K5 (or K7)
 against the same with its plain version within ``GRAD_RTOL`` per
-gradient leaf (the per-lane differences of the kernel, summed by atomic
-``index_add_`` in an order that changes from run to run).  The mesh
+gradient leaf (the per-lane differences of the kernel, summed in another
+order).  The mesh
 kernels (nearest hit over the BVH, shade, kernel B's mesh variant) equal
 their plain versions exactly on every lane, as do the flat-scan nearest kernel K8, the marble
 kernel K12 and the medium crossing kernels K11 and K11b; the atlas
@@ -144,7 +147,7 @@ def test_fwd_bwd_kernel_matches_plain_backward(device):
     from raytrace_tpu_torch.diff.gradients import loss_and_grads, partition
     from raytrace_tpu_torch.interop import grads_to_numpy
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
-        bounce_bwd_regen_pre_megakernel,
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
     )
     scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
     params, statics = partition(scene)
@@ -156,12 +159,14 @@ def test_fwd_bwd_kernel_matches_plain_backward(device):
                               rng.base_key(0, device), pix, target, spp=8,
                               n_iters=40, remat=False)
 
-    k0 = bounce_bwd_regen_pre_megakernel.launches
+    k0 = bounce_bwd_regen_pre_reduced.launches
+    p0 = bounce_bwd_regen_pre_megakernel.launches
     (loss_k, frac_k), g_k = run()
-    assert bounce_bwd_regen_pre_megakernel.launches == k0 + 40
+    assert bounce_bwd_regen_pre_reduced.launches == k0 + 40
     with plain_backward():
         (loss_p, frac_p), g_p = run()
-    assert bounce_bwd_regen_pre_megakernel.launches == k0 + 40
+    assert bounce_bwd_regen_pre_reduced.launches == k0 + 40
+    assert bounce_bwd_regen_pre_megakernel.launches == p0
     assert float(loss_k) == float(loss_p) and float(frac_k) == float(frac_p)
     gk, gp = grads_to_numpy(g_k), grads_to_numpy(g_p)
     for k in gp:
@@ -205,7 +210,7 @@ def test_unfused_fwd_bwd_kernels_match_plain(device):
     from raytrace_tpu_torch.diff.gradients import loss_and_grads, partition
     from raytrace_tpu_torch.interop import grads_to_numpy
     from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
-        bounce_bwd_megakernel,
+        bounce_bwd_megakernel, bounce_bwd_megakernel_reduced,
     )
     from raytrace_tpu_torch.ops.bounce_kernel import bounce_megakernel
     scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
@@ -218,19 +223,64 @@ def test_unfused_fwd_bwd_kernels_match_plain(device):
                               rng.base_key(0, device), pix, target, spp=8,
                               n_iters=40, remat=False, rotate_k=2)
 
-    a0, k0 = bounce_megakernel.launches, bounce_bwd_megakernel.launches
+    a0, k0 = bounce_megakernel.launches, bounce_bwd_megakernel_reduced.launches
+    p0 = bounce_bwd_megakernel.launches
     (loss_k, frac_k), g_k = run()
     assert bounce_megakernel.launches == a0 + 40
-    assert bounce_bwd_megakernel.launches == k0 + 40
+    assert bounce_bwd_megakernel_reduced.launches == k0 + 40
     with plain_backward():
         (loss_p, frac_p), g_p = run()
-    assert bounce_bwd_megakernel.launches == k0 + 40
+    assert bounce_bwd_megakernel_reduced.launches == k0 + 40
+    assert bounce_bwd_megakernel.launches == p0
     assert float(loss_k) == float(loss_p) and float(frac_k) == float(frac_p)
     gk, gp = grads_to_numpy(g_k), grads_to_numpy(g_p)
     for k in gp:
         assert np.isfinite(gk[k]).all(), k
         scale = np.abs(gp[k]).max()
         assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k7"])
+@pytest.mark.parametrize("case", ["cornell", "box_motion", "mesh"])
+def test_reduced_backward_kernels_match_plain(device, kernel, case):
+    """The reduced K5 and K7 (rows read by index, row gradients summed in
+    the launch) on 2^14 lanes of a mid-render state: lane outputs equal to
+    the per-lane mode's and within ``BWD_RTOL`` of the plain version's,
+    the tables within ``n * 2^-23 * sum |g|`` of the per-lane mode's rows
+    summed in float64 and within that plus the per-lane tolerances of the
+    plain version's.  The mesh (K5: the 4,992-row stand-in; K7: a 384-row
+    mixed-kind mesh) takes the global mode; the staged mode's sums are the
+    same from run to run."""
+    from raytrace_tpu_torch.ops import row_reduce
+    from raytrace_tpu_torch.testing import compare_reduced, reduced_args
+    if case == "cornell":
+        scene, s = cornell_scene_and_settings(64, 8, 10, device=device)
+        s = s.replace(rr_depth=2)
+    elif case == "box_motion":
+        scene, s = box_motion_scene(device=device)
+    elif kernel == "k5":
+        scene, s = bunny_standin_scene(128, 8, 10, device=device)
+    else:
+        scene, s = mesh_all_kinds_scene(10, False, 128, device=device)
+    if kernel == "k5":
+        args, kw = bwd_inputs(scene, s, 1 << 14, 5, n_iters=4)
+    else:
+        args, kw = k7_inputs(scene, s, 1 << 14, 4, seed=5)
+    tables = row_reduce.row_tables(scene, kw["n_row"])
+    res = compare_reduced(args, kw, tables)
+    torch.cuda.synchronize()
+    assert res["lane_excess"] <= 0.0 and res["lane_differ"] == 0, res
+    assert res["rows_excess"] <= 0.0 and res["plain_excess"] <= 0.0, res
+    staged = row_reduce.row_mode(tables.n_prims, kw["n_row"]) \
+        == row_reduce.STAGED
+    assert staged == (case != "mesh")
+    if staged:
+        from raytrace_tpu_torch.ops import bounce_bwd_gather_kernel as k5
+        from raytrace_tpu_torch.ops import bounce_bwd_kernel as k7
+        fn = (k5.bounce_bwd_regen_pre_reduced if kernel == "k5"
+              else k7.bounce_bwd_megakernel_reduced)
+        again = fn(*reduced_args(args, tables), **kw)[1]
+        assert all(torch.equal(a, b) for a, b in zip(res["out"][1], again))
 
 
 @pytest.mark.parametrize("rotated", [False, True])
