@@ -63,7 +63,9 @@ rows, the bunny scene's material, camera, gray fade and depth 10):
     on every lane: 2^17 camera rays of the stand-in at 600 x 600 and their
     second bounce, the same on the mixed-kind mesh scene (still and with
     its extras moving), and 2^14 rays on a 50,000-triangle sphere; the
-    BVH build times;
+    BVH build times, and ``pack_bvh``'s (the binned-SAH tree) beside
+    ``build_bvh``'s (the median split of the rows' order) over the same
+    boxes at 4,992 and 50,048 rows;
 14. the shade kernel against its plain version on those hit records, with
     and without a synthetic medium;
 15. kernel B's mesh variant against its plain version on 2^17 lanes of
@@ -80,8 +82,11 @@ rows, the bunny scene's material, camera, gray fade and depth 10):
     kernel against the one with every plain version; a finite difference
     of the mesh's albedo;
 18. the three mesh kernels' device and host times at the slice's shapes
-    beside their plain versions' and their bounds (the BVH's operation count from the
-    nodes and rows each ray visited, counted by the kernel).
+    beside their plain versions' and their bounds (the BVH's operation
+    count from the box tests and row tests of each ray, counted by the
+    kernel, printed for all rays and for the rays that hit), and the
+    compiler's register, stack and spill report of the two walks'
+    kernels (``-Xptxas -v``).
 
 Rich textures (image, noise, marble):
 
@@ -215,9 +220,9 @@ F32_OPS_PER_S = 67e12
 # samples per pixel of the mesh forward main path (scenes/bunny_test.py
 # renders 100; profile_render.py times 100)
 MESH_SPP = 16
-# float operations of the BVH walk (csrc/bvh_nearest.cuh): a node's slab
-# test and a triangle row's test, counted from the sources
-NODE_OPS = 30
+# float operations of the BVH walk (csrc/bvh_nearest.cuh): a box's slab
+# test (two a node) and a triangle row's test, counted from the sources
+BOX_OPS = 30
 ROW_OPS = 45
 # float operations of one marble lane (csrc/noise.cuh): 7 octaves of 8
 # corners, each a hash, a sine and a cosine (some 20 operations each), a
@@ -917,7 +922,8 @@ def _mesh_phases(smi, phase_done) -> dict:
     )
     from raytrace_tpu_torch.interop import grads_to_numpy
     from raytrace_tpu_torch.ops.allpairs_kernel import (
-        allpairs_nearest_plain, allpairs_nearest_record,
+        LEAF_SIZE, allpairs_nearest_plain, allpairs_nearest_record,
+        bvh_boxes, pack_bvh,
     )
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
         bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
@@ -925,12 +931,15 @@ def _mesh_phases(smi, phase_done) -> dict:
     from raytrace_tpu_torch.ops.bounce_kernel import (
         bounce_megakernel, shade_megakernel, shade_plain,
     )
+    from raytrace_tpu_torch.ops.intersect_kernel import pack_prims
     from raytrace_tpu_torch.ops.iter_kernel import (
         iter_mega_ap, iter_megakernel, iter_plain,
     )
+    from raytrace_tpu_torch.profile_render import ptxas_report
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.integrator import split_tables
     from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.scene.bvh import build_bvh
     from raytrace_tpu_torch.testing import (
         FRAC_LANES, MEAN_RTOL, MESH_FWD_BWD, bunny_standin_scene,
         camera_rays, checked_launches, compare_iter, compare_nearest,
@@ -965,6 +974,24 @@ def _mesh_phases(smi, phase_done) -> dict:
         cases.append((f"mesh all kinds{' moving' if moving else ''}", sc, s_k,
                       n_k))
     cases.append((f"{f.shape[0]}-triangle sphere", big, s_big, 1 << 14))
+    # the device BVH's build (binned SAH, level by level) against the
+    # median split that orders compile_scene's rows, over the same boxes,
+    # best of 3 each
+    for sc in (standin, big):
+        n_r = sc.prims.kind.shape[0]
+        tbl = pack_prims(sc.prims).contiguous()
+        _, lo, hi = bvh_boxes(sc.prims, n_r)
+        t_sah = min(pack_bvh(sc.prims, tbl, n_r).build_s for _ in range(3))
+        t_med = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            build_bvh(lo, hi, leaf_size=LEAF_SIZE)
+            t_med.append(time.perf_counter() - t0)
+        b = pack_bvh(sc.prims, tbl, n_r)
+        print(f"[bvh build] {n_r} rows: pack_bvh {t_sah:.4f} s ({b.n_nodes} "
+              f"two-box nodes, depth {b.depth}, triangle-only "
+              f"{b.tri_only}) vs build_bvh {min(t_med):.4f} s over the same "
+              f"boxes: ratio {t_sah / min(t_med):.3f}", flush=True)
     for name, sc, s_k, n in cases:
         tb = tb_m if sc is standin else split_tables(sc, s_k)
         comps, uni = camera_rays(sc, s_k, n, 41)
@@ -1169,15 +1196,19 @@ def _mesh_phases(smi, phase_done) -> dict:
                                                       **kw_n), 2, 1)
     nodes_v = float(visits[0].double().mean())
     rows_v = float(visits[1].double().mean())
-    tbl_bytes = 4 * (tb_m.ptbl.numel() + tb_m.bvh.nodes.numel()
-                     + tb_m.bvh.leaf_rows.numel())
+    hit_v = hit_out[1] >= 0
+    # the walk reads the nodes and the leaf-ordered rows, not the table
+    tbl_bytes = 4 * (tb_m.bvh.nodes.numel() + tb_m.bvh.rows.numel())
     bound_n = _bound_ms(4 * lanes * (7 + 9) + tbl_bytes,
-                        lanes * (NODE_OPS * nodes_v + ROW_OPS * rows_v))
+                        lanes * (BOX_OPS * nodes_v + ROW_OPS * rows_v))
     print(f"[time] nearest kernel {ms_n:.4f} ms on the device ({host_n:.4f} "
           f"ms a call back to back) vs allpairs_nearest_plain "
           f"{plain_n:.3f} ms at {lanes} camera rays of the stand-in; a ray "
-          f"visits {nodes_v:.2f} nodes and {rows_v:.2f} rows on average; "
-          f"bound {bound_n[0]:.4f} ms ({bound_n[1]}) [{smi}]", flush=True)
+          f"makes {nodes_v:.2f} box tests and {rows_v:.2f} row tests on "
+          f"average, a ray that hits ({float(hit_v.double().mean()):.4f} of "
+          f"them) {float(visits[0][hit_v].double().mean()):.2f} and "
+          f"{float(visits[1][hit_v].double().mean()):.2f}; bound "
+          f"{bound_n[0]:.4f} ms ({bound_n[1]}) [{smi}]", flush=True)
 
     alive = torch.ones(lanes, dtype=torch.bool, device=dev)
     thr = torch.ones((3, lanes), device=dev)
@@ -1213,12 +1244,15 @@ def _mesh_phases(smi, phase_done) -> dict:
     nodes_i = float(vis_i[0].double().mean())
     rows_i = float(vis_i[1].double().mean())
     bound_i = _bound_ms(4 * n_i * (17 + 19) + tbl_bytes,
-                        n_i * (450 + NODE_OPS * nodes_i + ROW_OPS * rows_i))
+                        n_i * (450 + BOX_OPS * nodes_i + ROW_OPS * rows_i))
     print(f"[time] mesh iteration kernel {ms_i:.4f} ms on the device "
           f"({host_i:.4f} ms a call back to back) vs iter_plain "
           f"{plain_i:.3f} ms at {n_i} lanes (every lane regenerating; a ray "
-          f"visits {nodes_i:.2f} nodes and {rows_i:.2f} rows); bound "
+          f"makes {nodes_i:.2f} box tests and {rows_i:.2f} row tests); bound "
           f"{bound_i[0]:.4f} ms ({bound_i[1]}) [{smi}]", flush=True)
+    for line in ptxas_report():
+        print(f"[ptxas] {line}", flush=True)
+
     phase_done("mesh kernel times")
 
     no_lib = None   # no single PyTorch call computes a nearest hit or shade
@@ -1243,7 +1277,7 @@ def _mesh_phases(smi, phase_done) -> dict:
          "bound_by": bound_i[1], "library_ms": no_lib},
     ]
     summary = dict(route1=runs, route2=fb, bvh_build_s=tb_m.bvh.build_s,
-                   visits=dict(nodes=nodes_v, rows=rows_v))
+                   visits=dict(box_tests=nodes_v, rows=rows_v))
     return dict(summary=summary, k5_launches=r2_k5, kernels=kernels)
 
 

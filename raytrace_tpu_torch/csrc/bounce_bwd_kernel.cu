@@ -370,7 +370,7 @@ __global__ void __launch_bounds__(kThreads) bounce_bwd_replay_kernel(
 // reduction's finishing launches.
 template <class Args>
 int launch_bwd(void (*kernel)(const Args), const Args& a,
-                   const rt::RowArgs& r, rt::RowGrid& grid,
+                   const rt::RowArgs& r, rt::Resident& grid,
                    cudaStream_t st) {
   if (a.n_lanes <= 0) return 0;
   if (a.n_targets < 0 || a.n_targets > kMaxTargets ||
@@ -388,7 +388,7 @@ int launch_bwd(void (*kernel)(const Args), const Args& a,
   return static_cast<int>(e);
 }
 
-rt::RowGrid bwd_grid, replay_grid;
+rt::Resident bwd_grid, replay_grid;
 #endif  // __CUDACC__
 
 }  // namespace

@@ -50,6 +50,33 @@ __device__ __forceinline__ float* dyn_smem() {
   extern __shared__ float rt_dyn_smem[];
   return rt_dyn_smem;
 }
+
+// The number of blocks of `threads` threads with `smem` bytes of dynamic
+// shared memory that the card holds at once, for a persistent grid; one
+// cache per kernel, refreshed when the device or the size changes.
+struct Resident {
+  int dev = -1, smem = -1, blocks = 0;
+};
+
+inline cudaError_t resident_blocks(const void* kernel, int threads, int smem,
+                                   Resident& cache, int& blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (cache.dev != dev || cache.smem != smem) {
+    int n_sm = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (e != cudaSuccess) return e;
+    cache.dev = dev;
+    cache.smem = smem;
+    cache.blocks = n_sm * per_sm;
+  }
+  blocks = cache.blocks;
+  return cudaSuccess;
+}
 #endif
 
 // Copy n floats from global to shared memory with the whole block.

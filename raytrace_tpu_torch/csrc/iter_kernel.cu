@@ -19,11 +19,13 @@
 // the same iteration with the TPU's all-pairs intersect stage, taken for
 // kind-segmented tables of 512 < rows <= 65,536
 // (ops/iter_kernel.py:resolve_use_ap).  Its intersect stage is the BVH walk
-// of bvh_nearest.cuh over the table in global memory (a mesh-scale table
+// of bvh_nearest.cuh (the rows stay in global memory: a mesh-scale table
 // does not fit shared memory); regeneration, RNG, camera, shade,
 // background and Russian roulette are the same code.  It is bound, like
 // the standalone nearest kernel (nearest_kernel.cu), by the latency and
-// divergence of the walk.  Plain version: iter_plain(use_ap=True).
+// divergence of the walk, and takes the same design: a persistent grid
+// whose blocks stage the camera, material and target tables once.  Plain
+// version: iter_plain(use_ap=True).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,11 +49,11 @@ struct IterArgs {
   float* outf;  // [17 (+2 uv), R]: comps 7, rad 3, thr 3, alive, died,
                 //                   idx, rr scale (, u, v)
   int* outi;    // [2, R]: smp', dep'
-  const float* nodes;    // mesh variant: [n_nodes, 8] BVH nodes
-  const int* leaf_rows;  // mesh variant: leaf entries -> table rows
+  const float* nodes;  // mesh variant: [n_nodes, 16] BVH nodes
+  const float* rows;   // mesh variant: [n_rows, 36] leaf-ordered rows
   long long n_lanes;
   int n_prims, n_mats, n_targets, has_motion, use_prim_albedo, n_u,
-      rr_depth, max_depth, width, bg_kind, with_uv, n_nodes;
+      rr_depth, max_depth, width, bg_kind, with_uv, n_nodes, tri_only;
   float t_min;
 };
 
@@ -61,25 +63,14 @@ constexpr int kThreads = 128;
 constexpr int kNCam = rt::kNCam;
 constexpr int kBgSky = 1, kBgGray = 2;
 
-// kBvh: the mesh variant (the table stays in global memory and the
-// intersect stage walks the BVH); otherwise the flat scan of the table
-// staged in shared memory.
-template <bool kBvh>
-__global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
-  extern __shared__ float smem[];
-  float* cam = smem;
-  float* sp = cam + kNCam;
-  float* sm = kBvh ? sp : sp + a.n_prims * rt::kCols;
-  float* st = sm + a.n_mats * rt::kMCols;
-  rt::stage(cam, a.cam, kNCam);
-  if (!kBvh) rt::stage(sp, a.ptbl, a.n_prims * rt::kCols);
-  rt::stage(sm, a.mtbl, a.n_mats * rt::kMCols);
-  rt::stage(st, a.ttbl, a.n_targets * rt::kTCols);
-  __syncthreads();
-
-  const long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (l >= a.n_lanes) return;
+// One iteration of lane l.  kBvh: the mesh variant (the table stays in
+// global memory and the intersect stage walks the BVH); otherwise the flat
+// scan of the table staged in shared memory (sp).
+template <bool kBvh, bool kTriOnly>
+__device__ __forceinline__ void iter_lane(const IterArgs& a, long long l,
+                                          const float* cam, const float* sp,
+                                          const float* sm, const float* st,
+                                          const rt::Bvh& bvh) {
   const long long R = a.n_lanes;
 
   // regeneration of idle lanes with samples left: RNG and camera ray
@@ -121,10 +112,9 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
 
   rt::HitRec hr;
   if constexpr (kBvh)
-    hr = rt::bvh_nearest<false>(a.nodes, a.n_nodes, a.leaf_rows, a.ptbl,
-                                box, boy, boz, dx, dy, dz, tmv, a.t_min,
-                                a.has_motion != 0, a.use_prim_albedo != 0,
-                                nullptr);
+    hr = rt::bvh_nearest<kTriOnly, false>(
+        bvh, box, boy, boz, dx, dy, dz, tmv, a.t_min, a.has_motion != 0,
+        a.use_prim_albedo != 0, nullptr);
   else
     hr = rt::prim_loop(sp, a.n_prims, box, boy, boz, dx, dy, dz, tmv,
                        a.t_min, a.has_motion != 0, a.use_prim_albedo != 0);
@@ -198,31 +188,71 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
   a.outi[R + l] = dep2;
 }
 
+template <bool kBvh, bool kTriOnly>
+__global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
+  extern __shared__ float smem[];
+  float* cam = smem;
+  float* sp = cam + kNCam;
+  float* sm = kBvh ? sp : sp + a.n_prims * rt::kCols;
+  float* st = sm + a.n_mats * rt::kMCols;
+  rt::stage(cam, a.cam, kNCam);
+  if (!kBvh) rt::stage(sp, a.ptbl, a.n_prims * rt::kCols);
+  rt::stage(sm, a.mtbl, a.n_mats * rt::kMCols);
+  rt::stage(st, a.ttbl, a.n_targets * rt::kTCols);
+  __syncthreads();
+
+  if constexpr (kBvh) {
+    // persistent: a grid-stride loop over the lanes
+    const rt::Bvh bvh{reinterpret_cast<const float4*>(a.nodes), a.rows};
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+#pragma unroll 1
+    for (long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+         l < a.n_lanes; l += stride)
+      iter_lane<true, kTriOnly>(a, l, cam, sp, sm, st, bvh);
+  } else {
+    const long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+    if (l >= a.n_lanes) return;
+    iter_lane<false, false>(a, l, cam, sp, sm, st, rt::Bvh{});
+  }
+}
+
 }  // namespace
 
-template <bool kBvh>
+template <bool kBvh, bool kTriOnly>
 static int launch_iter(const IterArgs* a, void* stream) {
+  static rt::Resident cache;
   if (a->n_lanes <= 0) return 0;
   if (a->n_u != rt::kNU) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
+  const auto kernel = iter_kernel<kBvh, kTriOnly>;
+  const int smem = static_cast<int>(
       sizeof(float) * (kNCam + (kBvh ? 0 : a->n_prims * rt::kCols) +
-                       a->n_mats * rt::kMCols + a->n_targets * rt::kTCols);
+                       a->n_mats * rt::kMCols + a->n_targets * rt::kTCols));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        iter_kernel<kBvh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long blocks = (a->n_lanes + kThreads - 1) / kThreads;
-  iter_kernel<kBvh><<<static_cast<unsigned>(blocks), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(*a);
+  long long blocks = (a->n_lanes + kThreads - 1) / kThreads;
+  if (kBvh) {
+    // persistent: at most as many blocks as the card holds
+    int resident = 0;
+    cudaError_t e = rt::resident_blocks(reinterpret_cast<const void*>(kernel),
+                                        kThreads, smem, cache, resident);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (blocks > resident) blocks = resident < 1 ? 1 : resident;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt_iter(const IterArgs* a, void* stream) {
-  return launch_iter<false>(a, stream);
+  return launch_iter<false, false>(a, stream);
 }
 
 extern "C" int rt_iter_bvh(const IterArgs* a, void* stream) {
-  return launch_iter<true>(a, stream);
+  return a->tri_only ? launch_iter<true, true>(a, stream)
+                     : launch_iter<true, false>(a, stream);
 }

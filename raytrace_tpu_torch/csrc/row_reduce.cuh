@@ -263,31 +263,15 @@ inline bool row_args_ok(const RowArgs& r, int nr) {
           row_smem_bytes(r, nr) <= kStageBytes);
 }
 
-// The occupancy of one kernel on the current card, cached.
-struct RowGrid {
-  int dev = -1, smem = -1, blocks = 0;
-};
-
 // A grid of as many blocks of kRowThreads as fit on the card at once, at
 // most one for each 128 lanes and, staged, at most n_part.
 inline cudaError_t row_grid(const void* kernel, const RowArgs& r, int smem,
-                            long long n_lanes, RowGrid& cache, int& blocks) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+                            long long n_lanes, Resident& cache, int& blocks) {
+  int resident = 0;
+  cudaError_t e = resident_blocks(kernel, kRowThreads, smem, cache, resident);
   if (e != cudaSuccess) return e;
-  if (cache.dev != dev || cache.smem != smem) {
-    int n_sm = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kRowThreads, smem);
-    if (e != cudaSuccess) return e;
-    cache.dev = dev;
-    cache.smem = smem;
-    cache.blocks = n_sm * per_sm;
-  }
   long long b = (n_lanes + kRowThreads - 1) / kRowThreads;
-  if (b > cache.blocks) b = cache.blocks;
+  if (b > resident) b = resident;
   if (r.mode == kRowStaged && b > r.n_part) b = r.n_part;
   blocks = b < 1 ? 1 : static_cast<int>(b);
   return cudaSuccess;

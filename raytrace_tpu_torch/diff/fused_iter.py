@@ -93,7 +93,8 @@ def iter_kernel_args(scene, s, base_key, last_sample: int):
               rr_depth=None if s.rr_depth is None else int(s.rr_depth),
               max_depth=int(s.max_depth), width=int(s.image_width),
               bg_kind=bg_kind, use_ap=use_ap,
-              bvh=pack_bvh(scene.prims, tb.n_prims) if use_ap else None,
+              bvh=(pack_bvh(scene.prims, tb.ptbl, tb.n_prims) if use_ap
+                   else None),
               with_uv=is_rich(scene.textures.kinds_present))
     return (tb.ptbl, tb.mtbl, tb.ttbl, cam, kt), kw
 

@@ -346,6 +346,19 @@ def lane_math(diff, det, tgt, *, has_motion: bool, has_box: bool,
         nz = torch.where(is_boxk, bowz * sgn_b, nz)
         front = torch.where(is_boxk, b_front, front)
 
+    # Only a live hit shades; every output of another lane is selected
+    # from its inputs.  Its normal is zeroed here so that no branch it
+    # never takes overflows: a parked dead lane (origin 3e18) whose
+    # index -1 reads a sphere row has a normal near 1e19, and the
+    # refraction branch's par * n, inf times a zero cotangent, gave NaN
+    # gradients where the exact (float64) ones are 0 for the row and the
+    # identity for the lane (ROADMAP F9).  Live hits are unchanged bit
+    # for bit, forward and backward.
+    live_hit = alive & valid
+    nx = torch.where(live_hit, nx, 0.0)
+    ny = torch.where(live_hit, ny, 0.0)
+    nz = torch.where(live_hit, nz, 0.0)
+
     # ---- texture: constant or checker ----
     i_f = torch.floor(uu * f0l)
     j_f = torch.floor(vv * f1l)
@@ -359,7 +372,6 @@ def lane_math(diff, det, tgt, *, has_motion: bool, has_box: bool,
     alg = torch.where(rich_tex, 1.0, alg)
     alb = torch.where(rich_tex, 1.0, alb)
 
-    live_hit = alive & valid
     miss_f = torch.where(alive & ~valid, 1.0, 0.0)
 
     # ---- emission; the background is added by the caller ----

@@ -6,8 +6,10 @@ culls with chunk and sub-cluster boxes.  On the card the same function,
 the nearest hit with the lowest row winning ties, is a per-ray walk of a
 BVH (``csrc/nearest_kernel.cu`` over ``csrc/bvh_nearest.cuh``):
 
-* :func:`pack_bvh` builds the device BVH on the host, over the rows of
-  the packed table in their final order;
+* :func:`pack_bvh` builds the device BVH on the host (``scene/bvh.py:
+  build_sah_bvh``, a binned-SAH tree of two-box nodes) over the rows of
+  the packed table in their final order, with a copy of those rows in
+  leaf order;
 * :func:`allpairs_nearest_plain` is the plain PyTorch version: the
   all-pairs broadcast over row chunks, with exactly the per-row
   arithmetic of ``intersect_kernel.prim_loop_plain``;
@@ -23,14 +25,21 @@ import time
 import numpy as np
 import torch
 
-from ..scene.bvh import build_bvh, prim_aabbs
-from ..scene.types import PRIM_PAD
+from ..scene.bvh import build_sah_bvh, prim_aabbs
+from ..scene.types import PRIM_PAD, PRIM_TRIANGLE
 from .intersect_kernel import (
     MAX_DENSE_PRIMS, N_COLS, _box_attrs, _record_contract, _safe,
 )
 
-N_NODE_COLS = 8
+N_NODE_COLS = 16
 LEAF_SIZE = 4
+SAH_BINS = 16
+# the walk's fixed stack of far children (kStack of csrc/bvh_nearest.cuh):
+# pack_bvh refuses a deeper tree
+STACK_SIZE = 32
+# the table column of the leaf-ordered rows that holds each row's index in
+# the packed table (the packed table leaves it 0)
+ORIG_COL = 35
 # the split path's nearest hit of a kind-segmented table of at least this
 # many scanned rows walks its BVH; smaller or unsegmented tables take the
 # flat scan (the JAX package's MIN_PRIMS)
@@ -50,15 +59,23 @@ _INF = float("inf")
 
 @dataclasses.dataclass(frozen=True)
 class DeviceBVH:
-    """A threaded BVH over the rows of a packed table.
+    """A binned-SAH BVH of two-box nodes over the rows of a packed table.
 
-    ``nodes`` is [n_nodes, 8] f32 in depth-first order: lo (3), hi (3),
-    then two int32 words stored bit for bit: an interior node holds
-    (escape index, 0), a leaf (first entry of ``leaf_rows``, count).
-    ``leaf_rows`` (i32) maps the leaves' entries to rows of the packed
-    table.  ``build_s`` is the host build time."""
+    ``nodes`` is [n_nodes, 16] f32, breadth-first from the root: the left
+    child's box lo (3), hi (3), the right child's lo (3), hi (3), then four
+    int32 words stored bit for bit: the two children's words and counts.
+    A child of count 0 is the interior node of that index (an empty leaf
+    where the whole table is one leaf); a leaf's word is its first row of
+    ``rows`` and its count its number of rows.  ``rows`` [n_real, 36] is a
+    copy of the table's real rows in leaf order, column ``ORIG_COL``
+    holding each row's index in the packed table (ties and outputs use
+    it).  ``tri_only``: every row is an unmoving triangle (the walk's
+    triangle-only test); ``depth``: the most interior nodes on a path
+    (at most ``STACK_SIZE``); ``build_s``: the host build time."""
     nodes: torch.Tensor
-    leaf_rows: torch.Tensor
+    rows: torch.Tensor
+    tri_only: bool
+    depth: int
     build_s: float
 
     @property
@@ -66,11 +83,9 @@ class DeviceBVH:
         return int(self.nodes.shape[0])
 
 
-def pack_bvh(prims, n_prims: int) -> DeviceBVH:
-    """Build the device BVH of rows ``[0, n_prims)`` of the packed table
-    of ``prims`` (after kind segmentation and padding; pad rows left
-    out), on the device of ``prims``."""
-    t0 = time.perf_counter()
+def bvh_boxes(prims, n_prims: int):
+    """``(real, lo, hi)``: the real (non-pad) rows among ``[0, n_prims)``
+    and their boxes (f64 [n, 3]), padded outward as the BVH's are."""
     f64 = lambda x: x[:n_prims].detach().cpu().numpy().astype(np.float64)
     kind = prims.kind[:n_prims].cpu().numpy()
     real = np.nonzero(kind != PRIM_PAD)[0]
@@ -81,21 +96,39 @@ def pack_bvh(prims, n_prims: int) -> DeviceBVH:
                         f64(prims.mv1)[real])
     pad = NODE_PAD_ABS + NODE_PAD_REL * max(1.0, float(np.abs(lo).max()),
                                             float(np.abs(hi).max()))
-    perm, nodes = build_bvh(lo - pad, hi + pad, leaf_size=LEAF_SIZE)
-    n = nodes["lo"].shape[0]
-    tbl = np.zeros((n, N_NODE_COLS), np.float32)
+    return real, lo - pad, hi + pad
+
+
+def pack_bvh(prims, tbl, n_prims: int) -> DeviceBVH:
+    """Build the device BVH of rows ``[0, n_prims)`` of the packed table
+    ``tbl`` of ``prims`` (after kind segmentation and padding; pad rows
+    left out), on the device of ``tbl``."""
+    t0 = time.perf_counter()
+    real, lo, hi = bvh_boxes(prims, n_prims)
+    perm, nodes, depth = build_sah_bvh(lo, hi, leaf_size=LEAF_SIZE,
+                                       n_bins=SAH_BINS)
+    if depth > STACK_SIZE:
+        raise ValueError(f"pack_bvh: a tree of depth {depth} overflows the "
+                         f"walk's stack of {STACK_SIZE}")
+    n = nodes["child"].shape[0]
+    out = np.zeros((n, N_NODE_COLS), np.float32)
     # f32 boxes rounded outward by one more ulp
-    tbl[:, 0:3] = np.nextafter(nodes["lo"], np.float32(-np.inf))
-    tbl[:, 3:6] = np.nextafter(nodes["hi"], np.float32(np.inf))
-    words = tbl.view(np.int32)
-    leaf = nodes["count"] > 0
-    words[:, 6] = np.where(leaf, nodes["start"], nodes["skip"])
-    words[:, 7] = nodes["count"]
-    dev = prims.p0.device
-    return DeviceBVH(
-        nodes=torch.from_numpy(tbl).to(dev),
-        leaf_rows=torch.from_numpy(real[perm].astype(np.int32)).to(dev),
-        build_s=time.perf_counter() - t0)
+    box = lambda b, to: np.nextafter(b.astype(np.float32), np.float32(to))
+    lo32, hi32 = box(nodes["lo"], -np.inf), box(nodes["hi"], np.inf)
+    out[:, 0:3], out[:, 3:6] = lo32[:, 0], hi32[:, 0]
+    out[:, 6:9], out[:, 9:12] = lo32[:, 1], hi32[:, 1]
+    words = out.view(np.int32)
+    words[:, 12:14] = nodes["child"]
+    words[:, 14:16] = nodes["count"]
+    dev = tbl.device
+    order = torch.from_numpy(real[perm]).to(dev)
+    rows = tbl[order].contiguous()
+    rows[:, ORIG_COL] = order.to(torch.float32)
+    tri_only = (not prims.has_motion
+                and bool((rows[:, 16] == float(PRIM_TRIANGLE)).all()))
+    return DeviceBVH(nodes=torch.from_numpy(out).to(dev), rows=rows,
+                     tri_only=tri_only, depth=depth,
+                     build_s=time.perf_counter() - t0)
 
 
 def _kind_groups(kinds, c0: int, c1: int):
@@ -317,25 +350,38 @@ def allpairs_nearest_plain(tbl, ox, oy, oz, dx, dy, dz, tm, *, n_prims: int,
 class _NearestArgs(ctypes.Structure):
     """Mirror of ``NearestArgs`` in csrc/nearest_kernel.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "tbl", "nodes", "leaf_rows", "ox", "oy", "oz", "dx", "dy", "dz",
-        "tm", "outf", "outi", "visits")]
+        "nodes", "rows", "ox", "oy", "oz", "dx", "dy", "dz", "tm", "outf",
+        "outi", "visits")]
         + [("n_lanes", ctypes.c_int64)]
-        + [(f, ctypes.c_int) for f in ("n_nodes", "has_motion")]
+        + [(f, ctypes.c_int) for f in ("n_nodes", "has_motion",
+                                       "tri_only")]
         + [("t_min", ctypes.c_float)])
 
 
+def nearest_args(bvh: DeviceBVH, rays, outf, outi, visits, *,
+                 has_motion: bool, t_min: float) -> _NearestArgs:
+    """The kernel's argument struct for tensors that outlive it."""
+    return _NearestArgs(
+        *(x.data_ptr() for x in (bvh.nodes, bvh.rows) + tuple(rays)
+          + (outf, outi)),
+        None if visits is None else visits.data_ptr(),
+        rays[0].shape[0], bvh.n_nodes, int(has_motion), int(bvh.tri_only),
+        float(t_min))
+
+
 def check_bvh(bvh: DeviceBVH, n_prims: int, device) -> None:
-    """Raise unless ``bvh`` is a packed BVH on ``device`` whose leaves index
-    rows below ``n_prims``."""
+    """Raise unless ``bvh`` is a packed BVH on ``device`` of at most
+    ``n_prims`` rows."""
     if bvh is None:
         raise ValueError("the mesh kernels need the table's BVH (pack_bvh)")
-    nd, lr = bvh.nodes, bvh.leaf_rows
+    nd, rw = bvh.nodes, bvh.rows
     if (nd.device != device or nd.dtype != torch.float32 or nd.dim() != 2
             or nd.shape[1] != N_NODE_COLS or not nd.is_contiguous()
-            or lr.device != device or lr.dtype != torch.int32
-            or lr.dim() != 1 or not lr.is_contiguous()):
+            or rw.device != device or rw.dtype != torch.float32
+            or rw.dim() != 2 or rw.shape[1] != N_COLS
+            or not rw.is_contiguous() or rw.shape[0] > n_prims):
         raise ValueError(f"bvh: need contiguous f32 [*, {N_NODE_COLS}] nodes "
-                         f"and i32 leaf rows on {device}")
+                         f"and [<={n_prims}, {N_COLS}] rows on {device}")
     if not 0 < n_prims <= MAX_DENSE_PRIMS:
         raise ValueError(f"n_prims={n_prims} outside 1..{MAX_DENSE_PRIMS}")
 
@@ -346,7 +392,7 @@ def allpairs_nearest_record(tbl, bvh: DeviceBVH | None, ox, oy, oz, dx, dy,
     """Nearest hit of every ray over rows ``[0, n_prims)`` of the packed
     table.  Rays are 1-D [R] f32 tensors.  Returns the 9 [R] outputs of
     :func:`_record_contract`; with ``count_visits`` (CUDA only) also an
-    [2, R] i32 tensor of the nodes and rows each ray tested.
+    [2, R] i32 tensor of the box tests and row tests of each ray.
 
     CPU tensors run :func:`allpairs_nearest_plain` (``bvh`` unused); CUDA
     tensors launch ``csrc/nearest_kernel.cu`` over ``bvh``
@@ -373,11 +419,8 @@ def allpairs_nearest_record(tbl, bvh: DeviceBVH | None, ox, oy, oz, dx, dy,
     outi = torch.empty((3, r), dtype=torch.int32, device=dev)
     visits = (torch.empty((2, r), dtype=torch.int32, device=dev)
               if count_visits else None)
-    args = _NearestArgs(
-        *(x.data_ptr() for x in (tbl, bvh.nodes, bvh.leaf_rows) + rays
-          + (outf, outi)),
-        visits.data_ptr() if visits is not None else None,
-        r, bvh.n_nodes, int(has_motion), float(t_min))
+    args = nearest_args(bvh, rays, outf, outi, visits,
+                        has_motion=has_motion, t_min=t_min)
     launch("rt_nearest", args, dev)
     allpairs_nearest_record.launches += 1
     out = (outf[0], outi[0], outf[1], outf[2], outf[3], outi[1], outf[4],

@@ -163,12 +163,12 @@ class _IterArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "ptbl", "mtbl", "ttbl", "cam", "kt", "pix", "smp", "dep", "al",
         "ox", "oy", "oz", "dx", "dy", "dz", "tm", "rr", "rg", "rb", "tr",
-        "tg", "tb", "outf", "outi", "nodes", "leaf_rows")]
+        "tg", "tb", "outf", "outi", "nodes", "rows")]
         + [("n_lanes", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "n_prims", "n_mats", "n_targets", "has_motion",
             "use_prim_albedo", "n_u", "rr_depth", "max_depth", "width",
-            "bg_kind", "with_uv", "n_nodes")]
+            "bg_kind", "with_uv", "n_nodes", "tri_only")]
         + [("t_min", ctypes.c_float)])
 
 
@@ -207,11 +207,12 @@ def _launch_iter(entry, ptbl, mtbl, ttbl, cam, kt, lane_in, bvh, *,
         *(x.data_ptr() for x in (ptbl, mtbl, ttbl, cam, kt) + tuple(lane_in)
           + (outf, outi)),
         *((None, None) if bvh is None
-          else (bvh.nodes.data_ptr(), bvh.leaf_rows.data_ptr())),
+          else (bvh.nodes.data_ptr(), bvh.rows.data_ptr())),
         r, n_prims, n_mats, n_targets, int(has_motion),
         int(use_prim_albedo), n_u, -1 if rr_depth is None else int(rr_depth),
         max_depth, width, bg_kind, int(with_uv),
-        0 if bvh is None else bvh.n_nodes, float(t_min))
+        0 if bvh is None else bvh.n_nodes,
+        int(bvh is not None and bvh.tri_only), float(t_min))
     launch(entry, args, dev)
     f = outf.unbind(0)
     out = f[:14] + (outi[0], outi[1]) + f[14:17]

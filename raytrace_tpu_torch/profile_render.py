@@ -27,7 +27,11 @@ at rotate_k 8 (``fwdbwd_rot8``: ``testing.FWD_BWD_ROT8``,
 ``lane_cost_estimate``, which each run includes (``fwdbwd_bal4``:
 ``testing.FWD_BWD_BAL4``, ``tools/prof_completion.py``'s), both through
 kernel A forward and K7 backward, and at rotate_k 8 with each iteration
-checkpointed (``fwdbwd_rot8_remat``), it
+checkpointed (``fwdbwd_rot8_remat``), and for the two BVH walks at
+``chip_smoke.py``'s shapes (``mesh_kernels``: 20 launches, in turns, of
+the nearest kernel K9 on the stand-in's 360,064 camera rays and of the
+mesh iteration kernel on ``MESH_FWD_BWD``'s 2^17 lanes, every lane
+regenerating), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -41,6 +45,10 @@ checkpointed (``fwdbwd_rot8_remat``), it
 The iteration count is the number of forward kernel launches (kernel A
 or B, or a nearest-hit kernel and the mesh iteration kernel; for
 ``fwdbwd_bal4`` it includes the cost estimate's kernel A launches).
+``mesh_kernels`` also prints the box tests and row tests of K9's rays
+(all, and those that hit), and every run first prints the compiler's
+register, stack and spill report of the two walks' kernels
+(``-Xptxas -v``, from ``_build/build.log``).
 
 Names of estimators as arguments run only those, e.g.
 ``python3 -m raytrace_tpu_torch.profile_render fwdbwd_rot8 fwdbwd_bal4``.
@@ -51,6 +59,7 @@ a JSON object of all of the above.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import subprocess
 import sys
@@ -77,6 +86,22 @@ def _device_ops(prof):
                         "cuLaunchKernel", "cuLaunchKernelEx"):
             launches += 1
     return ops, launches
+
+
+def ptxas_report(names=("nearest_kernel", "iter_kernel")) -> list[str]:
+    """The ``-Xptxas -v`` lines (registers, stack frame, spills) of the
+    kernels whose mangled names contain one of ``names``, from the
+    build's log."""
+    from .ops._build import BUILD_DIR
+    out, entry = [], None
+    for line in (BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+            entry = name if any(n in name for n in names) else None
+        elif entry is not None and ("stack frame" in line
+                                    or "Used " in line):
+            out.append(f"{entry}: {line.strip()}")
+    return out
 
 
 def main() -> None:
@@ -107,6 +132,8 @@ def main() -> None:
     print(f"[device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     load_library()
+    for line in ptxas_report():
+        print(f"[ptxas] {line}", flush=True)
     dev = torch.device("cuda", 0)
     scene, s = cornell_scene_and_settings(600, 200, 50, device=dev)
     n_pix = s.image_width * s.image_height
@@ -154,6 +181,42 @@ def main() -> None:
     def fwd(sc, settings, spp, seed=1):
         return lambda: render_accumulate(sc, settings, seed=seed, spp=spp)
 
+    @functools.cache
+    def mesh_kernel_calls():
+        """K9 and the mesh iteration kernel at chip_smoke.py's shapes: the
+        call of 20 launches of each, its inputs made (and K9's visits
+        printed) once."""
+        from .diff.fused_iter import iter_kernel_args
+        from .render.integrator import split_tables
+        from .testing import camera_rays, fresh_carry
+        tb = split_tables(mesh, s_m)
+        n_r = -(-n_pix // 128) * 128
+        rays = tuple(camera_rays(mesh, s_m, n_r, 61)[0].unbind(0))
+        kw_n = dict(n_prims=tb.n_prims, t_min=tb.t_min,
+                    has_motion=tb.has_motion)
+        out, vis = allpairs_nearest_record(tb.ptbl, tb.bvh, *rays,
+                                           count_visits=True, **kw_n)
+        hit = out[1] >= 0
+        v = vis.double()
+        print(f"[visits] K9 on {n_r} camera rays of the stand-in: box tests "
+              f"{float(v[0].mean()):.3f}, rows {float(v[1].mean()):.3f} a "
+              f"ray; rays that hit ({float(hit.double().mean()):.4f}): box "
+              f"tests {float(v[0][hit].mean()):.3f}, rows "
+              f"{float(v[1][hit].mean()):.3f} [{smi}]", flush=True)
+        n_i = MESH_FWD_BWD["lanes"]
+        s_fb = s_m.replace(rr_depth=MESH_FWD_BWD["rr_depth"])
+        tables, kw_i = iter_kernel_args(mesh, s_fb, rng.base_key(1, dev), 15)
+        pix = (torch.arange(n_i) % n_pix).to(dev, torch.int32)
+        lane_in = (pix,) + fresh_carry(n_i, dev)
+
+        def run_kernels():
+            # alternating: the profiler's trace can drop a burst's first
+            # events, and each kernel's mean is over those it recorded
+            for _ in range(20):
+                allpairs_nearest_record(tb.ptbl, tb.bvh, *rays, **kw_n)
+                iter_megakernel(*tables, lane_in, **kw_i)
+        return run_kernels
+
     report = {"device": smi, "estimators": {}}
     for name, fn, rays in (
             ("exact", fwd(scene, s, 200), n_pix * 200),
@@ -176,7 +239,8 @@ def main() -> None:
             ("fwdbwd_bal4", fwd_bwd(scene, s, FWD_BWD_BAL4),
              FWD_BWD_BAL4["lanes"] * FWD_BWD_BAL4["spp"]),
             ("fwdbwd_rot8_remat", fwd_bwd(scene, s, FWD_BWD_ROT8, remat=True),
-             FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"])):
+             FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
+            ("mesh_kernels", lambda: mesh_kernel_calls()(), 0)):
         if only and name not in only:
             continue
         walls = []
@@ -184,10 +248,11 @@ def main() -> None:
             wall, iters = run(fn)
             walls.append(wall)
         peak = torch.cuda.max_memory_allocated()
+        rate = (f"{rays / min(walls) / 1e6:.3f} M primary rays/s at the "
+                f"best, " if rays else "")
         print(f"[walls] {name}: {', '.join(f'{w:.3f}' for w in walls)} s "
-              f"(in run order), {iters} iterations, "
-              f"{rays / min(walls) / 1e6:.3f} M primary rays/s at the "
-              f"best, peak memory {peak / 2**30:.3f} GiB [{smi}]", flush=True)
+              f"(in run order), {iters} iterations, {rate}peak memory "
+              f"{peak / 2**30:.3f} GiB [{smi}]", flush=True)
 
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,

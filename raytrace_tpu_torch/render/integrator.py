@@ -326,13 +326,15 @@ def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
     p = scene.prims
     n_prims = _n_scan_prims(p)
     vol = scene.volumes
+    ptbl = pack_prims(p).contiguous()
     return SplitTables(
-        ptbl=pack_prims(p).contiguous(),
+        ptbl=ptbl,
         mtbl=pack_materials(scene.materials, scene.textures).to(dev)
         .contiguous(),
         ttbl=pack_targets(s.redirect_prob, s.redirect_q, s.redirect_u,
                           s.redirect_v).to(dev).contiguous(),
-        bvh=pack_bvh(p, n_prims) if uses_bvh(p) else None, n_prims=n_prims,
+        bvh=pack_bvh(p, ptbl, n_prims) if uses_bvh(p) else None,
+        n_prims=n_prims,
         n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
         has_motion=p.has_motion, t_min=float(np.float32(s.t_min)),
         rich=is_rich(scene.textures.kinds_present), volumes=vol,

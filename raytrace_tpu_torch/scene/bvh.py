@@ -1,9 +1,11 @@
-"""Host-side median-split BVH (``raytrace_tpu/scene/bvh.py``), numpy only.
+"""Host-side BVHs over primitive boxes, numpy only.
 
-Dense scenes use its primitive permutation to order their rows spatially,
-so the packed tables match the JAX package's row for row; its flat
-threaded node list, built over the packed rows, is what the nearest-hit
-kernel walks (``ops/allpairs_kernel.py:pack_bvh``).
+* :func:`build_bvh`, the median split of ``raytrace_tpu/scene/bvh.py``:
+  dense scenes use its primitive permutation to order their rows
+  spatially, so the packed tables match the JAX package's row for row.
+* :func:`build_sah_bvh`, a binned-SAH tree of two-box nodes built level by
+  level: the BVH the nearest-hit walk reads, built over the packed rows
+  (``ops/allpairs_kernel.py:pack_bvh``).
 """
 from __future__ import annotations
 
@@ -121,3 +123,152 @@ def build_bvh(lo: np.ndarray, hi: np.ndarray, leaf_size: int = 4):
         skip=skip,
     )
     return np.asarray(perm, np.int64), nodes
+
+
+def _segments(counts):
+    """Segment id of every element of segments of ``counts`` elements laid
+    end to end, and each segment's first element."""
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return np.repeat(np.arange(counts.size), counts), first
+
+
+def _area(lo, hi):
+    e = np.maximum(hi - lo, 0.0)
+    return 2.0 * (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2]
+                  + e[..., 2] * e[..., 0])
+
+
+def build_sah_bvh(lo: np.ndarray, hi: np.ndarray, leaf_size: int = 4,
+                  n_bins: int = 16):
+    """Binned-SAH BVH of two-box nodes over primitive AABBs.
+
+    Built level by level: every node of a level is split at once, with
+    numpy segment reductions over its primitives.  A node of more than
+    ``leaf_size`` primitives is split at the bin boundary (``n_bins``
+    bins of the centroid extent, on each axis) of least surface-area
+    cost ``A_L N_L + A_R N_R``; where no boundary separates its
+    centroids (all in one bin, or one centroid), it is split by count
+    at the median centroid of its widest centroid axis.
+
+    Returns ``(perm, nodes, depth)``: ``perm`` orders the primitives so
+    that every leaf is a contiguous range; ``nodes`` holds, for each
+    interior node in breadth-first order (the root first), its two
+    children's boxes ``lo``/``hi`` [n, 2, 3] and words ``child`` [n, 2]
+    and ``count`` [n, 2]: an interior child has count 0 and the index of
+    its node, a leaf the first position of its range in ``perm`` and its
+    count (where all primitives fit one leaf, both children of the root
+    are that leaf).
+    ``depth`` is the most interior nodes on a path from the root."""
+    n = lo.shape[0]
+    if n == 0:
+        raise ValueError("build_sah_bvh: empty primitive list")
+    perm = np.arange(n)
+    if n <= leaf_size:
+        # the root's two children are its one leaf
+        box = lambda b: np.broadcast_to(b, (1, 2, 3)).copy()
+        return perm, dict(lo=box(lo.min(0)), hi=box(hi.max(0)),
+                          child=np.zeros((1, 2), np.int64),
+                          count=np.full((1, 2), n, np.int64)), 1
+    cen = 0.5 * (lo + hi)
+    # the active nodes of a level: [start, end) of perm, the parent slot
+    # (node index * 2 + side) their box and word go to (-1: the root)
+    start = np.zeros(1, np.int64)
+    end = np.full(1, n, np.int64)
+    slot = np.full(1, -1, np.int64)
+    box_lo, box_hi, words, counts = [], [], [], []
+    n_nodes, depth = 0, 0
+    while start.size:
+        cnt = end - start
+        seg, first = _segments(cnt)
+        pos = np.repeat(start - first, cnt) + np.arange(cnt.sum())
+        ids = perm[pos]
+        slo = np.minimum.reduceat(lo[ids], first)
+        shi = np.maximum.reduceat(hi[ids], first)
+        inner = cnt > leaf_size
+        node = np.full(start.size, -1, np.int64)
+        node[inner] = n_nodes + np.arange(int(inner.sum()))
+        has = slot >= 0
+        box_lo.append((slot[has], slo[has]))
+        box_hi.append(shi[has])
+        words.append(np.where(inner, node, start)[has])
+        counts.append(np.where(inner, 0, cnt)[has])
+        n_nodes += int(inner.sum())
+        if not inner.any():
+            break
+        depth += 1
+        # ---- split every inner node of the level ----
+        keep = inner[seg]
+        seg_i = np.cumsum(inner)[seg[keep]] - 1       # index among inner
+        m = int(inner.sum())
+        pos, ids = pos[keep], ids[keep]
+        k_all = ids.size
+        c, lo_i, hi_i = cen[ids], lo[ids], hi[ids]
+        first_i = np.concatenate([[0], np.cumsum(cnt[inner])[:-1]])
+        cmin = np.minimum.reduceat(c, first_i)
+        ext = np.maximum.reduceat(c, first_i) - cmin
+        # the bin of every primitive on each axis, and each (axis, node,
+        # bin)'s count and box: sort by that key, reduce its runs
+        e = ext[seg_i].T
+        bins = np.floor(n_bins * (c.T - cmin[seg_i].T)
+                        / np.where(e > 0, e, 1.0)).astype(np.int64)
+        bins = np.clip(bins, 0, n_bins - 1)
+        key = ((np.arange(3)[:, None] * m + seg_i) * n_bins + bins).ravel()
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        run = np.flatnonzero(np.concatenate([[True], ks[1:] != ks[:-1]]))
+        blo = np.full((3 * m * n_bins, 3), np.inf)
+        bhi = np.full((3 * m * n_bins, 3), -np.inf)
+        blo[ks[run]] = np.minimum.reduceat(lo_i[order % k_all], run)
+        bhi[ks[run]] = np.maximum.reduceat(hi_i[order % k_all], run)
+        nb = np.bincount(key, minlength=3 * m * n_bins).reshape(3, m, n_bins)
+        blo = blo.reshape(3, m, n_bins, 3)
+        bhi = bhi.reshape(3, m, n_bins, 3)
+        nl = np.cumsum(nb, 2)[..., :-1]
+        nr = cnt[inner][:, None] - nl
+        al = _area(np.minimum.accumulate(blo, 2),
+                   np.maximum.accumulate(bhi, 2))[..., :-1]
+        ar = _area(np.minimum.accumulate(blo[:, :, ::-1], 2)[:, :, ::-1],
+                   np.maximum.accumulate(bhi[:, :, ::-1], 2)[:, :, ::-1])[
+                       ..., 1:]
+        cost = np.where((nl > 0) & (nr > 0), al * nl + ar * nr, np.inf)
+        # the least cost, the lower axis and boundary on a tie
+        flat = cost.transpose(1, 0, 2).reshape(m, 3 * (n_bins - 1))
+        arg = np.argmin(flat, 1)
+        best = flat[np.arange(m), arg]
+        best_axis, best_k = arg // (n_bins - 1), arg % (n_bins - 1)
+        right = bins[best_axis[seg_i], np.arange(k_all)] > best_k[seg_i]
+        part = seg_i * 2 + right
+        by_count = ~np.isfinite(best)
+        if by_count.any():
+            # by count: the upper half of the centroids on the widest axis
+            axis = np.argmax(ext, 1)
+            rank = np.lexsort((c[np.arange(k_all), axis[seg_i]], seg_i))
+            within = np.empty_like(rank)
+            within[rank] = np.arange(k_all)
+            within -= first_i[seg_i]
+            upper = within >= cnt[inner][seg_i] // 2
+            counted = by_count[seg_i]
+            right = np.where(counted, upper, right)
+            part = seg_i * 2 + right
+            order = np.lexsort((np.where(counted, within, 0), part))
+        else:
+            order = np.argsort(part, kind="stable")
+        perm[pos] = ids[order]
+        n_left = np.bincount(seg_i, weights=~right, minlength=m).astype(
+            np.int64)
+        s_i, e_i, nd = start[inner], end[inner], node[inner]
+        start = np.stack([s_i, s_i + n_left], 1).ravel()
+        end = np.stack([s_i + n_left, e_i], 1).ravel()
+        slot = np.stack([2 * nd, 2 * nd + 1], 1).ravel()
+
+    out_lo = np.zeros((n_nodes * 2, 3))
+    out_hi = np.zeros((n_nodes * 2, 3))
+    child = np.zeros(n_nodes * 2, np.int64)
+    count = np.zeros(n_nodes * 2, np.int64)
+    for (s, bl), bh, w, k in zip(box_lo, box_hi, words, counts):
+        out_lo[s], out_hi[s], child[s], count[s] = bl, bh, w, k
+    nodes = dict(lo=out_lo.reshape(n_nodes, 2, 3),
+                 hi=out_hi.reshape(n_nodes, 2, 3),
+                 child=child.reshape(n_nodes, 2),
+                 count=count.reshape(n_nodes, 2))
+    return perm, nodes, depth

@@ -1526,6 +1526,7 @@ HOST_SHIM = r"""
 using std::max;
 using std::min;
 struct Dim3 { unsigned x = 0; };
+struct float4 { float x, y, z, w; };
 static thread_local Dim3 threadIdx, blockIdx;
 static Dim3 blockDim, gridDim;
 // n threads meet: the last to arrive releases the others (n < 2: no-op)

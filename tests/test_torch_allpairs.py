@@ -9,9 +9,10 @@
   camera rays of a 32 x 32 image, their scattered second bounce, and
   random rays from inside the scene.
 * ``pack_bvh``: every non-pad row of the packed table is in exactly one
-  leaf, each leaf entry indexes the packed table (kind-major order, not
-  the builder's), every node box holds its subtree's rows, and the escape
-  indices thread the tree depth first.
+  leaf, once, in the leaf-ordered copy of the rows beside its original
+  index (kind-major order, not the builder's); every child box holds its
+  rows and lies inside its parent's; the depth is within the walk's
+  stack; two builds are equal.
 
 Tolerances.  XLA's CPU backend contracts multiply-adds into fused ones,
 so a ray that grazes an edge shared by two triangles, or a sphere's
@@ -31,7 +32,8 @@ import raytrace_tpu as jrt
 from raytrace_tpu.ops.pallas import allpairs_kernel as jak
 from raytrace_tpu.ops.pallas import intersect_kernel as jik
 from raytrace_tpu_torch.ops.allpairs_kernel import (
-    allpairs_nearest_plain, allpairs_nearest_record, pack_bvh,
+    LEAF_SIZE, ORIG_COL, STACK_SIZE, allpairs_nearest_plain,
+    allpairs_nearest_record, pack_bvh,
 )
 from raytrace_tpu_torch.ops.bounce_kernel import shade_plain
 from raytrace_tpu_torch.ops.intersect_kernel import pack_prims
@@ -117,42 +119,61 @@ def test_pack_bvh_covers_the_packed_table(case):
         scene, _ = mesh_all_kinds_scene(18, True, device="cpu")
     p = scene.prims
     n_rows = p.kind.shape[0]
-    bvh = pack_bvh(p, n_rows)
+    tbl = pack_prims(p).contiguous()
+    bvh = pack_bvh(p, tbl, n_rows)
     nodes = bvh.nodes.numpy()
     words = nodes.view(np.int32)
-    leaf_rows = bvh.leaf_rows.numpy()
+    rows = bvh.rows.numpy()
     kind = p.kind.numpy()
     real = np.nonzero(kind != PRIM_PAD)[0]
-    # every non-pad row exactly once, pad rows never
-    np.testing.assert_array_equal(np.sort(leaf_rows), real)
-    # leaves tile the leaf list in depth-first order
-    count = words[:, 7]
-    leaf = count > 0
-    np.testing.assert_array_equal(words[leaf, 6],
-                                  np.concatenate([[0], np.cumsum(
-                                      count[leaf])[:-1]]))
-    assert count.sum() == leaf_rows.size
-    # escape indices: a leaf's successor is the next node, an interior
-    # node's escape skips exactly its subtree
+    # every non-pad row exactly once, pad rows never: the leaf-ordered copy
+    # is the table's row beside its original index
+    orig = rows[:, ORIG_COL].astype(np.int64)
+    np.testing.assert_array_equal(orig, rows[:, ORIG_COL])
+    np.testing.assert_array_equal(np.sort(orig), real)
+    np.testing.assert_array_equal(rows[:, :ORIG_COL],
+                                  tbl.numpy()[orig, :ORIG_COL])
+    assert bvh.tri_only == (case == "standin")
+    # every interior node is reached once from the root, the depth is the
+    # most interior nodes on a path, within the walk's stack, and the
+    # leaves (at most LEAF_SIZE rows) tile the copy
+    child, count = words[:, 12:14], words[:, 14:16]
     n_nodes = nodes.shape[0]
-
-    def walk(i):
-        if count[i] > 0:
-            return i + 1
-        end = walk(walk(i + 1))
-        assert words[i, 6] == end
-        return end
-    assert walk(0) == n_nodes
-    # every node box holds the rows of its leaves (their corners, and over
-    # both motion extremes)
+    seen = np.zeros(n_nodes, np.int64)
+    next_row, max_depth = 0, 0
+    stack = [(0, 1)]
+    while stack:
+        i, d = stack.pop()
+        seen[i] += 1
+        max_depth = max(max_depth, d)
+        for k in (0, 1):
+            if count[i, k] == 0:
+                assert child[i, k] > i
+                stack.append((child[i, k], d + 1))
+    np.testing.assert_array_equal(seen, 1)
+    assert bvh.depth == max_depth <= STACK_SIZE
+    leaves = sorted((child[i, k], count[i, k]) for i in range(n_nodes)
+                    for k in (0, 1) if count[i, k] > 0)
+    for start, c in leaves:
+        assert start == next_row and 1 <= c <= LEAF_SIZE
+        next_row += c
+    assert next_row == real.size
+    # each child box holds its rows (their corners, over both motion
+    # extremes) and lies inside its parent's box
     p0 = p.p0.numpy().astype(np.float64)
     e1 = p.e1.numpy().astype(np.float64)
     e2 = p.e2.numpy().astype(np.float64)
     mv = [p.mv0.numpy().astype(np.float64), p.mv1.numpy().astype(np.float64)]
-    for i in np.nonzero(leaf)[0]:
-        rows = leaf_rows[words[i, 6]:words[i, 6] + count[i]]
-        for m in mv:
-            for r in rows:
+    box = lambda i, k: (nodes[i, 6 * k:6 * k + 3],
+                        nodes[i, 6 * k + 3:6 * k + 6])
+    parent = {}
+    for i in range(n_nodes):
+        for k in (0, 1):
+            lo, hi = box(i, k)
+            if count[i, k] == 0:
+                parent[child[i, k]] = (lo, hi)
+                continue
+            for r in orig[child[i, k]:child[i, k] + count[i, k]]:
                 if kind[r] == 0:
                     rad = abs(e1[r, 0])
                     pts = [p0[r] - rad, p0[r] + rad]
@@ -160,13 +181,19 @@ def test_pack_bvh_covers_the_packed_table(case):
                     pts = [p0[r], e1[r]]
                 else:
                     pts = [p0[r], p0[r] + e1[r], p0[r] + e2[r]]
-                for q in pts:
-                    assert np.all(q + m[r] >= nodes[i, 0:3]), (i, r)
-                    assert np.all(q + m[r] <= nodes[i, 3:6]), (i, r)
-    # parents hold children
-    for i in np.nonzero(~leaf)[0]:
-        assert np.all(nodes[i + 1, 0:3] >= nodes[i, 0:3])
-        assert np.all(nodes[i + 1, 3:6] <= nodes[i, 3:6])
+                for m in mv:
+                    for q in pts:
+                        assert np.all(q + m[r] >= lo), (i, k, r)
+                        assert np.all(q + m[r] <= hi), (i, k, r)
+    for i, (plo, phi) in parent.items():
+        for k in (0, 1):
+            lo, hi = box(i, k)
+            assert np.all(lo >= plo) and np.all(hi <= phi), (i, k)
+    # two builds are equal
+    again = pack_bvh(p, tbl, n_rows)
+    assert torch.equal(again.nodes, bvh.nodes)
+    assert torch.equal(again.rows, bvh.rows)
+    assert again.depth == bvh.depth
 
 
 def test_nearest_wrapper_runs_plain_on_cpu():

@@ -53,7 +53,8 @@ from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
 )
 from raytrace_tpu_torch.testing import (
     ALL_MATERIAL_TARGETS, ATOL, RTOL as F_RTOL, all_materials_scene,
-    box_motion_scene, cornell_scene_and_settings, k7_inputs, torch_threads,
+    box_motion_scene, cornell_scene_and_settings, k7_inputs,
+    mesh_all_kinds_scene, torch_threads,
 )
 
 R = 1024
@@ -123,6 +124,49 @@ def test_plain_k7_matches_jax_kernel(name):
     # the state carries gradient: live hits and the rows in use
     assert int((al > 0.5).sum()) > R // 8
     assert (np.abs(jx).max(1) > 0).sum() >= n_row + 10
+
+
+def test_k7_on_parked_dead_lanes_of_a_mesh_state():
+    """ROADMAP F9: a 384-row mesh state at 2 spp, whose dead lanes are
+    parked at 3e18 with winner -1, reading row 0, a sphere.  JAX's K7
+    returns NaN there (its f32 vjp multiplies a zero cotangent by the
+    overflowed refraction term); the route reads those lanes only through
+    the row sums and discards their lane gradients.  The port's plain
+    version agrees with JAX on every live lane and gives the exact
+    gradients (float64 autograd) on the dead ones: 0 for the row, the
+    cotangent for the lane."""
+    scene, s = mesh_all_kinds_scene(10, False, 64, device="cpu")
+    args, kw = k7_inputs(scene, s, R, 4, seed=7, spp=2)
+    ttbl, gath, bi, lane, u_cols, al, cts = args
+    live = (al > 0.5).numpy()
+    assert live.sum() > R // 16 and (~live).sum() > R // 2
+    ours = bounce_bwd_megakernel_plain(*args, **kw)
+    tx = torch.stack(ours).numpy().astype(np.float64)
+    assert np.isfinite(tx).all()
+
+    n_row = kw["n_row"]
+    j = lambda x: jnp.asarray(x.numpy().reshape(R // 128, 128))
+    diff = tuple(j(x) for x in tuple(gath[:n_row + 7]) + tuple(lane))
+    det = tuple(j(x) for x in tuple(gath[n_row + 7:]) + tuple(u_cols)
+                + (al, torch.where(bi >= 0.0, 1.0, 0.0)))
+    gdiff, miss = jax_k7(jnp.asarray(ttbl.numpy()), diff, det,
+                         tuple(j(x) for x in cts), interpret=True,
+                         n_targets=kw["n_targets"],
+                         has_motion=kw["has_motion"],
+                         has_box=kw["has_box"], t_min=kw["t_min"])
+    jx = np.stack([np.asarray(x).reshape(R)
+                   for x in list(gdiff) + [miss]]).astype(np.float64)
+    assert _bad_lanes(jx[:, live], tx[:, live]).mean() <= FRAC
+
+    f64 = lambda xs: tuple(x.double() for x in xs)
+    exact = bounce_bwd_megakernel_plain(
+        ttbl.double(), f64(gath), bi.double(), f64(lane), f64(u_cols),
+        al.double(), f64(cts), **kw)
+    ex = torch.stack(exact).numpy()
+    np.testing.assert_array_equal(tx[:n_row + 7, ~live], 0.0)
+    np.testing.assert_array_equal(ex[:n_row + 7, ~live], 0.0)
+    np.testing.assert_allclose(tx[:, ~live], ex[:, ~live], rtol=1e-6,
+                               atol=0.0)
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,36 @@ def test_mesh_tables_equal_jax(case):
         assert ts.prims.kind.shape[0] > 512
 
 
+@pytest.mark.parametrize("case", ["standin", "random"])
+def test_build_bvh_equals_jax(case):
+    """``scene/bvh.py:build_bvh``, the median split whose permutation sets
+    ``compile_scene``'s row order (held against JAX's above), equals the
+    JAX package's on the same boxes: permutation and nodes.  The device
+    BVH is a separate build (``build_sah_bvh``) over the packed rows."""
+    from raytrace_tpu.scene import bvh as jbvh
+    from raytrace_tpu_torch.scene import bvh as tbvh
+    if case == "standin":
+        ts = trt.compile_scene(bunny_standin_world(trt), device="cpu")
+        p = ts.prims
+        real = p.kind.numpy() >= 0
+        f64 = lambda x: x.numpy().astype(np.float64)[real]
+        args = (p.kind.numpy()[real], f64(p.p0), f64(p.e1), f64(p.e2),
+                f64(p.mv0), f64(p.mv1))
+        lo, hi = tbvh.prim_aabbs(*args)
+        jlo, jhi = jbvh.prim_aabbs(*args)
+        np.testing.assert_array_equal(lo, jlo)
+        np.testing.assert_array_equal(hi, jhi)
+    else:
+        c = np.random.default_rng(5).normal(size=(777, 3))
+        lo, hi = c - 0.05, c + 0.05
+    perm, nodes = tbvh.build_bvh(lo, hi, leaf_size=4)
+    jperm, jnodes = jbvh.build_bvh(lo, hi, leaf_size=4)
+    np.testing.assert_array_equal(perm, jperm)
+    assert sorted(nodes) == sorted(jnodes)
+    for k in nodes:
+        np.testing.assert_array_equal(nodes[k], jnodes[k], err_msg=k)
+
+
 def test_mesh_transform_and_bounds_equal_jax():
     v = np.random.default_rng(4).normal(size=(30, 3))
     f = np.arange(30).reshape(10, 3)
