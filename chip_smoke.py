@@ -9,11 +9,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the kernels of raytrace_tpu_torch/csrc with nvcc;
-3. kernel A (bounce) against its plain PyTorch version on the card: the
-   Cornell box at the main path's shapes (600 x 600 camera rays on
-   360,064 lanes, then their second bounce), and Cornell and an
-   all-materials scene, with and without redirect targets, on 2^16
-   random lanes;
+3. kernel A (bounce) against its plain PyTorch version on the card, with
+   the tables prepared as the drivers launch them: the Cornell box at the
+   main path's shapes (600 x 600 camera rays on 360,064 lanes, then their
+   second bounce) through the planar instantiation, the camera rays once
+   more through the general one, and Cornell and an all-materials scene
+   (the general instantiation), with and without redirect targets, on
+   2^16 random lanes;
 4. kernel B (iteration) against its plain version at the main path's
    shapes (360,064 lanes, width 600), exact and with Russian roulette:
    one iteration from a random lane state, then 30 from a fresh one;
@@ -26,7 +28,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
    held against its plain version on the inputs the driver gave it;
 7. each kernel's device time per launch (torch.profiler) and its
    wrapper's call back to back (CUDA events: the host's cost) beside its
-   plain version's at the main path's 360,064 lanes;
+   plain version's at the main path's 360,064 lanes; kernel A's time
+   also through its general instantiation and with ``n_prims=0`` (the
+   shade and the lane I/O alone), and its ``-Xptxas -v`` report;
 8. the backward kernel K5 against its plain version (torch autograd over
    ``lane_math``) on 2^18 lanes of a real mid-render state (kernel B
    steps the fwd+bwd configuration four times; random cotangents): the
@@ -121,12 +125,14 @@ of a red medium):
 
 24. the crossing kernels against their plain version on every lane: K11
     on cornell_smoke's 360,064 camera rays at 600 x 600 and their second
-    bounce (which starts inside both smoke blocks), K11b on 2^17 camera
-    rays of the pawn stand-in, their second bounce and 2^17 rays from
-    inside its medium, and K11 on 2^16 random rays of
-    ``tests/test_volume_kernel.py``'s fog ball and smoke box (a box row),
-    still and moving; every line must say 0 differing lanes and max |err|
-    0;
+    bounce (which starts inside both smoke blocks), K11b (the walk of a
+    per-medium BVH forest) on 2^17 camera rays of the pawn stand-in,
+    their second bounce and 2^17 rays from inside its medium, K11 on 2^16
+    random rays of ``tests/test_volume_kernel.py``'s fog ball and smoke
+    box (a box row), and K11b on 2^16 random rays of
+    ``testing.mixed_media_world``'s four media of mixed sizes in one
+    1,266-row boundary, each still and moving; every line must say 0
+    differing lanes and max |err| 0;
 25. route 5, the media forward: ``render_accumulate`` of cornell_smoke at
     600 x 600, depth 50, seed 0, at ``FWD_SPP`` (the scene's 200 cut;
     ``profile_render.py`` times 200): the stationary driver at rotate_k 8,
@@ -142,8 +148,10 @@ of a red medium):
     256, 4 spp, depth 10 (a stationary render of 8,192 rows and more,
     which raised before the sorted driver);
 28. K11's and K11b's times at those shapes beside their plain versions',
-    their bounds (the rows and chunk boxes each ray of K11b tested,
-    counted by the kernel) and their launches.
+    their bounds and their launches; K11b's box tests and row tests a ray
+    (counted by the kernel) for the camera rays and the rays from inside,
+    the bound of that work, and the bound of the 256-row chunk scan it
+    replaced at that scan's work.
 
 The unfused differentiable wavefront (``trace_wavefront_diff`` with
 ``rotate_k > 1`` or ``pixel_cost``: torch glue around kernel A forward and
@@ -236,6 +244,10 @@ PAWN_SPP = 16
 # and one chunk-box test of K11b (~20), counted from the source
 VOL_ROW_OPS = 60
 VOL_BOX_OPS = 20
+# the rows a camera ray of the pawn stand-in tested in the 256-row chunk
+# scan that K11b's forest walk replaced, as that kernel counted them on an
+# NVIDIA H100 (PERF.md section 6)
+CHUNK_ROWS_A_RAY = 209.39
 
 
 def _smi_line() -> str:
@@ -261,34 +273,10 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def _device_ms(fn, kernel, reps: int) -> float:
-    """Mean device time in ms of one call of ``fn``'s launches of
-    ``kernel`` (a substring of a kernel's name, or a tuple of them: the
-    means of each summed) over ``reps`` calls, read from torch.profiler:
-    a kernel shorter than its wrapper's host cost leaves the card idle
-    between back-to-back launches, so CUDA events around them would time
-    the host instead.  The profiler's device trace can drop some events
-    of a burst of microsecond launches (31 of 50 seen on an H100), so each
-    mean is over the launches it recorded, at least one a name."""
-    import torch
-    from torch.autograd import DeviceType
-    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for name in names:
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and name in e.name]
-        if not 0 < len(us) <= reps:
-            raise AssertionError(f"{name}: {len(us)} profiled launches of "
-                                 f"{reps}")
-        total += sum(us) / len(us) / 1e3
-    return total
+    """``profile_render.kernel_ms``: the mean device time in ms of one
+    call of ``fn``'s launches of ``kernel`` over ``reps`` calls."""
+    from raytrace_tpu_torch.profile_render import kernel_ms
+    return kernel_ms(fn, kernel, reps)
 
 
 def _device_total_ms(fn, reps: int) -> float:
@@ -466,7 +454,8 @@ def main() -> None:
     from raytrace_tpu_torch.render.integrator import bounce_tables
     from raytrace_tpu_torch.render.render import render_accumulate
     from raytrace_tpu_torch.testing import (
-        ALL_MATERIAL_TARGETS, BWD_RTOL, FRAC_LANES, FWD_BWD, ITER_INT_ROWS,
+        ALL_MATERIAL_TARGETS, BOUNCE_INT_ROWS, BWD_RTOL, FRAC_LANES, FWD_BWD,
+        ITER_INT_ROWS,
         MEAN_RTOL, MESH_FWD_BWD, all_materials_scene, bounce_inputs,
         box_motion_scene, bunny_standin_scene, bwd_inputs, checked_launches,
         compare_bounce, compare_bwd, compare_iter, cornell_scene_and_settings,
@@ -484,6 +473,7 @@ def main() -> None:
         bounce_bwd_regen_pre_reduced_plain,
     )
     from raytrace_tpu_torch.ops.row_reduce import row_tables
+    from raytrace_tpu_torch.profile_render import ptxas_report
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -511,17 +501,30 @@ def main() -> None:
 
     phase_done("build")
 
-    # 3. kernel A vs plain
+    # 3. kernel A vs plain: the tables prepared as the drivers launch them
+    # (the planar instantiation for Cornell's 18 parallelograms, the
+    # general one for the all-materials scene), and Cornell's table once
+    # through the general instantiation (unprepared)
     cornell, s_c = cornell_scene_and_settings(600, 200, 50, device=dev)
     n_pix, lanes, lane_pix = stationary_lanes(s_c)
     tb_c = bounce_tables(cornell, s_c)
+    inst = lambda tb: "planar" if tb.launch.planar else "general"
     a_args = primary_bounce_inputs(cornell, s_c, 1)
     errs, out = compare_bounce(tb_c, a_args)
-    err_a = _check("kernel A vs plain: cornell 600x600 primary rays", errs,
-                   lanes)
+    err_a = _check(f"kernel A vs plain ({inst(tb_c)}): cornell 600x600 "
+                   "primary rays", errs, lanes)
     errs, _ = compare_bounce(tb_c, next_bounce_inputs(a_args, out, 1, 1))
-    err_a = max(err_a, _check("kernel A vs plain: cornell 600x600 second "
-                              "bounce", errs, lanes))
+    err_a = max(err_a, _check(f"kernel A vs plain ({inst(tb_c)}): cornell "
+                              "600x600 second bounce", errs, lanes))
+    err_a = max(err_a, _check(
+        "kernel A vs plain (general, unprepared): cornell 600x600 primary "
+        "rays", max_errs(bounce_plain(tb_c.ptbl, tb_c.mtbl, tb_c.ttbl,
+                                      *a_args, **tb_c.kw),
+                         bounce_megakernel(tb_c.ptbl, tb_c.mtbl, tb_c.ttbl,
+                                           *a_args, **tb_c.kw),
+                         BOUNCE_INT_ROWS), lanes))
+    if not tb_c.launch.planar:
+        raise AssertionError("Cornell's table did not take the planar scan")
     allm = all_materials_scene(device=dev)
     s_a = rt.CameraSettings(background=rt.const_background([0.5, 0.6, 0.7]))
     s_at = s_a.with_redirect_targets(ALL_MATERIAL_TARGETS)
@@ -530,10 +533,10 @@ def main() -> None:
             ("cornell", cornell, s_c, (0.0, 555.0), 11),
             ("all-materials", allm, s_a, (-8.0, 8.0), 12),
             ("all-materials+targets", allm, s_at, (-8.0, 8.0), 13)):
-        errs, _ = compare_bounce(bounce_tables(sc, s),
-                                 bounce_inputs(sc, n, seed, box))
-        err_a = max(err_a, _check(f"kernel A vs plain: {name} random rays",
-                                  errs, n))
+        tb = bounce_tables(sc, s)
+        errs, _ = compare_bounce(tb, bounce_inputs(sc, n, seed, box))
+        err_a = max(err_a, _check(f"kernel A vs plain ({inst(tb)}): {name} "
+                                  "random rays", errs, n))
 
     phase_done("kernel A vs plain")
 
@@ -625,14 +628,29 @@ def main() -> None:
     # 7. kernel times at the main path's 360,064 lanes: device time per
     # launch, and the wrapper's call back to back (its host cost)
     a_call = lambda: bounce_megakernel(tb_c.ptbl, tb_c.mtbl, tb_c.ttbl,
-                                       *a_args, **tb_c.kw)
+                                       *a_args, **tb_c.kw,
+                                       prepared=tb_c.launch)
     ms_a = _device_ms(a_call, "bounce_kernel", 50)
     host_a = _time_ms(a_call, 50)
     plain_a = _time_ms(lambda: bounce_plain(tb_c.ptbl, tb_c.mtbl, tb_c.ttbl,
                                             *a_args, **tb_c.kw), 5, 1)
-    print(f"[time] kernel A {ms_a:.4f} ms on the device ({host_a:.4f} ms a "
-          f"call back to back) vs bounce_plain {plain_a:.3f} ms at {lanes} "
-          f"lanes (primary rays) [{smi}]", flush=True)
+    print(f"[time] kernel A ({inst(tb_c)}) {ms_a:.4f} ms on the device "
+          f"({host_a:.4f} ms a call back to back) vs bounce_plain "
+          f"{plain_a:.3f} ms at {lanes} lanes (primary rays) [{smi}]",
+          flush=True)
+    # the scan's share: the same wrapper with no rows (the shade and the
+    # lane I/O alone), and the general instantiation over Cornell's rows
+    ms_a0 = _device_ms(lambda: bounce_megakernel(
+        tb_c.ptbl, tb_c.mtbl, tb_c.ttbl, *a_args,
+        **dict(tb_c.kw, n_prims=0)), "bounce_kernel", 50)
+    ms_ag = _device_ms(lambda: bounce_megakernel(
+        tb_c.ptbl, tb_c.mtbl, tb_c.ttbl, *a_args, **tb_c.kw),
+        "bounce_kernel", 50)
+    print(f"[split] kernel A at {lanes} lanes: {ms_a:.4f} ms with Cornell's "
+          f"{tb_c.n_prims} rows (planar), {ms_ag:.4f} ms (general), "
+          f"{ms_a0:.4f} ms with n_prims=0 (the shade and the lane I/O); "
+          f"ptxas: {' | '.join(ptxas_report(('bounce_kernel',)))} [{smi}]",
+          flush=True)
     b_tables, b_kw = iter_kernel_args(cornell, s_c, rng.base_key(1, dev), 199)
     b_lane = ((torch.from_numpy(lane_pix).to(dev, torch.int32),)
               + fresh_carry(lanes, dev))
@@ -881,7 +899,8 @@ def main() -> None:
          "replaces": "raytrace_tpu/ops/pallas/bounce_kernel.py:523",
          "launches": main_a, "max_abs_err": err_a, "ms": ms_a,
          "host_ms": host_a, "plain_ms": plain_a, "bound_ms": bound_a[0],
-         "bound_by": bound_a[1], "library_ms": no_lib},
+         "bound_by": bound_a[1], "library_ms": no_lib,
+         "general_ms": ms_ag, "no_rows_ms": ms_a0},
         {"name": "iter_megakernel", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/iter_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/iter_kernel.py:328",
@@ -1687,16 +1706,17 @@ def _media_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
     from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
     from raytrace_tpu_torch.ops.volume_kernel import (
-        _chunk_plans, pallas_volume_crossings, pallas_volume_crossings_bcast,
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
         volume_crossings_plain,
     )
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.render import render_accumulate
     from raytrace_tpu_torch.render.volumes import crossing_kw, volume_tables
     from raytrace_tpu_torch.testing import (
-        checked_launches, compare_crossings, cornell_smoke_scene,
-        media_bounce_rays, pawn_inside_rays, pawn_standin_scene,
-        stationary_lanes, uv_sphere, volume_rays, volume_test_world,
+        MIXED_MEDIA_INSIDE, checked_launches, compare_crossings,
+        cornell_smoke_scene, media_bounce_rays, mixed_media_world,
+        pawn_inside_rays, pawn_standin_scene, stationary_lanes, uv_sphere,
+        volume_rays, volume_test_world,
     )
     counters = (bounce_megakernel, iter_megakernel, pallas_nearest_record,
                 allpairs_nearest_record, shade_megakernel,
@@ -1753,6 +1773,13 @@ def _media_phases(smi, phase_done, dev) -> dict:
         err11 += check_crossings(f"K11 vs plain: fog ball and smoke box"
                         f"{' moving' if moving else ''} (a box row), random "
                         f"rays", world.volumes, comps)
+        world = rt.compile_scene(mixed_media_world(rt, moving), device=dev)
+        comps = volume_rays(1 << 16, 86 + moving, (-6.0, 6.0),
+                            MIXED_MEDIA_INSIDE, device=dev)
+        err11b += check_crossings(
+            f"K11b vs plain: four media of {world.volumes.counts} rows"
+            f"{', moving' if moving else ''} (a mesh, a ball, a box row, a "
+            f"small mesh), random rays", world.volumes, comps)
     phase_done("crossing kernels vs plain")
 
     # 25. route 5: the media forward at full size
@@ -1897,27 +1924,56 @@ def _media_phases(smi, phase_done, dev) -> dict:
           f"{lanes_s} camera rays of cornell_smoke ({rows_s} boundary rows, "
           f"all tested); bound {bound11[0]:.4f} ms ({bound11[1]}) [{smi}]",
           flush=True)
-    vtbl_p, cbox_p = volume_tables(pawn.volumes)
+    vtbl_p, forest_p = volume_tables(pawn.volumes)
     kw_p = crossing_kw(pawn.volumes, s_p.t_min)
     rays_p = tuple(pawn_rays[0][0].unbind(0))
-    _, tested = pallas_volume_crossings_bcast(vtbl_p, cbox_p, *rays_p,
-                                              count_rows=True, **kw_p)
-    call11b = lambda: pallas_volume_crossings_bcast(vtbl_p, cbox_p, *rays_p,
-                                                    **kw_p)
-    ms11b = _device_ms(call11b, "volume_chunked_kernel", 50)
+    call11b = lambda: pallas_volume_crossings_bcast(vtbl_p, forest_p,
+                                                    *rays_p, **kw_p)
+    ms11b = _device_ms(call11b, "volume_bvh_kernel", 50)
     back11b = _time_ms(call11b, 50)
     plain11b = _time_ms(lambda: volume_crossings_plain(vtbl_p, *rays_p,
                                                        **kw_p), 2, 1)
-    rows_t = float(tested.double().mean())
-    n_chunks = sum(len(p) for p in _chunk_plans(kw_p["slices"]))
-    bound11b = _bound_ms(4 * n_k * (7 + 3) + 4 * (vtbl_p.numel()
-                                                  + cbox_p.numel()),
-                         n_k * (VOL_ROW_OPS * rows_t + VOL_BOX_OPS * n_chunks))
+    # the walk's work and its bound for the camera rays and for rays from
+    # inside the medium: the rays read and written once, the nodes and
+    # leaf-ordered rows read once, BOX_OPS a box test and VOL_ROW_OPS a
+    # row test; beside it the bound of the 256-row chunk scan it replaced
+    # at that scan's measured work (CHUNK_ROWS_A_RAY rows and 5 chunk
+    # boxes a camera ray)
+    walk_bytes = 4 * (forest_p.nodes.numel() + forest_p.rows.numel())
+    works = {}
+    for label, comps in (("camera", pawn_rays[0][0]),
+                         ("inside", pawn_inside_rays(n_k, 83, device=dev))):
+        _, visits = pallas_volume_crossings_bcast(
+            vtbl_p, forest_p, *comps.unbind(0), count_visits=True, **kw_p)
+        v = visits.double()
+        warp = v.view(2, -1, 32).amax(2)
+        bound = _bound_ms(4 * n_k * (7 + 3) + walk_bytes,
+                          float(v[0].sum()) * BOX_OPS
+                          + float(v[1].sum()) * VOL_ROW_OPS)
+        works[label] = dict(box_tests=float(v[0].mean()),
+                            row_tests=float(v[1].mean()),
+                            warp_max_box_tests=float(warp[0].mean()),
+                            warp_max_row_tests=float(warp[1].mean()),
+                            bound_ms=bound[0], bound_by=bound[1])
+        print(f"[visits] K11b on {n_k} {label} rays of the pawn stand-in: "
+              f"{works[label]['box_tests']:.3f} box tests and "
+              f"{works[label]['row_tests']:.3f} row tests a ray (the "
+              "slowest lane of a warp: "
+              f"{works[label]['warp_max_box_tests']:.3f} and "
+              f"{works[label]['warp_max_row_tests']:.3f}); bound "
+              f"{bound[0]:.5f} ms ({bound[1]}) [{smi}]", flush=True)
+    bound11b = (works["camera"]["bound_ms"], works["camera"]["bound_by"])
+    old_bound = _bound_ms(4 * n_k * (7 + 3) + 4 * vtbl_p.numel(),
+                          n_k * (VOL_ROW_OPS * CHUNK_ROWS_A_RAY
+                                 + VOL_BOX_OPS * 5))
     print(f"[time] K11b {ms11b:.4f} ms on the device ({back11b:.4f} ms a call "
           f"back to back) vs volume_crossings_plain {plain11b:.3f} ms at "
-          f"{n_k} camera rays of the pawn stand-in; a ray tests "
-          f"{rows_t:.2f} of {vtbl_p.shape[0]} rows and {n_chunks} chunk "
-          f"boxes; bound {bound11b[0]:.5f} ms ({bound11b[1]}) [{smi}]",
+          f"{n_k} camera rays of the pawn stand-in ("
+          f"{'triangle-only' if forest_p.tri_only else 'general'} walk, "
+          f"{forest_p.nodes.shape[0]} nodes, depth {forest_p.depth}, built "
+          f"in {forest_p.build_s:.4f} s); bound {bound11b[0]:.5f} ms "
+          f"({bound11b[1]}), the chunk scan's at its {CHUNK_ROWS_A_RAY} rows "
+          f"a ray {old_bound[0]:.5f} ms ({old_bound[1]}) [{smi}]",
           flush=True)
     phase_done("crossing kernel times")
 
@@ -1933,10 +1989,12 @@ def _media_phases(smi, phase_done, dev) -> dict:
          "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:514",
          "launches": l11b, "max_abs_err": err11b, "ms": ms11b,
          "host_ms": back11b, "plain_ms": plain11b, "bound_ms": bound11b[0],
-         "bound_by": bound11b[1], "library_ms": None},
+         "bound_by": bound11b[1], "library_ms": None,
+         "box_tests": works["camera"]["box_tests"],
+         "row_tests": works["camera"]["row_tests"]},
     ]
     summary = dict(route5=route5, route6=route6, route7=route7,
-                   k11b_rows_tested=rows_t)
+                   k11b_work=works)
     return dict(summary=summary, kernels=kernels, k8_launches=l8,
                 k9_launches=l9 + l9b, shade_launches=l10 + l10p + l10b)
 

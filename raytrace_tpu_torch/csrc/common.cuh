@@ -45,9 +45,10 @@ __device__ __forceinline__ float sgn(float x) {
 }
 
 #ifdef __CUDACC__
-// The block's dynamic shared memory (the host build's shim has its own).
+// The block's dynamic shared memory, 16-byte aligned (the host build's shim
+// has its own).
 __device__ __forceinline__ float* dyn_smem() {
-  extern __shared__ float rt_dyn_smem[];
+  extern __shared__ __align__(16) float rt_dyn_smem[];
   return rt_dyn_smem;
 }
 

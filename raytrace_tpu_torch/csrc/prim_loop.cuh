@@ -10,6 +10,13 @@
 // running best.  Ties go to the lowest row: a candidate wins if it is
 // nearer, or as near and of a lower row.  The flat scan visits rows in
 // order, so there the second clause never fires.
+//
+// planar_loop is the flat scan of a table whose rows are all unmoving
+// parallelograms and triangles (kernel A's planar instantiation): it reads
+// each row's columns 4-19 as four float4 from shared memory, runs only
+// prim_test's planar branch, carries only (t, row) and builds the winner's
+// record once, after the scan, by prim_test on that row (same association,
+// so the same bits).
 #pragma once
 
 #include "common.cuh"
@@ -195,6 +202,66 @@ __device__ __forceinline__ void face_ray(HitRec& h) {
   h.nx = h.nx * flip;
   h.ny = h.ny * flip;
   h.nz = h.nz * flip;
+}
+
+// prim_test's parallelogram / triangle candidate of an unmoving row
+// (+inf where it misses), the columns read as float4 (the row must be
+// 16-byte aligned: a table of 36-float rows at an aligned base).
+__device__ __forceinline__ float planar_cand(const float* __restrict__ r,
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float t_min) {
+  const float4 c4 = *reinterpret_cast<const float4*>(r + 4);
+  const float4 c8 = *reinterpret_cast<const float4*>(r + 8);
+  const float4 c12 = *reinterpret_cast<const float4*>(r + 12);
+  const float kind = r[16];
+  const float nxs = c4.x, nys = c4.y, nzs = c4.z;
+  const float wax = c4.w, way = c8.x, waz = c8.y;
+  const float wbx = c8.z, wby = c8.w, wbz = c12.x;
+  const float qn = c12.y, qwa = c12.z, qwb = c12.w;
+  const float den = dx * nxs + dy * nys + dz * nzs;
+  const bool den_ok = fabsf(den) > RT_F(1e-8);
+  const float den_safe = den_ok ? den : 1.0f;
+  const float on = ox * nxs + oy * nys + oz * nzs;
+  const float t_p = (qn - on) / den_safe;
+  const float owa = ox * wax + oy * way + oz * waz;
+  const float dwa = dx * wax + dy * way + dz * waz;
+  const float owb = ox * wbx + oy * wby + oz * wbz;
+  const float dwb = dx * wbx + dy * wby + dz * wbz;
+  const float a = owa - qwa + t_p * dwa;
+  const float b = owb - qwb + t_p * dwb;
+  // fmaxf, not the NaN-propagating tmax: a NaN a or b fails a >= 0 or
+  // b >= 0 whatever the bound, so the test is prim_test's
+  const float bound = kind == 2.0f ? a + b : fmaxf(a, b);
+  const bool ok = den_ok && (a >= 0.0f) && (b >= 0.0f) && (bound <= 1.0f) &&
+                  (t_p > t_min);
+  return ok ? t_p : inf();
+}
+
+// The flat scan of rows [0, n_prims) of tbl, every one an unmoving
+// parallelogram or triangle (kind 1 or 2); tbl 16-byte aligned.
+__device__ __forceinline__ HitRec planar_loop(
+    const float* __restrict__ tbl, int n_prims, float ox, float oy, float oz,
+    float dx, float dy, float dz, float t_min, bool with_albedo) {
+  float bt = inf();
+  int bi = -1;
+#pragma unroll 1
+  for (int ci = 0; ci < n_prims; ++ci) {
+    const float c = planar_cand(tbl + ci * kCols, ox, oy, oz, dx, dy, dz,
+                                t_min);
+    if (c < bt) {  // rows in order: a tie never goes to a later row
+      bt = c;
+      bi = ci;
+    }
+  }
+  HitRec h = miss_record();
+  if (bi >= 0) {
+    const float inv = 1.0f;  // the planar branch reads no 1/d
+    prim_test(PtrRow{tbl + bi * kCols}, bi, ox, oy, oz, dx, dy, dz, inv,
+              inv, inv, 0.0f, t_min, false, with_albedo, h);
+  }
+  face_ray(h);
+  return h;
 }
 
 // Scan rows [0, n_prims) of tbl (row-major [*, 36], usually in shared

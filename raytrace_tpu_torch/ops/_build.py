@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ENTRY_POINTS = ("rt_bounce", "rt_iter", "rt_iter_bvh", "rt_bounce_bwd",
                 "rt_bounce_bwd_replay", "rt_nearest", "rt_shade",
                 "rt_nearest_flat", "rt_marble", "rt_image_grad",
-                "rt_volume_crossings", "rt_volume_crossings_chunked")
+                "rt_volume_crossings", "rt_volume_crossings_bvh")
 
 
 def _nvcc() -> str:
@@ -113,10 +113,13 @@ def launch(name: str, args: ctypes.Structure, device) -> None:
     """Launch entry point ``name`` with its argument struct on the current
     stream of ``device``; raise on a launch error."""
     import torch
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(ctypes.byref(args), ctypes.c_void_p(stream))
+    fn = getattr(load_library(), name)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(ctypes.byref(args), stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}: "
-                           f"{lib.rt_error_string(err).decode()}")
+                           f"{load_library().rt_error_string(err).decode()}")

@@ -99,35 +99,59 @@ def bvh_boxes(prims, n_prims: int):
     return real, lo - pad, hi + pad
 
 
+def build_tree(lo, hi, who: str):
+    """``(perm, nodes, depth)``: :func:`build_sah_bvh` over the padded
+    boxes ``lo``/``hi`` with the walks' leaf size and bins; raise if the
+    tree is deeper than the walks' stack."""
+    perm, nodes, depth = build_sah_bvh(lo, hi, leaf_size=LEAF_SIZE,
+                                       n_bins=SAH_BINS)
+    if depth > STACK_SIZE:
+        raise ValueError(f"{who}: a tree of depth {depth} overflows the "
+                         f"walk's stack of {STACK_SIZE}")
+    return perm, nodes, depth
+
+
+def pack_nodes(nodes, node_base: int = 0, row_base: int = 0) -> np.ndarray:
+    """[n, 16] f32 two-box nodes of :func:`build_sah_bvh`'s ``nodes``: the
+    boxes rounded outward to f32 by one more ulp, then the words and
+    counts as int32 bits; interior words offset by ``node_base`` and
+    leaf words by ``row_base`` (for trees packed into one array)."""
+    n = nodes["child"].shape[0]
+    out = np.zeros((n, N_NODE_COLS), np.float32)
+    box = lambda b, to: np.nextafter(b.astype(np.float32), np.float32(to))
+    lo32, hi32 = box(nodes["lo"], -np.inf), box(nodes["hi"], np.inf)
+    out[:, 0:3], out[:, 3:6] = lo32[:, 0], hi32[:, 0]
+    out[:, 6:9], out[:, 9:12] = lo32[:, 1], hi32[:, 1]
+    words = out.view(np.int32)
+    count = nodes["count"]
+    words[:, 12:14] = nodes["child"] + np.where(count == 0, node_base,
+                                                row_base)
+    words[:, 14:16] = count
+    return out
+
+
+def leaf_rows(tbl, order: np.ndarray) -> torch.Tensor:
+    """The rows ``order`` of the packed table ``tbl``, copied in that
+    order, column ``ORIG_COL`` holding each row's index in ``tbl``."""
+    idx = torch.from_numpy(order).to(tbl.device)
+    rows = tbl[idx].contiguous()
+    rows[:, ORIG_COL] = idx.to(torch.float32)
+    return rows
+
+
 def pack_bvh(prims, tbl, n_prims: int) -> DeviceBVH:
     """Build the device BVH of rows ``[0, n_prims)`` of the packed table
     ``tbl`` of ``prims`` (after kind segmentation and padding; pad rows
     left out), on the device of ``tbl``."""
     t0 = time.perf_counter()
     real, lo, hi = bvh_boxes(prims, n_prims)
-    perm, nodes, depth = build_sah_bvh(lo, hi, leaf_size=LEAF_SIZE,
-                                       n_bins=SAH_BINS)
-    if depth > STACK_SIZE:
-        raise ValueError(f"pack_bvh: a tree of depth {depth} overflows the "
-                         f"walk's stack of {STACK_SIZE}")
-    n = nodes["child"].shape[0]
-    out = np.zeros((n, N_NODE_COLS), np.float32)
-    # f32 boxes rounded outward by one more ulp
-    box = lambda b, to: np.nextafter(b.astype(np.float32), np.float32(to))
-    lo32, hi32 = box(nodes["lo"], -np.inf), box(nodes["hi"], np.inf)
-    out[:, 0:3], out[:, 3:6] = lo32[:, 0], hi32[:, 0]
-    out[:, 6:9], out[:, 9:12] = lo32[:, 1], hi32[:, 1]
-    words = out.view(np.int32)
-    words[:, 12:14] = nodes["child"]
-    words[:, 14:16] = nodes["count"]
+    perm, nodes, depth = build_tree(lo, hi, "pack_bvh")
     dev = tbl.device
-    order = torch.from_numpy(real[perm]).to(dev)
-    rows = tbl[order].contiguous()
-    rows[:, ORIG_COL] = order.to(torch.float32)
+    rows = leaf_rows(tbl, real[perm])
     tri_only = (not prims.has_motion
                 and bool((rows[:, 16] == float(PRIM_TRIANGLE)).all()))
-    return DeviceBVH(nodes=torch.from_numpy(out).to(dev), rows=rows,
-                     tri_only=tri_only, depth=depth,
+    return DeviceBVH(nodes=torch.from_numpy(pack_nodes(nodes)).to(dev),
+                     rows=rows, tri_only=tri_only, depth=depth,
                      build_s=time.perf_counter() - t0)
 
 

@@ -12,6 +12,11 @@ The RNG, regeneration and background-on-miss stay with the caller
 tensors and runs :func:`bounce_plain`, the same function in plain
 PyTorch, for CPU tensors.  Sphere uv uses the TPU kernel's polynomial
 arctangent (|err| ~1e-5 rad) in both, so kernel and plain version agree.
+:func:`prepare_bounce` checks a scene's tables once and prebuilds the
+table part of the kernel's argument struct (:class:`BounceLaunch`); a
+driver passes it to every launch, and it selects the kernel's planar
+instantiation for tables of unmoving parallelograms and triangles
+(:func:`planar_only`).
 
 :func:`shade_megakernel` (``bounce_kernel.py:shade_megakernel``) is the
 shade stage alone, fed a precomputed hit record and optional medium
@@ -21,6 +26,7 @@ events: it launches ``csrc/shade_kernel.cu`` for CUDA tensors and runs
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -31,6 +37,7 @@ from ..materials.materials import (
     MAT_ANISOTROPIC, MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_LIGHT, MAT_LOMMEL,
     MAT_METAL, MAT_MIRROR, MAT_PITCH_BLACK, MAT_TRANSPARENT, MaterialTable,
 )
+from ..scene.types import PRIM_PARALLELOGRAM, PRIM_TRIANGLE
 from ..textures.textures import TEX_CHECKER, TEX_CONSTANT, TextureTable
 from .intersect_kernel import MAX_SMEM_PRIMS, N_COLS, prim_loop_plain
 
@@ -383,9 +390,10 @@ def shade_values(hit_res, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr, tg, tb,
 def bounce_plain(ptbl, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tm, tr, tg, tb,
                  al, uniforms, *, n_prims: int, n_mats: int, n_targets: int,
                  t_min: float, has_motion: bool,
-                 use_prim_albedo: bool = False):
+                 use_prim_albedo: bool = False, prepared=None):
     """Kernel A in plain PyTorch: the same inputs and 15 outputs as
-    :func:`bounce_megakernel`, on any device."""
+    :func:`bounce_megakernel`, on any device (``prepared`` is accepted
+    so that both take the same arguments, and unused)."""
     hit = prim_loop_plain(ptbl, ox, oy, oz, dx, dy, dz, tm,
                           n_prims=n_prims, t_min=t_min,
                           has_motion=has_motion, with_albedo=use_prim_albedo)
@@ -402,8 +410,74 @@ class _BounceArgs(ctypes.Structure):
         + [("n_lanes", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in (
             "n_prims", "n_mats", "n_targets", "has_motion",
-            "use_prim_albedo")]
+            "use_prim_albedo", "planar")]
         + [("t_min", ctypes.c_float)])
+
+
+_LANE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tm", "tr", "tg", "tb",
+               "al")
+
+
+def planar_only(ptbl, n_prims: int, has_motion: bool) -> bool:
+    """Is every row of ``[0, n_prims)`` an unmoving parallelogram or
+    triangle?  Then kernel A scans the table with its planar
+    instantiation.  Reads the kinds to the host (a synchronisation)."""
+    if has_motion or n_prims == 0:
+        return False
+    kind = ptbl[:n_prims, 16]
+    return bool(((kind == float(PRIM_PARALLELOGRAM))
+                 | (kind == float(PRIM_TRIANGLE))).all())
+
+
+@dataclasses.dataclass(frozen=True)
+class BounceLaunch:
+    """Kernel A's tables for one scene and camera, checked once by
+    :func:`prepare_bounce`: the tables, their keyword parameters
+    (:func:`bounce_megakernel`'s), whether the planar instantiation
+    serves them, and the argument struct with its table part filled in
+    (the lanes are filled per launch)."""
+    ptbl: torch.Tensor
+    mtbl: torch.Tensor
+    ttbl: torch.Tensor
+    kw: dict
+    planar: bool
+    args: _BounceArgs
+
+
+def prepare_bounce(ptbl, mtbl, ttbl, *, n_prims: int, n_mats: int,
+                   n_targets: int, t_min: float, has_motion: bool,
+                   use_prim_albedo: bool = False) -> BounceLaunch:
+    """Check kernel A's tables (as :func:`bounce_megakernel` does without
+    them) and prebuild its argument struct's table part."""
+    kw = dict(n_prims=n_prims, n_mats=n_mats, n_targets=n_targets,
+              t_min=t_min, has_motion=has_motion,
+              use_prim_albedo=use_prim_albedo)
+    check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, ptbl.device)
+    planar = planar_only(ptbl, n_prims, has_motion)
+    return BounceLaunch(ptbl=ptbl, mtbl=mtbl, ttbl=ttbl, kw=kw,
+                        planar=planar,
+                        args=_table_args(ptbl, mtbl, ttbl, kw, planar))
+
+
+def lane_args(table_args: _BounceArgs, lanes, uniforms, out) -> _BounceArgs:
+    """A copy of ``table_args`` with the lane part filled in, for tensors
+    that outlive it."""
+    args = _BounceArgs.from_buffer_copy(table_args)
+    (args.ox, args.oy, args.oz, args.dx, args.dy, args.dz, args.tm, args.tr,
+     args.tg, args.tb, args.al, args.uni, args.out) = (
+        x.data_ptr() for x in tuple(lanes) + (uniforms, out))
+    args.n_lanes = out.shape[1]
+    return args
+
+
+def _table_args(ptbl, mtbl, ttbl, kw, planar: bool) -> _BounceArgs:
+    """Kernel A's argument struct with the table part filled in."""
+    return _BounceArgs(
+        ptbl=ptbl.data_ptr(), mtbl=mtbl.data_ptr(), ttbl=ttbl.data_ptr(),
+        n_prims=kw["n_prims"], n_mats=kw["n_mats"],
+        n_targets=kw["n_targets"], has_motion=int(kw["has_motion"]),
+        use_prim_albedo=int(kw["use_prim_albedo"]), planar=int(planar),
+        t_min=float(kw["t_min"]))
 
 
 def shade_plain(mtbl, ttbl, hit, medium, lanes, uniforms, *, n_mats: int,
@@ -530,27 +604,38 @@ def check_lanes(named, n, device, dtype=torch.float32):
 def bounce_megakernel(ptbl, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tm, tr, tg,
                       tb, al, uniforms, *, n_prims: int, n_mats: int,
                       n_targets: int, t_min: float, has_motion: bool,
-                      use_prim_albedo: bool = False):
+                      use_prim_albedo: bool = False,
+                      prepared: BounceLaunch | None = None):
     """One bounce of every lane.  Lanes are 1-D [R] f32 tensors (``al`` is
     0/1), ``uniforms`` is [N_U, R] (at least N_U rows, lane-contiguous).
     Returns the 15 [R] f32 outputs of :func:`shade_values`.
+    ``prepared`` (:func:`prepare_bounce` of these tables and parameters)
+    skips the tables' checks and selects the planar instantiation where
+    it serves them; without it the tables are checked and the general
+    instantiation runs.
 
     CPU tensors run :func:`bounce_plain`; CUDA tensors launch the kernel
     (``bounce_megakernel.launches`` counts the launches)."""
     lanes = (ox, oy, oz, dx, dy, dz, tm, tr, tg, tb, al)
+    kw = dict(n_prims=n_prims, n_mats=n_mats, n_targets=n_targets,
+              t_min=t_min, has_motion=has_motion,
+              use_prim_albedo=use_prim_albedo)
     dev = ox.device
     if dev.type == "cpu":
-        return bounce_plain(ptbl, mtbl, ttbl, *lanes, uniforms,
-                            n_prims=n_prims, n_mats=n_mats,
-                            n_targets=n_targets, t_min=t_min,
-                            has_motion=has_motion,
-                            use_prim_albedo=use_prim_albedo)
+        return bounce_plain(ptbl, mtbl, ttbl, *lanes, uniforms, **kw)
     if dev.type != "cuda":
         raise ValueError(f"bounce_megakernel: unsupported device {dev}")
     r = ox.shape[0]
-    check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, dev)
-    check_lanes(zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm", "tr", "tg",
-                     "tb", "al"), lanes), r, dev)
+    if prepared is None:
+        check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, dev)
+        table_args = _table_args(ptbl, mtbl, ttbl, kw, False)
+    elif (prepared.ptbl is not ptbl or prepared.mtbl is not mtbl
+          or prepared.ttbl is not ttbl or prepared.kw != kw):
+        raise ValueError("bounce_megakernel: the prepared tables are not "
+                         "the ones given")
+    else:
+        table_args = prepared.args
+    check_lanes(zip(_LANE_NAMES, lanes), r, dev)
     if (uniforms.device != dev or uniforms.dtype != torch.float32
             or uniforms.dim() != 2 or uniforms.shape[0] < N_U
             or uniforms.shape[1] != r or not uniforms.is_contiguous()):
@@ -558,12 +643,7 @@ def bounce_megakernel(ptbl, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tm, tr, tg,
                          f"tensor on {dev}")
     from ._build import launch
     out = torch.empty((N_OUT, r), dtype=torch.float32, device=dev)
-    args = _BounceArgs(
-        *(x.data_ptr() for x in (ptbl, mtbl, ttbl) + lanes
-          + (uniforms, out)),
-        r, n_prims, n_mats, n_targets, int(has_motion),
-        int(use_prim_albedo), float(t_min))
-    launch("rt_bounce", args, dev)
+    launch("rt_bounce", lane_args(table_args, lanes, uniforms, out), dev)
     bounce_megakernel.launches += 1
     return tuple(out.unbind(0))
 

@@ -15,11 +15,12 @@ strict ``<``: on an exact tie the earlier candidate keeps the front flag.
   carried triple.  It culls nothing (culling only skips work).
 * :func:`pallas_volume_crossings` (kernel K11, ``rt_volume_crossings``)
   and :func:`pallas_volume_crossings_bcast` (kernel K11b,
-  ``rt_volume_crossings_chunked``, for boundary tables of
-  :data:`BCAST_MIN_ROWS` rows and more, skipping the 256-row chunks whose
-  box (:func:`pack_chunk_boxes`) a ray cannot reach before its second
-  crossing) launch ``csrc/volume_kernel.cu`` for CUDA tensors and run the
-  plain version for CPU tensors.
+  ``rt_volume_crossings_bvh``, for boundary tables of
+  :data:`BCAST_MIN_ROWS` rows and more: a near-child-first walk of one
+  binned-SAH tree per medium, :func:`pack_volume_bvh`, that skips every
+  node a ray cannot reach before its second crossing) launch
+  ``csrc/volume_kernel.cu`` for CUDA tensors and run the plain version
+  for CPU tensors.
 
 Both return the 3V rows ``[t1_0, front1_0, t2_0, t1_1, ...]`` as [R] f32
 tensors (front as 0/1).  Rays are 1-D [R] f32 tensors; the table is
@@ -28,18 +29,23 @@ tensors (front as 0/1).  Rays are 1-D [R] f32 tensors; the table is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import time
 
+import numpy as np
 import torch
 
-from ..scene.types import PRIM_BOX, PRIM_PAD, PRIM_SPHERE
+from ..scene.types import PRIM_TRIANGLE
+from .allpairs_kernel import (
+    N_NODE_COLS, build_tree, bvh_boxes, leaf_rows, pack_nodes,
+)
 from .intersect_kernel import N_COLS, _safe
 
-BCAST_CHUNK = 256      # rows per chunk of the plan and of a chunk box
+BCAST_CHUNK = 256      # rows per chunk of the plain version's plan
 BCAST_MIN_ROWS = 64    # boundary tables from this many rows take K11b
 # media one launch takes (csrc/volume_kernel.cu); render/volumes.py
 # launches once per group of at most this many
 MAX_VOLUMES = 16
-N_BOX_COLS = 8         # chunk box: lo (3), hi (3), 2 unused
 # (row, lane) pairs per block of the plain version: its ~30 live [rows,
 # lanes] f32 tensors stay near 256 MiB
 _PAIR_BUDGET = 1 << 21
@@ -49,8 +55,8 @@ _INF = float("inf")
 def _chunk_plans(slices) -> tuple:
     """Per volume, the ``(start, length)`` chunks covering its slice:
     starts aligned down to 8 rows, lengths up to :data:`BCAST_CHUNK` (the
-    JAX package's plan, shared by the kernel and :func:`pack_chunk_boxes`;
-    a chunk's rows outside the slice are masked)."""
+    JAX package's plan, the plain version's tile order; a chunk's rows
+    outside the slice are masked)."""
     plans = []
     for start, count in slices:
         chunks = []
@@ -64,50 +70,63 @@ def _chunk_plans(slices) -> tuple:
     return tuple(plans)
 
 
-def _prim_lo_hi(prims):
-    """Per-row boxes: a sphere's center +- radius, a planar row's four
-    corners padded by 1e-4, a box row's own corners, swept over the
-    motion; pad rows get inverted boxes."""
-    kind = prims.kind
-    p0, e1, e2 = prims.p0, prims.e1, prims.e2
-    is_sphere = (kind == PRIM_SPHERE)[:, None]
-    r = torch.abs(e1[:, 0:1])
-    c1, c2, c3 = p0 + e1, p0 + e2, p0 + e1 + e2
-    plo = torch.minimum(torch.minimum(p0, c1), torch.minimum(c2, c3)) - 1e-4
-    phi = torch.maximum(torch.maximum(p0, c1), torch.maximum(c2, c3)) + 1e-4
-    lo = torch.where(is_sphere, p0 - r, plo)
-    hi = torch.where(is_sphere, p0 + r, phi)
-    if prims.has_box:
-        is_box = (kind == PRIM_BOX)[:, None]
-        lo = torch.where(is_box, p0, lo)
-        hi = torch.where(is_box, e1, hi)
-    if prims.has_motion:
-        lo = torch.minimum(lo + prims.mv0, lo + prims.mv1)
-        hi = torch.maximum(hi + prims.mv0, hi + prims.mv1)
-    pad = (kind == PRIM_PAD)[:, None]
-    return (torch.where(pad, _INF, lo), torch.where(pad, -_INF, hi))
+@dataclasses.dataclass(frozen=True)
+class VolumeBVH:
+    """A forest of binned-SAH trees of two-box nodes, one per medium,
+    over the boundary table's rows (``ops/allpairs_kernel.py:DeviceBVH``'s
+    layout): ``nodes`` [n_nodes, 16] f32 holds every medium's tree, its
+    interior words global node indices and its leaf words positions in
+    ``rows``; ``rows`` [n_real, 36] is a copy of the boundary rows in
+    leaf order, column ``ORIG_COL`` holding each row's index in the
+    packed boundary table (the fold's tie key); ``roots`` the root node
+    of each medium; ``tri_only``: every row is an unmoving triangle (the
+    walk's triangle-only test); ``depth`` the deepest tree's interior
+    nodes on a path (at most ``STACK_SIZE``); ``build_s`` the host build
+    time."""
+    nodes: torch.Tensor
+    rows: torch.Tensor
+    roots: tuple
+    tri_only: bool
+    depth: int
+    build_s: float
+
+    def group(self, v0: int, v1: int) -> "VolumeBVH":
+        """The forest of media ``[v0, v1)`` (one launch's group): the same
+        arrays, their roots."""
+        return dataclasses.replace(self, roots=self.roots[v0:v1])
 
 
-def pack_chunk_boxes(prims, slices) -> torch.Tensor:
-    """[n_chunks, 8] f32: the box of each chunk of :func:`_chunk_plans`
-    (volumes in order) over its rows inside the slice; a chunk with none
-    gets an inverted box."""
-    lo, hi = _prim_lo_hi(prims)
-    n = prims.kind.shape[0]
-    rows = []
-    for (start, count), plan in zip(slices, _chunk_plans(slices)):
-        for p, ln in plan:
-            a, b = max(p, start), min(p + ln, start + count, n)
-            box = torch.zeros(N_BOX_COLS, dtype=torch.float32,
-                              device=lo.device)
-            if b <= a:
-                box[0:3] = _INF
-                box[3:6] = -_INF
-            else:
-                box[0:3] = lo[a:b].amin(0)
-                box[3:6] = hi[a:b].amax(0)
-            rows.append(box)
-    return torch.stack(rows)
+def pack_volume_bvh(prims, vtbl, slices) -> VolumeBVH:
+    """Build the forest of :class:`VolumeBVH` for the media ``slices``
+    ((start, count) per medium) of the boundary ``prims`` packed as
+    ``vtbl``, on the device of ``vtbl``.  Each medium's real rows get one
+    ``build_sah_bvh`` tree, boxed and padded as ``pack_bvh`` boxes a
+    table (``bvh_boxes``: outward by ``NODE_PAD_*``, swept over the
+    motion, rounded outward to f32); raises if a tree is deeper than the
+    walk's stack."""
+    t0 = time.perf_counter()
+    real, lo, hi = bvh_boxes(prims, vtbl.shape[0])
+    packed, order, roots = [], [], []
+    n_nodes = n_rows = depth = 0
+    for start, count in slices:
+        sel = np.nonzero((real >= start) & (real < start + count))[0]
+        if sel.size == 0:
+            raise ValueError(f"pack_volume_bvh: the medium of rows "
+                             f"[{start}, {start + count}) has no real row")
+        perm, nodes, d = build_tree(lo[sel], hi[sel], "pack_volume_bvh")
+        packed.append(pack_nodes(nodes, n_nodes, n_rows))
+        order.append(real[sel][perm])
+        roots.append(n_nodes)
+        n_nodes += packed[-1].shape[0]
+        n_rows += sel.size
+        depth = max(depth, d)
+    nodes = np.concatenate(packed).reshape(-1, N_NODE_COLS)
+    rows = leaf_rows(vtbl, np.concatenate(order))
+    tri_only = (not prims.has_motion
+                and bool((rows[:, 16] == float(PRIM_TRIANGLE)).all()))
+    return VolumeBVH(nodes=torch.from_numpy(nodes).to(vtbl.device),
+                     rows=rows, roots=tuple(roots), tri_only=tri_only,
+                     depth=depth, build_s=time.perf_counter() - t0)
 
 
 def _crossing_cand(col, ox, oy, oz, dx, dy, dz, tm, inv, tmn: float,
@@ -239,18 +258,60 @@ def volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
 class _VolArgs(ctypes.Structure):
     """Mirror of ``VolArgs`` in csrc/volume_kernel.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
-        "tbl", "cbox", "ox", "oy", "oz", "dx", "dy", "dz", "tm", "out",
-        "rows_tested")]
+        "tbl", "nodes", "rows", "ox", "oy", "oz", "dx", "dy", "dz", "tm",
+        "out", "visits")]
         + [("n_lanes", ctypes.c_int64)]
-        + [(f, ctypes.c_int) for f in ("n_vol", "has_motion", "has_box")]
+        + [(f, ctypes.c_int) for f in ("n_vol", "has_motion", "has_box",
+                                        "tri_only")]
         + [("t_min", ctypes.c_float)]
-        + [(f, ctypes.c_int * MAX_VOLUMES) for f in ("starts", "counts")])
+        + [(f, ctypes.c_int * MAX_VOLUMES) for f in ("starts", "counts",
+                                                      "roots")])
 
 
-def _launch(entry: str, vtbl, cbox, rays, slices, t_min, has_motion,
-            has_box, count_rows: bool):
+def vol_args(vtbl, forest, rays, out, visits, *, slices, t_min: float,
+             has_motion: bool, has_box: bool) -> _VolArgs:
+    """The kernels' argument struct for tensors that outlive it
+    (``forest`` and ``visits`` may be None: K11)."""
+    pad = [0] * (MAX_VOLUMES - len(slices))
+    ptr = lambda x: None if x is None else x.data_ptr()
+    roots = forest.roots if forest is not None else (0,) * len(slices)
+    return _VolArgs(
+        *(ptr(x) for x in (vtbl, None if forest is None else forest.nodes,
+                           None if forest is None else forest.rows)
+          + tuple(rays) + (out, visits)),
+        rays[0].shape[0], len(slices), int(has_motion), int(has_box),
+        int(forest is not None and forest.tri_only), float(t_min),
+        (ctypes.c_int * MAX_VOLUMES)(*[s for s, _ in slices], *pad),
+        (ctypes.c_int * MAX_VOLUMES)(*[c for _, c in slices], *pad),
+        (ctypes.c_int * MAX_VOLUMES)(*roots, *pad))
+
+
+def check_forest(forest, vtbl, n_vol: int, device) -> None:
+    """Raise unless ``forest`` is a :class:`VolumeBVH` on ``device`` of
+    ``n_vol`` media over at most the rows of ``vtbl``."""
+    if not isinstance(forest, VolumeBVH):
+        raise ValueError("K11b needs the boundary's forest (pack_volume_bvh)")
+    nd, rw = forest.nodes, forest.rows
+    n = nd.shape[0] if nd.dim() == 2 else 0
+    if (nd.device != device or nd.dtype != torch.float32 or nd.dim() != 2
+            or nd.shape[1] != N_NODE_COLS or not nd.is_contiguous()
+            or rw.device != device or rw.dtype != torch.float32
+            or rw.dim() != 2 or rw.shape[1] != N_COLS
+            or rw.shape[0] > vtbl.shape[0] or not rw.is_contiguous()):
+        raise ValueError(f"forest: need contiguous f32 [*, {N_NODE_COLS}] "
+                         f"nodes and [<={vtbl.shape[0]}, {N_COLS}] rows on "
+                         f"{device}")
+    if len(forest.roots) != n_vol or not all(0 <= r < n
+                                             for r in forest.roots):
+        raise ValueError(f"forest: roots {forest.roots} for {n_vol} media "
+                         f"of {n} nodes")
+
+
+def _launch(entry: str, vtbl, forest, rays, slices, t_min, has_motion,
+            has_box, count_visits: bool):
     """Check the arguments and launch ``entry``; returns the [3V, R]
-    output (and the [R] i32 rows each ray tested with ``count_rows``)."""
+    output (and the [2, R] i32 box tests and row tests of each ray with
+    ``count_visits``)."""
     from ._build import launch
     from .bounce_kernel import check_lanes
     dev = rays[0].device
@@ -265,20 +326,17 @@ def _launch(entry: str, vtbl, cbox, rays, slices, t_min, has_motion,
                          f"on {dev}")
     if any(s < 0 or c <= 0 or s + c > n_rows for s, c in slices):
         raise ValueError(f"slices {slices} outside the {n_rows}-row table")
+    if forest is not None:
+        check_forest(forest, vtbl, nv, dev)
     check_lanes(zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), rays), r,
                 dev)
     out = torch.empty((3 * nv, r), dtype=torch.float32, device=dev)
-    counts = (torch.zeros(r, dtype=torch.int32, device=dev) if count_rows
-              else None)
-    pad = [0] * (MAX_VOLUMES - nv)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    args = _VolArgs(
-        *(ptr(x) for x in (vtbl, cbox) + tuple(rays) + (out, counts)),
-        r, nv, int(has_motion), int(has_box), float(t_min),
-        (ctypes.c_int * MAX_VOLUMES)(*[s for s, _ in slices], *pad),
-        (ctypes.c_int * MAX_VOLUMES)(*[c for _, c in slices], *pad))
+    visits = (torch.zeros((2, r), dtype=torch.int32, device=dev)
+              if count_visits else None)
+    args = vol_args(vtbl, forest, rays, out, visits, slices=slices,
+                    t_min=t_min, has_motion=has_motion, has_box=has_box)
     launch(entry, args, dev)
-    return out, counts
+    return out, visits
 
 
 def pallas_volume_crossings(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
@@ -308,41 +366,35 @@ def pallas_volume_crossings(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
 pallas_volume_crossings.launches = 0
 
 
-def pallas_volume_crossings_bcast(vtbl, cbox, ox, oy, oz, dx, dy, dz, tm, *,
-                                  slices: tuple, t_min: float,
+def pallas_volume_crossings_bcast(vtbl, forest, ox, oy, oz, dx, dy, dz, tm,
+                                  *, slices: tuple, t_min: float,
                                   has_motion: bool, has_box: bool = False,
-                                  count_rows: bool = False):
+                                  count_visits: bool = False):
     """:func:`pallas_volume_crossings`' contract for boundary tables of
     :data:`BCAST_MIN_ROWS` rows and more (kernel K11b; the JAX package's
-    name): each ray skips the chunks whose box ``cbox``
-    (:func:`pack_chunk_boxes`) it cannot reach within ``[t_min, t2]``.
-    With ``count_rows`` (CUDA only) also returns an [R] i32 tensor of
-    the rows each ray tested.
+    name): each ray walks ``forest`` (:func:`pack_volume_bvh`, one tree
+    per medium of ``slices``), skipping every node it cannot reach within
+    ``[t_min, t2]``.  With ``count_visits`` (CUDA only) also returns an
+    [2, R] i32 tensor of the box tests and row tests of each ray.
 
     CPU tensors run :func:`volume_crossings_plain`; CUDA tensors launch
-    ``rt_volume_crossings_chunked``
+    ``rt_volume_crossings_bvh``
     (``pallas_volume_crossings_bcast.launches`` counts the launches)."""
     rays = (ox, oy, oz, dx, dy, dz, tm)
     slices = tuple(slices)
     dev = ox.device
-    if dev.type == "cpu" and not count_rows:
+    if dev.type == "cpu" and not count_visits:
         return volume_crossings_plain(vtbl, *rays, slices=slices,
                                       t_min=t_min, has_motion=has_motion,
                                       has_box=has_box)
     if dev.type != "cuda":
         raise ValueError(f"pallas_volume_crossings_bcast: unsupported device "
                          f"{dev}")
-    n_chunks = sum(len(p) for p in _chunk_plans(slices))
-    if (cbox.device != dev or cbox.dtype != torch.float32
-            or tuple(cbox.shape) != (n_chunks, N_BOX_COLS)
-            or not cbox.is_contiguous()):
-        raise ValueError(f"cbox: need a contiguous f32 [{n_chunks}, "
-                         f"{N_BOX_COLS}] tensor on {dev}")
-    out, counts = _launch("rt_volume_crossings_chunked", vtbl, cbox, rays,
-                          slices, t_min, has_motion, has_box, count_rows)
+    out, visits = _launch("rt_volume_crossings_bvh", vtbl, forest, rays,
+                          slices, t_min, has_motion, has_box, count_visits)
     pallas_volume_crossings_bcast.launches += 1
     res = list(out.unbind(0))
-    return (res, counts) if count_rows else res
+    return (res, visits) if count_visits else res
 
 
 pallas_volume_crossings_bcast.launches = 0

@@ -31,7 +31,13 @@ checkpointed (``fwdbwd_rot8_remat``), and for the two BVH walks at
 ``chip_smoke.py``'s shapes (``mesh_kernels``: 20 launches, in turns, of
 the nearest kernel K9 on the stand-in's 360,064 camera rays and of the
 mesh iteration kernel on ``MESH_FWD_BWD``'s 2^17 lanes, every lane
-regenerating), it
+regenerating), and for the media crossings and the forward bounce at
+``chip_smoke.py``'s shapes (``media_kernels``: 20 launches, in turns, of
+K11b on the pawn stand-in's 2^17 camera rays, through
+``render/volumes.py:volume_crossings``, and of kernel A on Cornell's
+360,064 camera lanes, through ``integrator.bounce_mega_soa``; both calls
+take the same arguments in the parent tree, so the two trees can be
+timed in one session), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -48,7 +54,12 @@ or B, or a nearest-hit kernel and the mesh iteration kernel; for
 ``mesh_kernels`` also prints the box tests and row tests of K9's rays
 (all, and those that hit), and every run first prints the compiler's
 register, stack and spill report of the two walks' kernels
-(``-Xptxas -v``, from ``_build/build.log``).
+(``-Xptxas -v``, from ``_build/build.log``).  ``media_kernels`` also
+prints kernel A's device time with its 18 Cornell rows and with
+``n_prims=0`` through the same wrapper (the shade and the lane I/O
+alone), the ``-Xptxas -v`` report of kernel A and the crossing kernels,
+and kernel A's SASS: each kernel's instruction count and the span of
+each loop (``cuobjdump -sass`` of the build's object).
 
 Names of estimators as arguments run only those, e.g.
 ``python3 -m raytrace_tpu_torch.profile_render fwdbwd_rot8 fwdbwd_bal4``.
@@ -61,6 +72,8 @@ from __future__ import annotations
 import collections
 import functools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -102,6 +115,75 @@ def ptxas_report(names=("nearest_kernel", "iter_kernel")) -> list[str]:
                                     or "Used " in line):
             out.append(f"{entry}: {line.strip()}")
     return out
+
+
+def sass_loops(stem: str = "bounce_kernel") -> list[str]:
+    """For each kernel of ``csrc/<stem>.cu``: its SASS instruction count
+    and, for each backward branch (a loop), the span it closes, its
+    instruction count and whether it holds a call (the IEEE division's
+    slow path) -- from ``cuobjdump -sass`` of the build's object."""
+    from .ops._build import BUILD_DIR
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    objs = sorted(BUILD_DIR.glob(f"{stem}_*.o"))
+    if not objs or not Path(tool).exists():
+        return [f"no object of {stem} or no cuobjdump"]
+    sass = subprocess.run([tool, "-sass", str(objs[-1])], capture_output=True,
+                          text=True, check=True).stdout
+    out = []
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                lo = int(m.group(1), 16)
+                body = [o for a, o in ins if lo <= a <= addr]
+                call = any("CALL" in o for o in body)
+                loops.append(f"[{lo:#x}, {addr:#x}] {len(body)} instructions"
+                             f"{' with a CALL' if call else ''}")
+        out.append(f"{name}: {len(ins)} instructions; loops: "
+                   f"{'; '.join(loops) or 'none'}")
+    return out
+
+
+def kernel_ms(fn, kernel, reps: int = 20) -> float:
+    """Mean device time in ms of one call of ``fn``'s launches of
+    ``kernel`` (a substring of a kernel's name, or a tuple of them: the
+    means of each summed) over ``reps`` calls, read from torch.profiler:
+    a kernel shorter than its wrapper's host cost leaves the card idle
+    between back-to-back launches, so CUDA events around them would time
+    the host instead.  The profiler's device trace can drop some events
+    of a burst of microsecond launches (31 of 50 seen on an H100), so each
+    mean is over the launches it recorded, at least one a name; a session
+    that recorded none of a name (seen on an H100 after several long
+    sessions in one process) is run again, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {name: [e.time_range.end - e.time_range.start
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and name in e.name]
+              for name in names}
+        if all(us.values()):
+            break
+    total = 0.0
+    for name in names:
+        if not 0 < len(us[name]) <= reps:
+            raise AssertionError(f"{name}: {len(us[name])} profiled launches "
+                                 f"of {reps}")
+        total += sum(us[name]) / len(us[name]) / 1e3
+    return total
 
 
 def main() -> None:
@@ -217,6 +299,50 @@ def main() -> None:
                 iter_megakernel(*tables, lane_in, **kw_i)
         return run_kernels
 
+    @functools.cache
+    def media_kernel_calls():
+        """K11b on the pawn stand-in's 2^17 camera rays (phase 24 of
+        chip_smoke.py) and kernel A on Cornell's 360,064 camera lanes
+        (phase 3): the call of 20 launches of each, its inputs made (and
+        kernel A's split printed) once."""
+        from .ops.bounce_kernel import bounce_megakernel
+        from .render.integrator import bounce_mega_soa, bounce_tables
+        from .render.volumes import volume_crossings, volume_tables
+        from .testing import media_bounce_rays, primary_bounce_inputs
+        n_k = 1 << 17
+        n_pix_p = s_p.image_width * s_p.image_height
+        pix = (torch.arange(n_k) * n_pix_p // n_k).to(dev, torch.int32)
+        rays = tuple(media_bounce_rays(pawn, s_p, 82, pixels=pix)[0][0]
+                     .unbind(0))
+        vt = volume_tables(pawn.volumes)
+        tb = bounce_tables(scene, s)
+        a = primary_bounce_inputs(scene, s, 1)
+        comps = torch.stack(a[0:7])
+        thr = torch.stack(a[7:10])
+        rad = torch.zeros_like(thr)
+        alive = a[10] > 0.5
+        for line in ptxas_report(("bounce_kernel", "volume_")):
+            print(f"[ptxas] {line}", flush=True)
+        for line in sass_loops():
+            print(f"[sass] {line}", flush=True)
+        full = kernel_ms(lambda: bounce_mega_soa(
+            scene, s, comps, a[11], rad, thr, alive, tables=tb),
+            "bounce_kernel")
+        no_rows = kernel_ms(lambda: bounce_megakernel(
+            tb.ptbl, tb.mtbl, tb.ttbl, *a, **dict(tb.kw, n_prims=0)),
+            "bounce_kernel")
+        print(f"[split] kernel A at {comps.shape[1]} Cornell camera lanes: "
+              f"{full:.4f} ms with its {tb.n_prims} rows, {no_rows:.4f} ms "
+              f"with n_prims=0 (the shade and the lane I/O) [{smi}]",
+              flush=True)
+
+        def run_kernels():
+            for _ in range(20):
+                volume_crossings(pawn.volumes, rays, s_p.t_min, vt)
+                bounce_mega_soa(scene, s, comps, a[11], rad, thr, alive,
+                                tables=tb)
+        return run_kernels
+
     report = {"device": smi, "estimators": {}}
     for name, fn, rays in (
             ("exact", fwd(scene, s, 200), n_pix * 200),
@@ -240,7 +366,8 @@ def main() -> None:
              FWD_BWD_BAL4["lanes"] * FWD_BWD_BAL4["spp"]),
             ("fwdbwd_rot8_remat", fwd_bwd(scene, s, FWD_BWD_ROT8, remat=True),
              FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
-            ("mesh_kernels", lambda: mesh_kernel_calls()(), 0)):
+            ("mesh_kernels", lambda: mesh_kernel_calls()(), 0),
+            ("media_kernels", lambda: media_kernel_calls()(), 0)):
         if only and name not in only:
             continue
         walls = []

@@ -56,6 +56,7 @@ are ROADMAP M4, M6b, M8 and M10.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -69,8 +70,9 @@ from ..ops.allpairs_kernel import (
     MIN_PRIMS, DeviceBVH, allpairs_nearest_record, pack_bvh,
 )
 from ..ops.bounce_kernel import (
-    MAX_MAT_ROWS, MAX_SHADE_MATS, MAX_TARGETS, N_U, bounce_megakernel,
-    pack_behaviors, pack_materials, pack_targets, shade_megakernel,
+    MAX_MAT_ROWS, MAX_SHADE_MATS, MAX_TARGETS, N_U, BounceLaunch,
+    bounce_megakernel, pack_behaviors, pack_materials, pack_targets,
+    prepare_bounce, shade_megakernel,
 )
 from ..ops.intersect_kernel import (
     MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
@@ -211,7 +213,10 @@ def bounce_kernel_eligible(scene: Scene, s: CameraSettings,
 @dataclasses.dataclass(frozen=True)
 class BounceTables:
     """Packed tables and static parameters of kernel A for one scene and
-    camera, on the scene's device."""
+    camera, on the scene's device; ``launch`` is kernel A's
+    ``prepare_bounce`` of them, made at the first launch (the tables'
+    checks, the planar flag and the table part of the argument struct,
+    once per driver call)."""
     ptbl: torch.Tensor
     mtbl: torch.Tensor
     ttbl: torch.Tensor
@@ -229,6 +234,10 @@ class BounceTables:
                     n_targets=self.n_targets, t_min=self.t_min,
                     has_motion=self.has_motion,
                     use_prim_albedo=self.use_prim_albedo)
+
+    @functools.cached_property
+    def launch(self) -> BounceLaunch:
+        return prepare_bounce(self.ptbl, self.mtbl, self.ttbl, **self.kw)
 
 
 def bounce_tables(scene: Scene, s: CameraSettings) -> BounceTables:
@@ -274,7 +283,7 @@ def bounce_mega_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     outs = bounce_megakernel(
         tb.ptbl, tb.mtbl, tb.ttbl, o[0], o[1], o[2], comps[3], comps[4],
         comps[5], comps[6], thr[0], thr[1], thr[2], alive.to(DTYPE),
-        uniforms[:N_U], **tb.kw)
+        uniforms[:N_U], **tb.kw, prepared=tb.launch)
     new_comps = torch.stack(outs[0:6] + (comps[6],))
     thr_new = torch.stack(outs[6:9])
     alive_new = outs[12] > 0.5
@@ -293,7 +302,7 @@ class SplitTables:
     the flat scan serves the table), the material rows (not behaviours)
     and the targets; ``rich`` says whether the scene has textures the
     shade kernel defers (image, noise, marble, custom).  For a scene with
-    media: ``volumes``, their packed boundary table and chunk boxes
+    media: ``volumes``, their packed boundary table and BVH forest
     (``render/volumes.py:volume_tables``) and each medium's material id."""
     ptbl: torch.Tensor
     mtbl: torch.Tensor
@@ -695,8 +704,8 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     ``sample_offset + w // n_pix``), and every iteration the lanes are
     re-sorted by :func:`_sort_key` with one stable argsort, their state
     permuted by one gather per dtype, so that the threads of a block
-    trace rays that travel together (the BVH walk and the chunked medium
-    crossings then visit the same nodes and chunks).  Finished paths are
+    trace rays that travel together (the BVH walks of the surface and of
+    the media then visit the same nodes).  Finished paths are
     added into their pixels by ``index_add_``.  Returns the [n_pix, 3]
     radiance sum (plus ``acc``): the same (pixel, sample) paths as the
     other drivers, so the same image up to the order of float adds.

@@ -20,8 +20,8 @@ import torch
 
 from ..ops.intersect_kernel import pack_prims
 from ..ops.volume_kernel import (
-    BCAST_MIN_ROWS, MAX_VOLUMES, _chunk_plans, pack_chunk_boxes,
-    pallas_volume_crossings, pallas_volume_crossings_bcast,
+    BCAST_MIN_ROWS, MAX_VOLUMES, pack_volume_bvh, pallas_volume_crossings,
+    pallas_volume_crossings_bcast,
 )
 from ..scene.types import Volumes
 
@@ -46,7 +46,7 @@ def candidate_from_crossings(density, t1, front1, t2, t_min: float, u):
 
 
 def uses_bcast(volumes: Volumes) -> bool:
-    """Does this boundary table take kernel K11b (the chunked scan of
+    """Does this boundary table take kernel K11b (the BVH walk of
     mesh-scale boundaries) rather than K11?  The JAX package's rule: a
     table of ``BCAST_MIN_ROWS`` (64) rows and more."""
     return volumes.prims.kind.shape[0] >= BCAST_MIN_ROWS
@@ -62,13 +62,15 @@ def crossing_kw(volumes: Volumes, t_min: float) -> dict:
 
 
 def volume_tables(volumes: Volumes):
-    """``(vtbl, cbox)``: the packed boundary table and, for a boundary
-    that takes K11b (:func:`uses_bcast`), its chunk boxes (else None)."""
+    """``(vtbl, forest)``: the packed boundary table and, for a boundary
+    that takes K11b (:func:`uses_bcast`), its per-medium BVH forest
+    (``ops/volume_kernel.py:pack_volume_bvh``; else None).  The drivers
+    build them once per call."""
     slices = tuple(zip(volumes.starts, volumes.counts))
     vtbl = pack_prims(volumes.prims).contiguous()
-    cbox = (pack_chunk_boxes(volumes.prims, slices).contiguous()
-            if uses_bcast(volumes) else None)
-    return vtbl, cbox
+    forest = (pack_volume_bvh(volumes.prims, vtbl, slices)
+              if uses_bcast(volumes) else None)
+    return vtbl, forest
 
 
 def volume_crossings(volumes: Volumes, rays, t_min: float, tables=None):
@@ -78,22 +80,18 @@ def volume_crossings(volumes: Volumes, rays, t_min: float, tables=None):
     ``MAX_VOLUMES`` media, the groups' rows concatenated in medium order
     (each medium's crossings depend on its own rows only).  ``tables`` is
     :func:`volume_tables`' result, packed here if not given."""
-    vtbl, cbox = volume_tables(volumes) if tables is None else tables
+    vtbl, forest = volume_tables(volumes) if tables is None else tables
     kw = crossing_kw(volumes, t_min)
     slices = kw["slices"]
     outs = []
-    box0 = 0
     for g0 in range(0, len(slices), MAX_VOLUMES):
-        group = slices[g0:g0 + MAX_VOLUMES]
-        gkw = dict(kw, slices=group)
-        if cbox is None:
+        g1 = min(g0 + MAX_VOLUMES, len(slices))
+        gkw = dict(kw, slices=slices[g0:g1])
+        if forest is None:
             outs += pallas_volume_crossings(vtbl, *rays, **gkw)
-            continue
-        # the group's chunk boxes: its media's chunks, in medium order
-        n_boxes = sum(len(p) for p in _chunk_plans(group))
-        outs += pallas_volume_crossings_bcast(
-            vtbl, cbox[box0:box0 + n_boxes], *rays, **gkw)
-        box0 += n_boxes
+        else:
+            outs += pallas_volume_crossings_bcast(
+                vtbl, forest.group(g0, g1), *rays, **gkw)
     return outs
 
 

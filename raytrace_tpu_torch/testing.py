@@ -638,6 +638,45 @@ def many_media_world(rt, n: int = 17, rotated: bool = False):
                                           [0, 0, 4]))])
 
 
+def mixed_media_world(rt, moving: bool = False):
+    """Four media of mixed sizes in one boundary table of 1,266 rows, so
+    all four take kernel K11b: the stand-in pawn (1,200 triangles), a fog
+    ball (a sphere row), a smoke box (a ``PRIM_BOX`` row) and a 64-triangle
+    uv sphere, over a ground parallelogram; with ``moving`` all four move.
+    :data:`MIXED_MEDIA_INSIDE` are points inside each.  ``rt`` is the
+    builder module (this package or the JAX one)."""
+    v, f = pawn_standin_mesh()
+    sv, sf = uv_sphere(5, 8)
+    p = sv[sf]
+    if np.einsum("ij,ij->i", p[:, 0], np.cross(p[:, 1], p[:, 2])).sum() < 0:
+        sf = sf[:, ::-1].copy()             # wind the normals outward
+    mesh = lambda vv, ff: rt.triangle_mesh(rt.Mesh(
+        vertices=vv, uv=np.zeros((0, 2)), faces=ff,
+        uv_faces=np.full_like(ff, -1)))
+    media = rt.group([
+        rt.with_material(rt.isotropic(rt.constant_texture([1.0, 0.2, 0.2])),
+                         rt.constant_medium(5.0, mesh(v, f))),
+        rt.with_material(rt.isotropic(rt.constant_texture(0.8)),
+                         rt.constant_medium(0.7, rt.sphere([4, 1, 0], 1.0))),
+        rt.with_material(rt.anisotropic(0.4, rt.constant_texture(0.9)),
+                         rt.constant_medium(1.2, rt.cuboid([-5, 0, -1],
+                                                           [-3, 2, 1]))),
+        rt.with_material(rt.pitch_black(),
+                         rt.constant_medium(2.0, mesh(sv + [0.0, 1.5, 4.0],
+                                                      sf))),
+    ])
+    if moving:
+        media = rt.moving([0, 0, 0], [0.3, 0.2, -0.2], media)
+    return rt.group([media, rt.with_material(
+        rt.lambertian(rt.constant_texture(0.5)),
+        rt.parallelogram([-20, -1, -20], [40, 0, 0], [0, 0, 40]))])
+
+
+# points inside each medium of mixed_media_world (before it moves)
+MIXED_MEDIA_INSIDE = ([0.0, 2.0, 0.0], [4.0, 1.0, 0.0], [-4.0, 1.0, 0.0],
+                      [0.0, 1.5, 4.0])
+
+
 def many_media_settings(rt, width: int = 32, spp: int = 8, depth: int = 10):
     """The camera of :func:`many_media_world`: from (0, 3, 8) towards (0,
     0, -3), under the sky."""
@@ -812,12 +851,15 @@ def max_errs(ref, out, int_rows):
 
 
 def compare_bounce(tables, lanes):
-    """Kernel A and ``bounce_plain`` on the same lane arguments: returns
+    """Kernel A, with the tables prepared as the drivers launch it (its
+    planar instantiation where ``tables.launch.planar``), and
+    ``bounce_plain`` on the same lane arguments: returns
     ``(max_errs(...), kernel outputs)``."""
     from .ops.bounce_kernel import bounce_megakernel, bounce_plain
     tb = tables
     ref = bounce_plain(tb.ptbl, tb.mtbl, tb.ttbl, *lanes, **tb.kw)
-    out = bounce_megakernel(tb.ptbl, tb.mtbl, tb.ttbl, *lanes, **tb.kw)
+    out = bounce_megakernel(tb.ptbl, tb.mtbl, tb.ttbl, *lanes, **tb.kw,
+                            prepared=tb.launch)
     return max_errs(ref, out, BOUNCE_INT_ROWS), out
 
 
@@ -963,14 +1005,14 @@ def compare_crossings(volumes, comps, t_min: float = 1e-3, tables=None):
         volume_crossings_plain,
     )
     from .render.volumes import crossing_kw, volume_tables
-    vtbl, cbox = volume_tables(volumes) if tables is None else tables
+    vtbl, forest = volume_tables(volumes) if tables is None else tables
     kw = crossing_kw(volumes, t_min)
     rays = tuple(comps.unbind(0))
     ref = volume_crossings_plain(vtbl, *rays, **kw)
-    if cbox is None:
+    if forest is None:
         out = pallas_volume_crossings(vtbl, *rays, **kw)
     else:
-        out = pallas_volume_crossings_bcast(vtbl, cbox, *rays, **kw)
+        out = pallas_volume_crossings_bcast(vtbl, forest, *rays, **kw)
     return max_errs(ref, out, tuple(range(1, len(ref), 3))), out
 
 
@@ -1086,7 +1128,7 @@ def checked_launches():
     def nearest_plain(tbl, bvh, *rays, **kw):
         return allpairs_nearest_plain(tbl, *rays, **kw)
 
-    def crossings_bcast_plain(vtbl, cbox, *rays, **kw):
+    def crossings_bcast_plain(vtbl, forest, *rays, **kw):
         return volume_crossings_plain(vtbl, *rays, **kw)
 
     def crossing_check(args, ref, out):
@@ -1408,8 +1450,8 @@ def plain_kernels():
     integrator.bounce_megakernel = bounce_plain
     volumes.pallas_volume_crossings = volume_crossings_plain
     volumes.pallas_volume_crossings_bcast = \
-        lambda vtbl, cbox, *rays, **kw: volume_crossings_plain(vtbl, *rays,
-                                                               **kw)
+        lambda vtbl, forest, *rays, **kw: volume_crossings_plain(
+            vtbl, *rays, **kw)
     try:
         with plain_backward():
             yield
@@ -1521,7 +1563,7 @@ HOST_SHIM = r"""
 #define __device__
 #define __forceinline__ inline
 #define __global__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 using std::max;
 using std::min;

@@ -27,14 +27,16 @@ import torch
 
 from raytrace_tpu_torch.render.integrator import bounce_tables
 from raytrace_tpu_torch.testing import (
-    ALL_MATERIAL_TARGETS, FRAC_LANES, MEAN_RTOL, all_materials_scene,
+    ALL_MATERIAL_TARGETS, FRAC_LANES, MEAN_RTOL, MIXED_MEDIA_INSIDE,
+    all_materials_scene,
     bounce_inputs, box_motion_scene, bunny_standin_scene, bwd_inputs,
     camera_rays, checked_launches, compare_bounce, compare_bwd, compare_iter,
     compare_image_grad, compare_k7, compare_marble, compare_nearest,
     compare_crossings, compare_nearest_flat, compare_shade,
     cornell_scene_and_settings, cornell_smoke_scene, image_grad_scene,
     k7_inputs, many_media_settings, many_media_world,
-    media_bounce_rays, mesh_all_kinds_scene, next_split_rays,
+    media_bounce_rays, mesh_all_kinds_scene, mixed_media_world,
+    next_split_rays,
     noise_test_scene, pawn_inside_rays, pawn_standin_scene, plain_backward,
     plain_kernels, surface_points, synthetic_medium, volume_rays,
     volume_test_world,
@@ -524,13 +526,15 @@ def test_image_fwd_bwd_kernels_match_plain(device):
 
 
 @pytest.mark.parametrize("case", ["cornell_smoke", "ball_box",
-                                  "ball_box_moving", "pawn"])
+                                  "ball_box_moving", "pawn", "mixed",
+                                  "mixed_moving"])
 def test_crossing_kernels_match_plain(device, case):
     """K11 (cornell_smoke's 12 boundary rows, the ball and box media, still
-    and moving) and K11b (the stand-in pawn's 1,200 rows) on camera rays,
-    their second bounce, random rays and rays from inside the media: the
-    front flags and crossings equal to the plain version's on every
-    lane."""
+    and moving) and K11b's forest walk (the stand-in pawn's 1,200 rows; the
+    four media of ``testing.mixed_media_world``, still and moving) on
+    camera rays, their second bounce, random rays and rays from inside
+    the media: the front flags and crossings equal to the plain version's
+    on every lane."""
     import raytrace_tpu_torch as rt
     from raytrace_tpu_torch.ops.volume_kernel import (
         pallas_volume_crossings, pallas_volume_crossings_bcast,
@@ -542,6 +546,11 @@ def test_crossing_kernels_match_plain(device, case):
         scene, s = pawn_standin_scene(128, 1, 20, device=device)
         rays = [c for c, _ in media_bounce_rays(scene, s, 3)]
         rays.append(pawn_inside_rays(1 << 14, 4, device=device))
+    elif case.startswith("mixed"):
+        scene = rt.compile_scene(mixed_media_world(rt, case.endswith(
+            "moving")), device=device)
+        rays = [volume_rays(1 << 14, 5, (-6.0, 6.0), MIXED_MEDIA_INSIDE,
+                            device=device)]
     else:
         scene = rt.compile_scene(volume_test_world(rt, case.endswith(
             "moving")), device=device)
@@ -555,7 +564,7 @@ def test_crossing_kernels_match_plain(device, case):
         assert n_int == 0 and err == 0.0
     k1 = (pallas_volume_crossings.launches,
           pallas_volume_crossings_bcast.launches)
-    bcast = case == "pawn"
+    bcast = case == "pawn" or case.startswith("mixed")
     assert k1[1] - k0[1] == (len(rays) if bcast else 0)
     assert k1[0] - k0[0] == (0 if bcast else len(rays))
 

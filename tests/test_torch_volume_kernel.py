@@ -1,27 +1,39 @@
 """The medium crossing kernels K11 and K11b (``ops/volume_kernel.py``,
 ``csrc/volume_kernel.cu``) on the CPU.
 
-* ``_chunk_plans`` and ``pack_chunk_boxes`` equal the JAX package's, and
-  the packed boundary rows agree as ``tests/test_torch_mesh_scene.py``
-  holds packed tables.
+* ``_chunk_plans`` equal the JAX package's, the root box of each
+  medium's tree (``pack_volume_bvh``) lies within the JAX package's
+  chunk boxes (``pack_chunk_boxes``) of that medium widened by the tree's
+  padding, and the packed boundary rows agree as
+  ``tests/test_torch_mesh_scene.py`` holds packed tables.
 * ``volume_crossings_plain`` (the plain version of both kernels) against
   the JAX package's ``pallas_volume_crossings`` and
   ``pallas_volume_crossings_bcast`` in interpret mode, as
   ``tests/test_volume_kernel.py`` runs them: a fog ball and an
   axis-aligned smoke box (a ``PRIM_BOX`` row), still and moving; the
   octahedron mesh boundary (shared edges); the stand-in pawn's 1,200-row
-  boundary; rays from inside every medium and a lane parked at 3e18.
+  boundary; four media of mixed sizes in one 1,266-row boundary table
+  (``testing.mixed_media_world``: the pawn, a ball, a box, a 64-triangle
+  mesh), still and moving; rays from inside every medium and a lane
+  parked at 3e18.
   The front flags equal on every lane, the crossings within JAX's own
   rtol/atol 1e-5 (XLA's CPU backend contracts multiply-adds into FMAs, so
   a root differs by a few ulps).  JAX's two kernels also agree with each
   other there; the plain version follows their fold (row order, the
   entering root first, strict ``<``), not the XLA scan's.
-* The CUDA source built for the host with g++ (``testing.host_library``)
-  against the plain version on the same scenes and on cornell_smoke's
-  camera rays and their second bounce: flags equal, every crossing equal
-  on all but at most 1% of lanes and there within 1e-5 relative (torch's
-  CPU ``sqrt`` can round a sphere root the other way next to a midpoint;
-  the smoke holds the kernels on the card to equality).
+* The CUDA source built for the host with g++ (``testing.host_library``):
+  K11 one thread per ray, and K11b's forest walk on its persistent grid,
+  3 blocks of 32 host threads striding over the rays, as
+  ``tests/test_torch_bvh_host.py`` runs K9 (the triangle-only
+  instantiation on the pawn and the octahedron, the general one
+  elsewhere; with and without its counts); both against the plain
+  version on the same scenes and on cornell_smoke's camera rays and their
+  second bounce: flags equal, every crossing equal on all but at most 1%
+  of lanes and there within 1e-5 relative (torch's CPU ``sqrt`` can round
+  a sphere root the other way next to a midpoint; the smoke holds the
+  kernels on the card to equality).  The walk's work: the pawn stand-in's
+  camera rays make on average at most 12 box tests and 4 row tests (its
+  256-row chunks tested 209 rows a ray).
 """
 import ctypes
 
@@ -35,11 +47,13 @@ import raytrace_tpu_torch as trt
 from raytrace_tpu.ops.pallas import volume_kernel as jvk
 from raytrace_tpu.ops.pallas.intersect_kernel import pack_prims as jpack
 from raytrace_tpu_torch.ops import volume_kernel as tvk
+from raytrace_tpu_torch.ops.allpairs_kernel import NODE_PAD_ABS, NODE_PAD_REL
 from raytrace_tpu_torch.ops.intersect_kernel import pack_prims
 from raytrace_tpu_torch.render.volumes import crossing_kw, volume_tables
 from raytrace_tpu_torch.testing import (
-    host_library, media_bounce_rays, pawn_inside_rays, pawn_standin_world,
-    torch_threads, volume_rays, volume_test_world,
+    MIXED_MEDIA_INSIDE, camera_rays, host_library, media_bounce_rays,
+    mixed_media_world, pawn_inside_rays, pawn_standin_scene,
+    pawn_standin_world, torch_threads, volume_rays, volume_test_world,
 )
 
 T_MIN = 1e-3
@@ -77,6 +91,9 @@ CASES = {
     "octahedron": (octahedron_world, (-3.0, 3.0), ([0.0, 0.0, 0.0],
                                                   [0.2, 0.1, -0.3])),
     "pawn": (pawn_standin_world, (-3.0, 6.0), ()),
+    "mixed": (mixed_media_world, (-6.0, 6.0), MIXED_MEDIA_INSIDE),
+    "mixed_moving": (lambda rt: mixed_media_world(rt, True), (-6.0, 6.0),
+                     MIXED_MEDIA_INSIDE),
 }
 
 
@@ -90,15 +107,50 @@ def _case(name, n, seed):
     return ts, js, rays
 
 
+def tree_rows_and_box(forest, root):
+    """The rows (column ``ORIG_COL``) under ``root`` of ``forest`` and the
+    union of its two children's boxes."""
+    nodes = forest.nodes.numpy()
+    words = nodes.view(np.int32)
+    orig = forest.rows[:, 35].numpy().astype(np.int64)
+    rows, todo = [], [root]
+    while todo:
+        w = todo.pop()
+        for c in (0, 1):
+            word, count = words[w, 12 + c], words[w, 14 + c]
+            if count == 0:
+                todo.append(word)
+            else:
+                rows.extend(orig[word:word + count])
+    lo = np.minimum(nodes[root, 0:3], nodes[root, 6:9])
+    hi = np.maximum(nodes[root, 3:6], nodes[root, 9:12])
+    return np.unique(rows), lo, hi
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_chunk_plans_and_boxes_match_jax(name):
     ts, js, _ = _case(name, 128, 0)
     sl = tuple(zip(ts.volumes.starts, ts.volumes.counts))
     assert sl == tuple(zip(js.volumes.starts, js.volumes.counts))
     assert tvk._chunk_plans(sl) == jvk._chunk_plans(sl)
-    np.testing.assert_array_equal(
-        tvk.pack_chunk_boxes(ts.volumes.prims, sl).numpy(),
-        np.asarray(jvk.pack_chunk_boxes(js.volumes.prims, sl)))
+    # each medium's tree lies within the JAX package's chunk boxes of the
+    # medium (they pad planar rows by 1e-4 as the tree does, and take a
+    # triangle's fourth, parallelogram corner too) widened by the tree's
+    # own padding and a few f32 ulps
+    forest = tvk.pack_volume_bvh(ts.volumes.prims,
+                                 pack_prims(ts.volumes.prims), sl)
+    cbox = np.asarray(jvk.pack_chunk_boxes(js.volumes.prims, sl))
+    k = 0
+    for v, plan in enumerate(jvk._chunk_plans(sl)):
+        jlo = cbox[k:k + len(plan), 0:3].min(0)
+        jhi = cbox[k:k + len(plan), 3:6].max(0)
+        k += len(plan)
+        _, lo, hi = tree_rows_and_box(forest, forest.roots[v])
+        scale = max(1.0, float(np.abs(cbox[:, 0:6]).max()))
+        room = NODE_PAD_ABS + NODE_PAD_REL * scale + 1e-6 * scale
+        assert np.all(lo < hi), (v, lo, hi)
+        assert np.all(jlo - lo <= room) and np.all(hi - jhi <= room), (
+            v, lo, jlo, hi, jhi)
     # the packed boundary rows: tests/test_torch_mesh_scene.py's
     # tolerance (XLA contracts the cross products into multiply-adds)
     t = pack_prims(ts.volumes.prims).numpy()
@@ -120,7 +172,8 @@ def test_plain_crossings_match_jax_kernels(name):
     outs = [jvk.pallas_volume_crossings_bcast(
         jtbl, jvk.pack_chunk_boxes(js.volumes.prims, kw["slices"]), *jr,
         interpret=True, **kw)]
-    if name != "pawn":      # the scalar kernel over 1,200 rows is slow
+    if "pawn" not in name and "mixed" not in name:
+        # the scalar kernel over 1,200 rows is slow
         outs.append(jvk.pallas_volume_crossings(jtbl, *jr, interpret=True,
                                                 **kw))
     for jo in outs:
@@ -147,12 +200,13 @@ def test_cpu_wrappers_run_the_plain_version():
     ts, _, rays = _case("octahedron", 256, 5)
     vtbl, _ = volume_tables(ts.volumes)
     kw = crossing_kw(ts.volumes, T_MIN)
-    cbox = tvk.pack_chunk_boxes(ts.volumes.prims, kw["slices"])
+    forest = tvk.pack_volume_bvh(ts.volumes.prims, vtbl, kw["slices"])
     n0 = (tvk.pallas_volume_crossings.launches,
           tvk.pallas_volume_crossings_bcast.launches)
     ref = tvk.volume_crossings_plain(vtbl, *rays, **kw)
     for out in (tvk.pallas_volume_crossings(vtbl, *rays, **kw),
-                tvk.pallas_volume_crossings_bcast(vtbl, cbox, *rays, **kw)):
+                tvk.pallas_volume_crossings_bcast(vtbl, forest, *rays,
+                                                  **kw)):
         for a, b in zip(ref, out):
             assert torch.equal(a, b)
     assert (tvk.pallas_volume_crossings.launches,
@@ -160,15 +214,28 @@ def test_cpu_wrappers_run_the_plain_version():
 
 
 _RUN = r"""
-extern "C" int run_vol(const VolArgs* a, int chunked) {
+// K11 one thread per ray; K11b's persistent grid as 3 blocks of 32 host
+// threads striding over the rays.
+extern "C" int run_vol(const VolArgs* a, int walk) {
+  if (walk) {
+    rt_host_launch(3, 32, [&] {
+      const bool count = a->visits != nullptr;
+      if (a->tri_only && count)
+        volume_bvh_kernel<true, true>(*a);
+      else if (a->tri_only)
+        volume_bvh_kernel<true, false>(*a);
+      else if (count)
+        volume_bvh_kernel<false, true>(*a);
+      else
+        volume_bvh_kernel<false, false>(*a);
+    });
+    return 0;
+  }
   blockDim.x = 1;
   threadIdx.x = 0;
   for (long long l = 0; l < a->n_lanes; ++l) {
     blockIdx.x = static_cast<unsigned>(l);
-    if (chunked)
-      volume_chunked_kernel(*a);
-    else
-      volume_crossings_kernel(*a);
+    volume_crossings_kernel(*a);
   }
   return 0;
 }
@@ -185,24 +252,25 @@ def host_vol(tmp_path_factory):
     return lib
 
 
-def _host_crossings(lib, volumes, rays, chunked: bool):
-    """The host build's crossings and rows tested per ray (chunked)."""
-    vtbl, _ = volume_tables(volumes)
+def _host_crossings(lib, volumes, rays, walk: bool, tables=None,
+                    count: bool = True):
+    """The host build's crossings of K11 or (``walk``) K11b, and K11b's
+    box tests and row tests per ray [2, R] (with ``count``, else
+    zeros)."""
+    vtbl, forest = volume_tables(volumes) if tables is None else tables
+    if walk and forest is None:
+        forest = tvk.pack_volume_bvh(volumes.prims, vtbl,
+                                     tuple(zip(volumes.starts,
+                                               volumes.counts)))
     kw = crossing_kw(volumes, T_MIN)
-    cbox = tvk.pack_chunk_boxes(volumes.prims, kw["slices"])
     r = rays.shape[1]
     rays = [x.contiguous() for x in rays.unbind(0)]
     out = torch.empty((3 * volumes.n_volumes, r))
-    tested = torch.zeros(r, dtype=torch.int32)
-    nv = volumes.n_volumes
-    pad = [0] * (tvk.MAX_VOLUMES - nv)
-    args = tvk._VolArgs(
-        *(x.data_ptr() for x in [vtbl, cbox] + rays + [out, tested]), r, nv,
-        int(kw["has_motion"]), int(kw["has_box"]), kw["t_min"],
-        (ctypes.c_int * tvk.MAX_VOLUMES)(*volumes.starts, *pad),
-        (ctypes.c_int * tvk.MAX_VOLUMES)(*volumes.counts, *pad))
-    lib.run_vol(ctypes.byref(args), int(chunked))
-    return list(out.unbind(0)), tested
+    visits = torch.zeros((2, r), dtype=torch.int32)
+    args = tvk.vol_args(vtbl, forest if walk else None, rays, out,
+                        visits if count else None, **kw)
+    lib.run_vol(ctypes.byref(args), int(walk))
+    return list(out.unbind(0)), visits
 
 
 def _cornell_smoke_rays():
@@ -222,19 +290,44 @@ def test_host_build_of_crossing_kernels_matches_plain(host_vol, name):
     vtbl, _ = volume_tables(vol)
     ref = tvk.volume_crossings_plain(vtbl, *rays,
                                      **crossing_kw(vol, T_MIN))
-    for chunked in (False, True):
-        out, tested = _host_crossings(host_vol, vol, rays, chunked)
+    for walk in (False, True):
+        out, visits = _host_crossings(host_vol, vol, rays, walk)
         differ = torch.zeros(rays.shape[1], dtype=torch.bool)
         for k, (a, b) in enumerate(zip(ref, out)):
             if k % 3 == 1:
-                assert torch.equal(a, b), (chunked, k, int((a != b).sum()))
+                assert torch.equal(a, b), (walk, k, int((a != b).sum()))
             else:
                 close = (a == b) | (torch.abs(a - b) <= 1e-5 * torch.abs(a))
-                assert bool(close.all()), (chunked, k, int((~close).sum()))
+                assert bool(close.all()), (walk, k, int((~close).sum()))
                 differ |= a != b
-        assert float(differ.float().mean()) <= 0.01, (chunked, name)
-        if chunked:
+        assert float(differ.float().mean()) <= 0.01, (walk, name)
+        if walk:
+            # the instantiation without counts (the routes') gives the same
+            uncounted, _ = _host_crossings(host_vol, vol, rays, True,
+                                           count=False)
+            for a, b in zip(out, uncounted):
+                assert torch.equal(a, b)
             rows = vol.prims.kind.shape[0]
-            assert int(tested.max()) <= rows
-            if name == "pawn":          # the chunk boxes cull
-                assert float(tested.float().mean()) < rows
+            # every ray tests the roots' boxes, and no row twice
+            assert bool((visits[0] >= 2 * vol.n_volumes).all())
+            assert int(visits[1].max()) <= rows
+            if name in ("pawn", "mixed", "mixed_moving"):  # the trees cull
+                assert float(visits[1].float().mean()) < 0.1 * rows
+
+
+def test_pawn_camera_rays_walk_little(host_vol):
+    """The pawn stand-in's camera rays at 500 x 500 (2^14 of them, spread
+    over the image as chip_smoke.py spreads its 2^17) make on average at
+    most 12 box tests and 4 row tests: a Python model of the walk counted
+    8.4 and 2.2, the 256-row chunks tested 209.4 rows."""
+    scene, s = pawn_standin_scene(500, 1, 20, device="cpu")
+    cam, _ = camera_rays(scene, s, 1 << 14, 82)
+    vol = scene.volumes
+    out, visits = _host_crossings(host_vol, vol, cam, True)
+    ref = tvk.volume_crossings_plain(volume_tables(vol)[0], *cam,
+                                     **crossing_kw(vol, T_MIN))
+    assert torch.equal(out[1], ref[1])
+    assert int(torch.isfinite(out[0]).sum()) > 2000
+    v = visits.float()
+    assert float(v[0].mean()) <= 12.0, float(v[0].mean())
+    assert float(v[1].mean()) <= 4.0, float(v[1].mean())
