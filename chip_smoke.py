@@ -17,20 +17,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
    (the general instantiation), with and without redirect targets, on
    2^16 random lanes;
 4. kernel B (iteration) against its plain version at the main path's
-   shapes (360,064 lanes, width 600), exact and with Russian roulette:
-   one iteration from a random lane state, then 30 from a fresh one;
+   shapes (360,064 lanes, width 600), prepared as the drivers launch it:
+   its planar instantiation on the Cornell box, the general one on the
+   all-materials scene (with and without redirect targets) and on the
+   box/motion scene, each exact and with Russian roulette: one iteration
+   from a random lane state, then 30 from a fresh one (the summed
+   radiance's max |err| printed);
 5. the main path, ``render_accumulate`` on the Cornell box at 600 x 600,
    depth 50, at 64 spp (bench.py's 200 cut to keep the smoke short;
    ``profile_render.py`` times 200) — exact estimator and Russian
    roulette from depth 2 (stationary driver, rotate_k 8: kernel A);
-6. the main path at spp 1 (rotate_k 1: the fused branch, kernel B); then
-   the same path at 2 spp and 1 spp once more, with every kernel launch
-   held against its plain version on the inputs the driver gave it;
+6. the main path at spp 1 (rotate_k 1: the fused branch, kernel B, every
+   launch through its planar instantiation); then the same path at 2 spp
+   and 1 spp once more, with every kernel launch held against its plain
+   version on the inputs the driver gave it;
 7. each kernel's device time per launch (torch.profiler) and its
    wrapper's call back to back (CUDA events: the host's cost) beside its
-   plain version's at the main path's 360,064 lanes; kernel A's time
-   also through its general instantiation and with ``n_prims=0`` (the
-   shade and the lane I/O alone), and its ``-Xptxas -v`` report;
+   plain version's at the main path's 360,064 lanes; kernels A's and B's
+   times also through their general instantiation (unprepared: B's host
+   time too) and with ``n_prims=0`` (the shade and the lane I/O alone),
+   their ``-Xptxas -v`` reports and B's SASS loops;
 8. the backward kernel K5 against its plain version (torch autograd over
    ``lane_math``) on 2^18 lanes of a real mid-render state (kernel B
    steps the fwd+bwd configuration four times; random cotangents): the
@@ -46,8 +52,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
 10. the second main path: the fwd+bwd of ``bench.py`` (Cornell 600 x
     600, depth 50, RR from depth 2, 2^18 lanes x 64 spp, 205 iterations
     then 25 at 2^14 and 100 at 2^12 lanes) after one warm-up run: wall,
-    primary rays/s, loss, samples completed, launches of kernel B and of
-    K5's reduced and per-lane modes (the per-lane one never), peak memory;
+    primary rays/s, loss, samples completed, launches of kernel B (every
+    one planar) and of K5's reduced and per-lane modes (the per-lane one
+    never), peak memory;
 11. central finite differences of the loss on the card (2^14 lanes,
     exact estimator, same seed) for the light's emission and the red
     wall's albedo against their gradients;
@@ -97,7 +104,11 @@ Rich textures (image, noise, marble):
 19. the flat-scan nearest kernel K8 and the marble kernel K12 against
     their plain versions on every lane of ``scenes/noise_test.py``'s
     90,112 camera lanes at 400 x 225 and their second bounce (the ball's
-    hit points with their texture ids), both held to equality;
+    hit points with their texture ids), both held to equality; K12 also
+    on the lanes the route hands it (the rich lanes compacted by
+    ``torch.nonzero``) and on ``testing.marble_patterns`` (alternating,
+    all marble, none, a ragged count, 32 shuffled rows with a repeated
+    id);
 20. route 3, the rich forward: ``render_accumulate`` of noise_test at
     400 x 225, 100 spp, depth 50, seed 0 (the stationary driver, rotate_k
     5: K8, the shade kernel and K12 every iteration, kernels A and B
@@ -116,7 +127,8 @@ Rich textures (image, noise, marble):
     from torch.profiler: each is shorter than its wrapper's host cost,
     which back-to-back CUDA events would time; those are printed too)
     beside their plain versions', their bounds and, for K13,
-    ``index_put_``'s.
+    ``index_put_``'s; K12's SASS instruction counts (its fast path, a
+    marble lane's) and registers.
 
 Constant-density media (``testing.cornell_smoke_scene``: the Cornell box
 with two smoke blocks of 6 boundary rows each; ``testing.pawn_standin_scene``:
@@ -232,10 +244,16 @@ MESH_SPP = 16
 # test (two a node) and a triangle row's test, counted from the sources
 BOX_OPS = 30
 ROW_OPS = 45
-# float operations of one marble lane (csrc/noise.cuh): 7 octaves of 8
-# corners, each a hash, a sine and a cosine (some 20 operations each), a
-# dot and a weight, counted from the source
-MARBLE_OPS = 4600
+# instructions of one marble lane: the fast path of the stripe computed
+# by one thread, its 8 corners unrolled in a loop of 7 octaves (the
+# kernel's earlier one-thread-a-lane form over csrc/noise.cuh), in the
+# SASS of its sm_90a build (cuobjdump -sass,
+# profile_render.fast_path_count): 848 for the lane's stripe with one
+# octave and 798 for each of the 6 more, the lane's load, match and store
+# ~70 (a count from the source, 4,600, missed the avalanches, the
+# conversions and the range reductions); each instruction taken as one
+# operation at the float32 rate
+MARBLE_OPS = 5700
 # samples per pixel of the mesh-boundary medium's forward
 # (scenes/pawn_test.py renders 400; profile_render.py times more)
 PAWN_SPP = 16
@@ -258,18 +276,10 @@ def _smi_line() -> str:
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """``profile_render.call_ms``: the mean time in ms of ``fn``'s calls
+    back to back, between CUDA events."""
+    from raytrace_tpu_torch.profile_render import call_ms
+    return call_ms(fn, reps, warmup)
 
 
 def _device_ms(fn, kernel, reps: int) -> float:
@@ -426,6 +436,36 @@ def _in_turns(label: str, run, iters: int, smi: str) -> dict:
     return out
 
 
+def _marble_sass_count() -> str:
+    """K12's SASS (``cuobjdump -sass`` of the build's object, also written
+    to chiprun_out/sass_texture_kernel.txt): the kernel's instructions,
+    those of its fast path (``profile_render.fast_path_count``: without
+    sqrt's slow call and the trigonometric functions' Payne-Hanek
+    reduction, which the gradient's angle in [0, 2 pi) never takes; a
+    thread's two octaves are unrolled), and the fast path's instructions
+    that a marble lane's threads issue."""
+    import re
+    from raytrace_tpu_torch.ops._build import CSRC
+    from raytrace_tpu_torch.profile_render import (
+        fast_path_count, sass_functions, sass_text,
+    )
+    fns = sass_functions("texture_kernel")
+    if not fns:
+        return "no object or no cuobjdump"
+    with open(os.path.join(OUT_DIR, "sass_texture_kernel.txt"), "w") as f:
+        f.write(sass_text("texture_kernel"))
+    ins = next(v for k, v in fns.items() if "marble_kernel" in k)
+    src = (CSRC / "texture_kernel.cu").read_text()
+    width = 1
+    for name in ("kSplit", "kOct"):
+        width *= int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+    fast = fast_path_count(ins, ins[0][0], ins[-1][0])
+    return (f"{len(ins)} instructions, {fast} on the fast path; a marble "
+            f"lane's {width} threads issue {width * fast} (MARBLE_OPS "
+            f"{MARBLE_OPS}: one thread a lane)")
+
+
 def _bound_ms(n_bytes: float, n_ops: float):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
     and operations over the float32 rate."""
@@ -473,7 +513,7 @@ def main() -> None:
         bounce_bwd_regen_pre_reduced_plain,
     )
     from raytrace_tpu_torch.ops.row_reduce import row_tables
-    from raytrace_tpu_torch.profile_render import ptxas_report
+    from raytrace_tpu_torch.profile_render import ptxas_report, sass_loops
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -540,17 +580,41 @@ def main() -> None:
 
     phase_done("kernel A vs plain")
 
-    # 4. kernel B vs plain at the main path's shapes
+    # 4. kernel B vs plain at the main path's shapes, prepared as the
+    # drivers launch it: the planar instantiation on Cornell, the general
+    # one on the all-materials (with and without targets) and moving-box
+    # scenes, every lane of a 600-pixel-wide image
     err_b = 0.0
-    for name, s, seed in (("exact", s_c, 21),
-                          ("rr2", s_c.replace(rr_depth=2), 22)):
-        one, frac, mean_rel = compare_iter(cornell, s, lanes, seed)
-        err_b = max(err_b, _check(f"kernel B vs plain: cornell 600x600 "
-                                  f"{name}, one iteration", one, lanes))
-        print(f"[kernel B vs plain] cornell 600x600 {name}, 30 iterations: "
+    box, s_box = box_motion_scene(device=dev)
+    s_box = s_box.replace(image_width=600)
+    s_a6 = s_a.replace(image_width=600)
+    for name, sc, s, box_o, seed in (
+            ("cornell 600x600 exact", cornell, s_c, (0.0, 555.0), 21),
+            ("cornell 600x600 rr2", cornell, s_c.replace(rr_depth=2),
+             (0.0, 555.0), 22),
+            ("all-materials 600 wide exact", allm, s_a6, (-8.0, 8.0), 23),
+            ("all-materials+targets 600 wide rr2", allm,
+             s_a6.with_redirect_targets(ALL_MATERIAL_TARGETS).replace(
+                 rr_depth=2), (-8.0, 8.0), 24),
+            ("box/motion 600 wide exact", box, s_box, (-8.0, 8.0), 25),
+            ("box/motion 600 wide rr2", box, s_box.replace(rr_depth=2),
+             (-8.0, 8.0), 26)):
+        n_b = stationary_lanes(s)[1]
+        p0 = iter_megakernel.planar_launches
+        one, frac, mean_rel, err30 = compare_iter(sc, s, n_b, seed,
+                                                  box=box_o)
+        b_inst = ("planar" if iter_megakernel.planar_launches > p0
+                  else "general")
+        if (b_inst == "planar") != (sc is cornell):
+            raise AssertionError(f"kernel B took the {b_inst} instantiation "
+                                 f"on {name}")
+        err_b = max(err_b, _check(f"kernel B vs plain ({b_inst}): {name}, "
+                                  "one iteration", one, n_b))
+        err_b = max(err_b, err30)
+        print(f"[kernel B vs plain] ({b_inst}) {name}, 30 iterations: "
               f"{frac:.5f} of lanes differ by > 1e-5 (bound {FRAC_LANES}), "
-              f"mean rel diff {mean_rel:.2e} (bound {MEAN_RTOL})",
-              flush=True)
+              f"mean rel diff {mean_rel:.2e} (bound {MEAN_RTOL}), max |err| "
+              f"{err30:.3g} of the summed radiance, {n_b} lanes", flush=True)
         if frac >= FRAC_LANES or mean_rel > MEAN_RTOL:
             raise AssertionError("kernel B disagrees with iter_plain over "
                                  "30 iterations")
@@ -560,11 +624,13 @@ def main() -> None:
     # 5./6. the main path
     bounce_megakernel.launches = 0
     iter_megakernel.launches = 0
+    iter_megakernel.planar_launches = 0
     runs = {}
     for name, s, spp in (("exact", s_c, FWD_SPP),
                          ("rr2", s_c.replace(rr_depth=2), FWD_SPP),
                          ("spp1", s_c, 1)):
         a0, b0 = bounce_megakernel.launches, iter_megakernel.launches
+        bp0 = iter_megakernel.planar_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         acc, total = render_accumulate(cornell, s, seed=1, spp=spp)
@@ -573,6 +639,7 @@ def main() -> None:
         img = acc / total
         la = bounce_megakernel.launches - a0
         lb = iter_megakernel.launches - b0
+        lbp = iter_megakernel.planar_launches - bp0
         finite = bool(torch.isfinite(img).all())
         mean = float(img.mean())
         runs[name] = dict(seconds=dt, rays_per_s=n_pix * spp / dt,
@@ -581,14 +648,16 @@ def main() -> None:
         print(f"[main path] cornell 600x600 {spp} spp depth 50 {name}: "
               f"{dt:.3f} s, {n_pix * spp / dt / 1e6:.3f} M primary rays/s, "
               f"{iters} iterations ({1e3 * dt / max(iters, 1):.3f} ms/iter), "
-              f"launches A={la} B={lb}, mean {mean:.6f}, finite {finite} "
+              f"launches A={la} B={lb} (planar {lbp}), mean {mean:.6f}, "
+              f"finite {finite} "
               f"[{smi}]", flush=True)
         if not finite or img.shape != (n_pix, 3):
             raise AssertionError(f"main path {name}: bad image")
         if spp > 1 and (la == 0 or lb != 0):
             raise AssertionError(f"main path {name}: expected kernel A only")
-        if spp == 1 and lb == 0:
-            raise AssertionError("main path spp1: kernel B did not run")
+        if spp == 1 and (lb == 0 or lbp != lb):
+            raise AssertionError("main path spp1: kernel B did not run, or "
+                                 "not through its planar instantiation")
         if name == "exact":
             write_image(os.path.join(OUT_DIR, "cornell600.png"),
                         img.reshape(600, 600, 3))
@@ -654,18 +723,44 @@ def main() -> None:
     b_tables, b_kw = iter_kernel_args(cornell, s_c, rng.base_key(1, dev), 199)
     b_lane = ((torch.from_numpy(lane_pix).to(dev, torch.int32),)
               + fresh_carry(lanes, dev))
-    err_b = max(err_b, _check(
-        "kernel B vs plain: cornell 600x600 every lane regenerating",
-        max_errs(iter_plain(*b_tables, b_lane, **b_kw),
-                 iter_megakernel(*b_tables, b_lane, **b_kw), ITER_INT_ROWS),
-        lanes))
+    b_gen = dict(b_kw, prepared=None)     # unprepared: the general one
+    if not b_kw["prepared"].planar:
+        raise AssertionError("Cornell's table did not take kernel B's "
+                             "planar scan")
+    b_ref = iter_plain(*b_tables, b_lane, **b_kw)
+    for b_inst, kw_x in (("planar", b_kw), ("general, unprepared", b_gen)):
+        err_b = max(err_b, _check(
+            f"kernel B vs plain ({b_inst}): cornell 600x600 every lane "
+            "regenerating", max_errs(b_ref, iter_megakernel(
+                *b_tables, b_lane, **kw_x), ITER_INT_ROWS), lanes))
     b_call = lambda: iter_megakernel(*b_tables, b_lane, **b_kw)
     ms_b = _device_ms(b_call, "iter_kernel", 50)
-    host_b = _time_ms(b_call, 50)
+    b_gen_call = lambda: iter_megakernel(*b_tables, b_lane, **b_gen)
+    # the host's clock varies between calls: 5 turns of 50 calls each,
+    # prepared and unprepared, the least of each kept
+    turns_b = [(_time_ms(b_call, 50), _time_ms(b_gen_call, 50))
+               for _ in range(5)]
+    host_b, host_bu = (min(t[k] for t in turns_b) for k in (0, 1))
     plain_b = _time_ms(lambda: iter_plain(*b_tables, b_lane, **b_kw), 5, 1)
-    print(f"[time] kernel B {ms_b:.4f} ms on the device ({host_b:.4f} ms a "
-          f"call back to back) vs iter_plain {plain_b:.3f} ms at {lanes} "
-          f"lanes (regenerating every lane) [{smi}]", flush=True)
+    print(f"[time] kernel B (planar) {ms_b:.4f} ms on the device "
+          f"({host_b:.4f} ms a call back to back, prepared; {host_bu:.4f} "
+          f"unprepared; the least of 5 turns: "
+          f"{', '.join(f'{a:.4f}/{b:.4f}' for a, b in turns_b)}) vs "
+          f"iter_plain {plain_b:.3f} ms at {lanes} lanes (regenerating "
+          f"every lane) [{smi}]", flush=True)
+    # the scan's share: the same wrapper with no rows (regeneration, shade,
+    # background, RR and the lane I/O alone), and the general
+    # instantiation over Cornell's rows
+    ms_bg = _device_ms(b_gen_call, "iter_kernel", 50)
+    ms_b0 = _device_ms(lambda: iter_megakernel(
+        *b_tables, b_lane, **dict(b_gen, n_prims=0)), "iter_kernel", 50)
+    print(f"[split] kernel B at {lanes} lanes: {ms_b:.4f} ms with Cornell's "
+          f"{b_kw['n_prims']} rows (planar), {ms_bg:.4f} ms (general), "
+          f"{ms_b0:.4f} ms with n_prims=0; ptxas: "
+          f"{' | '.join(ptxas_report(('iter_kernel',)))} [{smi}]",
+          flush=True)
+    for line in sass_loops("iter_kernel"):
+        print(f"[sass] {line}", flush=True)
 
     # bounds: each input column read once and each output written once;
     # operations estimated per lane from the sources (a row of the scan
@@ -683,9 +778,6 @@ def main() -> None:
     # 8. K5 vs plain on 2^18 lanes of real mid-render states
     n_bwd = FWD_BWD["lanes"]
     s_fb = s_c.replace(rr_depth=FWD_BWD["rr_depth"])
-    s_a6 = s_a.replace(image_width=600)
-    box, s_box = box_motion_scene(device=dev)
-    s_box = s_box.replace(image_width=600)
     err_k5 = 0.0
     k5_args = None
     standin, s_st = bunny_standin_scene(600, MESH_FWD_BWD["spp"], 10,
@@ -764,6 +856,7 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iter_megakernel.launches = 0
+    iter_megakernel.planar_launches = 0
     bounce_bwd_regen_pre_reduced.launches = 0
     bounce_bwd_regen_pre_megakernel.launches = 0
     t0 = time.perf_counter()
@@ -771,6 +864,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fb_b = iter_megakernel.launches
+    fb_bp = iter_megakernel.planar_launches
     fb_k5 = bounce_bwd_regen_pre_reduced.launches
     fb_k5_lane = bounce_bwd_regen_pre_megakernel.launches
     peak = torch.cuda.max_memory_allocated()
@@ -784,12 +878,14 @@ def main() -> None:
           f"x {FWD_BWD['spp']} spp: {wall:.3f} s, "
           f"{fb['rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
           f"{fb['loss']:.6f}, samples_completed {fb['samples_completed']:.6f},"
-          f" launches B={fb_b} K5 reduced={fb_k5} ({_row_mode_name(cornell)}) "
+          f" launches B={fb_b} (planar {fb_bp}) K5 reduced={fb_k5} "
+          f"({_row_mode_name(cornell)}) "
           f"K5 per lane={fb_k5_lane}, "
           f"peak memory {peak / 2**30:.3f} GiB, gradients finite {finite} "
           f"[{smi}]", flush=True)
     if not finite or fb["samples_completed"] < 0.9999 \
-            or fb_b != n_expect or fb_k5 != n_expect or fb_k5_lane:
+            or fb_b != n_expect or fb_bp != fb_b or fb_k5 != n_expect \
+            or fb_k5_lane:
         raise AssertionError("fwd+bwd main path: bad gradients, incomplete "
                              "samples or wrong launch counts")
     main_b += fb_b
@@ -906,7 +1002,9 @@ def main() -> None:
          "replaces": "raytrace_tpu/ops/pallas/iter_kernel.py:328",
          "launches": main_b, "max_abs_err": err_b, "ms": ms_b,
          "host_ms": host_b, "plain_ms": plain_b, "bound_ms": bound_b[0],
-         "bound_by": bound_b[1], "library_ms": no_lib},
+         "bound_by": bound_b[1], "library_ms": no_lib,
+         "general_ms": ms_bg, "no_rows_ms": ms_b0,
+         "unprepared_host_ms": host_bu},
         {"name": "bounce_bwd_regen_pre_reduced", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
          "replaces":
@@ -1041,8 +1139,8 @@ def _mesh_phases(smi, phase_done) -> dict:
     err_m = 0.0
     for name, s_k, seed in (("exact", s_m, 51),
                             ("rr2", s_m.replace(rr_depth=2), 52)):
-        one, frac, mean_rel = compare_iter(standin, s_k, n_k, seed,
-                                           n_iters=10, box=(-1.0, 1.0))
+        one, frac, mean_rel, _ = compare_iter(standin, s_k, n_k, seed,
+                                              n_iters=10, box=(-1.0, 1.0))
         err_m = max(err_m, _check(f"mesh iteration vs plain: stand-in "
                                   f"{name}, one iteration", one, n_k))
         print(f"[mesh iteration vs plain] stand-in {name}, 10 iterations: "
@@ -1329,14 +1427,16 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.ops.texture_kernel import (
         marble_stripe_pallas, marble_stripe_plain, marble_table,
     )
+    from raytrace_tpu_torch.profile_render import ptxas_report
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.integrator import split_tables
     from raytrace_tpu_torch.render.render import render_accumulate
     from raytrace_tpu_torch.testing import (
         IMAGE_GRAD_FWD_BWD, MESH_FWD_BWD, bunny_tex_scene, camera_rays,
         checked_launches, compare_marble, compare_nearest_flat,
-        compare_shade, image_grad_errs, image_grad_scene, next_split_rays,
-        noise_test_scene, plain_kernels, stationary_lanes, surface_points,
+        compare_shade, image_grad_errs, image_grad_scene, marble_patterns,
+        next_split_rays, noise_test_scene, plain_kernels, route_marble_lanes,
+        stationary_lanes, surface_points,
     )
     from raytrace_tpu_torch.textures import textures as tex_mod
     counters = (bounce_megakernel, iter_megakernel, iter_mega_ap,
@@ -1384,6 +1484,23 @@ def _rich_phases(smi, phase_done, dev) -> dict:
         if depth == 0:
             k8_rays, k12_in = tuple(comps.unbind(0)), (tid, pts, n_marble)
         comps, uni, thr, alive = next_split_rays(comps, out, 71, depth + 1)
+    # K12 on the lanes the route hands it (the rich lanes compacted by
+    # torch.nonzero) and on patterns beside a render's
+    tid_r, pts_r = route_marble_lanes(noise, s_n, 72)
+    cases = [("route's compacted rich lanes of noise_test",
+              (noise.textures, tid_r, pts_r, None))]
+    cases += [(name, (table, tid.to(dev), pts.to(dev), mtbl.to(dev)))
+              for name, (table, tid, pts, mtbl)
+              in marble_patterns(73, lanes).items()]
+    for name, (table, tid, pts, mt) in cases:
+        errs, _ = compare_marble(table, tid, pts, mt)
+        n_m = int(torch.isin(tid.to(torch.float32),
+                             (marble_table(table) if mt is None else mt)
+                             [:, 0].to(tid.device)).sum())
+        err12 = max(err12, _check(f"K12 vs plain: {name}, {n_m} marble "
+                                  "lanes", errs, tid.shape[0]))
+        if err12:
+            raise AssertionError(f"K12 is not exact on {name}")
     phase_done("K8 and K12 vs plain")
 
     # 20. route 3: the rich forward at full size
@@ -1642,7 +1759,12 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     print(f"[time] K12 {ms12:.4f} ms on the device ({call12:.4f} ms a call "
           f"back to back) vs marble_stripe_plain {plain12:.3f} ms at {lanes} "
           f"lanes ({nm0} marble); bound {bound12[0]:.4f} ms "
-          f"({bound12[1]}) [{smi}]", flush=True)
+          f"({bound12[1]}, {MARBLE_OPS} operations a marble lane) [{smi}]",
+          flush=True)
+    sass12 = _marble_sass_count()
+    print(f"[sass] K12: {sass12}; ptxas: "
+          f"{' | '.join(ptxas_report(('marble_kernel',)))} [{smi}]",
+          flush=True)
     a13i = tuple(x.to(torch.int32) for x in a13[:3]) + (a13[3],)
     k13_call = lambda: image_grad_pallas(*a13i, **kw13)
     ms13 = _device_ms(k13_call, "image_grad_kernel", 50)

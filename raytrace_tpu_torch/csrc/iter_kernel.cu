@@ -13,7 +13,14 @@
 // camera and shade; the iteration kernel saves the ~340 small elementwise
 // launches per iteration, and their device-memory round trips, that the
 // unfused body pays around kernel A (PERF.md).  Same simple design: one
-// thread per lane, tables and camera in shared memory, no block consensus.
+// thread per lane, tables and camera in shared memory, no block consensus,
+// and kernel A's two instantiations of the flat scan: the planar one
+// (kPlanar) for tables whose rows are all unmoving parallelograms and
+// triangles (ops/bounce_kernel.py:planar_only; the Cornell box) scans with
+// prim_loop.cuh:planar_loop (four float4 loads a row from shared memory,
+// the scan carrying (t, row), the winner's record built once afterwards),
+// every other table with prim_loop.  The wrapper decides once per driver
+// call which one serves the tables (ops/iter_kernel.py:prepare_iter).
 //
 // The mesh variant (rt_iter_bvh) replaces iter_kernel.py:_iter_mega_ap,
 // the same iteration with the TPU's all-pairs intersect stage, taken for
@@ -53,7 +60,8 @@ struct IterArgs {
   const float* rows;   // mesh variant: [n_rows, 36] leaf-ordered rows
   long long n_lanes;
   int n_prims, n_mats, n_targets, has_motion, use_prim_albedo, n_u,
-      rr_depth, max_depth, width, bg_kind, with_uv, n_nodes, tri_only;
+      rr_depth, max_depth, width, bg_kind, with_uv, n_nodes, tri_only,
+      planar;
   float t_min;
 };
 
@@ -62,11 +70,15 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kNCam = rt::kNCam;
 constexpr int kBgSky = 1, kBgGray = 2;
+// The table follows the camera in shared memory and planar_cand reads its
+// rows as float4: 24 floats keep it at a 16-byte offset of the aligned base.
+static_assert(kNCam % 4 == 0, "the staged table must stay 16-byte aligned");
 
 // One iteration of lane l.  kBvh: the mesh variant (the table stays in
 // global memory and the intersect stage walks the BVH); otherwise the flat
-// scan of the table staged in shared memory (sp).
-template <bool kBvh, bool kTriOnly>
+// scan of the table staged in shared memory (sp), planar_loop where
+// kPlanar (every row an unmoving parallelogram or triangle).
+template <bool kBvh, bool kTriOnly, bool kPlanar>
 __device__ __forceinline__ void iter_lane(const IterArgs& a, long long l,
                                           const float* cam, const float* sp,
                                           const float* sm, const float* st,
@@ -115,6 +127,9 @@ __device__ __forceinline__ void iter_lane(const IterArgs& a, long long l,
     hr = rt::bvh_nearest<kTriOnly, false>(
         bvh, box, boy, boz, dx, dy, dz, tmv, a.t_min, a.has_motion != 0,
         a.use_prim_albedo != 0, nullptr);
+  else if constexpr (kPlanar)
+    hr = rt::planar_loop(sp, a.n_prims, box, boy, boz, dx, dy, dz, a.t_min,
+                         a.use_prim_albedo != 0);
   else
     hr = rt::prim_loop(sp, a.n_prims, box, boy, boz, dx, dy, dz, tmv,
                        a.t_min, a.has_motion != 0, a.use_prim_albedo != 0);
@@ -188,11 +203,10 @@ __device__ __forceinline__ void iter_lane(const IterArgs& a, long long l,
   a.outi[R + l] = dep2;
 }
 
-template <bool kBvh, bool kTriOnly>
+template <bool kBvh, bool kTriOnly, bool kPlanar>
 __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
-  extern __shared__ float smem[];
-  float* cam = smem;
-  float* sp = cam + kNCam;
+  float* cam = rt::dyn_smem();  // 16-byte aligned
+  float* sp = cam + kNCam;      // so is the table (kNCam % 4 == 0)
   float* sm = kBvh ? sp : sp + a.n_prims * rt::kCols;
   float* st = sm + a.n_mats * rt::kMCols;
   rt::stage(cam, a.cam, kNCam);
@@ -209,23 +223,22 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
     for (long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
          l < a.n_lanes; l += stride)
-      iter_lane<true, kTriOnly>(a, l, cam, sp, sm, st, bvh);
+      iter_lane<true, kTriOnly, false>(a, l, cam, sp, sm, st, bvh);
   } else {
     const long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
     if (l >= a.n_lanes) return;
-    iter_lane<false, false>(a, l, cam, sp, sm, st, rt::Bvh{});
+    iter_lane<false, false, kPlanar>(a, l, cam, sp, sm, st, rt::Bvh{});
   }
 }
 
-}  // namespace
-
-template <bool kBvh, bool kTriOnly>
-static int launch_iter(const IterArgs* a, void* stream) {
+#ifdef __CUDACC__
+template <bool kBvh, bool kTriOnly, bool kPlanar>
+int launch_iter(const IterArgs* a, void* stream) {
   static rt::Resident cache;
   if (a->n_lanes <= 0) return 0;
   if (a->n_u != rt::kNU) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = iter_kernel<kBvh, kTriOnly>;
+  const auto kernel = iter_kernel<kBvh, kTriOnly, kPlanar>;
   const int smem = static_cast<int>(
       sizeof(float) * (kNCam + (kBvh ? 0 : a->n_prims * rt::kCols) +
                        a->n_mats * rt::kMCols + a->n_targets * rt::kTCols));
@@ -247,12 +260,16 @@ static int launch_iter(const IterArgs* a, void* stream) {
            static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // __CUDACC__
+
+}  // namespace
 
 extern "C" int rt_iter(const IterArgs* a, void* stream) {
-  return launch_iter<false, false>(a, stream);
+  return a->planar ? launch_iter<false, false, true>(a, stream)
+                   : launch_iter<false, false, false>(a, stream);
 }
 
 extern "C" int rt_iter_bvh(const IterArgs* a, void* stream) {
-  return a->tri_only ? launch_iter<true, true>(a, stream)
-                     : launch_iter<true, false>(a, stream);
+  return a->tri_only ? launch_iter<true, true, false>(a, stream)
+                     : launch_iter<true, false, false>(a, stream);
 }

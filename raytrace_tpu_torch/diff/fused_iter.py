@@ -32,7 +32,7 @@ from ..ops.allpairs_kernel import pack_bvh
 from ..ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_reduced
 from ..ops.iter_kernel import (
     BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
-    resolve_use_ap,
+    prepare_iter, resolve_use_ap,
 )
 from ..ops.row_reduce import RowTables, row_tables
 from ..core.vecmath import DTYPE
@@ -81,7 +81,10 @@ def iter_kernel_args(scene, s, base_key, last_sample: int):
     for this scene and camera, on the scene's device.  A mesh-scale table
     (:func:`resolve_use_ap`) gets ``use_ap=True`` and its BVH, built
     here; a scene with rich textures gets ``with_uv=True`` (the winner's
-    uv, for :func:`apply_rich`)."""
+    uv, for :func:`apply_rich`).  ``kw["prepared"]`` is the launch of
+    :func:`~..ops.iter_kernel.prepare_iter`: the tables checked, the
+    planar instantiation chosen where it serves them, once per driver
+    call."""
     from ..render.integrator import bounce_tables, n_bounce_uniforms
     dev = scene.device
     tb = bounce_tables(scene, s)
@@ -96,7 +99,9 @@ def iter_kernel_args(scene, s, base_key, last_sample: int):
               bvh=(pack_bvh(scene.prims, tb.ptbl, tb.n_prims) if use_ap
                    else None),
               with_uv=is_rich(scene.textures.kinds_present))
-    return (tb.ptbl, tb.mtbl, tb.ttbl, cam, kt), kw
+    tables = (tb.ptbl, tb.mtbl, tb.ttbl, cam, kt)
+    kw["prepared"] = prepare_iter(*tables, **kw)
+    return tables, kw
 
 
 def fused_iter_fwd_step(scene, s, base_key, spp: int, sample_offset: int):

@@ -19,10 +19,17 @@ same iteration, whose intersect stage walks the table's BVH
 (:func:`iter_mega_ap`, ``rt_iter_bvh``); its plain version is
 :func:`iter_plain` with ``use_ap=True``, whose intersect stage is the
 all-pairs sweep of ``ops/allpairs_kernel.py``.
+
+:func:`prepare_iter` checks the tables of one driver call once, decides
+whether the kernel's planar instantiation serves them (as kernel A's
+:func:`~.bounce_kernel.prepare_bounce` does) and prebuilds the table part
+of the argument struct (:class:`IterLaunch`); a driver passes it to every
+launch as ``prepared=``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -31,7 +38,7 @@ from ..core import rng
 from ..render.camera import camera_table, rays_from_table
 from .allpairs_kernel import check_bvh, nearest_hit_plain
 from .bounce_kernel import (
-    N_U, check_lanes, check_tables, shade_values,
+    N_U, check_lanes, check_tables, planar_only, shade_values,
 )
 from .intersect_kernel import MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, prim_loop_plain
 
@@ -74,10 +81,12 @@ def iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
                n_mats: int, n_targets: int, t_min: float, has_motion: bool,
                use_prim_albedo: bool, n_u: int, rr_depth, max_depth: int,
                width: int, bg_kind: int, with_uv: bool = False,
-               use_ap: bool = False, bvh=None):
+               use_ap: bool = False, bvh=None, prepared=None):
     """Kernel B in plain PyTorch: the same inputs and outputs as
     :func:`iter_megakernel`, on any device.  ``use_ap`` takes the
-    all-pairs intersect stage of the mesh variant (``bvh`` is unused)."""
+    all-pairs intersect stage of the mesh variant (``bvh`` and
+    ``prepared`` are accepted so that both take the same arguments, and
+    unused)."""
     (pix, smp, dep, al, ox, oy, oz, dx, dy, dz, tm,
      rr, rg, rb, tr, tg, tb) = lane_in
     c = cam.tolist()
@@ -168,7 +177,7 @@ class _IterArgs(ctypes.Structure):
         + [(f, ctypes.c_int) for f in (
             "n_prims", "n_mats", "n_targets", "has_motion",
             "use_prim_albedo", "n_u", "rr_depth", "max_depth", "width",
-            "bg_kind", "with_uv", "n_nodes", "tri_only")]
+            "bg_kind", "with_uv", "n_nodes", "tri_only", "planar")]
         + [("t_min", ctypes.c_float)])
 
 
@@ -176,54 +185,140 @@ _LANE_NAMES = ("pix", "smp", "dep", "al", "ox", "oy", "oz", "dx", "dy", "dz",
                "tm", "rr", "rg", "rb", "tr", "tg", "tb")
 
 
-def _launch_iter(entry, ptbl, mtbl, ttbl, cam, kt, lane_in, bvh, *,
-                 n_prims, n_mats, n_targets, t_min, has_motion,
-                 use_prim_albedo, n_u, rr_depth, max_depth, width, bg_kind,
-                 with_uv):
-    """Check the arguments of kernel B (``entry`` rt_iter) or of its mesh
-    variant (rt_iter_bvh, with ``bvh``) and launch it."""
+@dataclasses.dataclass(frozen=True)
+class IterLaunch:
+    """Kernel B's tables for one driver call, checked once by
+    :func:`prepare_iter`: the five tables ``(ptbl, mtbl, ttbl, cam, kt)``,
+    the kernel's keyword parameters, the mesh variant's BVH (None for the
+    flat scan), whether the planar instantiation serves the tables, and
+    the argument struct with its table part filled in (the lanes are
+    filled per launch)."""
+    tables: tuple
+    kw: dict
+    bvh: object
+    planar: bool
+    args: _IterArgs
+
+
+def _check_tables(tables, bvh, kw, dev) -> None:
+    """Raise unless kernel B (``bvh`` None) or its mesh variant takes the
+    tables ``(ptbl, mtbl, ttbl, cam, kt)`` and parameters ``kw`` on
+    ``dev`` (the uniform count is checked at each launch)."""
+    ptbl, mtbl, ttbl, cam, kt = tables
+    check_tables(ptbl, mtbl, ttbl, kw["n_prims"], kw["n_mats"],
+                 kw["n_targets"], dev,
+                 max_prims=MAX_SMEM_PRIMS if bvh is None else MAX_DENSE_PRIMS)
+    if bvh is not None:
+        check_bvh(bvh, kw["n_prims"], dev)
+    check_lanes([("cam", cam)], N_CAM, dev)
+    check_lanes([("kt", kt)], N_KT, dev, torch.int32)
+
+
+def _make_table_args(tables, bvh, kw, planar: bool) -> _IterArgs:
+    """Kernel B's argument struct with the table part filled in."""
+    ptbl, mtbl, ttbl, cam, kt = tables
+    rr_depth = kw["rr_depth"]
+    return _IterArgs(
+        ptbl=ptbl.data_ptr(), mtbl=mtbl.data_ptr(), ttbl=ttbl.data_ptr(),
+        cam=cam.data_ptr(), kt=kt.data_ptr(),
+        nodes=None if bvh is None else bvh.nodes.data_ptr(),
+        rows=None if bvh is None else bvh.rows.data_ptr(),
+        n_prims=kw["n_prims"], n_mats=kw["n_mats"],
+        n_targets=kw["n_targets"], has_motion=int(kw["has_motion"]),
+        use_prim_albedo=int(kw["use_prim_albedo"]), n_u=kw["n_u"],
+        rr_depth=-1 if rr_depth is None else int(rr_depth),
+        max_depth=kw["max_depth"], width=kw["width"],
+        bg_kind=kw["bg_kind"], with_uv=int(kw["with_uv"]),
+        n_nodes=0 if bvh is None else bvh.n_nodes,
+        tri_only=int(bvh is not None and bvh.tri_only), planar=int(planar),
+        t_min=float(kw["t_min"]))
+
+
+def prepare_iter(ptbl, mtbl, ttbl, cam, kt, *, n_prims: int, n_mats: int,
+                 n_targets: int, t_min: float, has_motion: bool,
+                 use_prim_albedo: bool, n_u: int, rr_depth, max_depth: int,
+                 width: int, bg_kind: int, with_uv: bool = False,
+                 use_ap: bool = False, bvh=None) -> IterLaunch:
+    """Check kernel B's tables (as :func:`iter_megakernel` does without
+    them), decide whether its planar instantiation serves them
+    (:func:`~.bounce_kernel.planar_only`: one host synchronisation) and
+    prebuild its argument struct's table part."""
+    kw = dict(n_prims=n_prims, n_mats=n_mats, n_targets=n_targets,
+              t_min=t_min, has_motion=has_motion,
+              use_prim_albedo=use_prim_albedo, n_u=n_u, rr_depth=rr_depth,
+              max_depth=max_depth, width=width, bg_kind=bg_kind,
+              with_uv=with_uv)
+    tables = (ptbl, mtbl, ttbl, cam, kt)
+    bvh = bvh if use_ap else None
+    if use_ap and bvh is None:
+        raise ValueError("prepare_iter: the mesh variant needs the table's "
+                         "BVH (pack_bvh)")
+    _check_tables(tables, bvh, kw, ptbl.device)
+    planar = not use_ap and planar_only(ptbl, n_prims, has_motion)
+    return IterLaunch(tables=tables, kw=kw, bvh=bvh, planar=planar,
+                      args=_make_table_args(tables, bvh, kw, planar))
+
+
+def table_args(tables, bvh, kw, prepared: IterLaunch | None) -> _IterArgs:
+    """The table part of kernel B's argument struct for ``tables``, the
+    mesh variant's ``bvh`` (or None) and the parameters ``kw``: that of
+    ``prepared``, which must have been made for them, or (``prepared``
+    None) that of the general instantiation after checking the tables."""
+    if prepared is None:
+        _check_tables(tables, bvh, kw, tables[0].device)
+        return _make_table_args(tables, bvh, kw, False)
+    if (any(a is not b for a, b in zip(prepared.tables, tables))
+            or prepared.kw != kw or prepared.bvh is not bvh):
+        raise ValueError("iter_megakernel: the prepared tables are not the "
+                         "ones given")
+    return prepared.args
+
+
+def lane_args(table_part: _IterArgs, lane_in, outf, outi) -> _IterArgs:
+    """A copy of ``table_part`` with the lane part filled in: the 17 lane
+    tensors and the two outputs, for tensors that outlive it."""
+    args = _IterArgs.from_buffer_copy(table_part)
+    (args.pix, args.smp, args.dep, args.al, args.ox, args.oy, args.oz,
+     args.dx, args.dy, args.dz, args.tm, args.rr, args.rg, args.rb, args.tr,
+     args.tg, args.tb, args.outf, args.outi) = (
+        x.data_ptr() for x in tuple(lane_in) + (outf, outi))
+    args.n_lanes = outi.shape[1]
+    return args
+
+
+def _launch_iter(entry, tables, lane_in, bvh, prepared, kw):
+    """Check the lanes of kernel B (``entry`` rt_iter) or of its mesh
+    variant (rt_iter_bvh, with ``bvh``) and launch it over
+    :func:`table_args`."""
     dev = lane_in[0].device
     if dev.type != "cuda":
         raise ValueError(f"iter_megakernel: unsupported device {dev}")
     if len(lane_in) != N_LANE_IN:
         raise ValueError(f"lane_in: need {N_LANE_IN} lane tensors")
-    if n_u != N_U:
-        raise ValueError(f"n_u={n_u}: the kernel draws {N_U} bounce "
+    if kw["n_u"] != N_U:
+        raise ValueError(f"n_u={kw['n_u']}: the kernel draws {N_U} bounce "
                          "uniforms (volume columns: ROADMAP M10)")
+    table_part = table_args(tables, bvh, kw, prepared)
     r = lane_in[0].shape[0]
-    check_tables(ptbl, mtbl, ttbl, n_prims, n_mats, n_targets, dev,
-                 max_prims=MAX_SMEM_PRIMS if bvh is None else MAX_DENSE_PRIMS)
-    if bvh is not None:
-        check_bvh(bvh, n_prims, dev)
     check_lanes(zip(_LANE_NAMES[:3], lane_in[:3]), r, dev, torch.int32)
     check_lanes(zip(_LANE_NAMES[3:], lane_in[3:]), r, dev)
-    check_lanes([("cam", cam)], N_CAM, dev)
-    check_lanes([("kt", kt)], N_KT, dev, torch.int32)
     from ._build import launch
-    outf = torch.empty((_N_OUT_F + (2 if with_uv else 0), r),
-                       dtype=torch.float32, device=dev)
-    outi = torch.empty((2, r), dtype=torch.int32, device=dev)
-    args = _IterArgs(
-        *(x.data_ptr() for x in (ptbl, mtbl, ttbl, cam, kt) + tuple(lane_in)
-          + (outf, outi)),
-        *((None, None) if bvh is None
-          else (bvh.nodes.data_ptr(), bvh.rows.data_ptr())),
-        r, n_prims, n_mats, n_targets, int(has_motion),
-        int(use_prim_albedo), n_u, -1 if rr_depth is None else int(rr_depth),
-        max_depth, width, bg_kind, int(with_uv),
-        0 if bvh is None else bvh.n_nodes,
-        int(bvh is not None and bvh.tri_only), float(t_min))
-    launch(entry, args, dev)
+    # one allocation: the f32 rows, then the two i32 rows viewed as such
+    n_f = _N_OUT_F + (2 if kw["with_uv"] else 0)
+    buf = torch.empty((n_f + 2, r), dtype=torch.float32, device=dev)
+    outf, outi = buf[:n_f], buf[n_f:].view(torch.int32)
+    launch(entry, lane_args(table_part, lane_in, outf, outi), dev)
     f = outf.unbind(0)
-    out = f[:14] + (outi[0], outi[1]) + f[14:17]
-    return out + f[17:19] if with_uv else out
+    out = f[:14] + outi.unbind(0) + f[14:17]
+    return out + f[17:19] if kw["with_uv"] else out
 
 
 def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
                     n_mats: int, n_targets: int, t_min: float,
                     has_motion: bool, use_prim_albedo: bool, n_u: int,
                     rr_depth, max_depth: int, width: int, bg_kind: int,
-                    with_uv: bool = False, use_ap: bool = False, bvh=None):
+                    with_uv: bool = False, use_ap: bool = False, bvh=None,
+                    prepared: IterLaunch | None = None):
     """One wavefront iteration of every lane.  ``lane_in`` is 17 [R]
     tensors: pix, smp, dep (i32), al (0/1 f32), comps (7), rad (3),
     thr (3).  ``cam`` is the [24] f32 table of :func:`pack_cam`, ``kt``
@@ -232,10 +327,15 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
     died (0/1), winner index (-1 on a miss), RR scale — with ``with_uv``
     also the winner's (u, v).  ``use_ap`` (:func:`resolve_use_ap`) takes
     the mesh variant, :func:`iter_mega_ap`, over the table's ``bvh``.
+    ``prepared`` (:func:`prepare_iter` of these tables and parameters)
+    skips the tables' checks and selects the planar instantiation where
+    it serves them; without it the tables are checked and the general
+    instantiation runs.
 
     CPU tensors run :func:`iter_plain`; CUDA tensors launch the kernel
     (``iter_megakernel.launches`` counts the launches of the flat-scan
-    kernel)."""
+    kernel, ``iter_megakernel.planar_launches`` those of its planar
+    instantiation)."""
     kw = dict(n_prims=n_prims, n_mats=n_mats, n_targets=n_targets,
               t_min=t_min, has_motion=has_motion,
               use_prim_albedo=use_prim_albedo, n_u=n_u, rr_depth=rr_depth,
@@ -246,17 +346,21 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
                           **kw)
     if use_ap:
         return iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, bvh=bvh,
-                            **kw)
-    out = _launch_iter("rt_iter", ptbl, mtbl, ttbl, cam, kt, lane_in, None,
-                       **kw)
+                            prepared=prepared, **kw)
+    out = _launch_iter("rt_iter", (ptbl, mtbl, ttbl, cam, kt), lane_in, None,
+                       prepared, kw)
     iter_megakernel.launches += 1
+    if prepared is not None and prepared.planar:
+        iter_megakernel.planar_launches += 1
     return out
 
 
 iter_megakernel.launches = 0
+iter_megakernel.planar_launches = 0
 
 
-def iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, *, bvh, **kw):
+def iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, *, bvh,
+                 prepared: IterLaunch | None = None, **kw):
     """The mesh variant of :func:`iter_megakernel` on CUDA tensors
     (``iter_kernel.py:_iter_mega_ap``): the intersect stage walks ``bvh``
     over the table in global memory (``rt_iter_bvh``;
@@ -267,8 +371,8 @@ def iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, *, bvh, **kw):
                           **kw)
     if bvh is None:
         raise ValueError("iter_mega_ap: needs the table's BVH (pack_bvh)")
-    out = _launch_iter("rt_iter_bvh", ptbl, mtbl, ttbl, cam, kt, lane_in,
-                       bvh, **kw)
+    out = _launch_iter("rt_iter_bvh", (ptbl, mtbl, ttbl, cam, kt), lane_in,
+                       bvh, prepared, kw)
     iter_mega_ap.launches += 1
     return out
 

@@ -6,9 +6,10 @@ The stripe is ``0.5 + 0.5 sin(f (d . p) + 10 turb7(0.25 f p + s))``
 (``Texture.hs:72-79``): a 7-octave turbulence, 56 hash-gradient corners a
 lane.  Only the lanes whose texture is a marble row need it.  The TPU
 kernel loops over the scene's marble rows and skips a block of lanes with
-no such lane; on the card each thread takes one lane and computes the
-turbulence only for the row its texture id names
-(``csrc/texture_kernel.cu`` over ``csrc/noise.cuh``).
+no such lane; on the card each block packs the marble lanes of its tile
+of 32 and gives each of them a group of threads that split its corners
+(and octaves) between them (``csrc/texture_kernel.cu`` over
+``csrc/noise.cuh``), so only marble lanes take threads.
 
 * :func:`marble_table` packs the per-row scalars, [M, 8] f32: row id,
   frequency, direction (3), shift (3);

@@ -37,7 +37,12 @@ K11b on the pawn stand-in's 2^17 camera rays, through
 ``render/volumes.py:volume_crossings``, and of kernel A on Cornell's
 360,064 camera lanes, through ``integrator.bounce_mega_soa``; both calls
 take the same arguments in the parent tree, so the two trees can be
-timed in one session), it
+timed in one session), and for the fused iteration and the marble stripe
+at ``chip_smoke.py``'s shapes (``iter_marble_kernels``: 20 launches, in
+turns, of kernel B on Cornell's 360,064 lanes, every lane regenerating,
+with the tables of ``fused_iter.iter_kernel_args`` as the fused drivers
+pass them, and of K12 on noise_test's 90,112 camera lanes; the calls take
+the same arguments in the parent tree), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -117,32 +122,81 @@ def ptxas_report(names=("nearest_kernel", "iter_kernel")) -> list[str]:
     return out
 
 
+def sass_text(stem: str) -> str | None:
+    """``cuobjdump -sass`` of the build's object of ``csrc/<stem>.cu``, or
+    None without the object or the tool."""
+    from .ops._build import BUILD_DIR
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    objs = sorted(BUILD_DIR.glob(f"{stem}_*.o"))
+    if not objs or not Path(tool).exists():
+        return None
+    return subprocess.run([tool, "-sass", str(objs[-1])], capture_output=True,
+                          text=True, check=True).stdout
+
+
+_BRA = re.compile(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)")
+# what marks a slow path in SASS: a call (the IEEE division's and sqrt's),
+# local memory, the constant table of the trigonometric functions'
+# Payne-Hanek reduction, a double multiply
+_SLOW = ("CALL", "LDL", "STL", "LDG.E.CONSTANT", "DMUL")
+
+
+def sass_functions(stem: str) -> dict:
+    """``{kernel name: [(address, instruction), ...]}`` of the build's
+    object of ``csrc/<stem>.cu`` (empty without the object or
+    cuobjdump)."""
+    sass = sass_text(stem)
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass or "")[1:]:
+        out[fn.split("\n", 1)[0].strip()] = [
+            (int(a, 16), op) for a, op in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    return out
+
+
+def sass_loop_spans(ins) -> list[tuple[int, int]]:
+    """``(first, last)`` address of each loop: each backward branch and
+    its target."""
+    spans = []
+    for addr, op in ins:
+        m = _BRA.search(op)
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    return spans
+
+
+def fast_path_count(ins, lo: int, hi: int) -> int:
+    """The instructions of ``ins`` in ``[lo, hi]`` that a thread runs on
+    the fast path: those outside every predicated forward branch's span
+    that holds a slow-path instruction (``_SLOW``)."""
+    skip = []
+    for addr, op in ins:
+        m = _BRA.search(op)
+        if lo <= addr <= hi and m and op.lstrip().startswith("@") \
+                and int(m.group(1), 16) > addr:
+            end = int(m.group(1), 16)
+            if any(s in o for a, o in ins if addr < a < end for s in _SLOW):
+                skip.append((addr, end))
+    return sum(1 for a, _ in ins if lo <= a <= hi
+               and not any(s < a < e for s, e in skip))
+
+
 def sass_loops(stem: str = "bounce_kernel") -> list[str]:
     """For each kernel of ``csrc/<stem>.cu``: its SASS instruction count
     and, for each backward branch (a loop), the span it closes, its
     instruction count and whether it holds a call (the IEEE division's
     slow path) -- from ``cuobjdump -sass`` of the build's object."""
-    from .ops._build import BUILD_DIR
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    objs = sorted(BUILD_DIR.glob(f"{stem}_*.o"))
-    if not objs or not Path(tool).exists():
+    fns = sass_functions(stem)
+    if not fns:
         return [f"no object of {stem} or no cuobjdump"]
-    sass = subprocess.run([tool, "-sass", str(objs[-1])], capture_output=True,
-                          text=True, check=True).stdout
     out = []
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = fn.split("\n", 1)[0].strip()
-        ins = [(int(a, 16), op) for a, op in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    for name, ins in fns.items():
         loops = []
-        for addr, op in ins:
-            m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", op)
-            if m and int(m.group(1), 16) < addr:
-                lo = int(m.group(1), 16)
-                body = [o for a, o in ins if lo <= a <= addr]
-                call = any("CALL" in o for o in body)
-                loops.append(f"[{lo:#x}, {addr:#x}] {len(body)} instructions"
-                             f"{' with a CALL' if call else ''}")
+        for lo, addr in sass_loop_spans(ins):
+            body = [o for a, o in ins if lo <= a <= addr]
+            call = any("CALL" in o for o in body)
+            loops.append(f"[{lo:#x}, {addr:#x}] {len(body)} instructions"
+                         f"{' with a CALL' if call else ''}")
         out.append(f"{name}: {len(ins)} instructions; loops: "
                    f"{'; '.join(loops) or 'none'}")
     return out
@@ -184,6 +238,24 @@ def kernel_ms(fn, kernel, reps: int = 20) -> float:
                                  f"of {reps}")
         total += sum(us[name]) / len(us[name]) / 1e3
     return total
+
+
+def call_ms(fn, reps: int = 50, warmup: int = 2) -> float:
+    """Mean time in ms of ``fn``'s calls back to back, between CUDA events
+    (after ``warmup`` calls): the larger of its host cost and its device
+    time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> None:
@@ -343,6 +415,55 @@ def main() -> None:
                                 tables=tb)
         return run_kernels
 
+    @functools.cache
+    def iter_marble_calls():
+        """Kernel B on Cornell's 360,064 lanes, every lane regenerating,
+        through ``fused_iter.iter_kernel_args`` as the fused drivers call
+        it (phase 7 of chip_smoke.py), and K12 on noise_test's 90,112
+        camera lanes (phase 23): the call of 20 launches of each, its
+        inputs made (and each kernel's device and back-to-back call time,
+        registers and SASS printed) once."""
+        from .diff.fused_iter import iter_kernel_args
+        from .ops.texture_kernel import marble_stripe_pallas, marble_table
+        from .render.integrator import split_tables
+        from .testing import (
+            camera_rays, fresh_carry, stationary_lanes, surface_points,
+        )
+        _, lanes, lane_pix = stationary_lanes(s)
+        tables, kw = iter_kernel_args(scene, s, rng.base_key(1, dev), 199)
+        lane_in = ((torch.from_numpy(lane_pix).to(dev, torch.int32),)
+                   + fresh_carry(lanes, dev))
+        _, lanes_n, lane_pix_n = stationary_lanes(s_n)
+        comps, _ = camera_rays(noise, s_n, lanes_n, 71,
+                               pixels=torch.from_numpy(lane_pix_n))
+        pts, hit = surface_points(split_tables(noise, s_n), comps)
+        tid = noise.materials.tex[hit[8].long()]
+        mtbl = marble_table(noise.textures)
+        n_m = int(torch.isin(tid.to(torch.float32), mtbl[:, 0]).sum())
+        for line in ptxas_report(("iter_kernel", "marble_kernel")):
+            print(f"[ptxas] {line}", flush=True)
+        for stem in ("iter_kernel", "texture_kernel"):
+            for line in sass_loops(stem):
+                print(f"[sass] {line}", flush=True)
+        b_call = lambda: iter_megakernel(*tables, lane_in, **kw)
+        k12_call = lambda: marble_stripe_pallas(noise.textures, tid, pts,
+                                                mtbl)
+        for name, call, kernel, n in (
+                ("kernel B", b_call, "iter_kernel",
+                 f"{lanes} Cornell lanes"),
+                ("K12", k12_call, "marble_kernel",
+                 f"{lanes_n} noise_test camera lanes, {n_m} marble")):
+            print(f"[kernel] {name} at {n}: {kernel_ms(call, kernel):.4f} ms "
+                  f"on the device, {min(call_ms(call) for _ in range(5)):.4f}"
+                  f" ms a call back to back (the least of 5 turns of 50) "
+                  f"[{smi}]", flush=True)
+
+        def run_kernels():
+            for _ in range(20):
+                b_call()
+                k12_call()
+        return run_kernels
+
     report = {"device": smi, "estimators": {}}
     for name, fn, rays in (
             ("exact", fwd(scene, s, 200), n_pix * 200),
@@ -367,7 +488,8 @@ def main() -> None:
             ("fwdbwd_rot8_remat", fwd_bwd(scene, s, FWD_BWD_ROT8, remat=True),
              FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
             ("mesh_kernels", lambda: mesh_kernel_calls()(), 0),
-            ("media_kernels", lambda: media_kernel_calls()(), 0)):
+            ("media_kernels", lambda: media_kernel_calls()(), 0),
+            ("iter_marble_kernels", lambda: iter_marble_calls()(), 0)):
         if only and name not in only:
             continue
         walls = []

@@ -38,7 +38,9 @@
 * :func:`bounce_inputs`, :func:`primary_bounce_inputs`,
   :func:`next_bounce_inputs`, :func:`iter_state` and :func:`fresh_carry`
   make lane inputs for the kernels: random ones from a numpy seed, or the
-  ones the stationary driver gives them.
+  ones the stationary driver gives them; :func:`route_marble_lanes` and
+  :func:`marble_patterns` those of the marble kernel K12 (the route's
+  compacted rich lanes, and patterns of marble and other lanes).
 * :func:`compare_bounce`, :func:`compare_iter`, :func:`compare_bwd`,
   :func:`compare_nearest`, :func:`compare_nearest_flat`,
   :func:`compare_shade`, :func:`compare_marble`,
@@ -895,21 +897,24 @@ def fresh_carry(n: int, device):
 
 def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30,
                  box=(0.0, 555.0)):
-    """Kernel B (or, for a mesh-scale table, its mesh variant) against
-    ``iter_plain`` on ``n`` lanes of the image of ``s``: one iteration
-    from a random state (origins in ``box``), with the winner's uv
-    (``max_errs``), then ``n_iters`` from a fresh state (fraction of lanes
-    whose summed radiance differs by more than 1e-5, relative mean
-    difference)."""
+    """Kernel B (or, for a mesh-scale table, its mesh variant), prepared
+    as the drivers launch it (the planar instantiation where it serves the
+    table), against ``iter_plain`` on ``n`` lanes of the image of ``s``:
+    one iteration from a random state (origins in ``box``), with the
+    winner's uv (``max_errs``), then ``n_iters`` from a fresh state
+    (fraction of lanes whose summed radiance differs by more than 1e-5,
+    relative mean difference, max abs difference)."""
     from .core import rng
     from .diff.fused_iter import iter_kernel_args
-    from .ops.iter_kernel import iter_megakernel, iter_plain
+    from .ops.iter_kernel import iter_megakernel, iter_plain, prepare_iter
     dev = scene.device
     tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev), 7)
     n_pix = s.image_width * s.image_height
     pix, carry = iter_state(n, n_pix, seed, dev, box)
     lane_in = (pix,) + carry
-    kw_uv = dict(kw, with_uv=True)
+    kw_uv = {k: v for k, v in kw.items() if k != "prepared"}
+    kw_uv["with_uv"] = True
+    kw_uv["prepared"] = prepare_iter(*tables, **kw_uv)
     ref = iter_plain(*tables, lane_in, **kw_uv)
     out = iter_megakernel(*tables, lane_in, **kw_uv)
     one = max_errs(ref, out, ITER_INT_ROWS)
@@ -923,9 +928,10 @@ def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30,
             c = (o[14], o[15], o[13]) + tuple(o[0:13])
             a += torch.stack(o[7:10]) * o[16]
         acc.append(a)
-    frac = float(((acc[0] - acc[1]).abs().amax(0) > 1e-5).float().mean())
+    diff = (acc[0] - acc[1]).abs().amax(0)
+    frac = float((diff > 1e-5).float().mean())
     mean_rel = abs(float(acc[1].mean()) / float(acc[0].mean()) - 1.0)
-    return one, frac, mean_rel
+    return one, frac, mean_rel, float(diff.max())
 
 
 def camera_rays(scene, s, n: int, seed: int, pixels=None):
@@ -985,14 +991,69 @@ def surface_points(tb, comps):
     return (comps[0:3] + t_safe * comps[3:6]).T.contiguous(), hit
 
 
-def compare_marble(table, tex_ids, points):
-    """Kernel K12 and ``marble_stripe_plain`` on the same lanes:
+def route_marble_lanes(scene, s, seed: int):
+    """``(tex_ids [R] i64, points [R, 3])``: what the forward route hands
+    K12 for one camera ray a pixel of ``s``: the lanes whose hit has a
+    rich texture, compacted in lane order by ``torch.nonzero`` as
+    ``integrator.rich_albedo_multiply`` compacts them, with their texture
+    ids and hit points (noise_test: the noise ground's lanes and the
+    marble ball's, interleaved row by row)."""
+    from .render.integrator import split_tables
+    from .textures.textures import TEX_CHECKER
+    tb = split_tables(scene, s)
+    comps, _ = camera_rays(scene, s, s.image_width * s.image_height, seed)
+    pts, hit = surface_points(tb, comps)
+    tex = scene.materials.tex[hit[8].long()].long()
+    live = torch.isfinite(hit[0]) & (scene.textures.kind[tex] > TEX_CHECKER)
+    sel = torch.nonzero(live)[:, 0]
+    return tex[sel], pts[sel].contiguous()
+
+
+def compare_marble(table, tex_ids, points, mtbl=None):
+    """Kernel K12 and ``marble_stripe_plain`` on the same lanes (and the
+    same marble table ``mtbl``, by default ``marble_table(table)``):
     ``(max_errs(...), kernel output)``; the caller holds the error to
     0."""
     from .ops.texture_kernel import marble_stripe_pallas, marble_stripe_plain
-    ref = marble_stripe_plain(table, tex_ids, points)
-    out = marble_stripe_pallas(table, tex_ids, points)
+    ref = marble_stripe_plain(table, tex_ids, points, mtbl)
+    out = marble_stripe_pallas(table, tex_ids, points, mtbl)
     return max_errs((ref,), (out,), ()), out
+
+
+def marble_patterns(seed: int, n: int = 90_112):
+    """K12's lane patterns beside a render's: ``{name: (table, tex_ids,
+    points, mtbl)}`` on the CPU over a table of 4 constant and 32 marble
+    textures, ``n`` lanes (``n`` - 13 for "ragged") of random points:
+    marble and non-marble lanes alternating ("alternating"); every lane
+    marble ("all"); none ("none"); a lane count that is not a multiple of
+    the kernel's 32-lane tile ("ragged"), these four over the first 2
+    marble rows; and all 32 marble rows in a shuffled order, one row's id
+    repeated by a later row with other parameters, so that the later row
+    wins ("rows32")."""
+    from .ops.texture_kernel import marble_table
+    from .textures.textures import (
+        compile_textures, constant_texture, marble_texture,
+    )
+    rg = np.random.default_rng(seed)
+    texs = [constant_texture(rg.uniform(0, 1, 3)) for _ in range(4)]
+    texs += [marble_texture(rg.normal(size=3), float(rg.uniform(0.5, 8)),
+                            shift=tuple(rg.uniform(-1, 1, 3)))
+             for _ in range(32)]
+    table = compile_textures(texs)
+    mtbl = marble_table(table)
+    shuffled = mtbl[torch.from_numpy(rg.permutation(32))].clone()
+    shuffled[20, 0] = shuffled[5, 0]          # row 20 wins over row 5
+    pts = torch.from_numpy(rg.uniform(-4, 4, (n, 3)).astype(np.float32))
+    marble = torch.from_numpy(rg.integers(4, 6, n))
+    const = torch.from_numpy(rg.integers(0, 4, n))
+    alt = torch.where(torch.arange(n) % 2 == 0, marble, const)
+    two = mtbl[:2].clone()
+    return {"alternating": (table, alt, pts, two),
+            "all": (table, marble, pts, two),
+            "none": (table, const, pts, two),
+            "ragged": (table, alt[:n - 13], pts[:n - 13].contiguous(), two),
+            "rows32": (table, torch.from_numpy(rg.integers(0, 36, n)), pts,
+                       shuffled)}
 
 
 def compare_crossings(volumes, comps, t_min: float = 1e-3, tables=None):
@@ -1612,6 +1673,16 @@ static inline unsigned __match_any_sync(unsigned, int key) {
   unsigned m = 0;
   for (int i = 0; i < 32; ++i)
     if (w.u[i] == static_cast<unsigned>(key)) m |= 1u << i;
+  w.bar.wait();
+  return m;
+}
+static inline unsigned __ballot_sync(unsigned, int pred) {
+  HostWarp& w = rt_host_warp();
+  w.u[threadIdx.x & 31] = pred ? 1u : 0u;
+  w.bar.wait();
+  unsigned m = 0;
+  for (int i = 0; i < 32; ++i)
+    if (w.u[i]) m |= 1u << i;
   w.bar.wait();
   return m;
 }

@@ -33,13 +33,13 @@ from raytrace_tpu_torch.testing import (
     camera_rays, checked_launches, compare_bounce, compare_bwd, compare_iter,
     compare_image_grad, compare_k7, compare_marble, compare_nearest,
     compare_crossings, compare_nearest_flat, compare_shade,
-    cornell_scene_and_settings, cornell_smoke_scene, image_grad_scene,
-    k7_inputs, many_media_settings, many_media_world,
-    media_bounce_rays, mesh_all_kinds_scene, mixed_media_world,
-    next_split_rays,
+    cornell_scene_and_settings, cornell_smoke_scene, fresh_carry,
+    image_grad_scene, k7_inputs, many_media_settings, many_media_world,
+    marble_patterns, media_bounce_rays, mesh_all_kinds_scene,
+    mixed_media_world, next_split_rays,
     noise_test_scene, pawn_inside_rays, pawn_standin_scene, plain_backward,
-    plain_kernels, surface_points, synthetic_medium, volume_rays,
-    volume_test_world,
+    plain_kernels, route_marble_lanes, surface_points, synthetic_medium,
+    volume_rays, volume_test_world,
 )
 
 pytestmark = pytest.mark.cuda
@@ -75,12 +75,48 @@ def test_bounce_kernel_matches_plain(device, case):
 
 def test_iter_kernel_matches_plain(device):
     scene, s = cornell_scene_and_settings(64, 8, 10, device=device)
-    (n_int, _, excess), frac, mean_rel = compare_iter(
+    (n_int, _, excess), frac, mean_rel, _ = compare_iter(
         scene, s.replace(rr_depth=2), 4096, 3)
     assert n_int == 0
     assert excess <= 0.0
     assert frac < FRAC_LANES
     assert mean_rel <= MEAN_RTOL
+
+
+@pytest.mark.parametrize("case", ["cornell", "all_materials",
+                                  "box_motion"])
+def test_iter_kernel_instantiations_match_plain(device, case):
+    """Kernel B prepared as the drivers launch it: the planar
+    instantiation on the Cornell box (and its general one, unprepared,
+    giving the same bits), the general one on the all-materials and
+    box/motion scenes; every lane equal to the plain version."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.fused_iter import iter_kernel_args
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel, iter_plain
+    if case == "cornell":
+        scene, s = cornell_scene_and_settings(64, 8, 10, device=device)
+        box = (0.0, 555.0)
+    elif case == "box_motion":
+        scene, s = box_motion_scene(device=device)
+        box = (-8.0, 8.0)
+    else:
+        scene = all_materials_scene(device=device)
+        s = rt.CameraSettings(background=rt.const_background(0.2))
+        box = (-8.0, 8.0)
+    p0 = iter_megakernel.planar_launches
+    (n_int, err, _), frac, _, err30 = compare_iter(
+        scene, s.replace(rr_depth=2), 4096, 5, box=box)
+    assert (iter_megakernel.planar_launches > p0) == (case == "cornell")
+    assert n_int == 0 and err == 0.0 and frac == 0.0 and err30 == 0.0
+    tables, kw = iter_kernel_args(scene, s, rng.base_key(2, device), 3)
+    lane_in = (torch.arange(4096, dtype=torch.int32, device=device)
+               % (s.image_width * s.image_height),) + fresh_carry(4096, device)
+    ref = iter_plain(*tables, lane_in, **kw)
+    out = iter_megakernel(*tables, lane_in, **kw)
+    gen = iter_megakernel(*tables, lane_in, **dict(kw, prepared=None))
+    for a, b, c in zip(ref, out, gen):
+        assert torch.equal(a, b) and torch.equal(b, c)
 
 
 def test_render_launches_kernels(device):
@@ -342,7 +378,7 @@ def test_mesh_iteration_kernel_matches_plain(device):
     from raytrace_tpu_torch.ops.iter_kernel import iter_mega_ap
     scene, s = bunny_standin_scene(128, 4, 10, device=device)
     m0 = iter_mega_ap.launches
-    (n_int, err, excess), frac, mean_rel = compare_iter(
+    (n_int, err, excess), frac, mean_rel, _ = compare_iter(
         scene, s.replace(rr_depth=2), 1 << 14, 3, n_iters=10,
         box=(-1.0, 1.0))
     assert iter_mega_ap.launches == m0 + 11
@@ -374,7 +410,7 @@ def test_bvh_walks_match_plain(device, case):
         _, out, _ = compare_shade(tb, comps, uni, thr, alive)
         comps, uni, thr, alive = next_split_rays(comps, out, 9, depth + 1)
     m0 = iter_mega_ap.launches
-    (n_int, err, _), frac, mean_rel = compare_iter(
+    (n_int, err, _), frac, mean_rel, _ = compare_iter(
         scene, s.replace(rr_depth=2), 1 << 14, 9, n_iters=10,
         box=(-1.0, 1.0))
     assert iter_mega_ap.launches == m0 + 11
@@ -447,6 +483,27 @@ def test_marble_kernel_matches_plain(device):
     assert err == 0.0
     marble = tex == scene.textures.marble_rows[0]
     assert int(marble.sum()) > 100 and bool((out[~marble] == 0).all())
+
+
+@pytest.mark.parametrize("pattern", ["alternating", "all", "none",
+                                     "ragged", "rows32", "route"])
+def test_marble_kernel_on_patterns_matches_plain(device, pattern):
+    """K12 on ``testing.marble_patterns`` and on the lanes the forward
+    route hands it: equal to the plain version on every lane, 0 off the
+    marble rows."""
+    if pattern == "route":
+        scene, s = noise_test_scene(160, 1, 4, device=device)
+        table, (tid, pts), mtbl = (scene.textures,
+                                   route_marble_lanes(scene, s, 4), None)
+    else:
+        table, tid, pts, mtbl = marble_patterns(8, 5000)[pattern]
+        tid, pts, mtbl = tid.to(device), pts.to(device), mtbl.to(device)
+    (_, err, _), out = compare_marble(table, tid, pts, mtbl)
+    assert err == 0.0
+    from raytrace_tpu_torch.ops.texture_kernel import marble_table
+    rows = (marble_table(table) if mtbl is None else mtbl)[:, 0]
+    off = ~torch.isin(tid.to(torch.float32), rows.to(device))
+    assert bool((out[off] == 0).all())
 
 
 def test_image_grad_kernel_matches_plain(device):

@@ -12,7 +12,13 @@
   for bit; the turbulence within 1e-6 and the stripe within 1e-5 (the
   host's ``sinf``/``cosf`` and torch's CPU ``sin``/``cos`` may differ in
   the last bit; on the card both are CUDA's, and the smoke holds the
-  kernel to equality); non-marble lanes exactly 0.
+  kernel to equality); non-marble lanes exactly 0.  The kernel's grid
+  runs through ``rt_host_launch``: blocks of 256 host threads (8 a lane
+  of the 32-lane tile) in warps of 32, so the tile's ``__ballot_sync``
+  compaction and the groups' ``__shfl_sync`` run as on the card, on random lanes, on the patterns of
+  ``testing.marble_patterns`` (alternating, all marble, none, a ragged
+  lane count, 32 shuffled rows with a repeated id) and on the lanes the
+  forward route hands the kernel (``testing.route_marble_lanes``).
 """
 import ctypes
 
@@ -28,7 +34,10 @@ from raytrace_tpu.textures.textures import compile_textures as jcompile
 from raytrace_tpu.textures.textures import constant_texture as jconst
 from raytrace_tpu.textures.textures import marble_texture as jmarble_tex
 from raytrace_tpu_torch.ops import texture_kernel as tk
-from raytrace_tpu_torch.testing import host_library
+from raytrace_tpu_torch.testing import (
+    host_library, marble_patterns, noise_test_scene, route_marble_lanes,
+    torch_threads,
+)
 from raytrace_tpu_torch.textures import noise as tn
 from raytrace_tpu_torch.textures.textures import (
     TEX_MARBLE, compile_textures, constant_texture, marble_texture,
@@ -94,13 +103,10 @@ def test_marble_all_skipped():
 
 
 _RUN = r"""
+// The grid on the host: a block of kThreads host threads per tile.
 extern "C" int run_marble(const MarbleArgs* a) {
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (long long l = 0; l < a->n_lanes; ++l) {
-    blockIdx.x = static_cast<unsigned>(l);
-    marble_kernel(*a);
-  }
+  rt_host_launch(static_cast<int>((a->n_lanes + kTile - 1) / kTile),
+                 kThreads, [&] { marble_kernel(*a); });
   return 0;
 }
 
@@ -120,6 +126,11 @@ extern "C" void run_noise(const int* c, const unsigned* h, const float* p,
 
 @pytest.fixture(scope="module")
 def host_marble(tmp_path_factory):
+    with torch_threads(1):
+        yield _host_marble(tmp_path_factory)
+
+
+def _host_marble(tmp_path_factory):
     lib = host_library("texture_kernel.cu", _RUN,
                        tmp_path_factory.mktemp("marble_host"))
     if lib is None:
@@ -151,17 +162,62 @@ def test_host_build_of_noise_matches_plain(host_marble):
     np.testing.assert_allclose(turb, ref, atol=1e-6, rtol=0)
 
 
+def _host_vs_plain(host_marble, table, tid, pts, mtbl):
+    """Run the host build on the lanes and hold it against the plain
+    version: marble lanes within 1e-5, every other lane exactly 0.
+    Returns the number of marble lanes."""
+    out = torch.full((pts.shape[0],), float("nan"))
+    ttid = tid.to(torch.int32).contiguous()
+    a = tk._MarbleArgs(mtbl.data_ptr(), ttid.data_ptr(), pts.data_ptr(),
+                       out.data_ptr(), pts.shape[0], mtbl.shape[0])
+    host_marble.run_marble(ctypes.byref(a))
+    ref = tk.marble_stripe_plain(table, tid, pts, mtbl)
+    is_marble = torch.isin(tid.to(torch.float32), mtbl[:, 0])
+    np.testing.assert_allclose(out.numpy()[is_marble.numpy()],
+                               ref.numpy()[is_marble.numpy()], atol=1e-5,
+                               rtol=0)
+    assert torch.all(out[~is_marble] == 0.0)
+    return int(is_marble.sum())
+
+
 def test_host_build_of_marble_kernel_matches_plain(host_marble):
     _, tt = _tables()
     pts, tid = _lanes(2048, 6)
-    mtbl = tk.marble_table(tt)
-    out = torch.full((pts.shape[0],), -1.0)
-    tpts, ttid = torch.from_numpy(pts), torch.from_numpy(tid)
-    a = tk._MarbleArgs(mtbl.data_ptr(), ttid.data_ptr(), tpts.data_ptr(),
-                       out.data_ptr(), pts.shape[0], mtbl.shape[0])
-    host_marble.run_marble(ctypes.byref(a))
-    ref = tk.marble_stripe_plain(tt, ttid, tpts)
-    is_marble = np.asarray(tt.kind)[tid] == TEX_MARBLE
-    np.testing.assert_allclose(out.numpy()[is_marble],
-                               ref.numpy()[is_marble], atol=1e-5, rtol=0)
-    assert np.all(out.numpy()[~is_marble] == 0.0)
+    n = _host_vs_plain(host_marble, tt, torch.from_numpy(tid),
+                       torch.from_numpy(pts), tk.marble_table(tt))
+    assert n == int((np.asarray(tt.kind)[tid] == TEX_MARBLE).sum()) > 0
+
+
+@pytest.mark.parametrize("pattern", ("alternating", "all", "none", "ragged",
+                                     "rows32"))
+def test_host_build_of_marble_kernel_on_patterns(host_marble, pattern):
+    table, tid, pts, mtbl = marble_patterns(7, 512)[pattern]
+    n = _host_vs_plain(host_marble, table, tid, pts, mtbl)
+    r = tid.shape[0]
+    assert n == {"alternating": (r + 1) // 2, "all": r, "none": 0,
+                 "ragged": (r + 1) // 2}.get(pattern, n)
+    if pattern == "ragged":
+        assert r % 32 != 0
+    if pattern == "rows32":
+        # the repeated id takes the later row's stripe, as the plain
+        # version's torch.where loop gives it
+        rid = mtbl[20, 0]
+        lanes = tid.to(torch.float32) == rid
+        assert 0 < n < r and int(lanes.sum()) > 0
+        r20 = mtbl[20]
+        want = tk.marble_stripe_values(
+            r20[1], r20[2], r20[3], r20[4], r20[5], r20[6], r20[7],
+            pts[lanes, 0], pts[lanes, 1], pts[lanes, 2])
+        ref = tk.marble_stripe_plain(table, tid, pts, mtbl)
+        assert torch.equal(ref[lanes], want)
+
+
+def test_host_build_of_marble_kernel_on_route_lanes(host_marble):
+    """The lanes that the forward route hands K12 on noise_test (the rich
+    lanes compacted by ``torch.nonzero``: noise ground and marble ball
+    interleaved)."""
+    scene, s = noise_test_scene(96, 1, 4, device="cpu")
+    tid, pts = route_marble_lanes(scene, s, 3)
+    n = _host_vs_plain(host_marble, scene.textures, tid, pts,
+                       tk.marble_table(scene.textures))
+    assert 0 < n < tid.shape[0]
