@@ -137,20 +137,26 @@ of a red medium):
 
 24. the crossing kernels against their plain version on every lane: K11
     on cornell_smoke's 360,064 camera rays at 600 x 600 and their second
-    bounce (which starts inside both smoke blocks), K11b (the walk of a
-    per-medium BVH forest) on 2^17 camera rays of the pawn stand-in,
-    their second bounce and 2^17 rays from inside its medium, K11 on 2^16
-    random rays of ``tests/test_volume_kernel.py``'s fog ball and smoke
-    box (a box row), and K11b on 2^16 random rays of
+    bounce (which starts inside both smoke blocks), in its planar
+    instantiation (the route's), its general one prepared and unprepared,
+    K11b (the walk of a per-medium BVH forest) on 2^17 camera rays of the
+    pawn stand-in, their second bounce and 2^17 rays from inside its
+    medium, K11 on 2^16 random rays of ``tests/test_volume_kernel.py``'s
+    fog ball and smoke box (a box row), and K11b on 2^16 random rays of
     ``testing.mixed_media_world``'s four media of mixed sizes in one
     1,266-row boundary, each still and moving; every line must say 0
-    differing lanes and max |err| 0;
+    differing lanes and max |err| 0; on the same rays, with draws of the
+    scatter columns (0 on every 7th lane), the candidate mode of K11 (both
+    instantiations) and K11b through ``render/volumes.py:medium_hit``
+    against its plain version: the material id and scattering equal on
+    every lane, t_med within ``testing.CAND_ULPS`` ulps;
 25. route 5, the media forward: ``render_accumulate`` of cornell_smoke at
     600 x 600, depth 50, seed 0, at ``FWD_SPP`` (the scene's 200 cut;
     ``profile_render.py`` times 200): the stationary driver at rotate_k 8,
-    K8, K11 and the shade kernel every iteration, kernels A and B never;
-    written to chiprun_out/cornell_smoke.png; then a 1 spp render with
-    every launch held against its plain version;
+    K8, K11 (planar, in the candidate mode: every launch) and the shade
+    kernel every iteration, kernels A and B never; written to
+    chiprun_out/cornell_smoke.png; then a 1 spp render with every launch
+    held against its plain version;
 26. route 6, the mesh-boundary medium: the pawn stand-in at 500 x 500,
     depth 20, ``PAWN_SPP`` (the scene's 400 cut) through the sorted
     driver (K9, K11b and the shade kernel every iteration), written to
@@ -160,10 +166,14 @@ of a red medium):
     256, 4 spp, depth 10 (a stationary render of 8,192 rows and more,
     which raised before the sorted driver);
 28. K11's and K11b's times at those shapes beside their plain versions',
-    their bounds and their launches; K11b's box tests and row tests a ray
-    (counted by the kernel) for the camera rays and the rays from inside,
-    the bound of that work, and the bound of the 256-row chunk scan it
-    replaced at that scan's work.
+    their bounds and their launches: K11 in the route's candidate mode
+    through ``medium_hit`` and in the crossings mode, planar, general and
+    unprepared, its registers and the SASS instructions of each
+    instantiation's row loop (a ray and row: the operations of its
+    bound); K11b also in the candidate mode, its box tests and row tests
+    a ray (counted by the kernel) for the camera rays and the rays from
+    inside, the bound of that work, and the bound of the 256-row chunk
+    scan it replaced at that scan's work.
 
 The unfused differentiable wavefront (``trace_wavefront_diff`` with
 ``rotate_k > 1`` or ``pixel_cost``: torch glue around kernel A forward and
@@ -194,8 +204,9 @@ the replay backward K7 in every iteration) and F8's media groups:
     the red wall's albedo through the unfused route;
 33. scenes of 17 media (``testing.many_media_world``, 400 x 400, 4 spp:
     fog balls and boxes through K11, and rotated boxes, a 102-row
-    boundary, through K11b) rendered with every crossing launch (two a
-    bounce: 16 media, then 1) held against its plain version;
+    boundary, through K11b) rendered with every candidate-mode launch (two
+    a bounce: 16 media, then 1, the second folding into the first's rows)
+    held against its plain version;
 34. K7's times at 2^18 lanes, as K5's in phase 12.
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
@@ -1818,6 +1829,8 @@ def _media_phases(smi, phase_done, dev) -> dict:
     """Phases 24-28 (constant-density media) on ``dev``.  Returns the
     summary for the JSON line, the launches of K8, K9 and the shade kernel
     on routes 5-7, and the ``kernels`` entries of K11 and K11b."""
+    import re
+
     import numpy as np
     import torch
     import raytrace_tpu_torch as rt
@@ -1829,36 +1842,68 @@ def _media_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
     from raytrace_tpu_torch.ops.volume_kernel import (
         pallas_volume_crossings, pallas_volume_crossings_bcast,
-        volume_crossings_plain,
+        volume_candidates_plain, volume_crossings_plain,
+    )
+    from raytrace_tpu_torch.profile_render import (
+        inner_loop_sizes, ptxas_report, source_constant,
     )
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.render import render_accumulate
-    from raytrace_tpu_torch.render.volumes import crossing_kw, volume_tables
+    from raytrace_tpu_torch.render.volumes import (
+        crossing_kw, medium_hit, volume_crossings, volume_tables,
+    )
     from raytrace_tpu_torch.testing import (
-        MIXED_MEDIA_INSIDE, checked_launches, compare_crossings,
-        cornell_smoke_scene, media_bounce_rays, mixed_media_world,
-        pawn_inside_rays, pawn_standin_scene, stationary_lanes, uv_sphere,
+        CAND_ULPS, MIXED_MEDIA_INSIDE, checked_launches, compare_crossings,
+        compare_medium_hit, cornell_smoke_scene, general_tables,
+        media_bounce_rays, mixed_media_world, pawn_inside_rays,
+        pawn_standin_scene, scatter_draws, stationary_lanes, uv_sphere,
         volume_rays, volume_test_world,
     )
     counters = (bounce_megakernel, iter_megakernel, pallas_nearest_record,
                 allpairs_nearest_record, shade_megakernel,
                 pallas_volume_crossings, pallas_volume_crossings_bcast)
+    modes = (pallas_volume_crossings, pallas_volume_crossings_bcast)
 
     def reset():
         for c in counters:
             c.launches = 0
+        for c in modes:
+            c.candidate_launches = 0
+        pallas_volume_crossings.planar_launches = 0
 
     def read():
-        return {c.__name__: c.launches for c in counters}
+        got = {c.__name__: c.launches for c in counters}
+        for c in modes:
+            got[c.__name__ + ".candidate"] = c.candidate_launches
+        got["pallas_volume_crossings.planar"] = \
+            pallas_volume_crossings.planar_launches
+        return got
 
-    def check_crossings(label, volumes, comps):
-        errs, out = compare_crossings(volumes, comps)
+    def check_crossings(label, volumes, comps, **kw):
+        errs, out = compare_crossings(volumes, comps, **kw)
         inside = [int(((out[3 * v + 1] == 0.0) & torch.isfinite(out[3 * v]))
                       .sum()) for v in range(volumes.n_volumes)]
         err = _check(f"{label}; lanes whose first crossing exits, per "
                      f"medium: {inside}", errs, comps.shape[1])
         if err:
             raise AssertionError(f"{label}: not exact")
+        return err
+
+    def check_candidates(label, volumes, comps, tables, seed):
+        """The candidate mode (medium_hit over ``tables``' launches)
+        against its plain version on the rays ``comps`` with draws from
+        ``seed``: the material id and which lanes scatter equal on every
+        lane, t_med within CAND_ULPS."""
+        u = scatter_draws(volumes.n_volumes, comps.shape[1], seed,
+                          device=dev)
+        (n_int, err, ulps), out = compare_medium_hit(volumes, comps, u,
+                                                     tables=tables)
+        print(f"[{label}] {comps.shape[1]} lanes, "
+              f"{int(torch.isfinite(out[0]).sum())} scatter: material id or "
+              f"scattering differ on {n_int} lanes, t_med max |err| "
+              f"{err:.3g}, {ulps} ulps (tolerance {CAND_ULPS})", flush=True)
+        if n_int or ulps > CAND_ULPS:
+            raise AssertionError(f"{label}: candidate mode disagrees")
         return err
 
     smoke, s_s = cornell_smoke_scene(600, FWD_SPP, 50, device=dev)
@@ -1871,37 +1916,65 @@ def _media_phases(smi, phase_done, dev) -> dict:
           f"(segments {pawn.prims.kind_segments}), a medium of "
           f"{pawn.volumes.counts} boundary rows", flush=True)
 
-    # 24. the crossing kernels vs plain
-    err11 = err11b = 0.0
+    # 24. the crossing kernels vs plain: K11 in both instantiations (its
+    # general one unprepared too), and the candidate mode of K11 and K11b
+    err11 = err11b = err11c = err11bc = 0.0
+    tables_s = volume_tables(smoke.volumes)
+    if [x.planar for x in tables_s.launches] != [True]:
+        raise AssertionError("cornell_smoke's boundary is not planar")
+    general_s = general_tables(tables_s)
     smoke_rays = media_bounce_rays(smoke, s_s, 81)
     for k, (comps, alive) in enumerate(smoke_rays):
-        err11 += check_crossings(f"K11 vs plain: cornell_smoke 600x600 bounce "
-                        f"{k + 1} ({int(alive.sum())} live)", smoke.volumes,
-                        comps)
+        what = f"cornell_smoke 600x600 bounce {k + 1} ({int(alive.sum())} live)"
+        for label, kw in (("general, unprepared", {}),
+                          ("planar", dict(tables=tables_s, prepared=True)),
+                          ("general", dict(tables=general_s,
+                                           prepared=True))):
+            err11 += check_crossings(f"K11 {label} vs plain: {what}",
+                                     smoke.volumes, comps, **kw)
+        for label, tb in (("planar", tables_s), ("general", general_s)):
+            err11c = max(err11c, check_candidates(
+                f"K11 candidate mode, {label}, vs plain: {what}",
+                smoke.volumes, comps, tb, 90 + k))
     n_k = 1 << 17
     pix_p = (torch.arange(n_k) * n_pix_p // n_k).to(dev, torch.int32)
     pawn_rays = media_bounce_rays(pawn, s_p, 82, pixels=pix_p)
-    for k, (comps, alive) in enumerate(pawn_rays):
-        err11b += check_crossings(f"K11b vs plain: pawn stand-in 500x500 bounce "
-                        f"{k + 1} ({int(alive.sum())} live)", pawn.volumes,
-                        comps)
-    err11b += check_crossings(
-        "K11b vs plain: pawn stand-in, rays from inside the medium",
-        pawn.volumes, pawn_inside_rays(n_k, 83, device=dev))
+    tables_p = volume_tables(pawn.volumes)
+    inside_p = pawn_inside_rays(n_k, 83, device=dev)
+    for k, (label, comps) in enumerate(
+            [(f"bounce {k + 1} ({int(alive.sum())} live)", comps)
+             for k, (comps, alive) in enumerate(pawn_rays)]
+            + [("rays from inside the medium", inside_p)]):
+        err11b += check_crossings(f"K11b vs plain: pawn stand-in 500x500 "
+                                  f"{label}", pawn.volumes, comps)
+        err11bc = max(err11bc, check_candidates(
+            f"K11b candidate mode vs plain: pawn stand-in 500x500 {label}",
+            pawn.volumes, comps, tables_p, 92 + k))
     for moving in (False, True):
         world = rt.compile_scene(volume_test_world(rt, moving), device=dev)
         comps = volume_rays(1 << 16, 84 + moving, (-6.0, 6.0),
                             ([0.0, 0.0, -3.0], [3.2, 0.0, -3.5]), device=dev)
-        err11 += check_crossings(f"K11 vs plain: fog ball and smoke box"
-                        f"{' moving' if moving else ''} (a box row), random "
-                        f"rays", world.volumes, comps)
+        what = (f"fog ball and smoke box{' moving' if moving else ''} (a box "
+                f"row), random rays")
+        tb = volume_tables(world.volumes)
+        for label, kw in (("general, unprepared", {}),
+                          ("general", dict(tables=tb, prepared=True))):
+            err11 += check_crossings(f"K11 {label} vs plain: {what}",
+                                     world.volumes, comps, **kw)
+        err11c = max(err11c, check_candidates(
+            f"K11 candidate mode, general, vs plain: {what}", world.volumes,
+            comps, tb, 95 + moving))
         world = rt.compile_scene(mixed_media_world(rt, moving), device=dev)
         comps = volume_rays(1 << 16, 86 + moving, (-6.0, 6.0),
                             MIXED_MEDIA_INSIDE, device=dev)
-        err11b += check_crossings(
-            f"K11b vs plain: four media of {world.volumes.counts} rows"
-            f"{', moving' if moving else ''} (a mesh, a ball, a box row, a "
-            f"small mesh), random rays", world.volumes, comps)
+        what = (f"four media of {world.volumes.counts} rows"
+                f"{', moving' if moving else ''} (a mesh, a ball, a box row, "
+                f"a small mesh), random rays")
+        err11b += check_crossings(f"K11b vs plain: {what}", world.volumes,
+                                  comps)
+        err11bc = max(err11bc, check_candidates(
+            f"K11b candidate mode vs plain: {what}", world.volumes, comps,
+            volume_tables(world.volumes), 97 + moving))
     phase_done("crossing kernels vs plain")
 
     # 25. route 5: the media forward at full size
@@ -1926,29 +1999,39 @@ def _media_phases(smi, phase_done, dev) -> dict:
           f"200) depth 50 seed 0: {dt:.3f} s, "
           f"{route5['rays_per_s'] / 1e6:.3f} M primary rays/s, {l8} "
           f"iterations ({1e3 * dt / max(l8, 1):.3f} ms/iter), launches "
-          f"K8={l8} K10={l10} K11={l11} A={others[0]} B={others[1]} "
-          f"K9={others[2]} K11b={others[3]}, mean {route5['mean']:.6f}, "
+          f"K8={l8} K10={l10} K11={l11} (planar "
+          f"{r5['pallas_volume_crossings.planar']}, candidate mode "
+          f"{r5['pallas_volume_crossings.candidate']}) A={others[0]} "
+          f"B={others[1]} K9={others[2]} K11b={others[3]}, mean "
+          f"{route5['mean']:.6f}, "
           f"finite {finite} [{smi}]", flush=True)
     if not finite or img.shape != (n_pix_s, 3) or l8 == 0 or l10 != l8 \
-            or l11 != l8 or any(others):
-        raise AssertionError("route 5: bad image or launches")
+            or l11 != l8 or any(others) \
+            or r5["pallas_volume_crossings.planar"] != l11 \
+            or r5["pallas_volume_crossings.candidate"] != l11:
+        raise AssertionError("route 5: bad image or launches (every K11 "
+                             "launch must be planar, in the candidate mode)")
     write_image(os.path.join(OUT_DIR, "cornell_smoke.png"),
                 img.reshape(s_s.image_height, s_s.image_width, 3))
     phase_done("route 5")
     with checked_launches() as stats:
         acc1, _ = render_accumulate(smoke, s_s, seed=0, spp=1)
-    for kname in ("pallas_nearest_record", "pallas_volume_crossings",
+    for kname in ("pallas_nearest_record", "pallas_volume_candidates",
                   "shade_megakernel"):
         st = stats[kname]
         if st["launches"] == 0 or not bool(torch.isfinite(acc1).all()):
             raise AssertionError(f"checked route 5: {kname}")
+        cand = kname == "pallas_volume_candidates"
         err = _check(f"route 5 checked: cornell_smoke 600x600 1 spp, "
-                     f"{st['launches']} launches of {kname}",
+                     f"{st['launches']} launches of {kname}"
+                     f"{' (t_med ulps within CAND_ULPS)' if cand else ''}",
                      (st["n_int"], st["err"], st["excess"]), lanes_s)
-        if err:
+        if (st["excess"] > 0) if cand else err:
             raise AssertionError(f"checked route 5: {kname} is not exact")
-        if kname == "pallas_volume_crossings":
-            err11 += err
+        if cand:
+            err11c = max(err11c, err)
+    if stats["pallas_volume_crossings"]["launches"]:
+        raise AssertionError("checked route 5: the crossings mode launched")
     phase_done("checked route 5")
 
     # 26. route 6: the mesh-boundary medium through the sorted driver
@@ -1976,26 +2059,30 @@ def _media_phases(smi, phase_done, dev) -> dict:
           f"K8={others[2]} K11={others[3]}, mean {route6['mean']:.6f}, "
           f"finite {finite} [{smi}]", flush=True)
     if not finite or img.shape != (n_pix_p, 3) or l9 == 0 or l10p != l9 \
-            or l11b != l9 or any(others):
-        raise AssertionError("route 6: bad image or launches")
+            or l11b != l9 or any(others) \
+            or r6["pallas_volume_crossings_bcast.candidate"] != l11b:
+        raise AssertionError("route 6: bad image or launches (every K11b "
+                             "launch in the candidate mode)")
     write_image(os.path.join(OUT_DIR, "pawn_standin.png"),
                 img.reshape(s_p.image_height, s_p.image_width, 3))
     phase_done("route 6")
     small, s_small = pawn_standin_scene(128, 1, 20, device=dev)
     with checked_launches() as stats:
         acc1, _ = render_accumulate(small, s_small, seed=0, spp=1)
-    for kname in ("allpairs_nearest_record", "pallas_volume_crossings_bcast",
+    for kname in ("allpairs_nearest_record", "pallas_volume_candidates_bcast",
                   "shade_megakernel"):
         st = stats[kname]
         if st["launches"] == 0 or not bool(torch.isfinite(acc1).all()):
             raise AssertionError(f"checked route 6: {kname}")
+        cand = kname == "pallas_volume_candidates_bcast"
         err = _check(f"route 6 checked: pawn stand-in 128x128 1 spp, "
-                     f"{st['launches']} launches of {kname}",
+                     f"{st['launches']} launches of {kname}"
+                     f"{' (t_med ulps within CAND_ULPS)' if cand else ''}",
                      (st["n_int"], st["err"], st["excess"]), 128 * 128)
-        if err:
+        if (st["excess"] > 0) if cand else err:
             raise AssertionError(f"checked route 6: {kname} is not exact")
-        if kname == "pallas_volume_crossings_bcast":
-            err11b += err
+        if cand:
+            err11bc = max(err11bc, err)
     phase_done("checked route 6")
 
     # 27. the 50,000-triangle sphere through the sorted driver
@@ -2028,31 +2115,91 @@ def _media_phases(smi, phase_done, dev) -> dict:
         raise AssertionError("route 7: bad image or launches")
     phase_done("50k-triangle sphere, sorted")
 
-    # 28. kernel times at the slice's shapes
-    vtbl_s, _ = volume_tables(smoke.volumes)
+    # 28. kernel times at the slice's shapes.  K11: the route's launch
+    # (planar, candidate mode, through medium_hit as the bounce calls it)
+    # and the crossings mode in both instantiations, on the camera rays;
+    # registers and the SASS instructions of each instantiation's row loop
+    # (operations a ray and row for the bound: one an instruction)
+    vtbl_s = tables_s.vtbl
     kw_s = crossing_kw(smoke.volumes, s_s.t_min)
     rays_s = tuple(smoke_rays[0][0].unbind(0))
-    call11 = lambda: pallas_volume_crossings(vtbl_s, *rays_s, **kw_s)
-    ms11 = _device_ms(call11, "volume_crossings_kernel", 50)
-    back11 = _time_ms(call11, 50)
-    plain11 = _time_ms(lambda: volume_crossings_plain(vtbl_s, *rays_s,
-                                                      **kw_s), 5, 1)
     nv_s = smoke.volumes.n_volumes
     rows_s = vtbl_s.shape[0]
-    bound11 = _bound_ms(4 * lanes_s * (7 + 3 * nv_s) + 4 * vtbl_s.numel(),
-                        lanes_s * rows_s * VOL_ROW_OPS)
-    print(f"[time] K11 {ms11:.4f} ms on the device ({back11:.4f} ms a call "
-          f"back to back) vs volume_crossings_plain {plain11:.3f} ms at "
-          f"{lanes_s} camera rays of cornell_smoke ({rows_s} boundary rows, "
-          f"all tested); bound {bound11[0]:.4f} ms ({bound11[1]}) [{smi}]",
-          flush=True)
-    vtbl_p, forest_p = volume_tables(pawn.volumes)
+    u_s = scatter_draws(nv_s, lanes_s, 99, device=dev)
+    inf_s = torch.full((lanes_s,), float("inf"), device=dev)
+    zero_s = torch.zeros(lanes_s, device=dev)
+    calls = {
+        "candidate": lambda: medium_hit(smoke.volumes, rays_s, s_s.t_min,
+                                        u_s, tables_s),
+        "crossings": lambda: volume_crossings(smoke.volumes, rays_s,
+                                              s_s.t_min, tables_s),
+        "crossings_general": lambda: volume_crossings(
+            smoke.volumes, rays_s, s_s.t_min, general_s),
+        "crossings_unprepared": lambda: pallas_volume_crossings(
+            vtbl_s, *rays_s, **kw_s)}
+    t11 = {k: (_device_ms(fn, "volume_crossings_kernel", 50),
+               _time_ms(fn, 50)) for k, fn in calls.items()}
+    plain11 = _time_ms(lambda: volume_crossings_plain(vtbl_s, *rays_s,
+                                                      **kw_s), 5, 1)
+    plain11c = _time_ms(lambda: volume_candidates_plain(
+        vtbl_s, *rays_s, u=u_s, t_med=inf_s, vmat=zero_s,
+        density=smoke.volumes.density, mats=smoke.volumes.mat.tolist(),
+        **kw_s), 5, 1)
+    for line in ptxas_report(("volume_crossings_kernel",)):
+        print(f"[ptxas] {line}", flush=True)
+    row_ins = {}
+    per_k = source_constant("volume_kernel", "kRays")
+    for name, count in inner_loop_sizes("volume_kernel",
+                                        "volume_crossings_kernel"):
+        flags = re.search(r"volume_crossings_kernelILb(\d)ELb(\d)ELb(\d)E"
+                          r"Lb(\d)E", name)
+        if flags is None:
+            continue
+        planar, motion, box, cand = (int(x) for x in flags.groups())
+        row_ins[(planar, motion, box, cand)] = count / per_k
+        print(f"[sass] K11 {'planar' if planar else 'general'}"
+              f"{' motion' if motion else ''}{' box' if box else ''}, "
+              f"{'candidate' if cand else 'crossings'} mode: row loop "
+              f"{count} instructions for {per_k} rays, {count / per_k:.1f} a "
+              f"ray and row", flush=True)
+    if (1, 0, 0, 1) not in row_ins or (1, 0, 0, 0) not in row_ins:
+        raise AssertionError(f"K11's planar row loops not found in its SASS "
+                             f"(found {sorted(row_ins)})")
+    ops_row, ops_row_x = row_ins[(1, 0, 0, 1)], row_ins[(1, 0, 0, 0)]
+    # bytes: the six ray columns (no motion: no time), the table; the
+    # candidate mode reads V draws and writes the fold's two rows (one
+    # group, phase 24 checks it: the launch starts the fold, reading no
+    # rows), the crossings mode writes 3V rows
+    bound11 = _bound_ms(4 * lanes_s * (6 + nv_s + 2) + 4 * vtbl_s.numel(),
+                        lanes_s * rows_s * ops_row)
+    bound11x = _bound_ms(4 * lanes_s * (6 + 3 * nv_s) + 4 * vtbl_s.numel(),
+                         lanes_s * rows_s * ops_row_x)
+    ms11, back11 = t11["candidate"]
+    print(f"[time] K11 (planar, {per_k} rays a thread) at {lanes_s} camera "
+          f"rays of cornell_smoke ({rows_s} boundary rows, all tested), ms "
+          f"on the device / a call back to back: candidate mode through "
+          f"medium_hit {ms11:.4f} / {back11:.4f} vs volume_candidates_plain "
+          f"{plain11c:.3f}, bound {bound11[0]:.4f} ({bound11[1]}, "
+          f"{ops_row:.1f} operations a row); crossings mode "
+          f"{t11['crossings'][0]:.4f} / {t11['crossings'][1]:.4f}, general "
+          f"{t11['crossings_general'][0]:.4f} / "
+          f"{t11['crossings_general'][1]:.4f}, unprepared (general) "
+          f"{t11['crossings_unprepared'][0]:.4f} / "
+          f"{t11['crossings_unprepared'][1]:.4f} vs volume_crossings_plain "
+          f"{plain11:.3f}, bound {bound11x[0]:.4f} ({bound11x[1]}, "
+          f"{ops_row_x:.1f} operations a row) [{smi}]", flush=True)
+    vtbl_p, forest_p = tables_p.vtbl, tables_p.forest
     kw_p = crossing_kw(pawn.volumes, s_p.t_min)
     rays_p = tuple(pawn_rays[0][0].unbind(0))
     call11b = lambda: pallas_volume_crossings_bcast(vtbl_p, forest_p,
                                                     *rays_p, **kw_p)
     ms11b = _device_ms(call11b, "volume_bvh_kernel", 50)
     back11b = _time_ms(call11b, 50)
+    u_p = scatter_draws(1, rays_p[0].shape[0], 98, device=dev)
+    call11bc = lambda: medium_hit(pawn.volumes, rays_p, s_p.t_min, u_p,
+                                  tables_p)
+    ms11bc = _device_ms(call11bc, "volume_bvh_kernel", 50)
+    back11bc = _time_ms(call11bc, 50)
     plain11b = _time_ms(lambda: volume_crossings_plain(vtbl_p, *rays_p,
                                                        **kw_p), 2, 1)
     # the walk's work and its bound for the camera rays and for rays from
@@ -2095,25 +2242,34 @@ def _media_phases(smi, phase_done, dev) -> dict:
           f"{forest_p.nodes.shape[0]} nodes, depth {forest_p.depth}, built "
           f"in {forest_p.build_s:.4f} s); bound {bound11b[0]:.5f} ms "
           f"({bound11b[1]}), the chunk scan's at its {CHUNK_ROWS_A_RAY} rows "
-          f"a ray {old_bound[0]:.5f} ms ({old_bound[1]}) [{smi}]",
-          flush=True)
+          f"a ray {old_bound[0]:.5f} ms ({old_bound[1]}); the route's "
+          f"candidate mode through medium_hit {ms11bc:.4f} ms on the device "
+          f"({back11bc:.4f} ms a call) [{smi}]", flush=True)
     phase_done("crossing kernel times")
 
     kernels = [
         {"name": "pallas_volume_crossings", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/volume_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:594",
-         "launches": l11, "max_abs_err": err11, "ms": ms11,
-         "host_ms": back11, "plain_ms": plain11, "bound_ms": bound11[0],
-         "bound_by": bound11[1], "library_ms": None},
+         "launches": l11, "max_abs_err": max(err11, err11c), "ms": ms11,
+         "host_ms": back11, "plain_ms": plain11c, "bound_ms": bound11[0],
+         "bound_by": bound11[1], "library_ms": None,
+         "mode": "candidate, planar", "crossings_ms": t11["crossings"][0],
+         "crossings_host_ms": t11["crossings"][1],
+         "crossings_general_ms": t11["crossings_general"][0],
+         "crossings_unprepared_host_ms": t11["crossings_unprepared"][1],
+         "crossings_plain_ms": plain11, "crossings_bound_ms": bound11x[0],
+         "row_instructions": ops_row},
         {"name": "pallas_volume_crossings_bcast", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/volume_kernel.cu",
          "replaces": "raytrace_tpu/ops/pallas/volume_kernel.py:514",
-         "launches": l11b, "max_abs_err": err11b, "ms": ms11b,
+         "launches": l11b, "max_abs_err": max(err11b, err11bc),
+         "ms": ms11b,
          "host_ms": back11b, "plain_ms": plain11b, "bound_ms": bound11b[0],
          "bound_by": bound11b[1], "library_ms": None,
          "box_tests": works["camera"]["box_tests"],
-         "row_tests": works["camera"]["row_tests"]},
+         "row_tests": works["camera"]["row_tests"],
+         "candidate_ms": ms11bc, "candidate_host_ms": back11bc},
     ]
     summary = dict(route5=route5, route6=route6, route7=route7,
                    k11b_work=works)
@@ -2374,8 +2530,8 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
     k8_l = k11_l = k11b_l = shade_l = 0
     for rotated in (False, True):
         many = rt.compile_scene(many_media_world(rt, 17, rotated), device=dev)
-        kname = ("pallas_volume_crossings_bcast" if rotated
-                 else "pallas_volume_crossings")
+        kname = ("pallas_volume_candidates_bcast" if rotated
+                 else "pallas_volume_candidates")
         with checked_launches() as stats:
             acc, total = render_accumulate(many, many_media_settings(
                 rt, 400, 4, 10), seed=0, spp=4)
@@ -2385,13 +2541,16 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
               f"({many.volumes.prims.kind.shape[0]} boundary rows) 400x400 "
               f"4 spp depth 10: {st_v['launches']} launches of {kname} (two "
               f"a bounce: 16 + 1 media) over {st8['launches']} iterations, "
-              f"every one against its plain version: {st_v['n_int']} "
-              f"differing front flags, max |err| {st_v['err']:.3g}; mean "
+              f"in the candidate mode, every one against its plain "
+              f"version: material id or scattering differ on "
+              f"{st_v['n_int']} lanes, t_med max |err| {st_v['err']:.3g} "
+              f"(worst ulps over CAND_ULPS {st_v['excess']:.3g}); mean "
               f"{float((acc / total).mean()):.6f}, finite {finite}",
               flush=True)
         if (not finite or st_v["launches"] != 2 * st8["launches"]
-                or st_v["n_int"] or st_v["err"] or st8["launches"] == 0):
-            raise AssertionError("17 media: crossing launches disagree")
+                or st_v["n_int"] or st_v["excess"] > 0
+                or st8["launches"] == 0):
+            raise AssertionError("17 media: candidate launches disagree")
         k8_l += st8["launches"]
         shade_l += stats["shade_megakernel"]["launches"]
         if rotated:

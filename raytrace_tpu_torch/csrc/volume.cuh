@@ -10,6 +10,12 @@
 // hit of prim_loop.cuh keeps one root of a row; here both count, so the
 // crossing scan has its own candidate function over the same row layout
 // (ops/intersect_kernel.py:pack_prims) and the same association.
+//
+// planar_crossing is crossing_cand's parallelogram / triangle branch for
+// tables of unmoving planar rows (K11's planar instantiation), and
+// medium_candidate / fold_medium the candidate mode's epilogue shared by
+// K11 and K11b: render/volumes.py:candidate_from_crossings and the strict-<
+// fold of the media in medium order.
 #pragma once
 
 #include "common.cuh"
@@ -27,15 +33,19 @@ __device__ __forceinline__ Crossings no_crossings() {
 
 // Fold candidate (c, cf) into the triple (_merge): the strict < keeps an
 // earlier candidate's flag on a tie; the second crossing is the smallest
-// value strictly beyond the new first.
+// value strictly beyond the new first.  _merge's form, b1' = min(b1, c),
+// b2' = the least of b1, b2, c strictly beyond b1', reduces to the
+// branches below because a candidate is never NaN (a root strictly above
+// t_min, or +inf) and b2 is +inf or strictly beyond b1: c < b1 gives
+// (c, b1); c == b1 changes nothing; c > b1 gives (b1, min(b2, c)).
 __device__ __forceinline__ void merge(Crossings& s, float c, float cf) {
-  const float nb1 = tmin(s.b1, c);
-  if (c < s.b1) s.f1 = cf;
-  const float g1 = s.b1 > nb1 ? s.b1 : inf();
-  const float g2 = s.b2 > nb1 ? s.b2 : inf();
-  const float g3 = c > nb1 ? c : inf();
-  s.b2 = tmin(tmin(g1, g2), g3);
-  s.b1 = nb1;
+  if (c < s.b1) {
+    s.b2 = s.b1;
+    s.b1 = c;
+    s.f1 = cf;
+  } else if (c > s.b1 && c < s.b2) {
+    s.b2 = c;
+  }
 }
 
 // Candidates of row ``row`` for ray (o, d) at time tm; inv_d* = 1 /
@@ -130,6 +140,69 @@ __device__ __forceinline__ void cross_row(
                 t_min, has_motion, has_box, c1, cf1, c2);
   merge(s, c1, cf1);
   merge(s, c2, 0.0f);
+}
+
+// crossing_cand's parallelogram / triangle branch of an unmoving row, in
+// its association, the columns 4-15 read as float4 (the row 16-byte
+// aligned): the root (+inf where it misses) and its front flag.  A planar
+// row has no exit root, and folding +inf changes no triple (b2 is +inf or
+// beyond b1), so such a row folds this candidate alone.
+__device__ __forceinline__ float planar_crossing(const float* __restrict__ r,
+                                                 float ox, float oy, float oz,
+                                                 float dx, float dy, float dz,
+                                                 float t_min, float& front) {
+  const float4 c4 = *reinterpret_cast<const float4*>(r + 4);
+  const float4 c8 = *reinterpret_cast<const float4*>(r + 8);
+  const float4 c12 = *reinterpret_cast<const float4*>(r + 12);
+  const float kind = r[16];
+  const float nx = c4.x, ny = c4.y, nz = c4.z;
+  const float wax = c4.w, way = c8.x, waz = c8.y;
+  const float wbx = c8.z, wby = c8.w, wbz = c12.x;
+  const float qn = c12.y, qwa = c12.z, qwb = c12.w;
+  const float den = nx * dx + ny * dy + nz * dz;
+  const bool den_ok = fabsf(den) > RT_F(1e-8);
+  const float t_p = (qn - (nx * ox + ny * oy + nz * oz)) /
+                    (den_ok ? den : 1.0f);
+  const float a = (wax * ox + way * oy + waz * oz) - qwa +
+                  t_p * (wax * dx + way * dy + waz * dz);
+  const float b = (wbx * ox + wby * oy + wbz * oz) - qwb +
+                  t_p * (wbx * dx + wby * dy + wbz * dz);
+  // fmaxf, not the NaN-propagating tmax: a NaN a or b fails a >= 0 or
+  // b >= 0 whatever the bound, so the test is crossing_cand's
+  const float bound = kind == 2.0f ? a + b : fmaxf(a, b);
+  const bool ok = den_ok && a >= 0.0f && b >= 0.0f && bound <= 1.0f;
+  front = den < 0.0f ? 1.0f : 0.0f;
+  return ok && t_p > t_min ? t_p : inf();
+}
+
+// The scatter candidate of a medium of ``density`` from its crossings and
+// the draw u (+inf where the ray does not scatter): the entry is the
+// first crossing if it enters, else t_min; the exit the next crossing;
+// the flight -(1/density) * log(u), which is what torch's -1.0 / density
+// computes (the reciprocal, times -1); a draw of 0 never scatters.
+__device__ __forceinline__ float medium_candidate(const Crossings& s,
+                                                  float t_min, float density,
+                                                  float u) {
+  const bool front = s.f1 > 0.5f;
+  const float entry = front ? s.b1 : t_min;
+  const float exit_t = front ? s.b2 : s.b1;
+  // no crossing is NaN, so "finite" is "below +inf"
+  const bool has_segment = s.b1 < inf() && exit_t < inf();
+  const float dist_in = exit_t - entry;
+  const float neg_inv_density = -(1.0f / density);
+  const float hit_dist = u > 0.0f ? neg_inv_density * logf(u) : inf();
+  const bool scatter = has_segment && hit_dist < dist_in;
+  return scatter ? entry + hit_dist : inf();
+}
+
+// Keep the nearer of the carried (t_med, vmat) and medium candidate t of
+// material mat: a strict <, so the earlier medium wins a tie.
+__device__ __forceinline__ void fold_medium(float& t_med, float& vmat,
+                                            float t, float mat) {
+  if (t < t_med) {
+    t_med = t;
+    vmat = mat;
+  }
 }
 
 }  // namespace rt

@@ -13,32 +13,44 @@ strict ``<``: on an exact tie the earlier candidate keeps the front flag.
   :func:`_chunk_plans` as ``[rows, lanes]`` tensors, each chunk reduced
   with the tile rules of the TPU's broadcast kernel and merged into the
   carried triple.  It culls nothing (culling only skips work).
-* :func:`pallas_volume_crossings` (kernel K11, ``rt_volume_crossings``)
-  and :func:`pallas_volume_crossings_bcast` (kernel K11b,
+* :func:`pallas_volume_crossings` (kernel K11, ``rt_volume_crossings``:
+  the whole table staged once per block, a planar instantiation for
+  tables of unmoving parallelograms and triangles) and
+  :func:`pallas_volume_crossings_bcast` (kernel K11b,
   ``rt_volume_crossings_bvh``, for boundary tables of
   :data:`BCAST_MIN_ROWS` rows and more: a near-child-first walk of one
   binned-SAH tree per medium, :func:`pack_volume_bvh`, that skips every
   node a ray cannot reach before its second crossing) launch
   ``csrc/volume_kernel.cu`` for CUDA tensors and run the plain version
   for CPU tensors.
+* Their candidate mode (:func:`pallas_volume_candidates`,
+  :func:`pallas_volume_candidates_bcast`; plain version
+  :func:`volume_candidates_plain`) folds each medium's scatter candidate
+  (:func:`candidate_from_crossings`) into the nearest ``(t_med, vmat)``
+  inside the launch, which the bounce then reads.
+* :func:`prepare_volume_launch` checks a launch's tables once per driver
+  call and prebuilds its argument struct (:class:`VolumeLaunch`).
 
-Both return the 3V rows ``[t1_0, front1_0, t2_0, t1_1, ...]`` as [R] f32
-tensors (front as 0/1).  Rays are 1-D [R] f32 tensors; the table is
-``pack_prims(volumes.prims)`` ([C, 36], ``ops/intersect_kernel.py``).
+The crossings are the 3V rows ``[t1_0, front1_0, t2_0, t1_1, ...]`` as
+[R] f32 tensors (front as 0/1).  Rays are 1-D [R] f32 tensors; the table
+is ``pack_prims(volumes.prims)`` ([C, 36], ``ops/intersect_kernel.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import time
 
 import numpy as np
 import torch
 
 from ..scene.types import PRIM_TRIANGLE
+from ._build import launch
 from .allpairs_kernel import (
     N_NODE_COLS, build_tree, bvh_boxes, leaf_rows, pack_nodes,
 )
+from .bounce_kernel import check_lanes, planar_only
 from .intersect_kernel import N_COLS, _safe
 
 BCAST_CHUNK = 256      # rows per chunk of the plain version's plan
@@ -46,6 +58,9 @@ BCAST_MIN_ROWS = 64    # boundary tables from this many rows take K11b
 # media one launch takes (csrc/volume_kernel.cu); render/volumes.py
 # launches once per group of at most this many
 MAX_VOLUMES = 16
+# boundary rows K11 stages in shared memory (221,184 bytes; the routes
+# give it under BCAST_MIN_ROWS)
+MAX_STAGED_ROWS = 1536
 # (row, lane) pairs per block of the plain version: its ~30 live [rows,
 # lanes] f32 tensors stay near 256 MiB
 _PAIR_BUDGET = 1 << 21
@@ -222,10 +237,11 @@ def _merge_chunk(b1, f1, b2, c1, cf1, c2, piota):
 
 def volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
                            slices: tuple, t_min: float, has_motion: bool,
-                           has_box: bool):
+                           has_box: bool, prepared=None):
     """Both kernels' function in plain PyTorch, on any device: the 3V
     [R] rows ``[t1, front1, t2]`` per volume of ``slices`` ((start,
-    count) per volume)."""
+    count) per volume).  ``prepared`` (the kernels' prepared launch) is
+    accepted and ignored."""
     tmn = float(torch.tensor(t_min, dtype=torch.float32))
     plans = _chunk_plans(slices)
     r = ox.shape[0]
@@ -255,35 +271,85 @@ def volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
     return outs
 
 
+def candidate_from_crossings(density, t1, front1, t2, t_min: float, u):
+    """``(t, scatter)``: the scatter candidate of one medium of
+    ``density`` (an f32 0-d tensor) from its crossings (``front1`` bool)
+    and the draw ``u`` [R]; ``t`` is +inf where the ray does not scatter.
+    A draw of exactly 0 never scatters: the JAX package's ``log(max(u,
+    1e-38))`` meets a float32 subnormal that its CPU and TPU backends
+    flush to 0, so its flight is +inf there."""
+    entry = torch.where(front1, t1, t_min)
+    exit_t = torch.where(front1, t2, t1)
+    has_segment = torch.isfinite(t1) & torch.isfinite(exit_t)
+    dist_in = exit_t - entry
+    neg_inv_density = -1.0 / density
+    hit_dist = torch.where(
+        u > 0.0, neg_inv_density * torch.log(torch.where(u > 0.0, u, 1.0)),
+        math.inf)
+    scatter = has_segment & (hit_dist < dist_in)
+    return torch.where(scatter, entry + hit_dist, math.inf), scatter
+
+
+def volume_candidates_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *, u, t_med,
+                            vmat, density, mats, slices: tuple, t_min: float,
+                            has_motion: bool, has_box: bool, prepared=None):
+    """The candidate mode of both kernels in plain PyTorch, on any device:
+    ``(t_med, vmat)`` [R] after folding, in medium order, each medium's
+    scatter candidate (:func:`candidate_from_crossings` of
+    :func:`volume_crossings_plain`'s crossings and the draws ``u[v]``)
+    into the given ``(t_med, vmat)`` (None: +inf and 0) with a strict
+    ``<`` (the first medium wins a tie); ``density`` [V] and ``mats`` (V
+    material ids) are the media's.  New tensors: the inputs are not
+    changed.  ``prepared`` is accepted and ignored."""
+    outs = volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm,
+                                  slices=slices, t_min=t_min,
+                                  has_motion=has_motion, has_box=has_box)
+    if t_med is None:
+        t_med = torch.full_like(ox, math.inf)
+        vmat = torch.zeros_like(ox)
+    for v, mat in enumerate(mats):
+        tv, _ = candidate_from_crossings(
+            density[v], outs[3 * v], outs[3 * v + 1] > 0.5, outs[3 * v + 2],
+            t_min, u[v])
+        better = tv < t_med
+        t_med = torch.where(better, tv, t_med)
+        vmat = torch.where(better, mat, vmat)
+    return t_med, vmat
+
+
 class _VolArgs(ctypes.Structure):
     """Mirror of ``VolArgs`` in csrc/volume_kernel.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "tbl", "nodes", "rows", "ox", "oy", "oz", "dx", "dy", "dz", "tm",
-        "out", "visits")]
-        + [("n_lanes", ctypes.c_int64)]
-        + [(f, ctypes.c_int) for f in ("n_vol", "has_motion", "has_box",
-                                        "tri_only")]
+        "out", "visits", "u", "density", "t_med", "vmat")]
+        + [(f, ctypes.c_int64) for f in ("n_lanes", "u_stride")]
+        + [(f, ctypes.c_int) for f in (
+            "n_vol", "n_tbl", "has_motion", "has_box", "tri_only", "planar",
+            "cand")]
         + [("t_min", ctypes.c_float)]
         + [(f, ctypes.c_int * MAX_VOLUMES) for f in ("starts", "counts",
-                                                      "roots")])
+                                                      "roots")]
+        + [("mats", ctypes.c_float * MAX_VOLUMES)])
 
 
-def vol_args(vtbl, forest, rays, out, visits, *, slices, t_min: float,
-             has_motion: bool, has_box: bool) -> _VolArgs:
-    """The kernels' argument struct for tensors that outlive it
-    (``forest`` and ``visits`` may be None: K11)."""
-    pad = [0] * (MAX_VOLUMES - len(slices))
-    ptr = lambda x: None if x is None else x.data_ptr()
-    roots = forest.roots if forest is not None else (0,) * len(slices)
-    return _VolArgs(
-        *(ptr(x) for x in (vtbl, None if forest is None else forest.nodes,
-                           None if forest is None else forest.rows)
-          + tuple(rays) + (out, visits)),
-        rays[0].shape[0], len(slices), int(has_motion), int(has_box),
-        int(forest is not None and forest.tri_only), float(t_min),
-        (ctypes.c_int * MAX_VOLUMES)(*[s for s, _ in slices], *pad),
-        (ctypes.c_int * MAX_VOLUMES)(*[c for _, c in slices], *pad),
-        (ctypes.c_int * MAX_VOLUMES)(*roots, *pad))
+@dataclasses.dataclass(frozen=True)
+class VolumeLaunch:
+    """The tables of one launch of K11 (``forest`` None) or K11b for a
+    group of at most :data:`MAX_VOLUMES` media, checked once by
+    :func:`prepare_volume_launch`: the boundary table, the group's forest,
+    its slices and flags, its densities ([V] f32 on the device, or None)
+    and material ids, whether K11's planar instantiation serves the
+    table, and the argument struct with its table part filled in (rays,
+    draws, outputs and ``t_min`` are filled per launch)."""
+    vtbl: torch.Tensor
+    forest: VolumeBVH | None
+    slices: tuple
+    has_motion: bool
+    has_box: bool
+    density: torch.Tensor | None
+    mats: tuple
+    planar: bool
+    args: _VolArgs
 
 
 def check_forest(forest, vtbl, n_vol: int, device) -> None:
@@ -307,94 +373,299 @@ def check_forest(forest, vtbl, n_vol: int, device) -> None:
                          f"of {n} nodes")
 
 
-def _launch(entry: str, vtbl, forest, rays, slices, t_min, has_motion,
-            has_box, count_visits: bool):
-    """Check the arguments and launch ``entry``; returns the [3V, R]
-    output (and the [2, R] i32 box tests and row tests of each ray with
-    ``count_visits``)."""
-    from ._build import launch
-    from .bounce_kernel import check_lanes
-    dev = rays[0].device
-    r = rays[0].shape[0]
+def _check_tables(vtbl, forest, slices, density, mats) -> None:
+    """Raise unless K11 (``forest`` None) or K11b takes the boundary table
+    ``vtbl``, the media ``slices`` and, where given, their ``density``
+    and ``mats``."""
+    dev = vtbl.device
     nv = len(slices)
     if not 0 < nv <= MAX_VOLUMES:
         raise ValueError(f"{nv} media: the kernels take 1..{MAX_VOLUMES}")
     n_rows = vtbl.shape[0] if vtbl.dim() == 2 else 0
-    if (vtbl.device != dev or vtbl.dtype != torch.float32 or vtbl.dim() != 2
+    if (vtbl.dtype != torch.float32 or vtbl.dim() != 2
             or vtbl.shape[1] != N_COLS or not vtbl.is_contiguous()):
-        raise ValueError(f"vtbl: need a contiguous f32 [*, {N_COLS}] tensor "
-                         f"on {dev}")
+        raise ValueError(f"vtbl: need a contiguous f32 [*, {N_COLS}] tensor")
     if any(s < 0 or c <= 0 or s + c > n_rows for s, c in slices):
         raise ValueError(f"slices {slices} outside the {n_rows}-row table")
     if forest is not None:
         check_forest(forest, vtbl, nv, dev)
+    elif n_rows > MAX_STAGED_ROWS:
+        raise ValueError(f"K11 stages at most {MAX_STAGED_ROWS} boundary "
+                         f"rows, got {n_rows} (K11b takes such tables)")
+    if density is not None:
+        check_lanes([("density", density)], nv, dev)
+        if len(mats) != nv:
+            raise ValueError(f"{len(mats)} material ids for {nv} media")
+
+
+def prepare_volume_launch(vtbl, forest=None, *, slices: tuple,
+                          has_motion: bool, has_box: bool, density=None,
+                          mats=(), general: bool = False
+                          ) -> VolumeLaunch:
+    """Check the tables of one launch of K11 (``forest`` None) or K11b
+    (as the wrappers do without them), decide whether K11's planar
+    instantiation serves them (:func:`~.bounce_kernel.planar_only` over
+    the whole table: one host synchronisation; ``general`` forces the
+    general one) and prebuild the argument struct's table part.
+    ``density`` ([V] f32 on the device) and ``mats`` are the media's, for
+    the candidate mode."""
+    slices = tuple(slices)
+    mats = tuple(float(m) for m in mats)
+    _check_tables(vtbl, forest, slices, density, mats)
+    planar = (not general and forest is None
+              and planar_only(vtbl, vtbl.shape[0], has_motion))
+    nv = len(slices)
+    pad = [0] * (MAX_VOLUMES - nv)
+    roots = forest.roots if forest is not None else (0,) * nv
+    args = _VolArgs(
+        tbl=vtbl.data_ptr(),
+        nodes=None if forest is None else forest.nodes.data_ptr(),
+        rows=None if forest is None else forest.rows.data_ptr(),
+        density=None if density is None else density.data_ptr(),
+        n_vol=nv, n_tbl=vtbl.shape[0],
+        has_motion=int(has_motion), has_box=int(has_box),
+        tri_only=int(forest is not None and forest.tri_only),
+        planar=int(planar),
+        starts=(ctypes.c_int * MAX_VOLUMES)(*[s for s, _ in slices], *pad),
+        counts=(ctypes.c_int * MAX_VOLUMES)(*[c for _, c in slices], *pad),
+        roots=(ctypes.c_int * MAX_VOLUMES)(*roots, *pad),
+        mats=(ctypes.c_float * MAX_VOLUMES)(*mats, *[0.0] * (MAX_VOLUMES
+                                                            - len(mats))))
+    return VolumeLaunch(vtbl=vtbl, forest=forest, slices=slices,
+                        has_motion=has_motion, has_box=has_box,
+                        density=density, mats=mats, planar=planar,
+                        args=args)
+
+
+def table_args(vtbl, forest, kw, density=None, mats=(),
+               prepared: VolumeLaunch | None = None) -> _VolArgs:
+    """The table part of the argument struct for ``vtbl``, ``forest``
+    (None: K11), the keywords ``kw`` (slices and flags) and, for the
+    candidate mode, ``density`` and ``mats``: that of ``prepared``, which
+    must have been made for them, or (``prepared`` None) that of a launch
+    prepared here with K11's general instantiation."""
+    slices = tuple(kw["slices"])
+    if prepared is None:
+        return prepare_volume_launch(
+            vtbl, forest, slices=slices, has_motion=kw["has_motion"],
+            has_box=kw["has_box"], density=density, mats=mats,
+            general=True).args
+    if (prepared.vtbl is not vtbl or prepared.forest is not forest
+            or prepared.slices != slices
+            or prepared.has_motion != kw["has_motion"]
+            or prepared.has_box != kw["has_box"]
+            or (density is not None and (prepared.density is not density
+                                         or prepared.mats != tuple(mats)))):
+        raise ValueError("volume kernels: the prepared tables are not the "
+                         "ones given")
+    return prepared.args
+
+
+def vol_args(vtbl, forest, rays, out, visits, *, slices, t_min: float,
+             has_motion: bool, has_box: bool, prepared=None,
+             cand=None) -> _VolArgs:
+    """The kernels' argument struct for tensors that outlive it: the table
+    part (:func:`table_args`), the rays, ``t_min`` and either the
+    crossings mode's ``out`` (and ``visits``, or None) or, with ``cand`` =
+    ``(u, t_med, vmat, density, mats, fresh)``, the candidate mode's draws
+    [V, *] (lane-contiguous rows), rows updated in place (written only,
+    with ``fresh``) and media."""
+    kw = dict(slices=slices, has_motion=has_motion, has_box=has_box)
+    density, mats = (None, ()) if cand is None else cand[3:5]
+    args = _VolArgs.from_buffer_copy(
+        table_args(vtbl, forest, kw, density, mats, prepared))
+    (args.ox, args.oy, args.oz, args.dx, args.dy, args.dz, args.tm) = (
+        x.data_ptr() for x in rays)
+    args.n_lanes = rays[0].shape[0]
+    args.t_min = t_min
+    if cand is None:
+        args.out = out.data_ptr()
+        args.visits = None if visits is None else visits.data_ptr()
+    else:
+        u, t_med, vmat = cand[:3]
+        args.cand = 2 if cand[5] else 1
+        args.u, args.u_stride = u.data_ptr(), u.stride(0)
+        args.t_med, args.vmat = t_med.data_ptr(), vmat.data_ptr()
+    return args
+
+
+def _launch(entry: str, vtbl, forest, rays, kw, prepared, count_visits=False,
+            cand=None):
+    """Check what can change between launches (the rays, the draws and
+    the candidate rows: count, device, type, contiguity) and launch
+    ``entry`` over :func:`table_args`; returns the [3V, R] crossings (and
+    the [2, R] i32 box tests and row tests of each ray with
+    ``count_visits``), or in the candidate mode ``(t_med, vmat)`` (new
+    rows where ``cand`` gives None)."""
+    dev = rays[0].device
+    r = rays[0].shape[0]
+    if vtbl.device != dev:
+        raise ValueError(f"vtbl: need a tensor on {dev}")
     check_lanes(zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), rays), r,
                 dev)
-    out = torch.empty((3 * nv, r), dtype=torch.float32, device=dev)
-    visits = (torch.zeros((2, r), dtype=torch.int32, device=dev)
-              if count_visits else None)
-    args = vol_args(vtbl, forest, rays, out, visits, slices=slices,
-                    t_min=t_min, has_motion=has_motion, has_box=has_box)
-    launch(entry, args, dev)
-    return out, visits
+    out = visits = None
+    if cand is None:
+        out = torch.empty((3 * len(kw["slices"]), r), dtype=torch.float32,
+                          device=dev)
+        visits = (torch.zeros((2, r), dtype=torch.int32, device=dev)
+                  if count_visits else None)
+    else:
+        u, t_med, vmat, density, mats = cand
+        if t_med is None:
+            t_med, vmat = torch.empty((2, r), dtype=torch.float32,
+                                      device=dev).unbind(0)
+            cand = (u, t_med, vmat, density, mats, True)
+        else:
+            check_lanes((("t_med", t_med), ("vmat", vmat)), r, dev)
+            cand = (u, t_med, vmat, density, mats, False)
+        if (u.device != dev or u.dtype != torch.float32 or u.dim() != 2
+                or u.shape[0] < len(kw["slices"]) or u.shape[1] != r
+                or u.stride(1) != 1):
+            raise ValueError(f"u: need f32 [>={len(kw['slices'])}, {r}] "
+                             f"draws with lane-contiguous rows on {dev}")
+    launch(entry, vol_args(vtbl, forest, rays, out, visits, prepared=prepared,
+                           cand=cand, **kw), dev)
+    return (out, visits) if cand is None else cand[1:3]
+
+
+def _count(kernel, prepared, cand) -> None:
+    kernel.launches += 1
+    if prepared is not None and prepared.planar:
+        kernel.planar_launches += 1
+    if cand is not None:
+        kernel.candidate_launches += 1
 
 
 def pallas_volume_crossings(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
                             slices: tuple, t_min: float, has_motion: bool,
-                            has_box: bool = False):
+                            has_box: bool = False,
+                            prepared: VolumeLaunch | None = None):
     """The crossings of every ray with every medium of ``slices`` by a
     scan of the boundary rows (kernel K11; the JAX package's name).
-    Returns the 3V [R] rows (see the module docstring).
+    Returns the 3V [R] rows (see the module docstring).  ``prepared``
+    (:func:`prepare_volume_launch` of these tables) skips the tables'
+    checks and selects the planar instantiation where it serves them;
+    without it the tables are checked and the general one runs.
 
     CPU tensors run :func:`volume_crossings_plain`; CUDA tensors launch
     ``rt_volume_crossings`` (``pallas_volume_crossings.launches`` counts
-    the launches)."""
+    the launches of K11 in either mode, ``.planar_launches`` those of its
+    planar instantiation, ``.candidate_launches`` those of the candidate
+    mode, :func:`pallas_volume_candidates`)."""
+    rays = (ox, oy, oz, dx, dy, dz, tm)
+    kw = dict(slices=tuple(slices), has_motion=has_motion, has_box=has_box)
+    dev = ox.device
+    if dev.type == "cpu":
+        return volume_crossings_plain(vtbl, *rays, t_min=t_min, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_volume_crossings: unsupported device {dev}")
+    out, _ = _launch("rt_volume_crossings", vtbl, None, rays,
+                     dict(kw, t_min=t_min), prepared)
+    _count(pallas_volume_crossings, prepared, None)
+    return list(out.unbind(0))
+
+
+pallas_volume_crossings.launches = 0
+pallas_volume_crossings.planar_launches = 0
+pallas_volume_crossings.candidate_launches = 0
+
+
+def pallas_volume_candidates(vtbl, ox, oy, oz, dx, dy, dz, tm, *, u, t_med,
+                             vmat, density, mats, slices: tuple,
+                             t_min: float, has_motion: bool,
+                             has_box: bool = False,
+                             prepared: VolumeLaunch | None = None):
+    """K11's candidate mode: :func:`volume_candidates_plain`'s ``(t_med,
+    vmat)`` for the draws ``u`` [V, R] (lane-contiguous rows) and the
+    media's ``density`` [V] and ``mats``, folded into the given rows or,
+    where ``t_med`` and ``vmat`` are None, from none.  ``prepared`` as
+    for :func:`pallas_volume_crossings` (made with these ``density`` and
+    ``mats``).
+
+    CPU tensors run :func:`volume_candidates_plain` (new tensors); CUDA
+    tensors launch ``rt_volume_crossings``, which updates ``t_med`` and
+    ``vmat`` in place and returns them, or writes new ones (counted as
+    K11's launches)."""
     rays = (ox, oy, oz, dx, dy, dz, tm)
     kw = dict(slices=tuple(slices), t_min=t_min, has_motion=has_motion,
               has_box=has_box)
     dev = ox.device
     if dev.type == "cpu":
-        return volume_crossings_plain(vtbl, *rays, **kw)
+        return volume_candidates_plain(vtbl, *rays, u=u, t_med=t_med,
+                                       vmat=vmat, density=density, mats=mats,
+                                       **kw)
     if dev.type != "cuda":
-        raise ValueError(f"pallas_volume_crossings: unsupported device {dev}")
-    out, _ = _launch("rt_volume_crossings", vtbl, None, rays, kw["slices"],
-                     t_min, has_motion, has_box, False)
-    pallas_volume_crossings.launches += 1
-    return list(out.unbind(0))
-
-
-pallas_volume_crossings.launches = 0
+        raise ValueError(f"pallas_volume_candidates: unsupported device "
+                         f"{dev}")
+    cand = (u, t_med, vmat, density, mats)
+    out = _launch("rt_volume_crossings", vtbl, None, rays, kw, prepared,
+                  cand=cand)
+    _count(pallas_volume_crossings, prepared, cand)
+    return out
 
 
 def pallas_volume_crossings_bcast(vtbl, forest, ox, oy, oz, dx, dy, dz, tm,
                                   *, slices: tuple, t_min: float,
                                   has_motion: bool, has_box: bool = False,
-                                  count_visits: bool = False):
+                                  count_visits: bool = False,
+                                  prepared: VolumeLaunch | None = None):
     """:func:`pallas_volume_crossings`' contract for boundary tables of
     :data:`BCAST_MIN_ROWS` rows and more (kernel K11b; the JAX package's
     name): each ray walks ``forest`` (:func:`pack_volume_bvh`, one tree
     per medium of ``slices``), skipping every node it cannot reach within
     ``[t_min, t2]``.  With ``count_visits`` (CUDA only) also returns an
     [2, R] i32 tensor of the box tests and row tests of each ray.
+    ``prepared`` (:func:`prepare_volume_launch` of these tables and this
+    ``forest``) skips the tables' checks.
 
     CPU tensors run :func:`volume_crossings_plain`; CUDA tensors launch
-    ``rt_volume_crossings_bvh``
-    (``pallas_volume_crossings_bcast.launches`` counts the launches)."""
+    ``rt_volume_crossings_bvh`` (``pallas_volume_crossings_bcast.launches``
+    counts the launches of K11b in either mode, ``.candidate_launches``
+    those of the candidate mode, :func:`pallas_volume_candidates_bcast`)."""
     rays = (ox, oy, oz, dx, dy, dz, tm)
-    slices = tuple(slices)
+    kw = dict(slices=tuple(slices), has_motion=has_motion, has_box=has_box)
     dev = ox.device
     if dev.type == "cpu" and not count_visits:
-        return volume_crossings_plain(vtbl, *rays, slices=slices,
-                                      t_min=t_min, has_motion=has_motion,
-                                      has_box=has_box)
+        return volume_crossings_plain(vtbl, *rays, t_min=t_min, **kw)
     if dev.type != "cuda":
         raise ValueError(f"pallas_volume_crossings_bcast: unsupported device "
                          f"{dev}")
     out, visits = _launch("rt_volume_crossings_bvh", vtbl, forest, rays,
-                          slices, t_min, has_motion, has_box, count_visits)
-    pallas_volume_crossings_bcast.launches += 1
+                          dict(kw, t_min=t_min), prepared, count_visits)
+    _count(pallas_volume_crossings_bcast, prepared, None)
     res = list(out.unbind(0))
     return (res, visits) if count_visits else res
 
 
 pallas_volume_crossings_bcast.launches = 0
+pallas_volume_crossings_bcast.candidate_launches = 0
+
+
+def pallas_volume_candidates_bcast(vtbl, forest, ox, oy, oz, dx, dy, dz, tm,
+                                   *, u, t_med, vmat, density, mats,
+                                   slices: tuple, t_min: float,
+                                   has_motion: bool, has_box: bool = False,
+                                   prepared: VolumeLaunch | None = None):
+    """K11b's candidate mode: :func:`pallas_volume_candidates`' contract
+    over the walk of ``forest``.
+
+    CPU tensors run :func:`volume_candidates_plain` (new tensors); CUDA
+    tensors launch ``rt_volume_crossings_bvh``, which updates ``t_med``
+    and ``vmat`` in place and returns them (counted as K11b's
+    launches)."""
+    rays = (ox, oy, oz, dx, dy, dz, tm)
+    kw = dict(slices=tuple(slices), t_min=t_min, has_motion=has_motion,
+              has_box=has_box)
+    dev = ox.device
+    if dev.type == "cpu":
+        return volume_candidates_plain(vtbl, *rays, u=u, t_med=t_med,
+                                       vmat=vmat, density=density, mats=mats,
+                                       **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_volume_candidates_bcast: unsupported "
+                         f"device {dev}")
+    cand = (u, t_med, vmat, density, mats)
+    out = _launch("rt_volume_crossings_bvh", vtbl, forest, rays, kw,
+                  prepared, cand=cand)
+    _count(pallas_volume_crossings_bcast, prepared, cand)
+    return out

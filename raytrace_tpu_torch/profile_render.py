@@ -33,11 +33,18 @@ the nearest kernel K9 on the stand-in's 360,064 camera rays and of the
 mesh iteration kernel on ``MESH_FWD_BWD``'s 2^17 lanes, every lane
 regenerating), and for the media crossings and the forward bounce at
 ``chip_smoke.py``'s shapes (``media_kernels``: 20 launches, in turns, of
-K11b on the pawn stand-in's 2^17 camera rays, through
-``render/volumes.py:volume_crossings``, and of kernel A on Cornell's
-360,064 camera lanes, through ``integrator.bounce_mega_soa``; both calls
-take the same arguments in the parent tree, so the two trees can be
-timed in one session), and for the fused iteration and the marble stripe
+K11b on the pawn stand-in's 2^17 camera rays and of K11 on
+cornell_smoke's 360,064, through ``render/volumes.py:volume_crossings``,
+and of kernel A on Cornell's 360,064 camera lanes, through
+``integrator.bounce_mega_soa``; the calls take the same arguments in the
+parent tree, so the two trees can be timed in one session; K11 is also
+timed with the candidates in torch, ``volume_candidates_kernel``, and,
+where the tree has them, in its planar and general instantiations and in
+the route's candidate mode, ``medium_hit``), and for K11's general
+instantiation (``k11_general``: 20 launches, in turns, on the 2^16
+random rays of ``chip_smoke.py`` phase 24 through the fog ball and smoke
+box, still and moving, through ``volume_crossings``; also in the parent
+tree), and for the fused iteration and the marble stripe
 at ``chip_smoke.py``'s shapes (``iter_marble_kernels``: 20 launches, in
 turns, of kernel B on Cornell's 360,064 lanes, every lane regenerating,
 with the tables of ``fused_iter.iter_kernel_args`` as the fused drivers
@@ -200,6 +207,31 @@ def sass_loops(stem: str = "bounce_kernel") -> list[str]:
         out.append(f"{name}: {len(ins)} instructions; loops: "
                    f"{'; '.join(loops) or 'none'}")
     return out
+
+
+def inner_loop_sizes(stem: str, name: str,
+                     op: str = "LDS") -> list[tuple[str, int]]:
+    """``(kernel, instructions)`` of the innermost loop that issues an
+    ``op`` instruction (the shortest such backward branch's span; by
+    default a shared-memory load, so a scan's row loop and not its
+    staging loop) of each kernel of ``csrc/<stem>.cu`` whose mangled name
+    contains ``name``."""
+    out = []
+    for fn, ins in sass_functions(stem).items():
+        spans = [(lo, hi) for lo, hi in sass_loop_spans(ins)
+                 if any(o.split()[0 if not o.startswith("@") else 1]
+                        .startswith(op) for a, o in ins if lo <= a <= hi)]
+        if name in fn and spans:
+            lo, hi = min(spans, key=lambda sp: sp[1] - sp[0])
+            out.append((fn, sum(1 for a, _ in ins if lo <= a <= hi)))
+    return out
+
+
+def source_constant(stem: str, name: str) -> int:
+    """The value of ``constexpr int <name>`` in ``csrc/<stem>.cu``."""
+    from .ops._build import CSRC
+    src = (CSRC / f"{stem}.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def kernel_ms(fn, kernel, reps: int = 20) -> float:
@@ -374,19 +406,39 @@ def main() -> None:
     @functools.cache
     def media_kernel_calls():
         """K11b on the pawn stand-in's 2^17 camera rays (phase 24 of
-        chip_smoke.py) and kernel A on Cornell's 360,064 camera lanes
-        (phase 3): the call of 20 launches of each, its inputs made (and
-        kernel A's split printed) once."""
+        chip_smoke.py), K11 on cornell_smoke's 360,064 camera rays (its
+        crossings through ``volume_crossings`` and, with the candidates
+        in torch, through ``volume_candidates_kernel``) and kernel A on
+        Cornell's 360,064 camera lanes (phase 3): the call of 20 launches
+        of each, its inputs made (and kernel A's split and K11's designs
+        printed) once."""
         from .ops.bounce_kernel import bounce_megakernel
+        from .render import volumes
         from .render.integrator import bounce_mega_soa, bounce_tables
-        from .render.volumes import volume_crossings, volume_tables
-        from .testing import media_bounce_rays, primary_bounce_inputs
+        from .render.volumes import (
+            volume_candidates_kernel, volume_crossings, volume_tables,
+        )
+        from .testing import (
+            media_bounce_rays, primary_bounce_inputs, stationary_lanes,
+        )
         n_k = 1 << 17
         n_pix_p = s_p.image_width * s_p.image_height
         pix = (torch.arange(n_k) * n_pix_p // n_k).to(dev, torch.int32)
         rays = tuple(media_bounce_rays(pawn, s_p, 82, pixels=pix)[0][0]
                      .unbind(0))
         vt = volume_tables(pawn.volumes)
+        comps_s = media_bounce_rays(smoke, s_s, 81)[0][0]
+        rays_s = tuple(comps_s.unbind(0))
+        vt_s = volume_tables(smoke.volumes)
+        nv_s = smoke.volumes.n_volumes
+        g = torch.Generator().manual_seed(91)
+        u_s = (torch.randint(0, 1 << 16, (nv_s, comps_s.shape[1]),
+                             generator=g) / 65536.0).to(dev)
+        k11 = lambda: volume_crossings(smoke.volumes, rays_s, s_s.t_min,
+                                       vt_s)
+        k11_cand = lambda: volume_candidates_kernel(
+            smoke.volumes, comps_s[0:3], comps_s[3:6], comps_s[6],
+            s_s.t_min, u_s, tables=vt_s)
         tb = bounce_tables(scene, s)
         a = primary_bounce_inputs(scene, s, 1)
         comps = torch.stack(a[0:7])
@@ -407,12 +459,115 @@ def main() -> None:
               f"{full:.4f} ms with its {tb.n_prims} rows, {no_rows:.4f} ms "
               f"with n_prims=0 (the shade and the lane I/O) [{smi}]",
               flush=True)
+        n_s = comps_s.shape[1]
+        for name, call, kernel in (
+                ("K11 crossings", k11, "volume_crossings_kernel"),
+                ("K11 crossings + torch candidates", k11_cand,
+                 "volume_crossings_kernel")):
+            print(f"[kernel] {name} at {n_s} cornell_smoke camera rays: "
+                  f"{kernel_ms(call, kernel):.4f} ms on the device, "
+                  f"{min(call_ms(call) for _ in range(5)):.4f} ms a call back "
+                  f"to back (the least of 5 turns of 50) [{smi}]", flush=True)
+        if hasattr(volumes, "medium_hit"):
+            k11_designs(comps_s, u_s, vt_s, rays, vt)
 
         def run_kernels():
             for _ in range(20):
                 volume_crossings(pawn.volumes, rays, s_p.t_min, vt)
+                k11()
                 bounce_mega_soa(scene, s, comps, a[11], rad, thr, alive,
                                 tables=tb)
+        return run_kernels
+
+    def k11_designs(comps_s, u_s, vt_s, rays_p, vt_p):
+        """K11 on cornell_smoke's camera rays (crossings mode, device ms)
+        in its planar and general instantiations; then the route's
+        candidate mode (``medium_hit``: device ms and a call back to back)
+        of K11 and of K11b on the pawn stand-in's camera rays, and the
+        SASS instructions of each K11 instantiation's row loop (also
+        written to chiprun_out/sass_volume_kernel.txt)."""
+        import dataclasses
+        from .ops.volume_kernel import prepare_volume_launch
+        from .render.volumes import medium_hit, volume_crossings
+        rays_s = tuple(comps_s.unbind(0))
+        x = vt_s.launches[0]
+        for general in (False, True):
+            launch = prepare_volume_launch(
+                x.vtbl, None, slices=x.slices, has_motion=x.has_motion,
+                has_box=x.has_box, density=x.density, mats=x.mats,
+                general=general)
+            tables = dataclasses.replace(vt_s, launches=(launch,))
+            ms = kernel_ms(lambda: volume_crossings(
+                smoke.volumes, rays_s, s_s.t_min, tables),
+                "volume_crossings_kernel")
+            print(f"[K11 design] {'general' if general else 'planar'}: "
+                  f"{ms:.4f} ms on the device [{smi}]", flush=True)
+        n_p = rays_p[0].shape[0]
+        u_p = u_s[:pawn.volumes.n_volumes, :n_p].contiguous()
+        for name, n, call, kernel in (
+                ("K11 candidate mode", comps_s.shape[1],
+                 lambda: medium_hit(smoke.volumes, rays_s, s_s.t_min, u_s,
+                                    vt_s), "volume_crossings_kernel"),
+                ("K11b candidate mode (pawn stand-in)", n_p,
+                 lambda: medium_hit(pawn.volumes, rays_p, s_p.t_min, u_p,
+                                    vt_p), "volume_bvh_kernel")):
+            print(f"[kernel] {name} at {n} camera rays: "
+                  f"{kernel_ms(call, kernel):.4f} ms on the device, "
+                  f"{min(call_ms(call) for _ in range(5)):.4f} ms a call back "
+                  f"to back (the least of 5 turns of 50) [{smi}]", flush=True)
+        rays = source_constant("volume_kernel", "kRays")
+        for name, count in inner_loop_sizes("volume_kernel",
+                                            "volume_crossings_kernel"):
+            print(f"[sass] {name}: its row loop {count} instructions for "
+                  f"{rays} rays", flush=True)
+        (OUT_DIR / "sass_volume_kernel.txt").write_text(
+            sass_text("volume_kernel") or "")
+
+    @functools.cache
+    def k11_general_calls():
+        """K11 on the fog ball and smoke box, still and moving (its
+        general instantiation with box rows, and with motion), at the
+        2^16 random rays of chip_smoke.py phase 24: the call of 20
+        launches of each, its inputs made (and each call's device and
+        back-to-back time, the kernels' registers and row-loop SASS
+        printed) once."""
+        import raytrace_tpu_torch as rt
+        from .ops._build import CSRC
+        from .render.volumes import volume_crossings, volume_tables
+        from .testing import volume_rays, volume_test_world
+        calls = []
+        for moving in (False, True):
+            world = rt.compile_scene(volume_test_world(rt, moving),
+                                     device=dev)
+            rays = tuple(volume_rays(1 << 16, 84 + moving, (-6.0, 6.0),
+                                     ([0.0, 0.0, -3.0], [3.2, 0.0, -3.5]),
+                                     device=dev).unbind(0))
+            tables = volume_tables(world.volumes)
+            calls.append((f"fog ball and smoke box{' moving' * moving} "
+                          f"({world.volumes.counts} rows)",
+                          lambda v=world.volumes, r=rays, t=tables:
+                          volume_crossings(v, r, 1e-3, t)))
+        # rays a thread (a tree without kRays runs one)
+        m = re.search(r"constexpr int kRays = (\d+);",
+                      (CSRC / "volume_kernel.cu").read_text())
+        per = int(m.group(1)) if m else 1
+        for line in ptxas_report(("volume_crossings_kernel",)):
+            print(f"[ptxas] {line}", flush=True)
+        for name, count in inner_loop_sizes("volume_kernel",
+                                            "volume_crossings_kernel"):
+            print(f"[sass] {name}: its row loop {count} instructions for "
+                  f"{per} rays", flush=True)
+        for name, call in calls:
+            ms = kernel_ms(call, "volume_crossings_kernel")
+            print(f"[kernel] K11 ({per} rays a thread) on {name}, 65536 "
+                  f"random rays: {ms:.4f} ms on the device, "
+                  f"{min(call_ms(call) for _ in range(5)):.4f} ms a call back "
+                  f"to back (the least of 5 turns of 50) [{smi}]", flush=True)
+
+        def run_kernels():
+            for _ in range(20):
+                for _, call in calls:
+                    call()
         return run_kernels
 
     @functools.cache
@@ -489,6 +644,7 @@ def main() -> None:
              FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
             ("mesh_kernels", lambda: mesh_kernel_calls()(), 0),
             ("media_kernels", lambda: media_kernel_calls()(), 0),
+            ("k11_general", lambda: k11_general_calls()(), 0),
             ("iter_marble_kernels", lambda: iter_marble_calls()(), 0)):
         if only and name not in only:
             continue

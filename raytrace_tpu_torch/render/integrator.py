@@ -25,9 +25,10 @@ split path (:func:`bounce_split_soa`), as the JAX package's ``bounce``
 does: the nearest hit record (kernel K8's flat scan for small and
 unsegmented tables, the walk of the table's BVH for kind-segmented
 tables of 192 rows and more), the exact sphere uv in torch, for scenes
-with constant-density media each medium's scatter candidate
-(``render/volumes.py``: kernel K11, or K11b for mesh boundaries) with the
-nearest one passed to the shade kernel (``shade_megakernel``), then the
+with constant-density media the nearest medium's scatter candidate
+(``render/volumes.py:medium_hit``: kernel K11, or K11b for mesh
+boundaries, in the candidate mode) passed to the shade kernel
+(``shade_megakernel``), then the
 image, noise, marble and custom texture albedo multiplied into the
 surviving lanes' throughput in torch (marble stripes through kernel K12).
 
@@ -82,7 +83,7 @@ from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
 )
 from .camera import CameraSettings, camera_frame, camera_table, rays_from_table
-from .volumes import volume_candidates_kernel, volume_tables
+from .volumes import VolumeTables, medium_hit, volume_tables
 
 _N_BASE_U = 8       # bounce uniform columns, + one per medium
 LANE_ALIGN = 128    # lane-pool alignment; keeps lane->pixel maps as JAX's
@@ -302,8 +303,9 @@ class SplitTables:
     the flat scan serves the table), the material rows (not behaviours)
     and the targets; ``rich`` says whether the scene has textures the
     shade kernel defers (image, noise, marble, custom).  For a scene with
-    media: ``volumes``, their packed boundary table and BVH forest
-    (``render/volumes.py:volume_tables``) and each medium's material id."""
+    media: ``volumes`` and their packed boundary table, BVH forest and
+    prepared crossing-kernel launches (``render/volumes.py:volume_tables``,
+    which hold each medium's density and material id)."""
     ptbl: torch.Tensor
     mtbl: torch.Tensor
     ttbl: torch.Tensor
@@ -315,8 +317,7 @@ class SplitTables:
     t_min: float
     rich: bool = False
     volumes: Volumes | None = None
-    vol_tables: tuple | None = None
-    vol_mats: tuple = ()
+    vol_tables: VolumeTables | None = None
 
 
 def uses_bvh(prims) -> bool:
@@ -347,9 +348,7 @@ def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
         n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
         has_motion=p.has_motion, t_min=float(np.float32(s.t_min)),
         rich=is_rich(scene.textures.kinds_present), volumes=vol,
-        vol_tables=None if vol is None else volume_tables(vol),
-        vol_mats=() if vol is None else tuple(
-            float(m) for m in vol.mat.tolist()))
+        vol_tables=None if vol is None else volume_tables(vol))
 
 
 def surface_hit(tb: SplitTables, o, d, time):
@@ -418,9 +417,10 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
                      thr, alive, tables: SplitTables):
     """One bounce of every lane through the split path (the JAX package's
     ``bounce`` with its kernel intersect and ``_fused_shade_bounce``): the
-    nearest-hit kernel, the sphere uv, with media each medium's scatter
-    candidate from the uniform columns ``8 .. 8 + V`` and the nearest
-    (the first medium on a tie), the shade kernel, then the rich-texture
+    nearest-hit kernel, the sphere uv, with media the nearest medium's
+    scatter candidate from the uniform columns ``8 .. 8 + V`` (the first
+    medium on a tie; ``render/volumes.py:medium_hit``), the shade kernel,
+    then the rich-texture
     multiply (:func:`rich_albedo_multiply`).  The arguments and results
     are those of :func:`bounce_mega_soa`."""
     tb = tables
@@ -430,17 +430,10 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     hit = surface_hit(tb, o, d, comps[6])
     medium = None
     if tb.volumes is not None:
-        nv = tb.volumes.n_volumes
-        t_vol = volume_candidates_kernel(
-            tb.volumes, o, d, comps[6], tb.t_min,
-            uniforms[_N_BASE_U:_N_BASE_U + nv], tables=tb.vol_tables)
-        t_med = torch.full_like(hit[0], math.inf)
-        vmat = torch.zeros_like(hit[0])
-        for tv, mat in zip(t_vol, tb.vol_mats):
-            better = tv < t_med
-            t_med = torch.where(better, tv, t_med)
-            vmat = torch.where(better, mat, vmat)
-        medium = (t_med, vmat)
+        medium = medium_hit(
+            tb.volumes, (o[0], o[1], o[2], d[0], d[1], d[2], comps[6]),
+            tb.t_min, uniforms[_N_BASE_U:_N_BASE_U + tb.volumes.n_volumes],
+            tables=tb.vol_tables)
     lanes = (o[0], o[1], o[2], d[0], d[1], d[2], thr[0], thr[1], thr[2],
              alive.to(DTYPE))
     outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes,

@@ -7,43 +7,27 @@ ray's first two boundary crossings beyond ``t_min`` (kernels K11 and K11b,
 else ``t_min`` (the ray starts inside), the exit is the next crossing, and
 the ray scatters at ``entry - log(u) / density`` if that lies before the
 exit.  The bounce then takes the nearest of the surface hit and the
-candidates.
+candidates (:func:`medium_hit`: on the card the kernels' candidate mode
+folds the candidates inside each launch).
 
 The differentiable path (the score-function density weight of the JAX
 package's generic bounce) is not ported (ROADMAP M4, M10).
 """
 from __future__ import annotations
 
-import math
+import dataclasses
 
+import numpy as np
 import torch
 
 from ..ops.intersect_kernel import pack_prims
 from ..ops.volume_kernel import (
-    BCAST_MIN_ROWS, MAX_VOLUMES, pack_volume_bvh, pallas_volume_crossings,
-    pallas_volume_crossings_bcast,
+    BCAST_MIN_ROWS, MAX_VOLUMES, VolumeBVH, candidate_from_crossings,
+    pack_volume_bvh, pallas_volume_candidates, pallas_volume_candidates_bcast,
+    pallas_volume_crossings, pallas_volume_crossings_bcast,
+    prepare_volume_launch,
 )
 from ..scene.types import Volumes
-
-
-def candidate_from_crossings(density, t1, front1, t2, t_min: float, u):
-    """``(t, scatter)``: the scatter candidate of one medium of
-    ``density`` (an f32 0-d tensor) from its crossings (``front1`` bool)
-    and the draw ``u`` [R]; ``t`` is +inf where the ray does not scatter.
-    A draw of exactly 0 never scatters: the JAX package's ``log(max(u,
-    1e-38))`` meets a float32 subnormal that its CPU and TPU backends
-    flush to 0, so its flight is +inf there."""
-    entry = torch.where(front1, t1, t_min)
-    exit_t = torch.where(front1, t2, t1)
-    has_segment = torch.isfinite(t1) & torch.isfinite(exit_t)
-    dist_in = exit_t - entry
-    neg_inv_density = -1.0 / density
-    hit_dist = torch.where(
-        u > 0.0, neg_inv_density * torch.log(torch.where(u > 0.0, u, 1.0)),
-        math.inf)
-    scatter = has_segment & (hit_dist < dist_in)
-    return torch.where(scatter, entry + hit_dist, math.inf), scatter
-
 
 def uses_bcast(volumes: Volumes) -> bool:
     """Does this boundary table take kernel K11b (the BVH walk of
@@ -56,21 +40,55 @@ def crossing_kw(volumes: Volumes, t_min: float) -> dict:
     """The keyword arguments of the crossing kernels for ``volumes``, with
     ``t_min`` rounded to float32 as the kernels compare it."""
     return dict(slices=tuple(zip(volumes.starts, volumes.counts)),
-                t_min=float(torch.tensor(t_min, dtype=torch.float32)),
+                t_min=float(np.float32(t_min)),
                 has_motion=volumes.prims.has_motion,
                 has_box=volumes.prims.has_box)
 
 
-def volume_tables(volumes: Volumes):
-    """``(vtbl, forest)``: the packed boundary table and, for a boundary
-    that takes K11b (:func:`uses_bcast`), its per-medium BVH forest
-    (``ops/volume_kernel.py:pack_volume_bvh``; else None).  The drivers
-    build them once per call."""
+@dataclasses.dataclass(frozen=True)
+class VolumeTables:
+    """:func:`volume_tables`' result: the packed boundary table, its BVH
+    forest (K11b; else None) and one prepared launch
+    (``ops/volume_kernel.py:VolumeLaunch``) per group of at most
+    ``MAX_VOLUMES`` media, in medium order."""
+    vtbl: torch.Tensor
+    forest: VolumeBVH | None
+    launches: tuple
+
+
+def volume_tables(volumes: Volumes) -> VolumeTables:
+    """The packed boundary table, for a boundary that takes K11b
+    (:func:`uses_bcast`) its per-medium BVH forest
+    (``ops/volume_kernel.py:pack_volume_bvh``), and each group's launch
+    prepared with the media's densities and material ids (K11's planar
+    instantiation decided: one host synchronisation, as is reading the
+    material ids).  The drivers build them once per call."""
     slices = tuple(zip(volumes.starts, volumes.counts))
     vtbl = pack_prims(volumes.prims).contiguous()
     forest = (pack_volume_bvh(volumes.prims, vtbl, slices)
               if uses_bcast(volumes) else None)
-    return vtbl, forest
+    mats = volumes.mat.tolist()
+    launches = []
+    for g0 in range(0, len(slices), MAX_VOLUMES):
+        g1 = min(g0 + MAX_VOLUMES, len(slices))
+        launches.append(prepare_volume_launch(
+            vtbl, None if forest is None else forest.group(g0, g1),
+            slices=slices[g0:g1], has_motion=volumes.prims.has_motion,
+            has_box=volumes.prims.has_box,
+            density=volumes.density[g0:g1].contiguous(),
+            mats=mats[g0:g1]))
+    return VolumeTables(vtbl=vtbl, forest=forest, launches=tuple(launches))
+
+
+def _groups(volumes: Volumes, t_min: float, tables):
+    """``(g0, g1, launch, kw)`` of each launch group."""
+    tables = volume_tables(volumes) if tables is None else tables
+    kw = crossing_kw(volumes, t_min)
+    g0 = 0
+    for launch in tables.launches:
+        g1 = g0 + len(launch.slices)
+        yield g0, g1, launch, dict(kw, slices=launch.slices)
+        g0 = g1
 
 
 def volume_crossings(volumes: Volumes, rays, t_min: float, tables=None):
@@ -80,18 +98,14 @@ def volume_crossings(volumes: Volumes, rays, t_min: float, tables=None):
     ``MAX_VOLUMES`` media, the groups' rows concatenated in medium order
     (each medium's crossings depend on its own rows only).  ``tables`` is
     :func:`volume_tables`' result, packed here if not given."""
-    vtbl, forest = volume_tables(volumes) if tables is None else tables
-    kw = crossing_kw(volumes, t_min)
-    slices = kw["slices"]
     outs = []
-    for g0 in range(0, len(slices), MAX_VOLUMES):
-        g1 = min(g0 + MAX_VOLUMES, len(slices))
-        gkw = dict(kw, slices=slices[g0:g1])
-        if forest is None:
-            outs += pallas_volume_crossings(vtbl, *rays, **gkw)
+    for _, _, launch, kw in _groups(volumes, t_min, tables):
+        if launch.forest is None:
+            outs += pallas_volume_crossings(launch.vtbl, *rays, **kw,
+                                            prepared=launch)
         else:
             outs += pallas_volume_crossings_bcast(
-                vtbl, forest.group(g0, g1), *rays, **gkw)
+                launch.vtbl, launch.forest, *rays, **kw, prepared=launch)
     return outs
 
 
@@ -113,3 +127,28 @@ def volume_candidates_kernel(volumes: Volumes, o, d, time, t_min: float,
             outs[3 * v + 2], t_min, u_scatter[v])
         cands.append(t)
     return cands
+
+
+def medium_hit(volumes: Volumes, rays, t_min: float, u_scatter,
+               tables=None):
+    """``(t_med, vmat)`` [R]: the nearest scatter candidate of the media
+    for the rays ``rays`` (7 [R] tensors) with the draws ``u_scatter``
+    [V, R] (+inf where no medium scatters the ray) and its medium's
+    material id (0 there), the first medium winning a tie, as
+    ``bounce_split_soa`` folds them.  One launch of K11 or K11b in the
+    candidate mode per group of at most ``MAX_VOLUMES`` media, the first
+    starting the fold, each later one folding its media into the rows the
+    previous one left; on the CPU their plain version (the crossings,
+    :func:`candidate_from_crossings`, the fold).  ``tables`` as for
+    :func:`volume_crossings`."""
+    t_med = vmat = None
+    for g0, g1, launch, kw in _groups(volumes, t_min, tables):
+        cand = dict(u=u_scatter[g0:g1], t_med=t_med, vmat=vmat,
+                    density=launch.density, mats=launch.mats,
+                    prepared=launch, **kw)
+        if launch.forest is None:
+            t_med, vmat = pallas_volume_candidates(launch.vtbl, *rays, **cand)
+        else:
+            t_med, vmat = pallas_volume_candidates_bcast(
+                launch.vtbl, launch.forest, *rays, **cand)
+    return t_med, vmat

@@ -83,12 +83,17 @@ per-lane tolerances.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
 
 # kernel vs plain: the tolerance of tests/test_bounce_kernel.py
 ATOL, RTOL = 2e-3, 1e-3
+# the crossing kernels' candidate mode against its plain version on the
+# card: t_med's largest distance in ulps where both scatter (the kernel's
+# logf against torch's log, the one operation the two do not share)
+CAND_ULPS = 0
 # 30-iteration agreement: the statistics of tests/test_fused_iter.py
 FRAC_LANES, MEAN_RTOL = 0.02, 2e-3
 # outputs compared exactly: kernel A's alive, miss, winner index; kernel
@@ -1056,25 +1061,93 @@ def marble_patterns(seed: int, n: int = 90_112):
                        shuffled)}
 
 
-def compare_crossings(volumes, comps, t_min: float = 1e-3, tables=None):
+def compare_crossings(volumes, comps, t_min: float = 1e-3, tables=None,
+                      prepared: bool = False):
     """The crossing kernel of ``volumes`` (K11b for a mesh-scale boundary,
     else K11) and ``volume_crossings_plain`` on the rays ``comps`` [7, R]:
     ``(max_errs(...) with the front flags as exact rows, kernel
-    outputs)``."""
+    outputs)``.  Without ``prepared`` the wrappers check the tables and
+    K11 runs its general instantiation; with it the launches of
+    ``tables`` (``render/volumes.py:volume_tables``; K11's planar
+    instantiation where it serves them, unless :func:`general_tables`
+    made them) run, as ``volume_crossings`` runs them."""
     from .ops.volume_kernel import (
         pallas_volume_crossings, pallas_volume_crossings_bcast,
         volume_crossings_plain,
     )
-    from .render.volumes import crossing_kw, volume_tables
-    vtbl, forest = volume_tables(volumes) if tables is None else tables
+    from .render.volumes import crossing_kw, volume_crossings, volume_tables
+    tables = volume_tables(volumes) if tables is None else tables
+    vtbl, forest = tables.vtbl, tables.forest
     kw = crossing_kw(volumes, t_min)
     rays = tuple(comps.unbind(0))
     ref = volume_crossings_plain(vtbl, *rays, **kw)
-    if forest is None:
+    if prepared:
+        out = volume_crossings(volumes, rays, t_min, tables)
+    elif forest is None:
         out = pallas_volume_crossings(vtbl, *rays, **kw)
     else:
         out = pallas_volume_crossings_bcast(vtbl, forest, *rays, **kw)
     return max_errs(ref, out, tuple(range(1, len(ref), 3))), out
+
+
+def general_tables(tables):
+    """``tables`` (``render/volumes.py:volume_tables``) with every launch
+    prepared again for K11's general instantiation."""
+    from .ops.volume_kernel import prepare_volume_launch
+    return dataclasses.replace(tables, launches=tuple(
+        prepare_volume_launch(x.vtbl, x.forest, slices=x.slices,
+                              has_motion=x.has_motion, has_box=x.has_box,
+                              density=x.density, mats=x.mats, general=True)
+        for x in tables.launches))
+
+
+def scatter_draws(n_vol: int, r: int, seed: int, device="cpu"):
+    """[V, R] draws of the media's scatter columns as the bounce draws
+    them (multiples of 2^-16), exactly 0 on every 7th lane."""
+    rg = np.random.default_rng(seed)
+    u = (rg.integers(0, 1 << 16, (n_vol, r)) / 65536.0).astype(np.float32)
+    u[:, ::7] = 0.0
+    return _tensor(u, device)
+
+
+def ulp_diff(a, b) -> int:
+    """The largest distance in float32 units in the last place between
+    ``a`` and ``b`` over the lanes where both are finite (0 if none)."""
+    both = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(both.any()):
+        return 0
+    ia = a[both].view(torch.int32).to(torch.int64)
+    ib = b[both].view(torch.int32).to(torch.int64)
+    # the integers of IEEE floats, made monotonic across the sign
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def compare_medium_hit(volumes, comps, u, t_min: float = 1e-3, tables=None):
+    """``render/volumes.py:medium_hit`` (on CUDA tensors the candidate mode
+    of K11 or K11b, one launch per group of 16 media, over the prepared
+    launches of ``tables``) and its plain version
+    (``volume_candidates_plain`` over every medium) on the rays ``comps``
+    [7, R] with the draws ``u`` [V, R]: ``((lanes whose material id or
+    whether they scatter differ, max abs error of t_med, its largest ulp
+    distance), (t_med, vmat))``."""
+    from .ops.volume_kernel import volume_candidates_plain
+    from .render.volumes import crossing_kw, medium_hit, volume_tables
+    tables = volume_tables(volumes) if tables is None else tables
+    rays = tuple(comps.unbind(0))
+    r = comps.shape[1]
+    ref = volume_candidates_plain(
+        tables.vtbl, *rays, u=u,
+        t_med=torch.full((r,), float("inf"), device=comps.device),
+        vmat=torch.zeros(r, device=comps.device), density=volumes.density,
+        mats=volumes.mat.tolist(), **crossing_kw(volumes, t_min))
+    out = medium_hit(volumes, rays, t_min, u, tables)
+    n_int = int(((ref[1] != out[1])
+                 | (torch.isfinite(ref[0]) != torch.isfinite(out[0])))
+                .sum())
+    _, err, _ = max_errs(ref, out, (1,))
+    return (n_int, err, ulp_diff(ref[0], out[0])), out
 
 
 def image_grad_errs(img_id, j, i, g, ref, out):
@@ -1168,12 +1241,15 @@ def next_split_rays(comps, out, seed: int, depth: int):
 def checked_launches():
     """Inside the block, every kernel A launch of the render drivers,
     every nearest-hit (BVH walk and flat scan), medium crossing (K11,
-    K11b), shade and marble kernel launch of the split path, every kernel
+    K11b, either mode), shade and marble kernel launch of the split path, every kernel
     B launch of the fused step and every atlas-gradient launch of its
-    backward is followed by its plain version on the same inputs.  Yields ``{kernel name: stats}`` with
-    ``launches`` (checked), ``n_int`` (differing exact-row lanes, summed),
-    ``err`` (max abs float error) and ``excess`` (worst tolerance
-    excess; the atlas gradient's is :func:`image_grad_errs`')."""
+    backward is held against its plain version on the same inputs (run
+    first: the candidate mode updates its rows in place).  Yields
+    ``{kernel name: stats}`` with ``launches`` (checked), ``n_int``
+    (differing exact-row lanes, summed), ``err`` (max abs float error)
+    and ``excess`` (worst tolerance excess; the atlas gradient's is
+    :func:`image_grad_errs`', the candidate mode's its ulps over
+    :data:`CAND_ULPS`)."""
     from .diff import fused_iter
     from .ops.allpairs_kernel import allpairs_nearest_plain
     from .ops.bounce_kernel import bounce_plain, shade_plain
@@ -1181,7 +1257,9 @@ def checked_launches():
     from .ops.intersect_kernel import pallas_nearest_plain
     from .ops.iter_kernel import iter_plain
     from .ops.texture_kernel import marble_stripe_plain
-    from .ops.volume_kernel import volume_crossings_plain
+    from .ops.volume_kernel import (
+        volume_candidates_plain, volume_crossings_plain,
+    )
     from .render import integrator, volumes
     from .textures import textures
     stats = {}
@@ -1192,8 +1270,19 @@ def checked_launches():
     def crossings_bcast_plain(vtbl, forest, *rays, **kw):
         return volume_crossings_plain(vtbl, *rays, **kw)
 
+    def candidates_bcast_plain(vtbl, forest, *rays, **kw):
+        return volume_candidates_plain(vtbl, *rays, **kw)
+
     def crossing_check(args, ref, out):
         return max_errs(ref, out, tuple(range(1, len(ref), 3)))
+
+    def candidate_check(args, ref, out):
+        # the material id and whether a lane scatters exact, t_med's max
+        # abs error, and its ulps over CAND_ULPS as the excess
+        n_int, err, _ = max_errs(ref, out, (1,))
+        n_int += int((torch.isfinite(ref[0]) != torch.isfinite(out[0]))
+                     .sum())
+        return n_int, err, ulp_diff(ref[0], out[0]) - CAND_ULPS
 
     def rows(int_rows):
         return lambda args, ref, out: max_errs(ref, out, int_rows)
@@ -1207,8 +1296,11 @@ def checked_launches():
                                 excess=-float("inf"))
 
         def checked(*args, **kw):
+            # the plain version first: the candidate mode updates its
+            # fold rows in place
+            ref = plain(*args, **kw)
             out = kernel(*args, **kw)
-            n_int, err, excess = compare(args, plain(*args, **kw), out)
+            n_int, err, excess = compare(args, ref, out)
             st["launches"] += 1
             st["n_int"] += n_int
             st["err"] = max(st["err"], err)
@@ -1234,7 +1326,11 @@ def checked_launches():
                (volumes, "pallas_volume_crossings", volume_crossings_plain,
                 crossing_check),
                (volumes, "pallas_volume_crossings_bcast",
-                crossings_bcast_plain, crossing_check)]
+                crossings_bcast_plain, crossing_check),
+               (volumes, "pallas_volume_candidates", volume_candidates_plain,
+                candidate_check),
+               (volumes, "pallas_volume_candidates_bcast",
+                candidates_bcast_plain, candidate_check)]
     originals = []
     for module, name, plain, rows in patched:
         kernel, checked = spy(module, name, plain, rows)
@@ -1498,28 +1594,34 @@ def plain_kernels():
     """Inside the block the fused iteration runs the plain versions of
     kernel B (and its mesh variant) forward and of K5 backward, the
     unfused bounce those of kernel A and K7, and the split path those of
-    the crossing kernels K11 and K11b, on any device."""
+    the crossing kernels K11 and K11b (both modes), on any device."""
     from .diff import fused_iter
     from .ops.bounce_kernel import bounce_plain
     from .ops.iter_kernel import iter_plain
-    from .ops.volume_kernel import volume_crossings_plain
+    from .ops.volume_kernel import (
+        volume_candidates_plain, volume_crossings_plain,
+    )
     from .render import integrator, volumes
-    saved = (fused_iter.iter_megakernel, volumes.pallas_volume_crossings,
-             volumes.pallas_volume_crossings_bcast,
-             integrator.bounce_megakernel)
+    names = ("pallas_volume_crossings", "pallas_volume_crossings_bcast",
+             "pallas_volume_candidates", "pallas_volume_candidates_bcast")
+    saved = (fused_iter.iter_megakernel, integrator.bounce_megakernel,
+             *(getattr(volumes, n) for n in names))
     fused_iter.iter_megakernel = iter_plain
     integrator.bounce_megakernel = bounce_plain
-    volumes.pallas_volume_crossings = volume_crossings_plain
-    volumes.pallas_volume_crossings_bcast = \
-        lambda vtbl, forest, *rays, **kw: volume_crossings_plain(
-            vtbl, *rays, **kw)
+    for name, plain in (("pallas_volume_crossings", volume_crossings_plain),
+                        ("pallas_volume_candidates",
+                         volume_candidates_plain)):
+        setattr(volumes, name, plain)
+        setattr(volumes, name + "_bcast",
+                lambda vtbl, forest, *rays, _plain=plain, **kw: _plain(
+                    vtbl, *rays, **kw))
     try:
         with plain_backward():
             yield
     finally:
-        (fused_iter.iter_megakernel, volumes.pallas_volume_crossings,
-         volumes.pallas_volume_crossings_bcast,
-         integrator.bounce_megakernel) = saved
+        fused_iter.iter_megakernel, integrator.bounce_megakernel = saved[:2]
+        for name, fn in zip(names, saved[2:]):
+            setattr(volumes, name, fn)
 
 
 @contextlib.contextmanager

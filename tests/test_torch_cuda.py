@@ -326,8 +326,9 @@ def test_reduced_backward_kernels_match_plain(device, kernel, case):
 @pytest.mark.parametrize("rotated", [False, True])
 def test_many_media_render_launches_match_plain(device, rotated):
     """17 media: the crossing kernel (K11, or K11b for the 102-row
-    boundary of rotated boxes) launches once per group of at most 16
-    media (two a bounce), each launch equal to its plain version."""
+    boundary of rotated boxes) launches in the candidate mode once per
+    group of at most 16 media (two a bounce), each launch equal to its
+    plain version (t_med within ``CAND_ULPS``)."""
     import raytrace_tpu_torch as rt
     from raytrace_tpu_torch.render.render import render_accumulate
     scene = rt.compile_scene(many_media_world(rt, 17, rotated),
@@ -336,10 +337,10 @@ def test_many_media_render_launches_match_plain(device, rotated):
     assert scene.volumes.n_volumes == 17
     with checked_launches() as stats:
         acc, _ = render_accumulate(scene, s, 0, spp=2)
-    st = stats["pallas_volume_crossings_bcast" if rotated
-               else "pallas_volume_crossings"]
+    st = stats["pallas_volume_candidates_bcast" if rotated
+               else "pallas_volume_candidates"]
     assert st["launches"] == 2 * stats["pallas_nearest_record"]["launches"]
-    assert st["n_int"] == 0 and st["err"] == 0.0
+    assert st["n_int"] == 0 and st["excess"] <= 0
     assert bool(torch.isfinite(acc).all())
 
 
@@ -626,12 +627,101 @@ def test_crossing_kernels_match_plain(device, case):
     assert k1[0] - k0[0] == (0 if bcast else len(rays))
 
 
+@pytest.mark.parametrize("case", ["cornell_smoke", "ball_box",
+                                  "ball_box_moving", "pawn", "mixed"])
+def test_crossing_instantiations_and_candidate_mode_match_plain(device,
+                                                                case):
+    """K11's planar instantiation (cornell_smoke's unmoving boxes) and its
+    general one, prepared as the route prepares them, in the crossings
+    mode equal to the plain version on every lane; the candidate mode of
+    K11 (both instantiations) and of K11b (the pawn, the four mixed
+    media) against its plain version: material id and scattering equal
+    on every lane, t_med within ``CAND_ULPS``."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.render.volumes import volume_tables
+    from raytrace_tpu_torch.testing import (
+        CAND_ULPS, compare_medium_hit, general_tables, scatter_draws,
+    )
+    if case == "cornell_smoke":
+        scene, s = cornell_smoke_scene(128, 1, 10, device=device)
+        rays = [c for c, _ in media_bounce_rays(scene, s, 3)]
+    elif case == "pawn":
+        scene, s = pawn_standin_scene(128, 1, 20, device=device)
+        rays = [c for c, _ in media_bounce_rays(scene, s, 3)]
+        rays.append(pawn_inside_rays(1 << 14, 4, device=device))
+    elif case == "mixed":
+        scene = rt.compile_scene(mixed_media_world(rt), device=device)
+        rays = [volume_rays(1 << 14, 5, (-6.0, 6.0), MIXED_MEDIA_INSIDE,
+                            device=device)]
+    else:
+        scene = rt.compile_scene(volume_test_world(rt, case.endswith(
+            "moving")), device=device)
+        rays = [volume_rays(1 << 14, 5, (-6.0, 6.0), ([0.0, 0.0, -3.0],
+                                                      [3.2, 0.0, -3.5]),
+                            device=device)]
+    tables = volume_tables(scene.volumes)
+    assert [x.planar for x in tables.launches] == [case == "cornell_smoke"]
+    variants = [tables]
+    if tables.forest is None:
+        variants.append(general_tables(tables))
+    for k, comps in enumerate(rays):
+        u = scatter_draws(scene.volumes.n_volumes, comps.shape[1], 6 + k,
+                          device=device)
+        for tb in variants:
+            if tb.forest is None:
+                (n_int, err, _), _ = compare_crossings(
+                    scene.volumes, comps, tables=tb, prepared=True)
+                assert n_int == 0 and err == 0.0
+            (n_int, _, ulps), out = compare_medium_hit(scene.volumes, comps,
+                                                       u, tables=tb)
+            assert n_int == 0 and ulps <= CAND_ULPS
+            assert bool(torch.isfinite(out[0]).any())
+
+
+def test_k11_stages_a_table_past_48_kb(device):
+    """K11 takes any boundary table up to ``MAX_STAGED_ROWS`` rows, not
+    only those the routes give it (under 64): on the 1,266 rows of
+    ``testing.mixed_media_world`` (182,304 bytes of shared memory, past
+    the 48 KB a launch gets without opting in) both modes equal the plain
+    version."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_candidates, pallas_volume_crossings,
+        volume_candidates_plain, volume_crossings_plain,
+    )
+    from raytrace_tpu_torch.render.volumes import crossing_kw
+    from raytrace_tpu_torch.ops.intersect_kernel import pack_prims
+    from raytrace_tpu_torch.testing import (
+        max_errs, scatter_draws, ulp_diff,
+    )
+    vol = rt.compile_scene(mixed_media_world(rt), device=device).volumes
+    vtbl = pack_prims(vol.prims).contiguous()
+    assert vtbl.shape[0] * 36 * 4 > 48 * 1024
+    comps = volume_rays(1 << 14, 7, (-6.0, 6.0), MIXED_MEDIA_INSIDE,
+                        device=device)
+    rays = tuple(comps.unbind(0))
+    kw = crossing_kw(vol, 1e-3)
+    ref = volume_crossings_plain(vtbl, *rays, **kw)
+    out = pallas_volume_crossings(vtbl, *rays, **kw)
+    n_int, err, _ = max_errs(ref, out, tuple(range(1, len(ref), 3)))
+    assert n_int == 0 and err == 0.0
+    u = scatter_draws(vol.n_volumes, comps.shape[1], 8, device=device)
+    cand = dict(u=u, t_med=None, vmat=None, density=vol.density,
+                mats=vol.mat.tolist(), **kw)
+    ref = volume_candidates_plain(vtbl, *rays, **cand)
+    out = pallas_volume_candidates(vtbl, *rays, **cand)
+    assert torch.equal(ref[1], out[1])
+    assert torch.equal(torch.isfinite(ref[0]), torch.isfinite(out[0]))
+    assert ulp_diff(ref[0], out[0]) == 0
+
+
 def test_media_render_launches_kernels(device):
-    """cornell_smoke renders through K8, K11 and the shade kernel, never
-    kernels A or B (at 1 spp neither: the fused branch refuses media); the
-    pawn stand-in through the sorted driver with K9, K11b and the shade
-    kernel; at 1 spp every launch equals its plain version, and
-    cornell_smoke's image under ``plain_kernels`` equals the kernels'."""
+    """cornell_smoke renders through K8, K11 (planar, in the candidate
+    mode) and the shade kernel, never kernels A or B (at 1 spp neither:
+    the fused branch refuses media); the pawn stand-in through the sorted
+    driver with K9, K11b (candidate mode) and the shade kernel; at 1 spp
+    every launch equals its plain version, and cornell_smoke's image under
+    ``plain_kernels`` equals the kernels'."""
     from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
     from raytrace_tpu_torch.ops.bounce_kernel import (
         bounce_megakernel, shade_megakernel,
@@ -651,21 +741,28 @@ def test_media_render_launches_kernels(device):
             (smoke, s, 4, 2, 5), (smoke, s, 1, 2, 5),
             (pawn, s_p, 2, 3, 6)):
         before = [k.launches for k in c]
+        modes = (pallas_volume_crossings.planar_launches,
+                 c[cross].candidate_launches)
         acc, _ = render_accumulate(scene, settings, 0, spp=spp)
         n = [k.launches - b for k, b in zip(c, before)]
+        planar = pallas_volume_crossings.planar_launches - modes[0]
+        cand = c[cross].candidate_launches - modes[1]
         assert n[0] == n[1] == 0 and n[near] > 0
-        assert n[4] == n[near] == n[cross], n
+        assert n[4] == n[near] == n[cross] == cand, n
+        assert planar == (n[cross] if scene is smoke else 0)
         assert bool(torch.isfinite(acc).all())
     for scene, settings, names in (
-            (smoke, s, ("pallas_nearest_record", "pallas_volume_crossings")),
+            (smoke, s, ("pallas_nearest_record", "pallas_volume_candidates")),
             (pawn, s_p, ("allpairs_nearest_record",
-                         "pallas_volume_crossings_bcast"))):
+                         "pallas_volume_candidates_bcast"))):
         with checked_launches() as stats:
             render_accumulate(scene, settings, 0, spp=1)
         for name in names + ("shade_megakernel",):
             st = stats[name]
-            assert st["launches"] > 0 and st["n_int"] == 0 \
-                and st["err"] == 0.0, (name, st)
+            exact = st["excess"] <= 0 if "candidates" in name \
+                else st["err"] == 0.0
+            assert st["launches"] > 0 and st["n_int"] == 0 and exact, \
+                (name, st)
     # with K11's plain version the stationary driver's image is the same
     acc, _ = render_accumulate(smoke, s, 0, spp=1)
     before = pallas_volume_crossings.launches

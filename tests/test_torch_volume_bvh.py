@@ -139,7 +139,7 @@ def test_seventeen_media_launch_in_two_groups(monkeypatch):
     vol = rt.compile_scene(world, device="cpu").volumes
     assert rv.uses_bcast(vol) and vol.n_volumes == 17
     tables = rv.volume_tables(vol)
-    forest = tables[1]
+    forest = tables.forest
     calls = []
     real = rv.pallas_volume_crossings_bcast
 
@@ -160,7 +160,7 @@ def test_seventeen_media_launch_in_two_groups(monkeypatch):
                                    _walk(forest, root)])
             np.testing.assert_array_equal(np.sort(rows),
                                           np.arange(start, start + count))
-    ref = tvk.volume_crossings_plain(tables[0], *rays.unbind(0),
+    ref = tvk.volume_crossings_plain(tables.vtbl, *rays.unbind(0),
                                      **rv.crossing_kw(vol, 1e-3))
     assert len(outs) == 3 * 17
     for a, b in zip(ref, outs):

@@ -22,16 +22,25 @@
   other there; the plain version follows their fold (row order, the
   entering root first, strict ``<``), not the XLA scan's.
 * The CUDA source built for the host with g++ (``testing.host_library``):
-  K11 one thread per ray, and K11b's forest walk on its persistent grid,
-  3 blocks of 32 host threads striding over the rays, as
-  ``tests/test_torch_bvh_host.py`` runs K9 (the triangle-only
+  K11 in blocks of 32 host threads of two rays each that stage the table
+  and meet at the barrier (5 rays short of a whole block), and K11b's
+  forest walk on its
+  persistent grid, 3 blocks of 32 host threads striding over the rays,
+  as ``tests/test_torch_bvh_host.py`` runs K9 (the triangle-only
   instantiation on the pawn and the octahedron, the general one
   elsewhere; with and without its counts); both against the plain
   version on the same scenes and on cornell_smoke's camera rays and their
   second bounce: flags equal, every crossing equal on all but at most 1%
   of lanes and there within 1e-5 relative (torch's CPU ``sqrt`` can round
   a sphere root the other way next to a midpoint; the smoke holds the
-  kernels on the card to equality).  The walk's work: the pawn stand-in's
+  kernels on the card to equality).  The candidate mode of both, from a
+  fold state an earlier group could have left, against
+  ``volume_candidates_plain``: the material id and which lanes scatter
+  equal on every lane, ``t_med`` under the crossings' tolerance (the
+  host's ``logf`` and torch's CPU ``log`` may round a flight apart; on
+  the card the smoke holds it to ``testing.CAND_ULPS``).  K11's planar
+  instantiation, which cornell_smoke's boundary prepares, gives the
+  general one's bits in both modes.  The walk's work: the pawn stand-in's
   camera rays make on average at most 12 box tests and 4 row tests (its
   256-row chunks tested 209 rows a ray).
 """
@@ -198,7 +207,7 @@ def test_plain_crossings_match_jax_kernels(name):
 
 def test_cpu_wrappers_run_the_plain_version():
     ts, _, rays = _case("octahedron", 256, 5)
-    vtbl, _ = volume_tables(ts.volumes)
+    vtbl = volume_tables(ts.volumes).vtbl
     kw = crossing_kw(ts.volumes, T_MIN)
     forest = tvk.pack_volume_bvh(ts.volumes.prims, vtbl, kw["slices"])
     n0 = (tvk.pallas_volume_crossings.launches,
@@ -214,29 +223,25 @@ def test_cpu_wrappers_run_the_plain_version():
 
 
 _RUN = r"""
-// K11 one thread per ray; K11b's persistent grid as 3 blocks of 32 host
-// threads striding over the rays.
+// K11 in blocks of 32 host threads (kRays rays each), staging the table
+// and meeting at the barrier; K11b's persistent grid as 3 blocks of 32
+// host threads striding over the rays.  Each runs the instantiation the
+// launcher would (scan_kernel, with_walk).
 extern "C" int run_vol(const VolArgs* a, int walk) {
+  if (!mode_args_ok(a)) return 1;
   if (walk) {
-    rt_host_launch(3, 32, [&] {
-      const bool count = a->visits != nullptr;
-      if (a->tri_only && count)
-        volume_bvh_kernel<true, true>(*a);
-      else if (a->tri_only)
-        volume_bvh_kernel<true, false>(*a);
-      else if (count)
-        volume_bvh_kernel<false, true>(*a);
-      else
-        volume_bvh_kernel<false, false>(*a);
+    with_walk(*a, [&](auto tri, auto count, auto cand) {
+      rt_host_launch(3, 32, [&] {
+        volume_bvh_kernel<decltype(tri)::value, decltype(count)::value,
+                          decltype(cand)::value>(*a);
+      });
+      return 0;
     });
     return 0;
   }
-  blockDim.x = 1;
-  threadIdx.x = 0;
-  for (long long l = 0; l < a->n_lanes; ++l) {
-    blockIdx.x = static_cast<unsigned>(l);
-    volume_crossings_kernel(*a);
-  }
+  const long long per_block = 32 * kRays;
+  rt_host_launch(static_cast<int>((a->n_lanes + per_block - 1) / per_block),
+                 32, [&] { scan_kernel(*a)(*a); });
   return 0;
 }
 """
@@ -252,24 +257,42 @@ def host_vol(tmp_path_factory):
     return lib
 
 
+def _host_args(volumes, rays, walk, tables, prepared, out, visits, cand):
+    """The host build's argument struct, its table part prepared
+    (``prepared``: K11's planar instantiation where it serves the table)
+    or not; and the prepared launch and the tables, which must outlive
+    the struct."""
+    tables = volume_tables(volumes) if tables is None else tables
+    vtbl, forest = tables.vtbl, tables.forest
+    slices = tuple(zip(volumes.starts, volumes.counts))
+    if walk and forest is None:
+        forest = tvk.pack_volume_bvh(volumes.prims, vtbl, slices)
+    kw = crossing_kw(volumes, T_MIN)
+    forest = forest if walk else None
+    launch = None
+    if prepared:
+        launch = tvk.prepare_volume_launch(
+            vtbl, forest, slices=slices, has_motion=kw["has_motion"],
+            has_box=kw["has_box"], density=None if cand is None else cand[3],
+            mats=() if cand is None else cand[4])
+    args = tvk.vol_args(vtbl, forest, rays, out, visits, prepared=launch,
+                        cand=cand, **kw)
+    return args, (launch, vtbl, forest)
+
+
 def _host_crossings(lib, volumes, rays, walk: bool, tables=None,
-                    count: bool = True):
+                    count: bool = True, prepared: bool = False):
     """The host build's crossings of K11 or (``walk``) K11b, and K11b's
     box tests and row tests per ray [2, R] (with ``count``, else
     zeros)."""
-    vtbl, forest = volume_tables(volumes) if tables is None else tables
-    if walk and forest is None:
-        forest = tvk.pack_volume_bvh(volumes.prims, vtbl,
-                                     tuple(zip(volumes.starts,
-                                               volumes.counts)))
-    kw = crossing_kw(volumes, T_MIN)
     r = rays.shape[1]
     rays = [x.contiguous() for x in rays.unbind(0)]
     out = torch.empty((3 * volumes.n_volumes, r))
     visits = torch.zeros((2, r), dtype=torch.int32)
-    args = tvk.vol_args(vtbl, forest if walk else None, rays, out,
-                        visits if count else None, **kw)
-    lib.run_vol(ctypes.byref(args), int(walk))
+    args, keep = _host_args(volumes, rays, walk, tables, prepared, out,
+                            visits if count else None, None)
+    assert lib.run_vol(ctypes.byref(args), int(walk)) == 0
+    del keep
     return list(out.unbind(0)), visits
 
 
@@ -280,27 +303,42 @@ def _cornell_smoke_rays():
     return sc, torch.cat(rays, 1)
 
 
-@pytest.mark.parametrize("name", sorted(CASES) + ["cornell_smoke"])
-def test_host_build_of_crossing_kernels_matches_plain(host_vol, name):
+def _assert_host_close(ref, out, exact, label):
+    """This file's tolerance for a host build against the plain version:
+    the rows ``exact`` equal on every lane, the others equal on all but at
+    most 1% of lanes and there within 1e-5 relative."""
+    differ = torch.zeros(ref[0].shape[0], dtype=torch.bool)
+    for k, (a, b) in enumerate(zip(ref, out)):
+        if k in exact:
+            assert torch.equal(a, b), (label, k, int((a != b).sum()))
+        else:
+            close = (a == b) | (torch.abs(a - b) <= 1e-5 * torch.abs(a))
+            assert bool(close.all()), (label, k, int((~close).sum()))
+            differ |= a != b
+    assert float(differ.float().mean()) <= 0.01, label
+
+
+def _case_rays(name):
+    """A scene and rays of ``name``, 5 lanes short of a whole block so that
+    K11's last block has rays past the end."""
     if name == "cornell_smoke":
         ts, rays = _cornell_smoke_rays()
     else:
         ts, _, rays = _case(name, 1024, 11)
+    return ts, rays[:, :-5]
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["cornell_smoke"])
+def test_host_build_of_crossing_kernels_matches_plain(host_vol, name):
+    ts, rays = _case_rays(name)
     vol = ts.volumes
-    vtbl, _ = volume_tables(vol)
+    vtbl = volume_tables(vol).vtbl
     ref = tvk.volume_crossings_plain(vtbl, *rays,
                                      **crossing_kw(vol, T_MIN))
+    fronts = tuple(range(1, len(ref), 3))
     for walk in (False, True):
         out, visits = _host_crossings(host_vol, vol, rays, walk)
-        differ = torch.zeros(rays.shape[1], dtype=torch.bool)
-        for k, (a, b) in enumerate(zip(ref, out)):
-            if k % 3 == 1:
-                assert torch.equal(a, b), (walk, k, int((a != b).sum()))
-            else:
-                close = (a == b) | (torch.abs(a - b) <= 1e-5 * torch.abs(a))
-                assert bool(close.all()), (walk, k, int((~close).sum()))
-                differ |= a != b
-        assert float(differ.float().mean()) <= 0.01, (walk, name)
+        _assert_host_close(ref, out, fronts, (walk, name))
         if walk:
             # the instantiation without counts (the routes') gives the same
             uncounted, _ = _host_crossings(host_vol, vol, rays, True,
@@ -315,6 +353,102 @@ def test_host_build_of_crossing_kernels_matches_plain(host_vol, name):
                 assert float(visits[1].float().mean()) < 0.1 * rows
 
 
+def _fold_inputs(volumes, r: int, seed: int):
+    """Draws ``u`` [V, R] (pair16 values, 0 on every 7th lane, which never
+    scatters) and a fold state ``(t_med, vmat)`` that an earlier group
+    could have left: a candidate at 0.5-6 on a third of the lanes, +inf
+    and material 0 elsewhere."""
+    rg = np.random.default_rng(seed)
+    nv = volumes.n_volumes
+    u = (rg.integers(0, 1 << 16, (nv, r)) / 65536.0).astype(np.float32)
+    u[:, ::7] = 0.0
+    near = rg.uniform(size=r) < 1 / 3
+    t_med = np.where(near, rg.uniform(0.5, 6.0, r), np.inf)
+    vmat = np.where(near, rg.integers(0, 9, r), 0)
+    return (torch.from_numpy(u), torch.from_numpy(t_med.astype(np.float32)),
+            torch.from_numpy(vmat.astype(np.float32)))
+
+
+def _host_candidates(lib, volumes, rays, walk: bool, u, t_med, vmat,
+                     prepared: bool = False, fresh: bool = False):
+    """The host build's candidate mode of K11 or (``walk``) K11b: the fold
+    ``(t_med, vmat)`` after every medium, on copies of the given rows
+    (with ``fresh``, rows of NaN that the fold must not read)."""
+    rays = [x.contiguous() for x in rays.unbind(0)]
+    t_med, vmat = t_med.clone(), vmat.clone()
+    if fresh:
+        t_med.fill_(float("nan"))
+        vmat.fill_(float("nan"))
+    mats = tuple(float(m) for m in volumes.mat.tolist())
+    args, keep = _host_args(volumes, rays, walk, None, prepared, None, None,
+                            (u, t_med, vmat, volumes.density, mats, fresh))
+    assert args.cand == (2 if fresh else 1)
+    assert lib.run_vol(ctypes.byref(args), int(walk)) == 0
+    del keep
+    return t_med, vmat
+
+
+def _plain_candidates(volumes, rays, u, t_med, vmat):
+    return tvk.volume_candidates_plain(
+        volume_tables(volumes).vtbl, *rays, u=u, t_med=t_med, vmat=vmat,
+        density=volumes.density, mats=volumes.mat.tolist(),
+        **crossing_kw(volumes, T_MIN))
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["cornell_smoke"])
+def test_host_build_candidate_mode_matches_plain(host_vol, name):
+    """The candidate mode of K11 and of K11b against
+    ``volume_candidates_plain`` from a fold state an earlier group left,
+    and from none (the first group's launch): the material id and which
+    lanes have a candidate equal on every lane, ``t_med`` as this file's
+    crossings (the host's ``logf`` and torch's ``log`` may round a draw's
+    flight apart as ``sqrt`` does a root)."""
+    ts, rays = _case_rays(name)
+    vol = ts.volumes
+    u, t0, m0 = _fold_inputs(vol, rays.shape[1], 12)
+    ref = _plain_candidates(vol, rays, u, t0, m0)
+    assert torch.isfinite(ref[0]).sum() > torch.isfinite(t0).sum()
+    assert bool((ref[1] != m0).any())          # the media win lanes
+    fresh_ref = _plain_candidates(vol, rays, u, None, None)
+    for walk in (False, True):
+        out = _host_candidates(host_vol, vol, rays, walk, u, t0, m0)
+        assert torch.equal(torch.isfinite(out[0]), torch.isfinite(ref[0]))
+        _assert_host_close(ref, out, (1,), (walk, name))
+        # the first group's launch starts the fold without reading it
+        out = _host_candidates(host_vol, vol, rays, walk, u, t0, m0,
+                               fresh=True)
+        _assert_host_close(fresh_ref, out, (1,), (walk, name, "fresh"))
+
+
+def test_host_build_planar_instantiation_on_cornell_smoke(host_vol):
+    """cornell_smoke's 12 boundary rows (two boxes of 6 unmoving
+    parallelograms) prepare K11's planar instantiation; on its camera rays
+    and their second bounce it gives the general one's bits in both modes,
+    and the plain version's within this file's tolerance."""
+    ts, rays = _case_rays("cornell_smoke")
+    vol = ts.volumes
+    tables = volume_tables(vol)
+    assert [x.planar for x in tables.launches] == [True]
+    assert tables.launches[0].forest is None
+    general = _host_crossings(host_vol, vol, rays, False)[0]
+    ref = tvk.volume_crossings_plain(tables.vtbl, *rays,
+                                     **crossing_kw(vol, T_MIN))
+    u, t0, m0 = _fold_inputs(vol, rays.shape[1], 13)
+    t0 = torch.full_like(t0, float("inf"))      # the route's first group
+    m0 = torch.zeros_like(m0)
+    cand_general = _host_candidates(host_vol, vol, rays, False, u, t0, m0,
+                                    fresh=True)
+    cand_ref = _plain_candidates(vol, rays, u, t0, m0)
+    assert int(torch.isfinite(cand_ref[0]).sum()) > 20
+    planar = _host_crossings(host_vol, vol, rays, False, prepared=True)[0]
+    assert all(torch.equal(a, b) for a, b in zip(planar, general))
+    _assert_host_close(ref, planar, (1, 4), "planar")
+    cand = _host_candidates(host_vol, vol, rays, False, u, t0, m0,
+                            prepared=True, fresh=True)
+    assert all(torch.equal(a, b) for a, b in zip(cand, cand_general))
+    _assert_host_close(cand_ref, cand, (1,), "planar candidates")
+
+
 def test_pawn_camera_rays_walk_little(host_vol):
     """The pawn stand-in's camera rays at 500 x 500 (2^14 of them, spread
     over the image as chip_smoke.py spreads its 2^17) make on average at
@@ -324,7 +458,7 @@ def test_pawn_camera_rays_walk_little(host_vol):
     cam, _ = camera_rays(scene, s, 1 << 14, 82)
     vol = scene.volumes
     out, visits = _host_crossings(host_vol, vol, cam, True)
-    ref = tvk.volume_crossings_plain(volume_tables(vol)[0], *cam,
+    ref = tvk.volume_crossings_plain(volume_tables(vol).vtbl, *cam,
                                      **crossing_kw(vol, T_MIN))
     assert torch.equal(out[1], ref[1])
     assert int(torch.isfinite(out[0]).sum()) > 2000

@@ -9,7 +9,11 @@
 * The scatter candidates (``render/volumes.py``) against the JAX
   package's ``volume_candidates_pallas`` (kernels in interpret mode),
   with draws of exactly 0 on some lanes, which never scatter: the
-  candidate's validity equal on every lane, t within rtol/atol 1e-5.
+  candidate's validity equal on every lane, t within rtol/atol 1e-5; the
+  bounce's nearest medium (``medium_hit``) against JAX's candidates
+  folded by a strict ``<``: the material id too equal on every lane.
+* The prepared launches of ``volume_tables``: K11's planar
+  instantiation chosen for planar boundaries only, and refused tables.
 * The bounce's uniform columns with one and two media equal JAX's
   ``uniform_block(keys, 8 + V + 6)`` bit for bit.
 * cornell_smoke rendered by both packages at seed 0, depth 10, 8 spp:
@@ -168,6 +172,105 @@ def test_candidates_match_jax(name):
     assert not np.isfinite(tt[::7]).any()      # a 0 draw never scatters
 
 
+@pytest.mark.parametrize("name", sorted(INSIDE))
+def test_medium_hit_matches_jax(name):
+    """``medium_hit`` (the bounce's nearest medium: on the CPU the plain
+    crossings, each medium's candidate and the fold) against the JAX
+    package's ``volume_candidates_pallas`` (kernels in interpret mode)
+    folded in medium order by a strict ``<``, from rays outside and
+    inside the media, with draws of exactly 0: which lanes scatter and
+    the medium's material id equal on every lane, the distance within
+    rtol/atol 1e-5.  ``many_media_rotated``'s 17 media fold across two
+    groups (16, then 1)."""
+    from raytrace_tpu_torch.render.volumes import medium_hit, volume_tables
+    n = 512
+    ts = trt.compile_scene(WORLDS[name](trt), device="cpu")
+    js = jrt.compile_scene(WORLDS[name](jrt))
+    nv = ts.volumes.n_volumes
+    rays = volume_rays(n, 31, (-3.0, 3.0) if name == "octahedron"
+                       else (-6.0, 6.0), INSIDE[name])
+    rg = np.random.default_rng(32)
+    u = (rg.integers(0, 1 << 16, (n, nv)) / 65536.0).astype(np.float32)
+    u[::5] = 0.0
+    o, d, tm = (x.numpy() for x in (rays[0:3], rays[3:6], rays[6]))
+    jt, _ = volume_candidates_pallas(
+        js.volumes, jnp.asarray(o.T), jnp.asarray(d.T), jnp.asarray(tm),
+        jnp.full((n,), 1e-3, jnp.float32), jnp.asarray(u), 1e-3,
+        interpret=True)
+    jt = np.asarray(jt)
+    j_t = np.full(n, np.inf, np.float32)
+    j_m = np.zeros(n, np.float32)
+    for v, mat in enumerate(np.asarray(js.volumes.mat)):
+        better = jt[:, v] < j_t
+        j_t = np.where(better, jt[:, v], j_t)
+        j_m = np.where(better, np.float32(mat), j_m)
+    tables = volume_tables(ts.volumes)
+    assert len(tables.launches) == -(-nv // 16)
+    t_med, vmat = medium_hit(ts.volumes, tuple(rays.unbind(0)),
+                             float(np.float32(1e-3)),
+                             torch.from_numpy(u.T.copy()), tables)
+    t_med, vmat = t_med.numpy(), vmat.numpy()
+    np.testing.assert_array_equal(np.isfinite(t_med), np.isfinite(j_t))
+    np.testing.assert_array_equal(vmat, j_m)
+    np.testing.assert_allclose(t_med, j_t, rtol=1e-5, atol=1e-5)
+    assert np.isfinite(t_med).sum() > 20
+    assert not np.isfinite(t_med[::5]).any()     # 0 draws never scatter
+    if nv > 1:
+        assert len(np.unique(vmat[np.isfinite(t_med)])) > 1
+
+
+@pytest.mark.parametrize("name", sorted(WORLDS))
+def test_prepared_launches_choose_and_refuse(name):
+    """``volume_tables`` prepares one launch per group of 16 media: K11's
+    planar instantiation exactly for boundaries of unmoving
+    parallelograms and triangles (cornell_smoke's boxes, the octahedron),
+    K11b's forest for 64+ rows; a prepared launch refuses other tables,
+    slices, flags or densities, and ``prepare_volume_launch`` refuses
+    what the kernels cannot run."""
+    from raytrace_tpu_torch.ops import volume_kernel as tvk
+    from raytrace_tpu_torch.render.volumes import (
+        crossing_kw, uses_bcast, volume_tables,
+    )
+    vol = trt.compile_scene(WORLDS[name](trt), device="cpu").volumes
+    tables = volume_tables(vol)
+    vtbl, forest = tables.vtbl, tables.forest
+    planar = name in ("cornell_smoke", "octahedron")
+    assert [x.planar for x in tables.launches] == \
+        [planar] * len(tables.launches)
+    assert (forest is not None) == uses_bcast(vol)
+    kw = crossing_kw(vol, 1e-3)
+    launch = tables.launches[0]
+    g_kw = dict(kw, slices=launch.slices)
+    g_forest = launch.forest
+    assert tvk.table_args(vtbl, g_forest, g_kw, launch.density, launch.mats,
+                          launch) is launch.args
+    assert launch.args.planar == int(planar)
+    assert launch.args.n_tbl == vtbl.shape[0]
+    with pytest.raises(ValueError, match="prepared"):
+        tvk.table_args(vtbl.clone(), g_forest, g_kw, prepared=launch)
+    with pytest.raises(ValueError, match="prepared"):
+        tvk.table_args(vtbl, g_forest, dict(g_kw, slices=launch.slices[:1]
+                                            + ((0, 1),)), prepared=launch)
+    with pytest.raises(ValueError, match="prepared"):
+        tvk.table_args(vtbl, g_forest, dict(g_kw, has_motion=not
+                                            g_kw["has_motion"]),
+                       prepared=launch)
+    with pytest.raises(ValueError, match="prepared"):
+        tvk.table_args(vtbl, g_forest, g_kw, launch.density.clone(),
+                       launch.mats, prepared=launch)
+    prep = dict(slices=launch.slices, has_motion=kw["has_motion"],
+                has_box=kw["has_box"])
+    if forest is None:
+        assert not tvk.prepare_volume_launch(vtbl, **prep,
+                                             general=True).planar
+    with pytest.raises(ValueError, match="material ids"):
+        tvk.prepare_volume_launch(vtbl, g_forest, **prep,
+                                  density=launch.density, mats=())
+    big = vtbl.new_zeros((tvk.MAX_STAGED_ROWS + 1, vtbl.shape[1]))
+    with pytest.raises(ValueError, match="stages at most"):
+        tvk.prepare_volume_launch(big, **prep)
+
+
 @pytest.mark.parametrize("nv", [1, 2])
 def test_uniform_columns_with_media(nv):
     world = volume_test_world if nv == 2 else media_only_world
@@ -216,9 +319,10 @@ def test_cornell_smoke_render_matches_jax(width):
 
 def test_many_media_render_matches_jax(monkeypatch):
     """17 media (more than one launch of the crossing kernels takes):
-    the port launches K11 once per group of at most 16 media, two a
-    bounce, and the render (32 x 32, 8 spp, depth 10, the work queue)
-    agrees with the JAX package's, whose forward takes any count."""
+    the port launches K11's candidate mode once per group of at most 16
+    media, two a bounce, and the render (32 x 32, 8 spp, depth 10, the
+    work queue) agrees with the JAX package's, whose forward takes any
+    count."""
     from raytrace_tpu_torch.render import volumes
     js = jrt.compile_scene(many_media_world(jrt))
     assert js.volumes.n_volumes == 17
@@ -228,12 +332,12 @@ def test_many_media_render_matches_jax(monkeypatch):
     d["background"] = "sky"
     tset = settings_from_numpy(d)
     groups = []
-    k11 = volumes.pallas_volume_crossings
+    k11 = volumes.pallas_volume_candidates
 
     def spy(*a, **kw):
         groups.append(len(kw["slices"]))
         return k11(*a, **kw)
-    monkeypatch.setattr(volumes, "pallas_volume_crossings", spy)
+    monkeypatch.setattr(volumes, "pallas_volume_candidates", spy)
     jacc, jn = jrender(js, jset, 0, spp=8)
     tacc, tn = trender(ts, tset, 0, spp=8)
     assert tn == jn == 8
