@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's render paths once on one GPU: the
-forward render and the differentiable forward + backward (fused and
-unfused), on the Cornell box, on a mesh of the Stanford bunny's size, on
-rich-textured scenes and on scenes with constant-density media.
+forward render and the differentiable forward + backward (fused, unfused
+and through the generic bounce), on the Cornell box, on a mesh of the
+Stanford bunny's size, on rich-textured scenes and on scenes with
+constant-density media, and the bounded-depth ``grad_render``.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -209,6 +210,56 @@ the replay backward K7 in every iteration) and F8's media groups:
     held against its plain version;
 34. K7's times at 2^18 lanes, as K5's in phase 12.
 
+The generic bounce (``integrator.bounce_generic_soa``: the forward of the
+scenes kernel A and the split path refuse, the differentiable route of
+media and of every scene the fused step and kernel A refuse) and the
+bounded-depth path (``trace``, ``render_tile``, ``grad_render``):
+
+35. the keyed mode of the crossing kernels (the crossings and, per
+    medium, the keys of the candidates they came from, which the
+    differentiable backward reads) against its plain version on every
+    lane: K11 planar and general on cornell_smoke's 360,064 camera rays,
+    K11 on phase 24's 2^16 random rays through the fog ball and smoke box,
+    still and moving, and K11b on 2^17 camera rays of the pawn stand-in
+    and 2^17 rays from inside its medium: flags and keys equal on every
+    lane, crossings max |err| 0 and equal to the crossings mode's; then
+    the keyed mode's device and host times beside the crossings mode's,
+    in turns, its plain version's and its bound;
+36. the media fwd+bwd at full size (``testing.SMOKE_FWD_BWD``:
+    ``loss_and_grads`` on cornell_smoke at 600 x 600, depth 50, RR from
+    depth 2, 2^18 lanes x 16 spp, remat, 100 iterations then 40 at 2^14
+    and 100 at 2^12 lanes) after one warm-up: wall, primary rays/s,
+    samples completed (>= 0.999), device time, device ops an iteration,
+    peak memory, launches (K8 and the keyed K11, none of kernels A, B or
+    the shade kernel), finite gradients and a non-zero density gradient;
+    at 2^14 lanes x 4 spp every K8 and keyed K11 launch against its plain
+    version (0 lanes differing, max |err| 0), and the run against the one
+    with every plain version (``testing.plain_kernels``: the loss within
+    1e-6 relative, each gradient leaf within ``GRAD_RTOL`` in the L2
+    norm: the backward's index adds are atomics);
+37. the mesh-boundary media fwd+bwd (``testing.PAWN_FWD_BWD``: the pawn
+    stand-in at 500 x 500, depth 20, 2^17 lanes x 4 spp): K9 and the
+    keyed K11b, finite gradients, and every launch of a 2^13-lane run
+    against its plain version;
+38. the generic route on the Cornell box (``use_mega=False``) against the
+    fused route, the same seed, 2^16 lanes x 8 spp, 70 iterations: the
+    loss within 1e-3 and every gradient leaf within 5% in the L2 norm
+    (the same estimator; a path that resolves a hit differently moves a
+    leaf), K8 launched and kernels A and B never;
+39. the generic forward: ``testing.marble_light_scene`` (a light with a
+    marble texture: K8 and K12) and ``testing.nine_target_scene``
+    (cornell_smoke with nine redirect targets: K8 and K11's candidate
+    mode) at 400 x 400, 16 spp, depth 50, written to
+    chiprun_out/marble_light.png and nine_targets.png, each with a
+    checked 64 x 64 render at 2 spp (every launch against its plain
+    version);
+40. ``grad_render`` on cornell_smoke at 600 x 600, depth 50, over a tile
+    of 2^16 pixels x 4 samples (``testing.SMOKE_GRAD_RENDER``): wall,
+    peak memory, finite gradients; and the JAX package's fog-sphere
+    density check (``tests/test_gradients.py:393-418``) on the card:
+    the score-function gradient averaged over 4 seeds against a central
+    difference at +-0.15 over 6 seeds, both below -0.05, rtol 0.35.
+
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
 chiprun_out/.  Tolerances (``raytrace_tpu_torch/testing.py``): exact rows
@@ -277,6 +328,14 @@ VOL_BOX_OPS = 20
 # scan that K11b's forest walk replaced, as that kernel counted them on an
 # NVIDIA H100 (PERF.md section 6)
 CHUNK_ROWS_A_RAY = 209.39
+# the sizes of phases 35-40 beside the testing configurations they take:
+# the pawn stand-in's rays, phase 24's random rays through the fog ball
+# and box, the checked runs' lanes, phase 38's Cornell lanes, phase 39's
+# renders and their checked renders' width
+GENERIC = dict(pawn_rays=1 << 17, fog_rays=1 << 16, checked_lanes=1 << 14,
+               pawn_checked_lanes=1 << 13, cornell_lanes=1 << 16,
+               cornell_iters=70, width=600, pawn_width=500,
+               forward_width=400, forward_spp=16, checked_width=64)
 
 
 def _smi_line() -> str:
@@ -982,22 +1041,31 @@ def main() -> None:
     rich = _rich_phases(smi, phase_done, dev)
     media = _media_phases(smi, phase_done, dev)
     unfused = _unfused_phases(smi, phase_done, dev)
+    generic = _generic_phases(smi, phase_done, dev)
     turns["route8"] = unfused.pop("turns")
     main_a += unfused["a_launches"]
     main_b += rich["iter_launches"]
-    mesh["kernels"][0]["launches"] += media["k9_launches"]
+    mesh["kernels"][0]["launches"] += (media["k9_launches"]
+                                       + generic["k9_launches"])
     mesh["kernels"][1]["launches"] += (rich["shade_launches"]
                                        + media["shade_launches"]
                                        + unfused["shade_launches"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
     rich["kernels"][0]["launches"] += (media["k8_launches"]
-                                       + unfused["k8_launches"])
-    media["kernels"][0]["launches"] += unfused["k11_launches"]
-    media["kernels"][1]["launches"] += unfused["k11b_launches"]
+                                       + unfused["k8_launches"]
+                                       + generic["k8_launches"])
+    rich["kernels"][1]["launches"] += generic["k12_launches"]
+    media["kernels"][0]["launches"] += (unfused["k11_launches"]
+                                        + generic["k11_launches"])
+    media["kernels"][1]["launches"] += (unfused["k11b_launches"]
+                                        + generic["k11b_launches"])
+    media["kernels"][0].update(generic["keyed"]["K11"])
+    media["kernels"][1].update(generic["keyed"]["K11b"])
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
                       "mesh": mesh["summary"], "rich": rich["summary"],
                       "media": media["summary"],
-                      "unfused": unfused["summary"], "in_turns": turns,
+                      "unfused": unfused["summary"],
+                      "generic": generic["summary"], "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
@@ -2152,10 +2220,10 @@ def _media_phases(smi, phase_done, dev) -> dict:
     for name, count in inner_loop_sizes("volume_kernel",
                                         "volume_crossings_kernel"):
         flags = re.search(r"volume_crossings_kernelILb(\d)ELb(\d)ELb(\d)E"
-                          r"Lb(\d)E", name)
-        if flags is None:
+                          r"Lb(\d)ELb(\d)E", name)
+        if flags is None or flags.group(5) == "1":   # the keyed mode: 35
             continue
-        planar, motion, box, cand = (int(x) for x in flags.groups())
+        planar, motion, box, cand = (int(x) for x in flags.groups()[:4])
         row_ins[(planar, motion, box, cand)] = count / per_k
         print(f"[sass] K11 {'planar' if planar else 'general'}"
               f"{' motion' if motion else ''}{' box' if box else ''}, "
@@ -2609,6 +2677,510 @@ def _unfused_phases(smi, phase_done, dev) -> dict:
                 a_launches=r8["launches_a"] + r9["launches_a"],
                 k8_launches=k8_l, k11_launches=k11_l, k11b_launches=k11b_l,
                 shade_launches=shade_l)
+
+
+def _named_grads(loss, params) -> dict:
+    """``{leaf path: gradient}`` of ``loss`` for every float leaf of the
+    scene ``params`` (zeros where it does not reach)."""
+    import torch
+    from raytrace_tpu_torch.diff.gradients import leaves
+    named = {k: v for k, v in leaves(params).items() if v.requires_grad}
+    gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return {k: (torch.zeros_like(v) if g is None else g)
+            for (k, v), g in zip(named.items(), gs)}
+
+
+def _grads_close(a: dict, b: dict) -> float:
+    """The worst ``|a - b| / |a|`` (L2, per leaf) over the leaves of
+    ``a`` whose norm is above 0; raises if a leaf zero in ``a`` is not in
+    ``b``."""
+    worst = 0.0
+    for k, x in a.items():
+        nx = float(x.norm())
+        d = float((x - b[k]).norm())
+        if nx == 0.0:
+            if d != 0.0:
+                raise AssertionError(f"{k}: zero against {d}")
+            continue
+        worst = max(worst, d / nx)
+    return worst
+
+
+def _generic_phases(smi, phase_done, dev) -> dict:
+    """Phases 35-40 (the generic bounce, the media's gradients and the
+    bounded-depth path) on ``dev``.  Returns the summary for the JSON
+    line, the launches of K8, K9, K12 and the keyed K11 and K11b on these
+    routes, and the keyed mode's entries of the K11 and K11b rows."""
+    import re
+
+    import numpy as np
+    import torch
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        combine, grad_render, leaves, loss_and_grads, partition,
+        render_tile,
+    )
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.ops.texture_kernel import marble_stripe_pallas
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+        volume_crossings_plain,
+    )
+    from raytrace_tpu_torch.profile_render import (
+        _device_ops, inner_loop_sizes, source_constant,
+    )
+    from raytrace_tpu_torch.render.image import write_image
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.render.volumes import (
+        crossing_kw, volume_crossings, volume_crossings_keyed, volume_tables,
+    )
+    from raytrace_tpu_torch.testing import (
+        PAWN_FWD_BWD, SMOKE_FWD_BWD, SMOKE_GRAD_RENDER, camera_rays,
+        checked_launches, compare_keyed, cornell_scene_and_settings,
+        cornell_smoke_scene, fog_settings, fog_world, fwd_bwd_pixels,
+        general_tables, marble_light_scene, nine_target_scene,
+        pawn_inside_rays, pawn_standin_scene, plain_kernels,
+        stationary_lanes, volume_rays, volume_test_world,
+    )
+    k11, k11b = pallas_volume_crossings, pallas_volume_crossings_bcast
+    counters = (bounce_megakernel, iter_megakernel, pallas_nearest_record,
+                allpairs_nearest_record, shade_megakernel, k11, k11b,
+                marble_stripe_pallas)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+        for c in (k11, k11b):
+            c.keyed_launches = c.candidate_launches = 0
+
+    def read():
+        got = {c.__name__: c.launches for c in counters}
+        got["K11 keyed"] = k11.keyed_launches
+        got["K11b keyed"] = k11b.keyed_launches
+        return got
+
+    # 35. the keyed mode of K11 (planar and general) and K11b against its
+    # plain version, and against the crossings mode's values
+    def check_keyed(label, volumes, comps, tables):
+        (n_int, err, excess), n_mode = compare_keyed(volumes, comps,
+                                                     tables=tables)
+        print(f"[{label}] {comps.shape[1]} rays: flags or keys differ on "
+              f"{n_int} lanes, crossings max |err| {err:.3g}, {n_mode} "
+              f"lanes' crossings differ from the crossings mode's", flush=True)
+        if n_int or err or n_mode:
+            raise AssertionError(f"{label}: keyed mode disagrees")
+        return err
+
+    sz = GENERIC
+    smoke, s_s = cornell_smoke_scene(sz["width"], SMOKE_FWD_BWD["spp"], 50,
+                                     device=dev)
+    pawn, s_p = pawn_standin_scene(sz["pawn_width"], PAWN_FWD_BWD["spp"], 20,
+                                   device=dev)
+    tables_s = volume_tables(smoke.volumes)
+    general_s = general_tables(tables_s)
+    n_pix_s, lanes_s, lane_pix_s = stationary_lanes(s_s)
+    cam_s, _ = camera_rays(smoke, s_s, lanes_s, 101,
+                           pixels=torch.from_numpy(lane_pix_s))
+    err_k = err_kb = 0.0
+    for label, tb in (("planar", tables_s), ("general", general_s)):
+        err_k += check_keyed(f"K11 keyed, {label}, vs plain: cornell_smoke "
+                             "600x600 camera rays", smoke.volumes, cam_s, tb)
+    for moving in (False, True):
+        world = rt.compile_scene(volume_test_world(rt, moving), device=dev)
+        comps = volume_rays(sz["fog_rays"], 84 + moving, (-6.0, 6.0),
+                            ([0.0, 0.0, -3.0], [3.2, 0.0, -3.5]), device=dev)
+        err_k += check_keyed(
+            f"K11 keyed, general, vs plain: fog ball and smoke box"
+            f"{' moving' if moving else ''}, random rays", world.volumes,
+            comps, volume_tables(world.volumes))
+    n_k = sz["pawn_rays"]
+    n_pix_p = s_p.image_width * s_p.image_height
+    pix_p = (torch.arange(n_k) * n_pix_p // n_k).to(torch.int32)
+    cam_p, _ = camera_rays(pawn, s_p, n_k, 102, pixels=pix_p)
+    tables_p = volume_tables(pawn.volumes)
+    for label, comps in (("camera rays", cam_p),
+                         ("rays from inside the medium",
+                          pawn_inside_rays(n_k, 103, device=dev))):
+        err_kb += check_keyed(f"K11b keyed vs plain: pawn stand-in 500x500 "
+                              f"{label}", pawn.volumes, comps, tables_p)
+    phase_done("keyed crossings vs plain")
+
+    # the keyed mode's times beside the crossings mode's, in turns, and
+    # their bounds: 28 bytes of rays read, 20 a medium written (12 of
+    # crossings, 8 of keys), the table read; K11 the SASS instructions of
+    # its keyed planar row loop a ray and row, K11b the walk's box tests
+    # and row tests (the crossings mode's: the same walk)
+    rays_s = tuple(cam_s.unbind(0))
+    rays_p = tuple(cam_p.unbind(0))
+    nv_s = smoke.volumes.n_volumes
+    turns = {"K11": {"keyed": [], "crossings": []},
+             "K11b": {"keyed": [], "crossings": []}}
+    calls = {("K11", "keyed"): lambda: volume_crossings_keyed(
+                 smoke.volumes, rays_s, s_s.t_min, tables_s),
+             ("K11", "crossings"): lambda: volume_crossings(
+                 smoke.volumes, rays_s, s_s.t_min, tables_s),
+             ("K11b", "keyed"): lambda: volume_crossings_keyed(
+                 pawn.volumes, rays_p, s_p.t_min, tables_p),
+             ("K11b", "crossings"): lambda: volume_crossings(
+                 pawn.volumes, rays_p, s_p.t_min, tables_p)}
+    names = {"K11": "volume_crossings_kernel", "K11b": "volume_bvh_kernel"}
+    for mode in ("crossings", "keyed", "keyed", "crossings"):
+        for k in ("K11", "K11b"):
+            fn = calls[(k, mode)]
+            turns[k][mode].append((_device_ms(fn, names[k], 50),
+                                   _time_ms(fn, 50)))
+    kw_s = crossing_kw(smoke.volumes, s_s.t_min)
+    kw_p = crossing_kw(pawn.volumes, s_p.t_min)
+    plain_k = _time_ms(lambda: volume_crossings_plain(
+        tables_s.vtbl, *rays_s, keys=True, **kw_s), 5, 1)
+    plain_kb = _time_ms(lambda: volume_crossings_plain(
+        tables_p.vtbl, *rays_p, keys=True, **kw_p), 2, 1)
+    row_ins = None
+    per_k = source_constant("volume_kernel", "kRays")
+    for name, count in inner_loop_sizes("volume_kernel",
+                                        "volume_crossings_kernel"):
+        flags = re.search(r"volume_crossings_kernelILb(\d)ELb(\d)ELb(\d)E"
+                          r"Lb(\d)ELb(\d)E", name)
+        if flags and tuple(int(x) for x in flags.groups()) == (1, 0, 0, 0,
+                                                               1):
+            row_ins = count / per_k
+    if row_ins is None:
+        raise AssertionError("K11's keyed planar row loop not in its SASS")
+    rows_s = tables_s.vtbl.shape[0]
+    bound_k = _bound_ms(lanes_s * (28 + 20 * nv_s)
+                        + 4 * tables_s.vtbl.numel(),
+                        lanes_s * rows_s * row_ins)
+    _, visits = pallas_volume_crossings_bcast(
+        tables_p.vtbl, tables_p.forest, *rays_p, count_visits=True, **kw_p)
+    v = visits.double()
+    forest = tables_p.forest
+    bound_kb = _bound_ms(n_k * (28 + 20) + 4 * (forest.nodes.numel()
+                                                + forest.rows.numel()),
+                         float(v[0].sum()) * VOL_BOX_OPS
+                         + float(v[1].sum()) * VOL_ROW_OPS)
+    best = {k: {m: (min(x[0] for x in t), min(x[1] for x in t))
+                for m, t in d.items()} for k, d in turns.items()}
+    for k, n, plain, bound, what in (
+            ("K11", lanes_s, plain_k, bound_k,
+             f"cornell_smoke camera rays, planar, {row_ins:.1f} "
+             "instructions a ray and row"),
+            ("K11b", n_k, plain_kb, bound_kb,
+             f"pawn stand-in camera rays, {float(v[0].mean()):.2f} box and "
+             f"{float(v[1].mean()):.2f} row tests a ray")):
+        print(f"[time] {k} keyed mode at {n} {what}: "
+              f"{best[k]['keyed'][0]:.4f} ms on the device "
+              f"({best[k]['keyed'][1]:.4f} ms a call back to back), the "
+              f"crossings mode {best[k]['crossings'][0]:.4f} "
+              f"({best[k]['crossings'][1]:.4f}), in turns (crossings, keyed, "
+              f"keyed, crossings: {turns[k]}), vs the keyed plain version "
+              f"{plain:.3f} ms; bound {bound[0]:.5f} ms ({bound[1]}) [{smi}]",
+              flush=True)
+    phase_done("keyed crossing times")
+
+    def fwd_bwd_run(scene, settings, cfg, lanes, spp, n_iters, schedule):
+        params, statics = partition(scene)
+        n_pix = settings.image_width * settings.image_height
+        pix = fwd_bwd_pixels(n_pix, lanes).to(dev)
+        target = torch.zeros((lanes, 3), device=dev)
+        s_cfg = settings.replace(rr_depth=cfg["rr_depth"])
+        return lambda: loss_and_grads(
+            params, statics, s_cfg, rng.base_key(0, dev), pix, target,
+            spp=spp, n_iters=n_iters, remat=cfg["remat"], schedule=schedule)
+
+    def timed(run, prof_run, label, lanes, spp, n_iters, prof_iters):
+        """One timed call of ``run`` (after the checked runs, which warm the
+        process up) and one profiled call of ``prof_run`` (the same lanes,
+        ``prof_iters`` iterations: a profile of the whole run records
+        hundreds of thousands of events and takes minutes)."""
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, frac), grads = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = read()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            prof_run()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t1
+        ops, host_launches = _device_ops(prof)
+        n_ops = sum(c for c, _ in ops.values())
+        dev_ms = sum(us for _, us in ops.values()) / 1e3
+        top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:6]
+        gl = leaves(grads)
+        finite = all(bool(torch.isfinite(g).all()) for g in gl.values()
+                     if g is not None and g.is_floating_point())
+        res = dict(wall_s=wall, loss=float(loss), samples_completed=float(frac),
+                   primary_rays_per_s=lanes * spp * float(frac) / wall,
+                   device_ms_per_iter=dev_ms / prof_iters,
+                   busy_share=dev_ms / 1e3 / prof_wall,
+                   device_ops_per_iter=n_ops / prof_iters,
+                   peak_bytes=peak, launches=launches, finite=finite,
+                   top_ops=[(k[:60], c, us / 1e3) for k, (c, us) in top])
+        print(f"[{label}] wall {wall:.3f} s ({n_iters} iterations), "
+              f"{res['primary_rays_per_s'] / 1e6:.3f} M primary rays/s, loss "
+              f"{res['loss']:.6f}, samples completed "
+              f"{res['samples_completed']:.6f}, peak {peak / 2**30:.3f} GiB, "
+              f"launches {launches}, gradients finite {finite}; profiled "
+              f"{prof_iters} iterations: {res['device_ms_per_iter']:.3f} ms "
+              f"of device time and {res['device_ops_per_iter']:.1f} device "
+              f"ops an iteration, {res['busy_share']:.3f} of the profiled "
+              f"wall busy; top device ops {res['top_ops']} [{smi}]",
+              flush=True)
+        return res, grads
+
+    # 36. the media fwd+bwd at full size, through the generic
+    # differentiable bounce: first at 2^14 lanes x 4 spp every K8 and
+    # keyed K11 launch against its plain version, and the run against the
+    # one with every plain version (these warm the process up)
+    cfg = SMOKE_FWD_BWD
+    sched = cfg["schedule"]
+    small = fwd_bwd_run(smoke, s_s, cfg, sz["checked_lanes"], 4, 30, None)
+    with checked_launches() as st:
+        (l_k, f_k), g_k = small()
+    torch.cuda.synchronize()
+    with plain_kernels():
+        (l_p, f_p), g_p = small()
+    for name in ("pallas_nearest_record", "pallas_volume_crossings_keyed"):
+        x = st[name]
+        print(f"[36 checked] {name}: {x['launches']} launches, exact rows "
+              f"differ on {x['n_int']} lanes, max |err| {x['err']:.3g}",
+              flush=True)
+        if x["launches"] == 0 or x["n_int"] or x["err"]:
+            raise AssertionError(f"{name}: disagrees with its plain version")
+    lk, lp = leaves(g_k), leaves(g_p)
+    worst = _grads_close({k: v for k, v in lp.items() if v is not None
+                          and v.is_floating_point()}, lk)
+    rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    print(f"[36 vs plain] {sz['checked_lanes']} lanes x 4 spp: loss "
+          f"{float(l_k):.7f} vs {float(l_p):.7f} (rel {rel:.3g}), completed "
+          f"{float(f_k):.4f}; gradients' worst L2 |kernels - plain| / |plain| "
+          f"{worst:.3g} (tolerance {GRAD_RTOL}: the backward's index adds "
+          f"are atomics)", flush=True)
+    if rel > 1e-6 or worst > GRAD_RTOL:
+        raise AssertionError("media fwd+bwd: kernels against plain")
+    n_it36 = cfg["n_iters"] + sum(i for i, _ in sched)
+    run36 = fwd_bwd_run(smoke, s_s, cfg, cfg["lanes"], cfg["spp"],
+                        cfg["n_iters"], sched)
+    prof36 = fwd_bwd_run(smoke, s_s, cfg, cfg["lanes"], cfg["spp"], 10, None)
+    r36, g36 = timed(run36, prof36, "media fwd+bwd: cornell_smoke 600x600, "
+                     f"depth 50, {cfg['lanes']} lanes x {cfg['spp']} spp, "
+                     "remat", cfg["lanes"], cfg["spp"], n_it36, 10)
+    dens = g36.volumes.density
+    others = (r36["launches"]["bounce_megakernel"]
+              + r36["launches"]["iter_megakernel"]
+              + r36["launches"]["shade_megakernel"])
+    if (not r36["finite"] or r36["samples_completed"] < 0.999
+            or not bool((dens != 0).any())
+            or r36["launches"]["pallas_nearest_record"] == 0
+            or r36["launches"]["K11 keyed"] == 0 or others):
+        raise AssertionError("media fwd+bwd: incomplete, not finite, no "
+                             "density gradient, or a kernel missing")
+    print(f"[media fwd+bwd] d loss / d density {dens.tolist()}", flush=True)
+    phase_done("media fwd+bwd")
+
+    # 37. the mesh-boundary media fwd+bwd: K9 and the keyed K11b
+    cfg_p = PAWN_FWD_BWD
+    with checked_launches() as st:
+        fwd_bwd_run(pawn, s_p, cfg_p, sz["pawn_checked_lanes"], 2, 20,
+                    None)()
+    for name in ("allpairs_nearest_record",
+                 "pallas_volume_crossings_bcast_keyed"):
+        x = st[name]
+        print(f"[37 checked] {name}: {x['launches']} launches, exact rows "
+              f"differ on {x['n_int']} lanes, max |err| {x['err']:.3g}",
+              flush=True)
+        if x["launches"] == 0 or x["n_int"] or x["err"]:
+            raise AssertionError(f"{name}: disagrees with its plain version")
+    run37 = fwd_bwd_run(pawn, s_p, cfg_p, cfg_p["lanes"], cfg_p["spp"],
+                        cfg_p["n_iters"], None)
+    prof37 = fwd_bwd_run(pawn, s_p, cfg_p, cfg_p["lanes"], cfg_p["spp"], 10,
+                         None)
+    r37, _ = timed(run37, prof37, f"pawn fwd+bwd: 500x500, depth 20, "
+                   f"{cfg_p['lanes']} lanes x {cfg_p['spp']} spp, remat",
+                   cfg_p["lanes"], cfg_p["spp"], cfg_p["n_iters"], 10)
+    if (not r37["finite"] or r37["launches"]["allpairs_nearest_record"] == 0
+            or r37["launches"]["K11b keyed"] == 0):
+        raise AssertionError("pawn fwd+bwd: not finite or a kernel missing")
+    phase_done("pawn fwd+bwd")
+
+    # 38. the generic route on the Cornell box (use_mega=False) against
+    # the fused route: the same estimator and draws
+    cornell, s_c = cornell_scene_and_settings(sz["width"], 8, 50, device=dev)
+    s_c = s_c.replace(rr_depth=2)
+    lanes38 = sz["cornell_lanes"]
+    pix38 = fwd_bwd_pixels(sz["width"] ** 2, lanes38).to(dev)
+    out38 = {}
+    for route, kw in (("fused", {}), ("generic", dict(use_mega=False))):
+        params, statics = partition(cornell)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, done = trace_wavefront_diff(combine(params, statics), s_c,
+                                         rng.base_key(0, dev), pix38, 8,
+                                         n_iters=sz["cornell_iters"],
+                                         remat=True, **kw)
+        loss = torch.mean(img ** 2)
+        g = _named_grads(loss, params)
+        torch.cuda.synchronize()
+        out38[route] = (float(loss.detach()), float(torch.mean(done / 8.0)), g,
+                        time.perf_counter() - t0, read())
+    (lf, ff, gf, wf, cf), (lg, fg, gg, wg, cg) = (out38["fused"],
+                                                  out38["generic"])
+    worst38 = _grads_close(gf, gg)
+    rel38 = abs(lg - lf) / abs(lf)
+    print(f"[38 generic vs fused] Cornell {sz['width']} px, {lanes38} lanes "
+          f"x 8 spp, {sz['cornell_iters']} iterations: loss {lg:.7f} vs {lf:.7f} (rel {rel38:.3g}, "
+          f"tolerance 1e-3), completed {fg:.5f} vs {ff:.5f}, gradients' "
+          f"worst L2 |generic - fused| / |fused| {worst38:.3g} (tolerance "
+          f"0.05); walls {wg:.3f} vs {wf:.3f} s; generic launches {cg}",
+          flush=True)
+    if (rel38 > 1e-3 or worst38 > 0.05 or cg["pallas_nearest_record"] == 0
+            or cg["iter_megakernel"] or cg["bounce_megakernel"]):
+        raise AssertionError("generic route: disagrees with the fused one")
+    phase_done("generic vs fused")
+
+    # 39. the generic forward: a marble-lit scene (K8 and K12) and a scene
+    # of nine redirect targets (K8 and K11's candidate mode)
+    r39 = {}
+    w39, spp = sz["forward_width"], sz["forward_spp"]
+    for label, (scene, settings) in (
+            ("marble_light", marble_light_scene(w39, spp, 50, device=dev)),
+            ("nine_targets", nine_target_scene(w39, spp, 50, device=dev))):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, total = render_accumulate(scene, settings, seed=0, spp=spp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        img = acc / total
+        write_image(os.path.join(OUT_DIR, f"{label}.png"),
+                    img.reshape(settings.image_height, settings.image_width,
+                                3).cpu().numpy())
+        small = settings.replace(image_width=sz["checked_width"])
+        with checked_launches() as st:
+            render_accumulate(scene, small, seed=1, spp=2)
+        checked = {k: v for k, v in st.items() if v["launches"]}
+        r39[label] = dict(wall_s=wall, launches=got,
+                          mean=float(img.mean()), checked=checked)
+        print(f"[39 generic forward] {label} {w39} px, {spp} spp, depth 50: "
+              f"wall {wall:.3f} s, mean {float(img.mean()):.5f}, launches "
+              f"{got}; checked {sz['checked_width']} px x 2 spp: {checked} "
+              f"[{smi}]", flush=True)
+        if (not bool(torch.isfinite(img).all())
+                or got["pallas_nearest_record"] == 0
+                or got["bounce_megakernel"] or got["shade_megakernel"]
+                or any(v["n_int"] or v["err"] for v in checked.values())):
+            raise AssertionError(f"{label}: generic forward")
+    if (r39["marble_light"]["launches"]["marble_stripe_pallas"] == 0
+            or "marble_stripe_pallas" not in r39["marble_light"]["checked"]
+            or r39["nine_targets"]["launches"]["pallas_volume_crossings"]
+            == 0):
+        raise AssertionError("generic forward: K12 or K11 not launched")
+    phase_done("generic forward")
+
+    # 40. grad_render on cornell_smoke, and the fog density check
+    n_t, n_s = SMOKE_GRAD_RENDER["pixels"], SMOKE_GRAD_RENDER["samples"]
+    pix40 = torch.arange(n_t, dtype=torch.int32, device=dev)
+    smp40 = torch.arange(n_s, dtype=torch.int32)
+    target40 = torch.zeros((n_t, 3), device=dev)
+    grad_render(smoke, s_s, rng.base_key(2, dev), pix40[:1024], smp40,
+                target40[:1024])                       # warm-up
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss40, g40 = grad_render(smoke, s_s, rng.base_key(2, dev), pix40, smp40,
+                              target40)
+    torch.cuda.synchronize()
+    wall40 = time.perf_counter() - t0
+    peak40 = torch.cuda.max_memory_allocated()
+    l40 = read()
+    fin40 = all(bool(torch.isfinite(g).all()) for g in leaves(g40).values()
+                if g is not None and g.is_floating_point())
+    print(f"[40 grad_render] cornell_smoke {sz['width']} px, a tile of {n_t} "
+          f"pixels x "
+          f"{n_s} samples, depth 50: wall {wall40:.3f} s, loss "
+          f"{float(loss40):.6f}, peak {peak40 / 2**30:.3f} GiB, gradients "
+          f"finite {fin40}, d loss / d density "
+          f"{g40.volumes.density.tolist()}, launches {l40} [{smi}]",
+          flush=True)
+    if not fin40 or l40["pallas_nearest_record"] == 0 \
+            or l40["K11 keyed"] == 0:
+        raise AssertionError("grad_render: not finite or a kernel missing")
+    fog = rt.compile_scene(fog_world(rt), device=dev)
+    s_f = fog_settings(rt)
+    params, statics = partition(fog)
+
+    def fog_mean(dens, seed):
+        vol = dataclasses.replace(params.volumes, density=dens)
+        sc = combine(dataclasses.replace(params, volumes=vol), statics)
+        return torch.mean(render_tile(
+            sc, s_f, rng.base_key(seed, dev),
+            torch.arange(256, dtype=torch.int32, device=dev),
+            torch.arange(8, dtype=torch.int32), differentiable=True))
+
+    gs = []
+    for seed in range(4):
+        d0 = torch.tensor([0.8], device=dev, requires_grad=True)
+        gs.append(float(torch.autograd.grad(fog_mean(d0, seed), d0)[0][0]))
+    g_ad = float(np.mean(gs))
+    with torch.no_grad():
+        fd = lambda x: np.mean([float(fog_mean(torch.tensor([x], device=dev),
+                                               seed)) for seed in range(4, 10)])
+        g_fd = (fd(0.95) - fd(0.65)) / 0.3
+    ok = g_ad < -0.05 and g_fd < -0.05 and abs(g_ad - g_fd) <= 0.35 * abs(g_fd)
+    print(f"[40 fog density] d(mean radiance)/d(density): score-function "
+          f"{g_ad:.5f} (4 seeds: {gs}) vs central difference at +-0.15 "
+          f"{g_fd:.5f} (6 seeds); both < -0.05 and within rtol 0.35: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("fog density gradient against FD")
+    phase_done("grad_render")
+
+    summary = dict(media_fwd_bwd=r36, pawn_fwd_bwd=r37,
+                   generic_vs_fused=dict(loss_rel=rel38, grad_worst=worst38,
+                                         walls_s=(wg, wf)),
+                   generic_forward=r39,
+                   grad_render=dict(wall_s=wall40, peak_bytes=peak40,
+                                    loss=float(loss40)),
+                   fog_density=dict(ad=g_ad, fd=g_fd))
+    keyed = {
+        "K11": dict(keyed_ms=best["K11"]["keyed"][0],
+                    keyed_host_ms=best["K11"]["keyed"][1],
+                    keyed_crossings_mode_ms=best["K11"]["crossings"][0],
+                    keyed_plain_ms=plain_k, keyed_bound_ms=bound_k[0],
+                    keyed_bound_by=bound_k[1], keyed_max_abs_err=err_k),
+        "K11b": dict(keyed_ms=best["K11b"]["keyed"][0],
+                     keyed_host_ms=best["K11b"]["keyed"][1],
+                     keyed_crossings_mode_ms=best["K11b"]["crossings"][0],
+                     keyed_plain_ms=plain_kb, keyed_bound_ms=bound_kb[0],
+                     keyed_bound_by=bound_kb[1], keyed_max_abs_err=err_kb)}
+    runs = (r36["launches"], r37["launches"], cg, l40,
+            r39["marble_light"]["launches"], r39["nine_targets"]["launches"])
+    keyed["K11"]["keyed_launches"] = sum(x["K11 keyed"] for x in runs)
+    keyed["K11b"]["keyed_launches"] = sum(x["K11b keyed"] for x in runs)
+    return dict(summary=summary, keyed=keyed,
+                k8_launches=sum(x["pallas_nearest_record"] for x in runs),
+                k9_launches=sum(x["allpairs_nearest_record"] for x in runs),
+                k12_launches=sum(x["marble_stripe_pallas"] for x in runs),
+                k11_launches=sum(x["pallas_volume_crossings"] for x in runs),
+                k11b_launches=sum(x["pallas_volume_crossings_bcast"]
+                                  for x in runs))
 
 
 if __name__ == "__main__":

@@ -117,3 +117,68 @@ def disk_from_uniforms(u: torch.Tensor, v: torch.Tensor):
     r = torch.sqrt(u)
     theta = (2.0 * math.pi) * v
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+# threefry2x32's rotation schedule and key-schedule parity constant
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_M32 = 0xFFFFFFFF
+
+
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit words of an integer tensor as int64 in [0, 2^32)."""
+    return x.to(torch.int64) & _M32
+
+
+def _rotl(v: torch.Tensor, d: int) -> torch.Tensor:
+    return ((v << d) | (v >> (32 - d))) & _M32
+
+
+def threefry_2x32(k0, k1, x0, x1):
+    """The threefry2x32 block function (20 rounds, Random123; the one
+    ``jax.random``'s default implementation applies) of the key words
+    ``(k0, k1)`` on the counter words ``(x0, x1)``, every word an int64
+    tensor in [0, 2^32) (broadcast together).  Returns the two output
+    words the same way."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` of the keys ``keys`` [..., 2] (int32 words)
+    with the data ``data`` (an int or an integer tensor broadcast against
+    the keys' lanes, taken mod 2^32): ``threefry_2x32(key, (0, data))``.
+    Returns keys [..., 2] (int32 words)."""
+    d = torch.as_tensor(data, device=keys.device)
+    d = torch.broadcast_to(_words(d), keys.shape[:-1])
+    y0, y1 = threefry_2x32(_words(keys[..., 0]), _words(keys[..., 1]),
+                           torch.zeros_like(d), d)
+    y = torch.stack([y0, y1], dim=-1)
+    return torch.where(y >= (1 << 31), y - (1 << 32), y).to(torch.int32)
+
+
+def ray_keys(key: torch.Tensor, pixel_ids, sample_ids) -> torch.Tensor:
+    """One key per ray from absolute (pixel, sample) coordinates: the
+    base key folded with the pixel, then with the sample (two threefry
+    passes; the hot paths take :func:`ray_keys_fast`)."""
+    k = fold_in(torch.broadcast_to(key, pixel_ids.shape + (2,)), pixel_ids)
+    return fold_in(k, sample_ids)
+
+
+def fold_depth(keys: torch.Tensor, depth: int) -> torch.Tensor:
+    """The per-bounce key of each per-ray key (a threefry ``fold_in``)."""
+    return fold_in(keys, depth)
+
+
+def site(keys: torch.Tensor, i: int) -> torch.Tensor:
+    """The key of draw site ``i`` within a bounce (a threefry
+    ``fold_in``)."""
+    return fold_in(keys, i)

@@ -28,7 +28,9 @@
 // b1.  So the walk carries the key 2 * row + slot of b1 (slot 0: the
 // entering or planar root, 1: the exit root) and a candidate equal to b1
 // takes the flag only with a lower key; a candidate of +inf never takes
-// it (a ray without crossings keeps front 0).  Folding a candidate twice
+// it (a ray without crossings keeps front 0).  The keyed mode's b2 takes
+// the lowest key the same way (the row-order fold's first attainment).
+// Folding a candidate twice
 // changes nothing, so a root whose two children are one leaf (a medium of
 // at most LEAF_SIZE rows) is still right; its rows are walked once.
 //
@@ -46,16 +48,13 @@
 
 namespace rt {
 
-// The triple of volume.cuh with the key of the candidate b1 came from.
-struct KeyedCrossings {
-  float b1, f1, b2;
-  int k1;
-};
-
+// Fold candidate (c, cf) of key ``key`` in any order: b1 and b2 keep the
+// lowest key of the candidates equal to them, and the flag of b1's.
 __device__ __forceinline__ void fold_keyed(KeyedCrossings& s, float c,
                                            float cf, int key) {
   if (c < s.b1) {
     s.b2 = s.b1;  // every earlier candidate is >= the old b1
+    s.k2 = s.k1;
     s.b1 = c;
     s.f1 = cf;
     s.k1 = key;
@@ -66,6 +65,9 @@ __device__ __forceinline__ void fold_keyed(KeyedCrossings& s, float c,
     }
   } else if (c < s.b2) {
     s.b2 = c;
+    s.k2 = key;
+  } else if (c == s.b2) {
+    if (c < inf() && key < s.k2) s.k2 = key;
   }
 }
 
@@ -95,11 +97,11 @@ __device__ __forceinline__ float tri_crossing(const float* __restrict__ r,
 }
 
 template <bool kTriOnly, bool kCount>
-__device__ __forceinline__ Crossings bvh_crossings(
+__device__ __forceinline__ KeyedCrossings bvh_crossings(
     const Bvh& bvh, int root, float ox, float oy, float oz, float dx,
     float dy, float dz, float inv_dx, float inv_dy, float inv_dz, float tm,
     float t_min, bool has_motion, bool has_box, Visits* visits) {
-  KeyedCrossings s{inf(), 0.0f, inf(), 0x7fffffff};
+  KeyedCrossings s = no_keyed_crossings();
   // the far children not yet walked: word << 3 | count, entry distance
   int st_w[kStack];
   float st_t[kStack];
@@ -177,7 +179,7 @@ __device__ __forceinline__ Crossings bvh_crossings(
     }
     if (!found) break;
   }
-  return Crossings{s.b1, s.f1, s.b2};
+  return s;
 }
 
 }  // namespace rt

@@ -11,6 +11,14 @@
 // crossing scan has its own candidate function over the same row layout
 // (ops/intersect_kernel.py:pack_prims) and the same association.
 //
+// The keyed mode (the differentiable media path's) also carries, for b1
+// and b2, the key 2 * row + slot of the candidate each came from (row in
+// the packed boundary table; slot 0 the entering or planar root, 1 the
+// exit root), the lowest key on a tie; its backward recomputes that root
+// alone (render/volumes.py:DiffCrossings).  merge's keyed overload folds
+// in row order (K11), where keys rise with the order;
+// bvh_crossings.cuh:fold_keyed in any order (K11b).
+//
 // planar_crossing is crossing_cand's parallelogram / triangle branch for
 // tables of unmoving planar rows (K11's planar instantiation), and
 // medium_candidate / fold_medium the candidate mode's epilogue shared by
@@ -31,6 +39,20 @@ __device__ __forceinline__ Crossings no_crossings() {
   return Crossings{inf(), 0.0f, inf()};
 }
 
+// The triple with the keys of the candidates b1 and b2 came from.
+struct KeyedCrossings {
+  float b1, f1, b2;
+  int k1, k2;
+};
+
+__device__ __forceinline__ KeyedCrossings no_keyed_crossings() {
+  return KeyedCrossings{inf(), 0.0f, inf(), 0x7fffffff, 0x7fffffff};
+}
+
+__device__ __forceinline__ Crossings unkeyed(const KeyedCrossings& s) {
+  return Crossings{s.b1, s.f1, s.b2};
+}
+
 // Fold candidate (c, cf) into the triple (_merge): the strict < keeps an
 // earlier candidate's flag on a tie; the second crossing is the smallest
 // value strictly beyond the new first.  _merge's form, b1' = min(b1, c),
@@ -46,6 +68,32 @@ __device__ __forceinline__ void merge(Crossings& s, float c, float cf) {
   } else if (c > s.b1 && c < s.b2) {
     s.b2 = c;
   }
+}
+
+// merge with the keys, in row order: a key is never below an earlier
+// candidate's, so a tie keeps the earlier (lower) key as it keeps the flag.
+__device__ __forceinline__ void merge(KeyedCrossings& s, float c, float cf,
+                                      int key) {
+  if (c < s.b1) {
+    s.b2 = s.b1;
+    s.k2 = s.k1;
+    s.b1 = c;
+    s.f1 = cf;
+    s.k1 = key;
+  } else if (c > s.b1 && c < s.b2) {
+    s.b2 = c;
+    s.k2 = key;
+  }
+}
+
+// Fold (c, cf) of key ``key`` into s: merge for Crossings, with the key
+// for KeyedCrossings.
+__device__ __forceinline__ void fold(Crossings& s, float c, float cf, int) {
+  merge(s, c, cf);
+}
+__device__ __forceinline__ void fold(KeyedCrossings& s, float c, float cf,
+                                     int key) {
+  merge(s, c, cf, key);
 }
 
 // Candidates of row ``row`` for ray (o, d) at time tm; inv_d* = 1 /
@@ -128,18 +176,18 @@ __device__ __forceinline__ void crossing_cand(
   }
 }
 
-// Fold row ``row`` into the triple: its entering (or planar) root first,
-// then its exit root.
-template <class Row>
+// Fold row ``row`` (keys 2 * row_index + slot) into the triple: its
+// entering (or planar) root first, then its exit root.
+template <class Row, class S>
 __device__ __forceinline__ void cross_row(
-    const Row& row, float ox, float oy, float oz, float dx, float dy,
-    float dz, float inv_dx, float inv_dy, float inv_dz, float tm,
-    float t_min, bool has_motion, bool has_box, Crossings& s) {
+    const Row& row, int key, float ox, float oy, float oz, float dx,
+    float dy, float dz, float inv_dx, float inv_dy, float inv_dz, float tm,
+    float t_min, bool has_motion, bool has_box, S& s) {
   float c1, cf1, c2;
   crossing_cand(row, ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, tm,
                 t_min, has_motion, has_box, c1, cf1, c2);
-  merge(s, c1, cf1);
-  merge(s, c2, 0.0f);
+  fold(s, c1, cf1, key);
+  fold(s, c2, 0.0f, key + 1);
 }
 
 // crossing_cand's parallelogram / triangle branch of an unmoving row, in

@@ -40,9 +40,13 @@
 // nearest medium scatter candidate (volume.cuh:medium_candidate) folded
 // into the [R] rows t_med and vmat, read and written in place, so the
 // launches of a scene's groups of 16 media fold in medium order.
+// Both have a keyed mode (the differentiable media path's): the crossings
+// and, per medium, the keys 2 * row + slot of the candidates t1 and t2
+// came from (volume.cuh), -1 where the crossing is +inf, which the
+// backward reads to recompute those roots alone.
 // K11 folds each row's entering root before its exit root with a strict
 // <, which is the TPU tile reduction's order (lowest row first); K11b's
-// keyed fold gives the same bits in any order.
+// keyed fold gives the same bits, and the same keys, in any order.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -62,6 +66,7 @@ struct VolArgs {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tm;  // [R]
   float* out;          // [3 n_vol, R]: t1, front1, t2 per medium
   int* visits;         // [2, R]: box tests and row tests (K11b), or null
+  int* keys;           // [2 n_vol, R]: k1, k2 per medium (keyed), or null
   // candidate mode (cand 1: fold into the rows, 2: start the fold afresh,
   // the rows written only): medium v's [R] draws at u + v * u_stride, the
   // media's densities [n_vol] and the [R] rows of the nearest candidate
@@ -74,6 +79,7 @@ struct VolArgs {
   int tri_only;        // K11b's rows are all unmoving triangles
   int planar;          // K11's rows are all unmoving parallelograms/triangles
   int cand;            // 0: the crossings, 1 or 2: the candidate mode
+  int keyed;           // the crossings with their keys
   float t_min;
   int starts[kMaxVolumes], counts[kMaxVolumes];  // each medium's rows
   int roots[kMaxVolumes];  // each medium's root node (K11b)
@@ -98,6 +104,23 @@ __device__ __forceinline__ void write_out(const VolArgs& a, int v,
   a.out[(3LL * v + 2) * R + l] = s.b2;
 }
 
+// The keyed mode's keys of medium v for lane l: -1 where the crossing is
+// +inf.
+__device__ __forceinline__ void write_keys(const VolArgs& a, int v,
+                                           long long l,
+                                           const rt::KeyedCrossings& s) {
+  const long long R = a.n_lanes;
+  a.keys[(2LL * v + 0) * R + l] = s.b1 < rt::inf() ? s.k1 : -1;
+  a.keys[(2LL * v + 1) * R + l] = s.b2 < rt::inf() ? s.k2 : -1;
+}
+
+__device__ __forceinline__ void write_out(const VolArgs& a, int v,
+                                          long long l,
+                                          const rt::KeyedCrossings& s) {
+  write_out(a, v, l, rt::unkeyed(s));
+  write_keys(a, v, l, s);
+}
+
 // The candidate mode's fold state of lane l: the rows', or none yet.
 __device__ __forceinline__ void load_fold(const VolArgs& a, long long l,
                                           float& t_med, float& vmat) {
@@ -117,9 +140,11 @@ __device__ __forceinline__ void fold_out(const VolArgs& a, int v, long long l,
 
 // K11: kRays rays a thread, lanes base + k * blockDim.x (coalesced); the
 // whole table staged once, 16-byte aligned for planar_crossing's float4.
-template <bool kPlanar, bool kMotion, bool kBox, bool kCand>
+// kKeys: the keyed mode (row keys counted beside the row pointer).
+template <bool kPlanar, bool kMotion, bool kBox, bool kCand, bool kKeys>
 __global__ void __launch_bounds__(kThreads)
 volume_crossings_kernel(const VolArgs a) {
+  using S = std::conditional_t<kKeys, rt::KeyedCrossings, rt::Crossings>;
   float* tbl = rt::dyn_smem();
   rt::stage(tbl, a.tbl, a.n_tbl * rt::kCols);
   __syncthreads();  // the only barrier: a thread may leave after it
@@ -152,23 +177,29 @@ volume_crossings_kernel(const VolArgs a) {
   }
 #pragma unroll 1
   for (int v = 0; v < a.n_vol; ++v) {
-    rt::Crossings s[kRays];
+    S s[kRays];
 #pragma unroll
-    for (int k = 0; k < kRays; ++k) s[k] = rt::no_crossings();
+    for (int k = 0; k < kRays; ++k) {
+      if constexpr (kKeys)
+        s[k] = rt::no_keyed_crossings();
+      else
+        s[k] = rt::no_crossings();
+    }
     const float* row = tbl + a.starts[v] * rt::kCols;
     const float* const end = row + a.counts[v] * rt::kCols;
+    int key = 2 * a.starts[v];  // the row's entering root's key
 #pragma unroll 1
-    for (; row < end; row += rt::kCols) {
+    for (; row < end; row += rt::kCols, key += 2) {
 #pragma unroll
       for (int k = 0; k < kRays; ++k) {
         if (kPlanar) {
           float cf;
           const float c = rt::planar_crossing(row, ox[k], oy[k], oz[k], dx[k],
                                               dy[k], dz[k], a.t_min, cf);
-          rt::merge(s[k], c, cf);
+          rt::fold(s[k], c, cf, key);
         } else {
-          rt::cross_row(rt::PtrRow{row}, ox[k], oy[k], oz[k], dx[k], dy[k],
-                        dz[k], inv_dx[k], inv_dy[k], inv_dz[k], tm[k],
+          rt::cross_row(rt::PtrRow{row}, key, ox[k], oy[k], oz[k], dx[k],
+                        dy[k], dz[k], inv_dx[k], inv_dy[k], inv_dz[k], tm[k],
                         a.t_min, kMotion, kBox, s[k]);
         }
       }
@@ -177,7 +208,7 @@ volume_crossings_kernel(const VolArgs a) {
     for (int k = 0; k < kRays; ++k) {
       if (!live[k]) continue;
       const long long l = base + static_cast<long long>(k) * blockDim.x;
-      if (kCand)
+      if constexpr (kCand)
         fold_out(a, v, l, s[k], t_med[k], vmat[k]);
       else
         write_out(a, v, l, s[k]);
@@ -198,8 +229,11 @@ using VolKernel = void (*)(const VolArgs);
 
 template <bool kPlanar, bool kMotion, bool kBox>
 VolKernel scan_mode(const VolArgs& a) {
-  return a.cand ? volume_crossings_kernel<kPlanar, kMotion, kBox, true>
-                : volume_crossings_kernel<kPlanar, kMotion, kBox, false>;
+  if (a.keyed) return volume_crossings_kernel<kPlanar, kMotion, kBox, false,
+                                              true>;
+  return a.cand
+             ? volume_crossings_kernel<kPlanar, kMotion, kBox, true, false>
+             : volume_crossings_kernel<kPlanar, kMotion, kBox, false, false>;
 }
 
 // K11's instantiation for a's table and mode (the launcher's and the host
@@ -215,7 +249,7 @@ VolKernel scan_kernel(const VolArgs& a) {
 
 // At least 8 blocks a SM: ptxas then keeps the walk in 64 registers,
 // where it chose 48 and spilled (measured 2% faster on an H100).
-template <bool kTriOnly, bool kCount, bool kCand>
+template <bool kTriOnly, bool kCount, bool kCand, bool kKeys>
 __global__ void __launch_bounds__(kThreads, 8)
 volume_bvh_kernel(const VolArgs a) {
   const rt::Bvh bvh{reinterpret_cast<const float4*>(a.nodes), a.rows};
@@ -237,13 +271,15 @@ volume_bvh_kernel(const VolArgs a) {
     rt::Visits v;
 #pragma unroll 1
     for (int m = 0; m < a.n_vol; ++m) {
-      const rt::Crossings s = rt::bvh_crossings<kTriOnly, kCount>(
+      const rt::KeyedCrossings s = rt::bvh_crossings<kTriOnly, kCount>(
           bvh, a.roots[m], ox, oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz,
           tm, a.t_min, motion, box, &v);
       if (kCand)
-        fold_out(a, m, l, s, t_med, vmat);
-      else
+        fold_out(a, m, l, rt::unkeyed(s), t_med, vmat);
+      else if (kKeys)
         write_out(a, m, l, s);
+      else
+        write_out(a, m, l, rt::unkeyed(s));
     }
     if (kCand) {
       a.t_med[l] = t_med;
@@ -256,17 +292,20 @@ volume_bvh_kernel(const VolArgs a) {
   }
 }
 
-// f(tri_only, count, cand) for K11b's instantiation for a's forest, counts
-// and mode (counts only in the crossings mode), as std::bool_constant tags
-// (the launcher's and the host build's choice).
+// f(tri_only, count, cand, keys) for K11b's instantiation for a's forest,
+// counts and mode (counts only in the crossings mode), as
+// std::bool_constant tags (the launcher's and the host build's choice).
 template <class F>
 auto with_walk(const VolArgs& a, F f) {
   using T = std::true_type;
   using N = std::false_type;
   if (a.visits != nullptr)
-    return a.tri_only ? f(T{}, T{}, N{}) : f(N{}, T{}, N{});
-  if (a.cand) return a.tri_only ? f(T{}, N{}, T{}) : f(N{}, N{}, T{});
-  return a.tri_only ? f(T{}, N{}, N{}) : f(N{}, N{}, N{});
+    return a.tri_only ? f(T{}, T{}, N{}, N{}) : f(N{}, T{}, N{}, N{});
+  if (a.cand)
+    return a.tri_only ? f(T{}, N{}, T{}, N{}) : f(N{}, N{}, T{}, N{});
+  if (a.keyed)
+    return a.tri_only ? f(T{}, N{}, N{}, T{}) : f(N{}, N{}, N{}, T{});
+  return a.tri_only ? f(T{}, N{}, N{}, N{}) : f(N{}, N{}, N{}, N{});
 }
 
 // Are the media counted right, and does the candidate mode have its
@@ -274,18 +313,20 @@ auto with_walk(const VolArgs& a, F f) {
 bool mode_args_ok(const VolArgs* a) {
   if (a->n_vol <= 0 || a->n_vol > kMaxVolumes) return false;
   if (a->cand)
-    return a->u != nullptr && a->density != nullptr &&
+    return !a->keyed && a->u != nullptr && a->density != nullptr &&
            a->t_med != nullptr && a->vmat != nullptr && a->visits == nullptr;
+  if (a->keyed) return a->out != nullptr && a->keys != nullptr &&
+                       a->visits == nullptr;
   return a->out != nullptr;
 }
 
 #ifdef __CUDACC__
 // A persistent grid of K11b's walk: as many blocks as the card holds, at
 // most one a 128 rays; one occupancy cache per instantiation.
-template <bool kTriOnly, bool kCount, bool kCand>
+template <bool kTriOnly, bool kCount, bool kCand, bool kKeys>
 int launch_walk(const VolArgs* a, cudaStream_t s) {
   static rt::Resident cache;
-  const auto kernel = volume_bvh_kernel<kTriOnly, kCount, kCand>;
+  const auto kernel = volume_bvh_kernel<kTriOnly, kCount, kCand, kKeys>;
   int blocks = 0;
   cudaError_t e = rt::resident_blocks(reinterpret_cast<const void*>(kernel),
                                       kThreads, 0, cache, blocks);
@@ -327,8 +368,8 @@ extern "C" int rt_volume_crossings_bvh(const VolArgs* a, void* stream) {
   if (a->n_lanes <= 0) return 0;
   if (!mode_args_ok(a)) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  return with_walk(*a, [&](auto tri, auto count, auto cand) {
+  return with_walk(*a, [&](auto tri, auto count, auto cand, auto keys) {
     return launch_walk<decltype(tri)::value, decltype(count)::value,
-                       decltype(cand)::value>(a, s);
+                       decltype(cand)::value, decltype(keys)::value>(a, s);
   });
 }

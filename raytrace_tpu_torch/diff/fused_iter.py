@@ -45,10 +45,9 @@ from .lane_replay import scene_row_grads
 
 N_CARRY = 16        # smp, dep, alive, comps (7), rad (3), thr (3)
 MEDIA_GRADIENTS = (
-    "gradients of scenes with constant-density media are not ported yet: "
-    "the JAX package differentiates them with its generic bounce and a "
-    "score-function density weight (ROADMAP M10, with the generic bounce "
-    "M4 and M11's diff_intersect)")
+    "constant-density media: the fused step does not take them, as the JAX "
+    "package's does not; trace_wavefront_diff sends them to the unfused "
+    "driver's generic differentiable bounce")
 
 
 def background_kind(s):

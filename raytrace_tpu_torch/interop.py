@@ -50,13 +50,19 @@ def scene_to_numpy(scene) -> dict:
 
 
 def grads_to_numpy(grad_tree) -> dict:
-    """``{"prims.p0": array, "materials.param": ..., "textures.c0": ...}``:
-    the floating leaves of a Scene-shaped gradient tree whose ``prims``,
-    ``materials`` and ``textures`` are dataclasses (None and integer
-    fields skipped), keyed by the field paths of :func:`scene_to_numpy`."""
+    """``{"prims.p0": array, "materials.param": ..., "textures.c0": ...,
+    "volumes.density": ..., "volumes.prims.p0": ...}``: the floating
+    leaves of a Scene-shaped gradient tree whose ``prims``, ``materials``,
+    ``textures`` (and ``volumes``, if any, with its ``prims``) are
+    dataclasses (None and integer fields skipped), keyed by their field
+    paths."""
     out = {}
-    for name in ("prims", "materials", "textures"):
-        tab = getattr(grad_tree, name)
+    tabs = [(name, getattr(grad_tree, name))
+            for name in ("prims", "materials", "textures")]
+    vol = getattr(grad_tree, "volumes", None)
+    if vol is not None:
+        tabs += [("volumes", vol), ("volumes.prims", vol.prims)]
+    for name, tab in tabs:
         for f in dataclasses.fields(tab):
             v = getattr(tab, f.name)
             if not hasattr(v, "shape"):

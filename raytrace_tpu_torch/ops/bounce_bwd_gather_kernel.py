@@ -153,7 +153,8 @@ def _check(name, kt, cam, ttbl, bi, ints, al, comps_in, thr_in, scale, cts,
         raise ValueError(f"{name}: unsupported device {dev}")
     if n_u != N_U:
         raise ValueError(f"n_u={n_u}: the kernel draws {N_U} bounce "
-                         "uniforms (volume columns: ROADMAP M10)")
+                         "uniforms (media, whose columns follow, take the "
+                         "generic bounce)")
     if n_row != (15 if has_motion else 9):
         raise ValueError(f"n_row={n_row} with has_motion={has_motion}")
     if (len(ints) != 3 or len(comps_in) != 7 or len(thr_in) != 3

@@ -297,7 +297,8 @@ def _launch_iter(entry, tables, lane_in, bvh, prepared, kw):
         raise ValueError(f"lane_in: need {N_LANE_IN} lane tensors")
     if kw["n_u"] != N_U:
         raise ValueError(f"n_u={kw['n_u']}: the kernel draws {N_U} bounce "
-                         "uniforms (volume columns: ROADMAP M10)")
+                         "uniforms (media, whose columns follow, take the "
+                         "generic bounce)")
     table_part = table_args(tables, bvh, kw, prepared)
     r = lane_in[0].shape[0]
     check_lanes(zip(_LANE_NAMES[:3], lane_in[:3]), r, dev, torch.int32)

@@ -28,6 +28,12 @@ strict ``<``: on an exact tie the earlier candidate keeps the front flag.
   :func:`volume_candidates_plain`) folds each medium's scatter candidate
   (:func:`candidate_from_crossings`) into the nearest ``(t_med, vmat)``
   inside the launch, which the bounce then reads.
+* Their keyed mode (:func:`pallas_volume_crossings_keyed`,
+  :func:`pallas_volume_crossings_bcast_keyed`; plain version
+  :func:`volume_crossings_plain` with ``keys=True``) also writes, per
+  medium, the keys of the candidates the two crossings come from, which
+  the differentiable media path's backward reads
+  (``render/volumes.py:DiffCrossings``).
 * :func:`prepare_volume_launch` checks a launch's tables once per driver
   call and prebuilds its argument struct (:class:`VolumeLaunch`).
 
@@ -212,11 +218,16 @@ def _crossing_cand(col, ox, oy, oz, dx, dy, dz, tm, inv, tmn: float,
     return c1, cf1, c2
 
 
-def _merge_chunk(b1, f1, b2, c1, cf1, c2, piota):
+def _merge_chunk(b1, f1, b2, c1, cf1, c2, piota, keys=None):
     """Fold a chunk's candidates [L, W] into the carried triple [1, W]:
     the chunk's smallest crossing with the flag of its first attainment
     (lowest row; a row's entering root before its exit root) and its
-    smallest crossing strictly beyond, merged with a strict ``<``."""
+    smallest crossing strictly beyond, merged with a strict ``<``.
+
+    With ``keys`` = the carried ``(k1, k2)`` [1, W] (f32, +inf for none),
+    also the key ``2 * row + slot`` of the candidate each crossing comes
+    from (slot 0 the entering or planar root, 1 the exit root), the lowest
+    key on a tie; returns ``(b1, f1, b2, (k1, k2))`` then."""
     t1t = torch.minimum(c1.amin(0, keepdim=True), c2.amin(0, keepdim=True))
     p1 = torch.where(c1 == t1t, piota, _INF).amin(0, keepdim=True)
     p2 = torch.where(c2 == t1t, piota, _INF).amin(0, keepdim=True)
@@ -230,23 +241,46 @@ def _merge_chunk(b1, f1, b2, c1, cf1, c2, piota):
 
     def gtv(x):
         return torch.where(x > nb1, x, _INF)
-    b2 = torch.minimum(torch.minimum(gtv(b1), gtv(b2)),
-                       torch.minimum(gtv(t1t), gtv(t2t)))
-    return nb1, f1, b2
+    nb2 = torch.minimum(torch.minimum(gtv(b1), gtv(b2)),
+                        torch.minimum(gtv(t1t), gtv(t2t)))
+    if keys is None:
+        return nb1, f1, nb2
+    k1, k2 = keys
+
+    def chunk_key(t):
+        # the lowest key of the chunk's candidates equal to t
+        return torch.minimum(
+            torch.where(c1 == t, 2.0 * piota, _INF).amin(0, keepdim=True),
+            torch.where(c2 == t, 2.0 * piota + 1.0, _INF)
+            .amin(0, keepdim=True))
+    kt1, kt2 = chunk_key(t1t), chunk_key(t2t)
+    nk1 = torch.where(t1t < b1, kt1, k1)
+    nk2 = torch.full_like(nk1, _INF)
+    for x, k in ((b1, k1), (b2, k2), (t1t, kt1), (t2t, kt2)):
+        nk2 = torch.where((x > nb1) & (x == nb2), torch.minimum(nk2, k), nk2)
+    return nb1, f1, nb2, (nk1, nk2)
 
 
 def volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
                            slices: tuple, t_min: float, has_motion: bool,
-                           has_box: bool, prepared=None):
+                           has_box: bool, prepared=None, keys: bool = False):
     """Both kernels' function in plain PyTorch, on any device: the 3V
     [R] rows ``[t1, front1, t2]`` per volume of ``slices`` ((start,
     count) per volume).  ``prepared`` (the kernels' prepared launch) is
-    accepted and ignored."""
+    accepted and ignored.
+
+    ``keys=True`` (the keyed mode) returns ``(crossings, keys)``: also the
+    2V [R] i32 rows ``[k1, k2]`` per volume, the key ``2 * row + slot``
+    (``row`` in the packed table; slot 0 the entering or planar root, 1
+    the exit root) of the candidate that attains ``t1`` and ``t2``, the
+    lowest key on a tie, -1 where the crossing is +inf."""
     tmn = float(torch.tensor(t_min, dtype=torch.float32))
     plans = _chunk_plans(slices)
     r = ox.shape[0]
     outs = [torch.empty(r, dtype=torch.float32, device=ox.device)
             for _ in range(3 * len(slices))]
+    kouts = [torch.empty(r, dtype=torch.int32, device=ox.device)
+             for _ in range(2 * len(slices) if keys else 0)]
     block = _PAIR_BUDGET // max(min(c, BCAST_CHUNK) for _, c in slices)
     for l0 in range(0, r, block):
         rays = [x[l0:l0 + block][None, :]
@@ -257,6 +291,7 @@ def volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
             b1 = torch.full((1, w), _INF, device=ox.device)
             f1 = torch.zeros((1, w), device=ox.device)
             b2 = torch.full((1, w), _INF, device=ox.device)
+            kk = (b1, b2) if keys else None
             for p, ln in plan:
                 a, b = max(p, start), min(p + ln, start + count)
                 rows = vtbl[a:b]
@@ -265,10 +300,16 @@ def volume_crossings_plain(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
                 c1, cf1, c2 = _crossing_cand(
                     lambda k: rows[:, k:k + 1], *rays, inv, tmn, has_motion,
                     has_box)
-                b1, f1, b2 = _merge_chunk(b1, f1, b2, c1, cf1, c2, piota)
+                b1, f1, b2, *kk = _merge_chunk(b1, f1, b2, c1, cf1, c2,
+                                               piota, kk)
+                kk = kk[0] if keys else None
             for k, x in enumerate((b1, f1, b2)):
                 outs[3 * v + k][l0:l0 + w] = x[0]
-    return outs
+            if keys:
+                for k, (x, key) in enumerate(((b1, kk[0]), (b2, kk[1]))):
+                    kouts[2 * v + k][l0:l0 + w] = torch.where(
+                        torch.isfinite(x[0]), key[0], -1.0).to(torch.int32)
+    return (outs, kouts) if keys else outs
 
 
 def candidate_from_crossings(density, t1, front1, t2, t_min: float, u):
@@ -321,11 +362,11 @@ class _VolArgs(ctypes.Structure):
     """Mirror of ``VolArgs`` in csrc/volume_kernel.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "tbl", "nodes", "rows", "ox", "oy", "oz", "dx", "dy", "dz", "tm",
-        "out", "visits", "u", "density", "t_med", "vmat")]
+        "out", "visits", "keys", "u", "density", "t_med", "vmat")]
         + [(f, ctypes.c_int64) for f in ("n_lanes", "u_stride")]
         + [(f, ctypes.c_int) for f in (
             "n_vol", "n_tbl", "has_motion", "has_box", "tri_only", "planar",
-            "cand")]
+            "cand", "keyed")]
         + [("t_min", ctypes.c_float)]
         + [(f, ctypes.c_int * MAX_VOLUMES) for f in ("starts", "counts",
                                                       "roots")]
@@ -463,13 +504,14 @@ def table_args(vtbl, forest, kw, density=None, mats=(),
 
 def vol_args(vtbl, forest, rays, out, visits, *, slices, t_min: float,
              has_motion: bool, has_box: bool, prepared=None,
-             cand=None) -> _VolArgs:
+             cand=None, keys=None) -> _VolArgs:
     """The kernels' argument struct for tensors that outlive it: the table
     part (:func:`table_args`), the rays, ``t_min`` and either the
-    crossings mode's ``out`` (and ``visits``, or None) or, with ``cand`` =
-    ``(u, t_med, vmat, density, mats, fresh)``, the candidate mode's draws
-    [V, *] (lane-contiguous rows), rows updated in place (written only,
-    with ``fresh``) and media."""
+    crossings mode's ``out`` (and ``visits``, or None; with ``keys``, the
+    keyed mode's [2V, R] i32 keys) or, with ``cand`` = ``(u, t_med, vmat,
+    density, mats, fresh)``, the candidate mode's draws [V, *]
+    (lane-contiguous rows), rows updated in place (written only, with
+    ``fresh``) and media."""
     kw = dict(slices=slices, has_motion=has_motion, has_box=has_box)
     density, mats = (None, ()) if cand is None else cand[3:5]
     args = _VolArgs.from_buffer_copy(
@@ -481,6 +523,8 @@ def vol_args(vtbl, forest, rays, out, visits, *, slices, t_min: float,
     if cand is None:
         args.out = out.data_ptr()
         args.visits = None if visits is None else visits.data_ptr()
+        if keys is not None:
+            args.keyed, args.keys = 1, keys.data_ptr()
     else:
         u, t_med, vmat = cand[:3]
         args.cand = 2 if cand[5] else 1
@@ -490,25 +534,28 @@ def vol_args(vtbl, forest, rays, out, visits, *, slices, t_min: float,
 
 
 def _launch(entry: str, vtbl, forest, rays, kw, prepared, count_visits=False,
-            cand=None):
+            cand=None, keyed=False):
     """Check what can change between launches (the rays, the draws and
     the candidate rows: count, device, type, contiguity) and launch
     ``entry`` over :func:`table_args`; returns the [3V, R] crossings (and
     the [2, R] i32 box tests and row tests of each ray with
-    ``count_visits``), or in the candidate mode ``(t_med, vmat)`` (new
-    rows where ``cand`` gives None)."""
+    ``count_visits``, or with ``keyed`` the [2V, R] i32 keys), or in the
+    candidate mode ``(t_med, vmat)`` (new rows where ``cand`` gives
+    None)."""
     dev = rays[0].device
     r = rays[0].shape[0]
     if vtbl.device != dev:
         raise ValueError(f"vtbl: need a tensor on {dev}")
     check_lanes(zip(("ox", "oy", "oz", "dx", "dy", "dz", "tm"), rays), r,
                 dev)
-    out = visits = None
+    out = visits = keys = None
     if cand is None:
         out = torch.empty((3 * len(kw["slices"]), r), dtype=torch.float32,
                           device=dev)
         visits = (torch.zeros((2, r), dtype=torch.int32, device=dev)
                   if count_visits else None)
+        keys = (torch.empty((2 * len(kw["slices"]), r), dtype=torch.int32,
+                            device=dev) if keyed else None)
     else:
         u, t_med, vmat, density, mats = cand
         if t_med is None:
@@ -524,16 +571,20 @@ def _launch(entry: str, vtbl, forest, rays, kw, prepared, count_visits=False,
             raise ValueError(f"u: need f32 [>={len(kw['slices'])}, {r}] "
                              f"draws with lane-contiguous rows on {dev}")
     launch(entry, vol_args(vtbl, forest, rays, out, visits, prepared=prepared,
-                           cand=cand, **kw), dev)
-    return (out, visits) if cand is None else cand[1:3]
+                           cand=cand, keys=keys, **kw), dev)
+    if cand is not None:
+        return cand[1:3]
+    return (out, keys) if keyed else (out, visits)
 
 
-def _count(kernel, prepared, cand) -> None:
+def _count(kernel, prepared, cand, keyed=False) -> None:
     kernel.launches += 1
     if prepared is not None and prepared.planar:
         kernel.planar_launches += 1
     if cand is not None:
         kernel.candidate_launches += 1
+    if keyed:
+        kernel.keyed_launches += 1
 
 
 def pallas_volume_crossings(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
@@ -568,6 +619,34 @@ def pallas_volume_crossings(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
 pallas_volume_crossings.launches = 0
 pallas_volume_crossings.planar_launches = 0
 pallas_volume_crossings.candidate_launches = 0
+pallas_volume_crossings.keyed_launches = 0
+
+
+def pallas_volume_crossings_keyed(vtbl, ox, oy, oz, dx, dy, dz, tm, *,
+                                  slices: tuple, t_min: float,
+                                  has_motion: bool, has_box: bool = False,
+                                  prepared: VolumeLaunch | None = None):
+    """K11's keyed mode: ``(crossings, keys)``, the 3V [R] crossing rows
+    of :func:`pallas_volume_crossings` and the 2V [R] i32 key rows of
+    :func:`volume_crossings_plain` with ``keys=True``.  ``prepared`` as
+    for :func:`pallas_volume_crossings`.
+
+    CPU tensors run :func:`volume_crossings_plain`; CUDA tensors launch
+    ``rt_volume_crossings`` (counted as K11's launches, and in
+    ``pallas_volume_crossings.keyed_launches``)."""
+    rays = (ox, oy, oz, dx, dy, dz, tm)
+    kw = dict(slices=tuple(slices), has_motion=has_motion, has_box=has_box)
+    dev = ox.device
+    if dev.type == "cpu":
+        return volume_crossings_plain(vtbl, *rays, t_min=t_min, keys=True,
+                                      **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_volume_crossings_keyed: unsupported device "
+                         f"{dev}")
+    out, keys = _launch("rt_volume_crossings", vtbl, None, rays,
+                        dict(kw, t_min=t_min), prepared, keyed=True)
+    _count(pallas_volume_crossings, prepared, None, keyed=True)
+    return list(out.unbind(0)), list(keys.unbind(0))
 
 
 def pallas_volume_candidates(vtbl, ox, oy, oz, dx, dy, dz, tm, *, u, t_med,
@@ -639,6 +718,33 @@ def pallas_volume_crossings_bcast(vtbl, forest, ox, oy, oz, dx, dy, dz, tm,
 
 pallas_volume_crossings_bcast.launches = 0
 pallas_volume_crossings_bcast.candidate_launches = 0
+pallas_volume_crossings_bcast.keyed_launches = 0
+
+
+def pallas_volume_crossings_bcast_keyed(vtbl, forest, ox, oy, oz, dx, dy, dz,
+                                        tm, *, slices: tuple, t_min: float,
+                                        has_motion: bool,
+                                        has_box: bool = False,
+                                        prepared: VolumeLaunch | None = None):
+    """K11b's keyed mode: :func:`pallas_volume_crossings_keyed`' contract
+    over the walk of ``forest``.
+
+    CPU tensors run :func:`volume_crossings_plain`; CUDA tensors launch
+    ``rt_volume_crossings_bvh`` (counted as K11b's launches, and in
+    ``pallas_volume_crossings_bcast.keyed_launches``)."""
+    rays = (ox, oy, oz, dx, dy, dz, tm)
+    kw = dict(slices=tuple(slices), has_motion=has_motion, has_box=has_box)
+    dev = ox.device
+    if dev.type == "cpu":
+        return volume_crossings_plain(vtbl, *rays, t_min=t_min, keys=True,
+                                      **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"pallas_volume_crossings_bcast_keyed: unsupported "
+                         f"device {dev}")
+    out, keys = _launch("rt_volume_crossings_bvh", vtbl, forest, rays,
+                        dict(kw, t_min=t_min), prepared, keyed=True)
+    _count(pallas_volume_crossings_bcast, prepared, None, keyed=True)
+    return list(out.unbind(0)), list(keys.unbind(0))
 
 
 def pallas_volume_candidates_bcast(vtbl, forest, ox, oy, oz, dx, dy, dz, tm,

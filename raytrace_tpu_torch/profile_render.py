@@ -49,7 +49,17 @@ at ``chip_smoke.py``'s shapes (``iter_marble_kernels``: 20 launches, in
 turns, of kernel B on Cornell's 360,064 lanes, every lane regenerating,
 with the tables of ``fused_iter.iter_kernel_args`` as the fused drivers
 pass them, and of K12 on noise_test's 90,112 camera lanes; the calls take
-the same arguments in the parent tree), it
+the same arguments in the parent tree), and for the media's gradients
+through the generic differentiable bounce the cornell_smoke fwd+bwd
+(``smoke_fwdbwd``: ``testing.SMOKE_FWD_BWD``, chip_smoke.py phase 36's
+configuration: K8 and the keyed K11 twice an iteration, once forward and
+once in the checkpointed iteration's replay), the pawn stand-in's
+(``pawn_fwdbwd``: ``testing.PAWN_FWD_BWD``: K9 and the keyed K11b) and
+``grad_render`` on cornell_smoke (``smoke_grad_render``:
+``testing.SMOKE_GRAD_RENDER``, depth 50, each bounce checkpointed), and
+the keyed mode of K11 and K11b against their crossings mode
+(``keyed_kernels``: 20 launches of each, in turns, at chip_smoke.py
+phase 35's shapes), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -62,7 +72,8 @@ the same arguments in the parent tree), it
 
 The iteration count is the number of forward kernel launches (kernel A
 or B, or a nearest-hit kernel and the mesh iteration kernel; for
-``fwdbwd_bal4`` it includes the cost estimate's kernel A launches).
+``fwdbwd_bal4`` it includes the cost estimate's kernel A launches; for
+the checkpointed generic cells twice the iterations or bounces).
 ``mesh_kernels`` also prints the box tests and row tests of K9's rays
 (all, and those that hit), and every run first prints the compiler's
 register, stack and spill report of the two walks' kernels
@@ -305,9 +316,10 @@ def main() -> None:
     from .render.integrator import lane_cost_estimate
     from .testing import (
         FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8, IMAGE_GRAD_FWD_BWD,
-        MESH_FWD_BWD, bunny_standin_scene,
-        cornell_scene_and_settings, cornell_smoke_scene, fwd_bwd_pixels,
-        image_grad_scene, noise_test_scene, pawn_standin_scene,
+        MESH_FWD_BWD, PAWN_FWD_BWD, SMOKE_FWD_BWD, SMOKE_GRAD_RENDER,
+        bunny_standin_scene, cornell_scene_and_settings, cornell_smoke_scene,
+        fwd_bwd_pixels, image_grad_scene, noise_test_scene,
+        pawn_standin_scene,
     )
     only = set(sys.argv[1:])
 
@@ -570,6 +582,61 @@ def main() -> None:
                     call()
         return run_kernels
 
+    def smoke_grad_render():
+        from .diff.gradients import grad_render
+        n_t = SMOKE_GRAD_RENDER["pixels"]
+        pix = torch.arange(n_t, dtype=torch.int32, device=dev)
+        smp = torch.arange(SMOKE_GRAD_RENDER["samples"], dtype=torch.int32)
+        target = torch.zeros((n_t, 3), device=dev)
+        return lambda: grad_render(smoke, s_s, rng.base_key(2, dev), pix,
+                                   smp, target)
+
+    @functools.cache
+    def keyed_kernel_calls():
+        """K11 on cornell_smoke's 360,064 camera rays (planar) and K11b on
+        the pawn stand-in's 2^17, each in the keyed mode and the crossings
+        mode in turns, through ``render/volumes.py``
+        (``volume_crossings_keyed``, ``volume_crossings``): the call of 20
+        launches of each, its inputs made (and each call's device and
+        back-to-back time printed) once."""
+        from .render.volumes import (
+            volume_crossings, volume_crossings_keyed, volume_tables,
+        )
+        from .testing import camera_rays, stationary_lanes
+        _, lanes, lane_pix = stationary_lanes(s_s)
+        rays_s = tuple(camera_rays(smoke, s_s, lanes, 101, pixels=torch
+                                   .from_numpy(lane_pix))[0].unbind(0))
+        n_k = 1 << 17
+        n_pix_p = s_p.image_width * s_p.image_height
+        pix = (torch.arange(n_k) * n_pix_p // n_k).to(torch.int32)
+        rays_p = tuple(camera_rays(pawn, s_p, n_k, 102, pixels=pix)[0]
+                       .unbind(0))
+        vt_s, vt_p = volume_tables(smoke.volumes), volume_tables(pawn.volumes)
+        calls = (
+            ("K11 keyed", lambda: volume_crossings_keyed(
+                smoke.volumes, rays_s, s_s.t_min, vt_s),
+             "volume_crossings_kernel", lanes),
+            ("K11 crossings", lambda: volume_crossings(
+                smoke.volumes, rays_s, s_s.t_min, vt_s),
+             "volume_crossings_kernel", lanes),
+            ("K11b keyed", lambda: volume_crossings_keyed(
+                pawn.volumes, rays_p, s_p.t_min, vt_p),
+             "volume_bvh_kernel", n_k),
+            ("K11b crossings", lambda: volume_crossings(
+                pawn.volumes, rays_p, s_p.t_min, vt_p),
+             "volume_bvh_kernel", n_k))
+        for name, call, kernel, n in calls:
+            print(f"[kernel] {name} at {n} camera rays: "
+                  f"{kernel_ms(call, kernel):.4f} ms on the device, "
+                  f"{min(call_ms(call) for _ in range(5)):.4f} ms a call back "
+                  f"to back (the least of 5 turns of 50) [{smi}]", flush=True)
+
+        def run_kernels():
+            for _ in range(20):
+                for _, call, _, _ in calls:
+                    call()
+        return run_kernels
+
     @functools.cache
     def iter_marble_calls():
         """Kernel B on Cornell's 360,064 lanes, every lane regenerating,
@@ -645,7 +712,14 @@ def main() -> None:
             ("mesh_kernels", lambda: mesh_kernel_calls()(), 0),
             ("media_kernels", lambda: media_kernel_calls()(), 0),
             ("k11_general", lambda: k11_general_calls()(), 0),
-            ("iter_marble_kernels", lambda: iter_marble_calls()(), 0)):
+            ("iter_marble_kernels", lambda: iter_marble_calls()(), 0),
+            ("smoke_fwdbwd", fwd_bwd(smoke, s_s, SMOKE_FWD_BWD, remat=True),
+             SMOKE_FWD_BWD["lanes"] * SMOKE_FWD_BWD["spp"]),
+            ("pawn_fwdbwd", fwd_bwd(pawn, s_p, PAWN_FWD_BWD, remat=True),
+             PAWN_FWD_BWD["lanes"] * PAWN_FWD_BWD["spp"]),
+            ("smoke_grad_render", smoke_grad_render(),
+             SMOKE_GRAD_RENDER["pixels"] * SMOKE_GRAD_RENDER["samples"]),
+            ("keyed_kernels", lambda: keyed_kernel_calls()(), 0)):
         if only and name not in only:
             continue
         walls = []
@@ -665,6 +739,9 @@ def main() -> None:
             prof_wall, _ = run(fn)
         ops, host_launches = _device_ops(prof)
         n_ops = sum(c for c, _ in ops.values())
+        # a kernel cell that launches no forward kernel counts one
+        # iteration a call
+        iters = iters or 1
         dev_s = sum(us for _, us in ops.values()) / 1e6
         top = sorted(ops.items(), key=lambda kv: -kv[1][1])
         with open(OUT_DIR / f"profile_{name}.txt", "w") as f:

@@ -15,6 +15,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core import rng
 from ..core.vecmath import DTYPE, normalize, vcross
 
 
@@ -175,3 +176,31 @@ def generate_ray_components(s: CameraSettings, frame, pixel_ids, u5):
     """Primary rays of camera ``s`` (see :func:`rays_from_table`)."""
     return rays_from_table(camera_table(s, frame), s.image_width, pixel_ids,
                            u5)
+
+
+def generate_rays_from_uniforms(s: CameraSettings, frame, pixel_ids, u5):
+    """Primary rays for flat pixel indices ``pixel_ids[R]`` from an [R, 5]
+    uniform block (disk x2, pixel jitter x2, time), in the JAX package's
+    ``[R, 3]`` form and association: the thin-lens origin on the defocus
+    disk, the jittered target inside the pixel, the unit direction and the
+    sample's time.  Returns ``(origin [R, 3], direction [R, 3], time
+    [R])``."""
+    dev = u5.device
+    fr = {k: torch.as_tensor(v, dtype=DTYPE).to(dev) for k, v in frame.items()}
+    w = s.image_width
+    i = (pixel_ids % w).to(DTYPE)
+    j = torch.div(pixel_ids, w, rounding_mode="floor").to(DTYPE)
+    disk = rng.disk_from_uniforms(u5[:, 0], u5[:, 1])
+    rad = fr["defocus_radius"]
+    origin = (s.center.to(dev) + disk[:, 0:1] * (rad * fr["u"])
+              + disk[:, 1:2] * (rad * fr["v"]))
+    target = (fr["top_left"] + (i + u5[:, 2])[:, None] * fr["pixel_u"]
+              + (j + u5[:, 3])[:, None] * fr["pixel_v"])
+    return origin, normalize(target - origin), u5[:, 4]
+
+
+def generate_rays(s: CameraSettings, frame, pixel_ids, keys):
+    """Primary rays from per-ray keys: one 5-column uniform block of each
+    key's draw site 0 (:func:`generate_rays_from_uniforms`)."""
+    u5 = rng.uniform_block(rng.site(keys, 0), 5)
+    return generate_rays_from_uniforms(s, frame, pixel_ids, u5)

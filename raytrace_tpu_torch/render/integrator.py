@@ -49,10 +49,21 @@ thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
   refuses: torch glue around ``diff/mega_bounce.py:mega_bounce_diff_soa``
   (kernel A forward, kernel K7 backward).
 
-The generic bounce (for scenes neither path takes, such as lights with
-rich textures, and its differentiable form), the bounded-depth ``trace``,
-the BVH accelerator mode beyond 65,536 rows and the gradients of media
-are ROADMAP M4, M6b, M8 and M10.
+* :func:`bounce_generic_soa` — the JAX package's generic ``bounce`` in
+  both modes: with ``diff=False`` the forward drivers' third route, for
+  the scenes neither kernel A nor the split path takes (lights with rich
+  textures, more than 24 materials or 8 redirect targets); with
+  ``diff=True`` the unfused differentiable driver's bounce for every
+  scene the fused step and kernel A refuse (media, ``use_mega=False``,
+  rich textures and tables of more than 512 rows off the fused step):
+  the nearest-hit kernels (through the winner-only differentiable hit),
+  the crossing kernels (in their candidate mode forward, their keyed mode
+  differentiable), and the shading in plain torch.
+* :func:`trace` — the bounded-depth driver of a fixed batch of rays
+  (``diff/gradients.py:render_tile``), forward or differentiable.
+
+Rotated uv-textured spheres and the BVH accelerator mode beyond 65,536
+rows raise (ROADMAP Queue 1 items 2 and 5).
 """
 from __future__ import annotations
 
@@ -64,9 +75,15 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..core.vecmath import DTYPE
+from ..core.vecmath import (
+    DTYPE, normalize, reflect, refract, take_rows, vcross, vdot0,
+)
 from ..diff.fused_iter import fused_iter_eligible, fused_iter_fwd_step
-from ..materials.materials import MaterialTable
+from ..materials.materials import (
+    MAT_ANISOTROPIC, MAT_DIELECTRIC, MAT_LAMBERTIAN, MAT_LIGHT, MAT_LOMMEL,
+    MAT_METAL, MAT_MIRROR, MAT_PITCH_BLACK, MAT_TRANSPARENT, MaterialTable,
+)
+from ..ops.diff_intersect import HitStatics, diff_surface_hit, hit_statics
 from ..ops.allpairs_kernel import (
     MIN_PRIMS, DeviceBVH, allpairs_nearest_record, pack_bvh,
 )
@@ -83,7 +100,10 @@ from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
 )
 from .camera import CameraSettings, camera_frame, camera_table, rays_from_table
-from .volumes import VolumeTables, medium_hit, volume_tables
+from .volumes import (
+    CrossingStatics, VolumeTables, crossing_statics, medium_hit,
+    volume_candidates_diff, volume_tables,
+)
 
 _N_BASE_U = 8       # bounce uniform columns, + one per medium
 LANE_ALIGN = 128    # lane-pool alignment; keeps lane->pixel maps as JAX's
@@ -126,8 +146,9 @@ def _russian_roulette(s: CameraSettings, u_rr, depth, thr, alive, died):
     return thr * scale, alive & ~kill, died | (alive & kill)
 
 
-_RICH_LIGHT = ("lights with image, noise, marble or custom textures need "
-               "the generic bounce (ROADMAP M4)")
+_RICH_LIGHT = ("lights with image, noise, marble or custom textures: their "
+               "emission is shaded in-kernel (the generic bounce takes "
+               "them)")
 
 
 def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
@@ -140,13 +161,12 @@ def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
     whose emission is in-kernel."""
     if scene.volumes is not None:
         return ("constant-density media: kernels A and B do not take them "
-                "(the forward takes the split path; their fwd+bwd is "
-                "ROADMAP M10, with the generic bounce M4 and M11's "
-                "diff_intersect)")
+                "(the forward takes the split path, the fwd+bwd the "
+                "generic differentiable bounce)")
     rows = scene.prims.kind.shape[0]
     if rows > max_rows:
         return (f"{rows} primitive rows: the kernels take at most "
-                f"{max_rows} here (mesh scale: ROADMAP M8)")
+                f"{max_rows} here")
     m = scene.materials
     n_rows = m.n_behaviors if m.n_behaviors > 0 else m.kind.shape[0]
     if defer_rich and is_rich(m.light_tex_kinds):
@@ -156,14 +176,14 @@ def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
                 "split path multiplies the other kinds in)")
     if s.n_redirect > MAX_TARGETS:
         return (f"{s.n_redirect} redirect targets: the kernels take at most "
-                f"{MAX_TARGETS} (generic bounce: ROADMAP M4)")
+                f"{MAX_TARGETS}")
     if n_rows > MAX_MAT_ROWS:
         return (f"{n_rows} material behaviours: the kernels take at most "
-                f"{MAX_MAT_ROWS} (generic bounce: ROADMAP M4)")
+                f"{MAX_MAT_ROWS}")
     if scene.prims.sphere_rots and TEX_CHECKER in \
             scene.textures.kinds_present:
         return ("rotated checker-textured spheres need object-space uv "
-                "(ROADMAP M11)")
+                "(ROADMAP Queue 1 item 2)")
     if n_rays % LANE_ALIGN:
         return f"{n_rays} lanes: not a multiple of {LANE_ALIGN}"
     return None
@@ -176,27 +196,23 @@ def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
 
 def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     """Why the split path (nearest kernel, media crossings, shade kernel,
-    the rich-texture multiply) cannot take this scene (with its ROADMAP
-    item), or None: it takes tables of up to 65,536 rows, up to 24
-    materials and 8 redirect targets, any number of media, and every
-    texture kind except on lights.  The shade kernel's part is the JAX
-    package's ``fused_shade_eligible``."""
+    the rich-texture multiply) cannot take this scene, or None: it takes
+    tables of up to 65,536 rows, up to 24 materials and 8 redirect
+    targets, any number of media, and every texture kind except on
+    lights.  The shade kernel's part is the JAX package's
+    ``fused_shade_eligible``."""
     p, m = scene.prims, scene.materials
-    rows = p.kind.shape[0]
-    if rows > MAX_DENSE_PRIMS:
-        return (f"{rows} primitive rows: past {MAX_DENSE_PRIMS} the BVH "
-                "accelerator mode is not ported yet (ROADMAP M8)")
+    reason = _generic_reason(scene, s)
+    if reason is not None:
+        return reason
     if m.kind.shape[0] > MAX_SHADE_MATS:
         return (f"{m.kind.shape[0]} materials: the shade kernel takes at "
-                f"most {MAX_SHADE_MATS} (generic bounce: ROADMAP M4)")
+                f"most {MAX_SHADE_MATS}")
     if s.n_redirect > MAX_TARGETS:
         return (f"{s.n_redirect} redirect targets: the shade kernel takes "
-                f"at most {MAX_TARGETS} (generic bounce: ROADMAP M4)")
+                f"at most {MAX_TARGETS}")
     if is_rich(m.light_tex_kinds):
         return _RICH_LIGHT
-    if p.sphere_rots:
-        return ("rotated uv-textured spheres need object-space uv "
-                "(ROADMAP M11)")
     if n_rays % LANE_ALIGN:
         return f"{n_rays} lanes: not a multiple of {LANE_ALIGN}"
     return None
@@ -452,19 +468,317 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     return new_comps, rad_new, thr_new, alive_new, alive & ~alive_new
 
 
+def _eval_redirect_pdf(tg, point, direction):
+    """The sum over the redirect targets ``tg = (prob, q, u, v)`` of each
+    lane's pdf term ``t^2 / |cross(u, v) . dir|`` where the ray from
+    ``point`` along ``direction`` ([R, 3]) hits the target parallelogram
+    in ``(0, inf)``, else 0: the JAX package's ``_eval_redirect_pdf``."""
+    prob, q, u, v = tg
+    cp = vcross(u, v)
+    cp_sq = torch.clamp(vdot0(cp, cp), min=1e-30)
+    n_unit = cp * torch.rsqrt(cp_sq)[:, None]
+    n_s = cp / cp_sq[:, None]
+    w_a = vcross(v, n_s)
+    w_b = vcross(n_s, u)
+    denom = direction @ n_unit.T
+    den_ok = torch.abs(denom) > 1e-8
+    t = ((q * n_unit).sum(-1)[None, :] - point @ n_unit.T) / torch.where(
+        den_ok, denom, 1.0)
+
+    def p_rel_dot(w):
+        return (point @ w.T - (q * w).sum(-1)[None, :]
+                + t * (direction @ w.T))
+    a = p_rel_dot(w_a)
+    b = p_rel_dot(w_b)
+    hit = (den_ok & (t > 0.0) & (0.0 <= a) & (a <= 1.0) & (0.0 <= b)
+           & (b <= 1.0))
+    cross_dot = torch.abs(direction @ cp.T)
+    pdf_each = torch.where(hit, t * t / torch.clamp(cross_dot, min=1e-12),
+                           0.0)
+    return pdf_each @ prob
+
+
+def _henyey_greenstein(g, mu):
+    """The Henyey-Greenstein phase (times albedo times 4 pi, the
+    reference's contract)."""
+    g2 = g * g
+    return (1.0 - g2) / torch.pow(
+        torch.clamp(1.0 + g2 - 2.0 * g * mu, min=1e-12), 1.5)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenericTables:
+    """The generic bounce's tables for one scene and camera, built once
+    per driver call from the detached scene: the split path's
+    (:class:`SplitTables`: the nearest-hit kernels' table and BVH, the
+    media's boundary tables), and for ``diff=True`` the statics of the
+    differentiable surface hit and of the media's keyed crossings."""
+    split: SplitTables
+    hit: HitStatics | None = None
+    crossings: CrossingStatics | None = None
+
+
+def _generic_reason(scene: Scene, s: CameraSettings):
+    """Why the generic bounce cannot take this scene (with its ROADMAP
+    item), or None."""
+    p = scene.prims
+    if p.kind.shape[0] > MAX_DENSE_PRIMS:
+        return (f"{p.kind.shape[0]} primitive rows: past {MAX_DENSE_PRIMS} "
+                "the BVH accelerator mode is not ported yet (ROADMAP "
+                "Queue 1 item 5)")
+    if p.sphere_rots:
+        return ("rotated uv-textured spheres need object-space uv (ROADMAP "
+                "Queue 1 item 2)")
+    return None
+
+
+def generic_tables(scene: Scene, s: CameraSettings,
+                   diff: bool = False) -> GenericTables:
+    """:class:`GenericTables` of ``scene`` (its tensors detached) and
+    ``s``; raise, naming the ROADMAP item, for a scene the generic bounce
+    does not take."""
+    from ..diff.gradients import map_scene
+    reason = _generic_reason(scene, s)
+    if reason is not None:
+        raise NotImplementedError(f"generic bounce: {reason}")
+    with torch.no_grad():
+        det = map_scene(lambda x: x.detach(), scene)
+        tb = split_tables(det, s)
+    if not diff:
+        return GenericTables(split=tb)
+    return GenericTables(
+        split=tb, hit=hit_statics(tb, det.prims, tb.t_min),
+        crossings=(None if det.volumes is None
+                   else crossing_statics(det.volumes, tb.t_min)))
+
+
+def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
+                       thr, alive, tables: GenericTables,
+                       diff: bool = False):
+    """One bounce of every lane through the generic bounce (the JAX
+    package's ``bounce``), for every scene kernel A and the split path do
+    not take and for the differentiable routes the fused step and kernel A
+    do not take.  The arguments and results are those of
+    :func:`bounce_mega_soa` (``uniforms`` [8 + V (+ more), R]).
+
+    The surface hit comes from a nearest-hit kernel (K8's flat scan, or
+    K9's BVH walk): with ``diff=True`` through the winner-only
+    ``ops/diff_intersect.py:DiffSurfaceHit``.  Media: with ``diff=False``
+    the nearest scatter candidate of kernel K11 or K11b in the candidate
+    mode (``render/volumes.py:medium_hit``; dead lanes are parked far
+    outside the scene first); with ``diff=True`` every medium's candidate
+    from the keyed crossings (``render/volumes.py:volume_candidates_diff``)
+    folded in medium order, and the score-function weight ``exp(logp -
+    sg(logp))`` (value exactly 1) that carries the density's gradient.
+    The shading is plain torch: the background, the medium's overrides,
+    emission, the specular family, the diffuse family with any number of
+    redirect targets, the Lommel-Seeliger and Henyey-Greenstein factors;
+    the sampled direction and the mixture pdf are detached.  Textures are
+    evaluated here (marble stripes through K12 with ``diff=False``, in
+    differentiable torch with ``diff=True``)."""
+    dev = comps.device
+    r = comps.shape[1]
+    tb = tables
+    d = comps[3:6].T
+    time = comps[6]
+    throughput = thr.T
+    n_t = s.n_redirect
+    if not diff:
+        # dead lanes carry stale rays: park them far outside the scene
+        o_soa = torch.where(alive, comps[0:3], 3e18).contiguous()
+        o = o_soa.T
+        hit = surface_hit(tb.split, o_soa, comps[3:6].contiguous(), time)
+        t_srf = hit[0]
+        normal = torch.stack(hit[2:5], dim=-1)
+        front = hit[5] > 0.5
+        uv = torch.stack(hit[6:8], dim=-1)
+        mat_id = hit[8].long()
+    else:
+        o = comps[0:3].T
+        t_srf, _, normal, front, uv, mat_id = diff_surface_hit(
+            tb.hit, scene.prims, o, d, time)
+
+    vol = scene.volumes
+    if vol is not None:
+        nv = vol.n_volumes
+        u_sc = uniforms[_N_BASE_U:_N_BASE_U + nv]
+        if diff:
+            t_vol, seg_entry, seg_exit, seg_has = volume_candidates_diff(
+                vol, tb.crossings, o, d, time, u_sc)
+            # the winner medium by a fold in medium order (strict <)
+            t_med = torch.full((r,), math.inf, dtype=DTYPE, device=dev)
+            vol_mat = torch.zeros((r,), dtype=torch.long, device=dev)
+            vol_win = torch.full((r,), -1, dtype=torch.long, device=dev)
+            for v in range(nv):
+                better = t_vol[v] < t_med
+                t_med = torch.where(better, t_vol[v], t_med)
+                vol_mat = torch.where(better, vol.mat[v].long(), vol_mat)
+                vol_win = torch.where(better, v, vol_win)
+        else:
+            t_med, vmat = medium_hit(
+                tb.split.volumes, (o_soa[0], o_soa[1], o_soa[2],
+                                   *comps[3:6].contiguous().unbind(0), time),
+                tb.split.t_min, u_sc, tables=tb.split.vol_tables)
+            vol_mat = vmat.long()
+        in_medium = t_med < t_srf
+        t_hit = torch.where(in_medium, t_med, t_srf)
+        if diff:
+            # the score-function density weight: per medium, log pdf of
+            # scattering here (rho exp(-rho s)) or of passing through a
+            # length L of it (exp(-rho L)); every length detached, so the
+            # weight's gradient is d logp / d rho alone
+            t_evt = torch.where(torch.isfinite(t_hit), t_hit,
+                                3e18).detach()
+            logp = torch.zeros((r,), dtype=DTYPE, device=dev)
+            for v in range(nv):
+                rho = vol.density[v]
+                scat_v = in_medium & (vol_win == v) & alive
+                entry_v = seg_entry[v].detach()
+                exit_v = seg_exit[v].detach()
+                has_v = seg_has[v] & alive
+                # finite masked lengths: an infinite unselected branch
+                # would still poison the backward (0 * inf)
+                seg_len = torch.clamp(torch.minimum(t_evt, exit_v) - entry_v,
+                                      min=0.0)
+                seg_len = torch.where(has_v & torch.isfinite(seg_len),
+                                      seg_len, 0.0)
+                s_v = torch.clamp(t_med.detach() - entry_v, min=0.0)
+                s_v = torch.where(scat_v & torch.isfinite(s_v), s_v, 0.0)
+                lf = torch.where(
+                    scat_v, torch.log(torch.clamp(rho, min=1e-20)) - rho * s_v,
+                    torch.where(has_v, -rho * seg_len, 0.0))
+                logp = logp + lf
+            throughput = throughput * torch.exp(logp - logp.detach())[:, None]
+    else:
+        in_medium = torch.zeros((r,), dtype=torch.bool, device=dev)
+        t_hit = t_srf
+
+    hit_any = torch.isfinite(t_hit)
+    # the background on a miss
+    bg = s.background(o, d).to(DTYPE)
+    miss = alive & ~hit_any
+    radiance = rad.T + torch.where(miss[:, None], throughput * bg, 0.0)
+
+    # the hit point; a medium event's normal faces the ray, its uv is 0
+    t_safe = torch.where(hit_any, t_hit, 1.0)
+    point = (o + t_safe[:, None] * d).contiguous()
+    if vol is not None:
+        med = in_medium[:, None]
+        normal = torch.where(med, -d, normal)
+        front = torch.where(in_medium, True, front)
+        uv = torch.where(med, 0.0, uv)
+        mat_id = torch.where(in_medium, vol_mat, mat_id)
+
+    m = scene.materials
+    kind = m.kind[mat_id]
+    tex_id = m.tex[mat_id]
+    param = take_rows(m.param, mat_id)
+    albedo = eval_texture(scene.textures, tex_id, point, uv,
+                          marble_kernel=not diff)
+    live_hit = alive & hit_any
+
+    # emission: only lights emit
+    emitted = torch.where((kind == MAT_LIGHT)[:, None], albedo, 0.0)
+    radiance = radiance + torch.where(live_hit[:, None],
+                                      throughput * emitted, 0.0)
+
+    is_absorb = (kind == MAT_LIGHT) | (kind == MAT_PITCH_BLACK)
+    is_hemi = (kind == MAT_LAMBERTIAN) | (kind == MAT_LOMMEL)
+    is_spec = ((kind == MAT_MIRROR) | (kind == MAT_METAL)
+               | (kind == MAT_DIELECTRIC) | (kind == MAT_TRANSPARENT))
+
+    # the specular family
+    refl = reflect(normal, d)
+    fuzz_u = rng.unit_vector_from_uniforms(uniforms[0], uniforms[1])
+    metal_dir = refl + param[:, None] * fuzz_u
+    metal_ok = vdot0(metal_dir, normal) > 0.0
+    metal_dir = normalize(metal_dir)
+    ior = torch.clamp(param, min=1e-6)
+    ior_ratio = torch.where(front, 1.0 / ior, ior)
+    cos_t = torch.clamp(vdot0(normal, -d), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = ior_ratio * sin_t > 1.0
+    r0 = (1.0 - ior_ratio) / (1.0 + ior_ratio)
+    r0 = r0 * r0
+    schlick = r0 + (1.0 - r0) * torch.pow(1.0 - cos_t, 5.0)
+    di_reflect = cannot | (uniforms[2] < schlick)
+    di_dir = torch.where(di_reflect[:, None], refl,
+                         refract(ior_ratio, cos_t, normal, d))
+    spec_dir = torch.where((kind == MAT_MIRROR)[:, None], refl, d)
+    spec_dir = torch.where((kind == MAT_METAL)[:, None], metal_dir, spec_dir)
+    spec_dir = torch.where((kind == MAT_DIELECTRIC)[:, None], di_dir,
+                           spec_dir)
+    spec_att = torch.where((kind == MAT_DIELECTRIC)[:, None],
+                           torch.ones_like(albedo), albedo)
+    spec_dead = (kind == MAT_METAL) & ~metal_ok
+
+    # the diffuse family with redirection
+    unit_u = rng.unit_vector_from_uniforms(uniforms[3], uniforms[4])
+    cos_dir = normalize(normal + unit_u)
+    base_dir = torch.where(is_hemi[:, None], cos_dir, unit_u)
+    if n_t:
+        tg = tuple(x.to(dev) for x in (s.redirect_prob, s.redirect_q,
+                                       s.redirect_u, s.redirect_v))
+        prob, q, tu, tv = tg
+        rem_prob = 1.0 - torch.sum(prob)
+        cdf = torch.cumsum(prob, 0)
+        # the first target whose cumulative probability exceeds the draw;
+        # none: the base sample
+        t_sel = torch.sum((uniforms[5][:, None] >= cdf[None, :])
+                          .to(torch.int32), 1)
+        use_target = t_sel < n_t
+        ti = torch.clamp(t_sel, max=n_t - 1).long()
+        light_pt = (q[ti] + uniforms[6][:, None] * tu[ti]
+                    + uniforms[7][:, None] * tv[ti])
+        tgt_dir = normalize(light_pt - point)
+        diff_dir = torch.where(use_target[:, None], tgt_dir, base_dir)
+    else:
+        diff_dir = base_dir
+    diff_dir = diff_dir.detach()
+    mu1 = vdot0(diff_dir, normal)
+    pdf_base = torch.where(is_hemi, mu1 / math.pi, 0.25 / math.pi)
+    hemi_dead = is_hemi & (pdf_base <= 0.0)
+    pdf_mix = (rem_prob * pdf_base + _eval_redirect_pdf(tg, point, diff_dir)
+               if n_t else pdf_base)
+    # the sampling density is detached; the BRDF's numerator is not
+    pdf_mix = torch.clamp(pdf_mix, min=1e-12).detach()
+    mu0 = -vdot0(d, normal)
+    lommel = 0.25 / torch.clamp(mu0 + mu1, min=1e-8)
+    hg = _henyey_greenstein(param, vdot0(d, diff_dir))
+    brdf = torch.ones((r,), dtype=DTYPE, device=dev)
+    brdf = torch.where(kind == MAT_LOMMEL, lommel, brdf)
+    brdf = torch.where(kind == MAT_ANISOTROPIC, hg, brdf)
+    diff_w = albedo * (brdf * pdf_base / pdf_mix)[:, None]
+
+    new_dir = torch.where(is_spec[:, None], spec_dir, diff_dir)
+    weight = torch.where(is_spec[:, None], spec_att, diff_w)
+    next_alive = live_hit & ~is_absorb & ~spec_dead & ~hemi_dead
+    na = next_alive[:, None]
+    throughput = torch.where(na, throughput * weight, throughput)
+    o_new = torch.where(na, point, o)
+    d_new = torch.where(na, new_dir, d)
+    comps2 = torch.cat([o_new.T, d_new.T, time[None]])
+    return comps2, radiance.T, throughput.T, next_alive, alive & ~next_alive
+
+
 def _bounce_step(scene: Scene, s: CameraSettings, n_rays: int):
     """``(bounce, tables)`` of the forward drivers for this scene: kernel
-    A's :func:`bounce_mega_soa`, or for every scene kernel A refuses
-    (tables over 512 rows, rich textures, more behaviours than it stages)
-    the split path's :func:`bounce_split_soa`, as the JAX package's
-    drivers fall back to ``bounce``; with their tables packed once.
-    Raise, naming the ROADMAP item, if neither takes the scene."""
+    A's :func:`bounce_mega_soa`; for every scene kernel A refuses (tables
+    over 512 rows, rich textures, more behaviours than it stages) the
+    split path's :func:`bounce_split_soa`; for every scene the split path
+    refuses too (lights with rich textures, more than 24 materials or 8
+    redirect targets) the generic :func:`bounce_generic_soa` with
+    ``diff=False``, as the JAX package's drivers fall back to ``bounce``;
+    with their tables packed once.  Raise, naming the ROADMAP item, if
+    none takes the scene."""
     if _ineligible_reason(scene, s, n_rays) is None:
         return bounce_mega_soa, bounce_tables(scene, s)
-    reason = _split_ineligible_reason(scene, s, n_rays)
-    if reason is None:
+    if _split_ineligible_reason(scene, s, n_rays) is None:
         return bounce_split_soa, split_tables(scene, s)
-    raise NotImplementedError(f"render: {reason}")
+    reason = _generic_reason(scene, s)
+    if reason is not None:
+        raise NotImplementedError(f"render: {reason}")
+    return bounce_generic_soa, generic_tables(scene, s)
 
 
 def _init_comps(lanes: int, device):
@@ -908,13 +1222,15 @@ def lane_cost_estimate(scene: Scene, s: CameraSettings, base_key, pixel_ids,
 def _trace_wavefront_diff_unfused(scene: Scene, s: CameraSettings, base_key,
                                   pixel_ids, spp: int, n_iters: int,
                                   sample_offset: int, remat: bool,
-                                  rotate_k: int, pixel_cost, schedule):
+                                  rotate_k: int, pixel_cost, schedule,
+                                  generic: bool = False):
     """The unfused differentiable driver (the JAX package's scan body of
     ``trace_wavefront_diff``): ``n_iters`` iterations of torch glue
     (regeneration, counter hash, camera, Russian roulette with a detached
     survival probability, the flush) around the differentiable bounce
     ``diff/mega_bounce.py:mega_bounce_diff_soa`` (kernel A forward, K7
-    backward), then the completion schedule.
+    backward) or, with ``generic``, :func:`bounce_generic_soa` with
+    ``diff=True``, then the completion schedule.
 
     ``rotate_k > 1`` (a divisor of ``spp``) rotates each lane through
     ``k`` pixels: by rolled pixel maps at JAX's stride, or with
@@ -946,7 +1262,10 @@ def _trace_wavefront_diff_unfused(scene: Scene, s: CameraSettings, base_key,
     n_u = n_bounce_uniforms(scene)
     cam = camera_table(s, camera_frame(s))
     last_sample = sample_offset + spp - 1
-    st = mega_statics(scene, s)
+    if generic:
+        gt = generic_tables(scene, s, diff=True)
+    else:
+        st = mega_statics(scene, s)
 
     def make_step(pix_arr):
         def step(comps, rad, thr, alive, sample, depth, keys):
@@ -965,9 +1284,14 @@ def _trace_wavefront_diff_unfused(scene: Scene, s: CameraSettings, base_key,
             new_comps = rays_from_table(cam, s.image_width, lane_pixel,
                                         uniforms[n_u:n_u + 5])
             comps = torch.where(can, new_comps, comps)
-            comps, contrib, thr, alive, died = mega_bounce_diff_soa(
-                scene, s, comps, uniforms, thr, alive, statics=st)
-            rad = rad + contrib
+            if generic:
+                comps, rad, thr, alive, died = bounce_generic_soa(
+                    scene, s, comps, uniforms, rad, thr, alive, tables=gt,
+                    diff=True)
+            else:
+                comps, contrib, thr, alive, died = mega_bounce_diff_soa(
+                    scene, s, comps, uniforms, thr, alive, statics=st)
+                rad = rad + contrib
             depth = depth + 1
             capped = alive & (depth >= s.max_depth)
             died = died | capped
@@ -1086,11 +1410,12 @@ def trace_wavefront_diff(scene: Scene, s: CameraSettings, base_key,
     (``diff/fused_iter.py``: kernel B forward, K5 backward) when
     ``rotate_k == 1``, no ``skip_done``, no ``pixel_cost``, ``use_mega``
     not False and :func:`fused_diff_reason` takes the scene; otherwise the
-    unfused driver over ``mega_bounce_diff_soa`` (kernel A forward, K7
-    backward) when kernel A takes the scene.  Every other case (``use_mega
-    = False``, rich textures, media, tables of more than 512 rows off the
-    fused step) needs the generic differentiable bounce and raises
-    ``NotImplementedError`` (ROADMAP M4).
+    unfused driver, over ``mega_bounce_diff_soa`` (kernel A forward, K7
+    backward) when kernel A takes the scene and ``use_mega`` is not
+    False, else over the generic differentiable bounce
+    (:func:`bounce_generic_soa` with ``diff=True``: ``use_mega=False``,
+    rich textures, media, tables of more than 512 rows off the fused
+    step).
 
     ``remat``: the fused step saves only its carries, the winner index
     and the RR scale, and K5 replays the lane, so it changes nothing
@@ -1110,15 +1435,60 @@ def trace_wavefront_diff(scene: Scene, s: CameraSettings, base_key,
             and use_mega is not False and fused_diff_reason(scene, s) is None):
         return _trace_wavefront_diff_fused(scene, s, base_key, pixel_ids, spp,
                                            n_iters, sample_offset, schedule)
-    reason = ("use_mega=False asks for it" if use_mega is False
-              else _ineligible_reason(scene, s, lanes))
-    if reason is not None:
-        raise NotImplementedError(
-            "trace_wavefront_diff: this case needs the generic "
-            "differentiable bounce (the JAX package's bounce(diff=True), "
-            f"ROADMAP M4): {reason}")
+    generic = (use_mega is False
+               or _ineligible_reason(scene, s, lanes) is not None)
     if schedule and (rotate_k > 1 and spp % rotate_k == 0 or skip_done):
         raise ValueError("schedule requires rotate_k=1, skip_done=False")
     return _trace_wavefront_diff_unfused(
         scene, s, base_key, pixel_ids, spp, n_iters, sample_offset, remat,
-        rotate_k, pixel_cost, schedule)
+        rotate_k, pixel_cost, schedule, generic)
+
+
+def trace(scene: Scene, s: CameraSettings, o, d, time, keys,
+          differentiable: bool = False):
+    """Trace a fixed batch of rays (``o``, ``d`` [R, 3], ``time`` [R], one
+    key [R, 2] each) to completion: radiance [R, 3] (the JAX package's
+    ``trace``).  Each bounce draws ``n_bounce_uniforms + 1`` columns of
+    ``mix_depth(keys, depth)``, the last for Russian roulette.
+
+    The forward loops to ``max_depth``, stopping once no lane is alive (a
+    host read each bounce), through the forward drivers' bounce
+    (:func:`_bounce_step`: kernel A, the split path or the generic
+    bounce).  ``differentiable=True`` runs a fixed ``max_depth`` bounces
+    of the generic bounce with ``diff=True``, each under
+    ``torch.utils.checkpoint`` (its forward, kernels included, runs again
+    in the backward), the survival probability detached."""
+    from torch.utils.checkpoint import checkpoint
+    dev = scene.device
+    r = o.shape[0]
+    n_u = n_bounce_uniforms(scene)
+    comps = torch.cat([o.T, d.T, time[None]]).to(dev)
+    rad = torch.zeros((3, r), dtype=DTYPE, device=dev)
+    thr = torch.ones((3, r), dtype=DTYPE, device=dev)
+    alive = torch.ones((r,), dtype=torch.bool, device=dev)
+    keys = keys.to(dev)
+    if differentiable:
+        tables = generic_tables(scene, s, diff=True)
+        bounce_fn = functools.partial(bounce_generic_soa, diff=True)
+    else:
+        bounce_fn, tables = _bounce_step(scene, s, r)
+
+    def body(depth, comps, rad, thr, alive):
+        uniforms = rng.uniform_cols(rng.mix_depth(keys, depth), n_u + 1)
+        comps, rad, thr, alive, died = bounce_fn(
+            scene, s, comps, uniforms, rad, thr, alive, tables=tables)
+        if s.rr_depth is not None:
+            thr, alive, _ = _russian_roulette(s, uniforms[n_u], depth + 1,
+                                              thr, alive, died)
+        return comps, rad, thr, alive
+
+    for depth in range(s.max_depth):
+        if differentiable:
+            comps, rad, thr, alive = checkpoint(
+                body, depth, comps, rad, thr, alive, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            if not bool(alive.any()):
+                break
+            comps, rad, thr, alive = body(depth, comps, rad, thr, alive)
+    return rad.T

@@ -125,6 +125,17 @@ FWD_BWD_ROT8 = dict(rr_depth=2, lanes=1 << 18, spp=64, n_iters=195,
                     rotate_k=8)
 FWD_BWD_BAL4 = dict(rr_depth=2, lanes=1 << 18, spp=64, n_iters=184,
                     rotate_k=4, spp_est=4)
+# the media fwd+bwd through the generic differentiable bounce: cornell_smoke
+# at 600 x 600, depth 50, RR from depth 2, 2^18 lanes x 16 spp, each
+# iteration checkpointed, 100 iterations then 40 at 2^14 and 100 at 2^12
+# lanes; the pawn stand-in at 500 x 500, depth 20, 2^17 lanes x 4 spp
+SMOKE_FWD_BWD = dict(rr_depth=2, lanes=1 << 18, spp=16, n_iters=100,
+                     schedule=((40, 1 << 14), (100, 1 << 12)), remat=True)
+PAWN_FWD_BWD = dict(rr_depth=2, lanes=1 << 17, spp=4, n_iters=60,
+                    remat=True)
+# grad_render on cornell_smoke at 600 x 600, depth 50: a tile of 2^16
+# pixels (0 .. 2^16) x 4 samples
+SMOKE_GRAD_RENDER = dict(pixels=1 << 16, samples=4)
 
 
 def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
@@ -514,6 +525,93 @@ def cornell_smoke_scene(width: int = 600, spp: int = 200, depth: int = 50,
     return (rt.compile_scene(cornell_smoke_world(rt), device=device),
             cornell_smoke_settings(rt, width, spp, depth))
 
+
+
+def nine_target_settings(rt, width: int = 600, spp: int = 200,
+                         depth: int = 50):
+    """cornell_smoke's camera with nine redirect targets, the 3 x 3 cells
+    of its light, each of probability 1/12: more targets than the shade
+    kernel's eight, so the forward takes the generic bounce."""
+    cells = [(1.0 / 12.0, [113 + 110 * i, 554, 127 + 305 / 3 * j],
+              [110, 0, 0], [0, 0, 305 / 3])
+             for i in range(3) for j in range(3)]
+    return rt.CameraSettings(
+        aspect_ratio=1.0, image_width=width, samples_per_pixel=spp,
+        max_depth=depth, background=rt.const_background(0.0),
+        vfov=rt.degrees(40), center=np.asarray([278.0, 278.0, -800.0]),
+        look_at=np.asarray([278.0, 278.0, 0.0]),
+    ).with_redirect_targets(cells)
+
+
+def nine_target_scene(width: int = 600, spp: int = 200, depth: int = 50,
+                      device="cuda"):
+    """``(scene, settings)``: cornell_smoke's world under
+    :func:`nine_target_settings` (the generic bounce's forward, its media
+    through K11's candidate mode)."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(cornell_smoke_world(rt), device=device),
+            nine_target_settings(rt, width, spp, depth))
+
+
+def fog_world(rt, density: float = 0.8):
+    """The JAX package's density-gradient scene
+    (``tests/test_gradients.py:366-383``): a light quad seen through a
+    fog sphere, so the transmitted light depends strongly on the
+    density."""
+    return rt.group([
+        rt.with_material(rt.light_source(rt.constant_texture(4.0)),
+                         rt.parallelogram([-2, -2, -4], [4, 0, 0],
+                                          [0, 4, 0])),
+        rt.with_material(rt.isotropic(rt.constant_texture(0.3)),
+                         rt.constant_medium(density,
+                                            rt.sphere([0, 0, -2], 1.0))),
+    ])
+
+
+def fog_settings(rt, width: int = 16, spp: int = 8, depth: int = 12):
+    """The fog scene's camera (``tests/test_gradients.py:386-389``)."""
+    return rt.CameraSettings(
+        image_width=width, samples_per_pixel=spp, max_depth=depth,
+        center=np.asarray([0.0, 0.0, 1.0]),
+        look_at=np.asarray([0.0, 0.0, -2.0]), vfov=1.0,
+        background=rt.const_background(0.0))
+
+
+def marble_light_world(rt):
+    """A marble-textured spherical light over a grey ground, beside a
+    blue diffuse ball and a fuzzy metal one: a light with a rich texture,
+    which kernel A and the split path refuse, so the forward takes the
+    generic bounce (its stripes through K12)."""
+    return rt.group([
+        rt.with_material(rt.lambertian(rt.constant_texture(0.6)),
+                         rt.parallelogram([-8, -1, 4], [16, 0, 0],
+                                          [0, 0, -16])),
+        rt.with_material(rt.light_source(rt.marble_texture([0, 0, 1], 2.0)),
+                         rt.sphere([0, 0.6, -4], 1.4)),
+        rt.with_material(rt.lambertian(rt.constant_texture([0.2, 0.4, 0.8])),
+                         rt.sphere([2.6, 0.0, -3.5], 1.0)),
+        rt.with_material(rt.metal(0.2, rt.constant_texture(0.8)),
+                         rt.sphere([-2.6, 0.0, -3.5], 1.0)),
+    ])
+
+
+def marble_light_settings(rt, width: int = 400, spp: int = 16,
+                          depth: int = 50):
+    """The marble-lit scene's camera: square, vfov 40 degrees, a dim sky
+    of 0.05."""
+    return rt.CameraSettings(
+        aspect_ratio=1.0, image_width=width, samples_per_pixel=spp,
+        max_depth=depth, center=np.asarray([0.0, 1.5, 4.0]),
+        look_at=np.asarray([0.0, 0.3, -4.0]), vfov=rt.degrees(40),
+        background=rt.const_background(0.05))
+
+
+def marble_light_scene(width: int = 400, spp: int = 16, depth: int = 50,
+                       device="cuda"):
+    """``(scene, settings)`` of :func:`marble_light_world`."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(marble_light_world(rt), device=device),
+            marble_light_settings(rt, width, spp, depth))
 
 # the stand-in pawn's profile: (radius, height) from the bottom pole to
 # the top one -- base, waist, collar, head
@@ -1090,6 +1188,42 @@ def compare_crossings(volumes, comps, t_min: float = 1e-3, tables=None,
     return max_errs(ref, out, tuple(range(1, len(ref), 3))), out
 
 
+def keyed_plain(vtbl, *rays, **kw):
+    """``volume_crossings_plain(..., keys=True)`` as one list: the 3V
+    crossing rows, then the 2V key rows (as f32)."""
+    from .ops.volume_kernel import volume_crossings_plain
+    outs, keys = volume_crossings_plain(vtbl, *rays, keys=True, **kw)
+    return outs + [k.to(torch.float32) for k in keys]
+
+
+def keyed_check(n_vol: int):
+    """The comparison of :func:`checked_launches` for the keyed mode's
+    :func:`keyed_plain` lists of ``n_vol`` media: the front flags and the
+    keys as exact rows."""
+    exact = tuple(range(1, 3 * n_vol, 3)) + tuple(range(3 * n_vol,
+                                                        5 * n_vol))
+    return lambda ref, out: max_errs(ref, out, exact)
+
+
+def compare_keyed(volumes, comps, t_min: float = 1e-3, tables=None):
+    """The keyed mode of the crossing kernels of ``volumes`` (the launches
+    of ``tables``, ``render/volumes.py:volume_crossings_keyed``) against
+    :func:`keyed_plain` on the rays ``comps`` [7, R]: ``(max_errs(...)
+    with the flags and keys as exact rows, lanes whose keyed crossings
+    differ from the crossings mode's)``."""
+    from .render.volumes import (
+        crossing_kw, volume_crossings, volume_crossings_keyed, volume_tables,
+    )
+    tables = volume_tables(volumes) if tables is None else tables
+    rays = tuple(comps.unbind(0))
+    ref = keyed_plain(tables.vtbl, *rays, **crossing_kw(volumes, t_min))
+    outs, keys = volume_crossings_keyed(volumes, rays, t_min, tables)
+    plain_mode = volume_crossings(volumes, rays, t_min, tables)
+    n_mode = sum(int((a != b).sum()) for a, b in zip(outs, plain_mode))
+    got = outs + [k.to(torch.float32) for k in keys]
+    return keyed_check(volumes.n_volumes)(ref, got), n_mode
+
+
 def general_tables(tables):
     """``tables`` (``render/volumes.py:volume_tables``) with every launch
     prepared again for K11's general instantiation."""
@@ -1241,7 +1375,8 @@ def next_split_rays(comps, out, seed: int, depth: int):
 def checked_launches():
     """Inside the block, every kernel A launch of the render drivers,
     every nearest-hit (BVH walk and flat scan), medium crossing (K11,
-    K11b, either mode), shade and marble kernel launch of the split path, every kernel
+    K11b, any mode: the keyed one's keys as exact rows), shade and marble
+    kernel launch of the split path and the generic bounce, every kernel
     B launch of the fused step and every atlas-gradient launch of its
     backward is held against its plain version on the same inputs (run
     first: the candidate mode updates its rows in place).  Yields
@@ -1275,6 +1410,14 @@ def checked_launches():
 
     def crossing_check(args, ref, out):
         return max_errs(ref, out, tuple(range(1, len(ref), 3)))
+
+    def keyed_kernel_check(args, ref, out):
+        n_vol = len(ref) // 5
+        return keyed_check(n_vol)(ref, out[0] + [k.to(torch.float32)
+                                                 for k in out[1]])
+
+    def keyed_bcast_plain(vtbl, forest, *rays, **kw):
+        return keyed_plain(vtbl, *rays, **kw)
 
     def candidate_check(args, ref, out):
         # the material id and whether a lane scatters exact, t_med's max
@@ -1330,7 +1473,11 @@ def checked_launches():
                (volumes, "pallas_volume_candidates", volume_candidates_plain,
                 candidate_check),
                (volumes, "pallas_volume_candidates_bcast",
-                candidates_bcast_plain, candidate_check)]
+                candidates_bcast_plain, candidate_check),
+               (volumes, "pallas_volume_crossings_keyed", keyed_plain,
+                keyed_kernel_check),
+               (volumes, "pallas_volume_crossings_bcast_keyed",
+                keyed_bcast_plain, keyed_kernel_check)]
     originals = []
     for module, name, plain, rows in patched:
         kernel, checked = spy(module, name, plain, rows)
@@ -1593,35 +1740,47 @@ def compare_bwd(args, kw):
 def plain_kernels():
     """Inside the block the fused iteration runs the plain versions of
     kernel B (and its mesh variant) forward and of K5 backward, the
-    unfused bounce those of kernel A and K7, and the split path those of
-    the crossing kernels K11 and K11b (both modes), on any device."""
+    unfused bounce those of kernel A and K7, the split path and the
+    generic bounce those of the nearest-hit kernels K8 and K9 and of the
+    crossing kernels K11 and K11b (every mode), on any device."""
+    from functools import partial
+
     from .diff import fused_iter
+    from .ops.allpairs_kernel import allpairs_nearest_plain
     from .ops.bounce_kernel import bounce_plain
+    from .ops.intersect_kernel import pallas_nearest_plain
     from .ops.iter_kernel import iter_plain
     from .ops.volume_kernel import (
         volume_candidates_plain, volume_crossings_plain,
     )
     from .render import integrator, volumes
-    names = ("pallas_volume_crossings", "pallas_volume_crossings_bcast",
-             "pallas_volume_candidates", "pallas_volume_candidates_bcast")
-    saved = (fused_iter.iter_megakernel, integrator.bounce_megakernel,
-             *(getattr(volumes, n) for n in names))
-    fused_iter.iter_megakernel = iter_plain
-    integrator.bounce_megakernel = bounce_plain
+
+    def no_forest(plain, vtbl, forest, *rays, **kw):
+        return plain(vtbl, *rays, **kw)
+
+    keyed = partial(volume_crossings_plain, keys=True)
+    swaps = [(fused_iter, "iter_megakernel", iter_plain),
+             (integrator, "bounce_megakernel", bounce_plain),
+             (integrator, "pallas_nearest_record", pallas_nearest_plain),
+             (integrator, "allpairs_nearest_record",
+              partial(no_forest, allpairs_nearest_plain))]
     for name, plain in (("pallas_volume_crossings", volume_crossings_plain),
                         ("pallas_volume_candidates",
-                         volume_candidates_plain)):
-        setattr(volumes, name, plain)
-        setattr(volumes, name + "_bcast",
-                lambda vtbl, forest, *rays, _plain=plain, **kw: _plain(
-                    vtbl, *rays, **kw))
+                         volume_candidates_plain),
+                        ("pallas_volume_crossings_keyed", keyed)):
+        swaps.append((volumes, name, plain))
+        swaps.append((volumes, name.replace("crossings", "crossings_bcast")
+                      if name.endswith("keyed") else name + "_bcast",
+                      partial(no_forest, plain)))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, fn in swaps:
+        setattr(m, n, fn)
     try:
         with plain_backward():
             yield
     finally:
-        fused_iter.iter_megakernel, integrator.bounce_megakernel = saved[:2]
-        for name, fn in zip(names, saved[2:]):
-            setattr(volumes, name, fn)
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 @contextlib.contextmanager

@@ -19,7 +19,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from ..core.vecmath import DTYPE
+from ..core.vecmath import DTYPE, take_rows
 from ..ops.image_grad_kernel import image_grad_pallas
 from ..ops.texture_kernel import marble_stripe_pallas, marble_stripe_values
 from .noise import fractal_noise
@@ -240,15 +240,15 @@ def eval_texture(table: TextureTable, tex_ids, points, uvs,
     ``marble_pallas=``."""
     tex_ids = tex_ids.long()
     kind = table.kind[tex_ids]
-    c0 = table.c0[tex_ids]
+    c0 = take_rows(table.c0, tex_ids)
     out = c0
     present = table.kinds_present
     if TEX_CHECKER in present:
         # floor(u * n_u) + floor(v * n_v) parity
-        i = torch.floor(uvs[..., 0] * table.f0[tex_ids]).to(torch.int32)
-        j = torch.floor(uvs[..., 1] * table.f1[tex_ids]).to(torch.int32)
+        i = torch.floor(uvs[..., 0] * take_rows(table.f0, tex_ids)).to(torch.int32)
+        j = torch.floor(uvs[..., 1] * take_rows(table.f1, tex_ids)).to(torch.int32)
         even = ((i + j) & 1) == 0
-        checker = torch.where(even[..., None], c0, table.c1[tex_ids])
+        checker = torch.where(even[..., None], c0, take_rows(table.c1, tex_ids))
         out = torch.where((kind == TEX_CHECKER)[..., None], checker, out)
     if TEX_IMAGE in present:
         # i = floor(u w) mod w, j = floor((1 - v) h) mod h: (u, v) = (0, 0)
@@ -265,21 +265,21 @@ def eval_texture(table: TextureTable, tex_ids, points, uvs,
         texel = _image_gather(table.images, img_id, j, i)
         out = torch.where((kind == TEX_IMAGE)[..., None], texel, out)
     if TEX_NOISE in present:
-        q = points * table.f0[tex_ids][..., None] + table.v0[tex_ids]
+        q = points * take_rows(table.f0, tex_ids)[..., None] + take_rows(table.v0, tex_ids)
         n = torch.zeros(points.shape[:-1], dtype=DTYPE, device=points.device)
         octaves = table.i0[tex_ids]
         for k in table.noise_octaves:
             n = torch.where(octaves == k, fractal_noise(k, q), n)
         val = (n * (0.5 / 0.8) + 0.5)[..., None]
-        noise_col = c0 + (table.c1[tex_ids] - c0) * val
+        noise_col = c0 + (take_rows(table.c1, tex_ids) - c0) * val
         out = torch.where((kind == TEX_NOISE)[..., None], noise_col, out)
     if TEX_MARBLE in present:
         if marble_kernel:
             stripe = marble_stripe_pallas(table, tex_ids, points)
         else:
-            d, sh = table.v0[tex_ids], table.v1[tex_ids]
+            d, sh = take_rows(table.v0, tex_ids), take_rows(table.v1, tex_ids)
             stripe = marble_stripe_values(
-                table.f0[tex_ids], d[..., 0], d[..., 1], d[..., 2],
+                take_rows(table.f0, tex_ids), d[..., 0], d[..., 1], d[..., 2],
                 sh[..., 0], sh[..., 1], sh[..., 2], points[..., 0],
                 points[..., 1], points[..., 2])
         out = torch.where((kind == TEX_MARBLE)[..., None], stripe[..., None],

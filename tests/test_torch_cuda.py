@@ -17,9 +17,12 @@ gradient leaf (the per-lane differences of the kernel, summed in another
 order).  The mesh
 kernels (nearest hit over the BVH, shade, kernel B's mesh variant) equal
 their plain versions exactly on every lane, as do the flat-scan nearest kernel K8, the marble
-kernel K12 and the medium crossing kernels K11 and K11b; the atlas
-gradient K13 within ``testing.image_grad_errs`` (float atomics add in a
-varying order).
+kernel K12 and the medium crossing kernels K11 and K11b (in every mode,
+the keyed one's keys included); the atlas gradient K13 within
+``testing.image_grad_errs`` (float atomics add in a varying order).  The
+generic bounce's routes (the media fwd+bwd, a marble-lit render,
+``grad_render``) launch their kernels, and the fwd+bwd equals the one
+with every plain version within ``GRAD_RTOL``.
 """
 import numpy as np
 import pytest
@@ -789,3 +792,98 @@ def test_media_scene_lands_on_the_card_and_stays_off_kernel_b(device):
     pix = torch.arange(128, dtype=torch.int32, device=device)
     with pytest.raises(ValueError, match="n_u=10"):
         iter_megakernel(*tables, (pix,) + fresh_carry(128, device), **kw)
+
+
+@pytest.mark.parametrize("case", ["cornell_smoke", "ball_box",
+                                  "ball_box_moving", "pawn"])
+def test_keyed_crossing_mode_matches_plain(device, case):
+    """The keyed mode of K11 (cornell_smoke's planar launches, the fog
+    ball and box's general ones) and K11b (the pawn) against
+    ``volume_crossings_plain(keys=True)`` on every lane: flags and keys
+    equal, crossings max |err| 0 and equal to the crossings mode's."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+    )
+    from raytrace_tpu_torch.render.volumes import volume_tables
+    from raytrace_tpu_torch.testing import compare_keyed
+    if case == "cornell_smoke":
+        scene, s = cornell_smoke_scene(128, 1, 10, device=device)
+        comps, _ = camera_rays(scene, s, 1 << 14, 31)
+    elif case == "pawn":
+        scene, s = pawn_standin_scene(128, 1, 10, device=device)
+        comps = torch.cat([camera_rays(scene, s, 1 << 13, 32)[0],
+                           pawn_inside_rays(1 << 13, 33, device=device)], 1)
+    else:
+        scene = rt.compile_scene(volume_test_world(rt, case.endswith(
+            "moving")), device=device)
+        comps = volume_rays(1 << 14, 34, (-6.0, 6.0),
+                            ([0.0, 0.0, -3.0], [3.2, 0.0, -3.5]),
+                            device=device)
+    kernel = (pallas_volume_crossings_bcast if case == "pawn"
+              else pallas_volume_crossings)
+    n0 = kernel.keyed_launches
+    (n_int, err, _), n_mode = compare_keyed(scene.volumes, comps,
+                                            tables=volume_tables(
+                                                scene.volumes))
+    assert kernel.keyed_launches == n0 + 1
+    assert n_int == 0 and err == 0.0 and n_mode == 0
+
+
+def test_generic_routes_launch_the_kernels(device):
+    """The generic bounce on the card: the media fwd+bwd of cornell_smoke
+    (2^12 lanes x 2 spp, 12 iterations) launches K8 and the keyed K11
+    (twice an iteration under remat) and no kernel A, B or K5, with finite
+    gradients and a non-zero density gradient, equal to the run with
+    every plain version (``testing.plain_kernels``) within ``GRAD_RTOL``
+    per leaf; a marble-lit render launches K8 and K12; ``grad_render``
+    launches K8 and the keyed K11 once a bounce and once in its replay."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        grad_render, leaves, loss_and_grads, partition,
+    )
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.ops.texture_kernel import marble_stripe_pallas
+    from raytrace_tpu_torch.ops.volume_kernel import pallas_volume_crossings
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import marble_light_scene
+    smoke, s = cornell_smoke_scene(64, 2, 10, device=device)
+    s = s.replace(rr_depth=2)
+    pix = torch.arange(1 << 12, dtype=torch.int32, device=device) % 4096
+    target = torch.zeros((1 << 12, 3), device=device)
+
+    def run():
+        return loss_and_grads(*partition(smoke), s, rng.base_key(0, device),
+                              pix, target, spp=2, n_iters=12)
+    k8, k11, b = (pallas_nearest_record.launches,
+                  pallas_volume_crossings.keyed_launches,
+                  iter_megakernel.launches)
+    (loss, frac), g = run()
+    assert pallas_nearest_record.launches - k8 == 24
+    assert pallas_volume_crossings.keyed_launches - k11 == 24
+    assert iter_megakernel.launches == b
+    assert bool((g.volumes.density != 0).any())
+    with plain_kernels():
+        (loss_p, _), g_p = run()
+    assert float(loss) == float(loss_p)
+    for k, x in leaves(g_p).items():
+        if x is None or not x.is_floating_point():
+            continue
+        y = leaves(g)[k]
+        assert bool(torch.isfinite(y).all()), k
+        scale = float(x.abs().max())
+        assert float((x - y).abs().max()) <= GRAD_RTOL * scale + 1e-12, k
+    scene, sm = marble_light_scene(64, 2, 10, device=device)
+    k8, k12 = pallas_nearest_record.launches, marble_stripe_pallas.launches
+    acc, total = render_accumulate(scene, sm, seed=0, spp=2)
+    assert bool(torch.isfinite(acc).all())
+    assert pallas_nearest_record.launches > k8
+    assert marble_stripe_pallas.launches > k12
+    k8, k11 = (pallas_nearest_record.launches,
+               pallas_volume_crossings.keyed_launches)
+    _, g = grad_render(smoke, s, rng.base_key(1, device), pix[:1024],
+                       torch.arange(2, dtype=torch.int32), target[:1024])
+    assert pallas_nearest_record.launches - k8 == 2 * s.max_depth
+    assert pallas_volume_crossings.keyed_launches - k11 == 2 * s.max_depth
+    assert bool(torch.isfinite(g.volumes.density).all())

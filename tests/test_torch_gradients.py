@@ -275,13 +275,64 @@ def test_box_motion_gradients_match_jax():
         assert np.linalg.norm(jn[k]) > 0.0, k
 
 
-def test_unported_diff_branches_raise(cornell):
-    """What the port's two differentiable routes (the fused step and the
-    unfused kernel-A bounce) do not take raises, naming its ROADMAP item:
-    ``use_mega=False``, a light with a rich texture (emission is
-    in-kernel) and a table of more than 512 rows off the fused step need
-    the generic differentiable bounce (M4), media their gradients (M10);
-    the backward kernels refuse other devices."""
+def _generic_vs_jax(js, jset, ts, tset, lanes, spp, n_iters, **kw):
+    """``loss_and_grads`` against ``jax.value_and_grad`` of the JAX
+    package's ``trace_wavefront_diff`` (its unfused body over
+    ``bounce(diff=True)`` on the CPU) for a target of 0.1: this file's
+    ``LOSS_RTOL``, the completed fraction exactly, each leaf in the L2
+    norm within 2% of JAX's (the slice test's bound) and zero where JAX's
+    is.  Returns the port's gradients."""
+    pix = np.arange(lanes, dtype=np.int32) % (
+        tset.image_width * tset.image_height)
+    target = np.full((lanes, 3), 0.1, np.float32)
+
+    def jloss(params, statics):
+        img, done = jtrace(jcombine(params, statics), jset, jrng.base_key(0),
+                           jnp.asarray(pix), spp, n_iters=n_iters,
+                           remat=False, **kw)
+        return jnp.mean((img - target) ** 2), jnp.mean(done / spp)
+
+    (jl, jfrac), jg = jax.value_and_grad(jloss, has_aux=True)(
+        *jpartition(js))
+    from raytrace_tpu_torch.diff.gradients import combine, leaves
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
+    params, statics = partition(ts)
+    img, done = trace_wavefront_diff(
+        combine(params, statics), tset, rng.base_key(0),
+        torch.from_numpy(pix), spp, n_iters=n_iters, remat=False, **kw)
+    tl = torch.mean((img - torch.from_numpy(target)) ** 2)
+    named = {k: v for k, v in leaves(params).items() if v.requires_grad}
+    tg = dict(zip(named, torch.autograd.grad(tl, list(named.values()),
+                                             allow_unused=True)))
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    assert float(torch.mean(done / spp)) == float(jfrac)
+    jn = grads_to_numpy(jg)
+    tn = {k: (np.zeros(named[k].shape, np.float32) if g is None
+              else g.numpy()) for k, g in tg.items() if k in jn}
+    assert sorted(jn) == sorted(tn)
+    for k in jn:
+        assert np.all(np.isfinite(tn[k])), k
+        scale = np.linalg.norm(jn[k])
+        if scale == 0.0:
+            assert not np.any(tn[k]), k
+        else:
+            assert np.linalg.norm(tn[k] - jn[k]) <= 0.02 * scale, k
+    return tn
+
+
+@pytest.mark.parametrize("case", ["use_mega_false", "marble_light_k1",
+                                  "marble_light_k2", "mesh_832_k2"])
+def test_unported_diff_branches_raise(cornell, case):
+    """The cases the port's two kernel routes (the fused step and the
+    unfused kernel-A bounce) do not take now run through the generic
+    differentiable bounce (``render/integrator.py:bounce_generic_soa`` with
+    ``diff=True``, a spy counts its calls: one a bounce) and match the JAX
+    package's ``value_and_grad``: ``use_mega=False`` on the Cornell box, a
+    light with a marble texture (its emission is shaded in-kernel by
+    kernels A and B) at ``rotate_k`` 1 and 2, and the 832-row mixed-kind
+    mesh (over kernel A's 512 rows) at ``rotate_k=2``.  The backward
+    kernels still refuse other devices."""
+    import raytrace_tpu as jrt
     import raytrace_tpu_torch as trt
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
         bounce_bwd_regen_pre_megakernel,
@@ -289,32 +340,43 @@ def test_unported_diff_branches_raise(cornell):
     from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
         bounce_bwd_megakernel,
     )
-    from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
+    from raytrace_tpu_torch.render import integrator
     from raytrace_tpu_torch.testing import (
-        cornell_smoke_scene, mesh_all_kinds_scene,
+        marble_light_settings, marble_light_world, mesh_all_kinds_world,
     )
-    _, _, ts, tset = cornell
-    pix = torch.arange(128, dtype=torch.int32)
-    target = torch.zeros((128, 3))
-    with pytest.raises(NotImplementedError, match="M4"):
-        trace_wavefront_diff(ts, tset, rng.base_key(0), pix, 2,
-                             use_mega=False)
-    smoke, s_smoke = cornell_smoke_scene(16, 2, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="M10"):
-        render_loss_wavefront(*partition(smoke), s_smoke, rng.base_key(0),
-                              pix, target, 2)
-    marble = trt.compile_scene(trt.with_material(
-        trt.light_source(trt.marble_texture([0, 0, 1], 2.0)),
-        trt.sphere([0, 0, -2], 1)), device="cpu")
-    for rotate_k in (1, 2):
-        with pytest.raises(NotImplementedError, match="M4"):
-            render_loss_wavefront(*partition(marble), tset, rng.base_key(0),
-                                  pix, target, 2, rotate_k=rotate_k)
-    mesh, s_mesh = mesh_all_kinds_scene(18, False, 32, device="cpu")
-    assert mesh.prims.kind.shape[0] > 512
-    with pytest.raises(NotImplementedError, match="M4.*512"):
-        render_loss_wavefront(*partition(mesh), s_mesh, rng.base_key(0),
-                              pix, target, 2, rotate_k=2)
+    calls = []
+    real = integrator.bounce_generic_soa
+
+    def spy(*a, **k):
+        calls.append(k.get("diff"))
+        return real(*a, **k)
+    integrator.bounce_generic_soa = spy
+    try:
+        if case == "use_mega_false":
+            js, jset, ts, tset = cornell
+            n_iters, kw = 8, dict(use_mega=False)
+        elif case.startswith("marble"):
+            js = jrt.compile_scene(marble_light_world(jrt))
+            ts = trt.compile_scene(marble_light_world(trt), device="cpu")
+            jset, tset = (marble_light_settings(rt, 16, 2, 4)
+                          for rt in (jrt, trt))
+            n_iters, kw = 8, dict(rotate_k=int(case[-1]))
+        else:
+            js = jrt.compile_scene(mesh_all_kinds_world(jrt, 18, False))
+            ts = trt.compile_scene(mesh_all_kinds_world(trt, 18, False),
+                                   device="cpu")
+            assert ts.prims.kind.shape[0] > 512
+            jset, tset = (rt.CameraSettings(
+                center=np.asarray([0.0, 2.0, 8.0]),
+                look_at=np.asarray([0.0, 0.0, 0.0]), image_width=32,
+                max_depth=6, background=rt.sky) for rt in (jrt, trt))
+            n_iters, kw = 6, dict(rotate_k=2)
+        g = _generic_vs_jax(js, jset, ts, tset, 128, 2, n_iters, **kw)
+        assert calls == [True] * n_iters
+        if case.startswith("marble"):
+            assert np.linalg.norm(g["textures.v0"]) > 0     # the stripe
+    finally:
+        integrator.bounce_generic_soa = real
     m = torch.empty(128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         bounce_bwd_regen_pre_megakernel(

@@ -169,27 +169,37 @@ def test_standin_renders_and_trains_on_the_cpu():
     assert np.abs(gn["textures.c0"]).max() > 0.0
 
 
-def test_split_path_raises_outside_its_slice():
-    """A mesh-scale scene the split path does not take raises, naming its
-    ROADMAP item: a light with a rich texture and more materials than the
-    shade kernel's 24 (both the generic bounce, M4)."""
+def test_split_path_raises_outside_its_slice(monkeypatch):
+    """A mesh-scale scene the split path does not take, a light with a
+    rich texture and more materials than the shade kernel's 24, renders
+    through the generic bounce (``bounce_generic_soa`` with
+    ``diff=False``, a spy counts it) to a finite image."""
     import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.render import integrator
     from raytrace_tpu_torch.testing import uv_sphere
+    calls = []
+    real = integrator.bounce_generic_soa
+
+    def spy(*a, **k):
+        calls.append(k.get("diff", False))
+        return real(*a, **k)
+    monkeypatch.setattr(integrator, "bounce_generic_soa", spy)
     v, f = uv_sphere(12, 30)
     mesh = rt.triangle_mesh(rt.Mesh(v, np.zeros((0, 2)), f,
                                     np.full_like(f, -1)))
-    s = rt.CameraSettings(image_width=16, samples_per_pixel=1)
+    s = rt.CameraSettings(image_width=16, samples_per_pixel=1, max_depth=6)
     marble = rt.compile_scene(rt.group([
         rt.with_material(rt.lambertian(rt.constant_texture(0.5)), mesh),
         rt.with_material(rt.light_source(rt.marble_texture([0, 0, 1], 2.0)),
                          rt.sphere([0, 0, -3], 1))]), device="cpu")
     assert marble.prims.kind.shape[0] > 512
-    with pytest.raises(NotImplementedError, match="M4"):
-        trender(marble, s, 1, spp=1)
     many = rt.compile_scene(rt.group(
         [rt.with_material(rt.lambertian(rt.constant_texture(0.5)), mesh)]
         + [rt.with_material(rt.metal(0.01 * i, rt.constant_texture(0.5)),
                             rt.sphere([i, 0, -3], 0.2)) for i in range(25)]),
         device="cpu")
-    with pytest.raises(NotImplementedError, match="M4"):
-        trender(many, s, 1, spp=1)
+    for scene in (marble, many):
+        calls.clear()
+        acc, _ = trender(scene, s, 1, spp=1)
+        assert calls and not any(calls)
+        assert bool(torch.isfinite(acc).all())

@@ -177,3 +177,42 @@ def test_a_tree_too_deep_raises(monkeypatch):
     monkeypatch.setattr(ak, "STACK_SIZE", 6)
     with pytest.raises(ValueError, match="overflows the walk's stack"):
         tvk.pack_volume_bvh(vol.prims, vtbl, slices)
+
+
+@pytest.mark.parametrize("name", sorted(WORLDS) + ["many_rotated"])
+def test_keyed_crossings_name_their_roots(name):
+    """The keyed mode on the forest's scenes (``render/volumes.py:
+    volume_crossings_keyed``, the groups of 16 media included): every
+    finite crossing's key names a row of its own medium, and that row's
+    root of the key's slot (``ops/intersect.py:chunk_roots_rows``, the
+    root the differentiable backward recomputes) equals the crossing
+    within rtol 1e-4, atol 1e-4 (the root recomputed from the raw rows in
+    the JAX package's association, the crossing from the packed table);
+    +inf crossings carry key -1."""
+    from raytrace_tpu_torch.ops.intersect import chunk_roots_rows
+    world = (WORLDS[name] if name in WORLDS
+             else lambda r: many_media_world(r, 17, True))
+    sc = rt.compile_scene(world(rt), accel="dense", device="cpu")
+    vol = sc.volumes
+    vp = vol.prims
+    rays = volume_rays(512, 8, (-6.0, 6.0), ())
+    outs, keys = rv.volume_crossings_keyed(vol, tuple(rays.unbind(0)), 1e-3)
+    n_fin = 0
+    for v, (start, count) in enumerate(zip(vol.starts, vol.counts)):
+        for s in (0, 1):
+            t, k = outs[3 * v + 2 * s], keys[2 * v + s]
+            fin = torch.isfinite(t)
+            assert bool((k[~fin] == -1).all())
+            k, lanes = k[fin].long(), torch.nonzero(fin)[:, 0]
+            row = k // 2
+            assert bool(((row >= start) & (row < start + count)).all())
+            r1, r2 = chunk_roots_rows(
+                vp.kind[row], vp.p0[row], vp.e1[row], vp.e2[row],
+                vp.mv0[row], vp.mv1[row], vp.has_motion,
+                rays[0:3, lanes].T, rays[3:6, lanes].T, rays[6, lanes],
+                has_box=vp.has_box)
+            root = torch.where(k % 2 == 1, r2, r1)
+            np.testing.assert_allclose(root.numpy(), t[fin].numpy(),
+                                       rtol=1e-4, atol=1e-4)
+            n_fin += int(fin.sum())
+    assert n_fin > 40

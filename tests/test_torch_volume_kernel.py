@@ -46,6 +46,7 @@
 """
 import ctypes
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,10 +231,10 @@ _RUN = r"""
 extern "C" int run_vol(const VolArgs* a, int walk) {
   if (!mode_args_ok(a)) return 1;
   if (walk) {
-    with_walk(*a, [&](auto tri, auto count, auto cand) {
+    with_walk(*a, [&](auto tri, auto count, auto cand, auto keys) {
       rt_host_launch(3, 32, [&] {
         volume_bvh_kernel<decltype(tri)::value, decltype(count)::value,
-                          decltype(cand)::value>(*a);
+                          decltype(cand)::value, decltype(keys)::value>(*a);
       });
       return 0;
     });
@@ -465,3 +466,177 @@ def test_pawn_camera_rays_walk_little(host_vol):
     v = visits.float()
     assert float(v[0].mean()) <= 12.0, float(v[0].mean())
     assert float(v[1].mean()) <= 4.0, float(v[1].mean())
+
+
+# ----- the keyed mode (the differentiable media path's) -----
+
+
+def brute_keyed(vtbl, rays, kw):
+    """The crossings and keys of every medium from all of its rows'
+    candidates at once (no chunks, no fold): t1 the least candidate and
+    k1 the least key ``2 * row + slot`` attaining it, t2 the least
+    candidate strictly beyond t1 and k2 likewise, -1 where +inf."""
+    rr = [x[None, :] for x in rays]
+    inv = (tuple(1.0 / tvk._safe(x) for x in rr[3:6]) if kw["has_box"]
+           else None)
+    tmn = float(np.float32(T_MIN))
+    c1, _, c2 = tvk._crossing_cand(lambda k: vtbl[:, k:k + 1], *rr, inv,
+                                   tmn, kw["has_motion"], kw["has_box"])
+    out = []
+    for start, count in kw["slices"]:
+        rows = torch.arange(start, start + count)
+        c = torch.cat([c1[start:start + count], c2[start:start + count]])
+        key = torch.cat([2 * rows, 2 * rows + 1]).float()[:, None]
+        t1 = c.amin(0)
+        t2 = torch.where(c > t1, c, float("inf")).amin(0)
+        for t in (t1, t2):
+            k = torch.where(c == t, key, float("inf")).amin(0)
+            out.append((t, torch.where(torch.isfinite(t), k, -1.0).int()))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["cornell_smoke"])
+def test_keyed_plain_matches_brute_force(name):
+    """``volume_crossings_plain(keys=True)``: the crossings equal the
+    crossings mode's bits, and the keys those of a brute-force pass over
+    all of each medium's candidates on every lane (the lowest key on a
+    tie: shared mesh edges give ties)."""
+    ts, rays = _case_rays(name)
+    vol = ts.volumes
+    vtbl = volume_tables(vol).vtbl
+    kw = crossing_kw(vol, T_MIN)
+    ref = tvk.volume_crossings_plain(vtbl, *rays, **kw)
+    outs, keys = tvk.volume_crossings_plain(vtbl, *rays, keys=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(ref, outs))
+    brute = brute_keyed(vtbl, rays, kw)
+    for v in range(vol.n_volumes):
+        for s in (0, 1):
+            t, k = brute[2 * v + s]
+            assert torch.equal(t, outs[3 * v + 2 * s]), (name, v, s)
+            assert torch.equal(k, keys[2 * v + s]), (name, v, s)
+            assert int(torch.isfinite(t).sum()) > 5, (name, v, s)
+
+
+def _host_keyed(lib, volumes, rays, walk: bool, prepared: bool = False):
+    """The host build's keyed mode of K11 or (``walk``) K11b:
+    ``(crossings, keys)``."""
+    r = rays.shape[1]
+    rays = [x.contiguous() for x in rays.unbind(0)]
+    out = torch.empty((3 * volumes.n_volumes, r))
+    keys = torch.empty((2 * volumes.n_volumes, r), dtype=torch.int32)
+    tables = volume_tables(volumes)
+    vtbl, forest = tables.vtbl, tables.forest
+    slices = tuple(zip(volumes.starts, volumes.counts))
+    if walk and forest is None:
+        forest = tvk.pack_volume_bvh(volumes.prims, vtbl, slices)
+    forest = forest if walk else None
+    kw = crossing_kw(volumes, T_MIN)
+    launch = (tvk.prepare_volume_launch(vtbl, forest, slices=slices,
+                                        has_motion=kw["has_motion"],
+                                        has_box=kw["has_box"])
+              if prepared else None)
+    args = tvk.vol_args(vtbl, forest, rays, out, None, prepared=launch,
+                        keys=keys, **kw)
+    assert args.keyed == 1
+    assert lib.run_vol(ctypes.byref(args), int(walk)) == 0
+    del launch, vtbl, forest
+    return list(out.unbind(0)), list(keys.unbind(0))
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["cornell_smoke"])
+def test_host_build_keyed_mode_matches_plain(host_vol, name):
+    """The keyed mode of K11 (its general instantiation, and its planar
+    one where the boundary prepares it: cornell_smoke) and of K11b's
+    walk against ``volume_crossings_plain(keys=True)``: the crossings as
+    the crossings mode's host builds (this file's tolerance) and equal to
+    the host's crossings mode bit for bit, the keys equal on every lane
+    whose crossings equal the plain version's."""
+    ts, rays = _case_rays(name)
+    vol = ts.volumes
+    vtbl = volume_tables(vol).vtbl
+    ref, ref_keys = tvk.volume_crossings_plain(vtbl, *rays, keys=True,
+                                               **crossing_kw(vol, T_MIN))
+    fronts = tuple(range(1, len(ref), 3))
+    runs = [(False, False), (True, False)]
+    if name == "cornell_smoke":
+        runs.append((False, True))
+    for walk, prepared in runs:
+        out, keys = _host_keyed(host_vol, vol, rays, walk, prepared)
+        _assert_host_close(ref, out, fronts, (walk, prepared, name))
+        plain_mode, _ = _host_crossings(host_vol, vol, rays, walk,
+                                        count=False, prepared=prepared)
+        assert all(torch.equal(a, b) for a, b in zip(out, plain_mode))
+        for v in range(vol.n_volumes):
+            for s in (0, 1):
+                same = out[3 * v + 2 * s] == ref[3 * v + 2 * s]
+                same |= ~torch.isfinite(ref[3 * v + 2 * s])
+                k_out, k_ref = keys[2 * v + s], ref_keys[2 * v + s]
+                assert torch.equal(k_out[same], k_ref[same]), (
+                    walk, prepared, name, v, s)
+                assert bool((k_out[~same] >= 0).all())
+
+
+@pytest.mark.parametrize("name", ["ball_box", "ball_box_moving",
+                                  "octahedron", "mixed"])
+def test_diff_crossings_vjp_matches_jax_scan(name):
+    """``render/volumes.py:DiffCrossings`` (the keyed crossings forward,
+    the winner-only backward) against ``jax.vjp`` of the JAX package's
+    ``_crossing_scan2`` per medium, with respect to the boundary rows and
+    the rays: t1 and t2 within rtol/atol 1e-5 where finite (the plain
+    version's tolerance above), the front flag equal, and the VJP of a
+    random cotangent on the finite crossings within 1e-4 of JAX's norm in
+    the L2 norm.  Random rays from a numpy seed meet no ties, where JAX's
+    ``min`` would split a cotangent and the keyed backward gives it to the
+    lowest key."""
+    from raytrace_tpu.render.volumes import _crossing_scan2
+    from raytrace_tpu.scene.types import Primitives as JPrims
+    from raytrace_tpu_torch.render.volumes import (
+        DiffCrossings, crossing_statics,
+    )
+    ts, _, rays = _case(name, 512, 21)
+    vol = ts.volumes
+    vp = vol.prims
+    r = rays.shape[1]
+    o, d, tm = rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), rays[6]
+    fields = ("p0", "e1", "e2", "mv0", "mv1")
+    st = crossing_statics(vol, T_MIN)
+    leaves = [getattr(vp, f).clone().requires_grad_(True) for f in fields]
+    tin = [x.clone().requires_grad_(True) for x in (o, d, tm)]
+    t1, f1, t2 = DiffCrossings.apply(st, *tin, *leaves)
+    rg = np.random.default_rng(4)
+    nv = vol.n_volumes
+    c1 = rg.normal(size=(nv, r)).astype(np.float32)
+    c2 = rg.normal(size=(nv, r)).astype(np.float32)
+    c1 = np.where(np.isfinite(t1.detach().numpy()), c1, 0.0)
+    c2 = np.where(np.isfinite(t2.detach().numpy()), c2, 0.0)
+    tg = torch.autograd.grad((t1, t2), leaves + tin,
+                             (torch.from_numpy(c1), torch.from_numpy(c2)),
+                             allow_unused=True)
+    a = lambda x: jnp.asarray(x.detach().numpy())
+
+    def jfn(p0, e1, e2, mv0, mv1, oo, dd, tt):
+        jp = JPrims(kind=a(vp.kind), p0=p0, e1=e1, e2=e2, uvs=a(vp.uvs),
+                    mat=a(vp.mat), mv0=mv0, mv1=mv1, n=vp.n,
+                    has_motion=vp.has_motion, has_box=vp.has_box)
+        tmin = jnp.full((r,), T_MIN, jnp.float32)
+        res = [_crossing_scan2(jp, s, c, oo, dd, tt, tmin)
+               for s, c in zip(vol.starts, vol.counts)]
+        return (jnp.stack([x[0] for x in res]),
+                jnp.stack([x[2] for x in res])), jnp.stack(
+                    [x[1] for x in res])
+
+    (j1, j2), vjp, jf1 = jax.vjp(jfn, *(a(x) for x in leaves),
+                                 *(a(x) for x in tin), has_aux=True)
+    np.testing.assert_array_equal(f1.numpy(), np.asarray(jf1))
+    for x, y in ((t1, j1), (t2, j2)):
+        x, y = x.detach().numpy(), np.asarray(y)
+        assert np.array_equal(np.isfinite(x), np.isfinite(y))
+        fin = np.isfinite(y)
+        np.testing.assert_allclose(x[fin], y[fin], rtol=1e-5, atol=1e-5)
+    jg = vjp((jnp.asarray(c1), jnp.asarray(c2)))
+    for k, (x, y) in enumerate(zip(tg, jg)):
+        y = np.asarray(y)
+        x = np.zeros_like(y) if x is None else x.numpy()
+        assert np.all(np.isfinite(x)), (name, k)
+        assert np.linalg.norm(x - y) <= 1e-4 * np.linalg.norm(y) + 1e-6, (
+            name, k, np.linalg.norm(x - y), np.linalg.norm(y))
