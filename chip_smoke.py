@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's render paths once on one GPU: the
 forward render and the differentiable forward + backward (fused, unfused
 and through the generic bounce), on the Cornell box, on a mesh of the
-Stanford bunny's size, on rich-textured scenes and on scenes with
-constant-density media, and the bounded-depth ``grad_render``.
+Stanford bunny's size, on rich-textured scenes, on scenes with
+constant-density media, on ellipsoids and on demo2 (the reference's
+"everything at once" scene), and the bounded-depth ``grad_render``.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -259,6 +260,51 @@ bounded-depth path (``trace``, ``render_tile``, ``grad_render``):
     density check (``tests/test_gradients.py:393-418``) on the card:
     the score-function gradient averaged over 4 seeds against a central
     difference at +-0.15 over 6 seeds, both below -0.05, rtol 0.35.
+
+The rest of M11 (rotated sphere instances' object-space uv, ellipsoids,
+demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
+
+41. K10 with its rotation table (``shade_megakernel(sphere_rots=...)``)
+    on 600 x 600 camera rays of ``testing.rotated_spheres_scene`` (32 of
+    64 checker spheres rotated), sphere flag 1 on every sphere lane and
+    ellipsoid winner indices on a third of the missing lanes, against
+    ``shade_plain`` with the same rotations (exact rows equal, max |err|
+    0), with and without a synthetic medium; the table must change the
+    checker cell of rotated lanes only; its time against the same launch
+    with an empty table, in turns, its plain version's and its bound;
+42. ``testing.ellipsoid_scene`` (the Cornell box and three ellipsoids:
+    scaled and rotated, earth-textured, moving) at 600 x 600, 16 spp,
+    depth 50 through the split route (K8, the ellipsoids merged in
+    torch, K10, the earth's image multiplied in), written to
+    chiprun_out/ellipsoids.png, with a profiled 2 spp run (device time
+    and ops an iteration, busy share) and a checked 128 x 128 render at 1
+    spp (every K8 and K10 launch exact);
+43. its ``grad_render`` through the generic differentiable bounce at
+    2^16 pixels spread evenly over the image x 4 samples
+    (``testing.DEMO2_GRAD``): every ellipsoid
+    leaf finite; at 2^12 pixels x 2 samples every K8 launch against its
+    plain version and the run against the one with every plain version
+    (``testing.plain_kernels``: the loss within 1e-6 relative, every leaf
+    within ``GRAD_RTOL`` in the L2 norm); d(mean hit t)/d(radius) of each
+    ellipsoid, over the camera rays whose winner it stays at r +- eps,
+    against a central difference (rtol 0.02);
+44. demo2 at its own settings (400 x 400, ``DEMO2_FWD_SPP`` spp, depth 4,
+    seed 1234) through ``render_accumulate``: the split route (K9 over
+    1,536 rows, K11's candidate mode for the fog and the blue medium,
+    K10, K12 and the earth's image multiplied in): wall, primary rays/s,
+    iterations, launches, peak memory, chiprun_out/demo2.png, a profiled
+    8 spp run, and a checked 400 x 400 render at 1 spp (every K9, K11,
+    K10 and K12 launch exact);
+45. demo2's ``grad_render`` at 2^16 pixels x 4 samples with respect to
+    every float leaf (K9, the keyed K11, K13): finite, a fog density and
+    texel gradient; at 2^12 x 2 every K9, keyed K11 and K13 launch
+    against its plain version and the run against the plain one, as in
+    phase 43; the fog density's score-function gradient (4 seeds) against
+    a central difference at +-30% (6 seeds) over 2^14 pixels x 4
+    samples, within rtol 0.35 or 3 standard errors and beyond 3 standard
+    errors of 0.  The blue medium's gradient is printed: at depth 4 no
+    path that scatters in it reaches the light (its radiance and gradient
+    are 0 in both packages, ``tests/test_torch_demo2.py``).
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
@@ -1042,21 +1088,28 @@ def main() -> None:
     media = _media_phases(smi, phase_done, dev)
     unfused = _unfused_phases(smi, phase_done, dev)
     generic = _generic_phases(smi, phase_done, dev)
+    m11 = _m11_phases(smi, phase_done, dev)
     turns["route8"] = unfused.pop("turns")
     main_a += unfused["a_launches"]
     main_b += rich["iter_launches"]
     mesh["kernels"][0]["launches"] += (media["k9_launches"]
-                                       + generic["k9_launches"])
+                                       + generic["k9_launches"]
+                                       + m11["k9_launches"])
     mesh["kernels"][1]["launches"] += (rich["shade_launches"]
                                        + media["shade_launches"]
-                                       + unfused["shade_launches"])
+                                       + unfused["shade_launches"]
+                                       + m11["k10_launches"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
     rich["kernels"][0]["launches"] += (media["k8_launches"]
                                        + unfused["k8_launches"]
-                                       + generic["k8_launches"])
-    rich["kernels"][1]["launches"] += generic["k12_launches"]
+                                       + generic["k8_launches"]
+                                       + m11["k8_launches"])
+    rich["kernels"][1]["launches"] += (generic["k12_launches"]
+                                       + m11["k12_launches"])
+    rich["kernels"][2]["launches"] += m11["k13_launches"]
     media["kernels"][0]["launches"] += (unfused["k11_launches"]
-                                        + generic["k11_launches"])
+                                        + generic["k11_launches"]
+                                        + m11["k11_launches"])
     media["kernels"][1]["launches"] += (unfused["k11b_launches"]
                                         + generic["k11b_launches"])
     media["kernels"][0].update(generic["keyed"]["K11"])
@@ -1065,7 +1118,8 @@ def main() -> None:
                       "mesh": mesh["summary"], "rich": rich["summary"],
                       "media": media["summary"],
                       "unfused": unfused["summary"],
-                      "generic": generic["summary"], "in_turns": turns,
+                      "generic": generic["summary"],
+                      "m11": m11["summary"], "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
@@ -1097,7 +1151,7 @@ def main() -> None:
          "per_lane_with_torch_reduction_ms": total_old,
          "per_lane_with_torch_reduction_host_ms": host_old},
     ] + mesh["kernels"] + rich["kernels"] + media["kernels"]
-        + [unfused["kernel"]]}), flush=True)
+        + [unfused["kernel"], m11["kernel"]]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3181,6 +3235,496 @@ def _generic_phases(smi, phase_done, dev) -> dict:
                 k11_launches=sum(x["pallas_volume_crossings"] for x in runs),
                 k11b_launches=sum(x["pallas_volume_crossings_bcast"]
                                   for x in runs))
+
+
+# the sizes of phases 41-45: the K10 lanes' image width; the ellipsoid
+# scene's forward (width, spp) and its checked render's width; the
+# fwd+bwd tiles (pixels, samples) of the checked runs; the rays of the
+# ellipsoid's hit-t difference; demo2's forward spp (the scene renders
+# 250; see DEMO2_FWD_SPP) and its profiled spp; the fog-density check's
+# tile, samples and seeds
+M11 = dict(k10_width=600, ell_width=600, ell_spp=16, ell_checked_width=128,
+           checked_pixels=1 << 12, checked_samples=2, hit_t_rays=1 << 14,
+           demo2_prof_spp=8, fog_pixels=1 << 14, fog_samples=4,
+           fog_ad_seeds=4, fog_fd_seeds=6)
+# demo2's forward samples per pixel in the smoke: the scene's own 250
+DEMO2_FWD_SPP = 250
+
+
+def _profiled(fn, counter) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall, the device time
+    and device ops it ran, the iterations (``counter``'s launches in it),
+    and the busy share of its wall."""
+    import torch
+    from raytrace_tpu_torch.profile_render import _device_ops
+    torch.cuda.synchronize()
+    n0 = counter.launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    iters = max(counter.launches - n0, 1)
+    ops, _ = _device_ops(prof)
+    dev_s = sum(us for _, us in ops.values()) / 1e6
+    n_ops = sum(c for c, _ in ops.values())
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(profiled_wall_s=wall, iterations=iters,
+                device_ms_per_iter=1e3 * dev_s / iters,
+                device_ops_per_iter=n_ops / iters, busy_share=dev_s / wall,
+                top_ops=[(k[:60], c, us / 1e3) for k, (c, us) in top])
+
+
+def _m11_phases(smi, phase_done, dev) -> dict:
+    """Phases 41-45 (the rest of M11: object-space sphere uv, K10's
+    rotation table, ellipsoids, demo2) on ``dev``.  Returns the summary
+    for the JSON line, the launches of K8, K9, K10, K11, K12 and K13 on
+    these routes, and the ``kernels`` entry of K10's rotation mode."""
+    import numpy as np
+    import torch
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        combine, grad_render, leaves, partition, render_tile,
+    )
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel, shade_plain, sphere_rot_table,
+    )
+    from raytrace_tpu_torch.ops.image_grad_kernel import image_grad_pallas
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.ops.texture_kernel import marble_stripe_pallas
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+    )
+    from raytrace_tpu_torch.render import integrator
+    from raytrace_tpu_torch.render.camera import camera_frame
+    from raytrace_tpu_torch.render.image import write_image
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import (
+        BOUNCE_INT_ROWS, DEMO2_GRAD, DEMO2_SEED, camera_rays,
+        checked_launches, demo2_scene, ellipsoid_scene, max_errs,
+        plain_kernels, rotated_spheres_scene, sphere_rot_inputs,
+        synthetic_medium,
+    )
+    k11, k11b = pallas_volume_crossings, pallas_volume_crossings_bcast
+    counters = (bounce_megakernel, iter_megakernel, pallas_nearest_record,
+                allpairs_nearest_record, shade_megakernel, k11, k11b,
+                marble_stripe_pallas, image_grad_pallas)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+        for c in (k11, k11b):
+            c.keyed_launches = c.candidate_launches = 0
+        shade_megakernel.rot_launches = 0
+
+    def read():
+        got = {c.__name__: c.launches for c in counters}
+        got["K11 keyed"] = k11.keyed_launches
+        got["K11 candidate"] = k11.candidate_launches
+        got["K11b"] = k11b.launches
+        got["K10 sphere_rots"] = shade_megakernel.rot_launches
+        return got
+
+    def check_stats(label, st, names):
+        """Every launch of ``names`` in the checked run ``st`` exact (the
+        atlas gradient within its summation-order bound)."""
+        for name in names:
+            x = st[name]
+            print(f"[{label} checked] {name}: {x['launches']} launches, "
+                  f"exact rows differ on {x['n_int']} lanes, max |err| "
+                  f"{x['err']:.3g}, worst excess {x['excess']:.3g}",
+                  flush=True)
+            bad = x["excess"] > 0 if name == "image_grad_pallas" \
+                else (x["n_int"] or x["err"])
+            if x["launches"] == 0 or bad:
+                raise AssertionError(f"{label}: {name} disagrees with its "
+                                     "plain version or did not launch")
+        return max(st[n]["err"] for n in names)
+
+    def forward_run(label, scene, settings, spp, seed, counter, png):
+        """``render_accumulate`` of ``scene`` at ``spp``: wall, primary
+        rays/s, launches, peak memory; the image to chiprun_out/``png``."""
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        acc, total = render_accumulate(scene, settings, seed=seed, spp=spp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        peak = torch.cuda.max_memory_allocated()
+        img = acc / total
+        n_pix = settings.image_width * settings.image_height
+        res = dict(wall_s=wall, primary_rays_per_s=n_pix * spp / wall,
+                   iterations=counter.launches, launches=got,
+                   peak_bytes=peak, mean=float(img.mean()),
+                   finite=bool(torch.isfinite(img).all()))
+        write_image(os.path.join(OUT_DIR, png),
+                    img.reshape(settings.image_height, settings.image_width,
+                                3).cpu().numpy())
+        print(f"[{label}] {settings.image_width}x{settings.image_height} "
+              f"{spp} spp depth {settings.max_depth} seed {seed}: wall "
+              f"{wall:.3f} s, {res['primary_rays_per_s'] / 1e6:.3f} M primary "
+              f"rays/s, {res['iterations']} iterations, peak "
+              f"{peak / 2**30:.3f} GiB, mean {res['mean']:.6f}, finite "
+              f"{res['finite']}, launches {got} [{smi}]", flush=True)
+        return res
+
+    # 41. K10 with its rotation table: sphere-flag-1 lanes on rotated and
+    # unrotated sphere rows and lanes of ellipsoid winner indices, against
+    # shade_plain with the same rotations (exact), with and without a
+    # medium; then its time against the same launch with an empty table
+    rot_scene, s_r = rotated_spheres_scene(M11["k10_width"], device=dev)
+    tb_r, hit_r, lanes_r, uni_r = sphere_rot_inputs(rot_scene, s_r, 141)
+    rots = rot_scene.prims.sphere_rots
+    n_r = hit_r[0].shape[0]
+    kw_r = dict(n_mats=tb_r.n_mats, n_targets=tb_r.n_targets)
+    rows = sphere_rot_table(rots, dev)[:, 0]
+    rot_lane = torch.isin(hit_r[1], rows) & (lanes_r[9] > 0.5)
+    n_sph = int((hit_r[9] > 0.5).sum())
+    print(f"[41 K10 sphere_rots] {len(rots)} rotated rows of "
+          f"{rot_scene.prims.n}; {n_r} lanes: {n_sph} sphere lanes, "
+          f"{int(rot_lane.sum())} alive on rotated rows, "
+          f"{int((hit_r[1] <= -2).sum())} ellipsoid winner indices",
+          flush=True)
+    err_rot = 0.0
+    for label, medium in (("no medium", None),
+                          ("synthetic medium",
+                           synthetic_medium(hit_r[0], tb_r.n_mats, 142))):
+        kw = dict(kw_r, has_medium=medium is not None)
+        ref = shade_plain(tb_r.mtbl, tb_r.ttbl, hit_r, medium, lanes_r,
+                          uni_r, sphere_rots=rots, **kw)
+        out = shade_megakernel(tb_r.mtbl, tb_r.ttbl, hit_r, medium, lanes_r,
+                               uni_r, sphere_rots=rots, **kw)
+        err = _check(f"K10 sphere_rots vs plain ({label}): rotated checker "
+                     f"spheres {M11['k10_width']}x{M11['k10_width']} camera "
+                     "rays", max_errs(ref, out, BOUNCE_INT_ROWS), n_r)
+        if err:
+            raise AssertionError("K10 sphere_rots: not exact")
+        err_rot = max(err_rot, err)
+        if medium is None:
+            out_rot = out
+    kw0 = dict(kw_r, has_medium=False)
+    out0 = shade_megakernel(tb_r.mtbl, tb_r.ttbl, hit_r, None, lanes_r,
+                            uni_r, **kw0)
+    moved = (out_rot[6] - out0[6]).abs() > 1e-3
+    n_moved, n_stray = int((moved & rot_lane).sum()), int((moved
+                                                          & ~rot_lane).sum())
+    print(f"[41 K10 sphere_rots] the table changes the checker cell of "
+          f"{n_moved} rotated lanes and of {n_stray} other lanes", flush=True)
+    if n_moved == 0 or n_stray:
+        raise AssertionError("K10 sphere_rots: the table does not act on "
+                             "exactly the rotated lanes")
+    calls = {"rots": lambda: shade_megakernel(
+                 tb_r.mtbl, tb_r.ttbl, hit_r, None, lanes_r, uni_r,
+                 sphere_rots=rots, **kw0),
+             "empty": lambda: shade_megakernel(
+                 tb_r.mtbl, tb_r.ttbl, hit_r, None, lanes_r, uni_r, **kw0)}
+    turns = {"rots": [], "empty": []}
+    for mode in ("rots", "empty", "empty", "rots"):
+        turns[mode].append((_device_ms(calls[mode], "shade_kernel", 50),
+                            _time_ms(calls[mode], 50)))
+    ms_rot = min(x[0] for x in turns["rots"])
+    host_rot = min(x[1] for x in turns["rots"])
+    ms_empty = min(x[0] for x in turns["empty"])
+    plain_rot = _time_ms(lambda: shade_plain(
+        tb_r.mtbl, tb_r.ttbl, hit_r, None, lanes_r, uni_r, sphere_rots=rots,
+        **kw0), 5, 1)
+    # bytes: 10 hit, 10 lane and 8 uniform words read, 15 written a lane,
+    # the tables once; operations: the shade's ~300 a lane and, for each
+    # sphere lane, a compare a table row and 15 for the rotation
+    bound_rot = _bound_ms(4 * (n_r * (10 + 10 + 8 + 15) + tb_r.mtbl.numel()
+                               + tb_r.ttbl.numel() + 10 * len(rots)),
+                          n_r * 300 + n_sph * (len(rots) + 15))
+    print(f"[time] K10 with {len(rots)} rotations at {n_r} lanes: "
+          f"{ms_rot:.4f} ms on the device ({host_rot:.4f} ms a call back to "
+          f"back), the empty table {ms_empty:.4f}; in turns (rots, empty, "
+          f"empty, rots) {turns}; shade_plain with the rotations "
+          f"{plain_rot:.3f} ms; bound {bound_rot[0]:.5f} ms ({bound_rot[1]}) "
+          f"[{smi}]", flush=True)
+    phase_done("K10 sphere_rots")
+
+    # 42. the ellipsoid scene's forward: the split route (K8, the
+    # ellipsoids merged in torch, K10, the earth's image multiplied in)
+    ell, s_e = ellipsoid_scene(M11["ell_width"], M11["ell_spp"], 50,
+                               device=dev)
+    r42 = forward_run("42 ellipsoid forward", ell, s_e, M11["ell_spp"], 0,
+                      pallas_nearest_record, "ellipsoids.png")
+    l42 = r42["launches"]
+    if (not r42["finite"] or l42["pallas_nearest_record"] == 0
+            or l42["shade_megakernel"] != l42["pallas_nearest_record"]
+            or l42["bounce_megakernel"] or l42["iter_megakernel"]
+            or l42["allpairs_nearest_record"] or l42["K10 sphere_rots"]):
+        raise AssertionError("ellipsoid forward: bad image or launches")
+    r42.update(_profiled(lambda: render_accumulate(ell, s_e, seed=0, spp=2),
+                         pallas_nearest_record))
+    print(f"[42 ellipsoid forward] profiled 2 spp: {r42['iterations']} "
+          f"iterations, {r42['device_ms_per_iter']:.4f} ms of device time and "
+          f"{r42['device_ops_per_iter']:.1f} device ops an iteration, busy "
+          f"{r42['busy_share']:.3f}; top {r42['top_ops']}", flush=True)
+    small = s_e.replace(image_width=M11["ell_checked_width"])
+    with checked_launches() as st:
+        render_accumulate(ell, small, seed=1, spp=1)
+    err_k8 = check_stats("42 ellipsoid forward", st,
+                         ("pallas_nearest_record", "shade_megakernel"))
+    phase_done("ellipsoid forward")
+
+    # 43. the ellipsoid scene's fwd+bwd: grad_render through the generic
+    # differentiable bounce; kernels against plain on a smaller tile
+    def tile_run(scene, settings, key, n_pix, n_smp):
+        """``grad_render`` over ``n_pix`` pixels spread evenly over the
+        image (the top rows of the Cornell views see only the black
+        background) x ``n_smp`` samples, against a zero target."""
+        n_img = settings.image_width * settings.image_height
+        pix = (torch.arange(n_pix, device=dev) * n_img // n_pix).to(
+            torch.int32)
+        smp = torch.arange(n_smp, dtype=torch.int32)
+        target = torch.zeros((n_pix, 3), device=dev)
+        return lambda: grad_render(scene, settings, rng.base_key(key, dev),
+                                   pix, smp, target)
+
+    def checked_grad(label, scene, settings, key, names):
+        small = tile_run(scene, settings, key, M11["checked_pixels"],
+                         M11["checked_samples"])
+        with checked_launches() as st:
+            l_k, g_k = small()
+        torch.cuda.synchronize()
+        err = check_stats(label, st, names)
+        with plain_kernels():
+            l_p, g_p = small()
+        lk, lp = leaves(g_k), leaves(g_p)
+        worst = _grads_close({k: v for k, v in lp.items() if v is not None
+                              and v.is_floating_point()}, lk)
+        rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+        print(f"[{label} vs plain] {M11['checked_pixels']} pixels x "
+              f"{M11['checked_samples']} samples: loss {float(l_k):.7f} vs "
+              f"{float(l_p):.7f} (rel {rel:.3g}, tolerance 1e-6); gradients' "
+              f"worst L2 |kernels - plain| / |plain| {worst:.3g} (tolerance "
+              f"{GRAD_RTOL})", flush=True)
+        if rel > 1e-6 or worst > GRAD_RTOL:
+            raise AssertionError(f"{label}: kernels against plain")
+        return err, rel, worst
+
+    def timed_grad(label, scene, settings, key, n_pix, n_smp, counter):
+        run = tile_run(scene, settings, key, n_pix, n_smp)
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, g = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        peak = torch.cuda.max_memory_allocated()
+        gl = {k: v for k, v in leaves(g).items()
+              if v is not None and v.is_floating_point()}
+        finite = all(bool(torch.isfinite(v).all()) for v in gl.values())
+        res = dict(wall_s=wall, loss=float(loss), peak_bytes=peak,
+                   primary_rays_per_s=n_pix * n_smp / wall, launches=got,
+                   finite=finite)
+        res.update(_profiled(run, counter))
+        print(f"[{label}] {n_pix} pixels x {n_smp} samples, depth "
+              f"{settings.max_depth}: wall {wall:.3f} s "
+              f"({res['primary_rays_per_s'] / 1e6:.3f} M primary rays/s), "
+              f"loss {res['loss']:.6f}, peak {peak / 2**30:.3f} GiB, "
+              f"gradients finite {finite}, launches {got}; profiled: "
+              f"{res['iterations']} launches of {counter.__name__} (twice the "
+              f"bounces: each is checkpointed), "
+              f"{res['device_ms_per_iter']:.4f} ms of device time and "
+              f"{res['device_ops_per_iter']:.1f} device "
+              f"ops a launch, busy {res['busy_share']:.3f}; top "
+              f"{res['top_ops']} [{smi}]", flush=True)
+        return res, g
+
+    err43, rel43, worst43 = checked_grad(
+        "43 ellipsoid fwd+bwd", ell, s_e, 4, ("pallas_nearest_record",))
+    r43, g43 = timed_grad("43 ellipsoid fwd+bwd", ell, s_e, 4,
+                          DEMO2_GRAD["pixels"], DEMO2_GRAD["samples"],
+                          pallas_nearest_record)
+    ell_leaves = {k: v for k, v in leaves(g43).items()
+                  if k.startswith("ellipsoids.")}
+    ell_fin = all(bool(torch.isfinite(v).all()) for v in ell_leaves.values())
+    if (not r43["finite"] or not ell_fin or len(ell_leaves) != 7
+            or not any(bool((v != 0).any()) for v in ell_leaves.values())
+            or r43["launches"]["pallas_nearest_record"] == 0
+            or r43["launches"]["shade_megakernel"]
+            or r43["launches"]["bounce_megakernel"]
+            or r43["launches"]["iter_megakernel"]):
+        raise AssertionError("ellipsoid fwd+bwd: not finite, no ellipsoid "
+                             "gradient, or a kernel missing")
+    # d(mean hit t)/d(radius) against a central difference, over the
+    # camera rays whose winner is the same at r - eps, r and r + eps
+    n_t = M11["hit_t_rays"]
+    comps, _ = camera_rays(ell, s_e, n_t, 143)
+    o_t, d_t, tm_t = comps[0:3].T, comps[3:6].T, comps[6]
+    tables = integrator.generic_tables(ell, s_e, diff=True)
+    params, statics = partition(ell)
+
+    def hit_t(radius):
+        ell_r = dataclasses.replace(params.ellipsoids, radius=radius)
+        sc = combine(dataclasses.replace(params, ellipsoids=ell_r), statics)
+        t, idx, *_ = integrator.surface_hit_diff(sc, tables, o_t, d_t, tm_t)
+        return t, idx
+
+    r0 = params.ellipsoids.radius.detach()
+    eps = 1e-3 * float(r0.min())
+    fd_t, ad_t = [], []
+    for e in range(r0.shape[0]):
+        step = torch.zeros_like(r0)
+        step[e] = eps
+        with torch.no_grad():
+            tp, ip = hit_t(r0 + step)
+            tm_, im = hit_t(r0 - step)
+            t0_, i0 = hit_t(r0)
+        keep = (ip == i0) & (im == i0) & (i0 == -2 - e)
+        rr = r0.clone().requires_grad_(True)
+        t_ad, _ = hit_t(rr)
+        mean_ad = torch.where(keep, t_ad, 0.0).sum() / keep.sum()
+        ad_t.append(float(torch.autograd.grad(mean_ad, rr)[0][e]))
+        fd_t.append(float(((torch.where(keep, tp, 0.0).sum()
+                            - torch.where(keep, tm_, 0.0).sum())
+                           / keep.sum()) / (2 * eps)))
+    ok_t = all(abs(a - f) <= 0.02 * abs(f) + 1e-4 for a, f in zip(ad_t, fd_t))
+    print(f"[43 hit t] d(mean hit t)/d(radius) per ellipsoid over its rays "
+          f"of {n_t} camera rays: autograd {ad_t} vs central difference "
+          f"(eps {eps:.4g}) {fd_t}; within rtol 0.02: {ok_t}", flush=True)
+    if not ok_t:
+        raise AssertionError("ellipsoid radius gradient against FD")
+    phase_done("ellipsoid fwd+bwd")
+
+    # 44. demo2 forward at the scene's own settings
+    demo2, s_d = demo2_scene(device=dev)
+    print(f"[44 demo2] {demo2.prims.n} surface rows in "
+          f"{demo2.prims.kind.shape[0]} (segments "
+          f"{demo2.prims.kind_segments}), media densities "
+          f"{demo2.volumes.density.tolist()}, {demo2.materials.kind.shape[0]}"
+          f" materials, rotated uv spheres "
+          f"{[r for r, _ in demo2.prims.sphere_rots]}",
+          flush=True)
+    r44 = forward_run("44 demo2 forward", demo2, s_d, DEMO2_FWD_SPP,
+                      DEMO2_SEED, allpairs_nearest_record, "demo2.png")
+    l44 = r44["launches"]
+    if (not r44["finite"] or l44["allpairs_nearest_record"] == 0
+            or l44["shade_megakernel"] != l44["allpairs_nearest_record"]
+            or l44["K11 candidate"] != l44["allpairs_nearest_record"]
+            or l44["marble_stripe_pallas"] == 0 or l44["K11b"]
+            or l44["bounce_megakernel"] or l44["iter_megakernel"]
+            or l44["pallas_nearest_record"] or l44["K10 sphere_rots"]):
+        raise AssertionError("demo2 forward: bad image or launches")
+    r44.update(_profiled(lambda: render_accumulate(
+        demo2, s_d, seed=DEMO2_SEED, spp=M11["demo2_prof_spp"]),
+        allpairs_nearest_record))
+    print(f"[44 demo2 forward] profiled {M11['demo2_prof_spp']} spp: "
+          f"{r44['iterations']} iterations, {r44['device_ms_per_iter']:.4f} ms"
+          f" of device time and {r44['device_ops_per_iter']:.1f} device ops an"
+          f" iteration, busy {r44['busy_share']:.3f}; top {r44['top_ops']} "
+          f"[{smi}]", flush=True)
+    with checked_launches() as st:
+        acc1, _ = render_accumulate(demo2, s_d, seed=1, spp=1)
+    if not bool(torch.isfinite(acc1).all()):
+        raise AssertionError("checked demo2: not finite")
+    err_d = check_stats("44 demo2 forward", st, (
+        "allpairs_nearest_record", "pallas_volume_candidates",
+        "shade_megakernel", "marble_stripe_pallas"))
+    phase_done("demo2 forward")
+
+    # 45. demo2 fwd+bwd: grad_render over every float leaf (K9, the keyed
+    # K11, the atlas gradient K13), kernels against plain on a smaller
+    # tile, and the fog's density gradient against a central difference
+    err45, rel45, worst45 = checked_grad(
+        "45 demo2 fwd+bwd", demo2, s_d, 5,
+        ("allpairs_nearest_record", "pallas_volume_crossings_keyed",
+         "image_grad_pallas"))
+    r45, g45 = timed_grad("45 demo2 fwd+bwd", demo2, s_d, 5,
+                          DEMO2_GRAD["pixels"], DEMO2_GRAD["samples"],
+                          allpairs_nearest_record)
+    l45 = r45["launches"]
+    dens45 = g45.volumes.density
+    if (not r45["finite"] or l45["allpairs_nearest_record"] == 0
+            or l45["K11 keyed"] == 0 or l45["image_grad_pallas"] == 0
+            or l45["shade_megakernel"] or l45["bounce_megakernel"]
+            or l45["iter_megakernel"] or not bool(dens45[0] != 0)
+            or not bool((g45.textures.images != 0).any())):
+        raise AssertionError("demo2 fwd+bwd: not finite, a kernel missing, "
+                             "or no fog or texel gradient")
+    print(f"[45 demo2 fwd+bwd] d loss / d density (fog, blue) "
+          f"{dens45.tolist()}; texels with a gradient "
+          f"{int((g45.textures.images != 0).any(-1).sum())}", flush=True)
+    p_d, s_dd = partition(demo2)
+    pix_f = (torch.arange(M11["fog_pixels"], device=dev)
+             * (s_d.image_width * s_d.image_height) // M11["fog_pixels"]
+             ).to(torch.int32)
+    smp_f = torch.arange(M11["fog_samples"], dtype=torch.int32)
+
+    def fog_mean(dens, seed):
+        vol = dataclasses.replace(p_d.volumes, density=dens)
+        sc = combine(dataclasses.replace(p_d, volumes=vol), s_dd)
+        return torch.mean(render_tile(sc, s_d, rng.base_key(seed, dev),
+                                      pix_f, smp_f, differentiable=True))
+
+    rho = p_d.volumes.density.detach()
+    gs = []
+    for seed in range(M11["fog_ad_seeds"]):
+        dd = rho.clone().requires_grad_(True)
+        gs.append(torch.autograd.grad(fog_mean(dd, seed), dd)[0].tolist())
+    g_ad = np.mean(gs, axis=0)
+    h = 0.3 * float(rho[0])
+    fds = []
+    with torch.no_grad():
+        for seed in range(M11["fog_ad_seeds"],
+                          M11["fog_ad_seeds"] + M11["fog_fd_seeds"]):
+            up, dn = rho.clone(), rho.clone()
+            up[0] += h
+            dn[0] -= h
+            fds.append((float(fog_mean(up, seed)) - float(fog_mean(dn, seed)))
+                       / (2 * h))
+    g_fd = float(np.mean(fds))
+    se_fd = float(np.std(fds) / np.sqrt(len(fds)))
+    ok_f = (abs(g_fd) > 3 * se_fd
+            and abs(g_ad[0] - g_fd) <= max(0.35 * abs(g_fd), 3 * se_fd))
+    print(f"[45 fog density] d(mean radiance)/d(fog density) over "
+          f"{M11['fog_pixels']} pixels x {M11['fog_samples']} samples: "
+          f"score-function {g_ad[0]:.5g} ({M11['fog_ad_seeds']} seeds: "
+          f"{[g[0] for g in gs]}) vs central difference at +-{h:.3g} "
+          f"{g_fd:.5g} ({M11['fog_fd_seeds']} seeds, standard error "
+          f"{se_fd:.3g}); the blue medium's {g_ad[1]:.5g}; within rtol 0.35 "
+          f"(or 3 standard errors) and beyond 3 standard errors of 0: {ok_f}",
+          flush=True)
+    if not ok_f:
+        raise AssertionError("demo2 fog density gradient against FD")
+    phase_done("demo2 fwd+bwd")
+
+    runs = (l42, r43["launches"], l44, l45)
+    no_lib = None   # no single PyTorch call computes the shade
+    kernel = {"name": "shade_megakernel_sphere_rots", "route": "cuda",
+              "source": "raytrace_tpu_torch/csrc/shade_kernel.cu",
+              "replaces": "raytrace_tpu/ops/pallas/bounce_kernel.py:616",
+              "launches": sum(x["K10 sphere_rots"] for x in runs),
+              "max_abs_err": err_rot, "ms": ms_rot, "host_ms": host_rot,
+              "plain_ms": plain_rot, "bound_ms": bound_rot[0],
+              "bound_by": bound_rot[1], "library_ms": no_lib,
+              "empty_table_ms": ms_empty, "n_rots": len(rots),
+              "note": "the sphere_rots input of K10; no route passes it "
+                      "(the drivers precompute the uv), so its main-path "
+                      "launches are 0"}
+    summary = dict(k10_sphere_rots=dict(turns=turns, moved=n_moved),
+                   ellipsoid_forward=r42, ellipsoid_fwd_bwd=r43,
+                   ellipsoid_hit_t=dict(ad=ad_t, fd=fd_t),
+                   demo2_forward=r44, demo2_fwd_bwd=r45,
+                   demo2_checked=dict(loss_rel=rel45, grad_worst=worst45),
+                   fog_density=dict(ad=g_ad.tolist(), fd=g_fd, se=se_fd))
+    return dict(summary=summary, kernel=kernel,
+                err_k8=max(err_k8, err43), err_k9=err_d,
+                k8_launches=sum(x["pallas_nearest_record"] for x in runs),
+                k9_launches=sum(x["allpairs_nearest_record"] for x in runs),
+                k10_launches=sum(x["shade_megakernel"] for x in runs),
+                k11_launches=sum(x["pallas_volume_crossings"] for x in runs),
+                k12_launches=sum(x["marble_stripe_pallas"] for x in runs),
+                k13_launches=sum(x["image_grad_pallas"] for x in runs))
 
 
 if __name__ == "__main__":

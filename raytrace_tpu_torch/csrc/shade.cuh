@@ -21,6 +21,11 @@ struct ShadeOut {
   float alive, miss, bi, uu, vv;
 };
 
+// a row of the sphere rotation table: the winner index it applies to (as
+// a float, as the hit record holds it) and its world->object rotation,
+// row-major
+constexpr int kRotCols = 10;
+
 // arctan on [0, 1], |err| ~ 1e-5 rad (the TPU kernel's polynomial)
 __device__ __forceinline__ float poly_atan(float t) {
   const float z = t * t;
@@ -57,12 +62,15 @@ __device__ __forceinline__ void unit_from_uniforms(float u, float v, float& x,
 }
 
 // mtbl: [n_mats, 12] rows; ttbl: [n_targets, 16] rows; u: the 8 bounce
-// uniforms (spec0, spec1, dielectric, dir0, dir1, choice, tgt_i, tgt_j).
+// uniforms (spec0, spec1, dielectric, dir0, dir1, choice, tgt_i, tgt_j);
+// rots: [n_rots, kRotCols] sphere rotations, read only by lanes whose
+// sphere flag is set (kernels A and B pass none).
 __device__ __forceinline__ ShadeOut shade(
     const HitRec& hr, const float* __restrict__ mtbl, int n_mats,
     const float* __restrict__ ttbl, int n_targets, bool use_prim_albedo,
     float ox, float oy, float oz, float dx, float dy, float dz, float tr,
-    float tg, float tb, bool alive, const float* u) {
+    float tg, float tb, bool alive, const float* u,
+    const float* __restrict__ rots = nullptr, int n_rots = 0) {
   const float nx = hr.nx, ny = hr.ny, nz = hr.nz;
   const bool hit = hr.t < inf();
   const float t_safe = hit ? hr.t : 1.0f;
@@ -71,12 +79,26 @@ __device__ __forceinline__ ShadeOut shade(
   const float pz = oz + t_safe * dz;
   const bool front = hr.fr > 0.5f;
 
-  // sphere uv from the outward normal
+  // sphere uv from the outward normal, turned into object space first
+  // where the winner is a listed rotated sphere
   float uu = hr.uu, vv = hr.vv;
   if (hr.sph > 0.5f) {
     const float flip = front ? 1.0f : -1.0f;
-    uu = atan2_poly(nx * flip, nz * flip) * RT_F(0.5 / kPiD) + 0.5f;
-    vv = acos_poly(clamp(-(ny * flip), -1.0f, 1.0f)) * RT_F(1.0 / kPiD);
+    float owx = nx * flip, owy = ny * flip, owz = nz * flip;
+    for (int k = 0; k < n_rots; ++k) {
+      const float* r = rots + k * kRotCols;
+      if (hr.bi == r[0]) {
+        const float rx = r[1] * owx + r[2] * owy + r[3] * owz;
+        const float ry = r[4] * owx + r[5] * owy + r[6] * owz;
+        const float rz = r[7] * owx + r[8] * owy + r[9] * owz;
+        owx = rx;
+        owy = ry;
+        owz = rz;
+        break;
+      }
+    }
+    uu = atan2_poly(owx, owz) * RT_F(0.5 / kPiD) + 0.5f;
+    vv = acos_poly(clamp(-owy, -1.0f, 1.0f)) * RT_F(1.0 / kPiD);
   }
 
   // material + texture of the winner's material (behaviour) row

@@ -15,7 +15,10 @@
 // per block in shared memory, the shade arithmetic of kernel A (shade.cuh)
 // unchanged.  A medium event nearer than the surface replaces the record:
 // the normal faces the ray, the front flag is set, uv is zero and the
-// material is the medium's.
+// material is the medium's.  Lanes whose sphere flag is set evaluate the
+// sphere uv in the kernel; a winner listed in the rotation table (rows of
+// index and world->object rotation, read through the cache by those lanes
+// only) has its outward normal turned into object space first.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -30,9 +33,10 @@ struct ShadeArgs {
   const float *tmed, *vmat;  // [R], read only with has_medium
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tr, *tg, *tb, *al;  // [R]
   const float* uni;   // [8, R]
+  const float* rots;  // [n_rots, 10] sphere rotations, read with n_rots > 0
   float* out;         // [15, R]
   long long n_lanes;
-  int n_mats, n_targets, has_medium;
+  int n_mats, n_targets, has_medium, n_rots;
 };
 
 namespace {
@@ -40,8 +44,7 @@ namespace {
 constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
-  extern __shared__ float smem[];
-  float* sm = smem;
+  float* sm = rt::dyn_smem();
   float* st = sm + a.n_mats * rt::kMCols;
   rt::stage(sm, a.mtbl, a.n_mats * rt::kMCols);
   rt::stage(st, a.ttbl, a.n_targets * rt::kTCols);
@@ -84,7 +87,8 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const ShadeArgs a) {
   }
   const rt::ShadeOut s =
       rt::shade(hr, sm, a.n_mats, st, a.n_targets, false, ox, oy, oz, dx, dy,
-                dz, a.tr[l], a.tg[l], a.tb[l], a.al[l] > 0.5f, u);
+                dz, a.tr[l], a.tg[l], a.tb[l], a.al[l] > 0.5f, u, a.rots,
+                a.n_rots);
 
   float* o = a.out;
   o[0 * R + l] = s.o[0];

@@ -40,18 +40,21 @@ def _map_table(fn, tabs):
 def _tables(tree):
     """``(path, table)`` of every table of a Scene-shaped tree: the three
     tables, then for a scene with media ``volumes`` (its density and
-    material ids) and ``volumes.prims`` (its boundary rows)."""
+    material ids) and ``volumes.prims`` (its boundary rows), and for a
+    scene with ellipsoids ``ellipsoids``."""
     out = [(name, getattr(tree, name)) for name in _TABLES]
     if tree.volumes is not None:
         out += [("volumes", tree.volumes), ("volumes.prims",
                                             tree.volumes.prims)]
+    if tree.ellipsoids is not None:
+        out.append(("ellipsoids", tree.ellipsoids))
     return out
 
 
 def map_scene(fn, *scenes):
     """A Scene whose every tensor field is ``fn`` of the same field of
-    ``scenes`` (None fields stay None), the media's included; static
-    fields come from the first scene."""
+    ``scenes`` (None fields stay None), the media's and the ellipsoids'
+    included; static fields come from the first scene."""
     out = {name: _map_table(fn, [getattr(s, name) for s in scenes])
            for name in _TABLES}
     vols = [s.volumes for s in scenes]
@@ -59,6 +62,8 @@ def map_scene(fn, *scenes):
         out["volumes"] = dataclasses.replace(
             _map_table(fn, vols),
             prims=_map_table(fn, [v.prims for v in vols]))
+    if scenes[0].ellipsoids is not None:
+        out["ellipsoids"] = _map_table(fn, [s.ellipsoids for s in scenes])
     return dataclasses.replace(scenes[0], **out)
 
 
@@ -80,8 +85,8 @@ def combine(params, statics):
 
 def leaves(tree) -> dict:
     """``{"prims.p0": tensor, ..., "volumes.density": ...,
-    "volumes.prims.p0": ...}``: the tensor fields of a Scene-shaped tree,
-    in field order."""
+    "volumes.prims.p0": ..., "ellipsoids.radius": ...}``: the tensor
+    fields of a Scene-shaped tree, in field order."""
     out = {}
     for name, tab in _tables(tree):
         for f in dataclasses.fields(tab):

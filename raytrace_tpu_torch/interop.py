@@ -21,7 +21,7 @@ import torch
 
 from .materials.materials import MaterialTable
 from .render.camera import CameraSettings, const_background, gray_fade, sky
-from .scene.types import Primitives, Scene, Volumes
+from .scene.types import Ellipsoids, Primitives, Scene, Volumes
 from .textures.textures import TextureTable
 
 
@@ -36,16 +36,17 @@ def fields_to_numpy(obj) -> dict:
 
 def scene_to_numpy(scene) -> dict:
     """The input of :func:`scene_from_numpy` from a compiled scene whose
-    ``prims``, ``materials`` and ``textures`` (and ``volumes``, if any)
-    are dataclasses of arrays."""
+    ``prims``, ``materials`` and ``textures`` (and ``volumes`` and
+    ``ellipsoids``, if any) are dataclasses of arrays."""
     d = {k: fields_to_numpy(getattr(scene, k))
          for k in ("prims", "materials", "textures")}
     vol = getattr(scene, "volumes", None)
     if vol is not None:
         vol = dict(fields_to_numpy(vol), prims=fields_to_numpy(vol.prims))
     d["volumes"] = vol
-    for extra in ("bvh", "ellipsoids"):
-        d[extra] = getattr(scene, extra, None)
+    ell = getattr(scene, "ellipsoids", None)
+    d["ellipsoids"] = None if ell is None else fields_to_numpy(ell)
+    d["bvh"] = getattr(scene, "bvh", None)
     return d
 
 
@@ -53,15 +54,18 @@ def grads_to_numpy(grad_tree) -> dict:
     """``{"prims.p0": array, "materials.param": ..., "textures.c0": ...,
     "volumes.density": ..., "volumes.prims.p0": ...}``: the floating
     leaves of a Scene-shaped gradient tree whose ``prims``, ``materials``,
-    ``textures`` (and ``volumes``, if any, with its ``prims``) are
-    dataclasses (None and integer fields skipped), keyed by their field
-    paths."""
+    ``textures`` (and ``volumes``, if any, with its ``prims``, and
+    ``ellipsoids``, if any) are dataclasses (None and integer fields
+    skipped), keyed by their field paths."""
     out = {}
     tabs = [(name, getattr(grad_tree, name))
             for name in ("prims", "materials", "textures")]
     vol = getattr(grad_tree, "volumes", None)
     if vol is not None:
         tabs += [("volumes", vol), ("volumes.prims", vol.prims)]
+    ell = getattr(grad_tree, "ellipsoids", None)
+    if ell is not None:
+        tabs.append(("ellipsoids", ell))
     for name, tab in tabs:
         for f in dataclasses.fields(tab):
             v = getattr(tab, f.name)
@@ -91,30 +95,34 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
     each keyed by the field names of :class:`Primitives`,
     :class:`MaterialTable` and :class:`TextureTable` (arrays as numpy,
     static fields as Python values), and optionally "volumes": {"prims":
-    {...}, "density", "mat", "starts", "counts"}.  The scene lands on the
+    {...}, "density", "mat", "starts", "counts"} and "ellipsoids", keyed
+    by the field names of :class:`Ellipsoids`.  The scene lands on the
     card unless ``device`` says otherwise.  Custom textures cannot cross
-    (see the module docstring); the BVH accelerator mode and ellipsoids
-    are not ported (ROADMAP M8, M11)."""
+    (see the module docstring); the BVH accelerator mode is not ported
+    (ROADMAP M8)."""
     if d["textures"].get("custom_fns"):
         raise ValueError(
             "scene_from_numpy: custom textures are closures of the other "
             "implementation and cannot cross; build the scene with "
             "raytrace_tpu_torch.custom_texture")
-    for extra, item in (("bvh", "M8"), ("ellipsoids", "M11")):
-        if d.get(extra) is not None:
-            raise NotImplementedError(
-                f"scene_from_numpy: {extra} are not ported yet (ROADMAP "
-                f"{item})")
+    if d.get("bvh") is not None:
+        raise NotImplementedError(
+            "scene_from_numpy: bvh are not ported yet (ROADMAP M8)")
     vol = d.get("volumes")
     if vol is not None:
         vol = _build(Volumes, dict(
             vol, prims=_build(Primitives, vol["prims"], device),
             starts=tuple(int(x) for x in vol["starts"]),
             counts=tuple(int(x) for x in vol["counts"])), device)
+    ell = d.get("ellipsoids")
+    if ell is not None:
+        ell = _build(Ellipsoids, dict(ell, n=int(ell["n"]),
+                                      has_motion=bool(ell["has_motion"])),
+                     device)
     return Scene(prims=_build(Primitives, d["prims"], device),
                  materials=_build(MaterialTable, d["materials"], device),
                  textures=_build(TextureTable, d["textures"], device),
-                 volumes=vol)
+                 volumes=vol, ellipsoids=ell)
 
 
 def _background(bg):

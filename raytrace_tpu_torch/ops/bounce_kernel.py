@@ -21,12 +21,18 @@ instantiation for tables of unmoving parallelograms and triangles
 :func:`shade_megakernel` (``bounce_kernel.py:shade_megakernel``) is the
 shade stage alone, fed a precomputed hit record and optional medium
 events: it launches ``csrc/shade_kernel.cu`` for CUDA tensors and runs
-:func:`shade_plain` for CPU tensors.
+:func:`shade_plain` for CPU tensors.  Its ``sphere_rots`` (the compiler's
+``((row, r9), ...)``) turn the outward normal of the listed sphere rows
+into object space before the in-kernel sphere uv; the kernel reads them
+from a small device table (:func:`sphere_rot_table`).  The drivers
+precompute the exact uv and pass sphere flag 0, as the JAX package's do,
+so no route passes rotations.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -161,7 +167,7 @@ def _target_consts(trow):
 def shade_values(hit_res, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr, tg, tb,
                  alive, u_all, *, n_mats: int, n_targets: int,
                  use_prim_albedo: bool = False, with_uv: bool = False,
-                 tmed=None, vmat=None):
+                 tmed=None, vmat=None, sphere_rots: tuple = ()):
     """Material, texture, emission, scatter and MIS stage after the
     nearest hit (``hit_res`` from :func:`prim_loop_plain`).  ``alive`` is
     a bool lane tensor, ``u_all`` the 8 bounce uniform columns.  Returns
@@ -169,7 +175,11 @@ def shade_values(hit_res, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr, tg, tb,
     (3), alive' (0/1), miss (0/1), winner index (-1 on a miss); with
     ``with_uv`` also the winner's (u, v).  ``tmed``/``vmat``: each lane's
     nearest medium event and its material; one nearer than the surface
-    replaces the record (normal against the ray, front, uv 0)."""
+    replaces the record (normal against the ray, front, uv 0).
+    ``sphere_rots``: ``((row, r9), ...)``; a winner index equal to a
+    listed row has its outward normal rotated by that row's r9 (row-major
+    world->object) before the sphere uv, by a compare and select per
+    listed row."""
     t, bi, nx, ny, nz, fr_f, uu, vv, mat_f, sph_f = hit_res[:10]
     if tmed is not None:
         in_med = tmed < t
@@ -193,10 +203,20 @@ def shade_values(hit_res, mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr, tg, tb,
     front = fr_f > 0.5
     is_sphere = sph_f > 0.5
 
-    # sphere uv from the outward normal, polynomial atan2
+    # sphere uv from the outward normal, polynomial atan2; instanced
+    # spheres rotate the outward normal into object space first
     flip = torch.where(front, 1.0, -1.0)
-    su = _atan2(nx * flip, nz * flip) * (0.5 / math.pi) + 0.5
-    sv = _acos(torch.clamp(-(ny * flip), -1.0, 1.0)) * (1.0 / math.pi)
+    owx, owy, owz = nx * flip, ny * flip, nz * flip
+    for row, r in sphere_rots:
+        sel = bi == float(row)
+        rx = r[0] * owx + r[1] * owy + r[2] * owz
+        ry = r[3] * owx + r[4] * owy + r[5] * owz
+        rz = r[6] * owx + r[7] * owy + r[8] * owz
+        owx = torch.where(sel, rx, owx)
+        owy = torch.where(sel, ry, owy)
+        owz = torch.where(sel, rz, owz)
+    su = _atan2(owx, owz) * (0.5 / math.pi) + 0.5
+    sv = _acos(torch.clamp(-owy, -1.0, 1.0)) * (1.0 / math.pi)
     uu = torch.where(is_sphere, su, uu)
     vv = torch.where(is_sphere, sv, vv)
 
@@ -481,13 +501,27 @@ def _table_args(ptbl, mtbl, ttbl, kw, planar: bool) -> _BounceArgs:
 
 
 def shade_plain(mtbl, ttbl, hit, medium, lanes, uniforms, *, n_mats: int,
-                n_targets: int, has_medium: bool):
+                n_targets: int, has_medium: bool, sphere_rots: tuple = ()):
     """:func:`shade_megakernel` in plain PyTorch, on any device."""
     ox, oy, oz, dx, dy, dz, tr, tg, tb, al = lanes
     tmed, vmat = medium if has_medium else (None, None)
     return shade_values(tuple(hit), mtbl, ttbl, ox, oy, oz, dx, dy, dz, tr,
                         tg, tb, al > 0.5, uniforms, n_mats=n_mats,
-                        n_targets=n_targets, tmed=tmed, vmat=vmat)
+                        n_targets=n_targets, tmed=tmed, vmat=vmat,
+                        sphere_rots=sphere_rots)
+
+
+N_ROT_COLS = 10     # a sphere rotation row: winner index, then r9
+
+
+@functools.lru_cache(maxsize=64)
+def sphere_rot_table(sphere_rots: tuple, device) -> torch.Tensor:
+    """The shade kernel's rotation table of ``sphere_rots`` on ``device``:
+    [K, 10] f32 rows (the row index as a float, then its row-major
+    world->object rotation), made once per rotation list and device."""
+    rows = [[float(row)] + [float(x) for x in r9] for row, r9 in sphere_rots]
+    return torch.tensor(np.asarray(rows, np.float32).reshape(-1, N_ROT_COLS),
+                        device=device)
 
 
 class _ShadeArgs(ctypes.Structure):
@@ -495,10 +529,10 @@ class _ShadeArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "mtbl", "ttbl", "t", "bi", "nx", "ny", "nz", "fr", "uu", "vv", "mat",
         "sph", "tmed", "vmat", "ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg",
-        "tb", "al", "uni", "out")]
+        "tb", "al", "uni", "rots", "out")]
         + [("n_lanes", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in ("n_mats", "n_targets",
-                                        "has_medium")])
+                                        "has_medium", "n_rots")])
 
 
 _HIT_NAMES = ("t", "bi", "nx", "ny", "nz", "fr", "uu", "vv", "mat", "sph")
@@ -507,7 +541,8 @@ _SHADE_LANE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tr", "tg", "tb",
 
 
 def shade_megakernel(mtbl, ttbl, hit, medium, lanes, uniforms, *,
-                     n_mats: int, n_targets: int, has_medium: bool):
+                     n_mats: int, n_targets: int, has_medium: bool,
+                     sphere_rots: tuple = ()):
     """The shade stage of one bounce from a precomputed hit record.
 
     ``hit``: 10 [R] f32 tensors (t, winner index, nx, ny, nz with the
@@ -515,14 +550,17 @@ def shade_megakernel(mtbl, ttbl, hit, medium, lanes, uniforms, *,
     sphere 0 to keep the given uv); ``medium``: (t_med, medium material
     id) or None; ``lanes``: (ox, oy, oz, dx, dy, dz, tr, tg, tb, alive
     0/1); ``uniforms``: [N_U, R].  ``mtbl`` holds material rows (not
-    behaviours), at most :data:`MAX_SHADE_MATS`.  Returns the 15 bounce
-    outputs of :func:`shade_values`.
+    behaviours), at most :data:`MAX_SHADE_MATS`.  ``sphere_rots``:
+    ``((row, r9), ...)``, the rotations of the sphere rows whose uv the
+    kernel evaluates in object space (lanes with sphere flag 1).  Returns
+    the 15 bounce outputs of :func:`shade_values`.
 
     CPU tensors run :func:`shade_plain`; CUDA tensors launch
     ``csrc/shade_kernel.cu`` (``shade_megakernel.launches`` counts the
-    launches)."""
+    launches, ``.rot_launches`` those with a rotation table)."""
     dev = hit[0].device
-    kw = dict(n_mats=n_mats, n_targets=n_targets, has_medium=has_medium)
+    kw = dict(n_mats=n_mats, n_targets=n_targets, has_medium=has_medium,
+              sphere_rots=tuple(sphere_rots))
     if dev.type == "cpu":
         return shade_plain(mtbl, ttbl, hit, medium, lanes, uniforms, **kw)
     if dev.type != "cuda":
@@ -548,18 +586,22 @@ def shade_megakernel(mtbl, ttbl, hit, medium, lanes, uniforms, *,
         raise ValueError(f"uniforms: need a contiguous f32 [>={N_U}, {r}] "
                          f"tensor on {dev}")
     from ._build import launch
+    rots = (sphere_rot_table(kw["sphere_rots"], dev) if sphere_rots
+            else None)
     out = torch.empty((N_OUT, r), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
     args = _ShadeArgs(
         *(ptr(x) for x in (mtbl, ttbl) + tuple(hit) + med + tuple(lanes)
-          + (uniforms, out)),
-        r, n_mats, n_targets, int(has_medium))
+          + (uniforms, rots, out)),
+        r, n_mats, n_targets, int(has_medium), len(kw["sphere_rots"]))
     launch("rt_shade", args, dev)
     shade_megakernel.launches += 1
+    shade_megakernel.rot_launches += bool(sphere_rots)
     return tuple(out.unbind(0))
 
 
 shade_megakernel.launches = 0
+shade_megakernel.rot_launches = 0
 
 
 def check_table(name, x, cols, device):

@@ -7,9 +7,11 @@ nearest-hit kernel (``render/integrator.py:surface_hit``: kernel K8's flat
 scan, or K9's BVH walk for kind-segmented tables of 192 rows and more) and
 saves each ray's winner index; the backward gathers the winner rows by
 index and differentiates their recomputed hit (``ops/intersect.py``: the
-hit parameter, the record's normal and uv) with torch autograd, which adds
-the rows' cotangents into the tables (the backward of the gather).  The
-JAX package's one-hot gather is a TPU workaround and is not ported.
+hit parameter, the record's normal and uv, a rotated sphere's uv in
+object space) with torch autograd, which adds the rows' cotangents into
+the tables (the backward of the gather).  Ellipsoids are merged after
+this function, in differentiable torch (``ops/ellipsoid.py``).  The JAX
+package's one-hot gather is a TPU workaround and is not ported.
 """
 from __future__ import annotations
 
@@ -26,13 +28,15 @@ class HitStatics:
     """What the differentiable hit needs besides its tensors: the split
     path's tables of the detached scene (``render/integrator.py:
     SplitTables``: the packed table and its BVH) and the integer columns
-    and flags of the primitive table."""
+    and flags of the primitive table, with its rotated spheres'
+    world-to-object rotations."""
     tables: object
     kind: torch.Tensor
     mat: torch.Tensor
     has_motion: bool
     has_box: bool
     t_min: float
+    sphere_rots: tuple = ()
 
 
 def winner_outputs(st: HitStatics, floats, o, d, time, idx):
@@ -49,7 +53,8 @@ def winner_outputs(st: HitStatics, floats, o, d, time, idx):
     valid = (idx >= 0) & torch.isfinite(t)
     t_safe = torch.where(valid, t, 1.0)
     rec = make_hit_record_rows(rows, st.has_motion, st.mat[pi], idx, o, d,
-                               time, t_safe, has_box=st.has_box)
+                               time, t_safe, has_box=st.has_box,
+                               sphere_rots=st.sphere_rots)
     return t_safe, rec.normal, rec.uv
 
 
@@ -63,7 +68,8 @@ class DiffSurfaceHit(torch.autograd.Function):
     def forward(ctx, st, o, d, time, *floats):
         from ..render import integrator
         hit = integrator.surface_hit(st.tables, o.T.contiguous(),
-                                     d.T.contiguous(), time.contiguous())
+                                     d.T.contiguous(), time.contiguous(),
+                                     ellipsoids=False)
         t, idx = hit[0], hit[1].to(torch.int32)
         normal = torch.stack(hit[2:5], dim=-1)
         front = hit[5] > 0.5
@@ -99,7 +105,7 @@ def hit_statics(tables, prims, t_min: float) -> HitStatics:
     primitive table is ``prims``."""
     return HitStatics(tables=tables, kind=prims.kind, mat=prims.mat,
                       has_motion=prims.has_motion, has_box=prims.has_box,
-                      t_min=t_min)
+                      t_min=t_min, sphere_rots=prims.sphere_rots)
 
 
 def diff_surface_hit(st: HitStatics, prims, o, d, time):

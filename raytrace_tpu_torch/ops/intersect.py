@@ -17,6 +17,8 @@ and of the media's boundary crossings (``render/volumes.py``).
 * :func:`single_prim_t_rows` and :func:`make_hit_record_rows` — the hit
   parameter and the record (normal facing the ray, front flag, uv) of
   each ray against its own gathered row.
+* :func:`apply_sphere_rotations` — the outward normals of rotated sphere
+  instances turned into object space, where their uv is evaluated.
 * :func:`dense_nearest` — the nearest hit over a whole table in one
   [R, N] tile: the tests' oracle.
 
@@ -24,7 +26,7 @@ Rows come as ``(kind, p0, e1, e2, mv0, mv1)`` (plus ``uvs`` for a
 record): ``p0`` is a sphere's center (``e1[..., 0]`` its radius), a
 plane's corner, a box's low corner (``e1`` its high one); ``mv0``/``mv1``
 the motion displacements at time 0 and 1.  Rotated sphere instances
-(``sphere_rots``) are not taken here (ROADMAP Queue 1 item 2).
+list their rows' world-to-object rotations in ``sphere_rots``.
 """
 from __future__ import annotations
 
@@ -227,12 +229,36 @@ def single_prim_t_rows(rows, has_motion, o, d, time, tmin, tmax,
     return roots_to_hit_t(r1, r2, tmin, tmax)
 
 
+def apply_sphere_rotations(outward, idx, sphere_rots: tuple):
+    """``outward`` [R, 3] with the rows ``idx`` [R] listed in
+    ``sphere_rots`` (``((row, 9-float world->object rotation), ...)``,
+    the compiler's instancing rotations) rotated into object space: the
+    reference evaluates a sphere's uv on the inverse-transformed ray, so a
+    rotated image-textured sphere shows a rotated texture.  Rotated
+    spheres are rare (demo2 has one), so each listed row is a compare and
+    a select, with the rotation's entries as constants; only the uv reads
+    the result (shading normals stay in world space)."""
+    if not sphere_rots:
+        return outward
+    x, y, z = outward.unbind(-1)
+    out = outward
+    for row, r in sphere_rots:
+        rot = torch.stack([r[0] * x + r[1] * y + r[2] * z,
+                           r[3] * x + r[4] * y + r[5] * z,
+                           r[6] * x + r[7] * y + r[8] * z], dim=-1)
+        out = torch.where((idx == row)[:, None], rot, out)
+    return out
+
+
 def make_hit_record_rows(rows, has_motion, mat, idx, o, d, time, t,
-                         has_box: bool = False) -> HitRecord:
+                         has_box: bool = False,
+                         sphere_rots: tuple = ()) -> HitRecord:
     """The hit record of each ray at ``t`` on its own row ``rows = (kind,
     p0, e1, e2, mv0, mv1, uvs)`` (``uvs`` [R, 3, 2]); ``idx`` is the row's
     index (-1 on a miss).  The normal faces the ray; the front flag and
-    the box face are piecewise constant, so they carry no gradient."""
+    the box face are piecewise constant, so they carry no gradient.  A
+    sphere's uv is evaluated in object space: the rows of ``sphere_rots``
+    (:func:`apply_sphere_rotations`) rotate its outward normal first."""
     kind, p0, e1, e2, mv0, mv1, uvs = rows
     if has_motion:
         shift = mv0 + time[:, None] * (mv1 - mv0)
@@ -247,11 +273,12 @@ def make_hit_record_rows(rows, has_motion, mat, idx, o, d, time, t,
     outward = (point - p0) / radius[:, None]
     s_front = _dot(d, outward) <= 0.0
     s_normal = torch.where(s_front[:, None], outward, -outward)
-    xz_ok = outward[:, 0] ** 2 + outward[:, 2] ** 2 > 1e-12
-    ox = torch.where(xz_ok, outward[:, 0], 0.0)
-    oz = torch.where(xz_ok, outward[:, 2], 1.0)
+    outward_uv = apply_sphere_rotations(outward, idx, sphere_rots)
+    xz_ok = outward_uv[:, 0] ** 2 + outward_uv[:, 2] ** 2 > 1e-12
+    ox = torch.where(xz_ok, outward_uv[:, 0], 0.0)
+    oz = torch.where(xz_ok, outward_uv[:, 2], 1.0)
     s_u = torch.atan2(ox, oz) / (2.0 * torch.pi) + 0.5
-    s_v = torch.arccos(torch.clamp(-outward[:, 1], -1.0 + 1e-6,
+    s_v = torch.arccos(torch.clamp(-outward_uv[:, 1], -1.0 + 1e-6,
                                    1.0 - 1e-6)) / torch.pi
     s_uv = torch.stack([s_u, s_v], dim=-1)
 
@@ -315,7 +342,8 @@ def make_hit_record(prims, idx, o, d, time, t) -> HitRecord:
     """:func:`make_hit_record_rows` of the rows ``idx`` of ``prims``."""
     return make_hit_record_rows(gather_rows(prims, idx), prims.has_motion,
                                 prims.mat[torch.clamp(idx, min=0).long()],
-                                idx, o, d, time, t, has_box=prims.has_box)
+                                idx, o, d, time, t, has_box=prims.has_box,
+                                sphere_rots=prims.sphere_rots)
 
 
 def dense_nearest(prims, o, d, time, tmin, tmax):

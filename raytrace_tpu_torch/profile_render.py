@@ -59,7 +59,14 @@ once in the checkpointed iteration's replay), the pawn stand-in's
 ``testing.SMOKE_GRAD_RENDER``, depth 50, each bounce checkpointed), and
 the keyed mode of K11 and K11b against their crossings mode
 (``keyed_kernels``: 20 launches of each, in turns, at chip_smoke.py
-phase 35's shapes), it
+phase 35's shapes), and for demo2 (``testing.demo2_scene``, the
+reference's "everything at once" scene) its forward at the scene's own
+settings (``demo2``: 400 x 400, 250 spp, depth 4, seed 1234: the BVH walk
+K9 over 1,536 rows, K11's candidate mode for its fog and its blue medium,
+the shade kernel, the earth's image and the marble stripes through K12)
+and ``grad_render`` over 2^16 pixels spread evenly over the image x 4
+samples (``demo2_grad_render``: the generic differentiable bounce, each bounce
+checkpointed: K9, the keyed K11, the atlas gradient K13), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -315,11 +322,12 @@ def main() -> None:
     from .render.render import render_accumulate
     from .render.integrator import lane_cost_estimate
     from .testing import (
-        FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8, IMAGE_GRAD_FWD_BWD,
+        DEMO2_GRAD, DEMO2_SEED, FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8,
+        IMAGE_GRAD_FWD_BWD,
         MESH_FWD_BWD, PAWN_FWD_BWD, SMOKE_FWD_BWD, SMOKE_GRAD_RENDER,
         bunny_standin_scene, cornell_scene_and_settings, cornell_smoke_scene,
         fwd_bwd_pixels, image_grad_scene, noise_test_scene,
-        pawn_standin_scene,
+        demo2_scene, pawn_standin_scene,
     )
     only = set(sys.argv[1:])
 
@@ -342,6 +350,7 @@ def main() -> None:
     image, s_i = image_grad_scene(512, device=dev)
     smoke, s_s = cornell_smoke_scene(600, 200, 50, device=dev)
     pawn, s_p = pawn_standin_scene(500, PAWN_SPP, 20, device=dev)
+    demo2, s_d = demo2_scene(device=dev)
     forward_kernels = (bounce_megakernel, iter_megakernel,
                        allpairs_nearest_record, pallas_nearest_record,
                        iter_mega_ap)
@@ -591,6 +600,16 @@ def main() -> None:
         return lambda: grad_render(smoke, s_s, rng.base_key(2, dev), pix,
                                    smp, target)
 
+    def demo2_grad_render():
+        from .diff.gradients import grad_render
+        n_img = s_d.image_width * s_d.image_height
+        pix = (torch.arange(DEMO2_GRAD["pixels"], device=dev) * n_img
+               // DEMO2_GRAD["pixels"]).to(torch.int32)
+        smp = torch.arange(DEMO2_GRAD["samples"], dtype=torch.int32)
+        target = torch.zeros((DEMO2_GRAD["pixels"], 3), device=dev)
+        return lambda: grad_render(demo2, s_d, rng.base_key(3, dev), pix,
+                                   smp, target)
+
     @functools.cache
     def keyed_kernel_calls():
         """K11 on cornell_smoke's 360,064 camera rays (planar) and K11b on
@@ -719,7 +738,12 @@ def main() -> None:
              PAWN_FWD_BWD["lanes"] * PAWN_FWD_BWD["spp"]),
             ("smoke_grad_render", smoke_grad_render(),
              SMOKE_GRAD_RENDER["pixels"] * SMOKE_GRAD_RENDER["samples"]),
-            ("keyed_kernels", lambda: keyed_kernel_calls()(), 0)):
+            ("keyed_kernels", lambda: keyed_kernel_calls()(), 0),
+            ("demo2", fwd(demo2, s_d, s_d.samples_per_pixel,
+                          seed=DEMO2_SEED),
+             s_d.image_width * s_d.image_height * s_d.samples_per_pixel),
+            ("demo2_grad_render", demo2_grad_render(),
+             DEMO2_GRAD["pixels"] * DEMO2_GRAD["samples"])):
         if only and name not in only:
             continue
         walls = []

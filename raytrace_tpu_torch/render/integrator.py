@@ -24,11 +24,12 @@ checker textures (:func:`bounce_mega_soa`).  Every other scene takes the
 split path (:func:`bounce_split_soa`), as the JAX package's ``bounce``
 does: the nearest hit record (kernel K8's flat scan for small and
 unsegmented tables, the walk of the table's BVH for kind-segmented
-tables of 192 rows and more), the exact sphere uv in torch, for scenes
-with constant-density media the nearest medium's scatter candidate
-(``render/volumes.py:medium_hit``: kernel K11, or K11b for mesh
-boundaries, in the candidate mode) passed to the shade kernel
-(``shade_megakernel``), then the
+tables of 192 rows and more), the exact sphere uv in torch (in object
+space for rotated sphere instances), the ellipsoids' nearest hit merged
+in (``ops/ellipsoid.py``), for scenes with constant-density media the
+nearest medium's scatter candidate (``render/volumes.py:medium_hit``:
+kernel K11, or K11b for mesh boundaries, in the candidate mode) passed
+to the shade kernel (``shade_megakernel``), then the
 image, noise, marble and custom texture albedo multiplied into the
 surviving lanes' throughput in torch (marble stripes through kernel K12).
 
@@ -62,8 +63,8 @@ thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
 * :func:`trace` — the bounded-depth driver of a fixed batch of rays
   (``diff/gradients.py:render_tile``), forward or differentiable.
 
-Rotated uv-textured spheres and the BVH accelerator mode beyond 65,536
-rows raise (ROADMAP Queue 1 items 2 and 5).
+The BVH accelerator mode beyond 65,536 rows raises (ROADMAP Queue 1
+item 5).
 """
 from __future__ import annotations
 
@@ -84,6 +85,7 @@ from ..materials.materials import (
     MAT_METAL, MAT_MIRROR, MAT_PITCH_BLACK, MAT_TRANSPARENT, MaterialTable,
 )
 from ..ops.diff_intersect import HitStatics, diff_surface_hit, hit_statics
+from ..ops.ellipsoid import merge_ellipsoid_hits
 from ..ops.allpairs_kernel import (
     MIN_PRIMS, DeviceBVH, allpairs_nearest_record, pack_bvh,
 )
@@ -92,10 +94,11 @@ from ..ops.bounce_kernel import (
     bounce_megakernel, pack_behaviors, pack_materials, pack_targets,
     prepare_bounce, shade_megakernel,
 )
+from ..ops.intersect import apply_sphere_rotations
 from ..ops.intersect_kernel import (
     MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
 )
-from ..scene.types import Scene, Volumes
+from ..scene.types import Ellipsoids, Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
 )
@@ -163,6 +166,10 @@ def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
         return ("constant-density media: kernels A and B do not take them "
                 "(the forward takes the split path, the fwd+bwd the "
                 "generic differentiable bounce)")
+    if scene.ellipsoids is not None:
+        return ("ellipsoids: kernels A and B do not take them (the forward "
+                "takes the split path, the fwd+bwd the generic "
+                "differentiable bounce)")
     rows = scene.prims.kind.shape[0]
     if rows > max_rows:
         return (f"{rows} primitive rows: the kernels take at most "
@@ -182,8 +189,9 @@ def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
                 f"{MAX_MAT_ROWS}")
     if scene.prims.sphere_rots and TEX_CHECKER in \
             scene.textures.kinds_present:
-        return ("rotated checker-textured spheres need object-space uv "
-                "(ROADMAP Queue 1 item 2)")
+        return ("rotated checker-textured spheres: the kernels' checker "
+                "reads world-space uv (the split path and the generic "
+                "bounce rotate it into object space)")
     if n_rays % LANE_ALIGN:
         return f"{n_rays} lanes: not a multiple of {LANE_ALIGN}"
     return None
@@ -318,10 +326,12 @@ class SplitTables:
     and camera: the prim table with per-material ids, its BVH (None where
     the flat scan serves the table), the material rows (not behaviours)
     and the targets; ``rich`` says whether the scene has textures the
-    shade kernel defers (image, noise, marble, custom).  For a scene with
-    media: ``volumes`` and their packed boundary table, BVH forest and
-    prepared crossing-kernel launches (``render/volumes.py:volume_tables``,
-    which hold each medium's density and material id)."""
+    shade kernel defers (image, noise, marble, custom); ``sphere_rots``
+    the rotated uv-textured spheres' rows and rotations; ``ellipsoids``
+    the scene's ellipsoids or None.  For a scene with media: ``volumes``
+    and their packed boundary table, BVH forest and prepared
+    crossing-kernel launches (``render/volumes.py:volume_tables``, which
+    hold each medium's density and material id)."""
     ptbl: torch.Tensor
     mtbl: torch.Tensor
     ttbl: torch.Tensor
@@ -334,6 +344,8 @@ class SplitTables:
     rich: bool = False
     volumes: Volumes | None = None
     vol_tables: VolumeTables | None = None
+    sphere_rots: tuple = ()
+    ellipsoids: Ellipsoids | None = None
 
 
 def uses_bvh(prims) -> bool:
@@ -364,16 +376,20 @@ def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
         n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
         has_motion=p.has_motion, t_min=float(np.float32(s.t_min)),
         rich=is_rich(scene.textures.kinds_present), volumes=vol,
-        vol_tables=None if vol is None else volume_tables(vol))
+        vol_tables=None if vol is None else volume_tables(vol),
+        sphere_rots=p.sphere_rots, ellipsoids=scene.ellipsoids)
 
 
-def surface_hit(tb: SplitTables, o, d, time):
+def surface_hit(tb: SplitTables, o, d, time, ellipsoids: bool = True):
     """The nearest hit record of every lane (``o``, ``d`` [3, R], ``time``
     [R]) through a nearest-hit kernel (the BVH walk where ``tb`` has a
     BVH, else the flat scan), with the exact sphere uv from the outward
-    normal computed here in torch, as the JAX package's ``_surface_hit``
-    does after its kernel.  Returns the 10 [R] f32 hit columns of
-    ``shade_megakernel`` (sphere flag 0: the uv is final)."""
+    normal computed here in torch (turned into object space first for the
+    rows of ``tb.sphere_rots``), then, with ``ellipsoids``, the nearest
+    ellipsoid hit of ``tb.ellipsoids`` merged in (winner index ``-2 -
+    e``), as the JAX package's ``_surface_hit`` does after its kernel.
+    Returns the 10 [R] f32 hit columns of ``shade_megakernel`` (sphere
+    flag 0: the uv is final)."""
     rays = (o[0], o[1], o[2], d[0], d[1], d[2], time)
     kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
     if tb.bvh is None:
@@ -385,13 +401,26 @@ def surface_hit(tb: SplitTables, o, d, time):
     is_sphere = (flags & 2) > 0
     flip = torch.where(front, 1.0, -1.0)
     owx, owy, owz = nx * flip, ny * flip, nz * flip
+    if tb.sphere_rots:
+        owx, owy, owz = apply_sphere_rotations(
+            torch.stack([owx, owy, owz], dim=-1), idx,
+            tb.sphere_rots).unbind(-1)
     xz_ok = owx ** 2 + owz ** 2 > 1e-12
     sx = torch.where(xz_ok, owx, 0.0)
     sz = torch.where(xz_ok, owz, 1.0)
     su = torch.atan2(sx, sz) / (2.0 * math.pi) + 0.5
     sv = torch.arccos(torch.clamp(-owy, -1.0 + 1e-6, 1.0 - 1e-6)) / math.pi
-    return (t, idx.to(DTYPE), nx, ny, nz, front.to(DTYPE),
-            torch.where(is_sphere, su, uu), torch.where(is_sphere, sv, vv),
+    uu = torch.where(is_sphere, su, uu)
+    vv = torch.where(is_sphere, sv, vv)
+    if ellipsoids and tb.ellipsoids is not None:
+        t, idx, normal, front, uv, mat = merge_ellipsoid_hits(
+            tb.ellipsoids, o.T, d.T, time, tb.t_min, t, idx,
+            torch.stack([nx, ny, nz], dim=-1), front,
+            torch.stack([uu, vv], dim=-1), mat)
+        # the shade kernel takes contiguous columns
+        nx, ny, nz = normal.T.contiguous()
+        uu, vv = uv.T.contiguous()
+    return (t, idx.to(DTYPE), nx, ny, nz, front.to(DTYPE), uu, vv,
             mat.to(DTYPE), torch.zeros_like(t))
 
 
@@ -526,9 +555,6 @@ def _generic_reason(scene: Scene, s: CameraSettings):
         return (f"{p.kind.shape[0]} primitive rows: past {MAX_DENSE_PRIMS} "
                 "the BVH accelerator mode is not ported yet (ROADMAP "
                 "Queue 1 item 5)")
-    if p.sphere_rots:
-        return ("rotated uv-textured spheres need object-space uv (ROADMAP "
-                "Queue 1 item 2)")
     return None
 
 
@@ -550,6 +576,21 @@ def generic_tables(scene: Scene, s: CameraSettings,
         split=tb, hit=hit_statics(tb, det.prims, tb.t_min),
         crossings=(None if det.volumes is None
                    else crossing_statics(det.volumes, tb.t_min)))
+
+
+def surface_hit_diff(scene: Scene, tables: GenericTables, o, d, time):
+    """The differentiable nearest surface hit of the rays ``o``, ``d`` [R,
+    3] at ``time`` [R] (the JAX package's ``_surface_hit`` with
+    ``diff=True``): the winner-only ``DiffSurfaceHit`` over the primitive
+    table (``tables`` of :func:`generic_tables` with ``diff=True``), then
+    the scene's ellipsoids merged in differentiable torch, so a
+    primitive's cotangent is zero where an ellipsoid wins.  Returns ``(t,
+    idx, normal, front, uv, mat)``."""
+    hit = diff_surface_hit(tables.hit, scene.prims, o, d, time)
+    if scene.ellipsoids is None:
+        return hit
+    return merge_ellipsoid_hits(scene.ellipsoids, o, d, time,
+                                tables.split.t_min, *hit)
 
 
 def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
@@ -595,8 +636,8 @@ def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
         mat_id = hit[8].long()
     else:
         o = comps[0:3].T
-        t_srf, _, normal, front, uv, mat_id = diff_surface_hit(
-            tb.hit, scene.prims, o, d, time)
+        t_srf, _, normal, front, uv, mat_id = surface_hit_diff(
+            scene, tb, o, d, time)
 
     vol = scene.volumes
     if vol is not None:

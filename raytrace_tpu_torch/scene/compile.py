@@ -8,8 +8,8 @@ and more are then regrouped kind-major into 64-row-padded segments), so
 the packed tables equal the JAX package's.  Constant-density media get
 their own table of boundary rows, every volume's rows merged in walk
 order (neither permuted, segmented nor padded) with static per-volume
-slices.  ``accel="bvh"`` and ellipsoids (non-uniformly scaled spheres)
-raise.
+slices.  Spheres under a non-uniform linear map become ellipsoids, kept
+in their own buffer (:class:`Ellipsoids`).  ``accel="bvh"`` raises.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from . import builder as B
 from .bvh import build_bvh, prim_aabbs
 from .types import (
     PRIM_BOX, PRIM_PAD, PRIM_PARALLELOGRAM, PRIM_SPHERE, PRIM_TRIANGLE,
-    Primitives, Scene, Volumes,
+    Ellipsoids, Primitives, Scene, Volumes,
 )
 
 _DEFAULT_TRI_UVS = np.asarray([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
@@ -71,7 +71,7 @@ class _Interner:
 
 
 def _bake_block(block: B.PrimBlock, matrix: np.ndarray, mv0, mv1,
-                mat_id: int, rows: _Rows):
+                mat_id: int, rows: _Rows, ellipsoids: list | None):
     a = matrix[:3, :3]
     b = matrix[:3, 3]
     n = block.p0.shape[0]
@@ -94,16 +94,23 @@ def _bake_block(block: B.PrimBlock, matrix: np.ndarray, mv0, mv1,
             rows.rot.append(np.broadcast_to(_EYE9, (n, 9)).copy())
             return
         _bake_block(B.box_faces(block.p0, block.e1), matrix, mv0, mv1,
-                    mat_id, rows)
+                    mat_id, rows, ellipsoids)
         return
     rot = _EYE9
     if block.kind == PRIM_SPHERE:
         ata = a.T @ a
         s2 = np.trace(ata) / 3.0
         if not np.allclose(ata, s2 * np.eye(3), atol=1e-9 * max(s2, 1.0)):
-            raise NotImplementedError(
-                "transform: non-uniformly scaled spheres (ellipsoids) are "
-                "not ported yet (ROADMAP M11)")
+            # a non-uniform linear part: ellipsoids, in their own buffer
+            # (object-space center and radius, the affine, the motion)
+            if ellipsoids is None:
+                raise ValueError(
+                    "transform: non-uniform-scaled spheres (ellipsoids) "
+                    "are not supported as constant_medium boundaries")
+            for i in range(n):
+                ellipsoids.append((block.p0[i], float(block.e1[i, 0]), a, b,
+                                   mat_id, mv0.copy(), mv1.copy()))
+            return
         p0 = block.p0 @ a.T + b
         e1 = np.zeros((n, 3))
         e1[:, 0] = block.e1[:, 0] * np.sqrt(s2)
@@ -128,24 +135,27 @@ def _bake_block(block: B.PrimBlock, matrix: np.ndarray, mv0, mv1,
 
 
 def _walk(node: B.Geom, matrix, mv0, mv1, material, interner, rows: _Rows,
-          volumes: list | None):
+          volumes: list | None, ellipsoids: list | None):
     """Bake the rows below ``node`` into ``rows``.  ``volumes`` collects
-    ``(density, material id, boundary rows)`` of each medium; it is None
-    inside a medium's boundary, where media may not nest and rows take
-    material id 0."""
+    ``(density, material id, boundary rows)`` of each medium and
+    ``ellipsoids`` ``(center, radius, A, b, material id, mv0, mv1)`` of
+    each ellipsoid; both are None inside a medium's boundary, where media
+    may not nest, ellipsoids raise and rows take material id 0."""
     if isinstance(node, B.WithMaterial):
         eff = material if material is not None else node.material
-        _walk(node.child, matrix, mv0, mv1, eff, interner, rows, volumes)
+        _walk(node.child, matrix, mv0, mv1, eff, interner, rows, volumes,
+              ellipsoids)
     elif isinstance(node, B.Transform):
         _walk(node.child, matrix @ node.matrix, mv0, mv1, material,
-              interner, rows, volumes)
+              interner, rows, volumes, ellipsoids)
     elif isinstance(node, B.Moving):
         lin = matrix[:3, :3]
         _walk(node.child, matrix, mv0 + lin @ node.v0, mv1 + lin @ node.v1,
-              material, interner, rows, volumes)
+              material, interner, rows, volumes, ellipsoids)
     elif isinstance(node, B.Group):
         for c in node.children:
-            _walk(c, matrix, mv0, mv1, material, interner, rows, volumes)
+            _walk(c, matrix, mv0, mv1, material, interner, rows, volumes,
+                  ellipsoids)
     elif isinstance(node, B.Medium):
         if volumes is None:
             raise ValueError("constant_medium cannot be nested inside another")
@@ -153,7 +163,8 @@ def _walk(node: B.Geom, matrix, mv0, mv1, material, interner, rows: _Rows,
             raise ValueError("constant_medium needs a material attached with "
                              "with_material")
         vol_rows = _Rows.empty()
-        _walk(node.child, matrix, mv0, mv1, None, interner, vol_rows, None)
+        _walk(node.child, matrix, mv0, mv1, None, interner, vol_rows, None,
+              None)
         if vol_rows.n() == 0:
             raise ValueError("constant_medium: empty boundary geometry")
         volumes.append((node.density, interner.material_id(material),
@@ -166,7 +177,7 @@ def _walk(node: B.Geom, matrix, mv0, mv1, material, interner, rows: _Rows,
                              "wrap it in with_material(...)")
         mat_id = interner.material_id(material) if material is not None \
             else 0
-        _bake_block(node, matrix, mv0, mv1, mat_id, rows)
+        _bake_block(node, matrix, mv0, mv1, mat_id, rows, ellipsoids)
     else:
         raise TypeError(f"unknown scene node {type(node)!r}")
 
@@ -272,10 +283,11 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
     interner = _Interner()
     rows = _Rows.empty()
     volumes: list = []
+    ellipsoids: list = []
     _walk(root, np.eye(4), np.zeros(3), np.zeros(3), None, interner, rows,
-          volumes)
+          volumes, ellipsoids)
     n_surface = rows.n()
-    if n_surface == 0 and not volumes:
+    if n_surface == 0 and not volumes and not ellipsoids:
         raise ValueError("compile_scene: empty scene")
     if accel == "bvh" or (accel == "auto" and n_surface > dense_threshold):
         raise NotImplementedError(
@@ -283,7 +295,7 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
             "which is not ported yet (ROADMAP M8)")
 
     if n_surface == 0:
-        # a scene of media only: one pad row, never hit
+        # a scene of media or ellipsoids only: one pad row, never hit
         z3 = torch.zeros((1, 3))
         prims = Primitives(
             kind=torch.full((1,), PRIM_PAD, dtype=torch.int32), p0=z3,
@@ -320,9 +332,24 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
             mat=torch.tensor([v[1] for v in volumes], dtype=torch.int32),
             starts=tuple(starts), counts=tuple(counts))
 
+    ell = None
+    if ellipsoids:
+        fwd = np.stack([e[2] for e in ellipsoids])
+        emv0 = np.stack([e[5] for e in ellipsoids])
+        emv1 = np.stack([e[6] for e in ellipsoids])
+        f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+        ell = Ellipsoids(
+            center=f32(np.stack([e[0] for e in ellipsoids])),
+            radius=f32([e[1] for e in ellipsoids]), fwd=f32(fwd),
+            inv=f32(np.linalg.inv(fwd)),
+            shift=f32(np.stack([e[3] for e in ellipsoids])),
+            mat=torch.tensor([e[4] for e in ellipsoids], dtype=torch.int32),
+            mv0=f32(emv0), mv1=f32(emv1), n=len(ellipsoids),
+            has_motion=bool(np.any(emv0 != 0.0) or np.any(emv1 != 0.0)))
+
     textures = compile_textures(list(interner.textures))
     materials = compile_materials(list(interner.materials),
                                   interner.textures)
     scene = Scene(prims=prims, materials=materials, textures=textures,
-                  volumes=vol)
+                  volumes=vol, ellipsoids=ell)
     return scene.to(device)

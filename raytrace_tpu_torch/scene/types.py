@@ -2,10 +2,11 @@
 (``raytrace_tpu/scene/types.py``).
 
 One tagged row per primitive, an interned material table, an interned
-texture table and, for scenes with constant-density media, a separate
-table of the media's boundary rows (:class:`Volumes`).  The port compiles
-dense scenes only: the BVH mode and the ellipsoids of the JAX package
-raise at compile time (ROADMAP M8, M11).
+texture table, for scenes with constant-density media a separate table
+of the media's boundary rows (:class:`Volumes`), and for spheres under
+non-uniform scales a small buffer of ellipsoids (:class:`Ellipsoids`).
+The port compiles dense scenes only: the BVH mode of the JAX package
+raises at compile time (ROADMAP M8).
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ class Primitives:
     kind_segments: tuple | None = None
     kinds_present: tuple | None = None  # primitive kinds present
     # ((row, r9), ...) world->object rotations of rotated uv-textured
-    # spheres (the render kernels do not take such scenes)
+    # spheres: their uv is evaluated in object space
     sphere_rots: tuple = ()
 
     def __len__(self):
@@ -76,11 +77,36 @@ class Volumes:
 
 
 @dataclasses.dataclass(frozen=True)
+class Ellipsoids:
+    """Spheres under arbitrary affines, in their own small buffer,
+    intersected in object space and merged after the nearest surface hit
+    (``ops/ellipsoid.py``).  ``center``/``radius`` are object-space;
+    ``fwd``/``inv`` the linear part A and its inverse (``inv`` is a leaf
+    of its own, as in the JAX package, not recomputed from ``fwd``);
+    ``shift`` the translation; ``mv0``/``mv1`` the world-space motion
+    displacements at time 0 / 1."""
+    center: torch.Tensor   # f32[E, 3]
+    radius: torch.Tensor   # f32[E]
+    fwd: torch.Tensor      # f32[E, 3, 3]
+    inv: torch.Tensor      # f32[E, 3, 3]
+    shift: torch.Tensor    # f32[E, 3]
+    mat: torch.Tensor      # i32[E]
+    mv0: torch.Tensor      # f32[E, 3]
+    mv1: torch.Tensor      # f32[E, 3]
+    n: int = 0
+    has_motion: bool = False
+
+    def to(self, device) -> "Ellipsoids":
+        return _tensors_to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     prims: Primitives
     materials: MaterialTable
     textures: TextureTable
     volumes: Volumes | None = None
+    ellipsoids: Ellipsoids | None = None
 
     @property
     def device(self) -> torch.device:
@@ -90,4 +116,6 @@ class Scene:
         return Scene(self.prims.to(device), self.materials.to(device),
                      self.textures.to(device),
                      None if self.volumes is None
-                     else self.volumes.to(device))
+                     else self.volumes.to(device),
+                     None if self.ellipsoids is None
+                     else self.ellipsoids.to(device))

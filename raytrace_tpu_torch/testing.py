@@ -1,8 +1,9 @@
 """Scenes, lane states and kernel-versus-plain comparisons shared by
 ``chip_smoke.py`` and the tests.
 
-* :func:`cornell_scene_and_settings` and :func:`all_materials_scene` build,
-  with the port's own builder, the Cornell box of
+* :func:`cornell_scene_and_settings` (over :func:`cornell_world` and
+  :func:`cornell_settings`) and :func:`all_materials_scene` build, with
+  the port's own builder, the Cornell box of
   ``__graft_entry__._cornell_scene_and_settings`` and the scene of
   ``tests/test_bounce_kernel.py``; :func:`box_motion_scene` adds
   axis-aligned boxes (``PRIM_BOX`` rows), motion and the isotropic and
@@ -31,6 +32,14 @@
   :func:`pawn_inside_rays` make rays for the crossing kernels, and
   :func:`media_bounce_rays` the camera rays of a media scene with their
   second bounce.
+* The rest of M11: :func:`demo2_scene` (``scenes/demo2.py``: 1,407
+  surface rows, a fog and a subsurface medium, the earth on a rotated
+  sphere, marble; :data:`DEMO2_SEED`, :data:`DEMO2_GRAD`),
+  :func:`ellipsoid_scene` (the Cornell box with three ellipsoids: scaled
+  and rotated, earth-textured, moving; :func:`scale3`) and
+  :func:`rotated_spheres_scene` (32 rotated checker spheres), whose
+  :func:`sphere_rot_inputs` are the shade kernel's inputs with its
+  in-kernel sphere uv and rotation table.
 * :data:`FWD_BWD` is the fwd+bwd configuration of ``bench.py`` and
   :func:`fwd_bwd_pixels` its lanes; :data:`MESH_FWD_BWD` the mesh
   configuration of ``tools/prof_bunny_grad.py``;
@@ -138,18 +147,16 @@ PAWN_FWD_BWD = dict(rr_depth=2, lanes=1 << 17, spp=4, n_iters=60,
 SMOKE_GRAD_RENDER = dict(pixels=1 << 16, samples=4)
 
 
-def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
-    """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``,
-    built with the port: 6 walls + 2 rotated boxes (18 parallelograms),
-    one MIS redirect target on the light, black background."""
-    import raytrace_tpu_torch as rt
-    from raytrace_tpu_torch import degrees
-
+def cornell_world(rt):
+    """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``:
+    6 walls + 2 rotated boxes (18 parallelograms).  ``rt`` is the builder
+    module (this package or the JAX one)."""
+    degrees = rt.degrees
     red = rt.lambertian(rt.constant_texture([0.65, 0.05, 0.05]))
     white = rt.lambertian(rt.constant_texture([0.73, 0.73, 0.73]))
     green = rt.lambertian(rt.constant_texture([0.12, 0.45, 0.15]))
     light = rt.light_source(rt.constant_texture([15.0, 15.0, 15.0]))
-    world = rt.group([
+    return rt.group([
         rt.with_material(green, rt.parallelogram([555, 0, 0], [0, 555, 0],
                                                  [0, 0, 555])),
         rt.with_material(red, rt.parallelogram([0, 0, 0], [0, 555, 0],
@@ -171,15 +178,27 @@ def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
                      rt.with_material(white, rt.cuboid([0, 0, 0],
                                                        [165, 165, 165]))),
     ])
-    scene = rt.compile_scene(world, device=device)
-    settings = rt.CameraSettings(
-        center=[278.0, 278.0, -800.0], look_at=[278.0, 278.0, 0.0],
-        vfov=degrees(40), aspect_ratio=1.0, image_width=width,
+
+
+def cornell_settings(rt, width=16, spp=4, depth=6):
+    """The Cornell box's camera: one MIS redirect target on the light,
+    black background."""
+    return rt.CameraSettings(
+        center=np.asarray([278.0, 278.0, -800.0]),
+        look_at=np.asarray([278.0, 278.0, 0.0]),
+        vfov=rt.degrees(40), aspect_ratio=1.0, image_width=width,
         samples_per_pixel=spp, max_depth=depth,
         background=rt.const_background(0.0),
     ).with_redirect_targets([(0.25, [343, 554, 332], [-130, 0, 0],
                               [0, 0, -105])])
-    return scene, settings
+
+
+def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
+    """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``,
+    built with the port (:func:`cornell_world`, :func:`cornell_settings`)."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(cornell_world(rt), device=device),
+            cornell_settings(rt, width, spp, depth))
 
 
 def all_materials_scene(device="cuda"):
@@ -326,6 +345,203 @@ def cuboid_test_world(rt):
     return rt.transform(
         rt.compose(rt.translate([0, 0, -3]), rt.rotate_x(np.pi / 3)),
         rt.with_material(globe, rt.cuboid([-1, -2, -0.5], [1, 2, 0.5])))
+
+
+def demo2_world(rt):
+    """``scenes/demo2.py``'s world (reference ``test/Main.hs:259-321``), its
+    draws made in the same order from ``np.random.default_rng(1234)``: 400
+    ground cuboids of random heights, a cloud of 1,000 white spheres
+    rotated 15 degrees about y, a light with a redirect target, a moving
+    sphere, two glass spheres (one the boundary of a blue subsurface
+    medium), a metal sphere, the earth (:func:`earthmap`) on a sphere
+    rotated a quarter turn about y (its uv in object space), a marble
+    sphere, and a thin fog of radius 5,000 around everything.  ``rt`` is
+    the builder module (this package or the JAX one)."""
+    ground = rt.lambertian(rt.constant_texture([0.48, 0.83, 0.53]))
+    white = rt.lambertian(rt.constant_texture([0.73, 0.73, 0.73]))
+    rg = np.random.default_rng(1234)
+    i, j = np.meshgrid(np.arange(20), np.arange(20), indexing="ij")
+    x0 = (-1000 + i * 100).ravel()
+    z0 = (-1000 + j * 100).ravel()
+    y1 = rg.uniform(1, 101, 400)
+    c0 = np.stack([x0, np.zeros(400), z0], -1)
+    c1 = np.stack([x0 + 100, y1, z0 + 100], -1)
+    boxes = rt.with_material(ground, rt.cuboids(c0, c1))
+    centers = rg.uniform(0, 165, (1000, 3))
+    balls = rt.transform(
+        rt.compose(rt.translate([-100, 270, 395]),
+                   rt.rotate_y(rt.degrees(15))),
+        rt.with_material(white, rt.spheres(centers, np.full(1000, 10.0))))
+    light_q = DEMO2_LIGHT
+    return rt.group([
+        boxes, balls,
+        rt.with_material(rt.light_source(rt.constant_texture([7.0, 7.0,
+                                                              7.0])),
+                         rt.parallelogram(*light_q)),
+        rt.with_material(rt.lambertian(rt.constant_texture([0.7, 0.3, 0.1])),
+                         rt.moving([0, 0, 0], [30, 0, 0],
+                                   rt.sphere([400, 400, 200], 50))),
+        rt.with_material(rt.dielectric(1.5), rt.sphere([260, 150, 45], 50)),
+        rt.with_material(rt.dielectric(1.5), rt.sphere([360, 150, 145], 70)),
+        rt.with_material(rt.metal(1.0, rt.constant_texture([0.8, 0.8, 0.9])),
+                         rt.sphere([0, 150, 145], 50)),
+        rt.transform(
+            rt.compose(rt.translate([400, 0, 400]), rt.rotate_y(np.pi / 2)),
+            rt.with_material(rt.lambertian(rt.image_texture(earthmap())),
+                             rt.sphere([0, 200, 0], 100))),
+        rt.with_material(rt.lambertian(rt.marble_texture([0, 0, 0.05], 4.0)),
+                         rt.sphere([220, 280, 300], 80)),
+        rt.with_material(rt.isotropic(rt.constant_texture(1.0)),
+                         rt.constant_medium(0.0001,
+                                            rt.sphere([0, 0, 0], 5000))),
+        rt.with_material(rt.isotropic(rt.constant_texture([0.2, 0.4, 0.9])),
+                         rt.constant_medium(0.2,
+                                            rt.sphere([360, 150, 145], 70))),
+    ])
+
+
+# demo2's light: corner and edges (the redirect target's too)
+DEMO2_LIGHT = ([123, 554, 147], [300, 0, 0], [0, 0, 265])
+# demo2's render seed (scenes/demo2.py)
+DEMO2_SEED = 1234
+# demo2's fwd+bwd: grad_render over 2^16 pixels spread evenly over the
+# image x 4 samples at the scene's depth 4
+DEMO2_GRAD = dict(pixels=1 << 16, samples=4)
+
+
+def demo2_settings(rt, width: int = 400, spp: int = 250, depth: int = 4):
+    """``scenes/demo2.py``'s camera (rendered there at 400 x 400, 250 spp,
+    depth 4): black background, one redirect target on the light."""
+    return rt.CameraSettings(
+        center=np.asarray([478.0, 278.0, -600.0]),
+        look_at=np.asarray([278.0, 278.0, 0.0]),
+        vfov=rt.degrees(40), aspect_ratio=1.0, image_width=width,
+        samples_per_pixel=spp, max_depth=depth,
+        background=rt.const_background(0.0),
+    ).with_redirect_targets([(0.25,) + DEMO2_LIGHT])
+
+
+def demo2_scene(width: int = 400, spp: int = 250, depth: int = 4,
+                device="cuda"):
+    """``(scene, settings)`` of demo2: 1,407 surface rows (1,006 spheres,
+    400 boxes, the light) in 1,536 kind-segmented rows (the BVH walk K9),
+    two sphere-bounded media (K11), the earth's image and the marble
+    sphere's stripes (K12), one rotated uv-textured sphere."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(demo2_world(rt), device=device),
+            demo2_settings(rt, width, spp, depth))
+
+
+def scale3(sx: float, sy: float, sz: float) -> np.ndarray:
+    """The 4 x 4 matrix of a non-uniform scale."""
+    m = np.eye(4)
+    m[0, 0], m[1, 1], m[2, 2] = sx, sy, sz
+    return m
+
+
+def ellipsoid_world(rt):
+    """The Cornell box (:func:`cornell_world`) with three ellipsoids: a
+    blue one scaled by (1.5, 0.6, 1.0) and rotated, lying on the short
+    box; an earth-textured one (its uv in object space, the image
+    :func:`earthmap`) at the front right; and an orange one moving along
+    x under the light.  ``rt`` is the builder module (this package or the
+    JAX one)."""
+    deg = rt.degrees
+    blue = rt.lambertian(rt.constant_texture([0.2, 0.4, 0.9]))
+    orange = rt.lambertian(rt.constant_texture([0.8, 0.45, 0.1]))
+    earth = rt.lambertian(rt.image_texture(earthmap()))
+    return rt.group([
+        cornell_world(rt),
+        rt.transform(
+            rt.compose(rt.translate([212, 215, 147]), rt.rotate_y(deg(30)),
+                       rt.rotate_z(deg(10)), scale3(1.5, 0.6, 1.0)),
+            rt.with_material(blue, rt.sphere([0, 0, 0], 50))),
+        rt.transform(
+            rt.compose(rt.translate([450, 95, 130]), rt.rotate_y(deg(60)),
+                       scale3(1.0, 1.1, 0.8)),
+            rt.with_material(earth, rt.sphere([0, 0, 0], 80))),
+        rt.moving([0, 0, 0], [40, 0, 0], rt.transform(
+            rt.compose(rt.translate([260, 420, 300]), scale3(1.2, 0.7, 0.9)),
+            rt.with_material(orange, rt.sphere([0, 0, 0], 50)))),
+    ])
+
+
+def ellipsoid_scene(width: int = 600, spp: int = 16, depth: int = 50,
+                    device="cuda"):
+    """``(scene, settings)``: :func:`ellipsoid_world` under the Cornell
+    camera (:func:`cornell_settings`): 18 surface rows (the flat scan K8)
+    and 3 ellipsoids merged after it; the earth's image sends it to the
+    split path."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(ellipsoid_world(rt), device=device),
+            cornell_settings(rt, width, spp, depth))
+
+
+def rotated_spheres_world(rt, n: int = 8):
+    """An n x n grid of checker spheres (8 x 4 cells) on a grey ground,
+    every other one rotated about a random axis by a random angle (numpy
+    seed 0), so that ``sphere_rots`` lists n^2 / 2 rows.  ``rt`` is the
+    builder module (this package or the JAX one)."""
+    rg = np.random.default_rng(0)
+    check = rt.lambertian(rt.checker_texture(8, 4, [0.9, 0.2, 0.1],
+                                             [0.1, 0.3, 0.9]))
+    parts = [rt.with_material(rt.lambertian(rt.constant_texture(0.5)),
+                              rt.parallelogram([-50, 0, 50], [100, 0, 0],
+                                               [0, 0, -100]))]
+    for k in range(n * n):
+        c = [2.5 * (k % n) - 1.25 * (n - 1), 1.0, -2.5 * (k // n)]
+        ball = rt.with_material(check, rt.sphere([0, 0, 0], 1.0))
+        rot = np.eye(4)
+        if k % 2:
+            axis = (rt.rotate_x, rt.rotate_y, rt.rotate_z)[k % 3]
+            rot = axis(float(rg.uniform(0.3, 3.0)))
+        parts.append(rt.transform(rt.compose(rt.translate(c), rot), ball))
+    return rt.group(parts)
+
+
+def rotated_spheres_scene(width: int = 600, device="cuda"):
+    """``(scene, settings)``: :func:`rotated_spheres_world` seen from above
+    the front of the grid, sky background, 1 spp, depth 4."""
+    import raytrace_tpu_torch as rt
+    settings = rt.CameraSettings(
+        center=np.asarray([0.0, 9.0, 9.0]),
+        look_at=np.asarray([0.0, 0.0, -8.0]), vfov=rt.degrees(60),
+        aspect_ratio=1.0, image_width=width, samples_per_pixel=1,
+        max_depth=4, background=rt.sky)
+    return rt.compile_scene(rotated_spheres_world(rt), device=device), \
+        settings
+
+
+def sphere_rot_inputs(scene, s, seed: int, pixels=None):
+    """The shade kernel's inputs with its sphere uv evaluated in the
+    kernel: the split tables of ``scene``, the hit record of
+    :func:`camera_rays` (``pixels``, or one ray a pixel of ``s``'s image
+    rounded up to 128 lanes) with sphere flag 1 on every sphere lane and,
+    on every third lane that misses, a winner index ``-2 - e`` (an
+    ellipsoid's, e in 0..1), random throughput, 90% of the lanes alive and
+    fresh uniforms.  Returns ``(tables, hit, lanes, uniforms)``."""
+    from .core import rng
+    from .render.integrator import split_tables, surface_hit
+    tb = split_tables(scene, s)
+    n_pix = s.image_width * s.image_height
+    n = (-(-n_pix // 128) * 128 if pixels is None else pixels.shape[0])
+    comps, _ = camera_rays(scene, s, n, seed, pixels=pixels)
+    dev = comps.device
+    hit = list(surface_hit(tb, comps[0:3], comps[3:6], comps[6]))
+    k = torch.clamp(hit[1], min=0).long()
+    hit[9] = ((hit[1] >= 0) & (scene.prims.kind[k] == 0)).to(torch.float32)
+    lane = torch.arange(n, device=dev)
+    fake = ~torch.isfinite(hit[0]) & (lane % 3 == 0)
+    hit[1] = torch.where(fake, -2.0 - (lane % 2).to(torch.float32), hit[1])
+    rg = np.random.default_rng(seed)
+    thr = _tensor(rg.uniform(0.2, 1.0, (3, n)).astype(np.float32), dev)
+    al = _tensor((rg.uniform(size=n) < 0.9).astype(np.float32), dev)
+    keys = rng.ray_keys_fast(rng.base_key(seed, dev),
+                             lane.to(torch.int32),
+                             torch.zeros(n, dtype=torch.int32, device=dev))
+    uni = rng.uniform_cols(keys, 8).contiguous()
+    lanes = tuple(x.contiguous() for x in comps[0:6]) + tuple(thr) + (al,)
+    return tb, tuple(x.contiguous() for x in hit), lanes, uni
 
 
 # tools/prof_bunny_grad.py's fwd+bwd on the bunny (here its stand-in) at

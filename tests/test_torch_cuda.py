@@ -887,3 +887,72 @@ def test_generic_routes_launch_the_kernels(device):
     assert pallas_nearest_record.launches - k8 == 2 * s.max_depth
     assert pallas_volume_crossings.keyed_launches - k11 == 2 * s.max_depth
     assert bool(torch.isfinite(g.volumes.density).all())
+
+
+@pytest.mark.parametrize("with_medium", [False, True])
+def test_shade_kernel_rotation_table_matches_plain(device, with_medium):
+    """K10 with its sphere rotation table (sphere flag 1 on sphere lanes,
+    ellipsoid winner indices on some missing lanes) equals ``shade_plain``
+    with the same rotations on every lane; the table moves the checker
+    cell of rotated lanes only."""
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        shade_megakernel, shade_plain, sphere_rot_table,
+    )
+    from raytrace_tpu_torch.testing import (
+        BOUNCE_INT_ROWS, max_errs, rotated_spheres_scene, sphere_rot_inputs,
+    )
+    scene, s = rotated_spheres_scene(128, device=device)
+    tb, hit, lanes, uni = sphere_rot_inputs(scene, s, 7)
+    rots = scene.prims.sphere_rots
+    medium = synthetic_medium(hit[0], tb.n_mats, 8) if with_medium else None
+    kw = dict(n_mats=tb.n_mats, n_targets=tb.n_targets,
+              has_medium=with_medium)
+    ref = shade_plain(tb.mtbl, tb.ttbl, hit, medium, lanes, uni,
+                      sphere_rots=rots, **kw)
+    n0 = shade_megakernel.rot_launches
+    out = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes, uni,
+                           sphere_rots=rots, **kw)
+    assert shade_megakernel.rot_launches == n0 + 1
+    n_int, err, _ = max_errs(ref, out, BOUNCE_INT_ROWS)
+    assert n_int == 0 and err == 0.0
+    out0 = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes, uni, **kw)
+    rot = torch.isin(hit[1], sphere_rot_table(rots, device)[:, 0]) \
+        & (lanes[9] > 0.5)
+    moved = (out[6] - out0[6]).abs() > 1e-3
+    assert bool((moved & rot).any()) and not bool((moved & ~rot).any())
+
+
+def test_ellipsoids_and_demo2_render_and_differentiate(device):
+    """The ellipsoid scene and demo2 render on the card through the split
+    route (K8 or K9, K10; demo2's media through K11), every checked launch
+    exact, and ``grad_render`` of each gives finite gradients (the
+    ellipsoids' leaves, demo2's fog density and earth texels non-zero)."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import grad_render
+    from raytrace_tpu_torch.testing import demo2_scene, ellipsoid_scene
+    for scene, s, names in (
+            (*ellipsoid_scene(64, 2, 8, device=device),
+             ("pallas_nearest_record", "shade_megakernel")),
+            (*demo2_scene(64, 2, 4, device=device),
+             ("allpairs_nearest_record", "shade_megakernel",
+              "pallas_volume_candidates", "marble_stripe_pallas"))):
+        with checked_launches() as st:
+            img = rt.render(scene, s, seed=1)
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+        for name in names:
+            assert st[name]["launches"] > 0, name
+            assert st[name]["n_int"] == 0 and st[name]["err"] == 0.0, name
+        pix = torch.arange(0, 4096, dtype=torch.int32, device=device)
+        loss, g = grad_render(scene, s, rng.base_key(2, device), pix,
+                              torch.arange(2, dtype=torch.int32),
+                              torch.zeros((4096, 3), device=device))
+        assert np.isfinite(float(loss))
+        if scene.ellipsoids is not None:
+            assert all(bool(torch.isfinite(getattr(g.ellipsoids, f)).all())
+                       for f in ("center", "radius", "fwd", "inv", "shift",
+                                 "mv0", "mv1"))
+            assert bool((g.ellipsoids.fwd != 0).any())
+        else:
+            assert float(g.volumes.density[0]) != 0.0
+            assert bool((g.textures.images != 0).any())
