@@ -2,8 +2,10 @@
 forward render and the differentiable forward + backward (fused, unfused
 and through the generic bounce), on the Cornell box, on a mesh of the
 Stanford bunny's size, on rich-textured scenes, on scenes with
-constant-density media, on ellipsoids and on demo2 (the reference's
-"everything at once" scene), and the bounded-depth ``grad_render``.
+constant-density media, on ellipsoids, on demo2 (the reference's
+"everything at once" scene) and on a 523,264-triangle mesh loaded from an
+.obj file, and the bounded-depth ``grad_render``; and which engine serves
+each route (``engine_report``).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -305,6 +307,35 @@ demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
     errors of 0.  The blue medium's gradient is printed: at depth 4 no
     path that scatters in it reaches the light (its radiance and gradient
     are 0 in both packages, ``tests/test_torch_demo2.py``).
+46. bigmesh-512 (``tools/bench_bigmesh.py`` at 512 x 512 cells: 523,264
+    triangles, ``testing.BIGMESH``): the mesh as .obj text written to a
+    temporary file and read back by the native parser (``csrc/
+    objparse.cpp``, built with g++; raises if it does not build), equal
+    to the Python parser's mesh and to the numbers written, both timed;
+    compiled on the card (523,328 kind-segmented rows), and the split
+    path's BVH: ``pack_bvh``'s seconds, depth, nodes and bytes;
+47. K9 over those rows against its plain version on a fixed sample of
+    ``BIG["k9_sample"]`` lanes of the 262,144 camera rays and of their
+    second bounce (exact), its device and call times, the box tests and
+    row tests a ray, and its bound;
+48. the forward at the tool's settings (512 x 512, 16 spp, depth 8)
+    through ``render_accumulate``: the sorted driver, the split path, K9
+    and K10 and no other kernel (wall, ``pack_bvh``'s share, iterations,
+    peak memory, chiprun_out/bigmesh.png), a profiled run, and a checked
+    1 spp render (every K9 launch on the sample, every K10 launch whole,
+    exact);
+49. ``grad_render`` on 2^16 pixels spread over the image x 4 samples
+    (``testing.BIGMESH_GRAD``) to every leaf: finite, the mesh rows' e1
+    and e2 and the albedos non-zero (p0's is zero, in the JAX package
+    too: a lambertian hit's weight does not depend on the hit point); at ``BIG["checked_pixels"]`` every
+    K9 launch against its plain version, the run against the one with
+    every plain version (loss within 1e-6 relative, leaves within
+    ``GRAD_RTOL``), and d loss / d the mesh's albedo against a central
+    difference (``FD_RTOL``);
+50. ``utils/engines.py:engine_report`` at the settings of every route the
+    smoke drives, held against the launch counters and the driver of a
+    run that takes the same route (a smaller one whose report is the
+    route's, or phases 48 and 49's runs).
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
@@ -588,6 +619,23 @@ def _bound_ms(n_bytes: float, n_ops: float):
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = n_ops / F32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _walk_touch(tb, rays, kw):
+    """``(visits, touched_bytes)`` of K9 over ``rays``: the box and row
+    tests of each ray, and the bytes of the distinct nodes and leaf rows
+    the walk reads (each node and row once), which its bound counts."""
+    import torch
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    bvh = tb.bvh
+    seen = torch.zeros(bvh.n_nodes + bvh.rows.shape[0], dtype=torch.uint8,
+                       device=bvh.nodes.device)
+    out, visits = allpairs_nearest_record(tb.ptbl, bvh, *rays,
+                                          count_visits=True, seen=seen, **kw)
+    nodes = int(seen[:bvh.n_nodes].sum())
+    rows = int(seen[bvh.n_nodes:].sum())
+    return out, visits, 4 * (nodes * bvh.nodes.shape[1]
+                             + rows * bvh.rows.shape[1]), (nodes, rows)
 
 
 def main() -> None:
@@ -1089,16 +1137,23 @@ def main() -> None:
     unfused = _unfused_phases(smi, phase_done, dev)
     generic = _generic_phases(smi, phase_done, dev)
     m11 = _m11_phases(smi, phase_done, dev)
+    big = _bigmesh_phases(smi, phase_done, dev)
     turns["route8"] = unfused.pop("turns")
     main_a += unfused["a_launches"]
     main_b += rich["iter_launches"]
     mesh["kernels"][0]["launches"] += (media["k9_launches"]
                                        + generic["k9_launches"]
-                                       + m11["k9_launches"])
+                                       + m11["k9_launches"]
+                                       + big["k9_launches"])
+    # K9 at bigmesh-512's 523,328 rows beside the stand-in's numbers
+    k9 = mesh["kernels"][0]
+    k9["max_abs_err"] = max(k9["max_abs_err"], big["err_k9"])
+    k9.update({f"bigmesh_{name}": val for name, val in big["k9"].items()})
     mesh["kernels"][1]["launches"] += (rich["shade_launches"]
                                        + media["shade_launches"]
                                        + unfused["shade_launches"]
-                                       + m11["k10_launches"])
+                                       + m11["k10_launches"]
+                                       + big["k10_launches"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
     rich["kernels"][0]["launches"] += (media["k8_launches"]
                                        + unfused["k8_launches"]
@@ -1119,7 +1174,8 @@ def main() -> None:
                       "media": media["summary"],
                       "unfused": unfused["summary"],
                       "generic": generic["summary"],
-                      "m11": m11["summary"], "in_turns": turns,
+                      "m11": m11["summary"], "bigmesh": big["summary"],
+                      "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
     print(json.dumps({"kernels": [
@@ -1436,8 +1492,7 @@ def _mesh_phases(smi, phase_done) -> dict:
     rays = tuple(comps.unbind(0))
     kw_n = dict(n_prims=tb_m.n_prims, t_min=tb_m.t_min,
                 has_motion=tb_m.has_motion)
-    hit_out, visits = allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *rays,
-                                              count_visits=True, **kw_n)
+    hit_out, visits, touched_n, _ = _walk_touch(tb_m, rays, kw_n)
     n_call = lambda: allpairs_nearest_record(tb_m.ptbl, tb_m.bvh, *rays,
                                              **kw_n)
     ms_n = _device_ms(n_call, "nearest_kernel", 20)
@@ -1447,9 +1502,10 @@ def _mesh_phases(smi, phase_done) -> dict:
     nodes_v = float(visits[0].double().mean())
     rows_v = float(visits[1].double().mean())
     hit_v = hit_out[1] >= 0
-    # the walk reads the nodes and the leaf-ordered rows, not the table
+    # the walk reads the nodes and the leaf-ordered rows, not the table:
+    # K9's bound counts those it reads, the iteration's the whole tree
     tbl_bytes = 4 * (tb_m.bvh.nodes.numel() + tb_m.bvh.rows.numel())
-    bound_n = _bound_ms(4 * lanes * (7 + 9) + tbl_bytes,
+    bound_n = _bound_ms(4 * lanes * (7 + 9) + touched_n,
                         lanes * (BOX_OPS * nodes_v + ROW_OPS * rows_v))
     print(f"[time] nearest kernel {ms_n:.4f} ms on the device ({host_n:.4f} "
           f"ms a call back to back) vs allpairs_nearest_plain "
@@ -1458,7 +1514,9 @@ def _mesh_phases(smi, phase_done) -> dict:
           f"average, a ray that hits ({float(hit_v.double().mean()):.4f} of "
           f"them) {float(visits[0][hit_v].double().mean()):.2f} and "
           f"{float(visits[1][hit_v].double().mean()):.2f}; bound "
-          f"{bound_n[0]:.4f} ms ({bound_n[1]}) [{smi}]", flush=True)
+          f"{bound_n[0]:.4f} ms ({bound_n[1]}: the walk reads "
+          f"{touched_n / 1e6:.3f} MB of the tree's {tbl_bytes / 1e6:.3f}) "
+          f"[{smi}]", flush=True)
 
     alive = torch.ones(lanes, dtype=torch.bool, device=dev)
     thr = torch.ones((3, lanes), device=dev)
@@ -3725,6 +3783,613 @@ def _m11_phases(smi, phase_done, dev) -> dict:
                 k11_launches=sum(x["pallas_volume_crossings"] for x in runs),
                 k12_launches=sum(x["marble_stripe_pallas"] for x in runs),
                 k13_launches=sum(x["image_grad_pallas"] for x in runs))
+
+
+# bigmesh-512 in the smoke: K9 is held on a fixed sample of each launch's
+# lanes; the fwd+bwd against the plain kernels and the albedo's central
+# difference run on a tile of checked_pixels x checked_samples; the
+# profiled forward renders prof_spp samples
+BIG = dict(k9_sample=1 << 13, checked_pixels=1 << 12, checked_samples=1,
+           prof_spp=4, fd_eps=0.02)
+
+
+@contextlib.contextmanager
+def _driver_spies():
+    """Inside the block ``{name: calls}`` counts the calls of the render
+    drivers, ``trace_wavefront_diff`` and ``trace``, and ``["bvh_build_s"]``
+    lists the build seconds of every ``pack_bvh`` of the split path."""
+    from raytrace_tpu_torch.render import integrator, render
+    calls = {"bvh_build_s": []}
+    spied = [(render, "trace_wavefront"),
+             (render, "trace_wavefront_stationary"),
+             (render, "trace_wavefront_sorted"),
+             (integrator, "trace_wavefront_diff"), (integrator, "trace")]
+    saved = [(m, n, getattr(m, n)) for m, n in spied] + [
+        (integrator, "pack_bvh", integrator.pack_bvh)]
+
+    def spy(name, real):
+        def wrapped(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **k)
+        return wrapped
+
+    def pack_spy(*a, **k):
+        bvh = saved[-1][2](*a, **k)
+        calls["bvh_build_s"].append(bvh.build_s)
+        return bvh
+
+    for m, n, real in saved[:-1]:
+        setattr(m, n, spy(n, real))
+    integrator.pack_bvh = pack_spy
+    try:
+        yield calls
+    finally:
+        for m, n, real in saved:
+            setattr(m, n, real)
+
+
+@contextlib.contextmanager
+def _same_tree(bvh):
+    """Inside the block the split path's ``pack_bvh`` returns ``bvh``, the
+    tree phase 46 built over the same rows, in place of building it again:
+    for the checks of phases 48 and 49, whose geometry does not move (the
+    timed and profiled runs build theirs, as every driver call does)."""
+    from raytrace_tpu_torch.render import integrator
+    real = integrator.pack_bvh
+    integrator.pack_bvh = lambda prims, tbl, n_prims: bvh
+    try:
+        yield
+    finally:
+        integrator.pack_bvh = real
+
+
+def _bigmesh_phases(smi, phase_done, dev) -> dict:
+    """Phases 46-50 (bigmesh-512: ``tools/bench_bigmesh.py`` at 512 x 512
+    latitude-longitude cells, 523,264 triangles, read back from an .obj
+    file by the native parser; then ``engine_report`` against the launch
+    counters on every route of the smoke) on ``dev``.  Returns the
+    summary for the JSON line, K9's and K10's launches on these routes,
+    K9's largest error and its numbers at 523,328 rows for its entry of
+    the kernels line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        grad_render, leaves, partition, render_loss,
+    )
+    from raytrace_tpu_torch.ops.allpairs_kernel import (
+        allpairs_nearest_plain, allpairs_nearest_record,
+    )
+    from raytrace_tpu_torch.ops._build import native_library
+    from raytrace_tpu_torch.ops.bounce_kernel import shade_megakernel
+    from raytrace_tpu_torch.render import integrator
+    from raytrace_tpu_torch.render.image import write_image
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.scene.obj import parse_obj
+    from raytrace_tpu_torch.testing import (
+        BIGMESH, BIGMESH_GRAD, NEAREST_INT_ROWS, bigmesh_mesh, bigmesh_scene,
+        camera_rays, checked_launches, max_errs, mesh_obj_text,
+        next_split_rays, plain_kernels,
+    )
+    counters = _route_counters()
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {k: c.launches for k, c in counters.items()}
+
+    # 46. the mesh as .obj text, written to a file and read back by the
+    # native parser (equal to the Python parser's mesh and to the
+    # numbers written), compiled on the card, and the split path's BVH
+    n_lat, n_lon = BIGMESH["n_lat"], BIGMESH["n_lon"]
+    written = bigmesh_mesh(rt, n_lat, n_lon)
+    v, f = written.vertices, written.faces
+    t0 = time.perf_counter()
+    native_library("objparse")      # the g++ build, timed apart
+    gxx_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text = mesh_obj_text(v, f)
+    text_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bigmesh.obj")
+        with open(path, "w") as fh:
+            fh.write(text)
+        t0 = time.perf_counter()
+        with open(path) as fh:
+            data = fh.read()
+        mesh = parse_obj(data, native=True)
+        native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = parse_obj(data, native=False)
+    py_s = time.perf_counter() - t0
+    same = (all(np.array_equal(getattr(mesh, k), getattr(py, k))
+                for k in ("vertices", "uv", "faces", "uv_faces"))
+            and np.array_equal(mesh.vertices, v)
+            and np.array_equal(mesh.faces, f))
+    t0 = time.perf_counter()
+    scene, s = bigmesh_scene(n_lat, n_lon, mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    p = scene.prims
+    tb = integrator.split_tables(scene, s)
+    bvh = tb.bvh
+    bvh_bytes = 4 * (bvh.nodes.numel() + bvh.rows.numel())
+    print(f"[46 bigmesh parse] {f.shape[0]} triangles, {len(text) / 1e6:.1f} "
+          f"MB of .obj text made in {text_s:.2f} s; the native parser's g++ "
+          f"build {gxx_s:.2f} s; native parse (file read "
+          f"included) {native_s:.3f} s, Python parse {py_s:.3f} s "
+          f"({py_s / native_s:.1f}x), meshes equal and equal to the numbers "
+          f"written: {same}; compile_scene on the card {compile_s:.3f} s: "
+          f"{p.n} surface rows in {p.kind.shape[0]} (segments "
+          f"{p.kind_segments}, BVH mode {scene.bvh is not None}); pack_bvh "
+          f"{bvh.build_s:.3f} s: depth {bvh.depth} of {32}, {bvh.n_nodes} "
+          f"nodes, {bvh_bytes / 2**20:.1f} MiB of nodes and leaf rows, "
+          f"triangle-only walk {bvh.tri_only} [{smi}]", flush=True)
+    if (not same or scene.bvh is not None or p.kind_segments is None
+            or p.n != f.shape[0] + 2):
+        raise AssertionError("bigmesh: parse or compile")
+    phase_done("bigmesh parse and build")
+
+    # 47. K9 over the 523,328 rows against its plain version on a fixed
+    # sample of the lanes of the camera rays and of their second bounce,
+    # exactly; its time, visits and bound
+    n_pix = s.image_width * s.image_height
+    kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    k = BIG["k9_sample"]
+    pick = (torch.arange(k) * n_pix // k).to(dev)
+    comps, uni = camera_rays(scene, s, n_pix, 471)
+    err9 = 0.0
+
+    def k9_check(label, c):
+        rays = tuple(c.unbind(0))
+        out = allpairs_nearest_record(tb.ptbl, tb.bvh, *rays, **kw)
+        ref = allpairs_nearest_plain(tb.ptbl, *(x[pick] for x in rays), **kw)
+        n_int, err, _ = max_errs(ref, tuple(x[pick] for x in out),
+                                 NEAREST_INT_ROWS)
+        n_hit = int((out[1][pick] >= 0).sum())
+        print(f"[47 K9 vs plain] {label}: {k} of {n_pix} lanes "
+              f"({n_hit} hits), exact rows differ on {n_int} lanes, max |err| "
+              f"{err:.3g}", flush=True)
+        if n_int or err or n_hit == 0:
+            raise AssertionError(f"K9 at {tb.n_prims} rows: {label}")
+        return out, err
+
+    out_c, e = k9_check("camera rays", comps)
+    err9 = max(err9, e)
+    hit = integrator.surface_hit(tb, comps[0:3], comps[3:6], comps[6])
+    ones = torch.ones(n_pix, device=dev)
+    sh = shade_megakernel(tb.mtbl, tb.ttbl, hit, None,
+                          (*comps[0:6], ones, ones, ones, ones), uni,
+                          n_mats=tb.n_mats, n_targets=tb.n_targets,
+                          has_medium=False)
+    nxt, _, _, alive = next_split_rays(comps, sh, 472, 1)
+    nxt[0:3] = torch.where(alive, nxt[0:3], 3e18)
+    _, e = k9_check("second bounce", nxt.contiguous())
+    err9 = max(err9, e)
+    rays = tuple(comps.unbind(0))
+    call = lambda: allpairs_nearest_record(tb.ptbl, tb.bvh, *rays, **kw)
+    ms9 = _device_ms(call, "nearest_kernel", 20)
+    host9 = _time_ms(call, 20)
+    plain9 = _time_ms(lambda: allpairs_nearest_plain(
+        tb.ptbl, *(x[pick] for x in rays), **kw), 1, 1)
+    out_v, visits, touched9, (t_nodes, t_rows) = _walk_touch(tb, rays, kw)
+    hit_v = out_v[1] >= 0
+    vis = visits.double()
+    nodes_v, rows_v = float(vis[0].mean()), float(vis[1].mean())
+    bound9 = _bound_ms(4 * n_pix * (7 + 9) + touched9,
+                       n_pix * (BOX_OPS * nodes_v + ROW_OPS * rows_v))
+    k9 = dict(rows=tb.n_prims, lanes=n_pix, ms=ms9, host_ms=host9,
+              plain_ms_sample=plain9, sample_lanes=k, bound_ms=bound9[0],
+              bound_by=bound9[1], touched_bytes=touched9,
+              touched_nodes=t_nodes, touched_rows=t_rows,
+              box_tests=nodes_v, row_tests=rows_v,
+              hit_share=float(hit_v.double().mean()),
+              hit_box_tests=float(vis[0][hit_v].mean()),
+              hit_row_tests=float(vis[1][hit_v].mean()),
+              max_box_tests=int(visits[0].max()),
+              max_row_tests=int(visits[1].max()))
+    print(f"[47 time] K9 at {tb.n_prims} rows: {ms9:.4f} ms on the device "
+          f"({host9:.4f} ms a call back to back) at {n_pix} camera rays; its "
+          f"plain version {plain9:.3f} ms at {k} of them; a ray makes "
+          f"{nodes_v:.2f} box tests and {rows_v:.2f} row tests, a ray that "
+          f"hits ({k9['hit_share']:.4f} of them) {k9['hit_box_tests']:.2f} "
+          f"and {k9['hit_row_tests']:.2f}, the most {k9['max_box_tests']} and "
+          f"{k9['max_row_tests']}; bound {bound9[0]:.4f} ms ({bound9[1]}: "
+          f"rays and the {touched9 / 1e6:.2f} MB of the {t_nodes} nodes and "
+          f"{t_rows} rows read, of {bvh_bytes / 1e6:.1f} MB, {BOX_OPS} "
+          f"operations a box test, {ROW_OPS} a row test) [{smi}]", flush=True)
+    phase_done("bigmesh K9")
+
+    with _driver_spies() as calls:
+        # 48. the forward: render_accumulate at the tool's own settings
+        # (512 x 512, 16 spp, depth 8): the sorted driver, the split path,
+        # K9 and K10 alone
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        acc, total = render_accumulate(scene, s, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        l48 = read()
+        l48["drivers"] = {k_: v_ for k_, v_ in calls.items()
+                          if k_ != "bvh_build_s"}
+        build48 = list(calls["bvh_build_s"])
+        peak = torch.cuda.max_memory_allocated()
+        img = (acc / total).reshape(s.image_height, s.image_width, 3)
+        finite = bool(torch.isfinite(img).all())
+        write_image(os.path.join(OUT_DIR, "bigmesh.png"), img.cpu().numpy())
+        n_rays = n_pix * s.samples_per_pixel
+        r48 = dict(wall_s=wall, primary_rays_per_s=n_rays / wall,
+                   iterations=l48["K9"], launches=l48, peak_bytes=peak,
+                   bvh_build_s=build48, finite=finite,
+                   mean=float(img.mean()))
+        print(f"[48 bigmesh forward] {s.image_width}x{s.image_height} "
+              f"{s.samples_per_pixel} spp depth {s.max_depth}: wall "
+              f"{wall:.3f} s ({n_rays / wall / 1e6:.3f} M primary rays/s), of "
+              f"which pack_bvh {sum(build48):.3f} s; {l48['K9']} iterations, "
+              f"peak {peak / 2**30:.3f} GiB, mean {r48['mean']:.6f}, finite "
+              f"{finite}, launches {l48} [{smi}]", flush=True)
+        if (not finite or l48["K9"] == 0 or l48["K10"] != l48["K9"]
+                or any(l48[x] for x in ("A", "B", "B mesh", "K8"))
+                or l48["drivers"].get("trace_wavefront_sorted") != 1):
+            raise AssertionError("bigmesh forward: bad image, launches or "
+                                 "driver")
+        reset()
+        r48.update(_profiled(lambda: render_accumulate(
+            scene, s, seed=0, spp=BIG["prof_spp"]), allpairs_nearest_record))
+        print(f"[48 bigmesh forward] profiled {BIG['prof_spp']} spp: "
+              f"{r48['iterations']} iterations, {r48['device_ms_per_iter']:.4f}"
+              f" ms of device time and {r48['device_ops_per_iter']:.1f} device "
+              f"ops an iteration, busy {r48['busy_share']:.3f} (pack_bvh "
+              f"{sum(calls['bvh_build_s']):.3f} s of the wall); top "
+              f"{r48['top_ops']} [{smi}]", flush=True)
+        with checked_launches(sample=k) as st, _same_tree(bvh):
+            acc1, _ = render_accumulate(scene, s, seed=1, spp=1)
+        for name in ("allpairs_nearest_record", "shade_megakernel"):
+            x = st[name]
+            print(f"[48 checked] {name}: {x['launches']} launches of a 1 spp "
+                  f"render{' on ' + str(k) + ' lanes each' if name.startswith('allpairs') else ''}"
+                  f", exact rows differ on {x['n_int']} lanes, max |err| "
+                  f"{x['err']:.3g}", flush=True)
+            if x["launches"] == 0 or x["n_int"] or x["err"]:
+                raise AssertionError(f"bigmesh forward: {name} against plain")
+            err9 = max(err9, x["err"]) if name.startswith("allpairs") \
+                else err9
+        if not bool(torch.isfinite(acc1).all()):
+            raise AssertionError("checked bigmesh render: not finite")
+        phase_done("bigmesh forward")
+
+        # 49. grad_render over 2^16 pixels spread over the image x 4
+        # samples, to every leaf: K9 through DiffSurfaceHit (forward and
+        # the checkpoint's replay), the torch backward
+        def tile(n_p, n_s, key):
+            px = (torch.arange(n_p, device=dev) * n_pix // n_p).to(
+                torch.int32)
+            sm = torch.arange(n_s, dtype=torch.int32)
+            tg = torch.zeros((n_p, 3), device=dev)
+            return px, sm, tg, rng.base_key(key, dev)
+
+        px, sm, tg, key = tile(BIG["checked_pixels"], BIG["checked_samples"],
+                               7)
+        with checked_launches(sample=k) as st, _same_tree(bvh):
+            l_k, g_k = grad_render(scene, s, key, px, sm, tg)
+        x = st["allpairs_nearest_record"]
+        print(f"[49 checked] allpairs_nearest_record: {x['launches']} launches"
+              f" on {BIG['checked_pixels']} pixels x "
+              f"{BIG['checked_samples']} samples, exact rows differ on "
+              f"{x['n_int']} lanes, max |err| {x['err']:.3g}", flush=True)
+        if x["launches"] == 0 or x["n_int"] or x["err"]:
+            raise AssertionError("bigmesh fwd+bwd: K9 against plain")
+        with plain_kernels(), _same_tree(bvh):
+            l_p, g_p = grad_render(scene, s, key, px, sm, tg)
+        lk, lp = leaves(g_k), leaves(g_p)
+        worst = _grads_close({n: g for n, g in lp.items() if g is not None
+                              and g.is_floating_point()}, lk)
+        rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+        print(f"[49 vs plain] {BIG['checked_pixels']} pixels x "
+              f"{BIG['checked_samples']} samples: loss {float(l_k):.7f} vs "
+              f"{float(l_p):.7f} (rel {rel:.3g}, tolerance 1e-6); gradients' "
+              f"worst L2 |kernels - plain| / |plain| {worst:.3g} (tolerance "
+              f"{GRAD_RTOL})", flush=True)
+        if rel > 1e-6 or worst > GRAD_RTOL:
+            raise AssertionError("bigmesh fwd+bwd: kernels against plain")
+        # the albedo's central difference on the same tile and keys (the
+        # loss is a polynomial in the albedo)
+        params, statics = partition(scene)
+
+        def loss_at(c):
+            c0 = params.textures.c0.detach().clone()
+            c0[0, 0] = c
+            pr = dataclasses.replace(params, textures=dataclasses.replace(
+                params.textures, c0=c0))
+            with torch.no_grad(), _same_tree(bvh):
+                return float(render_loss(pr, statics, s, key, px, sm, tg))
+
+        c_0 = float(params.textures.c0[0, 0].detach())
+        eps = BIG["fd_eps"]
+        fd = (loss_at(c_0 + eps) - loss_at(c_0 - eps)) / (2 * eps)
+        gv = float(g_k.textures.c0[0, 0])
+        print(f"[49 finite difference] d loss / d mesh albedo (red, "
+              f"{c_0}): gradient {gv:.6g}, central difference {fd:.6g} (eps "
+              f"{eps}), rel diff {abs(gv - fd) / abs(fd):.3g} (bound "
+              f"{FD_RTOL})", flush=True)
+        if gv == 0.0 or not abs(gv - fd) <= FD_RTOL * abs(fd):
+            raise AssertionError("bigmesh fwd+bwd: albedo against FD")
+        px, sm, tg, key = tile(BIGMESH_GRAD["pixels"],
+                               BIGMESH_GRAD["samples"], 5)
+        calls.clear()
+        calls["bvh_build_s"] = []
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, g = grad_render(scene, s, key, px, sm, tg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        l49 = read()
+        l49["drivers"] = {k_: v_ for k_, v_ in calls.items()
+                          if k_ != "bvh_build_s"}
+        build49 = list(calls["bvh_build_s"])
+        peak = torch.cuda.max_memory_allocated()
+        gl = {n: t for n, t in leaves(g).items()
+              if t is not None and t.is_floating_point()}
+        finite = all(bool(torch.isfinite(t).all()) for t in gl.values())
+        # the corners p0 get a zero gradient, in the JAX package too: a
+        # lambertian hit's weight (albedo, the cosine sampling's pdf over
+        # its detached value) does not depend on the hit point, so the
+        # rows' position moves only which row a ray hits; e1 and e2 turn
+        # the normal inside that weight
+        moved = {n: bool((gl[n] != 0).any())
+                 for n in ("prims.e1", "prims.e2", "textures.c0")}
+        p0_max = float(gl["prims.p0"].abs().max())
+        n_rays = BIGMESH_GRAD["pixels"] * BIGMESH_GRAD["samples"]
+        r49 = dict(wall_s=wall, loss=float(loss), peak_bytes=peak,
+                   primary_rays_per_s=n_rays / wall, launches=l49,
+                   bvh_build_s=build49, finite=finite, moved=moved,
+                   p0_max=p0_max)
+        reset()
+        r49.update(_profiled(lambda: grad_render(scene, s, key, px, sm, tg),
+                             allpairs_nearest_record))
+        print(f"[49 bigmesh fwd+bwd] grad_render on {BIGMESH_GRAD['pixels']} "
+              f"pixels x {BIGMESH_GRAD['samples']} samples, depth "
+              f"{s.max_depth}: wall {wall:.3f} s ({n_rays / wall / 1e6:.3f} M "
+              f"primary rays/s), of which pack_bvh {sum(build49):.3f} s; loss "
+              f"{float(loss):.6f}, peak {peak / 2**30:.3f} GiB, gradients "
+              f"finite {finite}, non-zero {moved}, max |d loss / d p0| "
+              f"{p0_max:.3g}, launches {l49}; profiled: "
+              f"{r49['iterations']} K9 launches (twice the bounces: each is "
+              f"checkpointed), {r49['device_ms_per_iter']:.4f} ms of device "
+              f"time and {r49['device_ops_per_iter']:.1f} device ops a launch,"
+              f" busy {r49['busy_share']:.3f}; top {r49['top_ops']} [{smi}]",
+              flush=True)
+        if (not finite or not all(moved.values()) or l49["K9"] == 0
+                or any(l49[x] for x in ("A", "B", "B mesh", "K8", "K10"))):
+            raise AssertionError("bigmesh fwd+bwd: gradients or launches")
+        phase_done("bigmesh fwd+bwd")
+
+    # 50. engine_report against the launch counters on every route
+    routes = _route_reports(smi, dev, reset, read, dict(
+        bigmesh_forward=(scene, s, False, 1, l48),
+        bigmesh_grad_render=(scene, s, True, 1, l49)))
+    phase_done("engine_report")
+
+    runs = (l48, l49)
+    summary = dict(parse=dict(native_s=native_s, python_s=py_s,
+                              gxx_s=gxx_s, text_s=text_s, equal=same),
+                   compile_s=compile_s,
+                   bvh=dict(build_s=bvh.build_s, depth=bvh.depth,
+                            nodes=bvh.n_nodes, bytes=bvh_bytes),
+                   k9=k9, forward=r48, fwd_bwd=r49,
+                   checked=dict(loss_rel=rel, grad_worst=worst, fd=fd,
+                                grad=gv),
+                   routes=routes)
+    return dict(summary=summary, err_k9=err9, k9=k9,
+                k9_launches=sum(x["K9"] for x in runs),
+                k10_launches=sum(x["K10"] for x in runs))
+
+
+def _route_counters() -> dict:
+    """The launch counter of each kernel, under the names
+    ``engine_report`` gives them."""
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_reduced,
+    )
+    from raytrace_tpu_torch.ops.bounce_bwd_kernel import (
+        bounce_bwd_megakernel_reduced,
+    )
+    from raytrace_tpu_torch.ops.bounce_kernel import (
+        bounce_megakernel, shade_megakernel,
+    )
+    from raytrace_tpu_torch.ops.image_grad_kernel import image_grad_pallas
+    from raytrace_tpu_torch.ops.intersect_kernel import pallas_nearest_record
+    from raytrace_tpu_torch.ops.iter_kernel import iter_mega_ap, iter_megakernel
+    from raytrace_tpu_torch.ops.texture_kernel import marble_stripe_pallas
+    from raytrace_tpu_torch.ops.volume_kernel import (
+        pallas_volume_crossings, pallas_volume_crossings_bcast,
+    )
+    return {"A": bounce_megakernel, "B": iter_megakernel,
+            "B mesh": iter_mega_ap, "K8": pallas_nearest_record,
+            "K9": allpairs_nearest_record, "K10": shade_megakernel,
+            "K11": pallas_volume_crossings,
+            "K11b": pallas_volume_crossings_bcast,
+            "K12": marble_stripe_pallas, "K13": image_grad_pallas,
+            "K5": bounce_bwd_regen_pre_reduced,
+            "K7": bounce_bwd_megakernel_reduced}
+
+
+def _report_agrees(rep: dict, got: dict, grad_render: bool = False) -> list:
+    """The stages where ``engine_report``'s ``rep`` disagrees with a run's
+    launches ``got`` (and the drivers it called, ``got["drivers"]``)."""
+    bad = []
+    drivers = got["drivers"]
+    driver_fn = {"queue": "trace_wavefront",
+                 "stationary": "trace_wavefront_stationary",
+                 "sorted": "trace_wavefront_sorted",
+                 "diff-wavefront": ("trace" if grad_render
+                                    else "trace_wavefront_diff")}
+    if not drivers.get(driver_fn[rep["driver"]]):
+        bad.append("driver")
+    fwd = {"kernel-A": got["A"] > 0 and got["B"] + got["B mesh"] == 0,
+           "kernel-B": got["B"] + got["B mesh"] > 0 and got["A"] == 0
+           and got["K10"] == 0,
+           "split": got["K10"] > 0 and got["A"] + got["B"] + got["B mesh"]
+           == 0,
+           "generic": got["K10"] + got["A"] + got["B"] + got["B mesh"] == 0
+           and got["K8"] + got["K9"] > 0}
+    if not fwd[rep["forward"]]:
+        bad.append("forward")
+    isect = {"in-kernel": got["K8"] + got["K9"] == 0,
+             "K8": got["K8"] > 0 and got["K9"] == 0,
+             "K9": got["K9"] > 0 and got["K8"] == 0}
+    if not isect.get(rep["intersect"], False):
+        bad.append("intersect")
+    bwd = {None: got["K5"] + got["K7"] == 0,
+           "K5": got["K5"] > 0 and got["K7"] == 0,
+           "K7": got["K7"] > 0 and got["K5"] == 0,
+           "autograd": got["K5"] + got["K7"] == 0}
+    if not bwd[rep["backward"]]:
+        bad.append("backward")
+    vol = {None: got["K11"] + got["K11b"] == 0,
+           "K11": got["K11"] > 0 and got["K11b"] == 0,
+           "K11b": got["K11b"] > 0 and got["K11"] == 0}
+    if not vol[rep["volumes"]]:
+        bad.append("volumes")
+    return bad
+
+
+def _route_reports(smi, dev, reset, read, measured: dict) -> dict:
+    """Phase 50: for each route the smoke drives, ``engine_report`` at the
+    route's own settings, held against the launch counters of a run: a
+    smaller run that the report says takes the same route (the report of
+    the small run must equal the route's), or the run of ``measured``
+    (``{label: (scene, settings, diff, rotate_k, launches)}``)."""
+    import torch
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        grad_render, loss_and_grads, partition,
+    )
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import (
+        bunny_standin_scene, cornell_scene_and_settings, cornell_smoke_scene,
+        demo2_scene, ellipsoid_scene, image_grad_scene, marble_light_scene,
+        noise_test_scene, pawn_standin_scene,
+    )
+    from raytrace_tpu_torch.utils.engines import engine_report
+
+    def fwd(scene, s):
+        return lambda: render_accumulate(scene, s, seed=2)
+
+    def fb(scene, s, lanes, spp, n_iters, rotate_k=1):
+        def run():
+            params, statics = partition(scene)
+            n = s.image_width * s.image_height
+            pix = (torch.arange(lanes, device=dev) % n).to(torch.int32)
+            return loss_and_grads(params, statics, s, rng.base_key(3, dev),
+                                  pix, torch.zeros((lanes, 3), device=dev),
+                                  spp=spp, n_iters=n_iters, rotate_k=rotate_k)
+        return run
+
+    def gr(scene, s, n_p):
+        def run():
+            n = s.image_width * s.image_height
+            pix = (torch.arange(n_p, device=dev) * n // n_p).to(torch.int32)
+            return grad_render(scene, s, rng.base_key(4, dev), pix,
+                               torch.arange(1, dtype=torch.int32),
+                               torch.zeros((n_p, 3), device=dev))
+        return run
+
+    cornell, s_c = cornell_scene_and_settings(600, FWD_SPP, 50, device=dev)
+    small_c = s_c.replace(image_width=128)
+    mesh, s_m = bunny_standin_scene(600, MESH_SPP, 10, device=dev)
+    noise, s_n = noise_test_scene(400, 100, 50, device=dev)
+    image, s_i = image_grad_scene(512, device=dev)
+    smoke, s_s = cornell_smoke_scene(600, 64, 50, device=dev)
+    pawn, s_p = pawn_standin_scene(500, PAWN_SPP, 20, device=dev)
+    marble, s_ml = marble_light_scene(400, 16, 50, device=dev)
+    ell, s_e = ellipsoid_scene(600, 16, 50, device=dev)
+    demo2, s_d = demo2_scene(device=dev)
+    # (label, scene, the route's settings, diff, rotate_k, the small
+    # run's settings, the small run)
+    routes = [
+        ("cornell forward", cornell, s_c, False, 1,
+         small_c.replace(samples_per_pixel=8), None),
+        ("cornell 1 spp", cornell, s_c.replace(samples_per_pixel=1), False,
+         1, small_c.replace(samples_per_pixel=1), None),
+        ("cornell fwd+bwd", cornell, s_c.replace(rr_depth=2), True, 1,
+         None, fb(cornell, s_c.replace(rr_depth=2), 1 << 12, 2, 20)),
+        ("cornell fwd+bwd rotate_k 8", cornell, s_c.replace(rr_depth=2),
+         True, 8, None, fb(cornell, s_c.replace(rr_depth=2), 1 << 12, 8, 40,
+                           rotate_k=8)),
+        ("mesh forward", mesh, s_m, False, 1,
+         s_m.replace(image_width=128, samples_per_pixel=2), None),
+        ("mesh fwd+bwd", mesh, s_m.replace(rr_depth=2), True, 1, None,
+         fb(mesh, s_m.replace(rr_depth=2), 1 << 12, 2, 20)),
+        ("noise_test forward", noise, s_n, False, 1,
+         s_n.replace(image_width=256, samples_per_pixel=1), None),
+        ("image fwd+bwd", image, s_i, True, 1, None,
+         fb(image, s_i, 1 << 12, 2, 20)),
+        ("cornell_smoke forward", smoke, s_s, False, 1,
+         s_s.replace(image_width=128, samples_per_pixel=2), None),
+        ("cornell_smoke fwd+bwd", smoke, s_s.replace(rr_depth=2), True, 1,
+         None, fb(smoke, s_s.replace(rr_depth=2), 1 << 12, 2, 20)),
+        ("cornell_smoke grad_render", smoke, s_s, True, 1, None,
+         gr(smoke, s_s, 1 << 10)),
+        ("pawn forward", pawn, s_p, False, 1,
+         s_p.replace(image_width=128, samples_per_pixel=1), None),
+        ("marble light forward", marble, s_ml, False, 1,
+         s_ml.replace(image_width=128, samples_per_pixel=1), None),
+        ("ellipsoid forward", ell, s_e, False, 1,
+         s_e.replace(image_width=128, samples_per_pixel=1), None),
+        ("demo2 forward", demo2, s_d, False, 1,
+         s_d.replace(image_width=128, samples_per_pixel=2), None),
+        ("demo2 grad_render", demo2, s_d, True, 1, None, gr(demo2, s_d,
+                                                           1 << 10)),
+    ]
+    out = {}
+    with _driver_spies() as calls:
+        for label, scene, s, diff, rot, small, run in routes:
+            rep = engine_report(scene, s, diff=diff, rotate_k=rot)
+            if small is not None:
+                small_rep = engine_report(scene, small, rotate_k=rot)
+                if small_rep != rep:
+                    raise AssertionError(f"{label}: the small run's report "
+                                         f"{small_rep} is not the route's")
+                run = fwd(scene, small)
+            reset()
+            for k in list(calls):
+                if k != "bvh_build_s":
+                    del calls[k]
+            run()
+            torch.cuda.synchronize()
+            got = read()
+            got["drivers"] = {k: v for k, v in calls.items()
+                              if k != "bvh_build_s"}
+            bad = _report_agrees(rep, got, "grad_render" in label)
+            out[label] = dict(report=rep, launches=got, disagree=bad)
+            print(f"[50 engine_report] {label}: {rep}; launches "
+                  f"{ {k: v for k, v in got.items() if v} }: "
+                  f"{'agrees' if not bad else 'DISAGREES on ' + str(bad)}",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"engine_report disagrees on {label}")
+    for label, (scene, s, diff, rot, got) in measured.items():
+        rep = engine_report(scene, s, diff=diff, rotate_k=rot)
+        bad = _report_agrees(rep, got, "grad_render" in label)
+        out[label] = dict(report=rep, launches=got, disagree=bad)
+        print(f"[50 engine_report] {label}: {rep}; launches "
+              f"{ {k: v for k, v in got.items() if v} }: "
+              f"{'agrees' if not bad else 'DISAGREES on ' + str(bad)} [{smi}]",
+              flush=True)
+        if bad:
+            raise AssertionError(f"engine_report disagrees on {label}")
+    return out
 
 
 if __name__ == "__main__":

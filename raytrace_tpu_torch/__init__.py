@@ -7,9 +7,9 @@ and the .obj parser included), the camera, the counter-hash RNG, and
 work-queue wavefront drivers.  The bounce runs in kernel A
 (``ops/bounce_kernel.py``, ``csrc/bounce_kernel.cu``) for tables of at
 most 512 rows, and the fused iteration in kernel B (``ops/iter_kernel.py``,
-``csrc/iter_kernel.cu``); every other scene (mesh-scale tables up to
-65,536 rows, image, noise, marble and custom textures) takes the split
-path: the nearest hit over a BVH (``ops/allpairs_kernel.py``,
+``csrc/iter_kernel.cu``); every other scene (mesh-scale tables of any
+size, image, noise, marble and custom textures, the BVH accelerator
+mode) takes the split path: the nearest hit over a BVH (``ops/allpairs_kernel.py``,
 ``csrc/nearest_kernel.cu``) or by a flat scan of a small table
 (``ops/intersect_kernel.py``, ``csrc/nearest_flat_kernel.cu``), the shade
 kernel (``csrc/shade_kernel.cu``) and the rich-texture albedo
@@ -25,7 +25,8 @@ above 512 rows, up to 8192) and whose backward runs kernel K5
 (``ops/bounce_bwd_gather_kernel.py``, ``csrc/bounce_bwd_kernel.cu``);
 rich textures are multiplied in after each step in differentiable torch,
 the image atlas's gradient through ``csrc/image_grad_kernel.cu``.
-On CPU tensors each kernel runs its plain PyTorch version; the entry
+``utils`` holds ``engine_report`` (which kernels each route runs),
+``RenderStats`` and the render checkpoints.  On CPU tensors each kernel runs its plain PyTorch version; the entry
 points put scenes on the card unless given ``device="cpu"``.  The
 package imports torch and numpy, never JAX.
 """
@@ -38,7 +39,7 @@ from .render.camera import CameraSettings, const_background, gray_fade, sky
 from .render.image import read_image, write_image, write_image_sqrt
 from .render.render import render, render_accumulate
 from .scene.builder import (
-    Mesh, compose, constant_medium, cuboid, cuboids, group, moving,
+    Mesh, bvh_tree, compose, constant_medium, cuboid, cuboids, group, moving,
     parallelogram, rotate_x, rotate_y, rotate_z, scale, sphere, spheres,
     transform, translate, triangle, triangle_mesh, with_material,
 )

@@ -1,6 +1,7 @@
 // Nearest hit of one ray over a packed primitive table of any size (up to
-// the dense cap of 65,536 rows) by a near-child-first walk of a binned-SAH
-// BVH of two-box nodes.  The Hopper form of
+// 2^24 rows: a row's index travels as f32, ops/allpairs_kernel.py:
+// MAX_BVH_ROWS) by a near-child-first walk of a binned-SAH BVH of two-box
+// nodes.  The Hopper form of
 // raytrace_tpu/ops/pallas/allpairs_kernel.py:allpairs_nearest_record (and
 // of the intersect stage of iter_kernel.py:_iter_mega_ap), whose chunk
 // plans, W-wide relabelling, batched chunk visibility and sub-cluster
@@ -55,6 +56,9 @@ constexpr int kOrigCol = 35;  // ops/allpairs_kernel.py:ORIG_COL
 // primitive was tested); the plain walk passes none.
 struct Visits {
   int nodes = 0, rows = 0;
+  // where not null, set to 1 at each node and row read
+  unsigned char* seen_nodes = nullptr;
+  unsigned char* seen_rows = nullptr;
 };
 
 // The tree as a walk reads it.
@@ -174,7 +178,11 @@ __device__ __forceinline__ HitRec bvh_nearest(
                     oy, oz, dx, dy, dz, inv_dx, inv_dy, inv_dz, tm, t_min,
                     has_motion, with_albedo, h);
       }
-      if (kCount) visits->rows += n;
+      if (kCount) {
+        visits->rows += n;
+        if (visits->seen_rows != nullptr)
+          for (int k = 0; k < n; ++k) visits->seen_rows[w + k] = 1;
+      }
     } else {
       // an interior node: both children's boxes
       const float4* p = bvh.nodes + 4 * w;
@@ -185,7 +193,10 @@ __device__ __forceinline__ HitRec bvh_nearest(
            inv_dz, tn0, tf0);
       slab(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ox, oy, oz, inv_dx, inv_dy,
            inv_dz, tn1, tf1);
-      if (kCount) visits->nodes += 2;
+      if (kCount) {
+        visits->nodes += 2;
+        if (visits->seen_nodes != nullptr) visits->seen_nodes[w] = 1;
+      }
       const bool in0 = !((tn0 > tf0) || (tn0 > h.t) || (tf0 < t_min));
       const bool in1 = !((tn1 > tf1) || (tn1 > h.t) || (tf1 < t_min));
       // the right child first when it starts strictly nearer

@@ -30,6 +30,7 @@ struct NearestArgs {
   float* outf;             // [6, R]: t, nx, ny, nz, u, v
   int* outi;               // [3, R]: idx, front | sphere << 1, mat
   int* visits;             // [2, R]: box tests and row tests, or null
+  unsigned char* seen;     // [n_nodes + n_rows]: 1 where read, or null
   long long n_lanes;
   int n_nodes, has_motion, tri_only;
   float t_min;
@@ -50,6 +51,10 @@ nearest_kernel(const NearestArgs a) {
                      threadIdx.x;
        l < R; l += stride) {
     rt::Visits v;
+    if (kCount && a.seen != nullptr) {
+      v.seen_nodes = a.seen;
+      v.seen_rows = a.seen + a.n_nodes;
+    }
     const rt::HitRec h = rt::bvh_nearest<kTriOnly, kCount>(
         bvh, a.ox[l], a.oy[l], a.oz[l], a.dx[l], a.dy[l], a.dz[l], a.tm[l],
         a.t_min, a.has_motion != 0, false, &v);

@@ -240,17 +240,11 @@ def fused_diff_reason(scene, s):
     rich textures, the replay backward's caps, an in-kernel background,
     no rotated spheres.  The differentiable driver sends a scene refused
     for its background or its rotated spheres to the unfused route."""
-    from ..ops.intersect_kernel import MAX_SMEM_PRIMS
     from ..render.integrator import MEGA_MAX_PRIMS, _kernel_reason
     from .lane_replay import replay_pre_eligible
     if scene.volumes is not None:
         return MEDIA_GRADIENTS
     reason = _kernel_reason(scene, s, 128, MEGA_MAX_PRIMS, defer_rich=True)
-    p = scene.prims
-    if (reason is None and p.kind.shape[0] > MAX_SMEM_PRIMS
-            and p.kind_segments is None):
-        reason = ("an unsegmented table of more than 512 rows (ROADMAP "
-                  "M8)")
     if reason is None and not replay_pre_eligible(scene):
         reason = "the scene's tables exceed the replay backward's caps"
     if reason is None and background_kind(s) is None:

@@ -21,7 +21,7 @@ import torch
 
 from .materials.materials import MaterialTable
 from .render.camera import CameraSettings, const_background, gray_fade, sky
-from .scene.types import Ellipsoids, Primitives, Scene, Volumes
+from .scene.types import BVH, Ellipsoids, Primitives, Scene, Volumes
 from .textures.textures import TextureTable
 
 
@@ -36,8 +36,9 @@ def fields_to_numpy(obj) -> dict:
 
 def scene_to_numpy(scene) -> dict:
     """The input of :func:`scene_from_numpy` from a compiled scene whose
-    ``prims``, ``materials`` and ``textures`` (and ``volumes`` and
-    ``ellipsoids``, if any) are dataclasses of arrays."""
+    ``prims``, ``materials`` and ``textures`` (and ``volumes``,
+    ``ellipsoids`` and the BVH mode's ``bvh``, if any) are dataclasses of
+    arrays."""
     d = {k: fields_to_numpy(getattr(scene, k))
          for k in ("prims", "materials", "textures")}
     vol = getattr(scene, "volumes", None)
@@ -46,7 +47,8 @@ def scene_to_numpy(scene) -> dict:
     d["volumes"] = vol
     ell = getattr(scene, "ellipsoids", None)
     d["ellipsoids"] = None if ell is None else fields_to_numpy(ell)
-    d["bvh"] = getattr(scene, "bvh", None)
+    bvh = getattr(scene, "bvh", None)
+    d["bvh"] = None if bvh is None else fields_to_numpy(bvh)
     return d
 
 
@@ -96,18 +98,16 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
     :class:`MaterialTable` and :class:`TextureTable` (arrays as numpy,
     static fields as Python values), and optionally "volumes": {"prims":
     {...}, "density", "mat", "starts", "counts"} and "ellipsoids", keyed
-    by the field names of :class:`Ellipsoids`.  The scene lands on the
-    card unless ``device`` says otherwise.  Custom textures cannot cross
-    (see the module docstring); the BVH accelerator mode is not ported
-    (ROADMAP M8)."""
+    by the field names of :class:`Ellipsoids`, and "bvh", keyed by those
+    of :class:`BVH` (a scene of the BVH accelerator mode; a malformed one
+    raises ``ValueError``).  The scene lands on the card unless
+    ``device`` says otherwise.  Custom textures cannot cross (see the
+    module docstring)."""
     if d["textures"].get("custom_fns"):
         raise ValueError(
             "scene_from_numpy: custom textures are closures of the other "
             "implementation and cannot cross; build the scene with "
             "raytrace_tpu_torch.custom_texture")
-    if d.get("bvh") is not None:
-        raise NotImplementedError(
-            "scene_from_numpy: bvh are not ported yet (ROADMAP M8)")
     vol = d.get("volumes")
     if vol is not None:
         vol = _build(Volumes, dict(
@@ -119,10 +119,46 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         ell = _build(Ellipsoids, dict(ell, n=int(ell["n"]),
                                       has_motion=bool(ell["has_motion"])),
                      device)
-    return Scene(prims=_build(Primitives, d["prims"], device),
+    prims = _build(Primitives, d["prims"], device)
+    bvh = d.get("bvh")
+    if bvh is not None:
+        bvh = _build(BVH, _bvh_fields(bvh, prims), device)
+    return Scene(prims=prims,
                  materials=_build(MaterialTable, d["materials"], device),
                  textures=_build(TextureTable, d["textures"], device),
-                 volumes=vol, ellipsoids=ell)
+                 volumes=vol, ellipsoids=ell, bvh=bvh)
+
+
+def _bvh_fields(d: dict, prims: Primitives) -> dict:
+    """The fields of a :class:`BVH` from ``d``, checked: f32 [K, 3] boxes,
+    i32 [K] start, count and skip, ``n_nodes == K``, leaves within the
+    table's rows, escape indices in ``(i, K]``, and an unsegmented
+    table (the BVH mode's rows are in leaf order)."""
+    try:
+        out = {k: np.asarray(d[k]) for k in ("lo", "hi", "start", "count",
+                                              "skip")}
+        k = int(d["n_nodes"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"scene_from_numpy: malformed bvh ({e!r})") from None
+    shapes_ok = (all(out[f].shape == (k, 3) and out[f].dtype == np.float32
+                     for f in ("lo", "hi"))
+                 and all(out[f].shape == (k,) and out[f].dtype == np.int32
+                         for f in ("start", "count", "skip")))
+    if not shapes_ok or k < 1:
+        raise ValueError("scene_from_numpy: malformed bvh: need f32 [K, 3] "
+                         "lo and hi, i32 [K] start, count and skip, and "
+                         "n_nodes == K >= 1")
+    start, count, skip = out["start"], out["count"], out["skip"]
+    n_rows = int(prims.kind.shape[0])
+    leaf = count > 0
+    if (prims.kind_segments is not None or (count < 0).any()
+            or (leaf & ((start < 0) | (start + count > n_rows))).any()
+            or (skip <= np.arange(k)).any() or (skip > k).any()):
+        raise ValueError("scene_from_numpy: malformed bvh: leaves outside "
+                         "the table's rows, escape indices outside (i, "
+                         "n_nodes], or a kind-segmented table")
+    out["n_nodes"] = k
+    return out
 
 
 def _background(bg):

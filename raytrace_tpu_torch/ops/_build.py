@@ -7,6 +7,10 @@ together, and links the objects into one shared library under
 a library is rebuilt only when that hash changes, and a file lock keeps
 concurrent processes from building it twice.  The library is loaded with
 ``ctypes``; every pointer and the stream pass as ``c_void_p``.
+
+:func:`native_library` builds a host C++ source of ``csrc`` (the .obj
+parser) with g++ the same way: at first use, into ``_build/``, named by
+a hash of the source, under the lock.
 """
 from __future__ import annotations
 
@@ -95,6 +99,32 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed:\n{log[-6000:]}")
         os.replace(tmp, lib)
     return lib
+
+
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+
+@functools.lru_cache(maxsize=None)
+def native_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cpp`` built with g++ into ``_build/`` (once per
+    source hash) and loaded; raise if it does not build."""
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes())
+    lib = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        with open(BUILD_DIR / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib.exists():
+                tmp = lib.with_name(lib.name + ".tmp")
+                proc = subprocess.run(
+                    ["g++", *GXX_FLAGS, "-o", str(tmp), str(src)],
+                    capture_output=True, text=True, timeout=300)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed on {src.name}:\n"
+                                       f"{proc.stderr[-6000:]}")
+                os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))
 
 
 @functools.lru_cache(maxsize=None)

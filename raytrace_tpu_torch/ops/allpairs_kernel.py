@@ -27,9 +27,7 @@ import torch
 
 from ..scene.bvh import build_sah_bvh, prim_aabbs
 from ..scene.types import PRIM_PAD, PRIM_TRIANGLE
-from .intersect_kernel import (
-    MAX_DENSE_PRIMS, N_COLS, _box_attrs, _record_contract, _safe,
-)
+from .intersect_kernel import N_COLS, _box_attrs, _record_contract, _safe
 
 N_NODE_COLS = 16
 LEAF_SIZE = 4
@@ -40,6 +38,11 @@ STACK_SIZE = 32
 # the table column of the leaf-ordered rows that holds each row's index in
 # the packed table (the packed table leaves it 0)
 ORIG_COL = 35
+# the walk carries a row's index as f32 (ORIG_COL, the record's winner),
+# exact below 2^24: the largest table the kernel takes.  Its other
+# offsets are 64-bit (rows) or far from overflow at this size (a node's
+# 4 float4 at 4 x its index; a stack entry holds word << 3 | count).
+MAX_BVH_ROWS = 1 << 24
 # the split path's nearest hit of a kind-segmented table of at least this
 # many scanned rows walks its BVH; smaller or unsegmented tables take the
 # flat scan (the JAX package's MIN_PRIMS)
@@ -375,7 +378,7 @@ class _NearestArgs(ctypes.Structure):
     """Mirror of ``NearestArgs`` in csrc/nearest_kernel.cu."""
     _fields_ = ([(f, ctypes.c_void_p) for f in (
         "nodes", "rows", "ox", "oy", "oz", "dx", "dy", "dz", "tm", "outf",
-        "outi", "visits")]
+        "outi", "visits", "seen")]
         + [("n_lanes", ctypes.c_int64)]
         + [(f, ctypes.c_int) for f in ("n_nodes", "has_motion",
                                        "tri_only")]
@@ -383,19 +386,21 @@ class _NearestArgs(ctypes.Structure):
 
 
 def nearest_args(bvh: DeviceBVH, rays, outf, outi, visits, *,
-                 has_motion: bool, t_min: float) -> _NearestArgs:
+                 has_motion: bool, t_min: float,
+                 seen=None) -> _NearestArgs:
     """The kernel's argument struct for tensors that outlive it."""
     return _NearestArgs(
         *(x.data_ptr() for x in (bvh.nodes, bvh.rows) + tuple(rays)
           + (outf, outi)),
         None if visits is None else visits.data_ptr(),
+        None if seen is None else seen.data_ptr(),
         rays[0].shape[0], bvh.n_nodes, int(has_motion), int(bvh.tri_only),
         float(t_min))
 
 
 def check_bvh(bvh: DeviceBVH, n_prims: int, device) -> None:
     """Raise unless ``bvh`` is a packed BVH on ``device`` of at most
-    ``n_prims`` rows."""
+    ``n_prims`` rows, ``n_prims`` at most :data:`MAX_BVH_ROWS`."""
     if bvh is None:
         raise ValueError("the mesh kernels need the table's BVH (pack_bvh)")
     nd, rw = bvh.nodes, bvh.rows
@@ -406,17 +411,25 @@ def check_bvh(bvh: DeviceBVH, n_prims: int, device) -> None:
             or not rw.is_contiguous() or rw.shape[0] > n_prims):
         raise ValueError(f"bvh: need contiguous f32 [*, {N_NODE_COLS}] nodes "
                          f"and [<={n_prims}, {N_COLS}] rows on {device}")
-    if not 0 < n_prims <= MAX_DENSE_PRIMS:
-        raise ValueError(f"n_prims={n_prims} outside 1..{MAX_DENSE_PRIMS}")
+    if not 0 < n_prims <= MAX_BVH_ROWS or nd.shape[0] > 2 * MAX_BVH_ROWS:
+        raise ValueError(f"n_prims={n_prims} outside 1..{MAX_BVH_ROWS} or "
+                         f"{nd.shape[0]} nodes over {2 * MAX_BVH_ROWS}: the "
+                         "walk's row indices are f32")
 
 
 def allpairs_nearest_record(tbl, bvh: DeviceBVH | None, ox, oy, oz, dx, dy,
                             dz, tm, *, n_prims: int, t_min: float,
-                            has_motion: bool, count_visits: bool = False):
+                            has_motion: bool, count_visits: bool = False,
+                            seen=None):
     """Nearest hit of every ray over rows ``[0, n_prims)`` of the packed
-    table.  Rays are 1-D [R] f32 tensors.  Returns the 9 [R] outputs of
+    table, of any size up to :data:`MAX_BVH_ROWS` (the counterpart of the
+    TPU kernel's streamed mode past 65,536 rows: the same nearest hit, by
+    the walk).  Rays are 1-D [R] f32 tensors.  Returns the 9 [R] outputs of
     :func:`_record_contract`; with ``count_visits`` (CUDA only) also an
-    [2, R] i32 tensor of the box tests and row tests of each ray.
+    [2, R] i32 tensor of the box tests and row tests of each ray, and
+    where ``seen`` is a zeroed u8 [n_nodes + rows] tensor, 1 set in it at
+    each node and leaf row that a ray reads (nodes first): what the walk
+    must move, for its bound.
 
     CPU tensors run :func:`allpairs_nearest_plain` (``bvh`` unused); CUDA
     tensors launch ``csrc/nearest_kernel.cu`` over ``bvh``
@@ -443,8 +456,14 @@ def allpairs_nearest_record(tbl, bvh: DeviceBVH | None, ox, oy, oz, dx, dy,
     outi = torch.empty((3, r), dtype=torch.int32, device=dev)
     visits = (torch.empty((2, r), dtype=torch.int32, device=dev)
               if count_visits else None)
+    if seen is not None and (
+            not count_visits or seen.device != dev
+            or seen.dtype != torch.uint8 or not seen.is_contiguous()
+            or seen.shape != (bvh.n_nodes + bvh.rows.shape[0],)):
+        raise ValueError("seen: need count_visits and a contiguous u8 "
+                         "[n_nodes + rows] tensor on the rays' device")
     args = nearest_args(bvh, rays, outf, outi, visits,
-                        has_motion=has_motion, t_min=t_min)
+                        has_motion=has_motion, t_min=t_min, seen=seen)
     launch("rt_nearest", args, dev)
     allpairs_nearest_record.launches += 1
     out = (outf[0], outi[0], outf[1], outf[2], outf[3], outi[1], outf[4],

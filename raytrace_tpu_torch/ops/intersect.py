@@ -21,6 +21,11 @@ and of the media's boundary crossings (``render/volumes.py``).
   instances turned into object space, where their uv is evaluated.
 * :func:`dense_nearest` — the nearest hit over a whole table in one
   [R, N] tile: the tests' oracle.
+* :func:`bvh_nearest` — the nearest hit by a per-ray walk of the BVH
+  accelerator mode's threaded tree (``Scene.bvh``), and
+  :func:`nearest_hit_t`, which picks it or :func:`dense_nearest`: the
+  CPU route of a scene compiled in the BVH mode (on the card the
+  nearest-hit kernel K9 walks a tree of its own over the same rows).
 
 Rows come as ``(kind, p0, e1, e2, mv0, mv1)`` (plus ``uvs`` for a
 record): ``p0`` is a sphere's center (``e1[..., 0]`` its radius), a
@@ -357,3 +362,77 @@ def dense_nearest(prims, o, d, time, tmin, tmax):
     best = torch.amin(t, dim=1)
     idx = torch.where(torch.isfinite(best), torch.argmin(t, dim=1), -1)
     return best, idx.to(torch.int32)
+
+
+def bvh_nearest(prims, bvh, o, d, time, tmin, tmax):
+    """``(t, idx)`` [R]: the nearest hit of each ray by a walk of the
+    threaded tree ``bvh`` (``scene/types.py:BVH``) over the rows of
+    ``prims`` in leaf order (the JAX package's ``bvh_nearest``): each ray
+    keeps its node cursor and its best t; a node whose box the ray
+    crosses within ``[tmin, min(tmax, best t)]`` leads to its first child
+    or tests its leaf's rows, any other to its escape index.  A row
+    replaces the best hit only if strictly nearer, so of equally near
+    rows the first one walked wins.  Rays still walking are compacted
+    every step (each ray's result is that of the lock-step walk).  A leaf
+    is tested up to the tree's widest leaf, so a tree of any
+    ``compile_scene(leaf_size=...)`` is walked whole."""
+    n_nodes = bvh.n_nodes
+    dev = o.device
+    r = o.shape[0]
+    n_rows = prims.kind.shape[0]
+    best_t = torch.full((r,), INF, dtype=DTYPE, device=dev)
+    best_i = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    node = torch.zeros((r,), dtype=torch.int64, device=dev)
+    lanes = torch.arange(r, device=dev)
+    inv_d = 1.0 / d
+    lo, hi = bvh.lo.to(dev), bvh.hi.to(dev)
+    start, count = bvh.start.to(dev).long(), bvh.count.to(dev).long()
+    skip = bvh.skip.to(dev).long()
+    leaf_width = int(count.max()) if n_nodes else 0
+    while lanes.numel():
+        ni = node
+        o_l, d_l, inv_l = o[lanes], d[lanes], inv_d[lanes]
+        tmin_l, tmax_l = tmin[lanes], tmax[lanes]
+        bt = best_t[lanes]
+        t0 = (lo[ni] - o_l) * inv_l
+        t1 = (hi[ni] - o_l) * inv_l
+        t_near = torch.maximum(torch.amax(torch.minimum(t0, t1), dim=-1),
+                               tmin_l)
+        t_far = torch.minimum(torch.amin(torch.maximum(t0, t1), dim=-1),
+                              torch.minimum(tmax_l, bt))
+        hit_box = t_near <= t_far
+        cnt = count[ni]
+        is_leaf = cnt > 0
+        leaf = hit_box & is_leaf
+        if bool(leaf.any()):
+            sel = torch.nonzero(leaf).squeeze(1)
+            lane_s = lanes[sel]
+            st, cn = start[ni[sel]], cnt[sel]
+            bts, bis = best_t[lane_s], best_i[lane_s]
+            for j in range(leaf_width):
+                pi = torch.clamp(st + j, max=n_rows - 1)
+                rows = (prims.kind[pi], prims.p0[pi], prims.e1[pi],
+                        prims.e2[pi], prims.mv0[pi], prims.mv1[pi])
+                t = single_prim_t_rows(rows, prims.has_motion, o[lane_s],
+                                       d[lane_s], time[lane_s],
+                                       tmin[lane_s],
+                                       torch.minimum(tmax[lane_s], bts),
+                                       has_box=prims.has_box)
+                better = (j < cn) & (t < bts)
+                bts = torch.where(better, t, bts)
+                bis = torch.where(better, pi.to(torch.int32), bis)
+            best_t[lane_s] = bts
+            best_i[lane_s] = bis
+        nxt = torch.where(hit_box & ~is_leaf, ni + 1, skip[ni])
+        going = nxt < n_nodes
+        lanes, node = lanes[going], nxt[going]
+    return best_t, best_i
+
+
+def nearest_hit_t(prims, bvh, o, d, time, tmin, tmax):
+    """``(t, idx)`` [R]: :func:`bvh_nearest` over the BVH mode's tree
+    ``bvh``, or :func:`dense_nearest` where ``bvh`` is None (the JAX
+    package's ``nearest_hit_t``)."""
+    if bvh is not None:
+        return bvh_nearest(prims, bvh, o, d, time, tmin, tmax)
+    return dense_nearest(prims, o, d, time, tmin, tmax)

@@ -66,7 +66,15 @@ K9 over 1,536 rows, K11's candidate mode for its fog and its blue medium,
 the shade kernel, the earth's image and the marble stripes through K12)
 and ``grad_render`` over 2^16 pixels spread evenly over the image x 4
 samples (``demo2_grad_render``: the generic differentiable bounce, each bounce
-checkpointed: K9, the keyed K11, the atlas gradient K13), it
+checkpointed: K9, the keyed K11, the atlas gradient K13), and for
+bigmesh-512 (``testing.bigmesh_scene`` at ``testing.BIGMESH``:
+``tools/bench_bigmesh.py`` at 512 x 512 cells, 523,264 triangles, 523,328
+kind-segmented rows) its forward at the tool's settings (``bigmesh_fwd``:
+512 x 512, 16 spp, depth 8, seed 0: the sorted driver, the split path,
+K9 and the shade kernel, with ``pack_bvh`` in every call) and
+``grad_render`` over 2^16 pixels spread evenly over the image x 4 samples
+(``bigmesh_grad``: ``testing.BIGMESH_GRAD``, the generic differentiable
+bounce over K9, each bounce checkpointed), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -262,7 +270,10 @@ def kernel_ms(fn, kernel, reps: int = 20) -> float:
     of a burst of microsecond launches (31 of 50 seen on an H100), so each
     mean is over the launches it recorded, at least one a name; a session
     that recorded none of a name (seen on an H100 after several long
-    sessions in one process) is run again, up to three times."""
+    sessions in one process) is run again, up to three times, and if
+    none records it, a lone ``kernel`` is timed by CUDA events around
+    ``reps`` calls (the larger of the host cost and the device time: an
+    upper bound, said on stdout)."""
     import torch
     from torch.autograd import DeviceType
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
@@ -281,6 +292,13 @@ def kernel_ms(fn, kernel, reps: int = 20) -> float:
               for name in names}
         if all(us.values()):
             break
+    else:
+        if len(names) == 1 and not us[names[0]]:
+            ms = call_ms(fn, reps, 0)
+            print(f"kernel_ms: torch.profiler recorded no launch of "
+                  f"{names[0]} in 3 sessions; CUDA events: {ms:.4f} ms a "
+                  f"call", flush=True)
+            return ms
     total = 0.0
     for name in names:
         if not 0 < len(us[name]) <= reps:
@@ -322,7 +340,7 @@ def main() -> None:
     from .render.render import render_accumulate
     from .render.integrator import lane_cost_estimate
     from .testing import (
-        DEMO2_GRAD, DEMO2_SEED, FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8,
+        BIGMESH_GRAD, DEMO2_GRAD, DEMO2_SEED, FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8,
         IMAGE_GRAD_FWD_BWD,
         MESH_FWD_BWD, PAWN_FWD_BWD, SMOKE_FWD_BWD, SMOKE_GRAD_RENDER,
         bunny_standin_scene, cornell_scene_and_settings, cornell_smoke_scene,
@@ -611,6 +629,21 @@ def main() -> None:
                                    smp, target)
 
     @functools.cache
+    def bigmesh():
+        from .testing import BIGMESH, bigmesh_scene
+        return bigmesh_scene(BIGMESH["n_lat"], BIGMESH["n_lon"], device=dev)
+
+    def bigmesh_grad():
+        from .diff.gradients import grad_render
+        sc, st = bigmesh()
+        n_img = st.image_width * st.image_height
+        pix = (torch.arange(BIGMESH_GRAD["pixels"], device=dev) * n_img
+               // BIGMESH_GRAD["pixels"]).to(torch.int32)
+        smp = torch.arange(BIGMESH_GRAD["samples"], dtype=torch.int32)
+        target = torch.zeros((BIGMESH_GRAD["pixels"], 3), device=dev)
+        return grad_render(sc, st, rng.base_key(5, dev), pix, smp, target)
+
+    @functools.cache
     def keyed_kernel_calls():
         """K11 on cornell_smoke's 360,064 camera rays (planar) and K11b on
         the pawn stand-in's 2^17, each in the keyed mode and the crossings
@@ -743,7 +776,11 @@ def main() -> None:
                           seed=DEMO2_SEED),
              s_d.image_width * s_d.image_height * s_d.samples_per_pixel),
             ("demo2_grad_render", demo2_grad_render(),
-             DEMO2_GRAD["pixels"] * DEMO2_GRAD["samples"])):
+             DEMO2_GRAD["pixels"] * DEMO2_GRAD["samples"]),
+            ("bigmesh_fwd", lambda: render_accumulate(*bigmesh(), seed=0),
+             512 * 512 * 16),
+            ("bigmesh_grad", bigmesh_grad,
+             BIGMESH_GRAD["pixels"] * BIGMESH_GRAD["samples"])):
         if only and name not in only:
             continue
         walls = []

@@ -22,9 +22,12 @@ finished path adds its radiance into the image.
 The bounce is kernel A for tables of at most 512 rows with constant and
 checker textures (:func:`bounce_mega_soa`).  Every other scene takes the
 split path (:func:`bounce_split_soa`), as the JAX package's ``bounce``
-does: the nearest hit record (kernel K8's flat scan for small and
-unsegmented tables, the walk of the table's BVH for kind-segmented
-tables of 192 rows and more), the exact sphere uv in torch (in object
+does: the nearest hit record (:func:`surface_engine`: kernel K8's flat
+scan for small and unsegmented tables, kernel K9's walk of a BVH for
+kind-segmented tables of 192 rows and more, of any size, and for scenes
+compiled in the BVH accelerator mode on the card; on the CPU such a
+scene walks its own threaded tree in torch, ``ops/intersect.py:
+nearest_hit_t``), the exact sphere uv in torch (in object
 space for rotated sphere instances), the ellipsoids' nearest hit merged
 in (``ops/ellipsoid.py``), for scenes with constant-density media the
 nearest medium's scatter candidate (``render/volumes.py:medium_hit``:
@@ -63,8 +66,9 @@ thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
 * :func:`trace` — the bounded-depth driver of a fixed batch of rays
   (``diff/gradients.py:render_tile``), forward or differentiable.
 
-The BVH accelerator mode beyond 65,536 rows raises (ROADMAP Queue 1
-item 5).
+:func:`bounce_route`, :func:`diff_route` and :func:`surface_engine` name
+the route each driver takes; ``utils/engines.py:engine_report`` reads
+them.
 """
 from __future__ import annotations
 
@@ -87,18 +91,20 @@ from ..materials.materials import (
 from ..ops.diff_intersect import HitStatics, diff_surface_hit, hit_statics
 from ..ops.ellipsoid import merge_ellipsoid_hits
 from ..ops.allpairs_kernel import (
-    MIN_PRIMS, DeviceBVH, allpairs_nearest_record, pack_bvh,
+    MAX_BVH_ROWS, MIN_PRIMS, DeviceBVH, allpairs_nearest_record, pack_bvh,
 )
 from ..ops.bounce_kernel import (
     MAX_MAT_ROWS, MAX_SHADE_MATS, MAX_TARGETS, N_U, BounceLaunch,
     bounce_megakernel, pack_behaviors, pack_materials, pack_targets,
     prepare_bounce, shade_megakernel,
 )
-from ..ops.intersect import apply_sphere_rotations
-from ..ops.intersect_kernel import (
-    MAX_DENSE_PRIMS, MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
+from ..ops.intersect import (
+    INF, apply_sphere_rotations, make_hit_record, nearest_hit_t,
 )
-from ..scene.types import Ellipsoids, Scene, Volumes
+from ..ops.intersect_kernel import (
+    MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
+)
+from ..scene.types import BVH, Ellipsoids, Primitives, Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
 )
@@ -170,6 +176,10 @@ def _kernel_reason(scene: Scene, s: CameraSettings, n_rays: int,
         return ("ellipsoids: kernels A and B do not take them (the forward "
                 "takes the split path, the fwd+bwd the generic "
                 "differentiable bounce)")
+    if scene.bvh is not None:
+        return ("the BVH accelerator mode: its unsegmented table takes the "
+                "split path and the generic differentiable bounce, as in "
+                "the JAX package")
     rows = scene.prims.kind.shape[0]
     if rows > max_rows:
         return (f"{rows} primitive rows: the kernels take at most "
@@ -205,9 +215,9 @@ def _ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
 def _split_ineligible_reason(scene: Scene, s: CameraSettings, n_rays: int):
     """Why the split path (nearest kernel, media crossings, shade kernel,
     the rich-texture multiply) cannot take this scene, or None: it takes
-    tables of up to 65,536 rows, up to 24 materials and 8 redirect
-    targets, any number of media, and every texture kind except on
-    lights.  The shade kernel's part is the JAX package's
+    tables of any size (up to ``MAX_BVH_ROWS``), up to 24 materials and 8
+    redirect targets, any number of media, and every texture kind except
+    on lights.  The shade kernel's part is the JAX package's
     ``fused_shade_eligible``."""
     p, m = scene.prims, scene.materials
     reason = _generic_reason(scene, s)
@@ -346,38 +356,54 @@ class SplitTables:
     vol_tables: VolumeTables | None = None
     sphere_rots: tuple = ()
     ellipsoids: Ellipsoids | None = None
+    tree: tuple[Primitives, BVH] | None = None
 
 
 def uses_bvh(prims) -> bool:
-    """Does the split path walk a BVH (kernel K9) for this table, or scan
-    it flat (kernel K8)?  The JAX package's rule (``_surface_hit``): the
-    all-pairs kernel for kind-segmented tables of ``MIN_PRIMS`` (192) rows
-    and more, the flat scan otherwise."""
+    """Does the split path walk a BVH (kernel K9) for this dense table, or
+    scan it flat (kernel K8)?  The JAX package's rule (``_surface_hit``):
+    the all-pairs kernel for kind-segmented tables of ``MIN_PRIMS`` (192)
+    rows and more, of any size, the flat scan otherwise."""
     return prims.kind_segments is not None and \
         _n_scan_prims(prims) >= MIN_PRIMS
 
 
+def surface_engine(scene: Scene) -> str:
+    """The split path's nearest hit for this scene: ``"K9"`` (the BVH walk
+    kernel: :func:`uses_bvh`, and the BVH accelerator mode's unsegmented
+    table on the card), ``"K8"`` (the flat scan) or ``"torch-bvh"`` (the
+    BVH mode on the CPU: the walk of the scene's threaded tree in torch,
+    ``ops/intersect.py:nearest_hit_t``, the route of the JAX package's
+    BVH mode)."""
+    if scene.bvh is not None:
+        return "torch-bvh" if scene.device.type == "cpu" else "K9"
+    return "K9" if uses_bvh(scene.prims) else "K8"
+
+
 def split_tables(scene: Scene, s: CameraSettings) -> SplitTables:
-    """Pack the split path's tables and, for a table the BVH walk serves,
-    build its BVH (once per driver call)."""
+    """Pack the split path's tables and, for a table K9 serves, build its
+    BVH (once per driver call); a BVH-mode scene on the CPU keeps its
+    table and threaded tree for the walk in torch."""
     dev = scene.device
     p = scene.prims
     n_prims = _n_scan_prims(p)
     vol = scene.volumes
     ptbl = pack_prims(p).contiguous()
+    engine = surface_engine(scene)
     return SplitTables(
         ptbl=ptbl,
         mtbl=pack_materials(scene.materials, scene.textures).to(dev)
         .contiguous(),
         ttbl=pack_targets(s.redirect_prob, s.redirect_q, s.redirect_u,
                           s.redirect_v).to(dev).contiguous(),
-        bvh=pack_bvh(p, ptbl, n_prims) if uses_bvh(p) else None,
+        bvh=pack_bvh(p, ptbl, n_prims) if engine == "K9" else None,
         n_prims=n_prims,
         n_mats=scene.materials.kind.shape[0], n_targets=s.n_redirect,
         has_motion=p.has_motion, t_min=float(np.float32(s.t_min)),
         rich=is_rich(scene.textures.kinds_present), volumes=vol,
         vol_tables=None if vol is None else volume_tables(vol),
-        sphere_rots=p.sphere_rots, ellipsoids=scene.ellipsoids)
+        sphere_rots=p.sphere_rots, ellipsoids=scene.ellipsoids,
+        tree=(p, scene.bvh) if engine == "torch-bvh" else None)
 
 
 def surface_hit(tb: SplitTables, o, d, time, ellipsoids: bool = True):
@@ -385,11 +411,47 @@ def surface_hit(tb: SplitTables, o, d, time, ellipsoids: bool = True):
     [R]) through a nearest-hit kernel (the BVH walk where ``tb`` has a
     BVH, else the flat scan), with the exact sphere uv from the outward
     normal computed here in torch (turned into object space first for the
-    rows of ``tb.sphere_rots``), then, with ``ellipsoids``, the nearest
-    ellipsoid hit of ``tb.ellipsoids`` merged in (winner index ``-2 -
-    e``), as the JAX package's ``_surface_hit`` does after its kernel.
-    Returns the 10 [R] f32 hit columns of ``shade_megakernel`` (sphere
-    flag 0: the uv is final)."""
+    rows of ``tb.sphere_rots``), or, for ``tb.tree``, by the walk of the
+    BVH mode's tree in torch and the winner's record; then, with
+    ``ellipsoids``, the nearest ellipsoid hit of ``tb.ellipsoids`` merged
+    in (winner index ``-2 - e``), as the JAX package's ``_surface_hit``
+    does after its kernel.  Returns the 10 [R] f32 hit columns of
+    ``shade_megakernel`` (sphere flag 0: the uv is final)."""
+    if tb.tree is not None:
+        t, idx, nx, ny, nz, front, uu, vv, mat = _tree_hit(tb, o, d, time)
+    else:
+        t, idx, nx, ny, nz, front, uu, vv, mat = _kernel_hit(tb, o, d, time)
+    if ellipsoids and tb.ellipsoids is not None:
+        t, idx, normal, front, uv, mat = merge_ellipsoid_hits(
+            tb.ellipsoids, o.T, d.T, time, tb.t_min, t, idx,
+            torch.stack([nx, ny, nz], dim=-1), front,
+            torch.stack([uu, vv], dim=-1), mat)
+        # the shade kernel takes contiguous columns
+        nx, ny, nz = normal.T.contiguous()
+        uu, vv = uv.T.contiguous()
+    return (t, idx.to(DTYPE), nx, ny, nz, front.to(DTYPE), uu, vv,
+            mat.to(DTYPE), torch.zeros_like(t))
+
+
+def _tree_hit(tb: SplitTables, o, d, time):
+    """:func:`surface_hit`'s record by ``nearest_hit_t`` over the BVH
+    mode's tree ``tb.tree`` and the winner's record (its sphere uv in
+    object space for rotated spheres), the JAX package's XLA route."""
+    prims, tree = tb.tree
+    o_r, d_r = o.T, d.T
+    t, idx = nearest_hit_t(prims, tree, o_r, d_r, time,
+                           torch.full_like(time, tb.t_min),
+                           torch.full_like(time, INF))
+    rec = make_hit_record(prims, idx, o_r, d_r, time,
+                          torch.where(torch.isfinite(t), t, 1.0))
+    nx, ny, nz = rec.normal.T
+    uu, vv = rec.uv.T
+    return t, idx, nx, ny, nz, rec.front, uu, vv, rec.mat
+
+
+def _kernel_hit(tb: SplitTables, o, d, time):
+    """:func:`surface_hit`'s record by kernel K9 or K8, the sphere uv
+    from the outward normal."""
     rays = (o[0], o[1], o[2], d[0], d[1], d[2], time)
     kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
     if tb.bvh is None:
@@ -412,16 +474,7 @@ def surface_hit(tb: SplitTables, o, d, time, ellipsoids: bool = True):
     sv = torch.arccos(torch.clamp(-owy, -1.0 + 1e-6, 1.0 - 1e-6)) / math.pi
     uu = torch.where(is_sphere, su, uu)
     vv = torch.where(is_sphere, sv, vv)
-    if ellipsoids and tb.ellipsoids is not None:
-        t, idx, normal, front, uv, mat = merge_ellipsoid_hits(
-            tb.ellipsoids, o.T, d.T, time, tb.t_min, t, idx,
-            torch.stack([nx, ny, nz], dim=-1), front,
-            torch.stack([uu, vv], dim=-1), mat)
-        # the shade kernel takes contiguous columns
-        nx, ny, nz = normal.T.contiguous()
-        uu, vv = uv.T.contiguous()
-    return (t, idx.to(DTYPE), nx, ny, nz, front.to(DTYPE), uu, vv,
-            mat.to(DTYPE), torch.zeros_like(t))
+    return t, idx, nx, ny, nz, front, uu, vv, mat
 
 
 def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive, medium=None):
@@ -548,21 +601,20 @@ class GenericTables:
 
 
 def _generic_reason(scene: Scene, s: CameraSettings):
-    """Why the generic bounce cannot take this scene (with its ROADMAP
-    item), or None."""
-    p = scene.prims
-    if p.kind.shape[0] > MAX_DENSE_PRIMS:
-        return (f"{p.kind.shape[0]} primitive rows: past {MAX_DENSE_PRIMS} "
-                "the BVH accelerator mode is not ported yet (ROADMAP "
-                "Queue 1 item 5)")
+    """Why the generic bounce cannot take this scene, or None: it takes
+    every scene of at most ``MAX_BVH_ROWS`` (2^24) primitive rows, the
+    most kernel K9 indexes exactly."""
+    rows = scene.prims.kind.shape[0]
+    if rows > MAX_BVH_ROWS:
+        return (f"{rows} primitive rows: the nearest-hit walk takes at most "
+                f"{MAX_BVH_ROWS}")
     return None
 
 
 def generic_tables(scene: Scene, s: CameraSettings,
                    diff: bool = False) -> GenericTables:
     """:class:`GenericTables` of ``scene`` (its tensors detached) and
-    ``s``; raise, naming the ROADMAP item, for a scene the generic bounce
-    does not take."""
+    ``s``; raise for a scene the generic bounce does not take."""
     from ..diff.gradients import map_scene
     reason = _generic_reason(scene, s)
     if reason is not None:
@@ -802,23 +854,34 @@ def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     return comps2, radiance.T, throughput.T, next_alive, alive & ~next_alive
 
 
-def _bounce_step(scene: Scene, s: CameraSettings, n_rays: int):
-    """``(bounce, tables)`` of the forward drivers for this scene: kernel
-    A's :func:`bounce_mega_soa`; for every scene kernel A refuses (tables
-    over 512 rows, rich textures, more behaviours than it stages) the
-    split path's :func:`bounce_split_soa`; for every scene the split path
-    refuses too (lights with rich textures, more than 24 materials or 8
-    redirect targets) the generic :func:`bounce_generic_soa` with
-    ``diff=False``, as the JAX package's drivers fall back to ``bounce``;
-    with their tables packed once.  Raise, naming the ROADMAP item, if
-    none takes the scene."""
+def bounce_route(scene: Scene, s: CameraSettings, n_rays: int) -> str:
+    """The forward drivers' bounce for this scene: ``"kernel-A"``
+    (:func:`bounce_mega_soa`); for every scene kernel A refuses (tables
+    over 512 rows, rich textures, more behaviours than it stages, media,
+    ellipsoids, the BVH mode) ``"split"`` (:func:`bounce_split_soa`); for
+    every scene the split path refuses too (lights with rich textures,
+    more than 24 materials or 8 redirect targets) ``"generic"``
+    (:func:`bounce_generic_soa` with ``diff=False``), as the JAX
+    package's drivers fall back to ``bounce``.  Raise if none takes the
+    scene."""
     if _ineligible_reason(scene, s, n_rays) is None:
-        return bounce_mega_soa, bounce_tables(scene, s)
+        return "kernel-A"
     if _split_ineligible_reason(scene, s, n_rays) is None:
-        return bounce_split_soa, split_tables(scene, s)
+        return "split"
     reason = _generic_reason(scene, s)
     if reason is not None:
         raise NotImplementedError(f"render: {reason}")
+    return "generic"
+
+
+def _bounce_step(scene: Scene, s: CameraSettings, n_rays: int):
+    """``(bounce, tables)`` of :func:`bounce_route`'s route, with its
+    tables packed once."""
+    route = bounce_route(scene, s, n_rays)
+    if route == "kernel-A":
+        return bounce_mega_soa, bounce_tables(scene, s)
+    if route == "split":
+        return bounce_split_soa, split_tables(scene, s)
     return bounce_generic_soa, generic_tables(scene, s)
 
 
@@ -894,6 +957,23 @@ def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
     return acc + acc3.T
 
 
+def _rotation(spp: int, rotate_k: int) -> int:
+    """The stationary driver's pixel rotation: ``rotate_k`` where it is
+    over 1 and divides ``spp``, else 1."""
+    return rotate_k if (rotate_k > 1 and spp % rotate_k == 0) else 1
+
+
+def stationary_fused(scene: Scene, s: CameraSettings, n_pix: int, spp: int,
+                     rotate_k: int = 1) -> bool:
+    """Does :func:`trace_wavefront_stationary` over ``n_pix`` pixels and
+    ``spp`` samples at ``rotate_k`` fuse its iteration (kernel B)?  Only
+    unrotated, where ``fused_iter_eligible``; else it takes
+    :func:`bounce_route`."""
+    lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
+    return (_rotation(spp, rotate_k) == 1
+            and fused_iter_eligible(scene, s, lanes))
+
+
 def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                                n_pix: int, spp: int, acc=None,
                                sample_offset: int = 0,
@@ -908,7 +988,7 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     sum (plus ``acc``)."""
     dev = scene.device
     lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
-    k_rot = rotate_k if (rotate_k > 1 and spp % rotate_k == 0) else 1
+    k_rot = _rotation(spp, rotate_k)
     spp_k = spp // k_rot
     n_u = n_bounce_uniforms(scene)
     cam = camera_table(s, camera_frame(s))
@@ -930,7 +1010,7 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     # the forward's fused branch takes kernel A's tables (at most 512
     # rows, the JAX package's forward cap); larger tables take the split
     # bounce below
-    if k_rot == 1 and fused_iter_eligible(scene, s, lanes):
+    if stationary_fused(scene, s, n_pix, spp, rotate_k):
         # the whole body is kernel B + the accumulation add
         step = fused_iter_fwd_step(scene, s, base_key, spp, sample_offset)
         init_smp = torch.where(lane_ids < n_pix, sample_offset - 1,
@@ -1287,7 +1367,7 @@ def _trace_wavefront_diff_unfused(scene: Scene, s: CameraSettings, base_key,
     pix = pixel_ids.to(device=dev, dtype=torch.int32)
     lanes = pix.shape[0]
     base_key = base_key.to(dev)
-    k_rot = rotate_k if (rotate_k > 1 and spp % rotate_k == 0) else 1
+    k_rot = _rotation(spp, rotate_k)
     spp_k = spp // k_rot
     blk = 32 * LANE_ALIGN
     stride = max((lanes // k_rot) // blk * blk, blk)
@@ -1465,24 +1545,39 @@ def trace_wavefront_diff(scene: Scene, s: CameraSettings, base_key,
     it changes nothing (the JAX package's flag skips chunks of
     ``skip_chunk`` iterations once every lane is done, a no-op on the
     estimator)."""
-    from ..diff.fused_iter import fused_diff_reason
     if n_iters is None:
         n_iters = 6 * spp + s.max_depth
     lanes = pixel_ids.shape[0]
     if lanes % LANE_ALIGN:
         raise ValueError(f"trace_wavefront_diff: {lanes} lanes is not a "
                          f"multiple of {LANE_ALIGN}")
-    if (rotate_k == 1 and not skip_done and pixel_cost is None
-            and use_mega is not False and fused_diff_reason(scene, s) is None):
+    route = diff_route(scene, s, lanes, rotate_k=rotate_k,
+                       skip_done=skip_done, pixel_cost=pixel_cost,
+                       use_mega=use_mega)
+    if route == "fused":
         return _trace_wavefront_diff_fused(scene, s, base_key, pixel_ids, spp,
                                            n_iters, sample_offset, schedule)
-    generic = (use_mega is False
-               or _ineligible_reason(scene, s, lanes) is not None)
     if schedule and (rotate_k > 1 and spp % rotate_k == 0 or skip_done):
         raise ValueError("schedule requires rotate_k=1, skip_done=False")
     return _trace_wavefront_diff_unfused(
         scene, s, base_key, pixel_ids, spp, n_iters, sample_offset, remat,
-        rotate_k, pixel_cost, schedule, generic)
+        rotate_k, pixel_cost, schedule, route == "generic")
+
+
+def diff_route(scene: Scene, s: CameraSettings, lanes: int, *,
+               rotate_k: int = 1, skip_done: bool = False, pixel_cost=None,
+               use_mega: bool | None = None) -> str:
+    """:func:`trace_wavefront_diff`'s route: ``"fused"`` (kernel B
+    forward, K5 backward), ``"kernel-A"`` (the unfused driver over kernel
+    A forward and K7 backward) or ``"generic"`` (the unfused driver over
+    the generic differentiable bounce)."""
+    from ..diff.fused_iter import fused_diff_reason
+    if (rotate_k == 1 and not skip_done and pixel_cost is None
+            and use_mega is not False and fused_diff_reason(scene, s) is None):
+        return "fused"
+    if use_mega is False or _ineligible_reason(scene, s, lanes) is not None:
+        return "generic"
+    return "kernel-A"
 
 
 def trace(scene: Scene, s: CameraSettings, o, d, time, keys,

@@ -8,7 +8,8 @@ the image does not depend on how the work is cut (nor on the lane ->
 pixel map, so the JAX package's tile-ordered maps are not needed).
 Stationary renders of tables of ``SORT_MIN_PRIMS`` rows and more, and of
 scenes whose media have ``BCAST_MIN_ROWS`` boundary rows and more, take
-the ray-sorted work-queue driver instead, as in the JAX package.
+the ray-sorted work-queue driver instead, as in the JAX package (scenes
+of the BVH accelerator mode stay on the stationary driver).
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from ..core.vecmath import DTYPE
 from ..scene.types import Scene
 from .camera import CameraSettings
 from .integrator import (
-    trace_wavefront, trace_wavefront_sorted, trace_wavefront_stationary,
+    stationary_fused, trace_wavefront, trace_wavefront_sorted,
+    trace_wavefront_stationary,
 )
 from .volumes import uses_bcast
 
@@ -42,9 +44,48 @@ def uses_sorted(scene: Scene) -> bool:
     """Does a stationary render of this scene take the sorted driver?
     The JAX package's rule: a surface table of ``SORT_MIN_PRIMS`` rows
     and more, or media whose boundary takes kernel K11b (``BCAST_MIN_ROWS``
-    rows and more)."""
-    return (scene.prims.kind.shape[0] >= SORT_MIN_PRIMS
-            or (scene.volumes is not None and uses_bcast(scene.volumes)))
+    rows and more), unless the scene is in the BVH accelerator mode."""
+    return scene.bvh is None and (
+        scene.prims.kind.shape[0] >= SORT_MIN_PRIMS
+        or (scene.volumes is not None and uses_bcast(scene.volumes)))
+
+
+def forward_driver(scene: Scene, band_pix: int) -> str:
+    """:func:`render_accumulate`'s driver of a band of ``band_pix``
+    pixels: ``"queue"`` below ``_STATIONARY_MIN_PIXELS``, else
+    ``"sorted"`` where :func:`uses_sorted`, else ``"stationary"``."""
+    if band_pix < _STATIONARY_MIN_PIXELS:
+        return "queue"
+    return "sorted" if uses_sorted(scene) else "stationary"
+
+
+def default_spp_chunk(driver: str, spp: int, n_pix: int,
+                      n_lanes: int) -> int:
+    """:func:`render_accumulate`'s samples per driver launch when the
+    caller sets none."""
+    if driver != "queue":
+        # one launch: the drain tail is paid once per launch
+        return min(spp, 512)
+    # each launch ends in a low-occupancy tail; queue >= ~32 lane-fills
+    # to amortize it
+    return max(1, min(spp, -(-32 * n_lanes // max(n_pix, 1))))
+
+
+def forward_route(scene: Scene, settings: CameraSettings,
+                  n_pix: int | None = None, spp: int | None = None,
+                  n_lanes: int = 1 << 17) -> tuple[str, bool]:
+    """``(driver, fused)`` of :func:`render_accumulate`'s first launch
+    over a band of ``n_pix`` pixels (the whole image by default) at
+    ``spp`` samples: :func:`forward_driver`, and whether the stationary
+    driver fuses that launch's iteration (``integrator.py:
+    stationary_fused`` at :func:`rotate_k_for` of the chunk)."""
+    if n_pix is None:
+        n_pix = int(settings.image_width) * int(settings.image_height)
+    spp = spp if spp is not None else int(settings.samples_per_pixel)
+    driver = forward_driver(scene, n_pix)
+    n_s = default_spp_chunk(driver, spp, n_pix, n_lanes)
+    return driver, (driver == "stationary" and stationary_fused(
+        scene, settings, n_pix, n_s, rotate_k_for(n_s)))
 
 
 def _stationary_fn(scene: Scene, settings: CameraSettings, key, n_pix: int,
@@ -94,15 +135,10 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
         bands.append((r0 * w, rows * w))
         r0 += rows
 
-    stationary = bands[0][1] >= _STATIONARY_MIN_PIXELS
+    driver = forward_driver(scene, bands[0][1])
+    stationary = driver != "queue"
     if spp_chunk is None:
-        if stationary:
-            # one launch: the drain tail is paid once per launch
-            spp_chunk = min(spp, 512)
-        else:
-            # each launch ends in a low-occupancy tail; queue >= ~32
-            # lane-fills to amortize it
-            spp_chunk = max(1, min(spp, -(-32 * n_lanes // max(n_pix, 1))))
+        spp_chunk = default_spp_chunk(driver, spp, n_pix, n_lanes)
 
     done = 0
     while done < spp:

@@ -5,8 +5,8 @@ flattens into tensors.  Materials attach with ``with_material(mat, geom)``;
 the outermost attachment wins for every leaf below it.  Triangle meshes
 (:class:`Mesh`, :func:`triangle_mesh`) compile to triangle rows of the
 dense table, and :func:`constant_medium` bounds a participating medium by
-a closed surface; the BVH accelerator mode is not in the port yet and
-raises (ROADMAP M8).
+a closed surface.  ``bvh_tree`` is ``group``: the compiler picks the
+accelerator (``compile_scene(accel=...)``).
 """
 from __future__ import annotations
 
@@ -151,10 +151,9 @@ def group(children: Sequence[Geom]) -> Geom:
     return Group(list(children))
 
 
-def bvh_tree(children: Sequence[Geom]) -> Geom:
-    raise NotImplementedError(
-        "bvh_tree: the BVH accelerator is not ported yet (ROADMAP M8); "
-        "use group(), which compiles to a dense table")
+# the compiler decides the accelerator (``compile_scene(accel=...)``), so
+# a BVH node of the scene graph is a group, as in the JAX package
+bvh_tree = group
 
 
 def transform(matrix, geom: Geom) -> Geom:

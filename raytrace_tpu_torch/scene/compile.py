@@ -3,13 +3,15 @@
 
 Transforms are baked into primitive parameters, motion becomes two
 per-row displacement vectors, materials and textures are interned, and
-rows are ordered by the median-split BVH permutation (tables of 65 rows
-and more are then regrouped kind-major into 64-row-padded segments), so
-the packed tables equal the JAX package's.  Constant-density media get
-their own table of boundary rows, every volume's rows merged in walk
-order (neither permuted, segmented nor padded) with static per-volume
-slices.  Spheres under a non-uniform linear map become ellipsoids, kept
-in their own buffer (:class:`Ellipsoids`).  ``accel="bvh"`` raises.
+rows are ordered by the median-split BVH permutation (in the dense mode,
+tables of 65 rows and more are then regrouped kind-major into
+64-row-padded segments), so the packed tables equal the JAX package's.
+The BVH accelerator mode keeps the rows in that order, unsegmented, with
+the threaded tree (:class:`BVH`).  Constant-density media get their own
+table of boundary rows, every volume's rows merged in walk order
+(neither permuted, segmented nor padded) with static per-volume slices.
+Spheres under a non-uniform linear map become ellipsoids, kept in their
+own buffer (:class:`Ellipsoids`).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from ..textures.textures import (
 from . import builder as B
 from .bvh import build_bvh, prim_aabbs
 from .types import (
-    PRIM_BOX, PRIM_PAD, PRIM_PARALLELOGRAM, PRIM_SPHERE, PRIM_TRIANGLE,
+    BVH, PRIM_BOX, PRIM_PAD, PRIM_PARALLELOGRAM, PRIM_SPHERE, PRIM_TRIANGLE,
     Ellipsoids, Primitives, Scene, Volumes,
 )
 
@@ -271,15 +273,31 @@ def _rows_to_primitives(rows: _Rows, perm, pad_to: int,
     )
 
 
+def default_dense_threshold(device) -> int:
+    """The surface rows above which ``accel="auto"`` picks the BVH mode on
+    ``device``: none on the card (``1 << 62``), as the JAX package on a
+    TPU; ``MAX_DENSE_PRIMS`` elsewhere, as the JAX package on the CPU."""
+    return 1 << 62 if torch.device(device).type == "cuda" else \
+        MAX_DENSE_PRIMS
+
+
 def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
-                  dense_threshold: int = MAX_DENSE_PRIMS, pad_to: int = 8,
+                  dense_threshold: int | None = None, pad_to: int = 8,
                   device="cuda") -> Scene:
-    """Compile a scene graph into a dense :class:`Scene` on ``device``
-    (the card by default; pass ``device="cpu"`` for the CPU).  ``accel``
-    is "auto" or "dense"; the BVH mode ("bvh", or "auto" above
-    ``dense_threshold`` rows) raises."""
+    """Compile a scene graph into a :class:`Scene` on ``device`` (the card
+    by default; pass ``device="cpu"`` for the CPU).
+
+    ``accel``: "dense" (kind-segmented rows), "bvh" (the rows in BVH
+    order, unsegmented, with the threaded tree in ``Scene.bvh``) or
+    "auto": the BVH mode above ``dense_threshold`` surface rows, by
+    default :func:`default_dense_threshold`: on the card no size picks
+    it (the nearest-hit kernel K9 walks a tree of its own over a dense
+    table of any size), on the CPU it is taken past ``MAX_DENSE_PRIMS``
+    (65,536) rows."""
     if accel not in ("auto", "dense", "bvh"):
         raise ValueError(f"compile_scene: unknown accel {accel!r}")
+    if dense_threshold is None:
+        dense_threshold = default_dense_threshold(device)
     interner = _Interner()
     rows = _Rows.empty()
     volumes: list = []
@@ -289,10 +307,9 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
     n_surface = rows.n()
     if n_surface == 0 and not volumes and not ellipsoids:
         raise ValueError("compile_scene: empty scene")
-    if accel == "bvh" or (accel == "auto" and n_surface > dense_threshold):
-        raise NotImplementedError(
-            f"compile_scene: {n_surface} rows need the BVH accelerator, "
-            "which is not ported yet (ROADMAP M8)")
+    use_bvh = accel == "bvh" or (accel == "auto"
+                                 and n_surface > dense_threshold)
+    bvh = None
 
     if n_surface == 0:
         # a scene of media or ellipsoids only: one pad row, never hit
@@ -306,13 +323,21 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
             np.concatenate(rows.kind), np.concatenate(rows.p0),
             np.concatenate(rows.e1), np.concatenate(rows.e2),
             np.concatenate(rows.mv0), np.concatenate(rows.mv1))
-        perm, _ = build_bvh(lo, hi, leaf_size=leaf_size)
+        # both modes order the rows by the median-split permutation: the
+        # BVH mode's leaves are then contiguous, the dense mode's segments
+        # spatially coherent
+        perm, nodes = build_bvh(lo, hi, leaf_size=leaf_size)
+        if use_bvh:
+            bvh = BVH(**{k: torch.from_numpy(nodes[k]) for k in
+                         ("lo", "hi", "start", "count", "skip")},
+                      n_nodes=int(nodes["lo"].shape[0]))
         # material ids whose texture consumes uv: only their rotated
         # spheres need the object-space uv correction
         uv_mats = frozenset(
             mid for m, mid in interner.materials.items()
             if m.texture.kind in (TEX_CHECKER, TEX_IMAGE, TEX_CUSTOM))
-        prims = _rows_to_primitives(rows, perm, pad_to, uv_mats)
+        prims = _rows_to_primitives(rows, perm, pad_to, uv_mats,
+                                    segment=not use_bvh)
 
     vol = None
     if volumes:
@@ -351,5 +376,5 @@ def compile_scene(root: B.Geom, *, accel: str = "auto", leaf_size: int = 4,
     materials = compile_materials(list(interner.materials),
                                   interner.textures)
     scene = Scene(prims=prims, materials=materials, textures=textures,
-                  volumes=vol, ellipsoids=ell)
+                  volumes=vol, ellipsoids=ell, bvh=bvh)
     return scene.to(device)

@@ -11,10 +11,14 @@
 * Errors name the 1-based line number, prefixed with the file path by
   :func:`read_obj`.
 
-The JAX package's native C++ parser (``native/objparse.cpp``) is not
-ported yet (ROADMAP M8): ``parse_obj(native=True)`` raises.
+The same grammar is parsed natively by ``csrc/objparse.cpp`` (a copy of
+the JAX package's ``native/objparse.cpp``), built with g++ at first use
+(``ops/_build.py:native_library``) and called through ``ctypes``: the
+loader of mesh-scale files.
 """
 from __future__ import annotations
+
+import subprocess
 
 import numpy as np
 
@@ -58,15 +62,86 @@ def _parse_face_vertex(tok: str, n_vs: int, n_vts: int, line_no: int):
     return vi, ti
 
 
+_NATIVE_UNSAFE = set("\x00\f\v\x1c\x1d\x1e")
+
+
+def _native_safe(text: str) -> bool:
+    """True when the native parser is guaranteed to agree with the Python
+    one: ASCII without exotic separators.  Outside that set the two can
+    diverge (Python's splitlines/str.split treat \\f, \\v, \\x1c-\\x1e,
+    NBSP, U+2028/9 etc. as separators; C does not, and an embedded NUL
+    truncates a C token), so such inputs take the Python parser."""
+    return text.isascii() and not (_NATIVE_UNSAFE & set(text))
+
+
 def parse_obj(text: str, native: bool | None = None) -> Mesh:
-    """Parse .obj text.  ``native=None`` and ``native=False`` take the
-    Python parser; ``native=True`` asks for the C++ parser, which is not
-    ported yet, and raises."""
-    if native:
-        raise NotImplementedError(
-            "parse_obj(native=True): the native C++ .obj parser is not "
-            "ported yet (ROADMAP M8); use native=None")
+    """Parse .obj text.  ``native=None`` takes the C++ parser for plain
+    ASCII input when its library builds, else the Python parser;
+    ``native=True`` takes the C++ parser and raises if its library does
+    not build; ``native=False`` takes the Python parser (the JAX
+    package's rule)."""
+    if native is not False and (native is True or _native_safe(text)):
+        lib = _obj_lib(required=native is True)
+        if lib is not None:
+            return _parse_obj_native(lib, text)
     return _parse_obj_py(text)
+
+
+def _obj_lib(required: bool):
+    """The native parser's library, configured for ctypes; None if it does
+    not build, unless ``required``."""
+    import ctypes
+
+    from ..ops._build import native_library
+    try:
+        lib = native_library("objparse")
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        if required:
+            raise
+        return None
+    pd = ctypes.POINTER(ctypes.c_double)
+    pl = ctypes.POINTER(ctypes.c_long)
+    lib.rt_parse_obj.restype = ctypes.c_int
+    lib.rt_parse_obj.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(pd),
+        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(pd),
+        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(pl),
+        ctypes.POINTER(pl), ctypes.POINTER(ctypes.c_long), ctypes.c_char_p,
+        ctypes.c_long]
+    lib.rt_obj_free.restype = None
+    lib.rt_obj_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _parse_obj_native(lib, text: str) -> Mesh:
+    """:func:`parse_obj` by the C++ parser ``lib``: the same arrays and
+    error messages as :func:`_parse_obj_py`."""
+    import ctypes
+    data = text.encode()
+    pd = ctypes.POINTER(ctypes.c_double)
+    pl = ctypes.POINTER(ctypes.c_long)
+    verts, uvs = pd(), pd()
+    faces, uv_faces = pl(), pl()
+    nv, nt, nf = (ctypes.c_long() for _ in range(3))
+    err = ctypes.create_string_buffer(256)
+    rc = lib.rt_parse_obj(data, len(data), ctypes.byref(verts),
+                          ctypes.byref(nv), ctypes.byref(uvs),
+                          ctypes.byref(nt), ctypes.byref(faces),
+                          ctypes.byref(uv_faces), ctypes.byref(nf), err,
+                          len(err))
+    if rc != 0:
+        raise ObjParseError(err.value.decode())
+    try:
+        v = np.ctypeslib.as_array(verts, (nv.value, 3)).copy()
+        u = np.ctypeslib.as_array(uvs, (nt.value, 2)).copy()
+        f = np.ctypeslib.as_array(faces, (nf.value, 3)).copy()
+        uf = np.ctypeslib.as_array(uv_faces, (nf.value, 3)).copy()
+    finally:
+        for p in (verts, uvs, faces, uv_faces):
+            lib.rt_obj_free(p)
+    return Mesh(vertices=v.reshape(-1, 3), uv=u.reshape(-1, 2),
+                faces=f.astype(np.int64).reshape(-1, 3),
+                uv_faces=uf.astype(np.int64).reshape(-1, 3))
 
 
 def _parse_obj_py(text: str) -> Mesh:

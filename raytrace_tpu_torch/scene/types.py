@@ -3,10 +3,10 @@
 
 One tagged row per primitive, an interned material table, an interned
 texture table, for scenes with constant-density media a separate table
-of the media's boundary rows (:class:`Volumes`), and for spheres under
-non-uniform scales a small buffer of ellipsoids (:class:`Ellipsoids`).
-The port compiles dense scenes only: the BVH mode of the JAX package
-raises at compile time (ROADMAP M8).
+of the media's boundary rows (:class:`Volumes`), for spheres under
+non-uniform scales a small buffer of ellipsoids (:class:`Ellipsoids`),
+and for scenes compiled in the BVH accelerator mode the threaded tree
+over the rows (:class:`BVH`).
 """
 from __future__ import annotations
 
@@ -51,6 +51,26 @@ class Primitives:
         return self.n
 
     def to(self, device) -> "Primitives":
+        return _tensors_to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class BVH:
+    """The BVH accelerator mode's flat threaded tree over the primitive
+    rows, in depth-first order (``scene/bvh.py:build_bvh``, the JAX
+    package's ``BVH``): a ray that hits node ``i``'s box goes on to ``i +
+    1`` (the first child), a ray that misses it, or has tested its leaf,
+    to ``skip[i]``; ``skip == n_nodes`` ends the walk.  A leaf holds the
+    ``count`` rows from ``start`` (the rows are in leaf order).  Static
+    data of the scene: gradients do not reach it."""
+    lo: torch.Tensor      # f32[K, 3]
+    hi: torch.Tensor      # f32[K, 3]
+    start: torch.Tensor   # i32[K] a leaf's first row
+    count: torch.Tensor   # i32[K] a leaf's rows; 0 for an interior node
+    skip: torch.Tensor    # i32[K] the escape index
+    n_nodes: int = 0
+
+    def to(self, device) -> "BVH":
         return _tensors_to(self, device)
 
 
@@ -107,6 +127,7 @@ class Scene:
     textures: TextureTable
     volumes: Volumes | None = None
     ellipsoids: Ellipsoids | None = None
+    bvh: BVH | None = None
 
     @property
     def device(self) -> torch.device:
@@ -118,4 +139,5 @@ class Scene:
                      None if self.volumes is None
                      else self.volumes.to(device),
                      None if self.ellipsoids is None
-                     else self.ellipsoids.to(device))
+                     else self.ellipsoids.to(device),
+                     None if self.bvh is None else self.bvh.to(device))

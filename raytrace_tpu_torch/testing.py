@@ -607,6 +607,74 @@ def bunny_standin_scene(width: int = 600, spp: int = 16, depth: int = 10,
     return scene, settings
 
 
+# bigmesh-512: tools/bench_bigmesh.py at --lat 512 --lon 512, 523,264
+# triangles (523,328 kind-segmented rows with the floor and the light);
+# its grad_render tile (2^16 pixels spread over the image x 4 samples)
+BIGMESH = dict(n_lat=512, n_lon=512)
+BIGMESH_GRAD = dict(pixels=1 << 16, samples=4)
+
+
+def bigmesh_mesh(rt, n_lat: int, n_lon: int):
+    """``tools/bench_bigmesh.py``'s mesh: ``uv_sphere(n_lat, n_lon)``
+    scaled by 1.5, no uv."""
+    v, f = uv_sphere(n_lat, n_lon)
+    return rt.Mesh(vertices=v * 1.5, uv=np.zeros((0, 2)), faces=f,
+                   uv_faces=np.full_like(f, -1))
+
+
+def bigmesh_world(rt, n_lat: int, n_lon: int, mesh=None):
+    """``tools/bench_bigmesh.py:build_scene``'s world: the mesh
+    (:func:`bigmesh_mesh`, or ``mesh``, e.g. read back from its .obj) in
+    a lambertian (0.7, 0.6, 0.5) on a grey floor parallelogram under an
+    8.0 light parallelogram.  ``rt`` is the builder module (this package
+    or the JAX one)."""
+    if mesh is None:
+        mesh = bigmesh_mesh(rt, n_lat, n_lon)
+    return rt.group([
+        rt.with_material(rt.lambertian(rt.constant_texture([0.7, 0.6, 0.5])),
+                         rt.triangle_mesh(mesh)),
+        rt.with_material(rt.lambertian(rt.constant_texture([0.5, 0.5, 0.5])),
+                         rt.parallelogram([-50, -1.51, -50], [100, 0, 0],
+                                          [0, 0, 100])),
+        rt.with_material(rt.light_source(rt.constant_texture(8.0)),
+                         rt.parallelogram([-3, 8, -3], [6, 0, 0],
+                                          [0, 0, 6])),
+    ])
+
+
+def bigmesh_settings(rt, width: int = 512, spp: int = 16, depth: int = 8):
+    """``tools/bench_bigmesh.py``'s camera: from (0, 1.5, -7) at the
+    origin, vfov 0.7, square, a constant 0.05 background."""
+    return rt.CameraSettings(
+        center=np.asarray([0.0, 1.5, -7.0]),
+        look_at=np.asarray([0.0, 0.0, 0.0]), vfov=0.7, aspect_ratio=1.0,
+        image_width=width, samples_per_pixel=spp, max_depth=depth,
+        background=rt.const_background(0.05))
+
+
+def bigmesh_scene(n_lat: int, n_lon: int, width: int = 512, spp: int = 16,
+                  depth: int = 8, mesh=None, device="cuda"):
+    """``(scene, settings)`` of :func:`bigmesh_world` and
+    :func:`bigmesh_settings` (at ``BIGMESH``: 523,264 triangles; past
+    65,536 surface rows the default ``accel`` gives the BVH mode on the
+    CPU and a kind-segmented table on the card)."""
+    import raytrace_tpu_torch as rt
+    return (rt.compile_scene(bigmesh_world(rt, n_lat, n_lon, mesh),
+                             device=device),
+            bigmesh_settings(rt, width, spp, depth))
+
+
+def mesh_obj_text(v, f) -> str:
+    """.obj text of the vertices ``v`` [V, 3] and triangles ``f`` [F, 3]
+    (0-based): ``v`` lines with 17 significant digits (so a parse gives
+    ``v`` back exactly), then 1-based ``f`` lines."""
+    import io
+    buf = io.StringIO()
+    np.savetxt(buf, np.asarray(v, np.float64), fmt="v %.17g %.17g %.17g")
+    np.savetxt(buf, np.asarray(f, np.int64) + 1, fmt="f %d %d %d")
+    return buf.getvalue()
+
+
 def bunny_tex_scene(width: int = 600, device="cuda"):
     """``(scene, settings)`` of ``tools/prof_bunny_tex.py`` with the
     stand-in mesh: its ``uniform(0.1, 0.9, (128, 256, 3))`` image (numpy
@@ -1588,7 +1656,7 @@ def next_split_rays(comps, out, seed: int, depth: int):
 
 
 @contextlib.contextmanager
-def checked_launches():
+def checked_launches(sample: int | None = None):
     """Inside the block, every kernel A launch of the render drivers,
     every nearest-hit (BVH walk and flat scan), medium crossing (K11,
     K11b, any mode: the keyed one's keys as exact rows), shade and marble
@@ -1600,7 +1668,10 @@ def checked_launches():
     (differing exact-row lanes, summed), ``err`` (max abs float error)
     and ``excess`` (worst tolerance excess; the atlas gradient's is
     :func:`image_grad_errs`', the candidate mode's its ulps over
-    :data:`CAND_ULPS`)."""
+    :data:`CAND_ULPS`).  With ``sample``, each launch of the BVH walk
+    (K9) is held on ``sample`` of its lanes spread evenly over them (its
+    plain version scans every row for every lane it is given: a table of
+    half a million rows would take it minutes over a whole launch)."""
     from .diff import fused_iter
     from .ops.allpairs_kernel import allpairs_nearest_plain
     from .ops.bounce_kernel import bounce_plain, shade_plain
@@ -1615,8 +1686,17 @@ def checked_launches():
     from .textures import textures
     stats = {}
 
+    def pick(n):
+        k = n if sample is None else min(sample, n)
+        return torch.arange(k, dtype=torch.int64) * n // k
+
     def nearest_plain(tbl, bvh, *rays, **kw):
-        return allpairs_nearest_plain(tbl, *rays, **kw)
+        lanes = pick(rays[0].shape[0]).to(rays[0].device)
+        return allpairs_nearest_plain(tbl, *(x[lanes] for x in rays), **kw)
+
+    def nearest_check(args, ref, out):
+        lanes = pick(args[2].shape[0]).to(args[2].device)
+        return max_errs(ref, tuple(x[lanes] for x in out), NEAREST_INT_ROWS)
 
     def crossings_bcast_plain(vtbl, forest, *rays, **kw):
         return volume_crossings_plain(vtbl, *rays, **kw)
@@ -1670,7 +1750,7 @@ def checked_launches():
     patched = [(integrator, "bounce_megakernel", bounce_plain,
                 rows(BOUNCE_INT_ROWS)),
                (integrator, "allpairs_nearest_record", nearest_plain,
-                rows(NEAREST_INT_ROWS)),
+                nearest_check),
                (integrator, "pallas_nearest_record", pallas_nearest_plain,
                 rows(NEAREST_INT_ROWS)),
                (integrator, "shade_megakernel", shade_plain,

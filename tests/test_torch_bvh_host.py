@@ -70,14 +70,15 @@ def host_nearest(tmp_path_factory):
         pytest.skip("needs a host C++ compiler")
     lib.run_nearest.argtypes = [ctypes.c_void_p]
 
-    def run(tb, rays):
+    def run(tb, rays, seen=None):
         r = rays.shape[1]
         rays = [x.contiguous() for x in rays.unbind(0)]
         outf = torch.empty((6, r))
         outi = torch.empty((3, r), dtype=torch.int32)
         visits = torch.empty((2, r), dtype=torch.int32)
         a = ak.nearest_args(tb.bvh, rays, outf, outi, visits,
-                            has_motion=tb.has_motion, t_min=tb.t_min)
+                            has_motion=tb.has_motion, t_min=tb.t_min,
+                            seen=seen)
         lib.run_nearest(ctypes.byref(a))
         out = (outf[0], outi[0], outf[1], outf[2], outf[3], outi[1], outf[4],
                outf[5], outi[2])
@@ -229,3 +230,25 @@ def test_hit_camera_rays_of_the_standin_visit_little(host_nearest):
     v = visits.float()
     assert float(v[0][hit].mean()) <= 45.0, float(v[0][hit].mean())
     assert float(v[1][hit].mean()) <= 10.0, float(v[1][hit].mean())
+
+
+def test_seen_marks_each_node_and_row_read(host_nearest):
+    """``seen`` marks the nodes and leaf rows the walk reads: a single
+    ray reads each at most once, so it marks ``visits / 2`` nodes (two
+    box tests a node) and ``visits`` rows; a batch marks the union of
+    its rays' marks."""
+    scene, s = bunny_standin_scene(96, 1, 10, device="cpu")
+    tb = split_tables(scene, s)
+    cam, _ = camera_rays(scene, s, 64, 5)    # columns 0 and 48
+    n = tb.bvh.n_nodes + tb.bvh.rows.shape[0]
+    union = torch.zeros(n, dtype=torch.uint8)
+    for i in range(cam.shape[1]):
+        seen = torch.zeros(n, dtype=torch.uint8)
+        _, visits = host_nearest(tb, cam[:, i:i + 1], seen)
+        nodes, rows = seen[:tb.bvh.n_nodes], seen[tb.bvh.n_nodes:]
+        assert int(nodes.sum()) * 2 == int(visits[0, 0]) and nodes[0] == 1
+        assert int(rows.sum()) == int(visits[1, 0])
+        union |= seen
+    seen = torch.zeros(n, dtype=torch.uint8)
+    host_nearest(tb, cam, seen)
+    assert torch.equal(seen, union) and int(union[tb.bvh.n_nodes:].sum()) > 20

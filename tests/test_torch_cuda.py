@@ -422,6 +422,43 @@ def test_bvh_walks_match_plain(device, case):
     assert frac < FRAC_LANES and mean_rel <= MEAN_RTOL
 
 
+@pytest.mark.parametrize("case", ["triangle_only", "general"])
+def test_k9_marks_the_nodes_and_rows_it_reads(device, case):
+    """K9's ``seen`` (what its bound counts): one ray marks ``visits / 2``
+    nodes and ``visits`` rows (it reads each once), a batch the union of
+    its rays' marks, and the outputs are those of a launch without it."""
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.render.integrator import split_tables
+    if case == "triangle_only":
+        scene, s = bunny_standin_scene(96, 1, 10, device=device)
+    else:
+        scene, s = mesh_all_kinds_scene(18, False, 64, device=device)
+    tb = split_tables(scene, s)
+    kw = dict(n_prims=tb.n_prims, t_min=tb.t_min, has_motion=tb.has_motion)
+    n_pix = s.image_width * s.image_height
+    pix = torch.arange(64) * (n_pix // 64) + s.image_width // 2
+    comps, _ = camera_rays(scene, s, 64, 5, pixels=pix)
+    n_nodes = tb.bvh.n_nodes
+    union = torch.zeros(n_nodes + tb.bvh.rows.shape[0], dtype=torch.uint8,
+                        device=device)
+    for i in range(comps.shape[1]):
+        seen = torch.zeros_like(union)
+        _, v = allpairs_nearest_record(
+            tb.ptbl, tb.bvh, *comps[:, i:i + 1].contiguous().unbind(0),
+            count_visits=True, seen=seen, **kw)
+        assert int(seen[:n_nodes].sum()) * 2 == int(v[0, 0])
+        assert int(seen[n_nodes:].sum()) == int(v[1, 0])
+        union |= seen
+    seen = torch.zeros_like(union)
+    rays = comps.unbind(0)
+    out, _ = allpairs_nearest_record(tb.ptbl, tb.bvh, *rays,
+                                     count_visits=True, seen=seen, **kw)
+    assert torch.equal(seen, union) and int(union[n_nodes:].sum()) > 20
+    for a, b in zip(out, allpairs_nearest_record(tb.ptbl, tb.bvh, *rays,
+                                                 **kw)):
+        assert torch.equal(a, b)
+
+
 def test_mesh_render_launches_split_kernels(device):
     """A stationary render of the stand-in runs the nearest and shade
     kernels once per iteration and never kernel A; at 1 spp every launch
@@ -956,3 +993,97 @@ def test_ellipsoids_and_demo2_render_and_differentiate(device):
         else:
             assert float(g.volumes.density[0]) != 0.0
             assert bool((g.textures.images != 0).any())
+
+
+def test_k9_past_the_cap_matches_plain(device):
+    """K9 over ``testing.bigmesh_world(rt, 184, 184)`` (67,392
+    kind-segmented rows, past the old 65,536 cap) against its plain
+    version on 4,096 camera rays and their second bounce: exact; the card
+    keeps ``accel="auto"`` dense at any size."""
+    from raytrace_tpu_torch.render.integrator import split_tables
+    from raytrace_tpu_torch.testing import bigmesh_scene
+    scene, s = bigmesh_scene(184, 184, 64, 1, 4, device=device)
+    assert scene.bvh is None and scene.prims.kind.shape[0] > 65536
+    tb = split_tables(scene, s)
+    comps, uni = camera_rays(scene, s, 4096, 21)
+    errs, out = compare_nearest(tb, comps)
+    assert errs[0] == 0 and errs[1] == 0.0, errs
+    assert int((out[1] >= 0).sum()) > 1000
+    hit = surface_points(tb, comps)[1]
+    alive = torch.ones(4096, dtype=torch.bool, device=device)
+    lanes = (*comps[0:6], *torch.ones((3, 4096), device=device),
+             alive.float())
+    from raytrace_tpu_torch.ops.bounce_kernel import shade_megakernel
+    sh = shade_megakernel(tb.mtbl, tb.ttbl, hit, None, lanes, uni,
+                          n_mats=tb.n_mats, n_targets=tb.n_targets,
+                          has_medium=False)
+    nxt, _, _, alive2 = next_split_rays(comps, sh, 22, 1)
+    nxt[0:3] = torch.where(alive2, nxt[0:3], 3e18)
+    errs2, _ = compare_nearest(tb, nxt.contiguous())
+    assert errs2[0] == 0 and errs2[1] == 0.0, errs2
+
+
+def test_bigmesh_route_matches_engine_report(device):
+    """A past-the-cap mesh renders through the sorted driver and the split
+    path (K9 and K10, no kernel A, B or K8), as ``engine_report`` says,
+    every checked launch exact (K9 on 4,096 lanes of each); its
+    ``grad_render`` through K9 gives finite gradients, non-zero for the
+    rows' edges and the albedo (the corners' is zero, in the JAX package
+    too: a lambertian hit's weight does not depend on the hit point)."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import grad_render
+    from raytrace_tpu_torch.ops.allpairs_kernel import allpairs_nearest_record
+    from raytrace_tpu_torch.testing import bigmesh_scene
+    from raytrace_tpu_torch.utils.engines import engine_report
+    scene, s = bigmesh_scene(184, 184, 128, 1, 8, device=device)
+    rep = engine_report(scene, s)
+    assert (rep["driver"], rep["forward"], rep["intersect"]) == (
+        "sorted", "split", "K9")
+    with checked_launches(sample=4096) as st:
+        img = rt.render(scene, s, seed=1)
+    assert bool(torch.isfinite(img).all())
+    for name in ("allpairs_nearest_record", "shade_megakernel"):
+        assert st[name]["launches"] > 0, name
+        assert st[name]["n_int"] == 0 and st[name]["err"] == 0.0, name
+    for name in ("bounce_megakernel", "pallas_nearest_record"):
+        assert st[name]["launches"] == 0, name
+    assert engine_report(scene, s, diff=True)["intersect"] == "K9"
+    n0 = allpairs_nearest_record.launches
+    pix = torch.arange(0, 16384, 4, dtype=torch.int32, device=device)
+    loss, g = grad_render(scene, s, rng.base_key(2, device), pix,
+                          torch.arange(1, dtype=torch.int32),
+                          torch.zeros((4096, 3), device=device))
+    assert allpairs_nearest_record.launches > n0
+    assert np.isfinite(float(loss))
+    assert bool(torch.isfinite(g.prims.p0).all())
+    for t in (g.prims.e1, g.prims.e2, g.textures.c0):
+        assert bool(torch.isfinite(t).all()) and bool((t != 0).any())
+
+
+def test_bvh_mode_scene_takes_k9_on_the_card(device):
+    """A scene compiled in the BVH accelerator mode on the CPU, moved to
+    the card, renders through the split path over K9 (its unsegmented
+    rows; no kernel A, B or K8), within ``tests/test_torch_render.py``'s
+    bound of the CPU render over the tree walk in torch."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.render.integrator import surface_engine
+    from raytrace_tpu_torch.testing import mesh_all_kinds_world
+    cpu = rt.compile_scene(mesh_all_kinds_world(rt, 18), accel="bvh",
+                           device="cpu")
+    card = cpu.to(device)
+    assert surface_engine(cpu) == "torch-bvh" and surface_engine(card) == "K9"
+    s = rt.CameraSettings(center=[0.0, 2.0, 8.0], look_at=[0.0, 0.0, 0.0],
+                          image_width=32, samples_per_pixel=2, max_depth=4,
+                          background=rt.sky)
+    with checked_launches() as st:
+        img = rt.render(card, s, seed=3).cpu().numpy()
+    assert st["allpairs_nearest_record"]["launches"] > 0
+    assert st["allpairs_nearest_record"]["n_int"] == 0
+    for name in ("bounce_megakernel", "pallas_nearest_record",
+                 "iter_megakernel"):
+        assert st[name]["launches"] == 0, name
+    ref = rt.render(cpu, s, seed=3).numpy()
+    diff = np.abs(img - ref).max(axis=-1)
+    assert (diff > 1e-5).mean() < 0.05 and np.median(diff) <= 1e-6
+    np.testing.assert_allclose(img.mean(), ref.mean(), rtol=2e-3)

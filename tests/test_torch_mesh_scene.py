@@ -153,7 +153,7 @@ def test_parse_obj_errors_match_jax(text):
 
 def test_read_obj_and_native_parser(tmp_path):
     """``read_obj`` parses a file and prefixes errors with its path; the
-    native parser is not ported and raises, naming its ROADMAP item."""
+    native parser (``native=True``) gives the Python parser's mesh."""
     path = tmp_path / "tri.obj"
     path.write_text(_OBJ_TEXTS[2])
     mesh = tobj.read_obj(str(path))
@@ -162,8 +162,11 @@ def test_read_obj_and_native_parser(tmp_path):
     bad.write_text(_BAD_TEXTS[0])
     with pytest.raises(tobj.ObjParseError, match=str(bad)):
         tobj.read_obj(str(bad))
-    with pytest.raises(NotImplementedError, match="M8"):
-        tobj.parse_obj(_OBJ_TEXTS[0], native=True)
+    for text in _OBJ_TEXTS:
+        a = tobj.parse_obj(text, native=True)
+        b = tobj.parse_obj(text, native=False)
+        for name in ("vertices", "uv", "faces", "uv_faces"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     scene = trt.compile_scene(trt.with_material(
         trt.lambertian(trt.constant_texture(0.5)),
         trt.triangle_mesh(tobj.parse_obj(_OBJ_TEXTS[3]))), device="cpu")

@@ -191,19 +191,21 @@ def test_scan_bound_and_eligibility(pair):
 
 
 def test_unported_features_raise():
-    """The native .obj parser and the BVH accelerator wait for their
-    ROADMAP items, and the fused differentiable step refuses media (as the
-    JAX package's does: their gradients take the generic differentiable
-    bounce); lights with rich textures render through the generic bounce;
-    stationary renders of 8192 rows and more take the sorted driver
-    (``tests/test_torch_sorted.py``) instead of raising."""
+    """The fused differentiable step refuses media (as the JAX package's
+    does: their gradients take the generic differentiable bounce); the
+    native .obj parser and the BVH accelerator mode, which raised until
+    they were ported, now work (``tests/test_torch_obj_native.py``,
+    ``tests/test_torch_bvh_mode.py``); lights with rich textures render
+    through the generic bounce; stationary renders of 8192 rows and more
+    take the sorted driver (``tests/test_torch_sorted.py``) instead of
+    raising."""
     from raytrace_tpu_torch.core import rng
     from raytrace_tpu_torch.diff.fused_iter import fused_iter_step
     from raytrace_tpu_torch.render.render import uses_sorted
     from raytrace_tpu_torch.scene.obj import parse_obj
     from raytrace_tpu_torch.testing import uv_sphere
-    with pytest.raises(NotImplementedError, match="M8"):
-        parse_obj("v 0 0 0\n", native=True)
+    assert parse_obj("v 0 0 0\n", native=True).vertices.tolist() == [
+        [0.0, 0.0, 0.0]]
     v, f = uv_sphere(47, 90)
     big = trt.compile_scene(trt.with_material(
         trt.lambertian(trt.constant_texture(0.5)),
@@ -218,10 +220,11 @@ def test_unported_features_raise():
         fused_iter_step(fog, trt.CameraSettings(image_width=8,
                                                 samples_per_pixel=1),
                         rng.base_key(0), 1, 0)
-    with pytest.raises(NotImplementedError, match="M8"):
-        trt.compile_scene(trt.with_material(
-            trt.lambertian(trt.constant_texture(0.5)),
-            trt.sphere([0, 0, 0], 1)), accel="bvh", device="cpu")
+    bvh_scene = trt.compile_scene(trt.with_material(
+        trt.lambertian(trt.constant_texture(0.5)),
+        trt.sphere([0, 0, 0], 1)), accel="bvh", device="cpu")
+    assert bvh_scene.bvh is not None and bvh_scene.bvh.n_nodes == 1
+    assert bvh_scene.prims.kind_segments is None
     world = trt.with_material(
         trt.light_source(trt.marble_texture([0, 0, 1], 2.0)),
         trt.sphere([0, 0, -2], 1))

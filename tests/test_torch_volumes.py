@@ -134,7 +134,7 @@ def test_compile_rules():
                                             trt.constant_medium(
                                                 1.0, trt.group([]))),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
+    with pytest.raises(ValueError, match="malformed bvh"):
         scene_from_numpy(dict(scene_to_numpy(jrt.compile_scene(
             media_only_world(jrt))), bvh=object()), device="cpu")
 
