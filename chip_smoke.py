@@ -5,7 +5,10 @@ Stanford bunny's size, on rich-textured scenes, on scenes with
 constant-density media, on ellipsoids, on demo2 (the reference's
 "everything at once" scene) and on a 523,264-triangle mesh loaded from an
 .obj file, and the bounded-depth ``grad_render``; and which engine serves
-each route (``engine_report``).
+each route (``engine_report``); the scene drivers and the parity script
+(``raytrace_tpu_torch/scenes``); and the sharded render and train step at
+one rank over NCCL and over two processes on the one card
+(``raytrace_tpu_torch/parallel``).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -335,7 +338,38 @@ demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
 50. ``utils/engines.py:engine_report`` at the settings of every route the
     smoke drives, held against the launch counters and the driver of a
     run that takes the same route (a smaller one whose report is the
-    route's, or phases 48 and 49's runs).
+    route's, or phases 48 and 49's runs);
+51. the scene drivers of the reference's scenes that phases 1-50 do not
+    render (``raytrace_tpu_torch/scenes``: cornell_box, quad_test,
+    metal_test, readme_example, lommel_seeliger_test, sphere_uv_test,
+    demo1), each through its
+    ``build`` at its own width and depth with the samples cut
+    (``SCENE_SPP``): wall, primary rays/s, launches (kernel A; K8 for
+    sphere_uv_test's one-lane queue, the generic bounce), PNGs in
+    chiprun_out/; then a checked render of each at 1 spp
+    (``SCENE_CHECKED_WIDTH``: the work queue on kernel A), every launch
+    exact;
+52. ``scenes/parity.py`` at the reference's configurations of cornell_box
+    (600 px, 200 spp, depth 50, redirection) and readme_example (600 px,
+    50 spp): each mean brightness within 1% of the reference's mean that
+    PARITY.md records, and the PNG verdict (``NO_REFERENCE`` without the
+    reference's PNGs);
+53. ``parallel/`` at one rank over NCCL (``multihost.initialize`` with
+    explicit arguments): ``sharded_wavefront_render_fn`` on Cornell 600 x
+    600, 64 spp, depth 50, bit-equal to ``render_accumulate``;
+    ``sharded_render_fn`` on 2^16 pixels x 8 samples, bit-equal to
+    ``render_tile``; ``sharded_train_step_fn`` with Adam, 5 steps of
+    bench.py's fwd+bwd (2^18 lanes x 64 spp, 205 iterations, no schedule)
+    toward a target rendered with the red wall's albedo moved by 0.2: the
+    loss falling, the albedo moving, launches of B and K5 (per lane 0),
+    peak memory; ``entry.dryrun_multichip(1)``;
+54. two processes on cuda:0 over gloo (``python -m
+    raytrace_tpu_torch.parallel.worker``; NCCL refuses two ranks on one
+    device): ``multihost.render`` of Cornell 128 x 128, 16 spp, bit-equal
+    to the same two pixel blocks rendered in this process and within atol
+    2e-5, rtol 1e-5 of one rank's image, and one train step's loss and
+    every gradient leaf within ``GRAD_RTOL`` of one rank's; each worker's
+    failure or the phase's time limit fails it.
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
@@ -1138,9 +1172,12 @@ def main() -> None:
     generic = _generic_phases(smi, phase_done, dev)
     m11 = _m11_phases(smi, phase_done, dev)
     big = _bigmesh_phases(smi, phase_done, dev)
+    scenes = _scene_phases(smi, phase_done, dev)
+    par = _parallel_phases(smi, phase_done, dev)
     turns["route8"] = unfused.pop("turns")
-    main_a += unfused["a_launches"]
-    main_b += rich["iter_launches"]
+    main_a += unfused["a_launches"] + scenes["a_launches"] \
+        + par["a_launches"]
+    main_b += rich["iter_launches"] + par["b_launches"]
     mesh["kernels"][0]["launches"] += (media["k9_launches"]
                                        + generic["k9_launches"]
                                        + m11["k9_launches"]
@@ -1153,12 +1190,14 @@ def main() -> None:
                                        + media["shade_launches"]
                                        + unfused["shade_launches"]
                                        + m11["k10_launches"]
-                                       + big["k10_launches"])
+                                       + big["k10_launches"]
+                                       + scenes["k10_launches"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
     rich["kernels"][0]["launches"] += (media["k8_launches"]
                                        + unfused["k8_launches"]
                                        + generic["k8_launches"]
-                                       + m11["k8_launches"])
+                                       + m11["k8_launches"]
+                                       + scenes["k8_launches"])
     rich["kernels"][1]["launches"] += (generic["k12_launches"]
                                        + m11["k12_launches"])
     rich["kernels"][2]["launches"] += m11["k13_launches"]
@@ -1175,6 +1214,8 @@ def main() -> None:
                       "unfused": unfused["summary"],
                       "generic": generic["summary"],
                       "m11": m11["summary"], "bigmesh": big["summary"],
+                      "scenes": scenes["summary"],
+                      "parallel": par["summary"],
                       "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
@@ -1198,7 +1239,8 @@ def main() -> None:
          "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
          "replaces":
              "raytrace_tpu/ops/pallas/bounce_bwd_gather_kernel.py:497",
-         "launches": fb_k5 + mesh["k5_launches"] + rich["k5_launches"],
+         "launches": fb_k5 + mesh["k5_launches"] + rich["k5_launches"]
+         + par["k5_launches"],
          "max_abs_err": err_k5, "ms": ms_k5, "host_ms": host_k5,
          "plain_ms": plain_k5, "bound_ms": bound_k5[0],
          "bound_by": bound_k5[1], "library_ms": no_lib,
@@ -4270,6 +4312,8 @@ def _route_reports(smi, dev, reset, read, measured: dict) -> dict:
     smaller run that the report says takes the same route (the report of
     the small run must equal the route's), or the run of ``measured``
     (``{label: (scene, settings, diff, rotate_k, launches)}``)."""
+    import importlib
+    import types
     import torch
     from raytrace_tpu_torch.core import rng
     from raytrace_tpu_torch.diff.gradients import (
@@ -4315,6 +4359,15 @@ def _route_reports(smi, dev, reset, read, measured: dict) -> dict:
     marble, s_ml = marble_light_scene(400, 16, 50, device=dev)
     ell, s_e = ellipsoid_scene(600, 16, 50, device=dev)
     demo2, s_d = demo2_scene(device=dev)
+    new_scenes = {}
+    for name in ("demo1", "metal_test", "sphere_uv_test"):
+        mod = importlib.import_module(f"raytrace_tpu_torch.scenes.{name}")
+        w, spp, depth = mod.DEFAULTS
+        new_scenes[name] = mod.build(types.SimpleNamespace(
+            width=w, spp=spp, depth=depth, device=dev))[:2]
+    demo1, s_d1 = new_scenes["demo1"]
+    metal, s_mt = new_scenes["metal_test"]
+    uv, s_uv = new_scenes["sphere_uv_test"]
     # (label, scene, the route's settings, diff, rotate_k, the small
     # run's settings, the small run)
     routes = [
@@ -4351,6 +4404,11 @@ def _route_reports(smi, dev, reset, read, measured: dict) -> dict:
          s_d.replace(image_width=128, samples_per_pixel=2), None),
         ("demo2 grad_render", demo2, s_d, True, 1, None, gr(demo2, s_d,
                                                            1 << 10)),
+        ("demo1 forward", demo1, s_d1, False, 1,
+         s_d1.replace(image_width=224, samples_per_pixel=2), None),
+        ("metal_test forward", metal, s_mt, False, 1,
+         s_mt.replace(image_width=224, samples_per_pixel=2), None),
+        ("sphere_uv_test forward", uv, s_uv, False, 1, s_uv, None),
     ]
     out = {}
     with _driver_spies() as calls:
@@ -4390,6 +4448,433 @@ def _route_reports(smi, dev, reset, read, measured: dict) -> dict:
         if bad:
             raise AssertionError(f"engine_report disagrees on {label}")
     return out
+
+
+# phase 51's scenes: the seven drivers phases 1-50 do not render, each at
+# its own width and depth with samples per pixel cut so that a render
+# takes a few seconds (their own: cornell_box 200, quad_test and
+# metal_test 100, readme_example 50, lommel_seeliger_test 500,
+# sphere_uv_test 1, demo1 500)
+SCENE_SPP = dict(cornell_box=64, quad_test=100, metal_test=100,
+                 readme_example=50, lommel_seeliger_test=100,
+                 sphere_uv_test=1, demo1=16)
+# widths of phase 51's checked renders at 1 spp: pixel counts under the
+# stationary driver's 16,384 and multiples of 128, so the work queue
+# drives them on kernel A as the main renders do (16:9 at 128 px: 9,216
+# pixels; 1:1 at 112 px: 12,544)
+SCENE_CHECKED_WIDTH = dict(cornell_box=112, quad_test=112, metal_test=128,
+                           readme_example=128, lommel_seeliger_test=112,
+                           sphere_uv_test=1, demo1=128)
+# the mean brightness of phase 52's renders against PARITY.md's recorded
+# reference means (scenes/parity.py: within 1% for the pixel scenes)
+PARITY_CASES = ("cornell_box", "readme_example")
+# phase 53's sizes: the sharded render's tile, the train step's Adam
+# steps and learning rate, the red albedo's offset; phase 54's image,
+# its lanes of the train step, and the workers' time limit
+SHARDED_TILE = dict(pixels=1 << 16, samples=8)
+TRAIN = dict(steps=5, lr=0.02, offset=0.2)
+TWO_RANKS = dict(width=128, spp=16, depth=50, train_lanes=1 << 14,
+                 timeout_s=300)
+
+
+def _launch_counters():
+    """``(reset, read)``: set every kernel's launch counter to 0; read
+    them as ``{name: launches}`` (``_route_counters``' names)."""
+    counters = _route_counters()
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {k: c.launches for k, c in counters.items()}
+    return reset, read
+
+
+def _scene_phases(smi, phase_done, dev) -> dict:
+    """Phases 51-52: the scene drivers and the parity script."""
+    import importlib
+    import types
+    import torch
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.render.integrator import LANE_ALIGN
+    from raytrace_tpu_torch.render.render import (
+        _stationary_fn, forward_driver, rotate_k_for, row_bands,
+    )
+    from raytrace_tpu_torch.scenes import parity
+    from raytrace_tpu_torch.testing import checked_launches
+    from raytrace_tpu_torch.utils.engines import engine_report
+    reset, read = _launch_counters()
+
+    def nonzero(got):
+        return {k: v for k, v in got.items() if v}
+
+    # 51. each new driver's build at its own width and depth: wall, rays/s,
+    # launches, PNG; then a checked render of each at <= 160 px, 1 spp,
+    # and demo1's first band at its own size
+    runs = {}
+    for name, spp in SCENE_SPP.items():
+        mod = importlib.import_module(f"raytrace_tpu_torch.scenes.{name}")
+        width, _, depth = mod.DEFAULTS
+        scene, s, seed = mod.build(types.SimpleNamespace(
+            width=width, spp=spp, depth=depth, device=dev))
+        rep = engine_report(scene, s)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        img = rt.render(scene, s, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        writer = (rt.write_image if getattr(mod, "WRITER", "sqrt") == "linear"
+                  else rt.write_image_sqrt)
+        writer(os.path.join(OUT_DIR, f"{name}.png"), img)
+        n_rays = s.image_width * s.image_height * spp
+        finite = bool(torch.isfinite(img).all())
+        # sphere_uv_test's one pixel is a one-lane work queue, not a
+        # multiple of 128: the generic bounce, its surface hit through K8
+        want = ({"K8"} if name == "sphere_uv_test" else {"A"})
+        ok = finite and set(nonzero(got)) == want
+        runs[name] = dict(width=s.image_width, height=s.image_height, spp=spp,
+                          depth=depth, wall_s=wall,
+                          primary_rays_per_s=n_rays / wall, launches=got,
+                          rows=int(scene.prims.kind.shape[0]),
+                          mean=float(img.mean()), report=rep)
+        print(f"[51 scene] {name} {s.image_width} x {s.image_height}, {spp} "
+              f"spp, depth {depth}, {runs[name]['rows']} rows: wall "
+              f"{wall:.3f} s, {n_rays / wall / 1e6:.3f} M primary rays/s, "
+              f"launches {nonzero(got)}, image mean {float(img.mean()):.5f},"
+              f" report {rep} [{smi}]", flush=True)
+        if not ok:
+            raise AssertionError(f"scene {name}: non-finite image or wrong "
+                                 "kernels")
+    phase_done("scenes")
+
+    checked = {}
+    for name in SCENE_SPP:
+        mod = importlib.import_module(f"raytrace_tpu_torch.scenes.{name}")
+        width, _, depth = mod.DEFAULTS
+        scene, s, seed = mod.build(types.SimpleNamespace(
+            width=SCENE_CHECKED_WIDTH[name], spp=1, depth=depth, device=dev))
+        with checked_launches() as stats:
+            rt.render(scene, s, seed=seed)
+            torch.cuda.synchronize()
+        ran = {k: dict(launches=v["launches"], n_int=v["n_int"],
+                       err=v["err"])
+               for k, v in stats.items() if v["launches"]}
+        bad = {k: v for k, v in ran.items() if v["n_int"] or v["err"]}
+        want = ({"pallas_nearest_record"} if name == "sphere_uv_test"
+                else {"bounce_megakernel"})
+        checked[name] = ran
+        print(f"[51 checked] {name} {s.image_width} x {s.image_height}, 1 "
+              f"spp: " + ", ".join(
+                  f"{k} {v['launches']} launches, {v['n_int']} lanes "
+                  f"differing, max |err| {v['err']:.3g}"
+                  for k, v in ran.items()), flush=True)
+        if bad or set(ran) != want:
+            raise AssertionError(f"scene {name}: a kernel disagrees with its "
+                                 "plain version, or another kernel ran")
+
+    # demo1 at its main path's launch shape: the first row band of its
+    # 1200 x 675 render (render_accumulate's bands) through the stationary
+    # driver, rotated as the main path is (2 spp, the fewest that rotate:
+    # unrotated it fuses into kernel B), at its own depth 50: kernel A's
+    # general instantiation over all 512 rows, every launch checked
+    mod = importlib.import_module("raytrace_tpu_torch.scenes.demo1")
+    width, _, depth = mod.DEFAULTS
+    scene, s, seed = mod.build(types.SimpleNamespace(
+        width=width, spp=2, depth=depth, device=dev))
+    off, bp = row_bands(s.image_height, s.image_width)[0]
+    if forward_driver(scene, bp) != "stationary":
+        raise AssertionError("demo1's band does not take the stationary "
+                             "driver")
+    t0 = time.perf_counter()
+    with checked_launches() as stats:
+        _stationary_fn(scene, s, rng.base_key(seed, dev), bp, 2, 0,
+                       rotate_k_for(2), off)
+        torch.cuda.synchronize()
+    ran = {k: dict(launches=v["launches"], n_int=v["n_int"], err=v["err"])
+           for k, v in stats.items() if v["launches"]}
+    checked["demo1_band"] = dict(pixels=bp, lanes=-(-bp // LANE_ALIGN)
+                                 * LANE_ALIGN, depth=depth,
+                                 wall_s=time.perf_counter() - t0, **ran)
+    print(f"[51 checked] demo1 band 0 of {s.image_width} x "
+          f"{s.image_height}: {bp} pixels, "
+          f"{checked['demo1_band']['lanes']} lanes, 2 spp, depth {depth}: "
+          + ", ".join(f"{k} {v['launches']} launches, {v['n_int']} lanes "
+                      f"differing, max |err| {v['err']:.3g}"
+                      for k, v in ran.items())
+          + f" ({checked['demo1_band']['wall_s']:.1f} s with the plain "
+          "version)", flush=True)
+    if (set(ran) != {"bounce_megakernel"}
+            or any(v["n_int"] or v["err"] for v in ran.values())):
+        raise AssertionError("demo1's band: kernel A disagrees with its "
+                             "plain version, or another kernel ran")
+    phase_done("scenes checked")
+
+    # 52. parity at the reference's configurations: the recorded
+    # brightness within 1%; the PNG comparison without reference PNGs
+    results = []
+    par_launches = {}
+    for name in PARITY_CASES:
+        reset()
+        rec = parity.run_case(name, OUT_DIR, device="cuda")
+        torch.cuda.synchronize()
+        par_launches[name] = read()
+        results.append(rec)
+        print(f"[52 parity] {name} {' '.join(rec['flags'])}: wall "
+              f"{rec['seconds']:.3f} s, "
+              f"{rec['primary_rays_per_s'] / 1e6:.3f} M primary rays/s, mean "
+              f"brightness {rec['mean_ours']:.5f} against the reference's "
+              f"{rec['mean_ref_recorded']} (rel "
+              f"{rec['brightness_rel_diff']:.5f}, bound "
+              f"{parity.BRIGHTNESS_RTOL[rec['mode']]}), launches "
+              f"{nonzero(par_launches[name])} [{smi}]", flush=True)
+        if not rec["brightness_ok"]:
+            raise AssertionError(f"parity {name}: brightness out of bound")
+    verdict = parity.verdicts(results)
+    print(f"[52 parity] verdict {json.dumps(verdict)}", flush=True)
+    if "FAIL" in (verdict["parity"], verdict["brightness"]):
+        raise AssertionError("parity failed")
+    phase_done("parity")
+
+    launches = [r["launches"] for r in runs.values()] + list(
+        par_launches.values())
+    return dict(summary=dict(scenes=runs, parity=results, verdict=verdict,
+                             checked=checked),
+                a_launches=sum(x["A"] for x in launches),
+                k8_launches=sum(x["K8"] for x in launches),
+                k10_launches=sum(x["K10"] for x in launches))
+
+
+def _parallel_phases(smi, phase_done, dev) -> dict:
+    """Phases 53-54: M13 at one rank over NCCL, then two processes on the
+    one card over gloo."""
+    import sys
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import leaves, render_tile
+    from raytrace_tpu_torch.entry import dryrun_multichip
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_megakernel, bounce_bwd_regen_pre_reduced,
+    )
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.parallel import multihost, worker
+    from raytrace_tpu_torch.parallel.sharding import (
+        Mesh, make_mesh, sharded_render_fn, sharded_train_step_fn,
+        sharded_wavefront_render_fn,
+    )
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import (
+        FWD_BWD, cornell_scene_and_settings, free_port, fwd_bwd_pixels,
+    )
+    reset, launches = _launch_counters()
+
+    def read():
+        return {k: v for k, v in launches().items() if v}
+
+    out = {}
+    # 53. one rank over NCCL: the backend of the multi-GPU path
+    multihost.initialize(f"localhost:{free_port()}", 1, 0)
+    backend = dist.get_backend()
+    mesh = make_mesh()
+    cornell, s_c = cornell_scene_and_settings(600, FWD_SPP, 50, device=dev)
+    n_pix = s_c.image_width * s_c.image_height
+    seed = 5
+    fn = sharded_wavefront_render_fn(mesh, n_pix, FWD_SPP)
+    fn(cornell, s_c, rng.base_key(seed, dev))            # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    acc = fn(cornell, s_c, rng.base_key(seed, dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    l_wave = read()
+    ref, _ = render_accumulate(cornell, s_c, seed=seed, spp=FWD_SPP)
+    equal = bool(torch.equal(acc[:n_pix], ref))
+    out["wavefront"] = dict(wall_s=wall, backend=backend,
+                            primary_rays_per_s=n_pix * FWD_SPP / wall,
+                            launches=l_wave, equal=equal,
+                            padding_rows=int(acc.shape[0] - n_pix))
+    print(f"[53 sharded wavefront] {backend}, mesh {mesh.shape}, cornell "
+          f"{s_c.image_width} x {s_c.image_height}, {FWD_SPP} spp, depth "
+          f"{s_c.max_depth}: wall {wall:.3f} s, "
+          f"{n_pix * FWD_SPP / wall / 1e6:.3f} M primary rays/s, launches "
+          f"{l_wave}; sums equal to render_accumulate's bit for bit: {equal}"
+          f" [{smi}]", flush=True)
+    if not equal or backend != "nccl":
+        raise AssertionError("sharded wavefront at one rank")
+
+    n_t, n_s = SHARDED_TILE["pixels"], SHARDED_TILE["samples"]
+    pix = (torch.arange(n_t) * n_pix // n_t).to(torch.int32)
+    smp = torch.arange(n_s, dtype=torch.int32)
+    key = rng.base_key(seed, dev)
+    t0 = time.perf_counter()
+    tile = sharded_render_fn(mesh)(cornell, s_c, key, pix, smp)
+    torch.cuda.synchronize()
+    wall_t = time.perf_counter() - t0
+    tile_ref = render_tile(cornell, s_c, key, pix, smp)
+    tile_eq = bool(torch.equal(tile, tile_ref))
+    out["tile"] = dict(wall_s=wall_t, equal=tile_eq)
+    print(f"[53 sharded render_tile] {n_t} pixels x {n_s} samples, depth "
+          f"{s_c.max_depth}: wall {wall_t:.3f} s; equal to render_tile bit "
+          f"for bit: "
+          f"{tile_eq}", flush=True)
+    if not tile_eq:
+        raise AssertionError("sharded render_tile at one rank")
+
+    # the train step: bench.py's fwd+bwd (2^18 lanes x 64 spp, 205
+    # iterations, no schedule) with Adam, from the scene toward a target
+    # rendered with the red wall's albedo moved by TRAIN["offset"]
+    s_fb = s_c.replace(rr_depth=FWD_BWD["rr_depth"])
+    n_l = FWD_BWD["lanes"]
+    pix_fb = fwd_bwd_pixels(n_pix, n_l).to(dev)
+    tex = cornell.textures
+    red = int(torch.argmax(tex.c0[:, 0] - tex.c0[:, 1]))
+    c0 = tex.c0.clone()
+    c0[red] += TRAIN["offset"]
+    moved = dataclasses.replace(cornell, textures=dataclasses.replace(
+        tex, c0=c0))
+    with torch.no_grad():
+        target, _ = trace_wavefront_diff(moved, s_fb, key, pix_fb,
+                                         FWD_BWD["spp"],
+                                         n_iters=FWD_BWD["n_iters"])
+    step = sharded_train_step_fn(
+        mesh, s_fb, spp=FWD_BWD["spp"], n_iters=FWD_BWD["n_iters"],
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=TRAIN["lr"]))
+    sc, state = cornell, step.init(cornell)
+    losses, dists, walls = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iter_megakernel.launches = 0
+    bounce_bwd_regen_pre_reduced.launches = 0
+    bounce_bwd_regen_pre_megakernel.launches = 0
+    for _ in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        loss, sc, state = step.with_state(sc, state, key, pix_fb, None,
+                                          target)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        dists.append(float((sc.textures.c0[red] - c0[red]).abs().sum()))
+    l_b = iter_megakernel.launches
+    l_k5 = bounce_bwd_regen_pre_reduced.launches
+    l_k5_lane = bounce_bwd_regen_pre_megakernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    d0 = float((cornell.textures.c0[red] - c0[red]).abs().sum())
+    out["train"] = dict(losses=losses, albedo_dist=[d0] + dists,
+                        walls_s=walls, launches_iter=l_b, launches_bwd=l_k5,
+                        launches_bwd_per_lane=l_k5_lane, peak_bytes=peak,
+                        primary_rays_per_s=n_l * FWD_BWD["spp"] / min(walls))
+    print(f"[53 sharded train step] Adam lr {TRAIN['lr']}, {TRAIN['steps']} "
+          f"steps of {n_l} lanes x {FWD_BWD['spp']} spp, "
+          f"{FWD_BWD['n_iters']} iterations, no schedule: losses "
+          f"{[round(x, 6) for x in losses]}, |red albedo - target's| "
+          f"{[round(x, 4) for x in [d0] + dists]}, walls "
+          f"{[round(x, 3) for x in walls]} s (best "
+          f"{out['train']['primary_rays_per_s'] / 1e6:.3f} M primary rays/s)"
+          f", launches B={l_b} K5 reduced={l_k5} K5 per lane={l_k5_lane}, "
+          f"peak {peak / 2**30:.3f} GiB [{smi}]", flush=True)
+    n_expect = TRAIN["steps"] * FWD_BWD["n_iters"]
+    if (not np.isfinite(losses).all() or not losses[-1] < losses[0]
+            or not dists[-1] < d0 or l_b != n_expect or l_k5 != n_expect
+            or l_k5_lane):
+        raise AssertionError("sharded train step: no descent or wrong "
+                             "launches")
+    loss_d, delta = dryrun_multichip(1, device=dev)
+    out["dryrun"] = dict(loss=loss_d, param_delta=delta)
+    dist.destroy_process_group()
+    phase_done("M13 at one rank (NCCL)")
+
+    # 54. two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    # device): the gathered image and one train step's loss and gradients
+    tr = TWO_RANKS
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        npz = os.path.join(tmp, "two.npz")
+        port = free_port()
+        cmds = [[sys.executable, "-m", "raytrace_tpu_torch.parallel.worker",
+                 "--pid", str(pid), "--nproc", "2", "--port", str(port),
+                 "--backend", "gloo", "--scene", "cornell", "--width",
+                 str(tr["width"]), "--spp", str(tr["spp"]), "--depth",
+                 str(tr["depth"]), "--train",
+                 "--train-lanes", str(tr["train_lanes"])]
+                + (["--out", npz] if pid == 0 else []) for pid in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, cwd=HERE, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(
+                    timeout=max(1.0, tr["timeout_s"] - (time.perf_counter()
+                                                        - t0)))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall2 = time.perf_counter() - t0
+        for pid, (p, log) in enumerate(zip(procs, logs)):
+            print(f"[54 worker {pid}] exit {p.returncode}: "
+                  f"{log.strip()[-1500:]}", flush=True)
+        if any(p.returncode for p in procs):
+            raise AssertionError("two processes over gloo: a worker failed")
+        got = dict(np.load(npz))
+    scene, s = cornell_scene_and_settings(tr["width"], tr["spp"],
+                                          tr["depth"], device=dev)
+    n2 = s.image_width * s.image_height
+    key2 = rng.base_key(worker.SEED, dev)
+    # each rank's block rendered in this process (a mesh of two ranks
+    # without a process group gathers nothing): bit for bit, the blocks
+    # being disjoint and gathered; the whole image at one rank: within
+    # atol 2e-5, rtol 1e-5 (the rotation's lane maps follow the block's
+    # lane count, so the samples of a pixel are summed in another order)
+    blocks = [sharded_wavefront_render_fn(Mesh(2, 1, r), n2, tr["spp"])(
+        scene, s, key2) for r in range(2)]
+    same_blocks = (torch.cat(blocks)[:n2] / tr["spp"]).cpu().numpy(
+    ).reshape(got["image"].shape)
+    one = multihost.render(scene, s, seed=worker.SEED)
+    bit_equal = bool(np.array_equal(got["image"], same_blocks))
+    close = bool(np.allclose(got["image"], one, atol=2e-5, rtol=1e-5))
+    n_diff = int((got["image"] != one).any(-1).sum())
+    step1 = sharded_train_step_fn(make_mesh(), s)
+    lanes = (torch.arange(tr["train_lanes"]) % n2).to(torch.int32)
+    loss1, grads1 = step1.loss_and_grads(
+        scene, key2, lanes, torch.arange(tr["spp"]),
+        torch.zeros((tr["train_lanes"], 3)))
+    g1 = {k: v.cpu().numpy() for k, v in leaves(grads1).items()}
+    loss_rel = abs(float(got["loss"]) - float(loss1)) / abs(float(loss1))
+    worst = max(float(np.abs(got[f"grad/{k}"] - v).max())
+                / max(float(np.abs(v).max()), 1e-30) for k, v in g1.items())
+    out["two_ranks"] = dict(wall_s=wall2, image_bit_equal=bit_equal,
+                            image_close_to_one_rank=close,
+                            pixels_differing_from_one_rank=n_diff,
+                            loss=float(got["loss"]),
+                            loss_one_rank=float(loss1),
+                            loss_rel=loss_rel, grad_worst=worst)
+    print(f"[54 two processes, gloo on cuda:0] cornell {s.image_width} x "
+          f"{s.image_height}, {tr['spp']} spp, depth {tr['depth']}: wall "
+          f"{wall2:.1f} s (two process starts included); image equal bit for "
+          f"bit to the same two blocks in one process: {bit_equal}; to the "
+          f"one-rank image within atol 2e-5, rtol 1e-5: {close} "
+          f"({n_diff} of {n2} pixels not bit-equal); train step over "
+          f"{tr['train_lanes']} lanes: loss {float(got['loss']):.6f} against"
+          f" {float(loss1):.6f} at one rank (rel {loss_rel:.3g}), worst leaf "
+          f"max|diff|/max|one rank| {worst:.3g} (bound {GRAD_RTOL}) "
+          f"[{smi}]", flush=True)
+    if not (bit_equal and close and loss_rel <= GRAD_RTOL
+            and worst <= GRAD_RTOL):
+        raise AssertionError("two processes over gloo disagree with one")
+    phase_done("two processes (gloo)")
+    return dict(summary=out,
+                a_launches=l_wave.get("A", 0),
+                b_launches=l_b, k5_launches=l_k5)
 
 
 if __name__ == "__main__":

@@ -26,9 +26,13 @@ above 512 rows, up to 8192) and whose backward runs kernel K5
 rich textures are multiplied in after each step in differentiable torch,
 the image atlas's gradient through ``csrc/image_grad_kernel.cu``.
 ``utils`` holds ``engine_report`` (which kernels each route runs),
-``RenderStats`` and the render checkpoints.  On CPU tensors each kernel runs its plain PyTorch version; the entry
-points put scenes on the card unless given ``device="cpu"``.  The
-package imports torch and numpy, never JAX.
+``RenderStats`` and the render checkpoints; ``scenes`` the reference's
+scene drivers and the parity script; ``parallel`` the render and the
+train step over several GPUs and processes (``torch.distributed``);
+``entry`` the driver entry points.  On CPU tensors each kernel runs its
+plain PyTorch version; the entry points put scenes on the card unless
+given ``device="cpu"``.  The package imports torch and numpy, never
+JAX.
 """
 from .core.vecmath import degrees
 from .materials.materials import (
@@ -44,6 +48,7 @@ from .scene.builder import (
     transform, translate, triangle, triangle_mesh, with_material,
 )
 from .scene.compile import compile_scene
+from .scene.obj import parse_obj, read_obj
 from .textures.textures import (
     checker_texture, constant_texture, custom_texture, image_texture,
     marble_texture, noise_texture, solid_texture, uv_texture,

@@ -74,7 +74,14 @@ kind-segmented rows) its forward at the tool's settings (``bigmesh_fwd``:
 K9 and the shade kernel, with ``pack_bvh`` in every call) and
 ``grad_render`` over 2^16 pixels spread evenly over the image x 4 samples
 (``bigmesh_grad``: ``testing.BIGMESH_GRAD``, the generic differentiable
-bounce over K9, each bounce checkpointed), it
+bounce over K9, each bounce checkpointed), and for demo1
+(``scenes/demo1.py``: 512 sphere rows, kernel A's general scan) its
+forward at the reference's 1200 x 675, depth 50, seed 1234 and
+``DEMO1_SPP`` spp (``demo1_fwd``), and the sharded train step at one rank
+(``sharded_trainstep``: ``parallel/sharding.py:sharded_train_step_fn``
+without a process group, Adam at lr 0.02, ``testing.FWD_BWD``'s lanes,
+spp and iterations without its schedule: kernel B forward, K5 backward,
+the update of every float leaf), it
 
 1. runs it ``REPS`` times in one process and prints every wall time
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
@@ -121,6 +128,9 @@ OUT_DIR = Path(__file__).resolve().parent.parent / "chiprun_out"
 REPS = 4            # unprofiled runs per estimator
 # samples per pixel of pawn_fwd (scenes/pawn_test.py renders 400)
 PAWN_SPP = 400
+# samples per pixel of demo1_fwd (scenes/demo1.py renders 500: 47 s a
+# run on an H100 80GB HBM3 at 700 W, PERF.md section 6)
+DEMO1_SPP = 64
 
 
 def _device_ops(prof):
@@ -738,6 +748,25 @@ def main() -> None:
                 k12_call()
         return run_kernels
 
+    def demo1_fwd():
+        from types import SimpleNamespace
+        from .scenes import demo1
+        sc, settings, seed = demo1.build(SimpleNamespace(
+            width=1200, spp=DEMO1_SPP, depth=50, device=dev))
+        return fwd(sc, settings, DEMO1_SPP, seed=seed)
+
+    def sharded_trainstep():
+        from .parallel.sharding import make_mesh, sharded_train_step_fn
+        step = sharded_train_step_fn(
+            make_mesh(), s.replace(rr_depth=FWD_BWD["rr_depth"]),
+            spp=FWD_BWD["spp"], n_iters=FWD_BWD["n_iters"],
+            optimizer=lambda ps: torch.optim.Adam(ps, lr=0.02))
+        pix = fwd_bwd_pixels(n_pix, FWD_BWD["lanes"]).to(dev)
+        target = torch.zeros((FWD_BWD["lanes"], 3), device=dev)
+        state = step.init(scene)
+        return lambda: step.with_state(scene, state, rng.base_key(0, dev),
+                                       pix, None, target)
+
     report = {"device": smi, "estimators": {}}
     for name, fn, rays in (
             ("exact", fwd(scene, s, 200), n_pix * 200),
@@ -780,7 +809,10 @@ def main() -> None:
             ("bigmesh_fwd", lambda: render_accumulate(*bigmesh(), seed=0),
              512 * 512 * 16),
             ("bigmesh_grad", bigmesh_grad,
-             BIGMESH_GRAD["pixels"] * BIGMESH_GRAD["samples"])):
+             BIGMESH_GRAD["pixels"] * BIGMESH_GRAD["samples"]),
+            ("demo1_fwd", demo1_fwd(), 1200 * 675 * DEMO1_SPP),
+            ("sharded_trainstep", sharded_trainstep(),
+             FWD_BWD["lanes"] * FWD_BWD["spp"])):
         if only and name not in only:
             continue
         walls = []

@@ -71,6 +71,14 @@ def default_spp_chunk(driver: str, spp: int, n_pix: int,
     return max(1, min(spp, -(-32 * n_lanes // max(n_pix, 1))))
 
 
+def queue_lanes(n_pix: int, n_s: int, n_lanes: int = 1 << 17) -> int:
+    """The lane pool of :func:`render_accumulate`'s work-queue launch of
+    ``n_s`` samples over ``n_pix`` pixels: its paths, up to ``n_lanes``
+    (as the JAX package's; a pool that is not a multiple of 128 lanes
+    takes the generic bounce)."""
+    return min(n_lanes, n_pix * n_s)
+
+
 def forward_route(scene: Scene, settings: CameraSettings,
                   n_pix: int | None = None, spp: int | None = None,
                   n_lanes: int = 1 << 17) -> tuple[str, bool]:
@@ -103,6 +111,16 @@ def _stationary_fn(scene: Scene, settings: CameraSettings, key, n_pix: int,
         rotate_k=rotate_k, pixel_offset=pixel_offset)
 
 
+def row_bands(h: int, w: int, max_band: int = 1 << 19) -> list:
+    """``[(pixel offset, pixels)]``: the equal-row bands (but possibly the
+    last) that bound a stationary render's lane state, for images over
+    ``max_band`` pixels; one band otherwise."""
+    n_bands = -(-(h * w) // max_band) if h * w > max_band >= w else 1
+    band_rows = -(-h // n_bands)
+    return [(r0 * w, min(band_rows, h - r0) * w)
+            for r0 in range(0, h, band_rows)]
+
+
 def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
                       *, spp: int | None = None, n_lanes: int = 1 << 17,
                       spp_chunk: int | None = None, acc=None,
@@ -122,19 +140,7 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
     acc = (torch.zeros((n_pix, 3), dtype=DTYPE, device=dev) if acc is None
            else acc.clone())
 
-    # equal-row bands (but possibly the last) bound the lane state
-    if n_pix > max_band >= w:
-        n_bands = -(-n_pix // max_band)
-        band_rows = -(-h // n_bands)
-    else:
-        band_rows = h
-    bands = []
-    r0 = 0
-    while r0 < h:
-        rows = min(band_rows, h - r0)
-        bands.append((r0 * w, rows * w))
-        r0 += rows
-
+    bands = row_bands(h, w, max_band)
     driver = forward_driver(scene, bands[0][1])
     stationary = driver != "queue"
     if spp_chunk is None:
@@ -151,7 +157,7 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
                     scene, settings, key, bp, n_s, s0, rot, off)
         else:
             acc = trace_wavefront(scene, settings, key, n_pix, n_s,
-                                  min(n_lanes, n_pix * n_s), acc,
+                                  queue_lanes(n_pix, n_s, n_lanes), acc,
                                   sample_offset=s0)
         done += n_s
         if progress:

@@ -1,6 +1,11 @@
 """Scenes, lane states and kernel-versus-plain comparisons shared by
 ``chip_smoke.py`` and the tests.
 
+The world and settings builders of the scene drivers
+(``raytrace_tpu_torch/scenes/``: ``cornell_box``, ``noise_test``,
+``cuboid_test``, ``demo2``, ``cornell_smoke``, ``pawn_test``'s camera,
+``_assets.earthmap``) are re-exported here under the names below.
+
 * :func:`cornell_scene_and_settings` (over :func:`cornell_world` and
   :func:`cornell_settings`) and :func:`all_materials_scene` build, with
   the port's own builder, the Cornell box of
@@ -44,6 +49,12 @@
   :func:`fwd_bwd_pixels` its lanes; :data:`MESH_FWD_BWD` the mesh
   configuration of ``tools/prof_bunny_grad.py``;
   :data:`IMAGE_GRAD_FWD_BWD` that of ``tools/prof_texture_grad.py``.
+* Several processes: :func:`run_ranks` runs a function on spawned ranks
+  joined in one gloo group (a ``file://`` rendezvous, a time limit that
+  kills them); :func:`sharded_forward_cases` is what each rank of the
+  sharding tests renders (:func:`sharding_world`, ``tests/
+  test_sharding.py``'s scene, and :func:`many_spheres_world`);
+  :func:`free_port` a localhost port for a TCP rendezvous.
 * :func:`bounce_inputs`, :func:`primary_bounce_inputs`,
   :func:`next_bounce_inputs`, :func:`iter_state` and :func:`fresh_carry`
   make lane inputs for the kernels: random ones from a numpy seed, or the
@@ -97,6 +108,32 @@ import dataclasses
 import numpy as np
 import torch
 
+from .scenes import (
+    _assets, bunny_test, cornell_box, cornell_smoke, cuboid_test, demo2,
+    noise_test, pawn_test,
+)
+
+# the world and settings builders of the scene drivers, under the names
+# the smoke and the tests use
+cornell_world = cornell_box.world
+noise_test_world = noise_test.world
+noise_test_settings = noise_test.settings
+noise_test_scene = noise_test.scene
+earthmap = _assets.earthmap
+cuboid_test_world = cuboid_test.world
+demo2_world = demo2.world
+demo2_settings = demo2.settings
+demo2_scene = demo2.scene
+DEMO2_LIGHT = demo2.LIGHT
+DEMO2_SEED = demo2.SEED
+cornell_smoke_world = cornell_smoke.world
+cornell_smoke_settings = cornell_smoke.settings
+cornell_smoke_scene = cornell_smoke.scene
+pawn_standin_settings = pawn_test.settings
+# demo2's fwd+bwd: grad_render over 2^16 pixels spread evenly over the
+# image x 4 samples at the scene's depth 4
+DEMO2_GRAD = dict(pixels=1 << 16, samples=4)
+
 # kernel vs plain: the tolerance of tests/test_bounce_kernel.py
 ATOL, RTOL = 2e-3, 1e-3
 # the crossing kernels' candidate mode against its plain version on the
@@ -147,58 +184,17 @@ PAWN_FWD_BWD = dict(rr_depth=2, lanes=1 << 17, spp=4, n_iters=60,
 SMOKE_GRAD_RENDER = dict(pixels=1 << 16, samples=4)
 
 
-def cornell_world(rt):
-    """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``:
-    6 walls + 2 rotated boxes (18 parallelograms).  ``rt`` is the builder
-    module (this package or the JAX one)."""
-    degrees = rt.degrees
-    red = rt.lambertian(rt.constant_texture([0.65, 0.05, 0.05]))
-    white = rt.lambertian(rt.constant_texture([0.73, 0.73, 0.73]))
-    green = rt.lambertian(rt.constant_texture([0.12, 0.45, 0.15]))
-    light = rt.light_source(rt.constant_texture([15.0, 15.0, 15.0]))
-    return rt.group([
-        rt.with_material(green, rt.parallelogram([555, 0, 0], [0, 555, 0],
-                                                 [0, 0, 555])),
-        rt.with_material(red, rt.parallelogram([0, 0, 0], [0, 555, 0],
-                                               [0, 0, 555])),
-        rt.with_material(light, rt.parallelogram([343, 554, 332],
-                                                 [-130, 0, 0], [0, 0, -105])),
-        rt.with_material(white, rt.parallelogram([0, 0, 0], [555, 0, 0],
-                                                 [0, 0, 555])),
-        rt.with_material(white, rt.parallelogram([555, 555, 555],
-                                                 [-555, 0, 0], [0, 0, -555])),
-        rt.with_material(white, rt.parallelogram([0, 0, 555], [555, 0, 0],
-                                                 [0, 555, 0])),
-        rt.transform(rt.compose(rt.translate([265, 0, 295]),
-                                rt.rotate_y(degrees(15))),
-                     rt.with_material(white, rt.cuboid([0, 0, 0],
-                                                       [165, 330, 165]))),
-        rt.transform(rt.compose(rt.translate([130, 0, 65]),
-                                rt.rotate_y(degrees(-18))),
-                     rt.with_material(white, rt.cuboid([0, 0, 0],
-                                                       [165, 165, 165]))),
-    ])
-
-
 def cornell_settings(rt, width=16, spp=4, depth=6):
-    """The Cornell box's camera: one MIS redirect target on the light,
-    black background."""
-    return rt.CameraSettings(
-        center=np.asarray([278.0, 278.0, -800.0]),
-        look_at=np.asarray([278.0, 278.0, 0.0]),
-        vfov=rt.degrees(40), aspect_ratio=1.0, image_width=width,
-        samples_per_pixel=spp, max_depth=depth,
-        background=rt.const_background(0.0),
-    ).with_redirect_targets([(0.25, [343, 554, 332], [-130, 0, 0],
-                              [0, 0, -105])])
+    """The Cornell box's camera (:func:`.scenes.cornell_box.settings`)
+    at the small defaults of the tests: one MIS redirect target on the
+    light, black background."""
+    return cornell_box.settings(rt, width, spp, depth)
 
 
 def cornell_scene_and_settings(width=16, spp=4, depth=6, device="cuda"):
-    """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``,
-    built with the port (:func:`cornell_world`, :func:`cornell_settings`)."""
-    import raytrace_tpu_torch as rt
-    return (rt.compile_scene(cornell_world(rt), device=device),
-            cornell_settings(rt, width, spp, depth))
+    """The Cornell box of ``__graft_entry__._cornell_scene_and_settings``
+    (:func:`.scenes.cornell_box.scene` at the tests' small defaults)."""
+    return cornell_box.scene(width, spp, depth, device)
 
 
 def all_materials_scene(device="cuda"):
@@ -272,35 +268,6 @@ def box_motion_scene(device="cuda"):
 IMAGE_GRAD_FWD_BWD = dict(lanes=1 << 17, spp=16, n_iters=80)
 
 
-def noise_test_world(rt):
-    """``scenes/noise_test.py``'s world: a fractal-noise ground sphere
-    (2 octaves) and a marble ball.  ``rt`` is the builder module (this
-    package or the JAX one)."""
-    ground = rt.lambertian(rt.noise_texture(2, 2.0, [10, 0, 0], 0.0, 1.0))
-    ball = rt.lambertian(rt.marble_texture([0, 0, 1], 4.0))
-    return rt.group([rt.with_material(ground, rt.sphere([0, -1000, 0], 1000)),
-                     rt.with_material(ball, rt.sphere([0, 2, 0], 2))])
-
-
-def noise_test_settings(rt, width: int = 400, spp: int = 100,
-                        depth: int = 50):
-    """``scenes/noise_test.py``'s camera: 16:9, vfov 20 degrees from
-    (13, 2, 3) to the origin, under the sky."""
-    return rt.CameraSettings(
-        aspect_ratio=16 / 9, image_width=width, samples_per_pixel=spp,
-        max_depth=depth, background=rt.sky, vfov=rt.degrees(20),
-        center=[13.0, 2.0, 3.0], look_at=[0.0, 0.0, 0.0])
-
-
-def noise_test_scene(width: int = 400, spp: int = 100, depth: int = 50,
-                     device="cuda"):
-    """``(scene, settings)`` of ``scenes/noise_test.py`` (rendered there at
-    400 px wide, 100 spp, depth 50, seed 0): 2 rows, a flat scan."""
-    import raytrace_tpu_torch as rt
-    return (rt.compile_scene(noise_test_world(rt), device=device),
-            noise_test_settings(rt, width, spp, depth))
-
-
 def image_grad_world(rt):
     """``tools/prof_texture_grad.py``'s textured world: a sphere with a
     128 x 256 linspace image, a gray ground sphere and a light."""
@@ -324,112 +291,6 @@ def image_grad_scene(width: int = 512, device="cuda"):
         image_width=width, aspect_ratio=1.0, samples_per_pixel=16,
         max_depth=8, rr_depth=2, background=rt.const_background(0.1))
     return scene, settings
-
-
-def earthmap():
-    """The procedural earth of ``scenes/_assets.py:earthmap`` (its
-    fallback when the reference image is absent): [256, 512, 3], blue with
-    lighter land blobs."""
-    h, w = 256, 512
-    v, u = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
-                       indexing="ij")
-    land = (np.sin(u * 14) * np.cos(v * 9) > 0.3).astype(float)
-    return np.stack([0.1 + 0.4 * land, 0.2 + 0.5 * land, 0.6 - 0.4 * land],
-                    axis=-1)
-
-
-def cuboid_test_world(rt):
-    """``scenes/cuboid_test.py``'s world: an earth-textured cuboid, rotated
-    60 degrees about x and moved to z = -3."""
-    globe = rt.lambertian(rt.image_texture(earthmap()))
-    return rt.transform(
-        rt.compose(rt.translate([0, 0, -3]), rt.rotate_x(np.pi / 3)),
-        rt.with_material(globe, rt.cuboid([-1, -2, -0.5], [1, 2, 0.5])))
-
-
-def demo2_world(rt):
-    """``scenes/demo2.py``'s world (reference ``test/Main.hs:259-321``), its
-    draws made in the same order from ``np.random.default_rng(1234)``: 400
-    ground cuboids of random heights, a cloud of 1,000 white spheres
-    rotated 15 degrees about y, a light with a redirect target, a moving
-    sphere, two glass spheres (one the boundary of a blue subsurface
-    medium), a metal sphere, the earth (:func:`earthmap`) on a sphere
-    rotated a quarter turn about y (its uv in object space), a marble
-    sphere, and a thin fog of radius 5,000 around everything.  ``rt`` is
-    the builder module (this package or the JAX one)."""
-    ground = rt.lambertian(rt.constant_texture([0.48, 0.83, 0.53]))
-    white = rt.lambertian(rt.constant_texture([0.73, 0.73, 0.73]))
-    rg = np.random.default_rng(1234)
-    i, j = np.meshgrid(np.arange(20), np.arange(20), indexing="ij")
-    x0 = (-1000 + i * 100).ravel()
-    z0 = (-1000 + j * 100).ravel()
-    y1 = rg.uniform(1, 101, 400)
-    c0 = np.stack([x0, np.zeros(400), z0], -1)
-    c1 = np.stack([x0 + 100, y1, z0 + 100], -1)
-    boxes = rt.with_material(ground, rt.cuboids(c0, c1))
-    centers = rg.uniform(0, 165, (1000, 3))
-    balls = rt.transform(
-        rt.compose(rt.translate([-100, 270, 395]),
-                   rt.rotate_y(rt.degrees(15))),
-        rt.with_material(white, rt.spheres(centers, np.full(1000, 10.0))))
-    light_q = DEMO2_LIGHT
-    return rt.group([
-        boxes, balls,
-        rt.with_material(rt.light_source(rt.constant_texture([7.0, 7.0,
-                                                              7.0])),
-                         rt.parallelogram(*light_q)),
-        rt.with_material(rt.lambertian(rt.constant_texture([0.7, 0.3, 0.1])),
-                         rt.moving([0, 0, 0], [30, 0, 0],
-                                   rt.sphere([400, 400, 200], 50))),
-        rt.with_material(rt.dielectric(1.5), rt.sphere([260, 150, 45], 50)),
-        rt.with_material(rt.dielectric(1.5), rt.sphere([360, 150, 145], 70)),
-        rt.with_material(rt.metal(1.0, rt.constant_texture([0.8, 0.8, 0.9])),
-                         rt.sphere([0, 150, 145], 50)),
-        rt.transform(
-            rt.compose(rt.translate([400, 0, 400]), rt.rotate_y(np.pi / 2)),
-            rt.with_material(rt.lambertian(rt.image_texture(earthmap())),
-                             rt.sphere([0, 200, 0], 100))),
-        rt.with_material(rt.lambertian(rt.marble_texture([0, 0, 0.05], 4.0)),
-                         rt.sphere([220, 280, 300], 80)),
-        rt.with_material(rt.isotropic(rt.constant_texture(1.0)),
-                         rt.constant_medium(0.0001,
-                                            rt.sphere([0, 0, 0], 5000))),
-        rt.with_material(rt.isotropic(rt.constant_texture([0.2, 0.4, 0.9])),
-                         rt.constant_medium(0.2,
-                                            rt.sphere([360, 150, 145], 70))),
-    ])
-
-
-# demo2's light: corner and edges (the redirect target's too)
-DEMO2_LIGHT = ([123, 554, 147], [300, 0, 0], [0, 0, 265])
-# demo2's render seed (scenes/demo2.py)
-DEMO2_SEED = 1234
-# demo2's fwd+bwd: grad_render over 2^16 pixels spread evenly over the
-# image x 4 samples at the scene's depth 4
-DEMO2_GRAD = dict(pixels=1 << 16, samples=4)
-
-
-def demo2_settings(rt, width: int = 400, spp: int = 250, depth: int = 4):
-    """``scenes/demo2.py``'s camera (rendered there at 400 x 400, 250 spp,
-    depth 4): black background, one redirect target on the light."""
-    return rt.CameraSettings(
-        center=np.asarray([478.0, 278.0, -600.0]),
-        look_at=np.asarray([278.0, 278.0, 0.0]),
-        vfov=rt.degrees(40), aspect_ratio=1.0, image_width=width,
-        samples_per_pixel=spp, max_depth=depth,
-        background=rt.const_background(0.0),
-    ).with_redirect_targets([(0.25,) + DEMO2_LIGHT])
-
-
-def demo2_scene(width: int = 400, spp: int = 250, depth: int = 4,
-                device="cuda"):
-    """``(scene, settings)`` of demo2: 1,407 surface rows (1,006 spheres,
-    400 boxes, the light) in 1,536 kind-segmented rows (the BVH walk K9),
-    two sphere-bounded media (K11), the earth's image and the marble
-    sphere's stripes (K12), one rotated uv-textured sphere."""
-    import raytrace_tpu_torch as rt
-    return (rt.compile_scene(demo2_world(rt), device=device),
-            demo2_settings(rt, width, spp, depth))
 
 
 def scale3(sx: float, sy: float, sz: float) -> np.ndarray:
@@ -600,11 +461,8 @@ def bunny_standin_scene(width: int = 600, spp: int = 16, depth: int = 10,
     camera of ``scenes/bunny_test.py`` (center (0, 0.5, 2), looking at the
     origin, gray fade, depth 10)."""
     import raytrace_tpu_torch as rt
-    scene = rt.compile_scene(bunny_standin_world(rt), device=device)
-    settings = rt.CameraSettings(
-        center=[0.0, 0.5, 2.0], look_at=[0.0, 0.0, 0.0], image_width=width,
-        samples_per_pixel=spp, max_depth=depth, background=rt.gray_fade)
-    return scene, settings
+    return (rt.compile_scene(bunny_standin_world(rt), device=device),
+            bunny_test.settings(rt, width, spp, depth))
 
 
 # bigmesh-512: tools/bench_bigmesh.py at --lat 512 --lon 512, 523,264
@@ -750,67 +608,6 @@ def mesh_all_kinds_scene(n_grid: int = 18, moving: bool = False,
     return scene, settings
 
 
-def cornell_smoke_world(rt):
-    """``scenes/cornell_smoke.py``'s world: the Cornell box's six walls
-    (a larger, dimmer light) and, in place of its two boxes, a black
-    smoke block and a white fog block of density 0.01 (each rotated box
-    lowers to six parallelograms).  ``rt`` is the builder module (this
-    package or the JAX one)."""
-    red = rt.lambertian(rt.constant_texture([0.65, 0.05, 0.05]))
-    white = rt.lambertian(rt.constant_texture([0.73, 0.73, 0.73]))
-    green = rt.lambertian(rt.constant_texture([0.12, 0.45, 0.15]))
-    light = rt.light_source(rt.constant_texture([7.0, 7.0, 7.0]))
-    surfaces = [
-        rt.with_material(green, rt.parallelogram([555, 0, 0], [0, 555, 0],
-                                                 [0, 0, 555])),
-        rt.with_material(red, rt.parallelogram([0, 0, 0], [0, 555, 0],
-                                               [0, 0, 555])),
-        rt.with_material(light, rt.parallelogram([113, 554, 127],
-                                                 [330, 0, 0], [0, 0, 305])),
-        rt.with_material(white, rt.parallelogram([0, 0, 0], [555, 0, 0],
-                                                 [0, 0, 555])),
-        rt.with_material(white, rt.parallelogram([555, 555, 555],
-                                                 [-555, 0, 0], [0, 0, -555])),
-        rt.with_material(white, rt.parallelogram([0, 0, 555], [555, 0, 0],
-                                                 [0, 555, 0])),
-    ]
-    cube1 = rt.transform(
-        rt.compose(rt.translate([265, 0, 295]), rt.rotate_y(rt.degrees(15))),
-        rt.cuboid([0, 0, 0], [165, 330, 165]))
-    cube2 = rt.transform(
-        rt.compose(rt.translate([130, 0, 65]), rt.rotate_y(rt.degrees(-18))),
-        rt.cuboid([0, 0, 0], [165, 165, 165]))
-    return rt.group(surfaces + [
-        rt.with_material(rt.pitch_black(), rt.constant_medium(0.01, cube1)),
-        rt.with_material(rt.isotropic(rt.constant_texture(1.0)),
-                         rt.constant_medium(0.01, cube2)),
-    ])
-
-
-def cornell_smoke_settings(rt, width: int = 600, spp: int = 200,
-                           depth: int = 50):
-    """``scenes/cornell_smoke.py``'s camera: the Cornell view, black
-    background, one redirect target on the light."""
-    return rt.CameraSettings(
-        aspect_ratio=1.0, image_width=width, samples_per_pixel=spp,
-        max_depth=depth, background=rt.const_background(0.0),
-        vfov=rt.degrees(40), center=np.asarray([278.0, 278.0, -800.0]),
-        look_at=np.asarray([278.0, 278.0, 0.0]),
-    ).with_redirect_targets([(0.25, [113, 554, 127], [330, 0, 0],
-                              [0, 0, 305])])
-
-
-def cornell_smoke_scene(width: int = 600, spp: int = 200, depth: int = 50,
-                        device="cuda"):
-    """``(scene, settings)`` of ``scenes/cornell_smoke.py`` (rendered there
-    at 600 x 600, 200 spp, depth 50, seed 0): 6 surface rows (a flat
-    scan) and two media of 6 boundary rows each (kernel K11)."""
-    import raytrace_tpu_torch as rt
-    return (rt.compile_scene(cornell_smoke_world(rt), device=device),
-            cornell_smoke_settings(rt, width, spp, depth))
-
-
-
 def nine_target_settings(rt, width: int = 600, spp: int = 200,
                          depth: int = 50):
     """cornell_smoke's camera with nine redirect targets, the 3 x 3 cells
@@ -950,17 +747,6 @@ def pawn_standin_world(rt):
         rt.with_material(rt.isotropic(rt.constant_texture([1.0, 0.0, 0.0])),
                          rt.constant_medium(5.0, rt.triangle_mesh(mesh))),
     ])
-
-
-def pawn_standin_settings(rt, width: int = 500, spp: int = 400,
-                          depth: int = 20):
-    """``scenes/pawn_test.py``'s camera: from (0, 3.75, 5) to (0, 2.75,
-    0), vfov 80 degrees, gray fade."""
-    return rt.CameraSettings(
-        center=np.asarray([0.0, 3.75, 5.0]),
-        look_at=np.asarray([0.0, 2.75, 0.0]), image_width=width,
-        vfov=rt.degrees(80), samples_per_pixel=spp, max_depth=depth,
-        background=rt.gray_fade)
 
 
 def pawn_standin_scene(width: int = 500, spp: int = 400, depth: int = 20,
@@ -2336,3 +2122,158 @@ def host_library(cu_name: str, runner: str, out_dir):
                     str(out / f"{stem}.cpp")], check=True,
                    capture_output=True)
     return ctypes.CDLL(str(out / f"{stem}.so"))
+
+
+# the multi-process tests: each rank's torch threads, and the seconds a
+# spawned group may take before its ranks are killed and the test fails
+RANK_THREADS = 1
+RANK_TIMEOUT_S = 240.0
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(fn, rank: int, world: int, init_file: str, out: str):
+    """One spawned rank: join the gloo group over ``file://init_file``,
+    save ``fn()`` to ``out``."""
+    import torch.distributed as dist
+    torch.set_num_threads(RANK_THREADS)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        torch.save(fn(), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_dir) -> list:
+    """``fn()`` on ``world`` spawned processes joined in one gloo group (a
+    ``file://`` rendezvous in ``tmp_dir``: no port to collide), each with
+    :data:`RANK_THREADS` torch threads; returns every rank's result.
+    Past :data:`RANK_TIMEOUT_S` every rank is killed and it raises, as it
+    does if a rank fails.  ``fn`` must be importable by name."""
+    import multiprocessing
+    import os
+    import time
+    ctx = multiprocessing.get_context("spawn")
+    init = os.path.join(str(tmp_dir), "pg")
+    outs = [os.path.join(str(tmp_dir), f"rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, init, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    if hung:
+        raise TimeoutError(f"ranks {hung} of {world} still running after "
+                           f"{RANK_TIMEOUT_S} s: killed")
+    failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
+    if failed:
+        raise RuntimeError(f"ranks failed (rank, exit code): {failed}")
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def sharding_world(rt):
+    """The scene of ``tests/test_sharding.py``: a lambertian sphere under
+    a large light."""
+    return rt.group([
+        rt.with_material(rt.lambertian(rt.constant_texture([0.6, 0.3, 0.2])),
+                         rt.sphere([0, 0, -3], 1.0)),
+        rt.with_material(rt.light_source(rt.constant_texture(3.0)),
+                         rt.parallelogram([-5, 4, -5], [10, 0, 0],
+                                          [0, 0, 10])),
+    ])
+
+
+def sharding_settings(rt, width: int = 24):
+    """``tests/test_sharding.py``'s camera at ``width`` x ``width``: 8
+    spp, depth 4, background 0.3."""
+    return rt.CameraSettings(image_width=width, samples_per_pixel=8,
+                             max_depth=4,
+                             background=rt.const_background(0.3))
+
+
+def many_spheres_world(rt):
+    """``tests/test_sharding.py``'s stand-in of a mesh-scale scene: 15
+    spheres of graded albedo under a light."""
+    objs = [rt.with_material(
+        rt.lambertian(rt.constant_texture([0.5 + 0.02 * i, 0.3, 0.2])),
+        rt.sphere([(i % 5) - 2.0, (i // 5) - 1.0, -4.0], 0.35))
+        for i in range(15)]
+    objs.append(rt.with_material(
+        rt.light_source(rt.constant_texture(3.0)),
+        rt.parallelogram([-5, 4, -5], [10, 0, 0], [0, 0, 10])))
+    return rt.group(objs)
+
+
+# the sharded forward checks: the seeds of the tile render, of the
+# pixel-stationary wavefront and of the sorted one, and their spp
+SHARDED = dict(tile_seed=0, wave_seed=7, sorted_seed=11, wave_spp=4)
+
+
+def sharded_forward_cases() -> dict:
+    """On every rank of the current process group (or the one process):
+    the sharded forward renders of :func:`sharding_world` at 24 x 24 on
+    the CPU, as numpy.  ``tile`` (``sharded_render_fn`` on the default
+    mesh, every pixel x 8 samples; the mesh's shape ``mesh_shape``) and
+    ``tile sp=<k>`` on the other mesh shapes; ``wavefront``
+    (``sharded_wavefront_render_fn``, 4 spp, the image's 576 pixels);
+    ``sorted`` (the same on :func:`many_spheres_world` with the sorted
+    driver's threshold lowered to 8 rows) and ``sorted_calls`` (how often
+    that driver ran here)."""
+    import raytrace_tpu_torch as rt
+    import torch.distributed as dist
+    from .core import rng
+    from .parallel.sharding import (
+        make_mesh, sharded_render_fn, sharded_wavefront_render_fn,
+    )
+    from .render import render as render_mod
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    scene = rt.compile_scene(sharding_world(rt), device="cpu")
+    s = sharding_settings(rt)
+    n_pix = s.image_width * s.image_height
+    pix = torch.arange(n_pix, dtype=torch.int32)
+    smp = torch.arange(s.samples_per_pixel, dtype=torch.int32)
+    key = rng.base_key(SHARDED["tile_seed"])
+    mesh = make_mesh()
+    out = {"tile": sharded_render_fn(mesh)(scene, s, key, pix, smp).numpy(),
+           "mesh_shape": mesh.shape}
+    for sp in sorted({1, world} - {mesh.sp}):
+        out[f"tile sp={sp}"] = sharded_render_fn(make_mesh(sp=sp))(
+            scene, s, key, pix, smp).numpy()
+    spp = SHARDED["wave_spp"]
+    out["wavefront"] = sharded_wavefront_render_fn(mesh, n_pix, spp)(
+        scene, s, rng.base_key(SHARDED["wave_seed"]))[:n_pix].numpy()
+    many = rt.compile_scene(many_spheres_world(rt), device="cpu")
+    calls = []
+    real_min, real_sorted = (render_mod.SORT_MIN_PRIMS,
+                             render_mod.trace_wavefront_sorted)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real_sorted(*a, **k)
+
+    render_mod.SORT_MIN_PRIMS = 8
+    render_mod.trace_wavefront_sorted = spy
+    try:
+        out["sorted"] = sharded_wavefront_render_fn(mesh, n_pix, spp)(
+            many, s, rng.base_key(SHARDED["sorted_seed"]))[:n_pix].numpy()
+    finally:
+        render_mod.SORT_MIN_PRIMS = real_min
+        render_mod.trace_wavefront_sorted = real_sorted
+    out["sorted_calls"] = len(calls)
+    return out

@@ -36,17 +36,20 @@ def engine_report(scene, s, *, n_pix: int | None = None,
     * ``volumes``: ``K11`` | ``K11b`` | None (no media).
 
     ``n_pix`` defaults to the camera's whole image, ``lanes`` to the
-    lane pool of that many pixels.  On the card every name but
+    lane pool of that many pixels (for the work queue, the pool
+    ``render_accumulate`` gives its first chunk, ``render.py:
+    queue_lanes``).  On the card every name but
     ``torch-bvh`` and ``autograd`` is a kernel that launches; on the CPU
     each runs its plain version."""
     from ..render.integrator import (
         LANE_ALIGN, bounce_route, diff_route, surface_engine,
     )
-    from ..render.render import forward_route
+    from ..render.render import default_spp_chunk, forward_route, queue_lanes
     from ..render.volumes import uses_bcast
 
     if n_pix is None:
         n_pix = int(s.image_width) * int(s.image_height)
+    pool = lanes
     if lanes is None:
         lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
     backward = None
@@ -57,6 +60,9 @@ def engine_report(scene, s, *, n_pix: int | None = None,
         backward = {"fused": "K5", "kernel-A": "K7"}.get(route, "autograd")
     else:
         driver, fused = forward_route(scene, s, n_pix)
+        if driver == "queue" and pool is None:
+            lanes = queue_lanes(n_pix, default_spp_chunk(
+                "queue", int(s.samples_per_pixel), n_pix, 1 << 17))
         forward = "kernel-B" if fused else bounce_route(scene, s, lanes)
     intersect = ("in-kernel" if forward in ("kernel-A", "kernel-B")
                  else surface_engine(scene))

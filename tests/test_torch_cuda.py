@@ -1087,3 +1087,48 @@ def test_bvh_mode_scene_takes_k9_on_the_card(device):
     diff = np.abs(img - ref).max(axis=-1)
     assert (diff > 1e-5).mean() < 0.05 and np.median(diff) <= 1e-6
     np.testing.assert_allclose(img.mean(), ref.mean(), rtol=2e-3)
+
+
+def test_sharded_wavefront_one_rank_nccl_equals_render_accumulate(device):
+    """``sharded_wavefront_render_fn`` at one rank over NCCL (the backend
+    of the multi-GPU path) runs the stationary driver on the whole image:
+    its sums equal ``render_accumulate``'s bit for bit, and the padding
+    rows are zero; ``multihost.render`` gives the same image."""
+    import torch.distributed as dist
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.parallel import multihost
+    from raytrace_tpu_torch.parallel.sharding import (
+        make_mesh, sharded_wavefront_render_fn,
+    )
+    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.testing import free_port
+    scene, s = cornell_scene_and_settings(130, 16, 20, device=device)
+    n_pix = s.image_width * s.image_height
+    multihost.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        fn = sharded_wavefront_render_fn(make_mesh(), n_pix, 16)
+        acc = fn(scene, s, rng.base_key(4, device))
+        ref, _ = render_accumulate(scene, s, seed=4, spp=16)
+        assert torch.equal(acc[:n_pix], ref)
+        assert not acc[n_pix:].any()
+        img = multihost.render(scene, s, seed=4)
+        np.testing.assert_array_equal(
+            img, (ref / 16).cpu().numpy().reshape(img.shape))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_scene_main_on_the_card(device, tmp_path):
+    """A scene driver without ``--cpu`` renders on the card through kernel
+    A and writes its PNG."""
+    from PIL import Image
+    from raytrace_tpu_torch.ops.bounce_kernel import bounce_megakernel
+    from raytrace_tpu_torch.scenes import metal_test
+    out = str(tmp_path / "metal.png")
+    before = bounce_megakernel.launches
+    img = metal_test.main(["--width", "192", "--spp", "4", "--depth", "8",
+                           "--out", out])
+    assert bounce_megakernel.launches > before
+    assert tuple(img.shape) == (108, 192, 3) and torch.isfinite(img).all()
+    assert Image.open(out).size == (192, 108)

@@ -13,6 +13,9 @@ The JAX package's report names the fused iteration for the stationary
 forward at 200 spp (ROADMAP F2), but ``render_accumulate`` rotates the
 pixels (``rotate_k`` 8) there and runs the bounce kernel; the port's
 report says kernel A, and a render at 8 spp (``rotate_k`` 8) runs it.
+A work queue's lane pool is its first chunk's paths
+(``render.py:queue_lanes``): sphere_uv_test's one pixel is one lane, not
+a multiple of 128, and takes the generic bounce, as the report says.
 """
 import numpy as np
 import pytest
@@ -108,6 +111,14 @@ def _bvh_mode():
     return scene, s
 
 
+def _sphere_uv():
+    """``scenes/sphere_uv_test.py`` at its own 1 x 1 pixel, 1 spp."""
+    from types import SimpleNamespace
+    from raytrace_tpu_torch.scenes import sphere_uv_test
+    return sphere_uv_test.build(SimpleNamespace(width=1, spp=1, depth=10,
+                                                device="cpu"))[:2]
+
+
 CASES = {
     "cornell_1spp": lambda: cornell_scene_and_settings(128, 1, 3,
                                                        device="cpu"),
@@ -122,6 +133,8 @@ CASES = {
     "pawn_queue": lambda: pawn_standin_scene(16, 1, 3, device="cpu"),
     "marble_light": lambda: marble_light_scene(16, 1, 3, device="cpu"),
     "bvh_mode": _bvh_mode,
+    # one pixel: a one-lane work queue, not a multiple of 128 lanes
+    "uv_one_pixel": _sphere_uv,
 }
 
 EXPECTED = {
@@ -135,6 +148,7 @@ EXPECTED = {
     "pawn_queue": ("queue", "split", "K9", "K11b"),
     "marble_light": ("queue", "generic", "K8", None),
     "bvh_mode": ("queue", "split", "torch-bvh", None),
+    "uv_one_pixel": ("queue", "generic", "K8", None),
 }
 
 
