@@ -6,9 +6,10 @@ constant-density media, on ellipsoids, on demo2 (the reference's
 "everything at once" scene) and on a 523,264-triangle mesh loaded from an
 .obj file, and the bounded-depth ``grad_render``; and which engine serves
 each route (``engine_report``); the scene drivers and the parity script
-(``raytrace_tpu_torch/scenes``); and the sharded render and train step at
+(``raytrace_tpu_torch/scenes``); the sharded render and train step at
 one rank over NCCL and over two processes on the one card
-(``raytrace_tpu_torch/parallel``).
+(``raytrace_tpu_torch/parallel``); and the forward drivers' own counts
+of iterations and path segments (``with_stats``).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -370,6 +371,21 @@ demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
     2e-5, rtol 1e-5 of one rank's image, and one train step's loss and
     every gradient leaf within ``GRAD_RTOL`` of one rank's; each worker's
     failure or the phase's time limit fails it.
+
+55. the forward drivers' ``with_stats`` (``render/integrator.py``): the
+    stationary driver on Cornell 600 x 600 at 8 spp, rotate_k 8 (kernel
+    A) and at 1 spp (fused: kernel B), the sorted driver on the pawn
+    stand-in at 500 x 500, 2 spp (K9, K11b, K10) and the work queue on
+    Cornell 600 x 600, 1 spp, 2^16 lanes (kernel A), each at depth 50
+    (the pawn 20): the iterations equal to the launches of the route's
+    per-iteration kernels in that call, ``lanes x iterations >= segments
+    >= n_pix x spp``, and the image bit-equal to the same call without
+    the flag; the counts, the occupancy and the ms an iteration printed.
+    (The queue at 1 spp and the sorted driver at 2 spp add at most two
+    paths into a pixel, so their sums do not depend on the order in
+    which ``index_add_``'s atomics land; at more samples two runs of
+    either driver can differ in the last bits, with or without the
+    flag.)
 
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
@@ -1174,14 +1190,17 @@ def main() -> None:
     big = _bigmesh_phases(smi, phase_done, dev)
     scenes = _scene_phases(smi, phase_done, dev)
     par = _parallel_phases(smi, phase_done, dev)
+    stats = _stats_phases(smi, phase_done, dev)
     turns["route8"] = unfused.pop("turns")
     main_a += unfused["a_launches"] + scenes["a_launches"] \
-        + par["a_launches"]
-    main_b += rich["iter_launches"] + par["b_launches"]
+        + par["a_launches"] + stats["launches"]["A"]
+    main_b += (rich["iter_launches"] + par["b_launches"]
+               + stats["launches"]["B"])
     mesh["kernels"][0]["launches"] += (media["k9_launches"]
                                        + generic["k9_launches"]
                                        + m11["k9_launches"]
-                                       + big["k9_launches"])
+                                       + big["k9_launches"]
+                                       + stats["launches"]["K9"])
     # K9 at bigmesh-512's 523,328 rows beside the stand-in's numbers
     k9 = mesh["kernels"][0]
     k9["max_abs_err"] = max(k9["max_abs_err"], big["err_k9"])
@@ -1191,7 +1210,8 @@ def main() -> None:
                                        + unfused["shade_launches"]
                                        + m11["k10_launches"]
                                        + big["k10_launches"]
-                                       + scenes["k10_launches"])
+                                       + scenes["k10_launches"]
+                                       + stats["launches"]["K10"])
     mesh["kernels"][2]["launches"] += rich["mesh_iter_launches"]
     rich["kernels"][0]["launches"] += (media["k8_launches"]
                                        + unfused["k8_launches"]
@@ -1205,7 +1225,8 @@ def main() -> None:
                                         + generic["k11_launches"]
                                         + m11["k11_launches"])
     media["kernels"][1]["launches"] += (unfused["k11b_launches"]
-                                        + generic["k11b_launches"])
+                                        + generic["k11b_launches"]
+                                        + stats["launches"]["K11b"])
     media["kernels"][0].update(generic["keyed"]["K11"])
     media["kernels"][1].update(generic["keyed"]["K11b"])
     print(json.dumps({"main_path": runs, "fwd_bwd": fb,
@@ -1216,6 +1237,7 @@ def main() -> None:
                       "m11": m11["summary"], "bigmesh": big["summary"],
                       "scenes": scenes["summary"],
                       "parallel": par["summary"],
+                      "driver_stats": stats["summary"],
                       "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
@@ -4875,6 +4897,79 @@ def _parallel_phases(smi, phase_done, dev) -> dict:
     return dict(summary=out,
                 a_launches=l_wave.get("A", 0),
                 b_launches=l_b, k5_launches=l_k5)
+
+
+# phase 55's runs: the pawn stand-in's samples per pixel, the queue's
+# lanes
+STATS = dict(pawn_spp=2, queue_lanes=1 << 16)
+
+
+def _stats_phases(smi, phase_done, dev) -> dict:
+    """Phase 55: the forward drivers' ``with_stats`` on the card, one run
+    of each branch, held to the launch counters and to the run without
+    the flag."""
+    import torch
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.render.integrator import (
+        trace_wavefront, trace_wavefront_sorted, trace_wavefront_stationary,
+    )
+    from raytrace_tpu_torch.testing import (
+        cornell_scene_and_settings, pawn_standin_scene,
+    )
+    reset, read = _launch_counters()
+    cornell, s_c = cornell_scene_and_settings(600, 8, 50, device=dev)
+    pawn, s_p = pawn_standin_scene(500, STATS["pawn_spp"], 20, device=dev)
+    n_c = s_c.image_width * s_c.image_height
+    n_p = s_p.image_width * s_p.image_height
+    key = rng.base_key(7, dev)
+    spp_p, q_lanes = STATS["pawn_spp"], STATS["queue_lanes"]
+    # (label, the route's per-iteration kernels, pixels, spp, the call)
+    runs = (
+        ("cornell 600 x 600, 8 spp, rotate_k 8", ("A",), n_c, 8,
+         lambda **kw: trace_wavefront_stationary(cornell, s_c, key, n_c, 8,
+                                                 rotate_k=8, **kw)),
+        ("cornell 600 x 600, 1 spp (fused)", ("B",), n_c, 1,
+         lambda **kw: trace_wavefront_stationary(cornell, s_c, key, n_c, 1,
+                                                 **kw)),
+        (f"pawn stand-in 500 x 500, {spp_p} spp (sorted)", ("K9", "K11b"),
+         n_p, spp_p,
+         lambda **kw: trace_wavefront_sorted(pawn, s_p, key, n_p, spp_p,
+                                             **kw)),
+        (f"cornell 600 x 600, 1 spp, queue of {q_lanes} lanes", ("A",), n_c,
+         1, lambda **kw: trace_wavefront(cornell, s_c, key, n_c, 1, q_lanes,
+                                         **kw)),
+    )
+    out, total = {}, {}
+    for label, kernels, n_pix, spp, call in runs:
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        acc, st = call(with_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read()
+        equal = bool(torch.equal(acc, call()))
+        for k, v in read().items():
+            total[k] = total.get(k, 0) + v
+        it, seg, lanes = st["iterations"], int(st["segments"]), st["lanes"]
+        occ = seg / (it * lanes)
+        out[label] = dict(iterations=it, segments=seg, lanes=lanes,
+                          occupancy=occ, wall_s=wall,
+                          ms_per_iteration=wall * 1e3 / it,
+                          launches={k: got[k] for k in kernels},
+                          bit_equal=equal)
+        print(f"[55 stats] {label}: {it} iterations, {seg} segments, "
+              f"{lanes} lanes, occupancy {occ:.4f}, wall {wall:.3f} s "
+              f"({wall * 1e3 / it:.4f} ms an iteration), launches "
+              f"{out[label]['launches']}, image bit-equal without the flag: "
+              f"{equal} [{smi}]", flush=True)
+        if not (equal and all(got[k] == it for k in kernels)
+                and lanes * it >= seg >= n_pix * spp):
+            raise AssertionError(f"driver stats of {label}")
+    print("[55 stats] occupancies " + json.dumps(
+        {k: round(v["occupancy"], 4) for k, v in out.items()}), flush=True)
+    phase_done("driver stats")
+    return dict(summary=out, launches=total)
 
 
 if __name__ == "__main__":

@@ -77,7 +77,10 @@ K9 and the shade kernel, with ``pack_bvh`` in every call) and
 bounce over K9, each bounce checkpointed), and for demo1
 (``scenes/demo1.py``: 512 sphere rows, kernel A's general scan) its
 forward at the reference's 1200 x 675, depth 50, seed 1234 and
-``DEMO1_SPP`` spp (``demo1_fwd``), and the sharded train step at one rank
+``DEMO1_SPP`` spp (``demo1_fwd``), and the Cornell box at ``QUEUE_WIDTH``
+(112 x 112, 200 spp, depth 50, seed 1: under ``render_accumulate``'s
+16,384 pixels of the stationary drivers, so the work-queue driver on
+2^17 lanes, kernel A; ``queue_fwd``), and the sharded train step at one rank
 (``sharded_trainstep``: ``parallel/sharding.py:sharded_train_step_fn``
 without a process group, Adam at lr 0.02, ``testing.FWD_BWD``'s lanes,
 spp and iterations without its schedule: kernel B forward, K5 backward,
@@ -87,7 +90,17 @@ the update of every float leaf), it
    (``torch.cuda.synchronize()`` on both ends; the first run of the first
    estimator also warms the process up) with the forward kernels' launch
    counts, which are the iteration counts, and the peak device memory;
-2. runs it once more under ``torch.profiler`` and prints the number of
+2. for a forward cell (``render_accumulate``'s: exact, rr2, spp1,
+   mesh_fwd, noise_fwd, smoke_fwd, pawn_fwd, queue_fwd, demo2 and
+   demo1_fwd) renders once more through ``utils/profiling.py:
+   render_with_stats``, the drivers called with ``with_stats``, and
+   prints their iterations, segments, lanes, the wavefront occupancy
+   (segments / (iterations x lanes)), the mean path length and the ms an
+   iteration (the best wall / iterations); it raises unless that image
+   is ``render_accumulate``'s up to the order of each pixel's adds (bit
+   for bit through the stationary driver; the queue's and the sorted
+   driver's ``index_add_`` adds on the card in a varying order);
+3. runs it once more under ``torch.profiler`` and prints the number of
    device operations per iteration, their summed device time, the
    device's busy share of the best unprofiled wall, the host's kernel
    launch calls, and the device operations that take the most time.
@@ -131,6 +144,9 @@ PAWN_SPP = 400
 # samples per pixel of demo1_fwd (scenes/demo1.py renders 500: 47 s a
 # run on an H100 80GB HBM3 at 700 W, PERF.md section 6)
 DEMO1_SPP = 64
+# width of queue_fwd, the Cornell box through the work-queue driver (under
+# render_accumulate's 16,384 pixels of the stationary drivers)
+QUEUE_WIDTH = 112
 
 
 def _device_ops(prof):
@@ -336,6 +352,43 @@ def call_ms(fn, reps: int = 50, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def driver_stats(name: str, stats_call, acc, best_wall: float,
+                 smi: str) -> dict:
+    """The forward drivers' own counts of one render (``stats_call``:
+    ``render_with_stats`` with ``render_accumulate``'s arguments):
+    iterations, segments, lanes, the wavefront occupancy = segments /
+    (iterations x lanes), the mean path length and ``best_wall`` /
+    iterations; printed, and returned as a dict.  Raises unless its image
+    is ``acc`` (``render_accumulate``'s) up to the order of each pixel's
+    adds: on the card the queue and sorted drivers' ``index_add_`` adds
+    the paths of a pixel that finish in one iteration in an order that
+    varies from run to run, so a pixel's sum of ``spp`` non-negative
+    terms may move by up to ``spp * 2^-23`` of itself (the stationary
+    drivers' sums are bit-equal)."""
+    import torch
+    got, st = stats_call()
+    spp = st.primary_rays / acc.shape[0]
+    diff = (got - acc).abs()
+    if not bool((diff <= spp * 2.0 ** -23 * acc.abs()).all()):
+        raise AssertionError(f"{name}: render_with_stats' image is not "
+                             "render_accumulate's")
+    out = dict(iterations=st.iterations, segments=st.path_segments,
+               lanes=st.lane_iterations / max(st.iterations, 1),
+               occupancy=st.occupancy, mean_path_length=st.mean_path_length,
+               ms_per_iteration=best_wall * 1e3 / max(st.iterations, 1),
+               stats_wall_s=st.wall_s, bit_equal=bool(torch.equal(got, acc)),
+               max_abs_diff=float(diff.max()))
+    print(f"[stats] {name}: {out['iterations']} iterations, "
+          f"{out['segments']} segments, {out['lanes']:.0f} lanes, occupancy "
+          f"{out['occupancy']:.4f}, mean path length "
+          f"{out['mean_path_length']:.3f}, {out['ms_per_iteration']:.4f} ms "
+          f"an iteration (best wall / iterations; the counted run "
+          f"{st.wall_s:.3f} s, its image render_accumulate's bit for bit: "
+          f"{out['bit_equal']}, max |diff| {out['max_abs_diff']:.3g}) "
+          f"[{smi}]", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -349,6 +402,7 @@ def main() -> None:
     from .ops.iter_kernel import iter_mega_ap, iter_megakernel
     from .render.render import render_accumulate
     from .render.integrator import lane_cost_estimate
+    from .utils.profiling import render_with_stats
     from .testing import (
         BIGMESH_GRAD, DEMO2_GRAD, DEMO2_SEED, FWD_BWD, FWD_BWD_BAL4, FWD_BWD_ROT8,
         IMAGE_GRAD_FWD_BWD,
@@ -379,6 +433,7 @@ def main() -> None:
     smoke, s_s = cornell_smoke_scene(600, 200, 50, device=dev)
     pawn, s_p = pawn_standin_scene(500, PAWN_SPP, 20, device=dev)
     demo2, s_d = demo2_scene(device=dev)
+    queue, s_q = cornell_scene_and_settings(QUEUE_WIDTH, 200, 50, device=dev)
     forward_kernels = (bounce_megakernel, iter_megakernel,
                        allpairs_nearest_record, pallas_nearest_record,
                        iter_mega_ap)
@@ -408,13 +463,17 @@ def main() -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         iters = sum(k.launches - b for k, b in zip(forward_kernels, before))
-        return time.perf_counter() - t0, iters
+        return time.perf_counter() - t0, iters, out
 
     def fwd(sc, settings, spp, seed=1):
-        return lambda: render_accumulate(sc, settings, seed=seed, spp=spp)
+        """``render_accumulate``'s call, with the same render through
+        ``render_with_stats`` as its ``stats`` attribute."""
+        call = lambda: render_accumulate(sc, settings, seed=seed, spp=spp)
+        call.stats = lambda: render_with_stats(sc, settings, seed, spp=spp)
+        return call
 
     @functools.cache
     def mesh_kernel_calls():
@@ -784,6 +843,7 @@ def main() -> None:
             ("smoke_fwd", fwd(smoke, s_s, 200, seed=0), n_pix * 200),
             ("pawn_fwd", fwd(pawn, s_p, PAWN_SPP, seed=0),
              s_p.image_width * s_p.image_height * PAWN_SPP),
+            ("queue_fwd", fwd(queue, s_q, 200), QUEUE_WIDTH ** 2 * 200),
             ("fwdbwd_rot8", fwd_bwd(scene, s, FWD_BWD_ROT8),
              FWD_BWD_ROT8["lanes"] * FWD_BWD_ROT8["spp"]),
             ("fwdbwd_bal4", fwd_bwd(scene, s, FWD_BWD_BAL4),
@@ -817,7 +877,7 @@ def main() -> None:
             continue
         walls = []
         for _ in range(REPS):
-            wall, iters = run(fn)
+            wall, iters, out = run(fn)
             walls.append(wall)
         peak = torch.cuda.max_memory_allocated()
         rate = (f"{rays / min(walls) / 1e6:.3f} M primary rays/s at the "
@@ -825,11 +885,13 @@ def main() -> None:
         print(f"[walls] {name}: {', '.join(f'{w:.3f}' for w in walls)} s "
               f"(in run order), {iters} iterations, {rate}peak memory "
               f"{peak / 2**30:.3f} GiB [{smi}]", flush=True)
+        occ = (driver_stats(name, fn.stats, out[0], min(walls), smi)
+               if hasattr(fn, "stats") else None)
 
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            prof_wall, _ = run(fn)
+            prof_wall, _, _ = run(fn)
         ops, host_launches = _device_ops(prof)
         n_ops = sum(c for c, _ in ops.values())
         # a kernel cell that launches no forward kernel counts one
@@ -848,7 +910,8 @@ def main() -> None:
                    device_ops=n_ops, device_ops_per_iter=n_ops / iters,
                    device_s=dev_s, busy_of_best_wall=dev_s / min(walls),
                    host_kernel_launches=host_launches,
-                   top=[(op[:80], c, us / 1e3) for op, (c, us) in top[:8]])
+                   top=[(op[:80], c, us / 1e3) for op, (c, us) in top[:8]],
+                   driver_stats=occ)
         report["estimators"][name] = est
         print(f"[profile] {name}: profiled wall {prof_wall:.3f} s; "
               f"{n_ops} device ops ({n_ops / iters:.1f} per iteration), "

@@ -38,7 +38,12 @@ surviving lanes' throughput in torch (marble stripes through kernel K12).
 
 Every random draw is a pure function of (pixel, sample, depth, column), so
 every driver and every ``rotate_k`` traces the same samples.  The loop
-condition is read on the host once per iteration.
+condition is read on the host once per iteration.  With ``with_stats``
+each of the three also returns ``dict(iterations, segments, lanes)``
+(:func:`_stats`), whose count adds no host read and no op to the
+image's.  (On the card the queue's and the sorted driver's
+``index_add_`` adds the paths of a pixel that finish in one iteration in
+an order that can vary between runs, flag or not.)
 
 Lane state is stacked: comps [7, R] (origin, direction, time), rad and
 thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
@@ -891,12 +896,37 @@ def _init_comps(lanes: int, device):
     return comps
 
 
+def _segments(with_stats: bool, device):
+    """A forward driver's count of path segments: a 0-d int64 tensor on
+    the device with ``with_stats`` (the JAX package's int32 wraps past
+    2^31 segments, which demo1's 1200 x 675 x 500 spp render approaches),
+    else None."""
+    if not with_stats:
+        return None
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def _stats(acc, with_stats: bool, iters: int, segments, lanes: int):
+    """A forward driver's result: ``acc``, or with ``with_stats`` ``(acc,
+    dict(iterations, segments, lanes))`` as the JAX package's drivers
+    return it: the loop's turns (a host int), the sum over turns of the
+    lanes alive or dying in that turn (the 0-d int64 tensor of
+    :func:`_segments`) and the lane pool.  ``segments / (iterations *
+    lanes)`` is the wavefront occupancy (``utils/profiling.py:
+    RenderStats``)."""
+    if not with_stats:
+        return acc
+    return acc, dict(iterations=iters, segments=segments, lanes=lanes)
+
+
 def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
-                    spp: int, n_lanes: int, acc=None, sample_offset: int = 0):
+                    spp: int, n_lanes: int, acc=None, sample_offset: int = 0,
+                    with_stats: bool = False):
     """Work-queue wavefront: ``n_pix * spp`` paths on a pool of
     ``n_lanes`` lanes, dead lanes refilled every iteration.  Work item
     ``w`` is (pixel ``w % n_pix``, sample ``w // n_pix``).  Returns the
-    [n_pix, 3] radiance *sum* over samples (plus ``acc``)."""
+    [n_pix, 3] radiance *sum* over samples (plus ``acc``); with
+    ``with_stats`` also :func:`_stats`' dict."""
     dev = scene.device
     total_work = n_pix * spp
     n_u = n_bounce_uniforms(scene)
@@ -917,6 +947,7 @@ def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
     sample = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     depth = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     keys = rng.ray_keys_fast(base_key, pixel, sample)
+    iters, segments = 0, _segments(with_stats, dev)
 
     while bool((next_w < total_work) | alive.any()):
         # regenerate dead lanes from the queue
@@ -954,7 +985,10 @@ def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
 
         # flush finished paths into the accumulator
         acc3.index_add_(1, pixel.long(), rad * died.to(DTYPE))
-    return acc + acc3.T
+        if with_stats:
+            iters += 1
+            segments += (alive | died).sum()
+    return _stats(acc + acc3.T, with_stats, iters, segments, lanes)
 
 
 def _rotation(spp: int, rotate_k: int) -> int:
@@ -977,7 +1011,8 @@ def stationary_fused(scene: Scene, s: CameraSettings, n_pix: int, spp: int,
 def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                                n_pix: int, spp: int, acc=None,
                                sample_offset: int = 0,
-                               rotate_k: int = 1, pixel_offset: int = 0):
+                               rotate_k: int = 1, pixel_offset: int = 0,
+                               with_stats: bool = False):
     """Pixel-stationary wavefront: lane ``l`` owns pixel ``pixel_offset +
     l`` and traces its ``spp`` samples in turn.  ``rotate_k > 1`` (a
     divisor of ``spp``) rotates each lane through ``k`` pixels — lane
@@ -985,7 +1020,9 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     chunk ``c = sample // (spp/k)`` — so per-lane work averages the
     path-length variance of ``k`` pixels; its contributions land back in
     place through ``k`` masked rolls.  Returns the [n_pix, 3] radiance
-    sum (plus ``acc``)."""
+    sum (plus ``acc``); with ``with_stats`` also :func:`_stats`' dict
+    (the fused branch counts the lanes alive or dying after kernel B's
+    step, the other the lanes alive or dying after Russian roulette)."""
     dev = scene.device
     lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
     k_rot = _rotation(spp, rotate_k)
@@ -1021,9 +1058,13 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
         carry = ((init_smp, torch.zeros_like(init_smp), z)
                  + tuple(comps.unbind(0)) + (z, z, z) + (o, o, o))
         acc3 = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
+        iters, segments = 0, _segments(with_stats, dev)
         while bool(((carry[2] > 0.5) | (carry[0] < last_sample)).any()):
             carry, rad2, died_f = step(base_pixel, carry)
             acc3 += torch.stack(rad2) * died_f
+            if with_stats:
+                iters += 1
+                segments += ((carry[2] > 0.5) | (died_f > 0.5)).sum()
     else:
         if k_rot == 1:
             # padding lanes (>= n_pix) start exhausted
@@ -1047,6 +1088,7 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
         keys = rng.ray_keys_fast(base_key, torch.zeros_like(lane_ids),
                                  torch.zeros_like(lane_ids))
         acc3 = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
+        iters, segments = 0, _segments(with_stats, dev)
 
         while bool((alive | (sample < last_sample)).any()):
             # start this lane's next sample if idle
@@ -1092,7 +1134,11 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                 for cc in range(k_rot):
                     m = (rot_c == cc).to(DTYPE)
                     acc3 += torch.roll(contrib * m, cc * stride, dims=1)
-    return acc + acc3[:, :n_pix].T
+            if with_stats:
+                iters += 1
+                segments += (alive | died).sum()
+    return _stats(acc + acc3[:, :n_pix].T, with_stats, iters, segments,
+                  lanes)
 
 
 # origin cells per axis of the sorted driver's ray binning
@@ -1125,7 +1171,8 @@ def _sort_key(comps, alive, blo, binv):
 
 def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
                            n_pix: int, spp: int, acc=None,
-                           sample_offset: int = 0, pixel_offset: int = 0):
+                           sample_offset: int = 0, pixel_offset: int = 0,
+                           with_stats: bool = False):
     """Ray-binned work-queue wavefront over one lane per pixel (rounded
     up to 128): dead lanes pull the next work items from a global counter
     (item ``w`` is pixel ``pixel_offset + w % n_pix``, sample
@@ -1137,6 +1184,7 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     added into their pixels by ``index_add_``.  Returns the [n_pix, 3]
     radiance sum (plus ``acc``): the same (pixel, sample) paths as the
     other drivers, so the same image up to the order of float adds.
+    With ``with_stats`` also :func:`_stats`' dict.
 
     The JAX package's driver also enumerates work items in 8 x 128 pixel
     tiles, for its TPU kernels' block consensus; the port does not."""
@@ -1163,6 +1211,7 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     fstate = torch.zeros((13, lanes), dtype=DTYPE, device=dev)
     fstate[5] = 1.0                 # dummy unit direction (0, 0, 1)
     istate = torch.zeros((4, lanes), dtype=torch.int32, device=dev)
+    iters, segments = 0, _segments(with_stats, dev)
 
     while bool((next_w < total_work) | (istate[3] > 0).any()):
         # re-bin: the permutation travels with all lane state
@@ -1209,7 +1258,10 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
         acc3.index_add_(1, pixel.long(), rad * died.to(DTYPE))
         fstate = torch.cat([comps, rad, thr])
         istate = torch.stack([pixel, sample, depth, alive.to(torch.int32)])
-    return acc + acc3.T
+        if with_stats:
+            iters += 1
+            segments += (alive | died).sum()
+    return _stats(acc + acc3.T, with_stats, iters, segments, lanes)
 
 
 def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,

@@ -13,6 +13,8 @@ of the BVH accelerator mode stay on the stationary driver).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core import rng
@@ -98,17 +100,18 @@ def forward_route(scene: Scene, settings: CameraSettings,
 
 def _stationary_fn(scene: Scene, settings: CameraSettings, key, n_pix: int,
                    spp: int, sample_offset: int, rotate_k: int,
-                   pixel_offset: int):
+                   pixel_offset: int, with_stats: bool = False):
     """One band and sample chunk of a stationary render: the
     pixel-stationary driver, or the sorted driver where
-    :func:`uses_sorted` (``rotate_k`` does not apply there)."""
+    :func:`uses_sorted` (``rotate_k`` does not apply there);
+    ``with_stats`` is the driver's."""
     if uses_sorted(scene):
         return trace_wavefront_sorted(
             scene, settings, key, n_pix, spp, sample_offset=sample_offset,
-            pixel_offset=pixel_offset)
+            pixel_offset=pixel_offset, with_stats=with_stats)
     return trace_wavefront_stationary(
         scene, settings, key, n_pix, spp, sample_offset=sample_offset,
-        rotate_k=rotate_k, pixel_offset=pixel_offset)
+        rotate_k=rotate_k, pixel_offset=pixel_offset, with_stats=with_stats)
 
 
 def row_bands(h: int, w: int, max_band: int = 1 << 19) -> list:
@@ -121,6 +124,34 @@ def row_bands(h: int, w: int, max_band: int = 1 << 19) -> list:
             for r0 in range(0, h, band_rows)]
 
 
+def forward_launches(scene: Scene, settings: CameraSettings, key, spp: int,
+                     n_lanes: int = 1 << 17, spp_chunk: int | None = None,
+                     spp_done: int = 0, max_band: int = 1 << 19):
+    """:func:`render_accumulate`'s driver launches, in order: ``(samples
+    done, pixel offset, pixels, samples, launch)``.  ``launch(**kw)``
+    calls the band's driver on its chunk of samples (``kw``: the
+    drivers' ``with_stats``) and returns the radiance sum over the band's
+    pixels; "samples done" counts the chunks up to this one."""
+    h, w = settings.image_height, settings.image_width
+    n_pix = h * w
+    bands = row_bands(h, w, max_band)
+    driver = forward_driver(scene, bands[0][1])
+    if spp_chunk is None:
+        spp_chunk = default_spp_chunk(driver, spp, n_pix, n_lanes)
+    for done in range(0, spp, spp_chunk):
+        n_s = min(spp_chunk, spp - done)
+        s0 = spp_done + done
+        if driver == "queue":
+            yield done + n_s, 0, n_pix, n_s, functools.partial(
+                trace_wavefront, scene, settings, key, n_pix, n_s,
+                queue_lanes(n_pix, n_s, n_lanes), sample_offset=s0)
+            continue
+        for off, bp in bands:
+            yield done + n_s, off, bp, n_s, functools.partial(
+                _stationary_fn, scene, settings, key, bp, n_s, s0,
+                rotate_k_for(n_s), off)
+
+
 def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
                       *, spp: int | None = None, n_lanes: int = 1 << 17,
                       spp_chunk: int | None = None, acc=None,
@@ -130,37 +161,18 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
     scene's device.  Returns ``(acc, spp_total)``: ``acc[n_pix, 3]`` is
     the radiance *sum* and ``acc / spp_total`` the image.  Pass a previous
     ``(acc, spp_done)`` to resume.  ``spp_chunk`` bounds the samples per
-    driver launch; images over ``max_band`` pixels render in row bands."""
+    driver launch; images over ``max_band`` pixels render in row bands
+    (:func:`forward_launches`)."""
     dev = scene.device
-    h = settings.image_height
-    w = settings.image_width
-    n_pix = h * w
+    n_pix = settings.image_height * settings.image_width
     spp = spp if spp is not None else settings.samples_per_pixel
-    key = rng.base_key(seed, dev)
     acc = (torch.zeros((n_pix, 3), dtype=DTYPE, device=dev) if acc is None
            else acc.clone())
-
-    bands = row_bands(h, w, max_band)
-    driver = forward_driver(scene, bands[0][1])
-    stationary = driver != "queue"
-    if spp_chunk is None:
-        spp_chunk = default_spp_chunk(driver, spp, n_pix, n_lanes)
-
-    done = 0
-    while done < spp:
-        n_s = min(spp_chunk, spp - done)
-        s0 = spp_done + done
-        if stationary:
-            rot = rotate_k_for(n_s)
-            for off, bp in bands:
-                acc[off:off + bp] += _stationary_fn(
-                    scene, settings, key, bp, n_s, s0, rot, off)
-        else:
-            acc = trace_wavefront(scene, settings, key, n_pix, n_s,
-                                  queue_lanes(n_pix, n_s, n_lanes), acc,
-                                  sample_offset=s0)
-        done += n_s
-        if progress:
+    for done, off, bp, _, launch in forward_launches(
+            scene, settings, rng.base_key(seed, dev), spp, n_lanes,
+            spp_chunk, spp_done, max_band):
+        acc[off:off + bp] += launch()
+        if progress and off + bp == n_pix:
             print(f"\r  spp {done}/{spp}", end="", flush=True)
     if progress:
         print()

@@ -214,9 +214,17 @@ class DiffCrossings(torch.autograd.Function):
     entering or planar root, 1 the exit root) under autograd, sending the
     crossing's cotangent to the boundary rows and to ``o``, ``d`` and
     ``time``.  The tie rule: a crossing that several candidates attain
-    gives all of its cotangent to the lowest key, where the JAX package's
-    ``min`` splits it equally among them; ties have measure zero for rays
-    in general position."""
+    (a ray exactly through the shared edge of two triangles) gives all of
+    its cotangent to the lowest key.  The JAX package's ``_crossing_scan2``
+    splits it: equally among the tied candidates of one chunk
+    (``jnp.min``), in halves between chunks (``jnp.minimum``), and its
+    chunk size ``_chunk_size(count, n_rays)`` depends on the number of
+    rays, so JAX gives no single split to copy.  The crossings, the
+    gradients of ``o``, ``d`` and ``time`` and, for coplanar tied rows,
+    the sum of their ``p0`` gradients equal JAX's whatever the split
+    (``tests/test_torch_volume_kernel.py::
+    test_diff_crossings_vjp_matches_jax_scan[shared_edge]``); ties have
+    measure zero for rays in general position."""
 
     @staticmethod
     def forward(ctx, st, o, d, time, *floats):

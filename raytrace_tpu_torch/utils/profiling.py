@@ -1,6 +1,12 @@
 """Render counters (``raytrace_tpu/utils/profiling.py``): primary rays
 and path segments per second, wavefront occupancy, and the engines that
-served the render, as one-line JSON records."""
+served the render, as one-line JSON records.
+
+The forward drivers count their own work: called with ``with_stats``
+(``render/integrator.py``) they also return ``dict(iterations, segments,
+lanes)``, which :meth:`RenderStats.add_launch` takes as it is.
+:func:`render_with_stats` does that for every launch of a
+``render_accumulate`` call."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,6 +72,34 @@ class RenderStats:
     def log(self, tag: str = "render", stream=sys.stderr):
         print(json.dumps({"event": tag, **self.record()}), file=stream,
               flush=True)
+
+
+def render_with_stats(scene, settings, seed: int = 0, *,
+                      spp: int | None = None, n_lanes: int = 1 << 17,
+                      max_band: int = 1 << 19):
+    """``render_accumulate(scene, settings, seed, spp=spp,
+    n_lanes=n_lanes, max_band=max_band)`` launch by launch
+    (``render.py:forward_launches``), each driver called with
+    ``with_stats=True`` and its dict fed to :meth:`RenderStats.add_launch`
+    with the launch's primary rays and wall (:class:`Timer` on the
+    scene's device).  Returns ``(acc, stats)``, ``acc`` the radiance sum
+    of ``render_accumulate``."""
+    from ..core import rng
+    from ..core.vecmath import DTYPE
+    from ..render.render import forward_launches
+    dev = scene.device
+    spp = spp if spp is not None else settings.samples_per_pixel
+    acc = torch.zeros((settings.image_height * settings.image_width, 3),
+                      dtype=DTYPE, device=dev)
+    stats = RenderStats()
+    for _, off, bp, n_s, launch in forward_launches(
+            scene, settings, rng.base_key(seed, dev), spp, n_lanes,
+            max_band=max_band):
+        with Timer(dev) as t:
+            part, st = launch(with_stats=True)
+            acc[off:off + bp] += part
+        stats.add_launch(st, bp * n_s, t.elapsed)
+    return acc, stats
 
 
 class Timer:

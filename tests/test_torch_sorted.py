@@ -15,7 +15,9 @@ boundary: kernel K11b's table) around a glass ball.
   (mean within rtol 2e-3, median pixel to f32 rounding, under 5% of
   pixels off by more than 1e-5: XLA contracts multiply-adds, and its
   crossing scan may flag a tie between one row's exit and a later row's
-  entry differently).
+  entry differently); with ``with_stats`` on both sides, the lanes equal
+  and the iterations and segments within ``tests/test_torch_stats.py``'s
+  2% and 1%.
 * Routing (JAX ``render.py:_stationary_fn``): a stationary render takes
   the sorted driver for media with 64 boundary rows and more or a surface
   table of 8,192 rows and more, the stationary driver otherwise; a
@@ -100,8 +102,15 @@ def test_sorted_matches_jax_sorted(fog):
     ts = scene_from_numpy(scene_to_numpy(js), device="cpu")
     _, s = fog
     n_pix = 32 * 32
-    a = np.asarray(jsorted(js, jset, jrng.base_key(3), n_pix, 4)) / 4
-    b = trace_wavefront_sorted(ts, s, rng.base_key(3), n_pix, 4).numpy() / 4
+    a, jst = jsorted(js, jset, jrng.base_key(3), n_pix, 4, with_stats=True)
+    b, tst = trace_wavefront_sorted(ts, s, rng.base_key(3), n_pix, 4,
+                                    with_stats=True)
+    a, b = np.asarray(a) / 4, b.numpy() / 4
+    # the drivers' counts (tests/test_torch_stats.py's bounds; measured
+    # equal: 13 iterations, 6,714 segments)
+    assert tst["lanes"] == int(jst["lanes"]) == n_pix
+    for name, rtol in (("iterations", 0.02), ("segments", 0.01)):
+        assert abs(int(tst[name]) - int(jst[name])) <= rtol * int(jst[name])
     diff = np.abs(a - b).max(axis=1)
     assert (diff > 1e-5).mean() < 0.05, (diff > 1e-5).mean()
     assert np.median(diff) <= 1e-6

@@ -576,8 +576,41 @@ def test_host_build_keyed_mode_matches_plain(host_vol, name):
                 assert bool((k_out[~same] >= 0).all())
 
 
+def cube_world(rt):
+    """A medium bounded by the cube [-1, 1]^3 as a mesh of 12 triangles,
+    each face split along a diagonal into two coplanar triangles (the +z
+    and -z faces along x = y, rows 0-1 and 2-3), over a ground sphere."""
+    v = np.asarray([[x, y, z] for z in (-1, 1) for y in (-1, 1)
+                    for x in (-1, 1)], np.float64)
+
+    def quad(a, b, c, d):           # two triangles sharing the edge a-c
+        return [(a, b, c), (a, c, d)]
+    f = np.asarray(quad(4, 5, 7, 6) + quad(0, 2, 3, 1) + quad(0, 1, 5, 4)
+                   + quad(2, 6, 7, 3) + quad(0, 4, 6, 2) + quad(1, 3, 7, 5),
+                   np.int64)
+    mesh = rt.Mesh(vertices=v, uv=np.zeros((0, 2)), faces=f,
+                   uv_faces=np.full(f.shape, -1, np.int64))
+    return rt.group([
+        rt.with_material(rt.isotropic(rt.constant_texture([1.0, 0.2, 0.2])),
+                         rt.constant_medium(2.0, rt.triangle_mesh(mesh))),
+        rt.with_material(rt.lambertian(rt.constant_texture(0.5)),
+                         rt.sphere([0, -50, 0], 40.0)),
+    ])
+
+
+def shared_edge_rays(n: int = 32):
+    """``[7, n]`` rays straight down (-z) through the shared edges x = y of
+    :func:`cube_world`'s +z and -z faces, at dyadic points, so that both
+    triangles of each face give the same crossing bit for bit (t = 2 and
+    4), at time 0."""
+    s = (2.0 * np.arange(n) - (n - 1)) / n
+    rays = np.zeros((7, n), np.float32)
+    rays[0], rays[1], rays[2], rays[5] = s, s, 3.0, -1.0
+    return torch.from_numpy(rays)
+
+
 @pytest.mark.parametrize("name", ["ball_box", "ball_box_moving",
-                                  "octahedron", "mixed"])
+                                  "octahedron", "mixed", "shared_edge"])
 def test_diff_crossings_vjp_matches_jax_scan(name):
     """``render/volumes.py:DiffCrossings`` (the keyed crossings forward,
     the winner-only backward) against ``jax.vjp`` of the JAX package's
@@ -585,15 +618,33 @@ def test_diff_crossings_vjp_matches_jax_scan(name):
     the rays: t1 and t2 within rtol/atol 1e-5 where finite (the plain
     version's tolerance above), the front flag equal, and the VJP of a
     random cotangent on the finite crossings within 1e-4 of JAX's norm in
-    the L2 norm.  Random rays from a numpy seed meet no ties, where JAX's
-    ``min`` would split a cotangent and the keyed backward gives it to the
-    lowest key."""
+    the L2 norm.  Random rays from a numpy seed meet no ties.
+
+    ``shared_edge`` pins the tie rule: rays exactly through the shared
+    edge of two coplanar triangles (:func:`shared_edge_rays`) attain each
+    crossing at two rows.  The keyed backward gives the whole cotangent
+    to the lowest key (row 0 for t1, row 2 for t2); JAX's ``jnp.min``
+    inside a chunk splits it equally, and ``jnp.minimum`` across chunks
+    splits it in halves again, so its split among the tied rows follows
+    ``_chunk_size(count, n_rays)`` (``raytrace_tpu/ops/intersect.py``),
+    which depends on the number of rays: JAX gives no single split to
+    match (here one chunk of 12 rows: half each).  What does not depend
+    on the split is checked: t1 and t2 equal to JAX's, the gradients
+    with respect to ``o``, ``d`` and ``time`` equal to JAX's, and the sum
+    over the rows of the ``p0`` gradients equal to JAX's (coplanar rows
+    share the plane's normal, so each row's ``d t / d p0`` is the same);
+    ``e1`` and ``e2`` move each row's plane about its own vertex, so their
+    gradients are the split's."""
     from raytrace_tpu.render.volumes import _crossing_scan2
     from raytrace_tpu.scene.types import Primitives as JPrims
     from raytrace_tpu_torch.render.volumes import (
         DiffCrossings, crossing_statics,
     )
-    ts, _, rays = _case(name, 512, 21)
+    if name == "shared_edge":
+        ts = trt.compile_scene(cube_world(trt), accel="dense", device="cpu")
+        rays = shared_edge_rays()
+    else:
+        ts, _, rays = _case(name, 512, 21)
     vol = ts.volumes
     vp = vol.prims
     r = rays.shape[1]
@@ -634,9 +685,27 @@ def test_diff_crossings_vjp_matches_jax_scan(name):
         fin = np.isfinite(y)
         np.testing.assert_allclose(x[fin], y[fin], rtol=1e-5, atol=1e-5)
     jg = vjp((jnp.asarray(c1), jnp.asarray(c2)))
+    tg = [np.zeros_like(np.asarray(y)) if x is None else x.numpy()
+          for x, y in zip(tg, jg)]
+    jg = [np.asarray(y) for y in jg]
+    if name == "shared_edge":
+        # every crossing tied, front on entry; the rows' gradients: all on
+        # the lowest key's row here, halves in JAX's one chunk
+        assert np.isfinite(t1.detach().numpy()).all()
+        np.testing.assert_array_equal(t1.detach().numpy(), np.asarray(j1))
+        np.testing.assert_array_equal(t2.detach().numpy(), np.asarray(j2))
+        assert f1.all()
+        for row, tie in ((0, 1), (2, 3)):
+            assert np.abs(tg[0][row]).sum() > 0.0
+            np.testing.assert_array_equal(tg[0][tie], 0.0)
+            np.testing.assert_allclose(jg[0][row], jg[0][tie], rtol=1e-6)
+        np.testing.assert_allclose(tg[0].sum(0), jg[0].sum(0), rtol=1e-5,
+                                   atol=1e-6)
+        # o, d, time
+        for x, y in zip(tg[5:], jg[5:]):
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6)
+        return
     for k, (x, y) in enumerate(zip(tg, jg)):
-        y = np.asarray(y)
-        x = np.zeros_like(y) if x is None else x.numpy()
         assert np.all(np.isfinite(x)), (name, k)
         assert np.linalg.norm(x - y) <= 1e-4 * np.linalg.norm(y) + 1e-6, (
             name, k, np.linalg.norm(x - y), np.linalg.norm(y))
