@@ -40,6 +40,7 @@ from ..render.camera import ConstBackground, camera_frame, gray_fade, sky
 from ..textures.textures import (
     BASE_KINDS, TEX_CHECKER, TEX_IMAGE, _image_gather, eval_texture, is_rich,
 )
+from ..utils import profiling
 from .gradients import leaves, map_scene
 from .lane_replay import scene_row_grads
 
@@ -137,7 +138,9 @@ class _FusedIter(torch.autograd.Function):
     """One differentiable fused iteration; inputs ``(st, pix, carry (16),
     *float leaves of the scene)``, outputs ``carry2 (16) + (died_f,)``,
     with ``with_uv`` also the winner's (u, v) and index, for
-    :func:`apply_rich` (not differentiable)."""
+    :func:`apply_rich` (not differentiable).  The backward (K5, the row
+    gradients onto the scene's leaves) runs under the span
+    ``diff.bwd_iter``."""
 
     @staticmethod
     def forward(ctx, st, pix, *args):
@@ -157,6 +160,7 @@ class _FusedIter(torch.autograd.Function):
         return carry2
 
     @staticmethod
+    @profiling.spanned("diff.bwd_iter")
     def backward(ctx, *gouts):
         st = ctx.st
         (pix, smp, dep, al, *rest) = ctx.saved_tensors

@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from ..utils import profiling
+
 _TABLES = ("prims", "materials", "textures")
 
 
@@ -122,10 +124,13 @@ def render_loss_wavefront(scene_params, scene_statics, settings, key,
 
 def _grads(loss, scene_params):
     """The gradient of ``loss`` in the shape of ``scene_params``: zeros
-    where it does not reach, None for the integer tables."""
+    where it does not reach, None for the integer tables.  The backward
+    runs under the span ``step.backward``."""
     named = {k: v for k, v in leaves(scene_params).items()
              if v.requires_grad}
-    gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    with profiling.span("step.backward"):
+        gs = torch.autograd.grad(loss, list(named.values()),
+                                 allow_unused=True)
     by_id = {id(v): (torch.zeros_like(v) if g is None else g)
              for v, g in zip(named.values(), gs)}
     return map_scene(lambda x: by_id.get(id(x)), scene_params)

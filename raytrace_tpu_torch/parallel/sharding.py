@@ -32,6 +32,7 @@ from ..diff.gradients import (
 )
 from ..render.integrator import LANE_ALIGN
 from ..render.render import _stationary_fn, rotate_k_for
+from ..utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +205,13 @@ def sharded_train_step_fn(mesh: Mesh, settings, lr: float = 1e-2,
     target) -> (loss, scene', opt_state')`` carries it (the state is the
     optimizer's ``state_dict``, never changed in place), and
     ``step.loss_and_grads(scene, key, pixel_ids, sample_ids, target) ->
-    (loss, grads)`` gives the all-reduced loss and gradients alone."""
+    (loss, grads)`` gives the all-reduced loss and gradients alone.
+
+    Spans (``utils/profiling.py``): ``step`` around ``with_state``, and
+    inside it ``step.loss_and_grads`` (the forward and, in
+    ``gradients._grads``, ``step.backward``), ``step.allreduce`` (the
+    flat buffer's all-reduce) and ``step.update`` (the optimizer's
+    rebuild and step, the new scene)."""
     if schedule is not None:
         raise ValueError("sharded_train_step_fn: no compaction schedule "
                          "(its widths are absolute lane counts, which mean "
@@ -228,15 +235,17 @@ def sharded_train_step_fn(mesh: Mesh, settings, lr: float = 1e-2,
         dev = scene.device
         params, statics = partition(scene)
         n_s = spp if spp is not None else len(sample_ids)
-        (loss, _), grads = loss_and_grads(
-            params, statics, settings, key,
-            pixel_ids[lo:lo + b].to(dev, torch.int32),
-            target[lo:lo + b].to(dev), spp=n_s, n_iters=n_iters)
+        with profiling.span("step.loss_and_grads"):
+            (loss, _), grads = loss_and_grads(
+                params, statics, settings, key,
+                pixel_ids[lo:lo + b].to(dev, torch.int32),
+                target[lo:lo + b].to(dev), spp=n_s, n_iters=n_iters)
         # one all-reduce of the loss and every gradient leaf, each rank's
         # weighted by its share of the pixels
         gs = list(leaves(grads).values())
         flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in gs])
-        flat = mesh.all_reduce(flat * (b / n), "world")
+        with profiling.span("step.allreduce"):
+            flat = mesh.all_reduce(flat * (b / n), "world")
         parts = torch.split(flat[1:], [g.numel() for g in gs])
         by_id = {id(g): p.view_as(g) for g, p in zip(gs, parts)}
         return flat[0], params, statics, map_scene(lambda g: by_id[id(g)],
@@ -253,16 +262,20 @@ def sharded_train_step_fn(mesh: Mesh, settings, lr: float = 1e-2,
     def init(scene):
         return new_optimizer(partition(scene)[0], None)[0].state_dict()
 
+    @profiling.spanned("step")
     def with_state(scene, opt_state, key, pixel_ids, sample_ids, target):
         loss, params, statics, grads = grads_on_mesh(
             scene, key, pixel_ids, sample_ids, target)
-        opt, named, new = new_optimizer(params, opt_state)
-        for k, g in leaves(grads).items():
-            new[k].grad = g
-        opt.step()
-        by_id = {id(named[k]): new[k] for k in new}
-        scene2 = combine(map_scene(lambda p: by_id[id(p)], params), statics)
-        return loss, scene2, opt.state_dict()
+        with profiling.span("step.update"):
+            opt, named, new = new_optimizer(params, opt_state)
+            for k, g in leaves(grads).items():
+                new[k].grad = g
+            opt.step()
+            by_id = {id(named[k]): new[k] for k in new}
+            scene2 = combine(map_scene(lambda p: by_id[id(p)], params),
+                             statics)
+            state = opt.state_dict()
+        return loss, scene2, state
 
     def step(scene, key, pixel_ids, sample_ids, target):
         loss, scene2, _ = with_state(scene, init(scene), key, pixel_ids,

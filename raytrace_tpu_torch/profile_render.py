@@ -102,8 +102,8 @@ the update of every float leaf), it
    driver's ``index_add_`` adds on the card in a varying order);
 3. runs it once more under ``torch.profiler`` and prints the number of
    device operations per iteration, their summed device time, the
-   device's busy share of the best unprofiled wall, the host's kernel
-   launch calls, and the device operations that take the most time.
+   host's kernel launch calls, and the device operations that take the
+   most time.
 
 The iteration count is the number of forward kernel launches (kernel A
 or B, or a nearest-hit kernel and the mesh iteration kernel; for
@@ -908,15 +908,14 @@ def main() -> None:
         est = dict(walls_s=walls, iterations=iters, peak_bytes=peak,
                    profiled_wall_s=prof_wall,
                    device_ops=n_ops, device_ops_per_iter=n_ops / iters,
-                   device_s=dev_s, busy_of_best_wall=dev_s / min(walls),
+                   device_s=dev_s,
                    host_kernel_launches=host_launches,
                    top=[(op[:80], c, us / 1e3) for op, (c, us) in top[:8]],
                    driver_stats=occ)
         report["estimators"][name] = est
         print(f"[profile] {name}: profiled wall {prof_wall:.3f} s; "
               f"{n_ops} device ops ({n_ops / iters:.1f} per iteration), "
-              f"{dev_s:.4f} s of device time = {dev_s / min(walls):.3f} of "
-              f"the best unprofiled wall; {host_launches} host kernel "
+              f"{dev_s:.4f} s of device time; {host_launches} host kernel "
               f"launches", flush=True)
         for op, (c, us) in top[:8]:
             print(f"    {us / 1e3:10.3f} ms {us / 1e6 / dev_s:6.1%} "

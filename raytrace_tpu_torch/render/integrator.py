@@ -38,8 +38,10 @@ surviving lanes' throughput in torch (marble stripes through kernel K12).
 
 Every random draw is a pure function of (pixel, sample, depth, column), so
 every driver and every ``rotate_k`` traces the same samples.  The loop
-condition is read on the host once per iteration.  With ``with_stats``
-each of the three also returns ``dict(iterations, segments, lanes)``
+condition is read on the host once per iteration, under the span
+``driver.wait``, and the iteration's body runs under ``driver.iteration``
+(:func:`_turns`, ``utils/profiling.py``).  With ``with_stats`` each of
+the three also returns ``dict(iterations, segments, lanes)``
 (:func:`_stats`), whose count adds no host read and no op to the
 image's.  (On the card the queue's and the sorted driver's
 ``index_add_`` adds the paths of a pixel that finish in one iteration in
@@ -113,6 +115,7 @@ from ..scene.types import BVH, Ellipsoids, Primitives, Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
 )
+from ..utils import profiling
 from .camera import CameraSettings, camera_frame, camera_table, rays_from_table
 from .volumes import (
     CrossingStatics, VolumeTables, crossing_statics, medium_hit,
@@ -919,6 +922,20 @@ def _stats(acc, with_stats: bool, iters: int, segments, lanes: int):
     return acc, dict(iterations=iters, segments=segments, lanes=lanes)
 
 
+def _turns(go):
+    """A forward driver's loop: yields once a turn while ``go()``, the
+    host's read of the loop condition, is true.  The read runs under the
+    span ``driver.wait`` (the host blocked until the card has drained
+    the last turn), each turn's body under ``driver.iteration`` (the
+    enqueue of its kernels and glue)."""
+    while True:
+        with profiling.span("driver.wait"):
+            if not go():
+                return
+        with profiling.span("driver.iteration"):
+            yield
+
+
 def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
                     spp: int, n_lanes: int, acc=None, sample_offset: int = 0,
                     with_stats: bool = False):
@@ -949,7 +966,7 @@ def trace_wavefront(scene: Scene, s: CameraSettings, base_key, n_pix: int,
     keys = rng.ray_keys_fast(base_key, pixel, sample)
     iters, segments = 0, _segments(with_stats, dev)
 
-    while bool((next_w < total_work) | alive.any()):
+    for _ in _turns(lambda: bool((next_w < total_work) | alive.any())):
         # regenerate dead lanes from the queue
         dead = ~alive
         dead_i = dead.to(torch.int64)
@@ -1059,7 +1076,8 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                  + tuple(comps.unbind(0)) + (z, z, z) + (o, o, o))
         acc3 = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
         iters, segments = 0, _segments(with_stats, dev)
-        while bool(((carry[2] > 0.5) | (carry[0] < last_sample)).any()):
+        for _ in _turns(lambda: bool(
+                ((carry[2] > 0.5) | (carry[0] < last_sample)).any())):
             carry, rad2, died_f = step(base_pixel, carry)
             acc3 += torch.stack(rad2) * died_f
             if with_stats:
@@ -1090,7 +1108,7 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
         acc3 = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
         iters, segments = 0, _segments(with_stats, dev)
 
-        while bool((alive | (sample < last_sample)).any()):
+        for _ in _turns(lambda: bool((alive | (sample < last_sample)).any())):
             # start this lane's next sample if idle
             can = ~alive & (sample < last_sample)
             sample = torch.where(can, sample + 1, sample)
@@ -1213,7 +1231,8 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     istate = torch.zeros((4, lanes), dtype=torch.int32, device=dev)
     iters, segments = 0, _segments(with_stats, dev)
 
-    while bool((next_w < total_work) | (istate[3] > 0).any()):
+    for _ in _turns(lambda: bool((next_w < total_work)
+                                 | (istate[3] > 0).any())):
         # re-bin: the permutation travels with all lane state
         perm = torch.argsort(_sort_key(fstate, istate[3] > 0, blo, binv),
                              stable=True)
@@ -1269,7 +1288,12 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
                                 sample_offset: int, schedule):
     """The fused differentiable driver: ``n_iters`` iterations of the
     differentiable step on every lane, then the completion schedule.
-    There is no host sync inside the loops."""
+    There is no host sync inside the loops.  The whole forward runs
+    under the span ``diff.forward``, each iteration (the step and its
+    accumulation adds) under ``diff.fwd_iter``; while the recorder
+    records, the counters ``diff.iterations``, ``diff.lane_iterations``
+    and ``diff.segments`` (the lanes alive or dying after kernel B's
+    step, as the stationary driver's fused branch counts them)."""
     from ..diff.fused_iter import fused_iter_step
     dev = scene.device
     lanes = pixel_ids.shape[0]
@@ -1284,12 +1308,29 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
                             device=dev), zi, z)
                 + (z, z, z, z, z, o, z) + (z, z, z) + (o, o, o))
 
+    counting = profiling.recording()
+
     def run(pix, state, n):
         acc, done, carry = state
+        # each turn's alive flags after the step, kept (the backward
+        # saves them as the next turn's input) and reduced once
+        alive = [] if counting else None
         for _ in range(n):
-            carry, died_f = step(pix, carry)
-            acc = tuple(a + r * died_f for a, r in zip(acc, carry[10:13]))
-            done = done + died_f.to(torch.int32)
+            with profiling.span("diff.fwd_iter"):
+                carry, died_f = step(pix, carry)
+                acc = tuple(a + r * died_f
+                            for a, r in zip(acc, carry[10:13]))
+                done = done + died_f.to(torch.int32)
+            if alive is not None:
+                alive.append(carry[2])
+        if alive:
+            # a lane traces a segment in a turn when it is alive after
+            # the step or dies in it, never both: the turns alive plus
+            # the samples done
+            profiling.count("diff.iterations", n)
+            profiling.count("diff.lane_iterations", n * pix.shape[0])
+            profiling.count("diff.segments",
+                            (torch.stack(alive) > 0.5).sum() + done.sum())
         return acc, done, carry
 
     def zeros_state(w, carry):
@@ -1298,24 +1339,26 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
                                       device=dev), carry
 
     pix = pixel_ids.to(device=dev, dtype=torch.int32)
-    acc, done, carry = run(pix, zeros_state(lanes, init_carry(lanes)),
-                           n_iters)
-    if schedule:
-        # compact the unfinished lanes (stable: JAX's argsort is) and run
-        # each phase there; its sums land back in the lanes' slots
-        slot = torch.arange(lanes, device=dev)
-        for it_b, w_b in schedule:
-            smp_c, _, al_c = carry[0:3]
-            unfinished = (al_c > 0.5) | (smp_c < last_sample)
-            sel = torch.argsort((~unfinished).to(torch.int32),
-                                stable=True)[:w_b]
-            slot = slot[sel]
-            pix = pix[sel]
-            acc_b, done_b, carry = run(
-                pix, zeros_state(w_b, tuple(c[sel] for c in carry)), it_b)
-            acc = tuple(a.index_add(0, slot, ab)
-                        for a, ab in zip(acc, acc_b))
-            done = done.index_add(0, slot, done_b)
+    with profiling.span("diff.forward"):
+        acc, done, carry = run(pix, zeros_state(lanes, init_carry(lanes)),
+                               n_iters)
+        if schedule:
+            # compact the unfinished lanes (stable: JAX's argsort is) and
+            # run each phase there; its sums land back in the lanes' slots
+            slot = torch.arange(lanes, device=dev)
+            for it_b, w_b in schedule:
+                smp_c, _, al_c = carry[0:3]
+                unfinished = (al_c > 0.5) | (smp_c < last_sample)
+                sel = torch.argsort((~unfinished).to(torch.int32),
+                                    stable=True)[:w_b]
+                slot = slot[sel]
+                pix = pix[sel]
+                acc_b, done_b, carry = run(
+                    pix, zeros_state(w_b, tuple(c[sel] for c in carry)),
+                    it_b)
+                acc = tuple(a.index_add(0, slot, ab)
+                            for a, ab in zip(acc, acc_b))
+                done = done.index_add(0, slot, done_b)
     mean = torch.stack(acc, dim=-1) / torch.clamp(done, min=1)[:, None]
     return mean, done
 

@@ -20,6 +20,7 @@ import torch
 from ..core import rng
 from ..core.vecmath import DTYPE
 from ..scene.types import Scene
+from ..utils import profiling
 from .camera import CameraSettings
 from .integrator import (
     stationary_fused, trace_wavefront, trace_wavefront_sorted,
@@ -131,27 +132,30 @@ def forward_launches(scene: Scene, settings: CameraSettings, key, spp: int,
     done, pixel offset, pixels, samples, launch)``.  ``launch(**kw)``
     calls the band's driver on its chunk of samples (``kw``: the
     drivers' ``with_stats``) and returns the radiance sum over the band's
-    pixels; "samples done" counts the chunks up to this one."""
+    pixels, under the span ``render.launch``; "samples done" counts the
+    chunks up to this one."""
     h, w = settings.image_height, settings.image_width
     n_pix = h * w
     bands = row_bands(h, w, max_band)
     driver = forward_driver(scene, bands[0][1])
     if spp_chunk is None:
         spp_chunk = default_spp_chunk(driver, spp, n_pix, n_lanes)
+    spanned = profiling.spanned("render.launch")
     for done in range(0, spp, spp_chunk):
         n_s = min(spp_chunk, spp - done)
         s0 = spp_done + done
         if driver == "queue":
-            yield done + n_s, 0, n_pix, n_s, functools.partial(
+            yield done + n_s, 0, n_pix, n_s, spanned(functools.partial(
                 trace_wavefront, scene, settings, key, n_pix, n_s,
-                queue_lanes(n_pix, n_s, n_lanes), sample_offset=s0)
+                queue_lanes(n_pix, n_s, n_lanes), sample_offset=s0))
             continue
         for off, bp in bands:
-            yield done + n_s, off, bp, n_s, functools.partial(
+            yield done + n_s, off, bp, n_s, spanned(functools.partial(
                 _stationary_fn, scene, settings, key, bp, n_s, s0,
-                rotate_k_for(n_s), off)
+                rotate_k_for(n_s), off))
 
 
+@profiling.spanned("render.accumulate")
 def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
                       *, spp: int | None = None, n_lanes: int = 1 << 17,
                       spp_chunk: int | None = None, acc=None,
@@ -162,7 +166,8 @@ def render_accumulate(scene: Scene, settings: CameraSettings, seed: int = 0,
     the radiance *sum* and ``acc / spp_total`` the image.  Pass a previous
     ``(acc, spp_done)`` to resume.  ``spp_chunk`` bounds the samples per
     driver launch; images over ``max_band`` pixels render in row bands
-    (:func:`forward_launches`)."""
+    (:func:`forward_launches`).  A call runs under the span
+    ``render.accumulate`` (``utils/profiling.py``)."""
     dev = scene.device
     n_pix = settings.image_height * settings.image_width
     spp = spp if spp is not None else settings.samples_per_pixel

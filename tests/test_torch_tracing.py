@@ -1,0 +1,348 @@
+"""The recorder of spans and counters (``utils/profiling.py``) and the
+spans and counters the program records with it, on the CPU.
+
+* Spans nest: each records its parent, and the spans of one call (a
+  ``render_accumulate`` call, a train step) share its id.
+* With recording off nothing is recorded: ``span`` returns one shared
+  no-op context, ``count`` keeps nothing, the drivers count no segments.
+* ``render_accumulate`` and the sharded train step's loss, gradients and
+  new scene are bit-equal with recording on and off.
+* Recording leaves ``with_stats``' dict of a forward driver as it is
+  and adds no counter of its own; each iteration ``with_stats`` counts
+  is one ``driver.iteration`` span (fused, rotated, queue and sorted
+  branches).  ``diff.*`` counts the fused differentiable driver's work:
+  the lanes alive or dying each turn, exactly at depth 1.
+* Under the CPU profiler the spans mapped onto the trace's clock
+  (``clock_offset``) enclose the operations issued inside them; without
+  the anchors' events the alignment raises.
+* A no-op span costs at most 2 us on a loaded core.
+"""
+import time
+
+import pytest
+import torch
+
+from raytrace_tpu_torch.core import rng
+from raytrace_tpu_torch.diff.gradients import leaves
+from raytrace_tpu_torch.parallel.sharding import (
+    make_mesh, sharded_train_step_fn,
+)
+from raytrace_tpu_torch.render import integrator as tint
+from raytrace_tpu_torch.render.render import render_accumulate
+from raytrace_tpu_torch.testing import (
+    cornell_scene_and_settings, pawn_standin_scene, torch_threads,
+)
+from raytrace_tpu_torch.utils import profiling
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    return cornell_scene_and_settings(16, 4, 4, device="cpu")
+
+
+def _by_name(spans, name):
+    return [s for s in spans if s["name"] == name]
+
+
+def test_spans_nest_with_parents_and_one_id_a_call():
+    with profiling.tracing() as rec:
+        with profiling.span("a"):
+            with profiling.span("a.b"):
+                with profiling.span("a.b.c"):
+                    pass
+            with profiling.span("a.d"):
+                pass
+        with profiling.span("e"):
+            pass
+    out = rec.export()
+    names = [s["name"] for s in out["spans"]]
+    assert names == ["a", "a.b", "a.b.c", "a.d", "e"]
+    parents = [s["parent"] for s in out["spans"]]
+    assert parents == [None, 0, 1, 0, None]
+    assert [s["call"] for s in out["spans"]] == [0, 0, 0, 0, 1]
+    for s in out["spans"]:
+        assert s["start_ns"] <= s["end_ns"]
+        if s["parent"] is not None:
+            p = out["spans"][s["parent"]]
+            assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] <= p["end_ns"]
+    # no profiler: no clock anchors
+    assert out["anchors"] == []
+
+
+def test_render_accumulate_spans(cornell):
+    scene, s = cornell
+    with profiling.tracing() as rec:
+        render_accumulate(scene, s, 1, spp=2)
+        render_accumulate(scene, s, 1, spp=2)
+    spans = rec.export()["spans"]
+    acc = _by_name(spans, "render.accumulate")
+    assert len(acc) == 2 and [a["parent"] for a in acc] == [None, None]
+    assert [a["call"] for a in acc] == [0, 1]
+    launches = _by_name(spans, "render.launch")
+    assert launches and all(spans[x["parent"]]["name"] == "render.accumulate"
+                            for x in launches)
+    waits = _by_name(spans, "driver.wait")
+    iters = _by_name(spans, "driver.iteration")
+    # one read more than turns: the last reads false
+    assert len(waits) == len(iters) + len(launches)
+    for x in waits + iters:
+        assert spans[x["parent"]]["name"] == "render.launch"
+        assert x["call"] == spans[x["parent"]]["call"]
+
+
+def test_recording_off_records_nothing(cornell):
+    scene, s = cornell
+    assert not profiling.recording()
+    assert profiling.span("a") is profiling.span("b")
+    with profiling.tracing() as rec:
+        assert profiling.recording()
+        with profiling.span("inside"):
+            profiling.count("inside", 1)
+    before = rec.export()
+    # after the block: nothing recorded anywhere, the drivers count
+    # nothing
+    with profiling.span("outside"):
+        profiling.count("outside", 1)
+    render_accumulate(scene, s, 1, spp=2)
+    assert rec.export() == before
+    assert profiling._ACTIVE is None and not profiling.recording()
+    assert tint._segments(False, "cpu") is None
+
+
+def test_nested_tracing_restores_the_outer_block():
+    with profiling.tracing() as outer:
+        with profiling.tracing() as inner:
+            profiling.count("x", 1)
+        profiling.count("y", 2)
+    assert inner.export()["counters"] == {"x": 1}
+    assert outer.export()["counters"] == {"y": 2}
+
+
+def test_render_accumulate_bit_equal_with_recording(cornell):
+    scene, s = cornell
+    off, _ = render_accumulate(scene, s, 3, spp=4)
+    with profiling.tracing():
+        on, _ = render_accumulate(scene, s, 3, spp=4)
+    assert torch.equal(on, off)
+
+
+# (driver, spp, keyword arguments): the stationary driver's fused and
+# rotated branches, the work queue
+DRIVERS = {
+    "fused": ("stationary", 4, dict(rotate_k=1)),
+    "rotated": ("stationary", 4, dict(rotate_k=4)),
+    "queue": ("queue", 2, dict(n_lanes=128)),
+}
+
+
+def _drive(driver, scene, s, spp, kw, **stats):
+    key = rng.base_key(5)
+    n_pix = s.image_width * s.image_height
+    if driver == "queue":
+        return tint.trace_wavefront(scene, s, key, n_pix, spp,
+                                    kw["n_lanes"], **stats)
+    return tint.trace_wavefront_stationary(scene, s, key, n_pix, spp,
+                                           rotate_k=kw["rotate_k"], **stats)
+
+
+def _driver_spans_match_with_stats(drive):
+    """``drive(**stats)`` with ``with_stats`` while recording: the same
+    image and dict as unrecorded, no counter, one ``driver.iteration``
+    span an iteration counted."""
+    with profiling.tracing() as rec:
+        acc, st = drive(with_stats=True)
+    acc_off, st_off = drive(with_stats=True)
+    out = rec.export()
+    assert out["counters"] == {}
+    assert len(_by_name(out["spans"], "driver.iteration")) \
+        == st["iterations"]
+    assert torch.equal(acc, acc_off) and torch.equal(acc, drive())
+    assert st == st_off
+
+
+@pytest.mark.parametrize("case", sorted(DRIVERS))
+def test_driver_spans_match_with_stats(cornell, case):
+    scene, s = cornell
+    driver, spp, kw = DRIVERS[case]
+    n_pix = s.image_width * s.image_height
+    if driver == "stationary":
+        assert tint.stationary_fused(scene, s, n_pix, spp,
+                                     kw["rotate_k"]) == (case == "fused")
+    _driver_spans_match_with_stats(
+        lambda **stats: _drive(driver, scene, s, spp, kw, **stats))
+
+
+def test_sorted_driver_spans_match_with_stats():
+    scene, s = pawn_standin_scene(16, 2, 4, device="cpu")
+    key = rng.base_key(2)
+    _driver_spans_match_with_stats(
+        lambda **stats: tint.trace_wavefront_sorted(scene, s, key, 256, 2,
+                                                    **stats))
+
+
+@pytest.mark.parametrize("n_iters", [3, 6])
+def test_diff_segments_depth_one_identity(n_iters):
+    """At depth 1 every path is one segment: each iteration every lane
+    with a sample left traces one, so ``min(spp, n_iters)`` iterations
+    of every lane, and the segments are the samples done."""
+    scene, s = cornell_scene_and_settings(16, 4, 1, device="cpu")
+    pix = torch.arange(256, dtype=torch.int32)
+    assert tint.diff_route(scene, s, 256) == "fused"
+    with profiling.tracing() as rec:
+        img, done = tint.trace_wavefront_diff(scene, s, rng.base_key(4), pix,
+                                              4, n_iters=n_iters)
+    c = rec.export()["counters"]
+    assert c["diff.iterations"] == n_iters
+    assert c["diff.lane_iterations"] == n_iters * 256
+    assert c["diff.segments"] == 256 * min(4, n_iters) == int(done.sum())
+    img2, done2 = tint.trace_wavefront_diff(scene, s, rng.base_key(4), pix,
+                                            4, n_iters=n_iters)
+    assert torch.equal(img, img2) and torch.equal(done, done2)
+
+
+def test_diff_segments_count_lanes_alive_or_dying(monkeypatch):
+    """At depth 4, ``diff.segments`` (the turns alive after the step
+    plus the samples done) equals the sum over turns of the lanes alive
+    after the step or dying in it, read from each step's outputs."""
+    from raytrace_tpu_torch.diff import fused_iter
+    scene, s = cornell_scene_and_settings(16, 4, 4, device="cpu")
+    pix = torch.arange(256, dtype=torch.int32)
+    make, turns = fused_iter.fused_iter_step, []
+
+    def spy(*a, **kw):
+        step = make(*a, **kw)
+
+        def counted(pix, carry):
+            carry2, died_f = step(pix, carry)
+            turns.append(int(((carry2[2] > 0.5) | (died_f > 0.5)).sum()))
+            return carry2, died_f
+        return counted
+    monkeypatch.setattr(fused_iter, "fused_iter_step", spy)
+    with profiling.tracing() as rec:
+        tint.trace_wavefront_diff(scene, s, rng.base_key(4), pix, 4,
+                                  n_iters=12)
+    assert len(turns) == 12
+    assert rec.export()["counters"]["diff.segments"] == sum(turns)
+    assert 0 < sum(turns) < 12 * 256
+
+
+def _train(scene, s):
+    step = sharded_train_step_fn(
+        make_mesh(), s, spp=2, n_iters=10,
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=0.02))
+    pix = torch.arange(256, dtype=torch.int32)
+    target = torch.rand((256, 3), generator=torch.Generator().manual_seed(1))
+    state = step.init(scene)
+    outs = []
+    for k in range(2):
+        loss, scene, state = step.with_state(scene, state, rng.base_key(k),
+                                             pix, None, target)
+        outs.append((loss, scene))
+    grads = step.loss_and_grads(scene, rng.base_key(9), pix, None, target)
+    return outs, grads
+
+
+def test_train_step_spans_counters_and_bit_equality(cornell):
+    scene, s = cornell
+    with profiling.tracing() as rec:
+        on, g_on = _train(scene, s)
+    off, g_off = _train(scene, s)
+    for (l1, s1), (l2, s2) in zip(on, off):
+        assert torch.equal(l1, l2)
+        for k, v in leaves(s1).items():
+            assert torch.equal(v, leaves(s2)[k]), k
+    assert torch.equal(g_on[0], g_off[0])
+    for k, v in leaves(g_on[1]).items():
+        if v is not None:
+            assert torch.equal(v, leaves(g_off[1])[k]), k
+
+    out = rec.export()
+    spans, c = out["spans"], out["counters"]
+    steps = _by_name(spans, "step")
+    assert len(steps) == 2 and all(x["parent"] is None for x in steps)
+    assert [x["call"] for x in steps] == [0, 1]
+
+    def parent(x):
+        return spans[x["parent"]]["name"]
+    for name, up in (("step.loss_and_grads", "step"),
+                     ("step.allreduce", "step"), ("step.update", "step"),
+                     ("diff.forward", "step.loss_and_grads"),
+                     ("step.backward", "step.loss_and_grads"),
+                     ("diff.fwd_iter", "diff.forward"),
+                     ("diff.bwd_iter", "step.backward")):
+        found = [x for x in _by_name(spans, name) if x["call"] < 2]
+        assert found and all(parent(x) == up for x in found), name
+    # the third call is loss_and_grads alone: no step, no update
+    third = [x["name"] for x in spans if x["call"] == 2]
+    assert "step" not in third and "step.update" not in third
+    assert len(_by_name(spans, "diff.fwd_iter")) == 3 * 10
+    assert len(_by_name(spans, "diff.bwd_iter")) == 3 * 10
+    assert c["diff.iterations"] == 3 * 10
+    assert c["diff.lane_iterations"] == 3 * 10 * 256
+    assert 0 < c["diff.segments"] <= c["diff.lane_iterations"]
+
+
+def test_aligned_spans_enclose_their_ops_on_the_cpu_profiler():
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with profiling.tracing() as rec:
+            for k in range(3):
+                with profiling.span(f"work{k}"):
+                    torch.ones(64).add_(k).sum()
+                time.sleep(0.002)
+    out = rec.export()
+    assert [a[0] for a in out["anchors"]] == ["label", "label"]
+    clock = profiling.clock_offset(out, prof.events())
+    assert clock is not None
+    bound = max(clock["bounds_ns"])
+    assert abs(clock["drift_ns"]) <= 2 * bound
+    ops = sorted((1e3 * e.time_range.start, 1e3 * e.time_range.end)
+                 for e in prof.events() if e.name == "aten::ones")
+    assert len(ops) == 3
+    for sp, (a, b) in zip(out["spans"], ops):
+        lo = sp["start_ns"] + clock["offset_ns"]
+        hi = sp["end_ns"] + clock["offset_ns"]
+        assert lo - bound <= a <= b <= hi + bound, (sp["name"], lo, a, b, hi)
+
+
+def test_clock_offset_raises_without_the_anchors():
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        torch.ones(4).sum()
+    with profiling.tracing() as rec:
+        pass
+    with pytest.raises(ValueError, match="anchors"):
+        profiling.clock_offset(rec.export(), prof.events())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.tracing() as rec:
+            pass
+    out = rec.export()
+    # the end anchor's events lost from the trace
+    events = [e for e in prof.events() if e.name == profiling.ANCHOR][:2]
+    with pytest.raises(ValueError, match="events"):
+        profiling.clock_offset(out, events)
+
+
+def test_a_no_op_span_costs_at_most_two_microseconds():
+    """10^6 spans with recording off, the best of five rounds of
+    2 x 10^5 (the rounds take the load of shared cores apart): a
+    ``with`` and a call, 0.3 us on an idle core here, at most 2 us
+    under any load of the test run.  PERF.md gives the cost on the
+    card's host (under 0.5 us)."""
+    n, rounds = 2 * 10 ** 5, 5
+    span = profiling.span
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with span("driver.iteration"):
+                pass
+        best = min(best, time.perf_counter() - t0)
+    assert best / n <= 2e-6, best / n
