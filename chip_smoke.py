@@ -34,17 +34,22 @@ Phases (each prints a line; any failure raises and exits non-zero):
 5. the main path, ``render_accumulate`` on the Cornell box at 600 x 600,
    depth 50, at 64 spp (bench.py's 200 cut to keep the smoke short;
    ``profile_render.py`` times 200) — exact estimator and Russian
-   roulette from depth 2 (stationary driver, rotate_k 8: kernel A);
+   roulette from depth 2 (stationary driver, rotate_k 8: kernel B's
+   rotated mode, every launch through its planar instantiation);
 6. the main path at spp 1 (rotate_k 1: the fused branch, kernel B, every
-   launch through its planar instantiation); then the same path at 2 spp
-   and 1 spp once more, with every kernel launch held against its plain
+   launch through its planar instantiation); then the same path at 16
+   spp (rotated as at 64: k_rot 8, two samples a chunk), 2 spp (k_rot 2,
+   one a chunk) and 1 spp once more, with every kernel launch (the
+   rotated mode's accumulation planes too) held against its plain
    version on the inputs the driver gave it;
 7. each kernel's device time per launch (torch.profiler) and its
    wrapper's call back to back (CUDA events: the host's cost) beside its
    plain version's at the main path's 360,064 lanes; kernels A's and B's
    times also through their general instantiation (unprepared: B's host
    time too) and with ``n_prims=0`` (the shade and the lane I/O alone),
-   their ``-Xptxas -v`` reports and B's SASS loops;
+   their ``-Xptxas -v`` reports and B's SASS loops; kernel B's rotated
+   mode at the main path's k_rot 8 and spp_k 8, its lanes spread over
+   every chunk, checked against its plain version, timed and bounded;
 8. the backward kernel K5 against its plain version (torch autograd over
    ``lane_math``) on 2^18 lanes of a real mid-render state (kernel B
    steps the fwd+bwd configuration four times; random cotangents): the
@@ -345,7 +350,7 @@ demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
     metal_test, readme_example, lommel_seeliger_test, sphere_uv_test,
     demo1), each through its
     ``build`` at its own width and depth with the samples cut
-    (``SCENE_SPP``): wall, primary rays/s, launches (kernel A; K8 for
+    (``SCENE_SPP``): wall, primary rays/s, launches (kernel B; K8 for
     sphere_uv_test's one-lane queue, the generic bounce), PNGs in
     chiprun_out/; then a checked render of each at 1 spp
     (``SCENE_CHECKED_WIDTH``: the work queue on kernel A), every launch
@@ -374,7 +379,7 @@ demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
 
 55. the forward drivers' ``with_stats`` (``render/integrator.py``): the
     stationary driver on Cornell 600 x 600 at 8 spp, rotate_k 8 (kernel
-    A) and at 1 spp (fused: kernel B), the sorted driver on the pawn
+    B's rotated mode) and at 1 spp (kernel B), the sorted driver on the pawn
     stand-in at 500 x 500, 2 spp (K9, K11b, K10) and the work queue on
     Cornell 600 x 600, 1 spp, 2^16 lanes (kernel A), each at depth 50
     (the pawn 20): the iterations equal to the launches of the route's
@@ -423,6 +428,9 @@ GRAD_RTOL = 1e-3
 FD_RTOL = 0.02
 # samples per pixel of the forward main path (bench.py renders 200)
 FWD_SPP = 64
+# samples per pixel of phase 6's checked renders that rotate as the main
+# path does: rotate_k_for gives 8, so each chunk spans 2 samples
+CHECKED_ROT_SPP = 16
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -702,11 +710,15 @@ def main() -> None:
         bounce_megakernel, bounce_plain,
     )
     from raytrace_tpu_torch.ops.iter_kernel import (
-        iter_megakernel, iter_plain,
+        Rotation, iter_megakernel, iter_plain,
     )
     from raytrace_tpu_torch.render.image import write_image
-    from raytrace_tpu_torch.render.integrator import bounce_tables
-    from raytrace_tpu_torch.render.render import render_accumulate
+    from raytrace_tpu_torch.render.integrator import (
+        bounce_tables, rotation_stride,
+    )
+    from raytrace_tpu_torch.render.render import (
+        render_accumulate, rotate_k_for,
+    )
     from raytrace_tpu_torch.testing import (
         ALL_MATERIAL_TARGETS, BOUNCE_INT_ROWS, BWD_RTOL, FRAC_LANES, FWD_BWD,
         ITER_INT_ROWS,
@@ -867,11 +879,10 @@ def main() -> None:
               f"[{smi}]", flush=True)
         if not finite or img.shape != (n_pix, 3):
             raise AssertionError(f"main path {name}: bad image")
-        if spp > 1 and (la == 0 or lb != 0):
-            raise AssertionError(f"main path {name}: expected kernel A only")
-        if spp == 1 and (lb == 0 or lbp != lb):
-            raise AssertionError("main path spp1: kernel B did not run, or "
-                                 "not through its planar instantiation")
+        if la != 0 or lb == 0 or lbp != lb:
+            raise AssertionError(f"main path {name}: kernel B did not run "
+                                 "alone, or not through its planar "
+                                 "instantiation")
         if name == "exact":
             write_image(os.path.join(OUT_DIR, "cornell600.png"),
                         img.reshape(600, 600, 3))
@@ -881,18 +892,22 @@ def main() -> None:
           flush=True)
     if rel > 0.03:
         raise AssertionError("Russian roulette changed the image mean")
-    if main_a == 0 or main_b == 0:
-        raise AssertionError("a kernel of the main path never launched")
+    if main_b == 0:
+        raise AssertionError("kernel B never launched on the main path")
 
     phase_done("forward main path")
 
-    # the main path again, every launch held against its plain version
+    # the main path again, every launch held against its plain version:
+    # 16 spp rotates as the main path's 64 do (k_rot 8, spp_k 2: the
+    # chunk a real division, eight planes), 2 spp at k_rot 2 with spp_k 1
     s_rr = s_c.replace(rr_depth=2)
-    for name, s, spp in (("exact", s_c, 2), ("rr2", s_rr, 2),
+    for name, s, spp in (("exact", s_c, CHECKED_ROT_SPP),
+                         ("rr2", s_rr, CHECKED_ROT_SPP),
+                         ("exact", s_c, 2), ("rr2", s_rr, 2),
                          ("exact", s_c, 1), ("rr2", s_rr, 1)):
         with checked_launches() as stats:
             acc, total = render_accumulate(cornell, s, seed=1, spp=spp)
-        kernel = "bounce_megakernel" if spp > 1 else "iter_megakernel"
+        kernel = "iter_megakernel"
         st = stats[kernel]
         if st["launches"] == 0 or not bool(torch.isfinite(acc).all()):
             raise AssertionError(f"checked main path {spp} spp {name}: "
@@ -901,10 +916,7 @@ def main() -> None:
         err = _check(f"main path checked: cornell 600x600 {spp} spp {name}, "
                      f"{st['launches']} launches of {kernel}",
                      (st["n_int"], st["err"], st["excess"]), lanes)
-        if spp > 1:
-            err_a = max(err_a, err)
-        else:
-            err_b = max(err_b, err)
+        err_b = max(err_b, err)
 
     phase_done("checked forward renders")
 
@@ -975,6 +987,37 @@ def main() -> None:
           flush=True)
     for line in sass_loops("iter_kernel"):
         print(f"[sass] {line}", flush=True)
+    # kernel B's rotated mode as the main path launches it (FWD_SPP: k_rot
+    # 8, spp_k 8) on the same lanes, lane l's sample in chunk l mod k_rot
+    # so that every warp adds into all the planes: checked against its
+    # plain version (lanes and planes), then timed and bounded
+    k_m = rotate_k_for(FWD_SPP)
+    spp_m = FWD_SPP // k_m
+    rot_b = Rotation(k_m, spp_m, rotation_stride(lanes, k_m), 0, 0, n_pix,
+                     torch.zeros((k_m, 3, lanes), device=dev))
+    chunk = torch.arange(lanes, device=dev, dtype=torch.int32) % k_m
+    b_lane_r = (b_lane[0], chunk * spp_m - 1) + b_lane[2:]
+    rot_ref = dataclasses.replace(rot_b, planes=rot_b.planes.clone())
+    ref_r = iter_plain(*b_tables, b_lane_r, **b_kw, rotation=rot_ref)
+    out_r = iter_megakernel(*b_tables, b_lane_r, **b_kw, rotation=rot_b)
+    n_died_r = int((out_r[16] > 0.5).sum())
+    err_b = max(err_b, _check(
+        f"kernel B rotated vs plain (planar): cornell 600x600 k_rot {k_m} "
+        f"spp_k {spp_m}, lanes in every chunk, {n_died_r} dying",
+        max_errs(ref_r + (rot_ref.planes,), out_r + (rot_b.planes,),
+                 ITER_INT_ROWS), lanes))
+    if n_died_r == 0 or not bool((rot_b.planes != 0).any(1).any(1).all()):
+        raise AssertionError("kernel B rotated: no lane died, or a plane "
+                             "took no add")
+    br_call = lambda: iter_megakernel(*b_tables, b_lane_r, **b_kw,
+                                      rotation=rot_b)
+    ms_br = _device_ms(br_call, "iter_kernel", 50)
+    host_br = min(_time_ms(br_call, 50) for _ in range(5))
+    print(f"[time] kernel B rotated (planar, k_rot {k_m}, spp_k {spp_m}) "
+          f"{ms_br:.4f} ms on the device ({host_br:.4f} ms a call back to "
+          f"back, the least of 5 turns) against {ms_b:.4f} ({host_b:.4f}) "
+          f"unrotated at {lanes} lanes, {n_died_r} dying [{smi}]",
+          flush=True)
 
     # bounds: each input column read once and each output written once;
     # operations estimated per lane from the sources (a row of the scan
@@ -984,8 +1027,15 @@ def main() -> None:
                         lanes * (45 * tb_c.n_prims + 300))
     bound_b = _bound_ms(4 * lanes * (17 + 19),
                         lanes * (45 * tb_c.n_prims + 450))
+    # the rotated mode computes the pixel instead of reading it, and a
+    # dying lane reads and writes its 3 floats of a plane; the chunk and
+    # slot ~10 operations more a lane
+    bound_br = _bound_ms(4 * lanes * (16 + 19) + 2 * 12 * n_died_r,
+                         lanes * (45 * tb_c.n_prims + 460))
     print(f"[bound] kernel A {bound_a[0]:.4f} ms ({bound_a[1]}), kernel B "
-          f"{bound_b[0]:.4f} ms ({bound_b[1]}) at {lanes} lanes", flush=True)
+          f"{bound_b[0]:.4f} ms ({bound_b[1]}), kernel B rotated "
+          f"{bound_br[0]:.4f} ms ({bound_br[1]}) at {lanes} lanes",
+          flush=True)
 
     phase_done("kernel times")
 
@@ -1256,7 +1306,9 @@ def main() -> None:
          "host_ms": host_b, "plain_ms": plain_b, "bound_ms": bound_b[0],
          "bound_by": bound_b[1], "library_ms": no_lib,
          "general_ms": ms_bg, "no_rows_ms": ms_b0,
-         "unprepared_host_ms": host_bu},
+         "unprepared_host_ms": host_bu, "rotated_ms": ms_br,
+         "rotated_host_ms": host_br, "rotated_bound_ms": bound_br[0],
+         "rotated_bound_by": bound_br[1]},
         {"name": "bounce_bwd_regen_pre_reduced", "route": "cuda",
          "source": "raytrace_tpu_torch/csrc/bounce_bwd_kernel.cu",
          "replaces":
@@ -4482,8 +4534,8 @@ SCENE_SPP = dict(cornell_box=64, quad_test=100, metal_test=100,
                  sphere_uv_test=1, demo1=16)
 # widths of phase 51's checked renders at 1 spp: pixel counts under the
 # stationary driver's 16,384 and multiples of 128, so the work queue
-# drives them on kernel A as the main renders do (16:9 at 128 px: 9,216
-# pixels; 1:1 at 112 px: 12,544)
+# drives them on kernel A (16:9 at 128 px: 9,216 pixels; 1:1 at 112 px:
+# 12,544)
 SCENE_CHECKED_WIDTH = dict(cornell_box=112, quad_test=112, metal_test=128,
                            readme_example=128, lommel_seeliger_test=112,
                            sphere_uv_test=1, demo1=128)
@@ -4555,8 +4607,9 @@ def _scene_phases(smi, phase_done, dev) -> dict:
         n_rays = s.image_width * s.image_height * spp
         finite = bool(torch.isfinite(img).all())
         # sphere_uv_test's one pixel is a one-lane work queue, not a
-        # multiple of 128: the generic bounce, its surface hit through K8
-        want = ({"K8"} if name == "sphere_uv_test" else {"A"})
+        # multiple of 128: the generic bounce, its surface hit through K8;
+        # the others take the stationary driver's fused iteration
+        want = ({"K8"} if name == "sphere_uv_test" else {"B"})
         ok = finite and set(nonzero(got)) == want
         runs[name] = dict(width=s.image_width, height=s.image_height, spp=spp,
                           depth=depth, wall_s=wall,
@@ -4600,9 +4653,9 @@ def _scene_phases(smi, phase_done, dev) -> dict:
 
     # demo1 at its main path's launch shape: the first row band of its
     # 1200 x 675 render (render_accumulate's bands) through the stationary
-    # driver, rotated as the main path is (2 spp, the fewest that rotate:
-    # unrotated it fuses into kernel B), at its own depth 50: kernel A's
-    # general instantiation over all 512 rows, every launch checked
+    # driver, rotated as the main path is (2 spp, the fewest that rotate),
+    # at its own depth 50: kernel B's rotated mode, general instantiation,
+    # over all 512 rows, every launch (and its planes) checked
     mod = importlib.import_module("raytrace_tpu_torch.scenes.demo1")
     width, _, depth = mod.DEFAULTS
     scene, s, seed = mod.build(types.SimpleNamespace(
@@ -4629,9 +4682,9 @@ def _scene_phases(smi, phase_done, dev) -> dict:
                       for k, v in ran.items())
           + f" ({checked['demo1_band']['wall_s']:.1f} s with the plain "
           "version)", flush=True)
-    if (set(ran) != {"bounce_megakernel"}
+    if (set(ran) != {"iter_megakernel"}
             or any(v["n_int"] or v["err"] for v in ran.values())):
-        raise AssertionError("demo1's band: kernel A disagrees with its "
+        raise AssertionError("demo1's band: kernel B disagrees with its "
                              "plain version, or another kernel ran")
     phase_done("scenes checked")
 
@@ -4925,7 +4978,7 @@ def _stats_phases(smi, phase_done, dev) -> dict:
     spp_p, q_lanes = STATS["pawn_spp"], STATS["queue_lanes"]
     # (label, the route's per-iteration kernels, pixels, spp, the call)
     runs = (
-        ("cornell 600 x 600, 8 spp, rotate_k 8", ("A",), n_c, 8,
+        ("cornell 600 x 600, 8 spp, rotate_k 8", ("B",), n_c, 8,
          lambda **kw: trace_wavefront_stationary(cornell, s_c, key, n_c, 8,
                                                  rotate_k=8, **kw)),
         ("cornell 600 x 600, 1 spp (fused)", ("B",), n_c, 1,

@@ -33,6 +33,16 @@
 // divergence of the walk, and takes the same design: a persistent grid
 // whose blocks stage the camera, material and target tables once.  Plain
 // version: iter_plain(use_ap=True).
+//
+// The rotated mode (kRotate, flat scan only) serves the stationary driver's
+// pixel rotation (render/integrator.py:trace_wavefront_stationary at
+// rotate_k > 1): lane l traces, for its sample smp2 of this turn, the
+// pixel of slot (l + c * stride) % R, c = (smp2 - sample_offset) / spp_k
+// clamped to [0, k_rot), and a dying lane adds its radiance to plane c of
+// the [k_rot, 3, R] accumulator at that slot.  Within a plane the map of
+// lanes to slots is one to one, so no two lanes write one address: no
+// atomics, and the sums are deterministic.  The driver sums the planes once
+// after its loop.  Plain version: iter_plain(rotation=...).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -63,6 +73,10 @@ struct IterArgs {
       rr_depth, max_depth, width, bg_kind, with_uv, n_nodes, tri_only,
       planar;
   float t_min;
+  // rotated mode (k_rot > 1): the rotation's statics and the
+  // [k_rot, 3, R] f32 accumulation planes
+  int k_rot, spp_k, stride, sample_offset, pixel_offset, n_pix;
+  float* acc;
 };
 
 namespace {
@@ -77,18 +91,34 @@ static_assert(kNCam % 4 == 0, "the staged table must stay 16-byte aligned");
 // One iteration of lane l.  kBvh: the mesh variant (the table stays in
 // global memory and the intersect stage walks the BVH); otherwise the flat
 // scan of the table staged in shared memory (sp), planar_loop where
-// kPlanar (every row an unmoving parallelogram or triangle).
-template <bool kBvh, bool kTriOnly, bool kPlanar>
+// kPlanar (every row an unmoving parallelogram or triangle).  kRotate: the
+// lane's pixel and accumulation plane follow the rotation (see above).
+template <bool kBvh, bool kTriOnly, bool kPlanar, bool kRotate>
 __device__ __forceinline__ void iter_lane(const IterArgs& a, long long l,
                                           const float* cam, const float* sp,
                                           const float* sm, const float* st,
                                           const rt::Bvh& bvh) {
   const long long R = a.n_lanes;
 
+  int pix;
+  int rot_c = 0;
+  long long slot = 0;
+  if constexpr (kRotate) {
+    // the sample this turn traces (regen's smp2) picks the chunk
+    const int smp = a.smp[l];
+    const int smp2 = (!(a.al[l] > 0.5f) && smp < a.kt[2]) ? smp + 1 : smp;
+    rot_c = (smp2 - a.sample_offset) / a.spp_k;
+    rot_c = rot_c < 0 ? 0 : (rot_c >= a.k_rot ? a.k_rot - 1 : rot_c);
+    slot = (l + static_cast<long long>(rot_c) * a.stride) % R;
+    pix = a.pixel_offset + static_cast<int>(slot < a.n_pix ? slot
+                                                           : a.n_pix - 1);
+  } else {
+    pix = a.pix[l];
+  }
+
   // regeneration of idle lanes with samples left: RNG and camera ray
   rt::Regen rg;
-  rt::regen(a.kt, cam, a.width, a.pix[l], a.smp[l], a.dep[l], a.al[l] > 0.5f,
-            rg);
+  rt::regen(a.kt, cam, a.width, pix, a.smp[l], a.dep[l], a.al[l] > 0.5f, rg);
   const bool can = rg.can;
   const bool alive_pre = rg.alive_pre;
   const int smp2 = rg.smp2;
@@ -201,9 +231,16 @@ __device__ __forceinline__ void iter_lane(const IterArgs& a, long long l,
   }
   a.outi[l] = smp2;
   a.outi[R + l] = dep2;
+  if constexpr (kRotate) {
+    if (died) {
+      float* p = a.acc + static_cast<long long>(rot_c) * 3 * R + slot;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p[k * R] += rad2[k];
+    }
+  }
 }
 
-template <bool kBvh, bool kTriOnly, bool kPlanar>
+template <bool kBvh, bool kTriOnly, bool kPlanar, bool kRotate = false>
 __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
   float* cam = rt::dyn_smem();  // 16-byte aligned
   float* sp = cam + kNCam;      // so is the table (kNCam % 4 == 0)
@@ -223,22 +260,25 @@ __global__ void __launch_bounds__(kThreads) iter_kernel(const IterArgs a) {
     for (long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
                        threadIdx.x;
          l < a.n_lanes; l += stride)
-      iter_lane<true, kTriOnly, false>(a, l, cam, sp, sm, st, bvh);
+      iter_lane<true, kTriOnly, false, false>(a, l, cam, sp, sm, st, bvh);
   } else {
     const long long l = static_cast<long long>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
     if (l >= a.n_lanes) return;
-    iter_lane<false, false, kPlanar>(a, l, cam, sp, sm, st, rt::Bvh{});
+    iter_lane<false, false, kPlanar, kRotate>(a, l, cam, sp, sm, st,
+                                              rt::Bvh{});
   }
 }
 
 #ifdef __CUDACC__
-template <bool kBvh, bool kTriOnly, bool kPlanar>
+template <bool kBvh, bool kTriOnly, bool kPlanar, bool kRotate = false>
 int launch_iter(const IterArgs* a, void* stream) {
   static rt::Resident cache;
   if (a->n_lanes <= 0) return 0;
   if (a->n_u != rt::kNU) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = iter_kernel<kBvh, kTriOnly, kPlanar>;
+  if (kRotate && (a->acc == nullptr || a->spp_k < 1 || a->n_pix < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = iter_kernel<kBvh, kTriOnly, kPlanar, kRotate>;
   const int smem = static_cast<int>(
       sizeof(float) * (kNCam + (kBvh ? 0 : a->n_prims * rt::kCols) +
                        a->n_mats * rt::kMCols + a->n_targets * rt::kTCols));
@@ -265,6 +305,9 @@ int launch_iter(const IterArgs* a, void* stream) {
 }  // namespace
 
 extern "C" int rt_iter(const IterArgs* a, void* stream) {
+  if (a->k_rot > 1)
+    return a->planar ? launch_iter<false, false, true, true>(a, stream)
+                     : launch_iter<false, false, false, true>(a, stream);
   return a->planar ? launch_iter<false, false, true>(a, stream)
                    : launch_iter<false, false, false>(a, stream);
 }

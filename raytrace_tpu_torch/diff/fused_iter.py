@@ -104,16 +104,20 @@ def iter_kernel_args(scene, s, base_key, last_sample: int):
     return tables, kw
 
 
-def fused_iter_fwd_step(scene, s, base_key, spp: int, sample_offset: int):
+def fused_iter_fwd_step(scene, s, base_key, spp: int, sample_offset: int,
+                        rotation=None):
     """Returns ``step(pixel_ids, carry) -> (carry2, rad2, died_f)``: one
     forward iteration of kernel B.  ``carry`` is 16 [R] tensors (smp i32,
     dep i32, alive f32, comps 7, rad 3, thr 3); ``rad2`` the radiance
-    rows (3), ``died_f`` 0/1."""
+    rows (3), ``died_f`` 0/1.  With ``rotation`` (the rotated mode's
+    :class:`~..ops.iter_kernel.Rotation`) every step also adds the dying
+    lanes' radiance into its planes, and ``pixel_ids`` is not read."""
     tables, kw = iter_kernel_args(scene, s, base_key,
                                   sample_offset + spp - 1)
 
     def step(pix, carry):
-        outs = iter_megakernel(*tables, (pix,) + tuple(carry), **kw)
+        outs = iter_megakernel(*tables, (pix,) + tuple(carry), **kw,
+                               rotation=rotation)
         carry2 = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
                   + tuple(outs[7:10]) + tuple(outs[10:13]))
         return carry2, tuple(outs[7:10]), outs[16]

@@ -25,6 +25,11 @@ whether the kernel's planar instantiation serves them (as kernel A's
 :func:`~.bounce_kernel.prepare_bounce` does) and prebuilds the table part
 of the argument struct (:class:`IterLaunch`); a driver passes it to every
 launch as ``prepared=``.
+
+:class:`Rotation` selects the rotated mode (``rotation=``, flat scan
+only): the stationary driver's pixel rotation, each lane's pixel drawn
+from its sample and each dying lane's radiance added, in the launch, to
+the rotation's accumulation planes.
 """
 from __future__ import annotations
 
@@ -77,16 +82,45 @@ def pack_kt(base_key: torch.Tensor, last_sample: int) -> torch.Tensor:
                         dtype=torch.int32)
 
 
+@dataclasses.dataclass(frozen=True)
+class Rotation:
+    """Kernel B's rotated mode: the stationary driver's pixel rotation
+    (``render/integrator.py:trace_wavefront_stationary``).  Lane ``l``
+    tracing sample ``smp`` serves slot ``(l + c * stride) % R``, ``c =
+    clamp((smp - sample_offset) // spp_k, 0, k_rot - 1)``, whose pixel is
+    ``pixel_offset + min(slot, n_pix - 1)``; a dying lane adds its
+    radiance to ``planes[c, :, slot]``, in place.  ``planes`` is the
+    [k_rot, 3, R] f32 accumulator; a slot has one lane a plane, so the
+    adds need no atomics, and the image is ``planes.sum(0)``."""
+    k_rot: int
+    spp_k: int
+    stride: int
+    sample_offset: int
+    pixel_offset: int
+    n_pix: int
+    planes: torch.Tensor
+
+    def slots(self, smp):
+        """``(c, slot)`` of every lane tracing sample ``smp`` (int64)."""
+        r = smp.shape[0]
+        c = torch.clamp(torch.div(smp - self.sample_offset, self.spp_k,
+                                  rounding_mode="floor"),
+                        0, self.k_rot - 1).long()
+        lane = torch.arange(r, dtype=torch.int64, device=smp.device)
+        return c, (lane + c * self.stride) % r
+
+
 def iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
                n_mats: int, n_targets: int, t_min: float, has_motion: bool,
                use_prim_albedo: bool, n_u: int, rr_depth, max_depth: int,
                width: int, bg_kind: int, with_uv: bool = False,
-               use_ap: bool = False, bvh=None, prepared=None):
+               use_ap: bool = False, bvh=None, prepared=None,
+               rotation: Rotation | None = None):
     """Kernel B in plain PyTorch: the same inputs and outputs as
     :func:`iter_megakernel`, on any device.  ``use_ap`` takes the
     all-pairs intersect stage of the mesh variant (``bvh`` and
     ``prepared`` are accepted so that both take the same arguments, and
-    unused)."""
+    unused); ``rotation`` the rotated mode."""
     (pix, smp, dep, al, ox, oy, oz, dx, dy, dz, tm,
      rr, rg, rb, tr, tg, tb) = lane_in
     c = cam.tolist()
@@ -99,6 +133,10 @@ def iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
     smp2 = torch.where(can, smp + 1, smp)
     dep_pre = torch.where(can, 0, dep)
     alive_pre = alv | can
+    if rotation is not None:
+        rot_c, slot = rotation.slots(smp2)
+        pix = (rotation.pixel_offset
+               + torch.clamp(slot, max=rotation.n_pix - 1)).to(torch.int32)
 
     keys = rng.mix_depth(rng.ray_keys_fast(kt[:2].to(pix.device), pix, smp2),
                          dep_pre)
@@ -161,6 +199,14 @@ def iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
     else:
         scale = torch.ones_like(t2r)
 
+    if rotation is not None:
+        # each lane's own (plane, slot) address: unique, so a plain add
+        r = pix.shape[0]
+        at = ((rot_c * 3 * r + slot)[None, :]
+              + torch.arange(3, device=slot.device)[:, None] * r)
+        flat = rotation.planes.view(-1)
+        flat[at] += torch.where(died, torch.stack(rad2), 0.0)
+
     out = (o2x, o2y, o2z, d2x, d2y, d2z, tmv, *rad2, t2r, t2g, t2b,
            torch.where(alive2, 1.0, 0.0), smp2, dep2,
            torch.where(died, 1.0, 0.0), bi, scale)
@@ -178,7 +224,11 @@ class _IterArgs(ctypes.Structure):
             "n_prims", "n_mats", "n_targets", "has_motion",
             "use_prim_albedo", "n_u", "rr_depth", "max_depth", "width",
             "bg_kind", "with_uv", "n_nodes", "tri_only", "planar")]
-        + [("t_min", ctypes.c_float)])
+        + [("t_min", ctypes.c_float)]
+        + [(f, ctypes.c_int) for f in (
+            "k_rot", "spp_k", "stride", "sample_offset", "pixel_offset",
+            "n_pix")]
+        + [("acc", ctypes.c_void_p)])
 
 
 _LANE_NAMES = ("pix", "smp", "dep", "al", "ox", "oy", "oz", "dx", "dy", "dz",
@@ -286,10 +336,26 @@ def lane_args(table_part: _IterArgs, lane_in, outf, outi) -> _IterArgs:
     return args
 
 
-def _launch_iter(entry, tables, lane_in, bvh, prepared, kw):
+def _rotation_args(args: _IterArgs, rot: Rotation, r: int, dev) -> None:
+    """Fill the rotated mode's part of ``args`` for ``r`` lanes."""
+    p = rot.planes
+    if rot.k_rot < 2 or rot.spp_k < 1 or not 0 < rot.n_pix <= r:
+        raise ValueError(f"iter_megakernel: bad rotation {rot}")
+    if (p.device != dev or p.dtype != torch.float32
+            or tuple(p.shape) != (rot.k_rot, 3, r) or not p.is_contiguous()):
+        raise ValueError(f"planes: need a contiguous float32 [{rot.k_rot}, "
+                         f"3, {r}] tensor on {dev}")
+    (args.k_rot, args.spp_k, args.stride, args.sample_offset,
+     args.pixel_offset, args.n_pix) = (
+        rot.k_rot, rot.spp_k, rot.stride, rot.sample_offset,
+        rot.pixel_offset, rot.n_pix)
+    args.acc = p.data_ptr()
+
+
+def _launch_iter(entry, tables, lane_in, bvh, prepared, kw, rotation=None):
     """Check the lanes of kernel B (``entry`` rt_iter) or of its mesh
     variant (rt_iter_bvh, with ``bvh``) and launch it over
-    :func:`table_args`."""
+    :func:`table_args` (``rotation``: the rotated mode)."""
     dev = lane_in[0].device
     if dev.type != "cuda":
         raise ValueError(f"iter_megakernel: unsupported device {dev}")
@@ -308,7 +374,10 @@ def _launch_iter(entry, tables, lane_in, bvh, prepared, kw):
     n_f = _N_OUT_F + (2 if kw["with_uv"] else 0)
     buf = torch.empty((n_f + 2, r), dtype=torch.float32, device=dev)
     outf, outi = buf[:n_f], buf[n_f:].view(torch.int32)
-    launch(entry, lane_args(table_part, lane_in, outf, outi), dev)
+    args = lane_args(table_part, lane_in, outf, outi)
+    if rotation is not None:
+        _rotation_args(args, rotation, r, dev)
+    launch(entry, args, dev)
     f = outf.unbind(0)
     out = f[:14] + outi.unbind(0) + f[14:17]
     return out + f[17:19] if kw["with_uv"] else out
@@ -319,7 +388,8 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
                     has_motion: bool, use_prim_albedo: bool, n_u: int,
                     rr_depth, max_depth: int, width: int, bg_kind: int,
                     with_uv: bool = False, use_ap: bool = False, bvh=None,
-                    prepared: IterLaunch | None = None):
+                    prepared: IterLaunch | None = None,
+                    rotation: Rotation | None = None):
     """One wavefront iteration of every lane.  ``lane_in`` is 17 [R]
     tensors: pix, smp, dep (i32), al (0/1 f32), comps (7), rad (3),
     thr (3).  ``cam`` is the [24] f32 table of :func:`pack_cam`, ``kt``
@@ -331,7 +401,9 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
     ``prepared`` (:func:`prepare_iter` of these tables and parameters)
     skips the tables' checks and selects the planar instantiation where
     it serves them; without it the tables are checked and the general
-    instantiation runs.
+    instantiation runs.  ``rotation`` (:class:`Rotation`, not with
+    ``use_ap``) takes the rotated mode: the lanes' ``pix`` are not read,
+    and the dying lanes' radiance is also added into its planes.
 
     CPU tensors run :func:`iter_plain`; CUDA tensors launch the kernel
     (``iter_megakernel.launches`` counts the launches of the flat-scan
@@ -342,14 +414,16 @@ def iter_megakernel(ptbl, mtbl, ttbl, cam, kt, lane_in, *, n_prims: int,
               use_prim_albedo=use_prim_albedo, n_u=n_u, rr_depth=rr_depth,
               max_depth=max_depth, width=width, bg_kind=bg_kind,
               with_uv=with_uv)
+    if use_ap and rotation is not None:
+        raise ValueError("iter_megakernel: the mesh variant does not rotate")
     if lane_in[0].device.type == "cpu":
         return iter_plain(ptbl, mtbl, ttbl, cam, kt, lane_in, use_ap=use_ap,
-                          **kw)
+                          rotation=rotation, **kw)
     if use_ap:
         return iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, bvh=bvh,
                             prepared=prepared, **kw)
     out = _launch_iter("rt_iter", (ptbl, mtbl, ttbl, cam, kt), lane_in, None,
-                       prepared, kw)
+                       prepared, kw, rotation)
     iter_megakernel.launches += 1
     if prepared is not None and prepared.planar:
         iter_megakernel.planar_launches += 1

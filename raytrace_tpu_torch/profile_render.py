@@ -765,10 +765,13 @@ def main() -> None:
         it (phase 7 of chip_smoke.py), and K12 on noise_test's 90,112
         camera lanes (phase 23): the call of 20 launches of each, its
         inputs made (and each kernel's device and back-to-back call time,
-        registers and SASS printed) once."""
+        registers and SASS printed) once; kernel B's rotated mode (8
+        ways, ``render_accumulate``'s at 200 spp) is timed beside it on
+        the same lanes, outside the call."""
         from .diff.fused_iter import iter_kernel_args
+        from .ops.iter_kernel import Rotation
         from .ops.texture_kernel import marble_stripe_pallas, marble_table
-        from .render.integrator import split_tables
+        from .render.integrator import rotation_stride, split_tables
         from .testing import (
             camera_rays, fresh_carry, stationary_lanes, surface_points,
         )
@@ -791,11 +794,16 @@ def main() -> None:
         b_call = lambda: iter_megakernel(*tables, lane_in, **kw)
         k12_call = lambda: marble_stripe_pallas(noise.textures, tid, pts,
                                                 mtbl)
-        for name, call, kernel, n in (
-                ("kernel B", b_call, "iter_kernel",
-                 f"{lanes} Cornell lanes"),
-                ("K12", k12_call, "marble_kernel",
-                 f"{lanes_n} noise_test camera lanes, {n_m} marble")):
+        timed = [("kernel B", b_call, "iter_kernel",
+                  f"{lanes} Cornell lanes"),
+                 ("K12", k12_call, "marble_kernel",
+                  f"{lanes_n} noise_test camera lanes, {n_m} marble")]
+        rot = Rotation(8, 25, rotation_stride(lanes, 8), 0, 0, n_pix,
+                       torch.zeros((8, 3, lanes), device=dev))
+        timed.insert(1, ("kernel B rotated", lambda: iter_megakernel(
+            *tables, lane_in, **kw, rotation=rot), "iter_kernel",
+            f"{lanes} Cornell lanes, 8 ways"))
+        for name, call, kernel, n in timed:
             print(f"[kernel] {name} at {n}: {kernel_ms(call, kernel):.4f} ms "
                   f"on the device, {min(call_ms(call) for _ in range(5)):.4f}"
                   f" ms a call back to back (the least of 5 turns of 50) "

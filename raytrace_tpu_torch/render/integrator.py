@@ -7,10 +7,11 @@ becomes ``radiance += throughput * emitted; throughput *= weight``, and a
 finished path adds its radiance into the image.
 
 * :func:`trace_wavefront_stationary` — lane ``l`` owns pixel ``l`` for
-  the launch and traces its samples one after another.  With ``rotate_k >
-  1`` a lane rotates through ``k`` pixels spread over the image; the body
-  is then torch glue (RNG, camera, regeneration, Russian roulette, flush)
-  around the bounce.  With ``rotate_k == 1`` the whole body is kernel B.
+  the launch and traces its samples one after another; with ``rotate_k >
+  1`` a lane rotates through ``k`` pixels spread over the image.  Where
+  kernel B takes the scene the whole body is kernel B (its rotated mode
+  where the pixels rotate); elsewhere it is torch glue (RNG, camera,
+  regeneration, Russian roulette, flush) around the bounce.
 * :func:`trace_wavefront` — a work queue refills dead lanes with the next
   (pixel, sample) around the bounce.
 * :func:`trace_wavefront_sorted` — the work queue over a pool of one lane
@@ -111,6 +112,7 @@ from ..ops.intersect import (
 from ..ops.intersect_kernel import (
     MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
 )
+from ..ops.iter_kernel import Rotation
 from ..scene.types import BVH, Ellipsoids, Primitives, Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
@@ -1014,15 +1016,24 @@ def _rotation(spp: int, rotate_k: int) -> int:
     return rotate_k if (rotate_k > 1 and spp % rotate_k == 0) else 1
 
 
-def stationary_fused(scene: Scene, s: CameraSettings, n_pix: int, spp: int,
-                     rotate_k: int = 1) -> bool:
-    """Does :func:`trace_wavefront_stationary` over ``n_pix`` pixels and
-    ``spp`` samples at ``rotate_k`` fuse its iteration (kernel B)?  Only
-    unrotated, where ``fused_iter_eligible``; else it takes
+def rotation_stride(lanes: int, k_rot: int) -> int:
+    """The rotation's stride over ``lanes`` lanes: a multiple of 32 x 128
+    lanes near ``lanes / k_rot``; small pools where that degenerates use
+    plain ``lanes / k_rot``."""
+    blk = 32 * LANE_ALIGN
+    stride = max((lanes // k_rot) // blk * blk, blk)
+    if k_rot > 1 and stride % lanes == 0:
+        stride = max(lanes // k_rot, 1)
+    return stride
+
+
+def stationary_fused(scene: Scene, s: CameraSettings, n_pix: int) -> bool:
+    """Does :func:`trace_wavefront_stationary` over ``n_pix`` pixels fuse
+    its iteration (kernel B, in its rotated mode where the pixels
+    rotate)?  Where ``fused_iter_eligible``; else it takes
     :func:`bounce_route`."""
     lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
-    return (_rotation(spp, rotate_k) == 1
-            and fused_iter_eligible(scene, s, lanes))
+    return fused_iter_eligible(scene, s, lanes)
 
 
 def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
@@ -1035,11 +1046,14 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     divisor of ``spp``) rotates each lane through ``k`` pixels — lane
     ``l`` serves lane slot ``(l + c*stride) % lanes`` for samples in
     chunk ``c = sample // (spp/k)`` — so per-lane work averages the
-    path-length variance of ``k`` pixels; its contributions land back in
-    place through ``k`` masked rolls.  Returns the [n_pix, 3] radiance
-    sum (plus ``acc``); with ``with_stats`` also :func:`_stats`' dict
-    (the fused branch counts the lanes alive or dying after kernel B's
-    step, the other the lanes alive or dying after Russian roulette)."""
+    path-length variance of ``k`` pixels.  The fused branch (kernel B)
+    adds each turn's contributions into ``k`` planes in place, in the
+    launch (kernel B's rotated mode), summed once after the loop; the
+    other lands them back in place through ``k`` masked rolls a turn.
+    Returns the [n_pix, 3] radiance sum (plus
+    ``acc``); with ``with_stats`` also :func:`_stats`' dict (the fused
+    branch counts the lanes alive or dying after kernel B's step, the
+    other the lanes alive or dying after Russian roulette)."""
     dev = scene.device
     lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
     k_rot = _rotation(spp, rotate_k)
@@ -1051,52 +1065,56 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     base_key = base_key.to(dev)
     last_sample = sample_offset + spp - 1
 
-    # rotation stride: a multiple of 32 x 128 lanes near lanes / k;
-    # small pools where that degenerates use plain lanes / k
-    blk = 32 * LANE_ALIGN
-    stride = max((lanes // max(k_rot, 1)) // blk * blk, blk)
-    if k_rot > 1 and stride % lanes == 0:
-        stride = max(lanes // k_rot, 1)
+    stride = rotation_stride(lanes, k_rot)
 
     lane_ids = torch.arange(lanes, dtype=torch.int32, device=dev)
     base_pixel = pixel_offset + torch.clamp(lane_ids, max=n_pix - 1)
+    if k_rot == 1:
+        # padding lanes (>= n_pix) start exhausted
+        sample = torch.where(lane_ids < n_pix, sample_offset - 1,
+                             last_sample + 1).to(torch.int32)
+    else:
+        # every lane works; padding slots' contributions land at slots
+        # >= n_pix and are dropped at the end
+        sample = torch.full((lanes,), sample_offset - 1, dtype=torch.int32,
+                            device=dev)
 
     # the forward's fused branch takes kernel A's tables (at most 512
     # rows, the JAX package's forward cap); larger tables take the split
     # bounce below
-    if stationary_fused(scene, s, n_pix, spp, rotate_k):
-        # the whole body is kernel B + the accumulation add
-        step = fused_iter_fwd_step(scene, s, base_key, spp, sample_offset)
-        init_smp = torch.where(lane_ids < n_pix, sample_offset - 1,
-                               last_sample + 1).to(torch.int32)
+    if stationary_fused(scene, s, n_pix):
+        # the whole body is kernel B (+ the accumulation add unrotated)
+        rot = None if k_rot == 1 else Rotation(
+            k_rot, spp_k, stride, sample_offset, pixel_offset, n_pix,
+            torch.zeros((k_rot, 3, lanes), dtype=DTYPE, device=dev))
+        step = fused_iter_fwd_step(scene, s, base_key, spp, sample_offset,
+                                   rotation=rot)
         comps = _init_comps(lanes, dev)
         z = torch.zeros((lanes,), dtype=DTYPE, device=dev)
         o = torch.ones((lanes,), dtype=DTYPE, device=dev)
-        carry = ((init_smp, torch.zeros_like(init_smp), z)
+        carry = ((sample, torch.zeros_like(sample), z)
                  + tuple(comps.unbind(0)) + (z, z, z) + (o, o, o))
-        acc3 = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
+        # unrotated, the host adds each turn's radiance: that keeps the
+        # kRotate = false instantiation, ~10% faster a launch than the
+        # rotated one with its planes
+        acc3 = (torch.zeros((3, lanes), dtype=DTYPE, device=dev)
+                if rot is None else None)
         iters, segments = 0, _segments(with_stats, dev)
         for _ in _turns(lambda: bool(
                 ((carry[2] > 0.5) | (carry[0] < last_sample)).any())):
             carry, rad2, died_f = step(base_pixel, carry)
-            acc3 += torch.stack(rad2) * died_f
+            if rot is None:
+                acc3 += torch.stack(rad2) * died_f
             if with_stats:
                 iters += 1
                 segments += ((carry[2] > 0.5) | (died_f > 0.5)).sum()
+        if rot is not None:
+            acc3 = rot.planes.sum(0)
     else:
-        if k_rot == 1:
-            # padding lanes (>= n_pix) start exhausted
-            sample = torch.where(lane_ids < n_pix, sample_offset - 1,
-                                 last_sample + 1).to(torch.int32)
-            maps = None
-        else:
-            # every lane works; padding slots' contributions land at
-            # slots >= n_pix and are dropped at the end
-            sample = torch.full((lanes,), sample_offset - 1,
-                                dtype=torch.int32, device=dev)
-            maps = [pixel_offset + torch.clamp(
-                        (lane_ids + cc * stride) % lanes, max=n_pix - 1)
-                    for cc in range(k_rot)]
+        maps = None if k_rot == 1 else [
+            pixel_offset + torch.clamp((lane_ids + cc * stride) % lanes,
+                                       max=n_pix - 1)
+            for cc in range(k_rot)]
         bounce_fn, tables = _bounce_step(scene, s, lanes)
         comps = _init_comps(lanes, dev)
         rad = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
@@ -1464,10 +1482,7 @@ def _trace_wavefront_diff_unfused(scene: Scene, s: CameraSettings, base_key,
     base_key = base_key.to(dev)
     k_rot = _rotation(spp, rotate_k)
     spp_k = spp // k_rot
-    blk = 32 * LANE_ALIGN
-    stride = max((lanes // k_rot) // blk * blk, blk)
-    if k_rot > 1 and stride % lanes == 0:
-        stride = max(lanes // k_rot, 1)
+    stride = rotation_stride(lanes, k_rot)
     balanced = pixel_cost is not None and k_rot > 1 and k_rot % 2 == 0
     if balanced:
         lane_maps = _antithetic_maps(pixel_cost.detach().to(dev), k_rot)

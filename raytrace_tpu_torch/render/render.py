@@ -83,20 +83,16 @@ def queue_lanes(n_pix: int, n_s: int, n_lanes: int = 1 << 17) -> int:
 
 
 def forward_route(scene: Scene, settings: CameraSettings,
-                  n_pix: int | None = None, spp: int | None = None,
-                  n_lanes: int = 1 << 17) -> tuple[str, bool]:
-    """``(driver, fused)`` of :func:`render_accumulate`'s first launch
-    over a band of ``n_pix`` pixels (the whole image by default) at
-    ``spp`` samples: :func:`forward_driver`, and whether the stationary
-    driver fuses that launch's iteration (``integrator.py:
-    stationary_fused`` at :func:`rotate_k_for` of the chunk)."""
+                  n_pix: int | None = None) -> tuple[str, bool]:
+    """``(driver, fused)`` of :func:`render_accumulate`'s launches over a
+    band of ``n_pix`` pixels (the whole image by default):
+    :func:`forward_driver`, and whether the stationary driver fuses their
+    iteration (``integrator.py:stationary_fused``)."""
     if n_pix is None:
         n_pix = int(settings.image_width) * int(settings.image_height)
-    spp = spp if spp is not None else int(settings.samples_per_pixel)
     driver = forward_driver(scene, n_pix)
-    n_s = default_spp_chunk(driver, spp, n_pix, n_lanes)
-    return driver, (driver == "stationary" and stationary_fused(
-        scene, settings, n_pix, n_s, rotate_k_for(n_s)))
+    return driver, (driver == "stationary"
+                    and stationary_fused(scene, settings, n_pix))
 
 
 def _stationary_fn(scene: Scene, settings: CameraSettings, key, n_pix: int,

@@ -1447,9 +1447,10 @@ def checked_launches(sample: int | None = None):
     every nearest-hit (BVH walk and flat scan), medium crossing (K11,
     K11b, any mode: the keyed one's keys as exact rows), shade and marble
     kernel launch of the split path and the generic bounce, every kernel
-    B launch of the fused step and every atlas-gradient launch of its
-    backward is held against its plain version on the same inputs (run
-    first: the candidate mode updates its rows in place).  Yields
+    B launch of the fused step (the rotated mode's planes too) and every
+    atlas-gradient launch of its backward is held against its plain
+    version on the same inputs (run first: the candidate mode updates
+    its rows in place).  Yields
     ``{kernel name: stats}`` with ``launches`` (checked), ``n_int``
     (differing exact-row lanes, summed), ``err`` (max abs float error)
     and ``excess`` (worst tolerance excess; the atlas gradient's is
@@ -1522,10 +1523,20 @@ def checked_launches(sample: int | None = None):
 
         def checked(*args, **kw):
             # the plain version first: the candidate mode updates its
-            # fold rows in place
-            ref = plain(*args, **kw)
-            out = kernel(*args, **kw)
-            n_int, err, excess = compare(args, ref, out)
+            # fold rows in place; kernel B's rotated mode adds into its
+            # planes, so its plain version adds into a copy, and the
+            # planes are compared too
+            rot = kw.get("rotation")
+            if rot is None:
+                ref = plain(*args, **kw)
+                out = kernel(*args, **kw)
+                n_int, err, excess = compare(args, ref, out)
+            else:
+                ref_rot = dataclasses.replace(rot, planes=rot.planes.clone())
+                ref = plain(*args, **dict(kw, rotation=ref_rot))
+                out = kernel(*args, **kw)
+                n_int, err, excess = compare(args, ref + (ref_rot.planes,),
+                                             out + (rot.planes,))
             st["launches"] += 1
             st["n_int"] += n_int
             st["err"] = max(st["err"], err)

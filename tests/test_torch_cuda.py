@@ -24,21 +24,23 @@ generic bounce's routes (the media fwd+bwd, a marble-lit render,
 ``grad_render``) launch their kernels, and the fwd+bwd equals the one
 with every plain version within ``GRAD_RTOL``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from raytrace_tpu_torch.render.integrator import bounce_tables
 from raytrace_tpu_torch.testing import (
-    ALL_MATERIAL_TARGETS, FRAC_LANES, MEAN_RTOL, MIXED_MEDIA_INSIDE,
-    all_materials_scene,
+    ALL_MATERIAL_TARGETS, FRAC_LANES, ITER_INT_ROWS, MEAN_RTOL,
+    MIXED_MEDIA_INSIDE, all_materials_scene,
     bounce_inputs, box_motion_scene, bunny_standin_scene, bwd_inputs,
     camera_rays, checked_launches, compare_bounce, compare_bwd, compare_iter,
     compare_image_grad, compare_k7, compare_marble, compare_nearest,
     compare_crossings, compare_nearest_flat, compare_shade,
     cornell_scene_and_settings, cornell_smoke_scene, fresh_carry,
     image_grad_scene, k7_inputs, many_media_settings, many_media_world,
-    marble_patterns, media_bounce_rays, mesh_all_kinds_scene,
+    marble_patterns, max_errs, media_bounce_rays, mesh_all_kinds_scene,
     mixed_media_world, next_split_rays,
     noise_test_scene, pawn_inside_rays, pawn_standin_scene, plain_backward,
     plain_kernels, route_marble_lanes, surface_points, synthetic_medium,
@@ -127,12 +129,14 @@ def test_render_launches_kernels(device):
     from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
     from raytrace_tpu_torch.render.render import render_accumulate
     scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
+    # 8 spp rotates 8 ways (kernel B's rotated mode), 1 spp does not
     a0, b0 = bounce_megakernel.launches, iter_megakernel.launches
     acc, _ = render_accumulate(scene, s, 1, spp=8)
-    assert bounce_megakernel.launches > a0
-    assert iter_megakernel.launches == b0
+    assert bounce_megakernel.launches == a0
+    b1 = iter_megakernel.launches
+    assert b1 > b0
     acc1, _ = render_accumulate(scene, s, 1, spp=1)
-    assert iter_megakernel.launches > b0
+    assert iter_megakernel.launches > b1
     # under 16384 pixels: the work-queue driver, through kernel A
     small, s_small = cornell_scene_and_settings(32, 8, 10, device=device)
     a1 = bounce_megakernel.launches
@@ -144,17 +148,111 @@ def test_render_launches_kernels(device):
 @pytest.mark.parametrize("spp", [8, 1])
 def test_render_launches_match_plain(device, spp):
     """Every launch of a 130 x 130 render (16900 pixels on 17024 lanes:
-    the padding lanes and the rotated pixel maps of the main path) agrees
-    with the plain version on the inputs the driver gave it."""
+    the padding lanes and, at 8 spp, kernel B's rotated mode, planes
+    included) agrees with the plain version on the inputs the driver
+    gave it."""
     from raytrace_tpu_torch.render.render import render_accumulate
     scene, s = cornell_scene_and_settings(130, spp, 10, device=device)
     with checked_launches() as stats:
         acc, _ = render_accumulate(scene, s.replace(rr_depth=2), 1, spp=spp)
-    st = stats["bounce_megakernel" if spp > 1 else "iter_megakernel"]
+    assert stats["bounce_megakernel"]["launches"] == 0
+    st = stats["iter_megakernel"]
     assert st["launches"] > 0
     assert st["n_int"] == 0
     assert st["excess"] <= 0.0
     assert bool(torch.isfinite(acc).all())
+
+
+def _compare_rotated_iter(scene, s, n: int, seed: int, k_rot: int = 8,
+                         n_iters: int = 30):
+    """Kernel B's rotated mode (prepared as the drivers launch it) against
+    ``iter_plain``'s on ``n`` lanes serving a band of the image of ``s``
+    from pixel 50 with at least 64 padding slots, 2 samples a chunk from
+    sample 3: ``n_iters`` launches from every lane idle, each held
+    against the plain version on the kernel's last state and a copy of
+    its planes.  Returns ``(errs, planes)``: ``max_errs`` over the
+    launches, the planes compared as one more row, and the kernel's
+    planes."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.fused_iter import iter_kernel_args
+    from raytrace_tpu_torch.ops.iter_kernel import (
+        Rotation, iter_megakernel, iter_plain,
+    )
+    from raytrace_tpu_torch.render.integrator import rotation_stride
+    dev = scene.device
+    off, s0, spp_k = 50, 3, 2
+    n_pix = min(s.image_width * s.image_height - off, n - 64)
+    tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev),
+                                  s0 + k_rot * spp_k - 1)
+    rot = Rotation(k_rot, spp_k, rotation_stride(n, k_rot), s0, off, n_pix,
+                   torch.zeros((k_rot, 3, n), device=dev))
+    carry = fresh_carry(n, dev)
+    carry = (carry[0] + s0,) + carry[1:]
+    pix = torch.zeros(n, dtype=torch.int32, device=dev)
+    n_int, err, excess = 0, 0.0, -float("inf")
+    for _ in range(n_iters):
+        ref_rot = dataclasses.replace(rot, planes=rot.planes.clone())
+        ref = iter_plain(*tables, (pix,) + carry, rotation=ref_rot, **kw)
+        out = iter_megakernel(*tables, (pix,) + carry, rotation=rot, **kw)
+        a, b, c = max_errs(ref + (ref_rot.planes,), out + (rot.planes,),
+                           ITER_INT_ROWS)
+        n_int, err, excess = n_int + a, max(err, b), max(excess, c)
+        carry = (out[14], out[15], out[13]) + tuple(out[0:13])
+    return (n_int, err, excess), rot.planes
+
+
+@pytest.mark.parametrize("case", ["cornell", "all_materials"])
+def test_rotated_iter_kernel_matches_plain(device, case):
+    """Kernel B's rotated mode (planar on the Cornell box, general on the
+    all-materials scene) against ``iter_plain``'s, launch by launch over
+    30 turns of 4,096 lanes rotating 8 ways: every lane's outputs and
+    the accumulation planes equal."""
+    import raytrace_tpu_torch as rt
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    if case == "cornell":
+        scene, s = cornell_scene_and_settings(64, 8, 10, device=device)
+    else:
+        scene = all_materials_scene(device=device)
+        s = rt.CameraSettings(image_width=64,
+                              background=rt.const_background(0.2))
+    p0 = iter_megakernel.planar_launches
+    (n_int, err, _), planes = _compare_rotated_iter(
+        scene, s.replace(rr_depth=2), 4096, 5)
+    assert (iter_megakernel.planar_launches > p0) == (case == "cornell")
+    assert n_int == 0 and err == 0.0
+    assert bool((planes != 0).any())
+
+
+def test_rotated_stationary_render_matches_unfused(device, monkeypatch):
+    """The stationary driver at rotate_k 8 over 130 x 130 (padding slots),
+    8 spp, depth 10: the fused branch (kernel B's rotated mode) and the
+    unfused body (kernel A and the glue, forced) trace the same paths:
+    equal ``iterations`` and ``segments``, and the image up to the order
+    of each pixel's float32 sums."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.ops.bounce_kernel import bounce_megakernel
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
+    from raytrace_tpu_torch.render import integrator
+    scene, s = cornell_scene_and_settings(130, 8, 10, device=device)
+    n_pix = 130 * 130
+
+    def render():
+        return integrator.trace_wavefront_stationary(
+            scene, s, rng.base_key(3, device), n_pix, 8, rotate_k=8,
+            with_stats=True)
+    b0 = iter_megakernel.launches
+    acc, st = render()
+    assert iter_megakernel.launches - b0 == st["iterations"]
+    monkeypatch.setattr(integrator, "stationary_fused", lambda *a: False)
+    a0 = bounce_megakernel.launches
+    acc_u, st_u = render()
+    assert bounce_megakernel.launches - a0 == st_u["iterations"]
+    assert st["iterations"] == st_u["iterations"]
+    assert int(st["segments"]) == int(st_u["segments"])
+    den = acc_u.abs().sum(1)
+    lit = den > 0
+    rel = (acc - acc_u).abs().sum(1)[lit] / den[lit]
+    assert float(rel.median()) <= 1e-6 and float(rel.max()) <= 1e-5
 
 
 def test_compile_scene_defaults_to_the_card(device):
@@ -1121,14 +1219,15 @@ def test_sharded_wavefront_one_rank_nccl_equals_render_accumulate(device):
 
 def test_scene_main_on_the_card(device, tmp_path):
     """A scene driver without ``--cpu`` renders on the card through kernel
-    A and writes its PNG."""
+    B (the stationary driver's rotated mode at 4 spp) and writes its
+    PNG."""
     from PIL import Image
-    from raytrace_tpu_torch.ops.bounce_kernel import bounce_megakernel
+    from raytrace_tpu_torch.ops.iter_kernel import iter_megakernel
     from raytrace_tpu_torch.scenes import metal_test
     out = str(tmp_path / "metal.png")
-    before = bounce_megakernel.launches
+    before = iter_megakernel.launches
     img = metal_test.main(["--width", "192", "--spp", "4", "--depth", "8",
                            "--out", out])
-    assert bounce_megakernel.launches > before
+    assert iter_megakernel.launches > before
     assert tuple(img.shape) == (108, 192, 3) and torch.isfinite(img).all()
     assert Image.open(out).size == (192, 108)

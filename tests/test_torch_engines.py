@@ -10,9 +10,11 @@ sorted driver's image sizes are too slow for the CPU: there a stub takes
 the driver's place and records that it was called.
 
 The JAX package's report names the fused iteration for the stationary
-forward at 200 spp (ROADMAP F2), but ``render_accumulate`` rotates the
-pixels (``rotate_k`` 8) there and runs the bounce kernel; the port's
-report says kernel A, and a render at 8 spp (``rotate_k`` 8) runs it.
+forward at 200 spp (ROADMAP F2), where its ``render_accumulate`` rotates
+the pixels (``rotate_k`` 8) and runs the bounce kernel; the port's
+stationary driver fuses its rotated iteration too (kernel B's rotated
+mode), so its report says kernel B, and a render at 8 spp (``rotate_k``
+8) runs it.
 A work queue's lane pool is its first chunk's paths
 (``render.py:queue_lanes``): sphere_uv_test's one pixel is one lane, not
 a multiple of 128, and takes the generic bounce, as the report says.
@@ -139,7 +141,7 @@ CASES = {
 
 EXPECTED = {
     "cornell_1spp": ("stationary", "kernel-B", "in-kernel", None),
-    "cornell_8spp": ("stationary", "kernel-A", "in-kernel", None),
+    "cornell_8spp": ("stationary", "kernel-B", "in-kernel", None),
     "cornell_queue": ("queue", "kernel-A", "in-kernel", None),
     "mesh_queue": ("queue", "split", "K9", None),
     "big_mesh_sorted": ("sorted", "split", "K9", None),
@@ -180,13 +182,14 @@ def test_forward_report_matches_the_route_taken(case, spies):
         set() if rep["volumes"] is None else {VOLUMES[rep["volumes"]]})
 
 
-def test_bench_forward_reports_kernel_a():
+def test_bench_forward_reports_kernel_b():
     """ROADMAP F2: the bench forward (600 x 600, 200 spp) rotates pixels
-    8 ways and runs kernel A; at 1 spp the fused iteration runs."""
+    8 ways and runs kernel B in its rotated mode; at 1 spp the fused
+    iteration runs unrotated."""
     scene, s = cornell_scene_and_settings(600, 200, 50, device="cpu")
     rep = engine_report(scene, s)
     assert (rep["driver"], rep["forward"], rep["intersect"]) == (
-        "stationary", "kernel-A", "in-kernel")
+        "stationary", "kernel-B", "in-kernel")
     rep1 = engine_report(scene, s.replace(samples_per_pixel=1))
     assert rep1["forward"] == "kernel-B"
     assert render.rotate_k_for(200) == 8

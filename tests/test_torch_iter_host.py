@@ -28,8 +28,15 @@ scatter directions an ulp apart (on the card both are CUDA's, and the
 smoke finds no difference).  The two instantiations of the host build
 agree with each other bit for bit on the Cornell box: they differ only in
 the scan.
+
+The rotated mode (``kRotate``) is built the same way and held against
+``iter_plain``'s over a few turns of a rotated band with padding slots,
+planar on the Cornell box and general on the all-materials scene: the
+exact rows equal, the other floats and the accumulation planes within
+the same tolerance.
 """
 import ctypes
+import dataclasses
 
 import pytest
 import torch
@@ -52,6 +59,18 @@ extern "C" int run_iter(const IterArgs* a) {
       iter_kernel<false, false, true>(*a);
     else
       iter_kernel<false, false, false>(*a);
+  });
+  return 0;
+}
+"""
+
+_RUN_ROT = r"""
+extern "C" int run_iter_rot(const IterArgs* a) {
+  rt_host_launch(static_cast<int>((a->n_lanes + 31) / 32), 32, [&] {
+    if (a->planar)
+      iter_kernel<false, false, true, true>(*a);
+    else
+      iter_kernel<false, false, false, true>(*a);
   });
   return 0;
 }
@@ -192,3 +211,47 @@ def test_prepared_iter_launch():
     assert ik.iter_megakernel.launches == n0
     for a, b in zip(ref, out):
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def host_iter_rot(tmp_path_factory):
+    lib = host_library("iter_kernel.cu", _RUN_ROT,
+                       tmp_path_factory.mktemp("iter_host_rot"))
+    if lib is None:
+        pytest.skip("needs a host C++ compiler")
+    lib.run_iter_rot.argtypes = [ctypes.c_void_p]
+    return lib.run_iter_rot
+
+
+@pytest.mark.parametrize("case", ("cornell", "all_materials"))
+def test_host_build_of_rotated_iter_kernel_matches_plain(host_iter_rot,
+                                                         case):
+    sc, s = _scene(case, True)
+    k_rot, spp_k, s0, off = 4, 2, 3, 50
+    tables, kw = iter_kernel_args(sc, s, rng.base_key(5, "cpu"),
+                                  s0 + k_rot * spp_k - 1)
+    launch = kw["prepared"]
+    assert launch.planar == (case == "cornell")
+    n_pix = min(s.image_width * s.image_height - off, N_LANES - 64)
+    rot = ik.Rotation(k_rot, spp_k, 256, s0, off, n_pix,
+                      torch.zeros((k_rot, 3, N_LANES)))
+    carry = fresh_carry(N_LANES, "cpu")
+    carry = (carry[0] + s0,) + carry[1:]
+    pix = torch.zeros(N_LANES, dtype=torch.int32)
+    for _ in range(6):
+        lane_in = (pix,) + tuple(carry)
+        ref_planes = rot.planes.clone()
+        ref = ik.iter_plain(*tables, lane_in, **kw, rotation=dataclasses
+                            .replace(rot, planes=ref_planes))
+        outf = torch.empty((17, N_LANES))
+        outi = torch.empty((2, N_LANES), dtype=torch.int32)
+        args = ik.lane_args(launch.args, lane_in, outf, outi)
+        ik._rotation_args(args, rot, N_LANES, torch.device("cpu"))
+        host_iter_rot(ctypes.byref(args))
+        f = outf.unbind(0)
+        out = f[:14] + (outi[0], outi[1]) + f[14:17]
+        n_int, _, excess = max_errs(ref + (ref_planes,),
+                                    out + (rot.planes,), ITER_INT_ROWS)
+        assert n_int == 0 and excess <= 0.0, (n_int, excess)
+        carry = (out[14], out[15], out[13]) + tuple(out[0:13])
+    assert bool((rot.planes != 0).any())

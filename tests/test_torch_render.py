@@ -5,7 +5,8 @@ port's copy carried over from the JAX scene with ``interop``) at seed 1,
 depth 10:
 
 * 128 x 128 at 8 spp: the stationary driver with rotate_k 8, the port's
-  kernel A plain path (JAX runs its XLA bounce on CPU);
+  fused branch in kernel B's rotated mode (JAX runs its XLA bounce on
+  CPU);
 * 128 x 128 at 1 spp: rotate_k 1, the port's fused branch (kernel B);
 * 130 x 130 at 8 spp: rotate_k 8 on 16900 pixels, so 124 of the 17024
   lanes are padding whose rotated pixel maps clamp to the last pixel, as
@@ -63,9 +64,11 @@ def test_render_matches_jax(width, spp, frac_bound):
 
 
 def test_dispatch_mirrors_jax_driver(monkeypatch):
-    """rotate_k 8 at 8 spp takes the unfused body (kernel A's wrapper);
-    rotate_k 1 takes the fused branch (kernel B's wrapper).  On CPU
-    tensors the wrappers run the plain versions and launch nothing."""
+    """rotate_k 1 and 2 both take the fused branch (kernel B's wrapper,
+    in its rotated mode at 2), where the JAX driver takes kernel A when
+    it rotates; with the fused branch refused the body calls kernel A's
+    wrapper.  On CPU tensors the wrappers run the plain versions and
+    launch nothing."""
     from raytrace_tpu_torch.render import integrator
     from raytrace_tpu_torch.render.render import rotate_k_for
     assert rotate_k_for(200) == 8 and rotate_k_for(8) == 8
@@ -86,10 +89,14 @@ def test_dispatch_mirrors_jax_driver(monkeypatch):
     a0, b0 = bounce_megakernel.launches, iter_megakernel.launches
     key = torch.tensor([0, 1], dtype=torch.int32)
     integrator.trace_wavefront_stationary(ts, tset, key, 256, 2, rotate_k=2)
-    assert set(calls) == {"bounce_megakernel"}
+    assert calls == ["fused_iter_fwd_step"]
     calls.clear()
     integrator.trace_wavefront_stationary(ts, tset, key, 256, 2, rotate_k=1)
     assert calls == ["fused_iter_fwd_step"]
+    calls.clear()
+    monkeypatch.setattr(integrator, "stationary_fused", lambda *a: False)
+    integrator.trace_wavefront_stationary(ts, tset, key, 256, 2, rotate_k=2)
+    assert set(calls) == {"bounce_megakernel"}
     assert (bounce_megakernel.launches, iter_megakernel.launches) == (a0, b0)
 
 

@@ -3,10 +3,11 @@ render counters fed by them (``utils/profiling.py``), on the CPU.
 
 * Against the JAX package's drivers with ``with_stats=True`` on the
   Cornell box carried over with ``interop`` (depth 8, seed 1): the
-  stationary driver at 32 x 32, 8 spp, rotate_k 1 (the port's fused
-  branch, kernel B's plain version; JAX's CPU run takes its XLA body, which
-  counts the same lanes) and rotate_k 8 (kernel A's plain version), and
-  the work queue at 32 x 32, 4 spp, 256 lanes.  ``lanes`` equal;
+  stationary driver at 32 x 32, 8 spp, rotate_k 1 and 8 (the port's
+  fused branch, kernel B's plain version, in its rotated mode at 8; JAX's
+  CPU run takes its XLA body unrotated and kernel A's rotated, which
+  count the same lanes), and the work queue at 32 x 32, 4 spp, 256
+  lanes.  ``lanes`` equal;
   ``iterations`` within 2% and ``segments`` within 1%.  XLA's CPU backend
   contracts multiply-adds, so ~0.5% of paths resolve a grazing hit
   differently (``tests/test_torch_render.py``): here 3.8% of the 1,024
@@ -106,8 +107,8 @@ def test_stats_match_jax(cornell, case):
     js, jset, ts, tset = cornell
     driver, spp, kw = JAX_CASES[case]
     n_pix = 32 * 32
-    if case == "fused":
-        assert tint.stationary_fused(ts, tset, n_pix, spp, 1)
+    if driver == "stationary":
+        assert tint.stationary_fused(ts, tset, n_pix)
     jacc, jst = _run(jint, driver, js, jset, jrng.base_key(1), n_pix, spp,
                      kw, with_stats=True)
     tacc, tst = _run(tint, driver, ts, tset, rng.base_key(1), n_pix, spp,
@@ -152,8 +153,8 @@ def test_depth_one_identities(depth_one, driver, rotate_k):
         assert st["iterations"] == -(-n_pix * spp // 256)
         assert int(st["segments"]) == n_pix * spp
     else:
-        assert tint.stationary_fused(scene, s, n_pix, spp, rotate_k) == (
-            rotate_k == 1)
+        # both fused: kernel B, in its rotated mode at rotate_k 3
+        assert tint.stationary_fused(scene, s, n_pix)
         acc, st = tint.trace_wavefront_stationary(
             scene, s, key, n_pix, spp, rotate_k=rotate_k, with_stats=True)
         plain = tint.trace_wavefront_stationary(scene, s, key, n_pix, spp,

@@ -9,8 +9,9 @@ spans and counters the program records with it, on the CPU.
   new scene are bit-equal with recording on and off.
 * Recording leaves ``with_stats``' dict of a forward driver as it is
   and adds no counter of its own; each iteration ``with_stats`` counts
-  is one ``driver.iteration`` span (fused, rotated, queue and sorted
-  branches).  ``diff.*`` counts the fused differentiable driver's work:
+  is one ``driver.iteration`` span (the stationary driver's fused
+  branch unrotated and rotated, queue and sorted branches).  ``diff.*``
+  counts the fused differentiable driver's work:
   the lanes alive or dying each turn, exactly at depth 1.
 * Under the CPU profiler the spans mapped onto the trace's clock
   (``clock_offset``) enclose the operations issued inside them; without
@@ -132,8 +133,8 @@ def test_render_accumulate_bit_equal_with_recording(cornell):
     assert torch.equal(on, off)
 
 
-# (driver, spp, keyword arguments): the stationary driver's fused and
-# rotated branches, the work queue
+# (driver, spp, keyword arguments): the stationary driver's fused
+# branch, unrotated and rotated, the work queue
 DRIVERS = {
     "fused": ("stationary", 4, dict(rotate_k=1)),
     "rotated": ("stationary", 4, dict(rotate_k=4)),
@@ -172,8 +173,7 @@ def test_driver_spans_match_with_stats(cornell, case):
     driver, spp, kw = DRIVERS[case]
     n_pix = s.image_width * s.image_height
     if driver == "stationary":
-        assert tint.stationary_fused(scene, s, n_pix, spp,
-                                     kw["rotate_k"]) == (case == "fused")
+        assert tint.stationary_fused(scene, s, n_pix)
     _driver_spans_match_with_stats(
         lambda **stats: _drive(driver, scene, s, spp, kw, **stats))
 

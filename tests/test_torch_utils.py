@@ -90,7 +90,7 @@ def test_render_stats_matches_jax():
         st.add_launch(dict(segments=500, iterations=5, lanes=200), 100, 0.5)
     assert ours.record() == theirs.record()
     rep = ours.record_engines(ts, tset)
-    assert rep == engine_report(ts, tset) and rep["forward"] == "kernel-A"
+    assert rep == engine_report(ts, tset) and rep["forward"] == "kernel-B"
     assert ours.record()["engines"] == rep
     assert np.isclose(ours.occupancy, 0.5)
     assert np.isclose(ours.mean_path_length, 3.75)
