@@ -43,10 +43,11 @@ condition is read on the host once per iteration, under the span
 ``driver.wait``, and the iteration's body runs under ``driver.iteration``
 (:func:`_turns`, ``utils/profiling.py``).  With ``with_stats`` each of
 the three also returns ``dict(iterations, segments, lanes)``
-(:func:`_stats`), whose count adds no host read and no op to the
-image's.  (On the card the queue's and the sorted driver's
-``index_add_`` adds the paths of a pixel that finish in one iteration in
-an order that can vary between runs, flag or not.)
+(:func:`_stats`; the sorted driver's adds ``medium_segments``), whose
+count adds no host read and no op to the image's.  (On the card the
+queue's and the sorted driver's ``index_add_`` adds the paths of a pixel
+that finish in one iteration in an order that can vary between runs,
+flag or not.)
 
 Lane state is stacked: comps [7, R] (origin, direction, time), rad and
 thr [3, R]; the JAX package keeps the same rows as tuples of [R] arrays.
@@ -316,12 +317,14 @@ def bounce_tables(scene: Scene, s: CameraSettings) -> BounceTables:
 
 def bounce_mega_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
                     thr, alive, with_idx: bool = False,
-                    tables: BounceTables | None = None):
+                    tables: BounceTables | None = None, medium_count=None):
     """One bounce of every lane through kernel A.  ``comps`` [7, R],
     ``uniforms`` [>=8, R], ``rad``/``thr`` [3, R], ``alive`` bool [R].
     Returns (comps', rad', thr', alive', died), plus the winner row index
     (i32, -1 on a miss) with ``with_idx``.  The background on a miss is
-    added here, so any background callable works."""
+    added here, so any background callable works.  ``medium_count`` is
+    the other bounces' (:func:`bounce_split_soa`); media never take
+    kernel A, so it stays as it is."""
     tb = tables if tables is not None else bounce_tables(scene, s)
     # dead lanes carry stale rays: park them far outside the scene
     o = torch.where(alive, comps[0:3], 3e18)
@@ -522,7 +525,7 @@ def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive, medium=None):
 
 
 def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
-                     thr, alive, tables: SplitTables):
+                     thr, alive, tables: SplitTables, medium_count=None):
     """One bounce of every lane through the split path (the JAX package's
     ``bounce`` with its kernel intersect and ``_fused_shade_bounce``): the
     nearest-hit kernel, the sphere uv, with media the nearest medium's
@@ -530,7 +533,9 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     medium on a tie; ``render/volumes.py:medium_hit``), the shade kernel,
     then the rich-texture
     multiply (:func:`rich_albedo_multiply`).  The arguments and results
-    are those of :func:`bounce_mega_soa`."""
+    are those of :func:`bounce_mega_soa`.  ``medium_count`` (a 0-d int64
+    tensor, or None) gains, in place, the live lanes whose event is a
+    scatter in a medium (its candidate nearer than the surface)."""
     tb = tables
     # dead lanes carry stale rays: park them far outside the scene
     o = torch.where(alive, comps[0:3], 3e18)
@@ -542,6 +547,8 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
             tb.volumes, (o[0], o[1], o[2], d[0], d[1], d[2], comps[6]),
             tb.t_min, uniforms[_N_BASE_U:_N_BASE_U + tb.volumes.n_volumes],
             tables=tb.vol_tables)
+        if medium_count is not None:
+            medium_count += (alive & (medium[0] < hit[0])).sum()
     lanes = (o[0], o[1], o[2], d[0], d[1], d[2], thr[0], thr[1], thr[2],
              alive.to(DTYPE))
     outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes,
@@ -657,7 +664,7 @@ def surface_hit_diff(scene: Scene, tables: GenericTables, o, d, time):
 
 def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
                        thr, alive, tables: GenericTables,
-                       diff: bool = False):
+                       diff: bool = False, medium_count=None):
     """One bounce of every lane through the generic bounce (the JAX
     package's ``bounce``), for every scene kernel A and the split path do
     not take and for the differentiable routes the fused step and kernel A
@@ -678,7 +685,8 @@ def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     redirect targets, the Lommel-Seeliger and Henyey-Greenstein factors;
     the sampled direction and the mixture pdf are detached.  Textures are
     evaluated here (marble stripes through K12 with ``diff=False``, in
-    differentiable torch with ``diff=True``)."""
+    differentiable torch with ``diff=True``).  ``medium_count`` as
+    :func:`bounce_split_soa`'s."""
     dev = comps.device
     r = comps.shape[1]
     tb = tables
@@ -725,6 +733,8 @@ def bounce_generic_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
             vol_mat = vmat.long()
         in_medium = t_med < t_srf
         t_hit = torch.where(in_medium, t_med, t_srf)
+        if medium_count is not None:
+            medium_count += (alive & in_medium).sum()
         if diff:
             # the score-function density weight: per medium, log pdf of
             # scattering here (rho exp(-rho s)) or of passing through a
@@ -1220,7 +1230,12 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     added into their pixels by ``index_add_``.  Returns the [n_pix, 3]
     radiance sum (plus ``acc``): the same (pixel, sample) paths as the
     other drivers, so the same image up to the order of float adds.
-    With ``with_stats`` also :func:`_stats`' dict.
+    With ``with_stats`` also :func:`_stats`' dict and in it
+    ``medium_segments``, the segments whose event was a scatter in a
+    medium (a 0-d int64 tensor summed over the turns, as ``segments``);
+    while the recorder records, the same count as the counter
+    ``driver.medium_segments``.  The re-bin (key, argsort, permutation)
+    runs under the span ``driver.rebin``.
 
     The JAX package's driver also enumerates work items in 8 x 128 pixel
     tiles, for its TPU kernels' block consensus; the port does not."""
@@ -1248,14 +1263,17 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     fstate[5] = 1.0                 # dummy unit direction (0, 0, 1)
     istate = torch.zeros((4, lanes), dtype=torch.int32, device=dev)
     iters, segments = 0, _segments(with_stats, dev)
+    recording = profiling.recording()
+    medium = _segments(with_stats or recording, dev)
 
     for _ in _turns(lambda: bool((next_w < total_work)
                                  | (istate[3] > 0).any())):
         # re-bin: the permutation travels with all lane state
-        perm = torch.argsort(_sort_key(fstate, istate[3] > 0, blo, binv),
-                             stable=True)
-        fstate = fstate[:, perm]
-        istate = istate[:, perm]
+        with profiling.span("driver.rebin"):
+            perm = torch.argsort(_sort_key(fstate, istate[3] > 0, blo, binv),
+                                 stable=True)
+            fstate = fstate[:, perm]
+            istate = istate[:, perm]
         comps, rad, thr = fstate[0:7], fstate[7:10], fstate[10:13]
         pixel, sample, depth = istate[0], istate[1], istate[2]
         alive = istate[3] > 0
@@ -1282,7 +1300,8 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
         rad = rad * (1.0 - can.to(DTYPE))
         thr = torch.where(can, 1.0, thr)
         comps, rad, thr, alive, died = bounce_fn(
-            scene, s, comps, uniforms, rad, thr, alive, tables=tables)
+            scene, s, comps, uniforms, rad, thr, alive, tables=tables,
+            medium_count=medium)
         depth = depth + 1
         capped = alive & (depth >= s.max_depth)
         died = died | capped
@@ -1298,7 +1317,12 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
         if with_stats:
             iters += 1
             segments += (alive | died).sum()
-    return _stats(acc + acc3.T, with_stats, iters, segments, lanes)
+    if recording:
+        profiling.count("driver.medium_segments", medium)
+    out = _stats(acc + acc3.T, with_stats, iters, segments, lanes)
+    if with_stats:
+        out[1]["medium_segments"] = medium
+    return out
 
 
 def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,

@@ -8,9 +8,12 @@ spans and counters the program records with it, on the CPU.
 * ``render_accumulate`` and the sharded train step's loss, gradients and
   new scene are bit-equal with recording on and off.
 * Recording leaves ``with_stats``' dict of a forward driver as it is
-  and adds no counter of its own; each iteration ``with_stats`` counts
-  is one ``driver.iteration`` span (the stationary driver's fused
-  branch unrotated and rotated, queue and sorted branches).  ``diff.*``
+  and adds no counter of its own but the sorted driver's
+  ``driver.medium_segments`` (its dict's ``medium_segments``); each
+  iteration ``with_stats`` counts is one ``driver.iteration`` span (the
+  stationary driver's fused branch unrotated and rotated, queue and
+  sorted branches), and each of the sorted driver's holds one
+  ``driver.rebin`` span.  ``diff.*``
   counts the fused differentiable driver's work:
   the lanes alive or dying each turn, exactly at depth 1.
 * Under the CPU profiler the spans mapped onto the trace's clock
@@ -152,19 +155,22 @@ def _drive(driver, scene, s, spp, kw, **stats):
                                            rotate_k=kw["rotate_k"], **stats)
 
 
-def _driver_spans_match_with_stats(drive):
+def _driver_spans_match_with_stats(drive, counters=()):
     """``drive(**stats)`` with ``with_stats`` while recording: the same
-    image and dict as unrecorded, no counter, one ``driver.iteration``
-    span an iteration counted."""
+    image and dict as unrecorded, one ``driver.iteration`` span an
+    iteration counted, and no counter but ``counters``, each the dict's
+    count of its last name."""
     with profiling.tracing() as rec:
         acc, st = drive(with_stats=True)
     acc_off, st_off = drive(with_stats=True)
     out = rec.export()
-    assert out["counters"] == {}
+    assert out["counters"] == {
+        k: int(st[k.rsplit(".", 1)[1]]) for k in counters}
     assert len(_by_name(out["spans"], "driver.iteration")) \
         == st["iterations"]
     assert torch.equal(acc, acc_off) and torch.equal(acc, drive())
     assert st == st_off
+    return out
 
 
 @pytest.mark.parametrize("case", sorted(DRIVERS))
@@ -179,11 +185,21 @@ def test_driver_spans_match_with_stats(cornell, case):
 
 
 def test_sorted_driver_spans_match_with_stats():
+    """The sorted driver also counts ``driver.medium_segments`` (its
+    dict's ``medium_segments``), and each turn's re-bin is one
+    ``driver.rebin`` span inside that turn's ``driver.iteration``."""
     scene, s = pawn_standin_scene(16, 2, 4, device="cpu")
     key = rng.base_key(2)
-    _driver_spans_match_with_stats(
+    out = _driver_spans_match_with_stats(
         lambda **stats: tint.trace_wavefront_sorted(scene, s, key, 256, 2,
-                                                    **stats))
+                                                    **stats),
+        counters=("driver.medium_segments",))
+    assert out["counters"]["driver.medium_segments"] > 0
+    spans = out["spans"]
+    rebins = _by_name(spans, "driver.rebin")
+    assert len(rebins) == len(_by_name(spans, "driver.iteration"))
+    assert all(spans[x["parent"]]["name"] == "driver.iteration"
+               for x in rebins)
 
 
 @pytest.mark.parametrize("n_iters", [3, 6])
