@@ -516,7 +516,8 @@ def _device_total_ms(fn, reps: int) -> float:
 INDEX_OPS = ("aten::index_add_", "aten::index_add", "aten::index",
              "aten::index_select", "aten::gather", "aten::take",
              "aten::index_put_", "aten::scatter_add_")
-BWD_NODES = ("_FusedIterBackward", "_MegaBounceBackward")
+BWD_NODES = ("_FusedIterBackward", "_FusedLoopBackward",
+             "_MegaBounceBackward")
 
 
 def _profile_fwd_bwd(fn, iters: int) -> dict:

@@ -12,6 +12,10 @@ reads each lane's winner, material and texture columns by index and
 reduces the row gradients onto the scene's tables itself.
 The regeneration stage is detached (sampling) or linear (selects), so
 the backward rebuilds it from the saved (pixel, sample, depth).
+:func:`fused_loop` runs the same iterations, and the dying lanes' adds
+into the image, as one ``torch.autograd.Function`` for a whole loop:
+one node on the tape, K5 once a turn in reverse, the turns' row
+gradients summed and mapped onto the scene's leaves once.
 
 Image, noise, marble and custom textures are shaded at albedo 1.0 by the
 kernels; :func:`apply_rich` multiplies the real albedo into the
@@ -34,7 +38,7 @@ from ..ops.iter_kernel import (
     BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
     prepare_iter, resolve_use_ap,
 )
-from ..ops.row_reduce import RowTables, row_tables
+from ..ops.row_reduce import RowTables, add_rows, row_tables
 from ..core.vecmath import DTYPE
 from ..render.camera import ConstBackground, camera_frame, gray_fade, sky
 from ..textures.textures import (
@@ -168,20 +172,118 @@ class _FusedIter(torch.autograd.Function):
     def backward(ctx, *gouts):
         st = ctx.st
         (pix, smp, dep, al, *rest) = ctx.saved_tensors
-        comps_in, thr_in, idx, scale = rest[0:7], rest[7:10], rest[10], \
-            rest[11]
         cts = tuple(torch.zeros_like(al) if g is None else g.contiguous()
                     for g in gouts[3:16])
-        _, _, ttbl, cam, kt = st.tables
-        g, rg = bounce_bwd_regen_pre_reduced(
-            ttbl, kt, cam, st.rows, idx, (pix, smp, dep), al, comps_in,
-            thr_in, scale, cts, n_targets=st.kw["n_targets"],
-            has_motion=st.kw["has_motion"], has_box=st.scene.prims.has_box,
-            t_min=st.kw["t_min"], n_row=st.n_row, n_u=st.kw["n_u"],
-            width=st.kw["width"], bg_kind=st.kw["bg_kind"])
+        g, rg = _k5(st, pix, (smp, dep, al) + tuple(rest[0:10]), rest[10],
+                    rest[11], cts)
         gl = leaves(scene_row_grads(st.scene, rg, st.n_row))
         return ((None, None, None, None, None) + tuple(g)
                 + tuple(gl[k] for k in st.names))
+
+
+def _k5(st: _StepStatics, pix, ins, idx, scale, cts):
+    """K5 over one turn: its inputs ``ins`` (smp, dep, alive, comps (7),
+    thr (3)), winner index and RR scale, and the cotangents ``cts`` (13)
+    of its outputs comps, rad, thr.  Returns ``(lane, rows)``."""
+    _, _, ttbl, cam, kt = st.tables
+    return bounce_bwd_regen_pre_reduced(
+        ttbl, kt, cam, st.rows, idx, (pix,) + tuple(ins[0:2]), ins[2],
+        ins[3:10], ins[10:13], scale, cts, n_targets=st.kw["n_targets"],
+        has_motion=st.kw["has_motion"], has_box=st.scene.prims.has_box,
+        t_min=st.kw["t_min"], n_row=st.n_row, n_u=st.kw["n_u"],
+        width=st.kw["width"], bg_kind=st.kw["bg_kind"])
+
+
+def _rows(ts):
+    """The [k, R] tensor whose rows are the [R] tensors ``ts``: a view
+    where they are consecutive rows of one storage (kernel B's and K5's
+    outputs on the card), else a stack."""
+    x, r = ts[0], ts[0].shape[0]
+    st = x.untyped_storage().data_ptr()
+    if all(t.is_contiguous() and t.dtype == x.dtype
+           and t.untyped_storage().data_ptr() == st
+           and t.data_ptr() == x.data_ptr() + k * r * x.element_size()
+           for k, t in enumerate(ts)):
+        return x.as_strided((len(ts), r), (r, 1))
+    return torch.stack(ts)
+
+
+# the residuals a turn of _FusedLoop saves: its 13 inputs without rad, the
+# winner index, the RR scale, the deaths
+_TURN = 16
+
+
+class _FusedLoop(torch.autograd.Function):
+    """``n`` differentiable fused iterations as one node; inputs ``(st,
+    n, alive, pix, carry (16), *float leaves of the scene)``, outputs
+    ``acc [3, R], done, carry2 (16)``: the radiance of the samples the
+    lanes completed and their number (i32), and the last carries.
+
+    Forward: each turn (the span ``diff.fwd_iter``) kernel B, then the
+    dying lanes' radiance added into ``acc`` and their deaths into
+    ``done`` in place; each turn keeps :class:`_FusedIter`'s residuals
+    and its deaths.  ``alive`` (a list, or None) takes each turn's alive
+    flags after the step.  Backward: the turns in reverse, each (the
+    span ``diff.bwd_iter``) the adjoint of the adds (``g_acc * died``)
+    into its radiance cotangent, K5, and its row gradients added into
+    one running sum; after the last, the sum mapped onto the leaves."""
+
+    @staticmethod
+    def forward(ctx, st, n, alive, pix, *args):
+        ctx.set_materialize_grads(False)
+        carry = tuple(args[:N_CARRY])
+        r = pix.shape[0]
+        acc = torch.zeros((3, r), dtype=DTYPE, device=pix.device)
+        # f32 counts, exact below 2^24
+        done = torch.zeros((r,), dtype=DTYPE, device=pix.device)
+        saved = [pix]
+        for _ in range(n):
+            with profiling.span("diff.fwd_iter"):
+                outs = iter_megakernel(*st.tables, (pix,) + carry, **st.kw)
+                died = outs[16]
+                # died is 0 or 1, so acc + rad * died is exact
+                acc.addcmul_(_rows(outs[7:10]), died)
+                done.add_(died)
+            # residuals (_TURN a turn): the inputs without rad (a linear
+            # passthrough), the winner index, the RR scale, the deaths
+            saved += carry[0:10] + carry[13:16] + (outs[17], outs[18], died)
+            carry = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
+                     + tuple(outs[7:10]) + tuple(outs[10:13]))
+            if alive is not None:
+                alive.append(carry[2])
+        ctx.save_for_backward(*saved)
+        ctx.st = st
+        done = done.to(torch.int32)
+        ctx.mark_non_differentiable(done, *carry[0:3])
+        return (acc, done) + carry
+
+    @staticmethod
+    def backward(ctx, g_acc, _, *g_carry):
+        st = ctx.st
+        pix, *saved = ctx.saved_tensors
+        g_acc = None if g_acc is None else g_acc.contiguous()
+        cts = g_carry[3:N_CARRY]
+        if any(g is None for g in cts):
+            zeros = iter(torch.zeros((len(cts), pix.shape[0]), dtype=DTYPE,
+                                     device=pix.device).unbind(0))
+            cts = tuple(next(zeros) if g is None else g for g in cts)
+        cts = tuple(g.contiguous() for g in cts)
+        total = None
+        for at in range(len(saved) - _TURN, -1, -_TURN):
+            *ins, idx, scale, died = saved[at:at + _TURN]
+            with profiling.span("diff.bwd_iter"):
+                if g_acc is not None:
+                    g_rad = torch.addcmul(_rows(cts[7:10]), g_acc, died)
+                    cts = cts[0:7] + tuple(g_rad.unbind(0)) + cts[10:13]
+                g, rg = _k5(st, pix, tuple(ins), idx, scale, cts)
+                # each launch's rows are fresh: the first is the sum's
+                if total is None:
+                    total = rg
+                else:
+                    add_rows(total, rg)
+                cts = tuple(g)
+        gl = leaves(scene_row_grads(st.scene, total, st.n_row))
+        return (None,) * 7 + cts + tuple(gl[k] for k in st.names)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,18 +365,17 @@ def fused_diff_reason(scene, s):
     return reason
 
 
-def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
-    """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
-    differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
-    alive f32, comps (7), rad (3), thr (3)), differentiable with respect
-    to every float leaf of ``scene`` (those with ``requires_grad``, as
-    :func:`gradients.partition` makes them).  The pixel assignment is an
-    argument, so compacted completion phases can rebind it.  A scene with
-    rich textures gets :func:`apply_rich` after every step.  Raises for
-    the scenes :func:`fused_diff_reason` refuses."""
+def _refuse(scene, s, caller: str) -> None:
+    """Raise for the scenes :func:`fused_diff_reason` refuses."""
     reason = fused_diff_reason(scene, s)
     if reason is not None:
-        raise NotImplementedError(f"fused_iter_step: {reason}")
+        raise NotImplementedError(f"{caller}: {reason}")
+
+
+def _statics(scene, s, base_key, spp: int, sample_offset: int):
+    """``(st, params, rs)``: the :class:`_StepStatics`, the float leaves
+    with ``requires_grad`` and, for rich textures, the
+    :class:`_RichStatics` of the differentiable iteration."""
     named = {k: v for k, v in leaves(scene).items() if v.requires_grad}
     with torch.no_grad():
         det = map_scene(lambda x: x.detach(), scene)
@@ -285,7 +386,20 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
         rs = rich_statics(det) if kw["with_uv"] else None
     st = _StepStatics(tables=tables, kw=kw, scene=det, names=tuple(named),
                       rows=rows, n_row=n_row)
-    params = tuple(named.values())
+    return st, tuple(named.values()), rs
+
+
+def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
+    """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
+    differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
+    alive f32, comps (7), rad (3), thr (3)), differentiable with respect
+    to every float leaf of ``scene`` (those with ``requires_grad``, as
+    :func:`gradients.partition` makes them).  The pixel assignment is an
+    argument, so compacted completion phases can rebind it.  A scene with
+    rich textures gets :func:`apply_rich` after every step.  Raises for
+    the scenes :func:`fused_diff_reason` refuses."""
+    _refuse(scene, s, "fused_iter_step")
+    st, params, rs = _statics(scene, s, base_key, spp, sample_offset)
 
     def step(pix, carry):
         out = _FusedIter.apply(st, pix, *carry, *params)
@@ -296,3 +410,25 @@ def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
         return carry2, out[N_CARRY]
 
     return step
+
+
+def fused_loop(scene, s, base_key, spp: int, sample_offset: int):
+    """Returns ``loop(pixel_ids, carry, n, alive=None) -> (acc, done,
+    carry2)``: ``n`` >= 1 of :func:`fused_iter_step`'s iterations from
+    the 16 carries as one autograd node (:class:`_FusedLoop`), ``acc``
+    the radiance of the samples the lanes completed (f32 [3, R]) and
+    ``done`` their number (i32 [R]), as the driver sums them; ``alive``
+    (a list) takes each turn's alive flags.  None for a scene with rich
+    textures, whose :func:`apply_rich` runs differentiable torch between
+    the turns: it steps with :func:`fused_iter_step`.  Raises for the
+    scenes :func:`fused_diff_reason` refuses."""
+    _refuse(scene, s, "fused_loop")
+    if is_rich(scene.textures.kinds_present):
+        return None
+    st, params, _ = _statics(scene, s, base_key, spp, sample_offset)
+
+    def loop(pix, carry, n, alive=None):
+        out = _FusedLoop.apply(st, n, alive, pix, *carry, *params)
+        return out[0], out[1], out[2:]
+
+    return loop

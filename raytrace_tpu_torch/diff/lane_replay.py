@@ -607,8 +607,14 @@ def assemble_scene_grads(scene, g_p0, g_e1, g_e2, g_mv0, g_mv1, g_mparam,
                          g_tc0, g_tc1):
     """Scene-shaped gradient (the ``partition`` params structure): the
     computed leaves in place (``g_mv0``/``g_mv1`` None without motion),
-    zeros for the other float leaves, None for the integer tables."""
-    g = map_scene(lambda x: torch.zeros_like(x)
+    zeros for the other float leaves (views of one zeroed buffer, one
+    fill), None for the integer tables."""
+    sizes = []
+    map_scene(lambda x: sizes.append(x.numel())
+              if x.is_floating_point() else None, scene)
+    zeros = iter(torch.zeros(sum(sizes), dtype=g_p0.dtype,
+                             device=g_p0.device).split(sizes))
+    g = map_scene(lambda x: next(zeros).view(x.shape).to(x.dtype)
                   if x.is_floating_point() else None, scene)
     rep = dataclasses.replace
     mv = {k: v for k, v in (("mv0", g_mv0), ("mv1", g_mv1)) if v is not None}

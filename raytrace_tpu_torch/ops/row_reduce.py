@@ -11,7 +11,8 @@ mode (:func:`row_mode`): the table staged in shared memory with
 per-block partials summed in a fixed order, or read from device memory
 with atomic sums.  :func:`reduce_rows_plain` is the plain version of the
 reduction: an ``index_add_`` over the lanes onto the prims, then one over
-the prims onto the materials and textures.
+the prims onto the materials and textures.  :func:`add_rows`
+sums the row gradients of several launches.
 """
 from __future__ import annotations
 
@@ -178,3 +179,32 @@ def row_buffers(tables: RowTables, n_row: int, dev):
                     t.n_mats, t.n_tex, mode)
     grads = RowGrads(sums[:, :n_row], g_mparam, g_tex[:, :3], g_tex[:, 3:])
     return args, grads
+
+
+def _head(g: RowGrads):
+    """The flat head whose views ``g``'s fields are, when ``g`` is laid
+    out as :func:`row_buffers`', else None."""
+    s = g.g_ptab
+    p, n_row = s.shape
+    nc, n_mats, n_tex = n_row + 7, g.g_mparam.shape[0], g.g_tc0.shape[0]
+    at = s.data_ptr() + 4 * p * nc
+    st = s.untyped_storage().data_ptr()
+    if (s.dtype != torch.float32 or s.stride() != (nc, 1)
+            or any(x.untyped_storage().data_ptr() != st for x in g[1:])
+            or g.g_mparam.data_ptr() != at
+            or g.g_tc0.data_ptr() != at + 4 * n_mats
+            or g.g_tc1.data_ptr() != at + 4 * (n_mats + 3)):
+        return None
+    return s.as_strided((p * nc + n_mats + 6 * n_tex,), (1,))
+
+
+def add_rows(total: RowGrads, g: RowGrads) -> None:
+    """``total += g``: one add over the two heads when both are laid out
+    as :func:`row_buffers`' (a reduced launch's), else one a field (the
+    plain reduction's)."""
+    a, b = _head(total), _head(g)
+    if a is not None and b is not None and a.shape == b.shape:
+        a.add_(b)
+    else:
+        for x, y in zip(total, g):
+            x.add_(y)

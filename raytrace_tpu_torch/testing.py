@@ -76,6 +76,9 @@ The world and settings builders of the scene drivers
   plain versions, and :func:`per_lane_backward` the backward onto the
   per-lane modes of K5 and K7 with torch's gather and ``index_add_``
   around them (the backward before the reduction moved into the kernels).
+  :func:`per_turn_loss` builds the fused driver's loss turn by turn, to
+  hold its whole-loop node against; :func:`tape_nodes` counts a tape's
+  nodes by name.
 
 Tolerances: alive/miss/winner index (and sample/depth/died for kernel B,
 winner index, flags and material for the nearest kernel, the front flags
@@ -1928,6 +1931,65 @@ def _backward_as(k5, k7):
     finally:
         (fused_iter.bounce_bwd_regen_pre_reduced,
          bounce_bwd_kernel.bounce_bwd_megakernel_reduced) = saved
+
+
+def per_turn_loss(params, statics, s, key, pixel_ids, target, spp: int,
+                  n_iters: int, schedule=None):
+    """``render_loss_wavefront``'s ``(loss, frac_done)`` on the fused
+    route built turn by turn: each turn one ``fused_iter.fused_iter_step``
+    node, the driver's accumulation adds as autograd ops, the completion
+    phases compacted as the driver compacts them.  The reference the
+    whole-loop node (``fused_iter.fused_loop``) is held against."""
+    from .core.vecmath import DTYPE
+    from .diff.fused_iter import fused_iter_step
+    from .diff.gradients import combine
+    scene = combine(params, statics)
+    dev = scene.device
+    step = fused_iter_step(scene, s, key.to(dev), spp, 0)
+    pix = pixel_ids.to(device=dev, dtype=torch.int32)
+    r = pix.shape[0]
+
+    def zeros(w, dtype=DTYPE):
+        return torch.zeros((w,), dtype=dtype, device=dev)
+
+    def run(pix, carry, n):
+        z = zeros(pix.shape[0])
+        acc, done = (z, z, z), zeros(pix.shape[0], torch.int32)
+        for _ in range(n):
+            carry, died_f = step(pix, carry)
+            acc = tuple(a + c * died_f for a, c in zip(acc, carry[10:13]))
+            done = done + died_f.to(torch.int32)
+        return acc, done, carry
+
+    z, o = zeros(r), torch.ones((r,), dtype=DTYPE, device=dev)
+    carry = ((torch.full((r,), -1, dtype=torch.int32, device=dev),
+              zeros(r, torch.int32), z)
+             + (z, z, z, z, z, o, z) + (z, z, z) + (o, o, o))
+    acc, done, carry = run(pix, carry, n_iters)
+    slot = torch.arange(r, device=dev)
+    for it_b, w_b in schedule or ():
+        unfinished = (carry[2] > 0.5) | (carry[0] < spp - 1)
+        sel = torch.argsort((~unfinished).to(torch.int32), stable=True)[:w_b]
+        slot, pix = slot[sel], pix[sel]
+        acc_b, done_b, carry = run(pix, tuple(c[sel] for c in carry), it_b)
+        acc = tuple(a.index_add(0, slot, ab) for a, ab in zip(acc, acc_b))
+        done = done.index_add(0, slot, done_b)
+    img = torch.stack(acc, dim=-1) / torch.clamp(done, min=1)[:, None]
+    return torch.mean((img - target) ** 2), torch.mean(done / spp)
+
+
+def tape_nodes(out) -> dict:
+    """How many autograd nodes of each name the tape behind ``out``
+    holds."""
+    seen, count, todo = set(), {}, [out.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        count[fn.name()] = count.get(fn.name(), 0) + 1
+        todo.extend(f for f, _ in fn.next_functions)
+    return count
 
 
 @contextlib.contextmanager

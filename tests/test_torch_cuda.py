@@ -314,6 +314,68 @@ def test_fwd_bwd_kernel_matches_plain_backward(device):
         assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
 
 
+@pytest.mark.parametrize("schedule", [None, ((20, 4096),)])
+def test_fused_loop_matches_per_turn_on_the_card(device, schedule):
+    """The fused driver's whole-loop node against the same loss built
+    turn by turn (``testing.per_turn_loss``), both with kernel B and K5,
+    without and with a completion schedule (a node a phase, whose
+    compacted lanes' cotangents come back through ``c[sel]``'s
+    backward): the loss bit-equal, every gradient leaf within rtol 1e-5
+    (only the order of the turns' row sums differs), K5 launched once a
+    turn; and a train step (``sharded_train_step_fn`` at one rank)
+    launches K5 exactly ``n_iters`` times."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.diff.gradients import (
+        leaves, partition, render_loss_wavefront,
+    )
+    from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
+        bounce_bwd_regen_pre_reduced,
+    )
+    from raytrace_tpu_torch.parallel.sharding import (
+        make_mesh, sharded_train_step_fn,
+    )
+    from raytrace_tpu_torch.testing import per_turn_loss, tape_nodes
+    scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
+    s = s.replace(rr_depth=2)
+    params, statics = partition(scene)
+    named = {k: v for k, v in leaves(params).items() if v.requires_grad}
+    pix = torch.arange(1 << 14, dtype=torch.int32, device=device)
+    target = torch.rand((1 << 14, 3), device=device,
+                        generator=torch.Generator(device).manual_seed(1))
+    key, n_iters = rng.base_key(0, device), 40
+    turns = n_iters + sum(n for n, _ in schedule or ())
+
+    k0 = bounce_bwd_regen_pre_reduced.launches
+    loss, frac = render_loss_wavefront(params, statics, s, key, pix, target,
+                                       8, n_iters=n_iters, schedule=schedule)
+    assert tape_nodes(loss).get("_FusedLoopBackward") == 1 + len(
+        schedule or ())
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    assert bounce_bwd_regen_pre_reduced.launches == k0 + turns
+    ref, ref_frac = per_turn_loss(params, statics, s, key, pix, target, 8,
+                                  n_iters, schedule)
+    ref_grads = torch.autograd.grad(ref, list(named.values()),
+                                    allow_unused=True)
+    assert bounce_bwd_regen_pre_reduced.launches == k0 + 2 * turns
+    assert torch.equal(loss, ref) and torch.equal(frac, ref_frac)
+    for k, g, g_ref in zip(named, grads, ref_grads):
+        if g_ref is None:
+            assert g is None or not torch.any(g), k
+        else:
+            torch.testing.assert_close(g, g_ref, rtol=1e-5, atol=1e-7,
+                                       msg=k)
+
+    step = sharded_train_step_fn(
+        make_mesh(), s, spp=8, n_iters=n_iters,
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=0.02))
+    state = step.init(scene)
+    for k in range(2):
+        k0 = bounce_bwd_regen_pre_reduced.launches
+        _, scene, state = step.with_state(scene, state, rng.base_key(k, device),
+                                          pix, None, target)
+        assert bounce_bwd_regen_pre_reduced.launches == k0 + n_iters
+
+
 @pytest.mark.parametrize("case", ["cornell", "all_materials_targets",
                                   "box_motion"])
 def test_replay_backward_kernel_matches_plain(device, case):

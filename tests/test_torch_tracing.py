@@ -15,7 +15,9 @@ spans and counters the program records with it, on the CPU.
   sorted branches), and each of the sorted driver's holds one
   ``driver.rebin`` span.  ``diff.*``
   counts the fused differentiable driver's work:
-  the lanes alive or dying each turn, exactly at depth 1.
+  the lanes alive or dying each turn, exactly at depth 1;
+  ``diff.looped_iterations`` the turns run inside a whole-loop node:
+  all of Cornell's, none of a scene with rich textures.
 * Under the CPU profiler the spans mapped onto the trace's clock
   (``clock_offset``) enclose the operations issued inside them; without
   the anchors' events the alignment raises.
@@ -229,17 +231,14 @@ def test_diff_segments_count_lanes_alive_or_dying(monkeypatch):
     from raytrace_tpu_torch.diff import fused_iter
     scene, s = cornell_scene_and_settings(16, 4, 4, device="cpu")
     pix = torch.arange(256, dtype=torch.int32)
-    make, turns = fused_iter.fused_iter_step, []
+    step, turns = fused_iter.iter_megakernel, []
 
-    def spy(*a, **kw):
-        step = make(*a, **kw)
-
-        def counted(pix, carry):
-            carry2, died_f = step(pix, carry)
-            turns.append(int(((carry2[2] > 0.5) | (died_f > 0.5)).sum()))
-            return carry2, died_f
-        return counted
-    monkeypatch.setattr(fused_iter, "fused_iter_step", spy)
+    def counted(*a, **kw):
+        # kernel B's outputs: alive' (13) and died (16)
+        outs = step(*a, **kw)
+        turns.append(int(((outs[13] > 0.5) | (outs[16] > 0.5)).sum()))
+        return outs
+    monkeypatch.setattr(fused_iter, "iter_megakernel", counted)
     with profiling.tracing() as rec:
         tint.trace_wavefront_diff(scene, s, rng.base_key(4), pix, 4,
                                   n_iters=12)
@@ -302,6 +301,37 @@ def test_train_step_spans_counters_and_bit_equality(cornell):
     assert c["diff.iterations"] == 3 * 10
     assert c["diff.lane_iterations"] == 3 * 10 * 256
     assert 0 < c["diff.segments"] <= c["diff.lane_iterations"]
+    # every Cornell turn runs inside a whole-loop node
+    assert c["diff.looped_iterations"] == c["diff.iterations"]
+
+
+def test_rich_train_step_counts_no_looped_iterations():
+    """A scene with rich textures steps turn by turn (its albedo
+    multiply runs between the turns): its train step counts its
+    iterations, spans and segments as Cornell's does, and no
+    ``diff.looped_iterations``."""
+    import raytrace_tpu_torch as trt
+    img = (torch.arange(4 * 8 * 3) % 7 / 7.0).reshape(4, 8, 3).numpy()
+    scene = trt.compile_scene(trt.group([
+        trt.with_material(trt.lambertian(trt.image_texture(img)),
+                          trt.parallelogram([-2, -1, -4], [4, 0, 0],
+                                            [0, 2, 0])),
+        trt.with_material(trt.light_source(trt.constant_texture(3.0)),
+                          trt.parallelogram([-2, 4, -5], [4, 0, 0],
+                                            [0, 0, 4]))]), device="cpu")
+    s = trt.CameraSettings(image_width=16, samples_per_pixel=2, max_depth=4,
+                           background=trt.const_background(0.2))
+    assert tint.diff_route(scene, s, 256) == "fused"
+    with profiling.tracing() as rec:
+        _train(scene, s)
+    out = rec.export()
+    spans, c = out["spans"], out["counters"]
+    assert c["diff.iterations"] == 3 * 10
+    assert c.get("diff.looped_iterations", 0) == 0
+    assert len(_by_name(spans, "diff.fwd_iter")) == 3 * 10
+    assert len(_by_name(spans, "diff.bwd_iter")) == 3 * 10
+    assert all(spans[x["parent"]]["name"] == "step.backward"
+               for x in _by_name(spans, "diff.bwd_iter"))
 
 
 def test_aligned_spans_enclose_their_ops_on_the_cpu_profiler():
