@@ -32,10 +32,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
    from a random lane state, then 30 from a fresh one (the summed
    radiance's max |err| printed);
 5. the main path, ``render_accumulate`` on the Cornell box at 600 x 600,
-   depth 50, at 64 spp (bench.py's 200 cut to keep the smoke short;
-   ``profile_render.py`` times 200) — exact estimator and Russian
-   roulette from depth 2 (stationary driver, rotate_k 8: kernel B's
-   rotated mode, every launch through its planar instantiation);
+   depth 50, at 64 spp (bench.py's 200 cut to keep the smoke short) —
+   exact estimator and Russian roulette from depth 2 (stationary driver,
+   rotate_k 8: kernel B's rotated mode, every launch through its planar
+   instantiation);
 6. the main path at spp 1 (rotate_k 1: the fused branch, kernel B, every
    launch through its planar instantiation); then the same path at 16
    spp (rotated as at 64: k_rot 8, two samples a chunk), 2 spp (k_rot 2,
@@ -164,10 +164,10 @@ of a red medium):
     against its plain version: the material id and scattering equal on
     every lane, t_med within ``testing.CAND_ULPS`` ulps;
 25. route 5, the media forward: ``render_accumulate`` of cornell_smoke at
-    600 x 600, depth 50, seed 0, at ``FWD_SPP`` (the scene's 200 cut;
-    ``profile_render.py`` times 200): the stationary driver at rotate_k 8,
-    K8, K11 (planar, in the candidate mode: every launch) and the shade
-    kernel every iteration, kernels A and B never; written to
+    600 x 600, depth 50, seed 0, at ``FWD_SPP`` (the scene's 200 cut):
+    the stationary driver at rotate_k 8, K8, K11 (planar, in the
+    candidate mode: every launch) and the shade kernel every iteration,
+    kernels A and B never; written to
     chiprun_out/cornell_smoke.png; then a 1 spp render with every launch
     held against its plain version;
 26. route 6, the mesh-boundary medium: the pawn stand-in at 500 x 500,
@@ -412,6 +412,8 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import time
 
@@ -435,7 +437,7 @@ CHECKED_ROT_SPP = 16
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # samples per pixel of the mesh forward main path (scenes/bunny_test.py
-# renders 100; profile_render.py times 100)
+# renders 100)
 MESH_SPP = 16
 # float operations of the BVH walk (csrc/bvh_nearest.cuh): a box's slab
 # test (two a node) and a triangle row's test, counted from the sources
@@ -444,15 +446,14 @@ ROW_OPS = 45
 # instructions of one marble lane: the fast path of the stripe computed
 # by one thread, its 8 corners unrolled in a loop of 7 octaves (the
 # kernel's earlier one-thread-a-lane form over csrc/noise.cuh), in the
-# SASS of its sm_90a build (cuobjdump -sass,
-# profile_render.fast_path_count): 848 for the lane's stripe with one
+# SASS of its sm_90a build (cuobjdump -sass, fast_path_count): 848 for the lane's stripe with one
 # octave and 798 for each of the 6 more, the lane's load, match and store
 # ~70 (a count from the source, 4,600, missed the avalanches, the
 # conversions and the range reductions); each instruction taken as one
 # operation at the float32 rate
 MARBLE_OPS = 5700
 # samples per pixel of the mesh-boundary medium's forward
-# (scenes/pawn_test.py renders 400; profile_render.py times more)
+# (scenes/pawn_test.py renders 400)
 PAWN_SPP = 16
 # float operations of the crossing kernels (csrc/volume.cuh): a boundary
 # row's roots (sphere, plane or box, ~40) and its two folds (~10 each),
@@ -481,17 +482,203 @@ def _smi_line() -> str:
 
 
 def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """``profile_render.call_ms``: the mean time in ms of ``fn``'s calls
-    back to back, between CUDA events."""
-    from raytrace_tpu_torch.profile_render import call_ms
-    return call_ms(fn, reps, warmup)
+    """Mean time in ms of ``fn``'s calls back to back, between CUDA events
+    (after ``warmup`` calls): the larger of its host cost and its device
+    time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _device_ms(fn, kernel, reps: int) -> float:
-    """``profile_render.kernel_ms``: the mean device time in ms of one
-    call of ``fn``'s launches of ``kernel`` over ``reps`` calls."""
-    from raytrace_tpu_torch.profile_render import kernel_ms
-    return kernel_ms(fn, kernel, reps)
+    """Mean device time in ms of one call of ``fn``'s launches of
+    ``kernel`` (a substring of a kernel's name, or a tuple of them: the
+    means of each summed) over ``reps`` calls, read from torch.profiler:
+    a kernel shorter than its wrapper's host cost leaves the card idle
+    between back-to-back launches, so CUDA events around them would time
+    the host instead.  The profiler's device trace can drop some events
+    of a burst of microsecond launches (31 of 50 seen on an H100), so each
+    mean is over the launches it recorded, at least one a name; a session
+    that recorded none of a name (seen on an H100 after several long
+    sessions in one process) is run again, up to three times, and if
+    none records it, a lone ``kernel`` is timed by CUDA events around
+    ``reps`` calls (the larger of the host cost and the device time: an
+    upper bound, said on stdout)."""
+    import torch
+    from torch.autograd import DeviceType
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {name: [e.time_range.end - e.time_range.start
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and name in e.name]
+              for name in names}
+        if all(us.values()):
+            break
+    else:
+        if len(names) == 1 and not us[names[0]]:
+            ms = _time_ms(fn, reps, 0)
+            print(f"_device_ms: torch.profiler recorded no launch of "
+                  f"{names[0]} in 3 sessions; CUDA events: {ms:.4f} ms a "
+                  f"call", flush=True)
+            return ms
+    total = 0.0
+    for name in names:
+        if not 0 < len(us[name]) <= reps:
+            raise AssertionError(f"{name}: {len(us[name])} profiled launches "
+                                 f"of {reps}")
+        total += sum(us[name]) / len(us[name]) / 1e3
+    return total
+
+
+def _device_ops(prof) -> dict:
+    """``{name: [count, device us]}`` over the device-side events of a
+    profile."""
+    from torch.autograd import DeviceType
+    ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            op = ops.setdefault(e.name, [0, 0.0])
+            op[0] += 1
+            op[1] += e.time_range.end - e.time_range.start
+    return ops
+
+
+def ptxas_report(names=("nearest_kernel", "iter_kernel")) -> list[str]:
+    """The ``-Xptxas -v`` lines (registers, stack frame, spills) of the
+    kernels whose mangled names contain one of ``names``, from the
+    build's log."""
+    from raytrace_tpu_torch.ops._build import BUILD_DIR
+    out, entry = [], None
+    for line in (BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+            entry = name if any(n in name for n in names) else None
+        elif entry is not None and ("stack frame" in line
+                                    or "Used " in line):
+            out.append(f"{entry}: {line.strip()}")
+    return out
+
+
+def sass_text(stem: str) -> str | None:
+    """``cuobjdump -sass`` of the build's object of ``csrc/<stem>.cu``, or
+    None without the object or the tool."""
+    from raytrace_tpu_torch.ops._build import BUILD_DIR
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    objs = sorted(BUILD_DIR.glob(f"{stem}_*.o"))
+    if not objs or not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(objs[-1])], capture_output=True,
+                          text=True, check=True).stdout
+
+
+_BRA = re.compile(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)")
+# what marks a slow path in SASS: a call (the IEEE division's and sqrt's),
+# local memory, the constant table of the trigonometric functions'
+# Payne-Hanek reduction, a double multiply
+_SLOW = ("CALL", "LDL", "STL", "LDG.E.CONSTANT", "DMUL")
+
+
+def sass_functions(stem: str) -> dict:
+    """``{kernel name: [(address, instruction), ...]}`` of the build's
+    object of ``csrc/<stem>.cu`` (empty without the object or
+    cuobjdump)."""
+    sass = sass_text(stem)
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass or "")[1:]:
+        out[fn.split("\n", 1)[0].strip()] = [
+            (int(a, 16), op) for a, op in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+    return out
+
+
+def _sass_loop_spans(ins) -> list[tuple[int, int]]:
+    """``(first, last)`` address of each loop: each backward branch and
+    its target."""
+    spans = []
+    for addr, op in ins:
+        m = _BRA.search(op)
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    return spans
+
+
+def fast_path_count(ins, lo: int, hi: int) -> int:
+    """The instructions of ``ins`` in ``[lo, hi]`` that a thread runs on
+    the fast path: those outside every predicated forward branch's span
+    that holds a slow-path instruction (``_SLOW``)."""
+    skip = []
+    for addr, op in ins:
+        m = _BRA.search(op)
+        if lo <= addr <= hi and m and op.lstrip().startswith("@") \
+                and int(m.group(1), 16) > addr:
+            end = int(m.group(1), 16)
+            if any(s in o for a, o in ins if addr < a < end for s in _SLOW):
+                skip.append((addr, end))
+    return sum(1 for a, _ in ins if lo <= a <= hi
+               and not any(s < a < e for s, e in skip))
+
+
+def sass_loops(stem: str = "bounce_kernel") -> list[str]:
+    """For each kernel of ``csrc/<stem>.cu``: its SASS instruction count
+    and, for each backward branch (a loop), the span it closes, its
+    instruction count and whether it holds a call (the IEEE division's
+    slow path) -- from ``cuobjdump -sass`` of the build's object."""
+    fns = sass_functions(stem)
+    if not fns:
+        return [f"no object of {stem} or no cuobjdump"]
+    out = []
+    for name, ins in fns.items():
+        loops = []
+        for lo, addr in _sass_loop_spans(ins):
+            body = [o for a, o in ins if lo <= a <= addr]
+            call = any("CALL" in o for o in body)
+            loops.append(f"[{lo:#x}, {addr:#x}] {len(body)} instructions"
+                         f"{' with a CALL' if call else ''}")
+        out.append(f"{name}: {len(ins)} instructions; loops: "
+                   f"{'; '.join(loops) or 'none'}")
+    return out
+
+
+def inner_loop_sizes(stem: str, name: str,
+                     op: str = "LDS") -> list[tuple[str, int]]:
+    """``(kernel, instructions)`` of the innermost loop that issues an
+    ``op`` instruction (the shortest such backward branch's span; by
+    default a shared-memory load, so a scan's row loop and not its
+    staging loop) of each kernel of ``csrc/<stem>.cu`` whose mangled name
+    contains ``name``."""
+    out = []
+    for fn, ins in sass_functions(stem).items():
+        spans = [(lo, hi) for lo, hi in _sass_loop_spans(ins)
+                 if any(o.split()[0 if not o.startswith("@") else 1]
+                        .startswith(op) for a, o in ins if lo <= a <= hi)]
+        if name in fn and spans:
+            lo, hi = min(spans, key=lambda sp: sp[1] - sp[0])
+            out.append((fn, sum(1 for a, _ in ins if lo <= a <= hi)))
+    return out
+
+
+def source_constant(stem: str, name: str) -> int:
+    """The value of ``constexpr int <name>`` in ``csrc/<stem>.cu``."""
+    from raytrace_tpu_torch.ops._build import CSRC
+    src = (CSRC / f"{stem}.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def _device_total_ms(fn, reps: int) -> float:
@@ -516,8 +703,7 @@ def _device_total_ms(fn, reps: int) -> float:
 INDEX_OPS = ("aten::index_add_", "aten::index_add", "aten::index",
              "aten::index_select", "aten::gather", "aten::take",
              "aten::index_put_", "aten::scatter_add_")
-BWD_NODES = ("_FusedIterBackward", "_FusedLoopBackward",
-             "_MegaBounceBackward")
+BWD_NODES = ("_FusedLoopBackward", "_MegaBounceBackward")
 
 
 def _profile_fwd_bwd(fn, iters: int) -> dict:
@@ -645,16 +831,12 @@ def _in_turns(label: str, run, iters: int, smi: str) -> dict:
 def _marble_sass_count() -> str:
     """K12's SASS (``cuobjdump -sass`` of the build's object, also written
     to chiprun_out/sass_texture_kernel.txt): the kernel's instructions,
-    those of its fast path (``profile_render.fast_path_count``: without
+    those of its fast path (:func:`fast_path_count`: without
     sqrt's slow call and the trigonometric functions' Payne-Hanek
     reduction, which the gradient's angle in [0, 2 pi) never takes; a
     thread's two octaves are unrolled), and the fast path's instructions
     that a marble lane's threads issue."""
-    import re
     from raytrace_tpu_torch.ops._build import CSRC
-    from raytrace_tpu_torch.profile_render import (
-        fast_path_count, sass_functions, sass_text,
-    )
     fns = sass_functions("texture_kernel")
     if not fns:
         return "no object or no cuobjdump"
@@ -740,7 +922,6 @@ def main() -> None:
         bounce_bwd_regen_pre_reduced_plain,
     )
     from raytrace_tpu_torch.ops.row_reduce import row_tables
-    from raytrace_tpu_torch.profile_render import ptxas_report, sass_loops
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1358,7 +1539,6 @@ def _mesh_phases(smi, phase_done) -> dict:
     from raytrace_tpu_torch.ops.iter_kernel import (
         iter_mega_ap, iter_megakernel, iter_plain,
     )
-    from raytrace_tpu_torch.profile_render import ptxas_report
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.integrator import split_tables
     from raytrace_tpu_torch.render.render import render_accumulate
@@ -1735,7 +1915,6 @@ def _rich_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.ops.texture_kernel import (
         marble_stripe_pallas, marble_stripe_plain, marble_table,
     )
-    from raytrace_tpu_torch.profile_render import ptxas_report
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.integrator import split_tables
     from raytrace_tpu_torch.render.render import render_accumulate
@@ -2126,8 +2305,6 @@ def _media_phases(smi, phase_done, dev) -> dict:
     """Phases 24-28 (constant-density media) on ``dev``.  Returns the
     summary for the JSON line, the launches of K8, K9 and the shade kernel
     on routes 5-7, and the ``kernels`` entries of K11 and K11b."""
-    import re
-
     import numpy as np
     import torch
     import raytrace_tpu_torch as rt
@@ -2140,9 +2317,6 @@ def _media_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.ops.volume_kernel import (
         pallas_volume_crossings, pallas_volume_crossings_bcast,
         volume_candidates_plain, volume_crossings_plain,
-    )
-    from raytrace_tpu_torch.profile_render import (
-        inner_loop_sizes, ptxas_report, source_constant,
     )
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.render import render_accumulate
@@ -2940,8 +3114,6 @@ def _generic_phases(smi, phase_done, dev) -> dict:
     bounded-depth path) on ``dev``.  Returns the summary for the JSON
     line, the launches of K8, K9, K12 and the keyed K11 and K11b on these
     routes, and the keyed mode's entries of the K11 and K11b rows."""
-    import re
-
     import numpy as np
     import torch
     import raytrace_tpu_torch as rt
@@ -2960,9 +3132,6 @@ def _generic_phases(smi, phase_done, dev) -> dict:
     from raytrace_tpu_torch.ops.volume_kernel import (
         pallas_volume_crossings, pallas_volume_crossings_bcast,
         volume_crossings_plain,
-    )
-    from raytrace_tpu_torch.profile_render import (
-        _device_ops, inner_loop_sizes, source_constant,
     )
     from raytrace_tpu_torch.render.image import write_image
     from raytrace_tpu_torch.render.integrator import trace_wavefront_diff
@@ -3145,7 +3314,7 @@ def _generic_phases(smi, phase_done, dev) -> dict:
             prof_run()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t1
-        ops, host_launches = _device_ops(prof)
+        ops = _device_ops(prof)
         n_ops = sum(c for c, _ in ops.values())
         dev_ms = sum(us for _, us in ops.values()) / 1e3
         top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:6]
@@ -3431,7 +3600,6 @@ def _profiled(fn, counter) -> dict:
     and device ops it ran, the iterations (``counter``'s launches in it),
     and the busy share of its wall."""
     import torch
-    from raytrace_tpu_torch.profile_render import _device_ops
     torch.cuda.synchronize()
     n0 = counter.launches
     with torch.profiler.profile(activities=[
@@ -3442,7 +3610,7 @@ def _profiled(fn, counter) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     iters = max(counter.launches - n0, 1)
-    ops, _ = _device_ops(prof)
+    ops = _device_ops(prof)
     dev_s = sum(us for _, us in ops.values()) / 1e6
     n_ops = sum(c for c, _ in ops.values())
     top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:6]

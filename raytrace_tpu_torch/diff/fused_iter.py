@@ -1,21 +1,21 @@
 """The fused wavefront iteration (``raytrace_tpu/diff/fused_iter.py``:
 ``background_kind``, ``fused_iter_eligible`` (with ``need_replay=True``:
-:func:`fused_diff_reason`), ``fused_iter_fwd_step``, ``fused_iter_step``).
+:func:`fused_diff_reason`), ``fused_iter_fwd_step``, ``fused_iter_step``
+(here :func:`fused_loop`)).
 
 One kernel B launch per iteration; the caller only adds dead lanes'
-radiance into the image.  :func:`fused_iter_step` is the differentiable
-iteration, a ``torch.autograd.Function``: kernel B forward (its mesh
-variant, over the table's BVH, for kind-segmented tables of 512 < rows
-<= 8192), and a backward through kernel K5
+radiance into the image.  :func:`fused_loop` runs the differentiable
+iterations, and the dying lanes' adds into the image, as one
+``torch.autograd.Function`` (:class:`_FusedLoop`) for a run of turns:
+kernel B forward (its mesh variant, over the table's BVH, for
+kind-segmented tables of 512 < rows <= 8192), and a backward that runs
+the turns in reverse through kernel K5
 (``ops/bounce_bwd_gather_kernel.py:bounce_bwd_regen_pre_reduced``), which
 reads each lane's winner, material and texture columns by index and
-reduces the row gradients onto the scene's tables itself.
+reduces the row gradients onto the scene's tables itself; the turns' row
+gradients are summed and mapped onto the scene's leaves once.
 The regeneration stage is detached (sampling) or linear (selects), so
 the backward rebuilds it from the saved (pixel, sample, depth).
-:func:`fused_loop` runs the same iterations, and the dying lanes' adds
-into the image, as one ``torch.autograd.Function`` for a whole loop:
-one node on the tape, K5 once a turn in reverse, the turns' row
-gradients summed and mapped onto the scene's leaves once.
 
 Image, noise, marble and custom textures are shaded at albedo 1.0 by the
 kernels; :func:`apply_rich` multiplies the real albedo into the
@@ -24,6 +24,8 @@ differentiable torch: the texture parameters (the atlas through the
 atlas-gradient kernel, the noise and marble parameters, the colours) and
 the hit points (``carry2[3:6]``) get their gradients from ordinary
 autograd.  The uv only feeds ``floor`` lookups, so it stays detached.
+Such a scene runs one-turn nodes of the same Function, each followed by
+:func:`apply_rich`.
 """
 from __future__ import annotations
 
@@ -35,8 +37,8 @@ import torch
 from ..ops.allpairs_kernel import pack_bvh
 from ..ops.bounce_bwd_gather_kernel import bounce_bwd_regen_pre_reduced
 from ..ops.iter_kernel import (
-    BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, pack_cam, pack_kt,
-    prepare_iter, resolve_use_ap,
+    BG_CONST, BG_GRAY, BG_SKY, iter_megakernel, next_carry, pack_cam,
+    pack_kt, prepare_iter, resolve_use_ap,
 )
 from ..ops.row_reduce import RowTables, add_rows, row_tables
 from ..core.vecmath import DTYPE
@@ -122,16 +124,14 @@ def fused_iter_fwd_step(scene, s, base_key, spp: int, sample_offset: int,
     def step(pix, carry):
         outs = iter_megakernel(*tables, (pix,) + tuple(carry), **kw,
                                rotation=rotation)
-        carry2 = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
-                  + tuple(outs[7:10]) + tuple(outs[10:13]))
-        return carry2, tuple(outs[7:10]), outs[16]
+        return next_carry(outs), tuple(outs[7:10]), outs[16]
 
     return step
 
 
 @dataclasses.dataclass(frozen=True)
 class _StepStatics:
-    """What the backward of one fused iteration needs besides the saved
+    """What the backward of the fused iterations needs besides the saved
     lane tensors: the kernel tables, the per-prim column table K5 reads
     and the routing of prims to material and texture rows."""
     tables: tuple           # (ptbl, mtbl, ttbl, cam, kt) of kernel B
@@ -140,45 +140,6 @@ class _StepStatics:
     names: tuple            # names of the float leaves, in input order
     rows: RowTables         # K5's per-prim columns, material, texture
     n_row: int
-
-
-class _FusedIter(torch.autograd.Function):
-    """One differentiable fused iteration; inputs ``(st, pix, carry (16),
-    *float leaves of the scene)``, outputs ``carry2 (16) + (died_f,)``,
-    with ``with_uv`` also the winner's (u, v) and index, for
-    :func:`apply_rich` (not differentiable).  The backward (K5, the row
-    gradients onto the scene's leaves) runs under the span
-    ``diff.bwd_iter``."""
-
-    @staticmethod
-    def forward(ctx, st, pix, *args):
-        carry = args[:N_CARRY]
-        outs = iter_megakernel(*st.tables, (pix,) + tuple(carry), **st.kw)
-        carry2 = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
-                  + tuple(outs[7:10]) + tuple(outs[10:13]) + (outs[16],))
-        if st.kw["with_uv"]:
-            carry2 = carry2 + (outs[19], outs[20], outs[17].clone())
-        # residuals: the inputs without rad (a linear passthrough), the
-        # winner index and the RR scale
-        ctx.save_for_backward(pix, *carry[0:10], *carry[13:16], outs[17],
-                              outs[18])
-        ctx.st = st
-        ctx.mark_non_differentiable(carry2[0], carry2[1], carry2[2],
-                                    *carry2[16:])
-        return carry2
-
-    @staticmethod
-    @profiling.spanned("diff.bwd_iter")
-    def backward(ctx, *gouts):
-        st = ctx.st
-        (pix, smp, dep, al, *rest) = ctx.saved_tensors
-        cts = tuple(torch.zeros_like(al) if g is None else g.contiguous()
-                    for g in gouts[3:16])
-        g, rg = _k5(st, pix, (smp, dep, al) + tuple(rest[0:10]), rest[10],
-                    rest[11], cts)
-        gl = leaves(scene_row_grads(st.scene, rg, st.n_row))
-        return ((None, None, None, None, None) + tuple(g)
-                + tuple(gl[k] for k in st.names))
 
 
 def _k5(st: _StepStatics, pix, ins, idx, scale, cts):
@@ -208,25 +169,27 @@ def _rows(ts):
     return torch.stack(ts)
 
 
-# the residuals a turn of _FusedLoop saves: its 13 inputs without rad, the
-# winner index, the RR scale, the deaths
+# the residuals a turn of _FusedLoop saves
 _TURN = 16
 
 
 class _FusedLoop(torch.autograd.Function):
-    """``n`` differentiable fused iterations as one node; inputs ``(st,
-    n, alive, pix, carry (16), *float leaves of the scene)``, outputs
-    ``acc [3, R], done, carry2 (16)``: the radiance of the samples the
-    lanes completed and their number (i32), and the last carries.
+    """``n`` >= 1 differentiable fused iterations as one node; inputs
+    ``(st, n, alive, pix, carry (16), *float leaves of the scene)``,
+    outputs ``acc [3, R], done, carry2 (16)``: the radiance of the
+    samples the lanes completed and their number (i32), and the last
+    carries; with kernel B's ``with_uv`` also the last turn's winner
+    (u, v) and index, for :func:`apply_rich` (not differentiable).
 
     Forward: each turn (the span ``diff.fwd_iter``) kernel B, then the
     dying lanes' radiance added into ``acc`` and their deaths into
-    ``done`` in place; each turn keeps :class:`_FusedIter`'s residuals
-    and its deaths.  ``alive`` (a list, or None) takes each turn's alive
-    flags after the step.  Backward: the turns in reverse, each (the
-    span ``diff.bwd_iter``) the adjoint of the adds (``g_acc * died``)
-    into its radiance cotangent, K5, and its row gradients added into
-    one running sum; after the last, the sum mapped onto the leaves."""
+    ``done`` in place; each turn keeps its residuals: its inputs without
+    rad (a linear passthrough), the winner index, the RR scale, the
+    deaths.  ``alive`` (a list, or None) takes each turn's alive flags
+    after the step.  Backward: the turns in reverse, each (the span
+    ``diff.bwd_iter``) the adjoint of the adds (``g_acc * died``) into
+    its radiance cotangent, K5, and its row gradients added into one
+    running sum; after the last, the sum mapped onto the leaves."""
 
     @staticmethod
     def forward(ctx, st, n, alive, pix, *args):
@@ -244,18 +207,17 @@ class _FusedLoop(torch.autograd.Function):
                 # died is 0 or 1, so acc + rad * died is exact
                 acc.addcmul_(_rows(outs[7:10]), died)
                 done.add_(died)
-            # residuals (_TURN a turn): the inputs without rad (a linear
-            # passthrough), the winner index, the RR scale, the deaths
             saved += carry[0:10] + carry[13:16] + (outs[17], outs[18], died)
-            carry = ((outs[14], outs[15], outs[13]) + tuple(outs[0:7])
-                     + tuple(outs[7:10]) + tuple(outs[10:13]))
+            carry = next_carry(outs)
             if alive is not None:
                 alive.append(carry[2])
         ctx.save_for_backward(*saved)
         ctx.st = st
         done = done.to(torch.int32)
-        ctx.mark_non_differentiable(done, *carry[0:3])
-        return (acc, done) + carry
+        uv = ((outs[19], outs[20], outs[17].clone()) if st.kw["with_uv"]
+              else ())
+        ctx.mark_non_differentiable(done, *carry[0:3], *uv)
+        return (acc, done) + carry + uv
 
     @staticmethod
     def backward(ctx, g_acc, _, *g_carry):
@@ -365,13 +327,6 @@ def fused_diff_reason(scene, s):
     return reason
 
 
-def _refuse(scene, s, caller: str) -> None:
-    """Raise for the scenes :func:`fused_diff_reason` refuses."""
-    reason = fused_diff_reason(scene, s)
-    if reason is not None:
-        raise NotImplementedError(f"{caller}: {reason}")
-
-
 def _statics(scene, s, base_key, spp: int, sample_offset: int):
     """``(st, params, rs)``: the :class:`_StepStatics`, the float leaves
     with ``requires_grad`` and, for rich textures, the
@@ -389,46 +344,43 @@ def _statics(scene, s, base_key, spp: int, sample_offset: int):
     return st, tuple(named.values()), rs
 
 
-def fused_iter_step(scene, s, base_key, spp: int, sample_offset: int):
-    """Returns ``step(pixel_ids, carry) -> (carry2, died_f)``: one
-    differentiable fused iteration over 16 [R] carries (smp i32, dep i32,
-    alive f32, comps (7), rad (3), thr (3)), differentiable with respect
-    to every float leaf of ``scene`` (those with ``requires_grad``, as
-    :func:`gradients.partition` makes them).  The pixel assignment is an
-    argument, so compacted completion phases can rebind it.  A scene with
-    rich textures gets :func:`apply_rich` after every step.  Raises for
-    the scenes :func:`fused_diff_reason` refuses."""
-    _refuse(scene, s, "fused_iter_step")
-    st, params, rs = _statics(scene, s, base_key, spp, sample_offset)
-
-    def step(pix, carry):
-        out = _FusedIter.apply(st, pix, *carry, *params)
-        carry2 = out[:N_CARRY]
-        if rs is not None:
-            carry2 = apply_rich(scene.textures, rs, carry2,
-                                *out[N_CARRY + 1:])
-        return carry2, out[N_CARRY]
-
-    return step
-
-
 def fused_loop(scene, s, base_key, spp: int, sample_offset: int):
     """Returns ``loop(pixel_ids, carry, n, alive=None) -> (acc, done,
-    carry2)``: ``n`` >= 1 of :func:`fused_iter_step`'s iterations from
-    the 16 carries as one autograd node (:class:`_FusedLoop`), ``acc``
+    carry2)``: ``n`` differentiable fused iterations from 16 [R] carries
+    (smp i32, dep i32, alive f32, comps (7), rad (3), thr (3)), ``acc``
     the radiance of the samples the lanes completed (f32 [3, R]) and
     ``done`` their number (i32 [R]), as the driver sums them; ``alive``
-    (a list) takes each turn's alive flags.  None for a scene with rich
+    (a list) takes each turn's alive flags.  Differentiable with respect
+    to every float leaf of ``scene`` (those with ``requires_grad``, as
+    :func:`gradients.partition` makes them).  The pixel assignment is an
+    argument, so compacted completion phases can rebind it.  The ``n``
+    turns are one autograd node (:class:`_FusedLoop`); a scene with rich
     textures, whose :func:`apply_rich` runs differentiable torch between
-    the turns: it steps with :func:`fused_iter_step`.  Raises for the
-    scenes :func:`fused_diff_reason` refuses."""
-    _refuse(scene, s, "fused_loop")
-    if is_rich(scene.textures.kinds_present):
-        return None
-    st, params, _ = _statics(scene, s, base_key, spp, sample_offset)
+    the turns, runs ``n`` one-turn nodes, each followed by it, and sums
+    their ``acc`` and ``done``.  Raises for the scenes
+    :func:`fused_diff_reason` refuses."""
+    reason = fused_diff_reason(scene, s)
+    if reason is not None:
+        raise NotImplementedError(f"fused_loop: {reason}")
+    st, params, rs = _statics(scene, s, base_key, spp, sample_offset)
 
     def loop(pix, carry, n, alive=None):
-        out = _FusedLoop.apply(st, n, alive, pix, *carry, *params)
-        return out[0], out[1], out[2:]
+        if n == 0:
+            r = pix.shape[0]
+            return (torch.zeros((3, r), dtype=DTYPE, device=pix.device),
+                    torch.zeros((r,), dtype=torch.int32, device=pix.device),
+                    tuple(carry))
+        if rs is None:
+            out = _FusedLoop.apply(st, n, alive, pix, *carry, *params)
+            return out[0], out[1], out[2:]
+        acc = done = None
+        for _ in range(n):
+            out = _FusedLoop.apply(st, 1, alive, pix, *carry, *params)
+            carry = apply_rich(scene.textures, rs, out[2:2 + N_CARRY],
+                               *out[2 + N_CARRY:])
+            # acc + rad * died is exact, as within one node
+            acc = out[0] if acc is None else acc + out[0]
+            done = out[1] if done is None else done + out[1]
+        return acc, done, carry
 
     return loop

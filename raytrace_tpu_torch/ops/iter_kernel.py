@@ -434,6 +434,13 @@ iter_megakernel.launches = 0
 iter_megakernel.planar_launches = 0
 
 
+def next_carry(outs) -> tuple:
+    """The 16 carries of the next iteration from :func:`iter_megakernel`'s
+    outputs: smp', dep', alive', comps' (7), rad' (3), thr' (3), the
+    order of ``lane_in`` after its ``pix``."""
+    return (outs[14], outs[15], outs[13]) + tuple(outs[0:13])
+
+
 def iter_mega_ap(ptbl, mtbl, ttbl, cam, kt, lane_in, *, bvh,
                  prepared: IterLaunch | None = None, **kw):
     """The mesh variant of :func:`iter_megakernel` on CUDA tensors

@@ -1330,25 +1330,21 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
                                 sample_offset: int, schedule):
     """The fused differentiable driver: ``n_iters`` iterations of the
     differentiable step on every lane, then the completion schedule.
-    Each run of iterations (the ``n_iters`` and each phase) is one
-    autograd node (``fused_iter.fused_loop``); a scene with rich
-    textures, whose albedo multiply runs between the turns, steps turn by
-    turn (``fused_iter.fused_iter_step``).  There is no host sync inside
-    the loops.  The whole forward runs under the span ``diff.forward``,
-    each iteration (the step and its accumulation adds) under
-    ``diff.fwd_iter``; while the recorder records, the counters
-    ``diff.iterations``, ``diff.lane_iterations``, ``diff.segments``
-    (the lanes alive or dying after kernel B's step, as the stationary
-    driver's fused branch counts them) and ``diff.looped_iterations``
-    (the iterations run inside a whole-loop node)."""
-    from ..diff.fused_iter import fused_iter_step, fused_loop
+    Each run of iterations (the ``n_iters`` and each phase) goes through
+    ``fused_iter.fused_loop``: one autograd node, or a one-turn node a
+    turn for a scene with rich textures, whose albedo multiply runs
+    between the turns.  There is no host sync inside the loops.  The
+    whole forward runs under the span ``diff.forward``, each iteration
+    (kernel B and its accumulation adds) under ``diff.fwd_iter``; while
+    the recorder records, the counters ``diff.iterations``,
+    ``diff.lane_iterations`` and ``diff.segments`` (the lanes alive or
+    dying after kernel B's step, as the stationary driver's fused branch
+    counts them)."""
+    from ..diff.fused_iter import fused_loop
     dev = scene.device
     lanes = pixel_ids.shape[0]
     last_sample = sample_offset + spp - 1
-    key = base_key.to(dev)
-    loop = fused_loop(scene, s, key, spp, sample_offset)
-    step = (fused_iter_step(scene, s, key, spp, sample_offset)
-            if loop is None else None)
+    loop = fused_loop(scene, s, base_key.to(dev), spp, sample_offset)
 
     def init_carry(w):
         z = torch.zeros((w,), dtype=DTYPE, device=dev)
@@ -1364,22 +1360,7 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
         # each turn's alive flags after the step, kept (the backward
         # saves them as the next turn's input) and reduced once
         alive = [] if counting else None
-        if loop is not None and n:
-            acc, done, carry = loop(pix, carry, n, alive)
-        else:
-            z = torch.zeros((pix.shape[0],), dtype=DTYPE, device=dev)
-            acc = (z, z, z)
-            done = torch.zeros((pix.shape[0],), dtype=torch.int32,
-                               device=dev)
-            for _ in range(n):
-                with profiling.span("diff.fwd_iter"):
-                    carry, died_f = step(pix, carry)
-                    acc = tuple(a + r * died_f
-                                for a, r in zip(acc, carry[10:13]))
-                    done = done + died_f.to(torch.int32)
-                if alive is not None:
-                    alive.append(carry[2])
-            acc = torch.stack(acc)
+        acc, done, carry = loop(pix, carry, n, alive)
         if alive:
             # a lane traces a segment in a turn when it is alive after
             # the step or dies in it, never both: the turns alive plus
@@ -1388,8 +1369,6 @@ def _trace_wavefront_diff_fused(scene: Scene, s: CameraSettings, base_key,
             profiling.count("diff.lane_iterations", n * pix.shape[0])
             profiling.count("diff.segments",
                             (torch.stack(alive) > 0.5).sum() + done.sum())
-            if loop is not None:
-                profiling.count("diff.looped_iterations", n)
         return acc, done, carry
 
     pix = pixel_ids.to(device=dev, dtype=torch.int32)

@@ -296,6 +296,26 @@ def image_grad_scene(width: int = 512, device="cuda"):
     return scene, settings
 
 
+def image_panel_scene(width: int = 16, spp: int = 2, max_depth: int = 4,
+                      device="cuda"):
+    """``(scene, settings)``: a lambertian panel with a 4 x 8 image
+    texture, lit by a panel light, constant background 0.2; the smallest
+    scene of rich textures that the fused differentiable driver takes."""
+    import raytrace_tpu_torch as rt
+    img = (torch.arange(4 * 8 * 3) % 7 / 7.0).reshape(4, 8, 3).numpy()
+    scene = rt.compile_scene(rt.group([
+        rt.with_material(rt.lambertian(rt.image_texture(img)),
+                         rt.parallelogram([-2, -1, -4], [4, 0, 0],
+                                          [0, 2, 0])),
+        rt.with_material(rt.light_source(rt.constant_texture(3.0)),
+                         rt.parallelogram([-2, 4, -5], [4, 0, 0],
+                                          [0, 0, 4]))]), device=device)
+    settings = rt.CameraSettings(image_width=width, samples_per_pixel=spp,
+                                 max_depth=max_depth,
+                                 background=rt.const_background(0.2))
+    return scene, settings
+
+
 def scale3(sx: float, sy: float, sz: float) -> np.ndarray:
     """The 4 x 4 matrix of a non-uniform scale."""
     m = np.eye(4)
@@ -1082,7 +1102,9 @@ def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30,
     relative mean difference, max abs difference)."""
     from .core import rng
     from .diff.fused_iter import iter_kernel_args
-    from .ops.iter_kernel import iter_megakernel, iter_plain, prepare_iter
+    from .ops.iter_kernel import (
+        iter_megakernel, iter_plain, next_carry, prepare_iter,
+    )
     dev = scene.device
     tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev), 7)
     n_pix = s.image_width * s.image_height
@@ -1101,7 +1123,7 @@ def compare_iter(scene, s, n: int, seed: int, n_iters: int = 30,
         a = torch.zeros((3, n), device=dev)
         for _ in range(n_iters):
             o = fn(*tables, (pix,) + c, **kw)
-            c = (o[14], o[15], o[13]) + tuple(o[0:13])
+            c = next_carry(o)
             a += torch.stack(o[7:10]) * o[16]
         acc.append(a)
     diff = (acc[0] - acc[1]).abs().amax(0)
@@ -1597,7 +1619,7 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
     kw)`` for :func:`bounce_bwd_regen_pre_megakernel`."""
     from .core import rng
     from .diff.fused_iter import iter_kernel_args
-    from .ops.iter_kernel import iter_megakernel
+    from .ops.iter_kernel import iter_megakernel, next_carry
     from .ops.row_reduce import row_tables, winner_rows
     dev = scene.device
     tables, kw = iter_kernel_args(scene, s, rng.base_key(seed, dev),
@@ -1609,7 +1631,7 @@ def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
     for _ in range(n_iters + 1):
         lane_in = (pix,) + tuple(carry)
         outs = iter_megakernel(*tables, lane_in, **kw)
-        carry = (outs[14], outs[15], outs[13]) + tuple(outs[0:13])
+        carry = next_carry(outs)
     n_row = 15 if scene.prims.has_motion else 9
     idx = outs[17]
     gath = winner_rows(row_tables(scene, n_row), idx)
@@ -1936,16 +1958,16 @@ def _backward_as(k5, k7):
 def per_turn_loss(params, statics, s, key, pixel_ids, target, spp: int,
                   n_iters: int, schedule=None):
     """``render_loss_wavefront``'s ``(loss, frac_done)`` on the fused
-    route built turn by turn: each turn one ``fused_iter.fused_iter_step``
-    node, the driver's accumulation adds as autograd ops, the completion
+    route built turn by turn: each turn one ``fused_iter.fused_loop``
+    node of one turn, the turns' sums as autograd ops, the completion
     phases compacted as the driver compacts them.  The reference the
-    whole-loop node (``fused_iter.fused_loop``) is held against."""
+    whole-loop node is held against."""
     from .core.vecmath import DTYPE
-    from .diff.fused_iter import fused_iter_step
+    from .diff.fused_iter import fused_loop
     from .diff.gradients import combine
     scene = combine(params, statics)
     dev = scene.device
-    step = fused_iter_step(scene, s, key.to(dev), spp, 0)
+    loop = fused_loop(scene, s, key.to(dev), spp, 0)
     pix = pixel_ids.to(device=dev, dtype=torch.int32)
     r = pix.shape[0]
 
@@ -1953,12 +1975,12 @@ def per_turn_loss(params, statics, s, key, pixel_ids, target, spp: int,
         return torch.zeros((w,), dtype=dtype, device=dev)
 
     def run(pix, carry, n):
-        z = zeros(pix.shape[0])
-        acc, done = (z, z, z), zeros(pix.shape[0], torch.int32)
+        w = pix.shape[0]
+        acc = torch.zeros((3, w), dtype=DTYPE, device=dev)
+        done = zeros(w, torch.int32)
         for _ in range(n):
-            carry, died_f = step(pix, carry)
-            acc = tuple(a + c * died_f for a, c in zip(acc, carry[10:13]))
-            done = done + died_f.to(torch.int32)
+            acc_t, done_t, carry = loop(pix, carry, 1)
+            acc, done = acc + acc_t, done + done_t
         return acc, done, carry
 
     z, o = zeros(r), torch.ones((r,), dtype=DTYPE, device=dev)
@@ -1972,9 +1994,9 @@ def per_turn_loss(params, statics, s, key, pixel_ids, target, spp: int,
         sel = torch.argsort((~unfinished).to(torch.int32), stable=True)[:w_b]
         slot, pix = slot[sel], pix[sel]
         acc_b, done_b, carry = run(pix, tuple(c[sel] for c in carry), it_b)
-        acc = tuple(a.index_add(0, slot, ab) for a, ab in zip(acc, acc_b))
+        acc = acc.index_add(1, slot, acc_b)
         done = done.index_add(0, slot, done_b)
-    img = torch.stack(acc, dim=-1) / torch.clamp(done, min=1)[:, None]
+    img = acc.T.contiguous() / torch.clamp(done, min=1)[:, None]
     return torch.mean((img - target) ** 2), torch.mean(done / spp)
 
 

@@ -176,7 +176,7 @@ def _compare_rotated_iter(scene, s, n: int, seed: int, k_rot: int = 8,
     from raytrace_tpu_torch.core import rng
     from raytrace_tpu_torch.diff.fused_iter import iter_kernel_args
     from raytrace_tpu_torch.ops.iter_kernel import (
-        Rotation, iter_megakernel, iter_plain,
+        Rotation, iter_megakernel, iter_plain, next_carry,
     )
     from raytrace_tpu_torch.render.integrator import rotation_stride
     dev = scene.device
@@ -197,7 +197,7 @@ def _compare_rotated_iter(scene, s, n: int, seed: int, k_rot: int = 8,
         a, b, c = max_errs(ref + (ref_rot.planes,), out + (rot.planes,),
                            ITER_INT_ROWS)
         n_int, err, excess = n_int + a, max(err, b), max(excess, c)
-        carry = (out[14], out[15], out[13]) + tuple(out[0:13])
+        carry = next_carry(out)
     return (n_int, err, excess), rot.planes
 
 
@@ -314,16 +314,20 @@ def test_fwd_bwd_kernel_matches_plain_backward(device):
         assert np.abs(gk[k] - gp[k]).max() <= GRAD_RTOL * scale, k
 
 
-@pytest.mark.parametrize("schedule", [None, ((20, 4096),)])
-def test_fused_loop_matches_per_turn_on_the_card(device, schedule):
+@pytest.mark.parametrize("case", ["cornell", "cornell_schedule",
+                                  "image_panel"])
+def test_fused_loop_matches_per_turn_on_the_card(device, case):
     """The fused driver's whole-loop node against the same loss built
     turn by turn (``testing.per_turn_loss``), both with kernel B and K5,
-    without and with a completion schedule (a node a phase, whose
-    compacted lanes' cotangents come back through ``c[sel]``'s
-    backward): the loss bit-equal, every gradient leaf within rtol 1e-5
-    (only the order of the turns' row sums differs), K5 launched once a
-    turn; and a train step (``sharded_train_step_fn`` at one rank)
-    launches K5 exactly ``n_iters`` times."""
+    on Cornell without and with a completion schedule (a node a phase,
+    whose compacted lanes' cotangents come back through ``c[sel]``'s
+    backward), and on the image-textured panel, whose driver runs
+    one-turn nodes, each followed by the albedo multiply, so K13 runs in
+    every backward turn but the last: the loss bit-equal, every gradient
+    leaf within rtol 1e-5 (only the order of the turns' row sums
+    differs), K5 launched once a turn; and a train step
+    (``sharded_train_step_fn`` at one rank) launches K5 exactly
+    ``n_iters`` times."""
     from raytrace_tpu_torch.core import rng
     from raytrace_tpu_torch.diff.gradients import (
         leaves, partition, render_loss_wavefront,
@@ -331,33 +335,47 @@ def test_fused_loop_matches_per_turn_on_the_card(device, schedule):
     from raytrace_tpu_torch.ops.bounce_bwd_gather_kernel import (
         bounce_bwd_regen_pre_reduced,
     )
+    from raytrace_tpu_torch.ops.image_grad_kernel import image_grad_pallas
     from raytrace_tpu_torch.parallel.sharding import (
         make_mesh, sharded_train_step_fn,
     )
-    from raytrace_tpu_torch.testing import per_turn_loss, tape_nodes
-    scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
+    from raytrace_tpu_torch.testing import (
+        image_panel_scene, per_turn_loss, tape_nodes,
+    )
+    rich = case == "image_panel"
+    schedule = ((20, 4096),) if case == "cornell_schedule" else None
+    if rich:
+        scene, s = image_panel_scene(128, 8, 10, device=device)
+    else:
+        scene, s = cornell_scene_and_settings(128, 8, 10, device=device)
     s = s.replace(rr_depth=2)
     params, statics = partition(scene)
     named = {k: v for k, v in leaves(params).items() if v.requires_grad}
-    pix = torch.arange(1 << 14, dtype=torch.int32, device=device)
+    pix = (torch.arange(1 << 14, device=device)
+           % (s.image_width * s.image_height)).to(torch.int32)
     target = torch.rand((1 << 14, 3), device=device,
                         generator=torch.Generator(device).manual_seed(1))
     key, n_iters = rng.base_key(0, device), 40
     turns = n_iters + sum(n for n, _ in schedule or ())
 
-    k0 = bounce_bwd_regen_pre_reduced.launches
+    k0, t0 = bounce_bwd_regen_pre_reduced.launches, image_grad_pallas.launches
     loss, frac = render_loss_wavefront(params, statics, s, key, pix, target,
                                        8, n_iters=n_iters, schedule=schedule)
-    assert tape_nodes(loss).get("_FusedLoopBackward") == 1 + len(
-        schedule or ())
+    assert tape_nodes(loss).get("_FusedLoopBackward") == (
+        turns if rich else 1 + len(schedule or ()))
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
     assert bounce_bwd_regen_pre_reduced.launches == k0 + turns
+    assert image_grad_pallas.launches == t0 + (turns - 1 if rich else 0)
     ref, ref_frac = per_turn_loss(params, statics, s, key, pix, target, 8,
                                   n_iters, schedule)
+    assert tape_nodes(ref).get("_FusedLoopBackward") == turns
     ref_grads = torch.autograd.grad(ref, list(named.values()),
                                     allow_unused=True)
     assert bounce_bwd_regen_pre_reduced.launches == k0 + 2 * turns
+    assert image_grad_pallas.launches == t0 + (2 * turns - 2 if rich else 0)
     assert torch.equal(loss, ref) and torch.equal(frac, ref_frac)
+    if rich:
+        assert bool(torch.any(grads[list(named).index("textures.images")]))
     for k, g, g_ref in zip(named, grads, ref_grads):
         if g_ref is None:
             assert g is None or not torch.any(g), k

@@ -4,9 +4,9 @@ iteration, on the CPU.
 ``render_loss_wavefront`` runs each run of fused iterations (the
 ``n_iters`` loop and each completion phase) as one autograd node
 (``fused_iter.fused_loop``).  Here the same loss is also built turn by
-turn from ``fused_iter.fused_iter_step`` (``testing.per_turn_loss``: one
-node a turn, the driver's accumulation adds as autograd ops, the
-completion phases compacted as the driver compacts them), on the same
+turn from one-turn nodes of the same Function (``testing.per_turn_loss``:
+``fused_loop`` with ``n=1`` each turn, the turns' sums as autograd ops,
+the completion phases compacted as the driver compacts them), on the same
 inputs: Cornell at 64 px, 4096 lanes, 4 spp, 16 iterations, Russian
 roulette from depth 2 (the size of ``tests/test_torch_gradients.py``),
 with and without the completion schedule ``((15, 2048),)``, and the
@@ -18,7 +18,7 @@ loss and the completed fraction are equal bit for bit.  The backward is
 the same K5 launches on the same cotangents; only the order in which the
 turns' row gradients are summed onto a leaf differs, so each gradient
 leaf agrees to ``rtol=1e-5``, ``atol=1e-7``.  The tape holds one
-whole-loop node per run of iterations and no turn-by-turn node.  A
+whole-loop node per run of iterations, the reference's one node a turn.  A
 second backward through a retained graph gives the first's gradients
 exactly.  The node's one-op views and sums of rows (``fused_iter._rows``,
 ``row_reduce.add_rows``) take tensors of separate storages that lie back
@@ -79,14 +79,13 @@ def test_whole_loop_matches_turn_by_turn(case):
     loss, frac = render_loss_wavefront(params, statics, s, key, pix, target,
                                        SPP, n_iters=N_ITERS,
                                        schedule=schedule)
-    nodes = tape_nodes(loss)
-    assert nodes.get("_FusedLoopBackward", 0) == 1 + len(schedule or ())
-    assert "_FusedIterBackward" not in nodes
+    assert tape_nodes(loss).get("_FusedLoopBackward", 0) == 1 + len(
+        schedule or ())
     grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
 
     ref, ref_frac = per_turn_loss(params, statics, s, key, pix, target, SPP,
                                   N_ITERS, schedule)
-    assert tape_nodes(ref).get("_FusedIterBackward", 0) == N_ITERS + sum(
+    assert tape_nodes(ref).get("_FusedLoopBackward", 0) == N_ITERS + sum(
         n for n, _ in schedule or ())
     ref_grads = torch.autograd.grad(ref, list(named.values()),
                                     allow_unused=True)

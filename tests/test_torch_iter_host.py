@@ -143,7 +143,7 @@ def _lanes(tables, kw, s, state: str):
     if state == "after3":
         for _ in range(3):
             o = ik.iter_plain(*tables, (pix,) + carry, **kw)
-            carry = (o[14], o[15], o[13]) + tuple(o[0:13])
+            carry = ik.next_carry(o)
     return (pix,) + tuple(carry)
 
 
@@ -253,5 +253,5 @@ def test_host_build_of_rotated_iter_kernel_matches_plain(host_iter_rot,
         n_int, _, excess = max_errs(ref + (ref_planes,),
                                     out + (rot.planes,), ITER_INT_ROWS)
         assert n_int == 0 and excess <= 0.0, (n_int, excess)
-        carry = (out[14], out[15], out[13]) + tuple(out[0:13])
+        carry = ik.next_carry(out)
     assert bool((rot.planes != 0).any())

@@ -104,7 +104,7 @@ def test_port_imports_no_jax():
     """``import raytrace_tpu_torch`` pulls in neither JAX nor the JAX
     package, and no module of the port names the JAX package."""
     code = ("import sys, raytrace_tpu_torch, raytrace_tpu_torch.interop, "
-            "raytrace_tpu_torch.testing, raytrace_tpu_torch.profile_render, "
+            "raytrace_tpu_torch.testing, "
             "raytrace_tpu_torch.render.integrator; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'raytrace_tpu.')) or m == 'raytrace_tpu']; "

@@ -24,7 +24,9 @@ import torch
 
 from raytrace_tpu_torch.core import rng
 from raytrace_tpu_torch.diff.fused_iter import iter_kernel_args
-from raytrace_tpu_torch.ops.iter_kernel import Rotation, iter_plain
+from raytrace_tpu_torch.ops.iter_kernel import (
+    Rotation, iter_plain, next_carry,
+)
 from raytrace_tpu_torch.render import integrator as tint
 from raytrace_tpu_torch.testing import (
     cornell_scene_and_settings, fresh_carry, torch_threads,
@@ -152,5 +154,5 @@ def test_plain_rotated_mode_is_the_unrotated_at_the_rotated_pixel(cornell):
         died = out[16] > 0.5
         planes[c[died], :, slot[died]] += torch.stack(out[7:10]).T[died]
         assert torch.equal(rot.planes, planes)
-        carry = (out[14], out[15], out[13]) + tuple(out[0:13])
+        carry = next_carry(out)
     assert bool((planes != 0).any())

@@ -200,7 +200,7 @@ def test_unported_features_raise():
     take the sorted driver (``tests/test_torch_sorted.py``) instead of
     raising."""
     from raytrace_tpu_torch.core import rng
-    from raytrace_tpu_torch.diff.fused_iter import fused_iter_step
+    from raytrace_tpu_torch.diff.fused_iter import fused_loop
     from raytrace_tpu_torch.render.render import uses_sorted
     from raytrace_tpu_torch.scene.obj import parse_obj
     from raytrace_tpu_torch.testing import uv_sphere
@@ -217,9 +217,9 @@ def test_unported_features_raise():
         trt.constant_medium(0.1, trt.sphere([0, 0, 0], 1))), device="cpu")
     with pytest.raises(NotImplementedError, match="generic differentiable "
                                                   "bounce"):
-        fused_iter_step(fog, trt.CameraSettings(image_width=8,
-                                                samples_per_pixel=1),
-                        rng.base_key(0), 1, 0)
+        fused_loop(fog, trt.CameraSettings(image_width=8,
+                                           samples_per_pixel=1),
+                   rng.base_key(0), 1, 0)
     bvh_scene = trt.compile_scene(trt.with_material(
         trt.lambertian(trt.constant_texture(0.5)),
         trt.sphere([0, 0, 0], 1)), accel="bvh", device="cpu")

@@ -228,21 +228,3 @@ def test_render_with_stats_equals_render_accumulate(pawn, case, monkeypatch):
     assert stats.path_segments == sum(int(d["segments"]) for d in dicts)
     assert n_pix * spp <= stats.path_segments <= stats.lane_iterations
     assert 0.0 < stats.occupancy <= 1.0 and stats.wall_s > 0.0
-
-
-def test_profile_render_driver_stats(capsys):
-    """``profile_render.driver_stats`` on the CPU: the counts of a
-    work-queue render, ms an iteration from the given wall, and a raise
-    when the counted render's image is not the one given."""
-    from raytrace_tpu_torch.profile_render import driver_stats
-    scene, s = cornell_scene_and_settings(16, 2, 3, device="cpu")
-    call = lambda: render_with_stats(scene, s, 1)
-    ref, _ = render_accumulate(scene, s, 1)
-    out = driver_stats("queue16", call, ref, 0.5, "cpu")
-    # the queue's pool: the 256 pixels x 2 samples
-    assert out["lanes"] == 512 and out["segments"] >= 512
-    assert out["occupancy"] == out["segments"] / (512 * out["iterations"])
-    assert out["ms_per_iteration"] == 500.0 / out["iterations"]
-    assert "[stats] queue16:" in capsys.readouterr().out
-    with pytest.raises(AssertionError):
-        driver_stats("queue16", call, ref + 1.0, 0.5, "cpu")

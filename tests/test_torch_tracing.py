@@ -15,9 +15,8 @@ spans and counters the program records with it, on the CPU.
   sorted branches), and each of the sorted driver's holds one
   ``driver.rebin`` span.  ``diff.*``
   counts the fused differentiable driver's work:
-  the lanes alive or dying each turn, exactly at depth 1;
-  ``diff.looped_iterations`` the turns run inside a whole-loop node:
-  all of Cornell's, none of a scene with rich textures.
+  the lanes alive or dying each turn, exactly at depth 1, as on a scene
+  with rich textures, whose turns are one-turn nodes.
 * Under the CPU profiler the spans mapped onto the trace's clock
   (``clock_offset``) enclose the operations issued inside them; without
   the anchors' events the alignment raises.
@@ -36,7 +35,8 @@ from raytrace_tpu_torch.parallel.sharding import (
 from raytrace_tpu_torch.render import integrator as tint
 from raytrace_tpu_torch.render.render import render_accumulate
 from raytrace_tpu_torch.testing import (
-    cornell_scene_and_settings, pawn_standin_scene, torch_threads,
+    cornell_scene_and_settings, image_panel_scene, pawn_standin_scene,
+    torch_threads,
 )
 from raytrace_tpu_torch.utils import profiling
 
@@ -301,33 +301,20 @@ def test_train_step_spans_counters_and_bit_equality(cornell):
     assert c["diff.iterations"] == 3 * 10
     assert c["diff.lane_iterations"] == 3 * 10 * 256
     assert 0 < c["diff.segments"] <= c["diff.lane_iterations"]
-    # every Cornell turn runs inside a whole-loop node
-    assert c["diff.looped_iterations"] == c["diff.iterations"]
 
 
-def test_rich_train_step_counts_no_looped_iterations():
-    """A scene with rich textures steps turn by turn (its albedo
+def test_rich_train_step_counts_iterations_and_spans():
+    """A scene with rich textures runs one-turn nodes (its albedo
     multiply runs between the turns): its train step counts its
-    iterations, spans and segments as Cornell's does, and no
-    ``diff.looped_iterations``."""
-    import raytrace_tpu_torch as trt
-    img = (torch.arange(4 * 8 * 3) % 7 / 7.0).reshape(4, 8, 3).numpy()
-    scene = trt.compile_scene(trt.group([
-        trt.with_material(trt.lambertian(trt.image_texture(img)),
-                          trt.parallelogram([-2, -1, -4], [4, 0, 0],
-                                            [0, 2, 0])),
-        trt.with_material(trt.light_source(trt.constant_texture(3.0)),
-                          trt.parallelogram([-2, 4, -5], [4, 0, 0],
-                                            [0, 0, 4]))]), device="cpu")
-    s = trt.CameraSettings(image_width=16, samples_per_pixel=2, max_depth=4,
-                           background=trt.const_background(0.2))
+    iterations and spans as Cornell's does, each backward turn's span
+    inside ``step.backward``."""
+    scene, s = image_panel_scene(device="cpu")
     assert tint.diff_route(scene, s, 256) == "fused"
     with profiling.tracing() as rec:
         _train(scene, s)
     out = rec.export()
     spans, c = out["spans"], out["counters"]
     assert c["diff.iterations"] == 3 * 10
-    assert c.get("diff.looped_iterations", 0) == 0
     assert len(_by_name(spans, "diff.fwd_iter")) == 3 * 10
     assert len(_by_name(spans, "diff.bwd_iter")) == 3 * 10
     assert all(spans[x["parent"]]["name"] == "step.backward"

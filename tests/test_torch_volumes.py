@@ -424,7 +424,7 @@ def test_media_stay_off_kernels_a_and_b_and_gradients(monkeypatch):
     assert calls == [("bounce_generic_soa", True)] * 4
     assert bool(torch.isfinite(loss)) and float(frac) > 0.0
     assert bool(torch.isfinite(grads.volumes.density).all())
-    from raytrace_tpu_torch.diff.fused_iter import fused_iter_step
+    from raytrace_tpu_torch.diff.fused_iter import fused_loop
     with pytest.raises(NotImplementedError, match="generic differentiable "
                                                   "bounce"):
-        fused_iter_step(sc, s, rng.base_key(0), 1, 0)
+        fused_loop(sc, s, rng.base_key(0), 1, 0)
