@@ -392,6 +392,15 @@ demo2: ``testing.demo2_scene``, ``scenes/demo2.py``'s world):
     either driver can differ in the last bits, with or without the
     flag.)
 
+56. the sorted driver's turn (``ops/sorted_turn.py``: HEAD and TAIL,
+    ``csrc/sorted_turn.cu``) at pawn-fwd's shapes (the pawn stand-in 500 x
+    500, 250,112 lanes, 15 uniform columns): every launch of a 2-spp
+    render against the plain versions (``testing.sorted_turn_checks``:
+    exact but for the radiance sums' atomics, and launches of every state
+    of the queue), the device and host ms of each on a middle turn beside
+    its bound (bytes), and a 4-spp render's host launches a turn (at most
+    80) and ms a turn against the plain versions', in turns.
+
 Then a JSON line of the kernels, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  The rendered images go to
 chiprun_out/.  Tolerances (``raytrace_tpu_torch/testing.py``): exact rows
@@ -1423,6 +1432,7 @@ def main() -> None:
     scenes = _scene_phases(smi, phase_done, dev)
     par = _parallel_phases(smi, phase_done, dev)
     stats = _stats_phases(smi, phase_done, dev)
+    sorted_turn = _sorted_turn_phases(smi, phase_done, dev)
     turns["route8"] = unfused.pop("turns")
     main_a += unfused["a_launches"] + scenes["a_launches"] \
         + par["a_launches"] + stats["launches"]["A"]
@@ -1470,6 +1480,7 @@ def main() -> None:
                       "scenes": scenes["summary"],
                       "parallel": par["summary"],
                       "driver_stats": stats["summary"],
+                      "sorted_turn": sorted_turn["summary"],
                       "in_turns": turns,
                       "build_seconds": build_s}), flush=True)
     no_lib = None   # no single PyTorch call computes a bounce
@@ -5192,6 +5203,181 @@ def _stats_phases(smi, phase_done, dev) -> dict:
         {k: round(v["occupancy"], 4) for k, v in out.items()}), flush=True)
     phase_done("driver stats")
     return dict(summary=out, launches=total)
+
+
+# the sorted driver's turn at pawn-fwd's shapes: the image, samples a pixel
+# of the checked render and of the timed renders, the turn whose HEAD and
+# TAIL are timed, and the float and integer operations a lane counted from
+# csrc/sorted_turn.cu (HEAD: ceil(N / 2) avalanches of ~12, the keys ~10,
+# the camera ~60; TAIL: the cap, roulette and key ~40)
+SORTED = dict(width=500, checked_spp=2, timed_spp=4, turn=8, head_ops=170,
+              tail_ops=40)
+
+
+def _sorted_turn_phases(smi, phase_done, dev) -> dict:
+    """Phase 56: the sorted driver's HEAD and TAIL (csrc/sorted_turn.cu)
+    at pawn-fwd's shapes: every launch of a checked render against the
+    plain versions, the two kernels' times beside their bounds on a
+    middle turn, the host launches a turn and the ms a turn against the
+    plain versions'."""
+    import torch
+    from torch.autograd import DeviceType
+    from portbench.trace import LAUNCH_CALLS
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.ops import sorted_turn as sturn
+    from raytrace_tpu_torch.render import integrator
+    from raytrace_tpu_torch.testing import (
+        pawn_standin_scene, plain_sorted_turn, sorted_turn_checks,
+    )
+    w = SORTED["width"]
+    pawn, s_p = pawn_standin_scene(w, SORTED["checked_spp"], 20, device=dev)
+    n_pix = w * w
+    key = rng.base_key(24, dev)
+    kernels = (integrator.sorted_head, integrator.sorted_tail)
+
+    # 56a. every launch of a 2-spp render against the plain versions
+    stats = {}
+    checks = sorted_turn_checks(stats, *kernels)
+    integrator.sorted_head = checks["sorted_head"]
+    integrator.sorted_tail = checks["sorted_tail"]
+    try:
+        acc, st = integrator.trace_wavefront_sorted(
+            pawn, s_p, key, n_pix, SORTED["checked_spp"], with_stats=True)
+    finally:
+        integrator.sorted_head, integrator.sorted_tail = kernels
+    head, tail = stats["sorted_head"], stats["sorted_tail"]
+    lanes = st["lanes"]
+    print(f"[56 HEAD vs plain] pawn stand-in {w}x{w}, "
+          f"{SORTED['checked_spp']} spp, {lanes} lanes, "
+          f"{head['launches']} launches: {head['n_int']} exact entries "
+          f"differing, max |err| {head['err']}, turns {head['turns']} "
+          f"[{smi}]", flush=True)
+    print(f"[56 TAIL vs plain] {tail['launches']} launches: "
+          f"{tail['n_int']} exact entries differing, max |err| "
+          f"{tail['err']}, radiance sums' worst excess "
+          f"{tail['acc_excess']:.3e}", flush=True)
+    if not (head["launches"] == tail["launches"] == st["iterations"] > 0
+            and head["n_int"] == tail["n_int"] == 0
+            and head["err"] == tail["err"] == 0.0
+            and tail["acc_excess"] <= 0.0
+            and all(head["turns"].values())
+            and bool(torch.isfinite(acc).all())):
+        raise AssertionError("56: HEAD or TAIL differs from its plain "
+                             "version")
+    phase_done("sorted turn checked")
+
+    # 56b. HEAD and TAIL of a middle turn, captured and launched alone
+    cap = {}
+
+    def head_spy(turn, perm, lanes_, par):
+        out = kernels[0](turn, perm, lanes_, par)
+        if sturn.sorted_head.launches == cap.get("at"):
+            cap["head"] = (turn, perm.clone(), sturn.SortedLanes(
+                *(x.clone() for x in (lanes_.fstate, lanes_.istate,
+                                      lanes_.key, lanes_.ctl))), par)
+        return out
+
+    def tail_spy(turn, lanes_, par, hd, out, acc3, segments=None):
+        if "head" in cap and "out" not in cap:
+            cap["out"] = tuple(x.clone() for x in out)
+            cap["n_pix"] = acc3.shape[1]
+        return kernels[1](turn, lanes_, par, hd, out, acc3, segments)
+
+    cap["at"] = sturn.sorted_head.launches + SORTED["turn"]
+    integrator.sorted_head, integrator.sorted_tail = head_spy, tail_spy
+    try:
+        integrator.trace_wavefront_sorted(pawn, s_p, key, n_pix,
+                                          SORTED["timed_spp"])
+    finally:
+        integrator.sorted_head, integrator.sorted_tail = kernels
+    turn, perm, lanes_h, par = cap["head"]
+    out = cap["out"]
+    lanes_t = sturn.SortedLanes(*(x.clone() for x in (
+        lanes_h.fstate, lanes_h.istate, lanes_h.key, lanes_h.ctl)))
+    acc3 = torch.zeros((3, cap["n_pix"]), device=dev)
+    head_fn = lambda: sturn.sorted_head(turn, perm, lanes_h, par)
+    hd = head_fn()
+    alive_in = hd[5].clone()
+    tail_fn = lambda: sturn.sorted_tail(turn, lanes_t, par, hd, out, acc3)
+    tail_fn()
+    died = int((alive_in & ~(lanes_t.istate[3] > 0)).sum())
+    n_cols = turn.n_u + 6
+    r = turn.lanes
+    head_bytes = r * (8 + 13 * 4 + 4 * 4 + 13 * 4 + 4 * n_cols + 3 * 4 + 1)
+    tail_bytes = r * (13 * 4 + 2 + 3 * 4 + 4 + 13 * 4 + 4 * 4 + 4) \
+        + died * 3 * 4
+    kt = {}
+    for name, fn, n_bytes, ops in (
+            ("HEAD", head_fn, head_bytes, SORTED["head_ops"]),
+            ("TAIL", tail_fn, tail_bytes, SORTED["tail_ops"])):
+        kname = "sorted_head_kernel" if name == "HEAD" \
+            else "sorted_tail_kernel"
+        ms = _device_ms(fn, kname, 50)
+        host = _time_ms(fn, 50)
+        bound = _bound_ms(n_bytes, ops * r)
+        kt[name] = dict(ms=ms, host_ms=host, bound_ms=bound[0],
+                        bound_by=bound[1], bytes=n_bytes)
+        print(f"[56 time] {name} on turn {SORTED['turn']} of the pawn "
+              f"stand-in {w}x{w} ({r} lanes, {n_cols} uniform columns, "
+              f"{died} paths finished): {ms:.4f} ms device, {host:.4f} ms "
+              f"a call back to back, bound {bound[0]:.4f} ms "
+              f"({bound[1]}: {n_bytes / 1e6:.2f} MB), "
+              f"{100 * bound[0] / ms:.1f}% of it [{smi}]", flush=True)
+    phase_done("sorted turn times")
+
+    # 56c. host launches and ms a turn, HEAD and TAIL against their plain
+    # versions (the driver's torch lines), in turns
+    run = lambda: integrator.trace_wavefront_sorted(
+        pawn, s_p, key, n_pix, SORTED["timed_spp"])
+
+    def profiled():
+        before = sturn.sorted_head.launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        calls = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name in LAUNCH_CALLS)
+        return calls, sturn.sorted_head.launches - before
+
+    def timed():
+        torch.cuda.synchronize()
+        before = sturn.sorted_head.launches
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sturn.sorted_head.launches - before
+
+    calls, turns = profiled()
+    with plain_sorted_turn():
+        plain_calls, _ = profiled()
+    walls = {"kernels": [], "plain": []}
+    for _ in range(2):
+        walls["kernels"].append(timed()[0])
+        with plain_sorted_turn():
+            walls["plain"].append(timed()[0])
+    ms_turn = {k: [1e3 * v / turns for v in vs] for k, vs in walls.items()}
+    rays = n_pix * SORTED["timed_spp"]
+    print(f"[56 launches] a sorted turn of the pawn stand-in {w}x{w}, "
+          f"{SORTED['timed_spp']} spp ({turns} turns): "
+          f"{calls / turns:.2f} host launches (plain versions: "
+          f"{plain_calls / turns:.2f}) [{smi}]", flush=True)
+    print(f"[56 turn] ms a turn in turns, HEAD and TAIL "
+          f"{[round(v, 4) for v in ms_turn['kernels']]}, plain versions "
+          f"{[round(v, 4) for v in ms_turn['plain']]}; M primary rays/s "
+          f"{[round(rays / v / 1e6, 3) for v in walls['kernels']]} against "
+          f"{[round(rays / v / 1e6, 3) for v in walls['plain']]} [{smi}]",
+          flush=True)
+    if calls / turns > 80:
+        raise AssertionError(f"56: {calls / turns:.1f} host launches a "
+                             f"sorted turn (at most 80)")
+    phase_done("sorted turn launches")
+    return dict(summary=dict(checked=dict(head=head, tail=tail),
+                             kernels=kt, launches_a_turn=calls / turns,
+                             plain_launches_a_turn=plain_calls / turns,
+                             ms_a_turn=ms_turn, turns=turns))
 
 
 if __name__ == "__main__":

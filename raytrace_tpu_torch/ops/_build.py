@@ -29,7 +29,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("bounce_kernel.cu", "iter_kernel.cu", "bounce_bwd_kernel.cu",
            "nearest_kernel.cu", "shade_kernel.cu", "nearest_flat_kernel.cu",
-           "texture_kernel.cu", "image_grad_kernel.cu", "volume_kernel.cu")
+           "texture_kernel.cu", "image_grad_kernel.cu", "volume_kernel.cu",
+           "sorted_turn.cu")
 # --fmad=false: no multiply-add contraction, so the kernels round like
 # their plain PyTorch versions (ops/*.py); IEEE sqrt and division are
 # nvcc's defaults, and --use_fast_math is deliberately absent.
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 ENTRY_POINTS = ("rt_bounce", "rt_iter", "rt_iter_bvh", "rt_bounce_bwd",
                 "rt_bounce_bwd_replay", "rt_nearest", "rt_shade",
                 "rt_nearest_flat", "rt_marble", "rt_image_grad",
-                "rt_volume_crossings", "rt_volume_crossings_bvh")
+                "rt_volume_crossings", "rt_volume_crossings_bvh",
+                "rt_sorted_head", "rt_sorted_tail")
 
 
 def _nvcc() -> str:

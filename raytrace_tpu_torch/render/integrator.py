@@ -114,6 +114,9 @@ from ..ops.intersect_kernel import (
     MAX_SMEM_PRIMS, pack_prims, pallas_nearest_record,
 )
 from ..ops.iter_kernel import Rotation
+from ..ops.sorted_turn import (
+    SortedTurn, sorted_head, sorted_lanes, sorted_tail,
+)
 from ..scene.types import BVH, Ellipsoids, Primitives, Scene, Volumes
 from ..textures.textures import (
     TEX_CHECKER, TEX_CONSTANT, eval_texture, is_rich,
@@ -1187,34 +1190,6 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                   lanes)
 
 
-# origin cells per axis of the sorted driver's ray binning
-SORT_CELLS = 256
-
-
-def _spread3(x):
-    """Spread the low 10 bits of int32 ``x`` to every third bit (the 3-D
-    Morton interleave)."""
-    x = (x | (x << 16)) & 0x030000FF
-    x = (x | (x << 8)) & 0x0300F00F
-    x = (x | (x << 4)) & 0x030C30C3
-    x = (x | (x << 2)) & 0x09249249
-    return x
-
-
-def _sort_key(comps, alive, blo, binv):
-    """Binning key of every lane: direction octant, then the Morton code
-    of the origin's cell (``SORT_CELLS`` per axis over the scene box);
-    dead lanes after every live one."""
-    octant = ((comps[3] < 0).to(torch.int32) * 4
-              + (comps[4] < 0).to(torch.int32) * 2
-              + (comps[5] < 0).to(torch.int32))
-    q = [torch.clamp((comps[k] - blo[k]) * binv[k] * SORT_CELLS, 0.0,
-                     SORT_CELLS - 1).to(torch.int32) for k in range(3)]
-    cell = _spread3(q[0]) | (_spread3(q[1]) << 1) | (_spread3(q[2]) << 2)
-    return torch.where(alive, octant * SORT_CELLS ** 3 + cell,
-                       8 * SORT_CELLS ** 3)
-
-
 def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
                            n_pix: int, spp: int, acc=None,
                            sample_offset: int = 0, pixel_offset: int = 0,
@@ -1223,31 +1198,32 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     up to 128): dead lanes pull the next work items from a global counter
     (item ``w`` is pixel ``pixel_offset + w % n_pix``, sample
     ``sample_offset + w // n_pix``), and every iteration the lanes are
-    re-sorted by :func:`_sort_key` with one stable argsort, their state
-    permuted by one gather per dtype, so that the threads of a block
-    trace rays that travel together (the BVH walks of the surface and of
-    the media then visit the same nodes).  Finished paths are
-    added into their pixels by ``index_add_``.  Returns the [n_pix, 3]
+    re-sorted by ``ops/sorted_turn.py:_sort_key`` with one stable
+    argsort, so that the threads of a block trace rays that travel
+    together (the BVH walks of the surface and of the media then visit
+    the same nodes).  A turn is the argsort, HEAD (``sorted_head``: the
+    lane state gathered through the permutation, the queue, the hash and
+    the camera), the bounce, TAIL (``sorted_tail``: the depth cap,
+    Russian roulette, the finished paths added into their pixels, the
+    lane state and the next sort key) and the read of one flag; on the
+    card HEAD and TAIL are one launch each.  Returns the [n_pix, 3]
     radiance sum (plus ``acc``): the same (pixel, sample) paths as the
     other drivers, so the same image up to the order of float adds.
     With ``with_stats`` also :func:`_stats`' dict and in it
     ``medium_segments``, the segments whose event was a scatter in a
     medium (a 0-d int64 tensor summed over the turns, as ``segments``);
     while the recorder records, the same count as the counter
-    ``driver.medium_segments``.  The re-bin (key, argsort, permutation)
-    runs under the span ``driver.rebin``.
+    ``driver.medium_segments``.  The argsort runs under the span
+    ``driver.rebin``.
 
     The JAX package's driver also enumerates work items in 8 x 128 pixel
     tiles, for its TPU kernels' block consensus; the port does not."""
     dev = scene.device
     lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
-    n_u = n_bounce_uniforms(scene)
-    cam = camera_table(s, camera_frame(s))
     if acc is None:
         acc = torch.zeros((n_pix, 3), dtype=DTYPE, device=dev)
     total_work = n_pix * spp
     bounce_fn, tables = _bounce_step(scene, s, lanes)
-    base_key = base_key.to(dev)
 
     # the scene box of the surface rows, for the origin cells
     p = scene.prims
@@ -1256,67 +1232,28 @@ def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,
     blo = (p.p0[:nn] - ext).amin(0)
     bhi = (p.p0[:nn] + ext).amax(0)
     binv = 1.0 / torch.clamp(bhi - blo, min=1e-6)
+    turn = SortedTurn(s=s, cam=camera_table(s, camera_frame(s)),
+                      base_key=base_key.to(dev),
+                      box=torch.cat([blo, binv]).contiguous(), n_pix=n_pix,
+                      lanes=lanes, total_work=total_work,
+                      n_u=n_bounce_uniforms(scene),
+                      sample_offset=sample_offset, pixel_offset=pixel_offset)
 
     acc3 = torch.zeros((3, n_pix), dtype=DTYPE, device=dev)
-    next_w = torch.zeros((), dtype=torch.int64, device=dev)
-    fstate = torch.zeros((13, lanes), dtype=DTYPE, device=dev)
-    fstate[5] = 1.0                 # dummy unit direction (0, 0, 1)
-    istate = torch.zeros((4, lanes), dtype=torch.int32, device=dev)
+    st = sorted_lanes(lanes, total_work, dev)
     iters, segments = 0, _segments(with_stats, dev)
     recording = profiling.recording()
     medium = _segments(with_stats or recording, dev)
-
-    for _ in _turns(lambda: bool((next_w < total_work)
-                                 | (istate[3] > 0).any())):
-        # re-bin: the permutation travels with all lane state
+    for _ in _turns(st.more):
         with profiling.span("driver.rebin"):
-            perm = torch.argsort(_sort_key(fstate, istate[3] > 0, blo, binv),
-                                 stable=True)
-            fstate = fstate[:, perm]
-            istate = istate[:, perm]
-        comps, rad, thr = fstate[0:7], fstate[7:10], fstate[10:13]
-        pixel, sample, depth = istate[0], istate[1], istate[2]
-        alive = istate[3] > 0
-
-        # queue regeneration: dead lanes pull fresh work items
-        dead = ~alive
-        dead_i = dead.to(torch.int64)
-        wi = next_w + torch.cumsum(dead_i, 0) - dead_i
-        can = dead & (wi < total_work)
-        w_safe = torch.clamp(wi, max=total_work - 1)
-        pixel = torch.where(can, (w_safe % n_pix).to(torch.int32), pixel)
-        sample = torch.where(
-            can, (torch.div(w_safe, n_pix, rounding_mode="floor")
-                  + sample_offset).to(torch.int32), sample)
-        depth = torch.where(can, 0, depth)
-        alive = alive | can
-        next_w = next_w + can.sum()
-
-        keys = rng.ray_keys_fast(base_key, pixel_offset + pixel, sample)
-        uniforms = rng.uniform_cols(rng.mix_depth(keys, depth), n_u + 6)
-        new_comps = rays_from_table(cam, s.image_width, pixel_offset + pixel,
-                                    uniforms[n_u:n_u + 5])
-        comps = torch.where(can, new_comps, comps)
-        rad = rad * (1.0 - can.to(DTYPE))
-        thr = torch.where(can, 1.0, thr)
-        comps, rad, thr, alive, died = bounce_fn(
-            scene, s, comps, uniforms, rad, thr, alive, tables=tables,
-            medium_count=medium)
-        depth = depth + 1
-        capped = alive & (depth >= s.max_depth)
-        died = died | capped
-        alive = alive & ~capped
-        if s.rr_depth is not None:
-            thr, alive, died = _russian_roulette(
-                s, uniforms[n_u + 5], depth, thr, alive, died)
-
-        # flush: finished paths into their pixels
-        acc3.index_add_(1, pixel.long(), rad * died.to(DTYPE))
-        fstate = torch.cat([comps, rad, thr])
-        istate = torch.stack([pixel, sample, depth, alive.to(torch.int32)])
-        if with_stats:
-            iters += 1
-            segments += (alive | died).sum()
+            perm = torch.argsort(st.key, stable=True)
+        par = iters % 2
+        head = sorted_head(turn, perm, st, par)
+        comps, rad, thr, uniforms, _, alive = head
+        out = bounce_fn(scene, s, comps, uniforms, rad, thr, alive,
+                        tables=tables, medium_count=medium)
+        sorted_tail(turn, st, par, head, out, acc3, segments)
+        iters += 1
     if recording:
         profiling.count("driver.medium_segments", medium)
     out = _stats(acc + acc3.T, with_stats, iters, segments, lanes)

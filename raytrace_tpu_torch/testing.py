@@ -783,6 +783,20 @@ def pawn_standin_scene(width: int = 500, spp: int = 400, depth: int = 20,
             pawn_standin_settings(rt, width, spp, depth))
 
 
+def pawn_two_media_scene(width: int = 64, spp: int = 4, depth: int = 20,
+                         device="cuda"):
+    """``(scene, settings)``: :func:`pawn_standin_world` with a blue fog
+    ball beside the pawn, a second medium, so a bounce draws 8 + 2
+    uniform columns and HEAD an even 16 (the pawn alone: 15)."""
+    import raytrace_tpu_torch as rt
+    fog = rt.with_material(
+        rt.isotropic(rt.constant_texture([0.3, 0.4, 0.9])),
+        rt.constant_medium(0.8, rt.sphere([2.2, 1.5, 0.5], 1.0)))
+    return (rt.compile_scene(rt.group([pawn_standin_world(rt), fog]),
+                             device=device),
+            pawn_standin_settings(rt, width, spp, depth))
+
+
 def volume_test_world(rt, moving: bool = False):
     """``tests/test_volume_kernel.py``'s media: a fog ball (sphere row)
     and a smoke box (one ``PRIM_BOX`` row) over a ground parallelogram;
@@ -1472,10 +1486,11 @@ def checked_launches(sample: int | None = None):
     every nearest-hit (BVH walk and flat scan), medium crossing (K11,
     K11b, any mode: the keyed one's keys as exact rows), shade and marble
     kernel launch of the split path and the generic bounce, every kernel
-    B launch of the fused step (the rotated mode's planes too) and every
-    atlas-gradient launch of its backward is held against its plain
-    version on the same inputs (run first: the candidate mode updates
-    its rows in place).  Yields
+    B launch of the fused step (the rotated mode's planes too), every
+    atlas-gradient launch of its backward and every HEAD and TAIL launch
+    of the sorted driver (:func:`sorted_turn_checks`) is held against its
+    plain version on the same inputs (run first: the candidate mode
+    updates its rows in place).  Yields
     ``{kernel name: stats}`` with ``launches`` (checked), ``n_int``
     (differing exact-row lanes, summed), ``err`` (max abs float error)
     and ``excess`` (worst tolerance excess; the atlas gradient's is
@@ -1601,11 +1616,98 @@ def checked_launches(sample: int | None = None):
         kernel, checked = spy(module, name, plain, rows)
         originals.append((module, name, kernel))
         setattr(module, name, checked)
+    for name, checked in sorted_turn_checks(
+            stats, integrator.sorted_head, integrator.sorted_tail).items():
+        originals.append((integrator, name, getattr(integrator, name)))
+        setattr(integrator, name, checked)
     try:
         yield stats
     finally:
         for module, name, kernel in originals:
             setattr(module, name, kernel)
+
+
+def sorted_turn_checks(stats: dict, head_kernel, tail_kernel) -> dict:
+    """``{"sorted_head": f, "sorted_tail": g}``: the sorted driver's
+    HEAD and TAIL, each call held against its plain version (run first,
+    on copies of what the call writes) and returning ``head_kernel``'s or
+    ``tail_kernel``'s results.  ``stats`` gains an entry of each name, as
+    :func:`checked_launches`' (the control words, lane ints, key and
+    segments as exact rows; the floats' max abs error and excess over
+    ``ATOL + RTOL |plain|``); TAIL's also ``acc_excess``, the radiance
+    sums' worst excess over ``SCATTER_RTOL x k x |plain|`` (``k`` the
+    lanes on the pixel: float atomics add in another order), and HEAD's
+    ``turns``, its launches by the queue's state: ``first`` (no work
+    taken), ``middle`` (every dead lane takes an item), ``runs_out`` (the
+    items run out inside the dead suffix), ``drain`` (none left)."""
+    from .ops.sorted_turn import (
+        SortedLanes, sorted_head_plain, sorted_tail_plain,
+    )
+    inf = float("inf")
+    h = stats["sorted_head"] = dict(
+        launches=0, n_int=0, err=0.0, excess=-inf,
+        turns=dict(first=0, middle=0, runs_out=0, drain=0))
+    t = stats["sorted_tail"] = dict(launches=0, n_int=0, err=0.0,
+                                    excess=-inf, acc_excess=-inf)
+
+    def add(st, n_int, err, excess):
+        st["launches"] += 1
+        st["n_int"] += n_int
+        st["err"] = max(st["err"], err)
+        st["excess"] = max(st["excess"], excess)
+
+    def head(turn, perm, lanes, par):
+        next_w, n_live = int(lanes.ctl[par]), int(lanes.ctl[2 + par])
+        ref_lanes = dataclasses.replace(lanes, ctl=lanes.ctl.clone())
+        ref = sorted_head_plain(turn, perm, ref_lanes, par)
+        out = head_kernel(turn, perm, lanes, par)
+        # floats: comps, rad, thr, uniforms; exact: lane ints, alive, ctl
+        n_int, err, excess = max_errs(
+            ref + (ref_lanes.ctl,), tuple(out) + (lanes.ctl,), (4, 5, 6))
+        add(h, n_int, err, excess)
+        kind = ("drain" if next_w >= turn.total_work else
+                "first" if next_w == 0 else
+                "runs_out" if next_w + turn.lanes - n_live > turn.total_work
+                else "middle")
+        h["turns"][kind] += 1
+        return out
+
+    def tail(turn, lanes, par, hd, out, acc3, segments=None):
+        ref_lanes = SortedLanes(*(x.clone() for x in (
+            lanes.fstate, lanes.istate, lanes.key, lanes.ctl)))
+        ref_acc = acc3.clone()
+        ref_seg = None if segments is None else segments.clone()
+        sorted_tail_plain(turn, ref_lanes, par, hd, out, ref_acc, ref_seg)
+        tail_kernel(turn, lanes, par, hd, out, acc3, segments)
+        exact = [(ref_lanes.istate, lanes.istate), (ref_lanes.key, lanes.key),
+                 (ref_lanes.ctl, lanes.ctl)]
+        if segments is not None:
+            exact.append((ref_seg, segments))
+        n_int, err, excess = max_errs(
+            [ref_lanes.fstate] + [a for a, _ in exact],
+            [lanes.fstate] + [b for _, b in exact],
+            tuple(range(1, len(exact) + 1)))
+        add(t, n_int, err, excess)
+        k = torch.bincount(hd[4][0].long(), minlength=turn.n_pix)
+        diff = (ref_acc - acc3).abs().to(torch.float64)
+        t["acc_excess"] = max(t["acc_excess"], float(
+            (diff - SCATTER_RTOL * k * ref_acc.abs()).max()))
+    return {"sorted_head": head, "sorted_tail": tail}
+
+
+@contextlib.contextmanager
+def plain_sorted_turn():
+    """Inside the block the sorted driver's HEAD and TAIL run their plain
+    versions (the driver's torch lines), on any device."""
+    from .ops.sorted_turn import sorted_head_plain, sorted_tail_plain
+    from .render import integrator
+    saved = integrator.sorted_head, integrator.sorted_tail
+    integrator.sorted_head = sorted_head_plain
+    integrator.sorted_tail = sorted_tail_plain
+    try:
+        yield
+    finally:
+        integrator.sorted_head, integrator.sorted_tail = saved
 
 
 def bwd_inputs(scene, s, lanes: int, seed: int, n_iters: int = 3,
@@ -1860,7 +1962,8 @@ def plain_kernels():
     kernel B (and its mesh variant) forward and of K5 backward, the
     unfused bounce those of kernel A and K7, the split path and the
     generic bounce those of the nearest-hit kernels K8 and K9 and of the
-    crossing kernels K11 and K11b (every mode), on any device."""
+    crossing kernels K11 and K11b (every mode), the sorted driver those of
+    HEAD and TAIL, on any device."""
     from functools import partial
 
     from .diff import fused_iter
@@ -1894,7 +1997,7 @@ def plain_kernels():
     for m, n, fn in swaps:
         setattr(m, n, fn)
     try:
-        with plain_backward():
+        with plain_backward(), plain_sorted_turn():
             yield
     finally:
         for m, n, fn in saved:
@@ -2157,6 +2260,13 @@ template <class T> static inline T __ldg(const T* p) { return *p; }
 static inline float atomicAdd(float* p, float v) {
   std::lock_guard<std::mutex> lk(rt_host_atomic);
   const float old = *p;
+  *p = old + v;
+  return old;
+}
+static inline unsigned long long atomicAdd(unsigned long long* p,
+                                           unsigned long long v) {
+  std::lock_guard<std::mutex> lk(rt_host_atomic);
+  const unsigned long long old = *p;
   *p = old + v;
   return old;
 }

@@ -22,7 +22,10 @@ the keyed one's keys included); the atlas gradient K13 within
 ``testing.image_grad_errs`` (float atomics add in a varying order).  The
 generic bounce's routes (the media fwd+bwd, a marble-lit render,
 ``grad_render``) launch their kernels, and the fwd+bwd equals the one
-with every plain version within ``GRAD_RTOL``.
+with every plain version within ``GRAD_RTOL``.  The sorted driver's HEAD
+and TAIL equal their plain versions bit for bit, but for the radiance
+sums (float atomics: within ``SCATTER_RTOL`` x the lanes on a pixel x
+the sum).
 """
 import dataclasses
 
@@ -1311,3 +1314,106 @@ def test_scene_main_on_the_card(device, tmp_path):
     assert iter_megakernel.launches > before
     assert tuple(img.shape) == (108, 192, 3) and torch.isfinite(img).all()
     assert Image.open(out).size == (192, 108)
+
+
+
+def _sorted_case(case, device):
+    from raytrace_tpu_torch.testing import pawn_two_media_scene
+    if case == "two_media":
+        scene, s = pawn_two_media_scene(64, 4, 20, device=device)
+    else:
+        scene, s = pawn_standin_scene(64, 4, 20, device=device)
+    if case == "rr":
+        s = s.replace(rr_depth=2)
+    offset = 700 if case == "offset" else 0
+    return scene, s, 64 * 64 - offset, offset
+
+
+@pytest.mark.parametrize("case", ["pawn", "two_media", "rr", "offset"])
+def test_sorted_turn_matches_plain(device, case):
+    """Every HEAD and TAIL launch of the sorted driver on the pawn
+    stand-in (one medium: 15 uniform columns; two media: 16), with and
+    without Russian roulette (``rr_depth`` 2), at a pixel offset with
+    padding lanes, equals its plain version lane for lane, bit for bit:
+    the lane state, uniforms, camera rays, keys, control words and
+    counts; the radiance sums within ``SCATTER_RTOL x k x |plain|`` (float
+    atomics in another order).  The launches cover the first turn, middle
+    turns, the turn whose items run out inside the dead suffix and drain
+    turns."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_sorted
+    scene, s, n_pix, offset = _sorted_case(case, device)
+    with checked_launches() as stats:
+        acc, st = trace_wavefront_sorted(scene, s, rng.base_key(3, device),
+                                         n_pix, 4, sample_offset=11,
+                                         pixel_offset=offset, with_stats=True)
+    head, tail = stats["sorted_head"], stats["sorted_tail"]
+    assert head["launches"] == tail["launches"] == st["iterations"] > 0
+    assert head["n_int"] == 0 and head["err"] == 0.0, head
+    assert tail["n_int"] == 0 and tail["err"] == 0.0, tail
+    assert tail["acc_excess"] <= 0.0, tail
+    assert all(n > 0 for n in head["turns"].values()), head["turns"]
+    assert bool(torch.isfinite(acc).all())
+
+
+@pytest.mark.parametrize("case", ["pawn", "two_media", "rr", "offset"])
+def test_sorted_render_matches_plain_driver(device, case):
+    """The sorted driver with HEAD and TAIL launched against the same
+    driver on their plain versions (``testing.plain_sorted_turn``): the
+    ``with_stats`` counts equal, the image within rtol 1e-5, atol 1e-6 (a
+    pixel's paths added by float atomics in another order)."""
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.ops.sorted_turn import sorted_head
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_sorted
+    from raytrace_tpu_torch.testing import plain_sorted_turn
+    scene, s, n_pix, offset = _sorted_case(case, device)
+    key = rng.base_key(5, device)
+    run = lambda: trace_wavefront_sorted(scene, s, key, n_pix, 4,
+                                         pixel_offset=offset,
+                                         with_stats=True)
+    before = sorted_head.launches
+    acc, st = run()
+    assert sorted_head.launches - before == st["iterations"]
+    with plain_sorted_turn():
+        ref, ref_st = run()
+    assert sorted_head.launches - before == st["iterations"]
+    for name in ("iterations", "segments", "medium_segments", "lanes"):
+        assert int(st[name]) == int(ref_st[name]), name
+    torch.testing.assert_close(acc, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_sorted_turn_host_launches(device):
+    """A turn of the sorted driver on the pawn stand-in issues at most 80
+    host kernel launches under ``torch.profiler``: the argsort, HEAD, the
+    split bounce (K9, K11b, K10 and their torch glue) and TAIL; its plain
+    versions' turn (the driver's torch lines before HEAD and TAIL) over
+    300."""
+    from torch.autograd import DeviceType
+    from portbench.trace import LAUNCH_CALLS
+    from raytrace_tpu_torch.core import rng
+    from raytrace_tpu_torch.ops.sorted_turn import sorted_head
+    from raytrace_tpu_torch.render.integrator import trace_wavefront_sorted
+    from raytrace_tpu_torch.testing import plain_sorted_turn
+    scene, s = pawn_standin_scene(128, 2, 20, device=device)
+    key = rng.base_key(2, device)
+    run = lambda: trace_wavefront_sorted(scene, s, key, 128 * 128, 2)
+    run()
+    torch.cuda.synchronize()
+
+    def launches_a_turn():
+        before = sorted_head.launches
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        calls = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name in LAUNCH_CALLS)
+        return calls, sorted_head.launches - before
+
+    calls, turns = launches_a_turn()
+    assert turns > 0 and calls / turns <= 80, (calls, turns)
+    with plain_sorted_turn():
+        plain_calls, _ = launches_a_turn()
+    assert plain_calls / turns > 300, (plain_calls, turns)
