@@ -43,7 +43,8 @@ condition is read on the host once per iteration, under the span
 ``driver.wait``, and the iteration's body runs under ``driver.iteration``
 (:func:`_turns`, ``utils/profiling.py``).  With ``with_stats`` each of
 the three also returns ``dict(iterations, segments, lanes)``
-(:func:`_stats`; the sorted driver's adds ``medium_segments``), whose
+(:func:`_stats`; for a scene with media the sorted driver's and the
+stationary driver's split branch add ``medium_segments``), whose
 count adds no host read and no op to the image's.  (On the card the
 queue's and the sorted driver's ``index_add_`` adds the paths of a pixel
 that finish in one iteration in an order that can vary between runs,
@@ -503,7 +504,8 @@ def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive, medium=None):
     of :func:`surface_hit`.  A medium event ``medium`` = (t_med, material
     id) nearer than the surface takes the medium's material, its point
     and uv 0, as the shade kernel does.  Only those lanes are
-    evaluated."""
+    evaluated; while the recorder records, their number is added to the
+    counter ``bounce.texture_lanes``."""
     tx = scene.textures
     t, mat, uu, vv = hit[0], hit[8], hit[6], hit[7]
     if medium is not None:
@@ -517,6 +519,8 @@ def rich_albedo_multiply(scene: Scene, o, d, hit, thr, alive, medium=None):
     tkind = tx.kind[tex_id]
     live = alive & (tkind > TEX_CHECKER)
     sel = torch.nonzero(live)[:, 0]
+    # the nonzero has read the count to the host already
+    profiling.count("bounce.texture_lanes", sel.shape[0])
     t = t[sel]
     t_safe = torch.where(torch.isfinite(t), t, 1.0)
     point = (o[:, sel] + t_safe * d[:, sel]).T.contiguous()
@@ -538,35 +542,46 @@ def bounce_split_soa(scene: Scene, s: CameraSettings, comps, uniforms, rad,
     multiply (:func:`rich_albedo_multiply`).  The arguments and results
     are those of :func:`bounce_mega_soa`.  ``medium_count`` (a 0-d int64
     tensor, or None) gains, in place, the live lanes whose event is a
-    scatter in a medium (its candidate nearer than the surface)."""
+    scatter in a medium (its candidate nearer than the surface).  While
+    the recorder records, the four stages run under the spans
+    ``bounce.surface`` (the nearest hit and its uv), ``bounce.media``,
+    ``bounce.shade`` (the shade kernel, the background, the radiance) and
+    ``bounce.texture`` (the rich-texture multiply), and the multiply
+    counts the lanes it evaluates (``bounce.texture_lanes``)."""
     tb = tables
-    # dead lanes carry stale rays: park them far outside the scene
-    o = torch.where(alive, comps[0:3], 3e18)
-    d = comps[3:6]
-    hit = surface_hit(tb, o, d, comps[6])
+    with profiling.span("bounce.surface"):
+        # dead lanes carry stale rays: park them far outside the scene
+        o = torch.where(alive, comps[0:3], 3e18)
+        d = comps[3:6]
+        hit = surface_hit(tb, o, d, comps[6])
     medium = None
     if tb.volumes is not None:
-        medium = medium_hit(
-            tb.volumes, (o[0], o[1], o[2], d[0], d[1], d[2], comps[6]),
-            tb.t_min, uniforms[_N_BASE_U:_N_BASE_U + tb.volumes.n_volumes],
-            tables=tb.vol_tables)
-        if medium_count is not None:
-            medium_count += (alive & (medium[0] < hit[0])).sum()
-    lanes = (o[0], o[1], o[2], d[0], d[1], d[2], thr[0], thr[1], thr[2],
-             alive.to(DTYPE))
-    outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes,
-                            uniforms[:N_U], n_mats=tb.n_mats,
-                            n_targets=tb.n_targets,
-                            has_medium=medium is not None)
-    new_comps = torch.stack(outs[0:6] + (comps[6],))
-    thr_new = torch.stack(outs[6:9])
-    alive_new = outs[12] > 0.5
-    miss = outs[13] > 0.5
-    bg = s.background(o.T, d.T).to(DTYPE).T
-    rad_new = rad + torch.where(miss, thr * bg, 0.0) + torch.stack(outs[9:12])
+        with profiling.span("bounce.media"):
+            medium = medium_hit(
+                tb.volumes, (o[0], o[1], o[2], d[0], d[1], d[2], comps[6]),
+                tb.t_min,
+                uniforms[_N_BASE_U:_N_BASE_U + tb.volumes.n_volumes],
+                tables=tb.vol_tables)
+            if medium_count is not None:
+                medium_count += (alive & (medium[0] < hit[0])).sum()
+    with profiling.span("bounce.shade"):
+        lanes = (o[0], o[1], o[2], d[0], d[1], d[2], thr[0], thr[1], thr[2],
+                 alive.to(DTYPE))
+        outs = shade_megakernel(tb.mtbl, tb.ttbl, hit, medium, lanes,
+                                uniforms[:N_U], n_mats=tb.n_mats,
+                                n_targets=tb.n_targets,
+                                has_medium=medium is not None)
+        new_comps = torch.stack(outs[0:6] + (comps[6],))
+        thr_new = torch.stack(outs[6:9])
+        alive_new = outs[12] > 0.5
+        miss = outs[13] > 0.5
+        bg = s.background(o.T, d.T).to(DTYPE).T
+        rad_new = (rad + torch.where(miss, thr * bg, 0.0)
+                   + torch.stack(outs[9:12]))
     if tb.rich:
-        thr_new = rich_albedo_multiply(scene, o, d, hit, thr_new, alive_new,
-                                       medium)
+        with profiling.span("bounce.texture"):
+            thr_new = rich_albedo_multiply(scene, o, d, hit, thr_new,
+                                           alive_new, medium)
     return new_comps, rad_new, thr_new, alive_new, alive & ~alive_new
 
 
@@ -1066,7 +1081,10 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
     Returns the [n_pix, 3] radiance sum (plus
     ``acc``); with ``with_stats`` also :func:`_stats`' dict (the fused
     branch counts the lanes alive or dying after kernel B's step, the
-    other the lanes alive or dying after Russian roulette)."""
+    other the lanes alive or dying after Russian roulette); for a scene
+    with media the other branch adds ``medium_segments`` to it and, while
+    the recorder records, the counter ``driver.medium_segments``, as the
+    sorted driver does."""
     dev = scene.device
     lanes = -(-n_pix // LANE_ALIGN) * LANE_ALIGN
     k_rot = _rotation(spp, rotate_k)
@@ -1092,6 +1110,8 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
         sample = torch.full((lanes,), sample_offset - 1, dtype=torch.int32,
                             device=dev)
 
+    # the segments that scatter in a medium (kernel B takes no media)
+    medium = None
     # the forward's fused branch takes kernel A's tables (at most 512
     # rows, the JAX package's forward cap); larger tables take the split
     # bounce below
@@ -1138,6 +1158,9 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                                  torch.zeros_like(lane_ids))
         acc3 = torch.zeros((3, lanes), dtype=DTYPE, device=dev)
         iters, segments = 0, _segments(with_stats, dev)
+        recording = profiling.recording()
+        if scene.volumes is not None:
+            medium = _segments(with_stats or recording, dev)
 
         for _ in _turns(lambda: bool((alive | (sample < last_sample)).any())):
             # start this lane's next sample if idle
@@ -1165,7 +1188,8 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
                                         uniforms[n_u:n_u + 5])
             comps = torch.where(can, new_comps, comps)
             comps, rad, thr, alive, died = bounce_fn(
-                scene, s, comps, uniforms, rad, thr, alive, tables=tables)
+                scene, s, comps, uniforms, rad, thr, alive, tables=tables,
+                medium_count=medium)
             depth = depth + 1
             capped = alive & (depth >= s.max_depth)
             died = died | capped
@@ -1186,8 +1210,13 @@ def trace_wavefront_stationary(scene: Scene, s: CameraSettings, base_key,
             if with_stats:
                 iters += 1
                 segments += (alive | died).sum()
-    return _stats(acc + acc3[:, :n_pix].T, with_stats, iters, segments,
-                  lanes)
+        if medium is not None and recording:
+            profiling.count("driver.medium_segments", medium)
+    out = _stats(acc + acc3[:, :n_pix].T, with_stats, iters, segments,
+                 lanes)
+    if with_stats and medium is not None:
+        out[1]["medium_segments"] = medium
+    return out
 
 
 def trace_wavefront_sorted(scene: Scene, s: CameraSettings, base_key,

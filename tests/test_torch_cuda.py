@@ -1417,3 +1417,33 @@ def test_sorted_turn_host_launches(device):
     with plain_sorted_turn():
         plain_calls, _ = launches_a_turn()
     assert plain_calls / turns > 300, (plain_calls, turns)
+
+
+def test_demo2_cell_reads_correct_on_the_card(device):
+    """The ``demo2-fwd`` cell at 128 x 128 and 10 spp (16,384 pixels: the
+    stationary driver's split branch at rotate_k 5, K9, K11, K10, K12) in
+    a process of its own reads ``correct`` against its plain reference,
+    its ``image_gap`` far under the cell's limit."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    child = (
+        "import sys\n"
+        "from portbench import run\n"
+        "tiny = {'config': {'camera': {'image_width': 128}},\n"
+        "        'traffic': {'pass_spp': 10, 'warm_spp': 5},\n"
+        "        'cell': {'check_pixels': 2048}}\n"
+        "line, _, code = run.run_cell('demo2-fwd', 2 ** 31 + 99, 0.0, False,\n"
+        "                             overrides=tiny)\n"
+        "print(line)\n"
+        "sys.exit(code)\n")
+    out = subprocess.run([sys.executable, "-c", child],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["correct"] and res["failed"] == 0
+    gap = res["checks"]["image_gap"]
+    assert gap["value"] <= gap["limit"] / 100
+    assert res["device"]["platform"] == "gpu"

@@ -8,8 +8,13 @@ spans and counters the program records with it, on the CPU.
 * ``render_accumulate`` and the sharded train step's loss, gradients and
   new scene are bit-equal with recording on and off.
 * Recording leaves ``with_stats``' dict of a forward driver as it is
-  and adds no counter of its own but the sorted driver's
-  ``driver.medium_segments`` (its dict's ``medium_segments``); each
+  and adds no counter of its own but, for a scene with media, the
+  sorted driver's and the stationary driver's split branch's
+  ``driver.medium_segments`` (their dicts' ``medium_segments``, the sum
+  of the bounce's per-turn counts) and, for rich textures, the split
+  bounce's ``bounce.texture_lanes``; the split bounce records its four
+  stages as ``bounce.surface``, ``bounce.media``, ``bounce.shade`` and
+  ``bounce.texture`` inside each ``driver.iteration``; each
   iteration ``with_stats`` counts is one ``driver.iteration`` span (the
   stationary driver's fused branch unrotated and rotated, queue and
   sorted branches), and each of the sorted driver's holds one
@@ -35,8 +40,8 @@ from raytrace_tpu_torch.parallel.sharding import (
 from raytrace_tpu_torch.render import integrator as tint
 from raytrace_tpu_torch.render.render import render_accumulate
 from raytrace_tpu_torch.testing import (
-    cornell_scene_and_settings, image_panel_scene, pawn_standin_scene,
-    torch_threads,
+    cornell_scene_and_settings, demo2_scene, image_panel_scene,
+    pawn_standin_scene, torch_threads,
 )
 from raytrace_tpu_torch.utils import profiling
 
@@ -202,6 +207,80 @@ def test_sorted_driver_spans_match_with_stats():
     assert len(rebins) == len(_by_name(spans, "driver.iteration"))
     assert all(spans[x["parent"]]["name"] == "driver.iteration"
                for x in rebins)
+
+
+BOUNCE_SPANS = ("bounce.surface", "bounce.media", "bounce.shade",
+                "bounce.texture")
+
+
+@pytest.fixture(scope="module")
+def demo2():
+    return demo2_scene(16, 5, 4, device="cpu")
+
+
+def _demo2_drive(scene, s, **stats):
+    """demo2 at 16 x 16, 5 spp: the stationary driver's split branch at
+    rotate_k 5 (K9, K11, the shade kernel and K12's plain versions)."""
+    return tint.trace_wavefront_stationary(scene, s, rng.base_key(4), 256,
+                                           5, rotate_k=5, **stats)
+
+
+def test_split_bounce_spans_and_counters(demo2):
+    """Inside ``tracing()`` each turn of the split branch records the
+    bounce's four spans, in its order, inside that turn's
+    ``driver.iteration``, and the counters ``driver.medium_segments``
+    (``with_stats``' ``medium_segments``) and ``bounce.texture_lanes``;
+    outside it nothing is recorded, and the image and counts are the
+    same."""
+    scene, s = demo2
+    assert not tint.stationary_fused(scene, s, 256)
+    assert tint.bounce_route(scene, s, 256) == "split"
+    with profiling.tracing() as rec:
+        acc, st = _demo2_drive(scene, s, with_stats=True)
+    out = rec.export()
+    spans, c = out["spans"], out["counters"]
+    turns = _by_name(spans, "driver.iteration")
+    assert len(turns) == st["iterations"]
+    for name in BOUNCE_SPANS:
+        xs = _by_name(spans, name)
+        assert len(xs) == st["iterations"]
+        assert all(spans[x["parent"]]["name"] == "driver.iteration"
+                   for x in xs)
+    first = [x["name"] for x in spans
+             if x["parent"] == spans.index(next(
+                 x for x in spans if x["name"] == "driver.iteration"))]
+    assert first == list(BOUNCE_SPANS)
+    assert set(c) == {"driver.medium_segments", "bounce.texture_lanes"}
+    assert c["driver.medium_segments"] == int(st["medium_segments"]) > 0
+    assert 0 < c["bounce.texture_lanes"] < int(st["segments"])
+    acc_off, st_off = _demo2_drive(scene, s, with_stats=True)
+    assert rec.export() == out
+    assert torch.equal(acc, acc_off)
+    assert torch.equal(acc, _demo2_drive(scene, s))
+    assert {k: int(v) for k, v in st.items()} == \
+        {k: int(v) for k, v in st_off.items()}
+
+
+def test_stationary_medium_segments_sum_the_turns(demo2, monkeypatch):
+    """``with_stats``' ``medium_segments`` of the split branch is the sum
+    of what the bounce counts each turn (the live lanes whose event is a
+    scatter in a medium), and fewer than its segments."""
+    scene, s = demo2
+    per_turn = []
+    inner = tint.bounce_split_soa
+
+    def counted(*args, medium_count=None, **kw):
+        mine = torch.zeros((), dtype=torch.int64)
+        res = inner(*args, medium_count=mine, **kw)
+        per_turn.append(int(mine))
+        medium_count += mine
+        return res
+
+    monkeypatch.setattr(tint, "bounce_split_soa", counted)
+    _, st = _demo2_drive(scene, s, with_stats=True)
+    assert len(per_turn) == st["iterations"]
+    assert int(st["medium_segments"]) == sum(per_turn)
+    assert 0 < sum(per_turn) < int(st["segments"])
 
 
 @pytest.mark.parametrize("n_iters", [3, 6])
